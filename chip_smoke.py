@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; any failure exits non-zero):
+  1. the card (nvidia-smi name and power limit) and the kernels' build;
+  2. every kernel against its plain PyTorch version on the card, with the
+     kernel's, the plain version's and the bound's times;
+  3. the main path at full width: DP-PASGD on adult_like() split by
+     education (16 clients, d = 104) through repro_torch.api on cuda,
+     engine "vmap", trained until a budget binds; the kernel's launches in
+     that run must be 2 x tau x rounds;
+  4. three rounds with kernel_backend="auto" against "ref" from one seed;
+  5. the steady time of one round, and where its device time goes
+     (torch.profiler, reported when it can trace; the rounds always run).
+The last two lines are the kernels' JSON record and
+{"ok": true, "device": {...}}. Needs a CUDA GPU and the repository's src/.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
+BATCH, LR, CLIP = 32, 0.3, 1.0
+SHAPES = ((16, 210), (23, 202), (16, 4_194_304))   # main path, Vehicle-1, big
+
+
+def _fail(msg: str) -> int:
+    print(f"FAIL: {msg}", flush=True)
+    return 1
+
+
+def _time_ms(fn, iters: int) -> float:
+    """Mean device time of one call over ``iters`` calls (CUDA events)."""
+    import torch
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(rows: int, n: int, with_noise: bool) -> tuple[float, str]:
+    """The least time the card could take, and what bounds it. Bytes: g
+    (and noise, sigma) read once, y and norm written once, f32. Operations:
+    per element a square-and-add (2), the scale (1) and, with noise, a
+    multiply-add (2)."""
+    nbytes = 4 * (rows * n * (3 if with_noise else 2)
+                  + rows * (2 if with_noise else 1))
+    ops = rows * n * (5 if with_noise else 3)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def check_kernels(torch, dp_clip_noise, dp_clip_noise_ref):
+    """Phase 2: the kernel against its plain version at SHAPES, both
+    variants. Returns (ok, record of the main-path shape, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok, main, worst = True, None, 0.0
+    for rows, n in SHAPES:
+        g = torch.randn((rows, n), generator=gen, device="cuda")
+        g *= torch.logspace(-4, 1, rows, device="cuda")[:, None]
+        noise = torch.randn((rows, n), generator=gen, device="cuda")
+        sigma = torch.rand((rows,), generator=gen, device="cuda") + 0.1
+        iters = 20 if n > 1_000_000 else 200
+        for with_noise in (True, False):
+            nz = noise if with_noise else None
+            y, norm = dp_clip_noise(g, nz, CLIP, sigma)
+            wy, wn = dp_clip_noise_ref(g, nz, CLIP, sigma)
+            torch.cuda.synchronize()
+            err_y = float((y - wy).abs().max())
+            err_n = float(((norm - wn).abs() / wn.abs().clamp(min=1e-30))
+                          .max())
+            good = (bool(torch.allclose(y, wy, atol=1e-6, rtol=1e-5))
+                    and err_n <= 1e-5)
+            ok &= good
+            worst = max(worst, err_y)
+            ms = _time_ms(lambda: dp_clip_noise(g, nz, CLIP, sigma), iters)
+            plain_ms = _time_ms(lambda: dp_clip_noise_ref(g, nz, CLIP, sigma),
+                                iters)
+            bound_ms, bound_by = _bound_ms(rows, n, with_noise)
+            print(f"kernel dp_clip_noise ({rows}, {n}) "
+                  f"{'noise' if with_noise else 'clip-only'}: "
+                  f"max|dy|={err_y:.3e} max rel|dnorm|={err_n:.3e} "
+                  f"{'ok' if good else 'MISMATCH'}  kernel {ms:.5f} ms  "
+                  f"plain {plain_ms:.5f} ms  bound {bound_ms:.6f} ms "
+                  f"({bound_by})  library: none (no single PyTorch call "
+                  f"computes this function)", flush=True)
+            if (rows, n) == SHAPES[0] and with_noise:
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+    return ok, main, worst
+
+
+def run_main_path(torch, np, api, linear, data, conv, design, optim,
+                  dp_clip_noise):
+    """Phase 3: the quickstart flow at full width, until a budget binds."""
+    fed = data.split_by_group(data.adult_like())
+    dim = fed.clients[0].x_train.shape[1]
+    consts = conv.ProblemConstants(eta=LR, lam=0.1, lip=0.3, alpha=0.8,
+                                   xi2=0.05, dim=2 * dim + 2,
+                                   n_clients=fed.n_clients)
+    sol = design.DesignProblem(
+        consts=consts, resource=design.ResourceModel(c1=100.0, c2=1.0),
+        clip_norm=CLIP, batch_sizes=fed.batch_sizes(BATCH), delta=DELTA,
+        eps_th=EPS_TH, c_th=C_TH).solve()
+    spec = api.FederationSpec(
+        n_clients=fed.n_clients, tau=sol.tau, loss_fn=linear.logreg_loss,
+        optimizer=optim.sgd(LR), clip_norm=CLIP, dp=True, engine="vmap",
+        sigmas=tuple(float(s) for s in sol.sigmas),
+        batch_sizes=tuple(fed.batch_sizes(BATCH)), eps_th=EPS_TH,
+        delta=DELTA, c_th=C_TH)
+    xt, yt = fed.eval_arrays("test")
+    eval_fn = linear.make_eval_fn(linear.logreg_loss, xt, yt)
+    state = api.init_state(spec, linear.init_linear(dim, device="cuda"),
+                           device="cuda")
+    init_eval = eval_fn(api.eval_params(spec, state))
+    planned, _ = api.rounds_within_budgets(spec, state, 10_000)
+    torch.cuda.synchronize()
+    dp_clip_noise.launches = 0
+    t0 = time.perf_counter()
+    state, out = api.train(spec, state, fed.make_sampler(BATCH),
+                           eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dp_clip_noise.launches
+    rounds = out["rounds"]
+    majority = max(float(np.mean(yt)), 1.0 - float(np.mean(yt)))
+    best = out["best"]
+    binds = api.exceeds_budgets(spec, state)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in state.params.values())
+    print(f"main path: adult_like() n={sum(c.n_train for c in fed.clients)} "
+          f"train rows, {fed.n_clients} clients, d={dim}, "
+          f"N={2 * dim + 2} params/client, batch {BATCH}; design K*={sol.k} "
+          f"tau*={sol.tau} sigma*={sol.sigmas[0]:.4f}", flush=True)
+    print(f"main path: rounds={rounds} (planned by the budgets {planned}) "
+          f"max_epsilon={out['max_epsilon']:.6f} (budget {EPS_TH}) "
+          f"resource_spent={out['resource_spent']} (budget {C_TH}) "
+          f"binds={binds}", flush=True)
+    print(f"main path: eval loss {init_eval['eval_loss']:.5f} -> "
+          f"{best.get('eval_loss', float('nan')):.5f} (best, round "
+          f"{best['round']}), best acc {best.get('eval_acc', 0.0):.4f}, "
+          f"test majority-class rate {majority:.4f}", flush=True)
+    print(f"main path: ms_per_round={wall / max(rounds, 1) * 1e3:.3f} (train "
+          f"loop wall / rounds; host batches, eval and first-call costs "
+          f"included) launches={launches} expected={2 * sol.tau * rounds}",
+          flush=True)
+    ok = (rounds > 0 and rounds == planned and finite and binds is not None
+          and out["max_epsilon"] <= EPS_TH + 1e-6
+          and out["resource_spent"] <= C_TH
+          and best.get("eval_loss", float("inf")) < init_eval["eval_loss"]
+          and launches == 2 * sol.tau * rounds)
+    return ok, launches, spec, fed
+
+
+def compare_backends(torch, np, api, linear, spec, fed):
+    """Phase 4: 3 rounds on "auto" (the kernel) and on "ref" (its plain
+    version) from one seed; the generator streams are the same."""
+    finals = []
+    for backend in ("auto", "ref"):
+        s = spec.replace(kernel_backend=backend)
+        state = api.init_state(s, linear.init_linear(
+            fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
+        rng = np.random.default_rng(1)
+        for _ in range(3):
+            state, _ = api.run_round(s, state, api.round_batch(
+                s, fed.make_sampler(BATCH), rng), check_budgets=False)
+        finals.append(state.params)
+    torch.cuda.synchronize()
+    diff = max(float((finals[0][k] - finals[1][k]).abs().max())
+               for k in finals[0])
+    print(f"auto vs ref, 3 rounds: max|dparams|={diff:.3e} (limit 1e-5)",
+          flush=True)
+    return diff <= 1e-5
+
+
+def profile_rounds(torch, np, api, linear, spec, fed, n_timed=20):
+    """Phase 5: steady per-round time of the main path's round (batches
+    built beforehand), then device time by kernel over 3 rounds. The rounds
+    always run; only the profiler's start, stop and report are optional.
+    Returns whether every round left finite params."""
+    from torch.profiler import ProfilerActivity, profile
+    state = api.init_state(spec, linear.init_linear(
+        fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
+    rng = np.random.default_rng(2)
+    batches = [api.round_batch(spec, fed.make_sampler(BATCH), rng)
+               for _ in range(n_timed + 5)]
+    for b in batches[:2]:
+        state, _ = api.run_round(spec, state, b, check_budgets=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[2:2 + n_timed]:
+        state, _ = api.run_round(spec, state, b, check_budgets=False)
+    torch.cuda.synchronize()
+    per_round = (time.perf_counter() - t0) * 1e3 / n_timed
+    print(f"steady round (tau={spec.tau}, batches prebuilt, no eval): "
+          f"{per_round:.3f} ms/round over {n_timed} rounds", flush=True)
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"profile: unavailable ({e!r})", flush=True)
+        prof = None
+    t0 = time.perf_counter()
+    for b in batches[-3:]:
+        state, _ = api.run_round(spec, state, b, check_budgets=False)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    finite = all(bool(torch.isfinite(x).all()) for x in state.params.values())
+    print(f"phase 5: {n_timed + 5} rounds, params finite: {finite}",
+          flush=True)
+    if prof is None:
+        return finite
+    try:
+        prof.stop()
+        averages = prof.key_averages()
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"profile: unavailable ({e!r})", flush=True)
+        return finite
+    events = [e for e in averages
+              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    device_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"profile, 3 rounds: wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%}), "
+          f"{sum(e.count for e in events)} kernel launches", flush=True)
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  {e.device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    host = [e for e in averages if e.device_type.name == "CPU"]
+    print("profile, 3 rounds: host ops by self CPU time", flush=True)
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    return finite
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port "
+              "on a GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside the script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch import api, data, optim
+    from repro_torch.core import convergence as conv
+    from repro_torch.core import design
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.kernels.ref import dp_clip_noise_ref
+    from repro_torch.models import linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. card and build ---------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    for name, (secs, log) in _build.build_all().items():
+        print(f"build {name}: {secs:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}", flush=True)
+
+    # -- 2. kernels against their plain versions --------------------------
+    ok_k, main_rec, worst = check_kernels(torch, dp_clip_noise,
+                                          dp_clip_noise_ref)
+
+    # -- 3. main path ---------------------------------------------------------
+    ok_m, launches, spec, fed = run_main_path(
+        torch, np, api, linear, data, conv, design, optim, dp_clip_noise)
+
+    # -- 4. kernel round against plain round ----------------------------------
+    ok_b = compare_backends(torch, np, api, linear, spec, fed)
+
+    # -- 5. steady rounds, and where their device time goes ----------------
+    ok_s = profile_rounds(torch, np, api, linear, spec, fed)
+
+    print(json.dumps({"kernels": [{
+        "name": "dp_clip_noise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+        "replaces": "src/repro/kernels/dp_clip_noise.py:54",
+        "launches": launches, "max_abs_err": worst,
+        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+        "library_ms": None}]}), flush=True)
+    for ok, what in ((ok_k, "a kernel disagrees with its plain version"),
+                     (ok_m, "the main path's checks failed"),
+                     (ok_b, "the kernel round disagrees with the plain "
+                            "round"),
+                     (ok_s, "the steady rounds gave non-finite params")):
+        if not ok:
+            return _fail(what)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

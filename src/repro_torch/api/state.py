@@ -1,0 +1,500 @@
+"""Functional DP-PASGD core: FLState + init_state / run_round / train.
+
+The state of a federation is one immutable :class:`FLState` value: model
+replicas, optimizer state, the generator state the noise is drawn from,
+the privacy-accountant snapshot and the spent resources. ``run_round`` maps
+(spec, state, batch) -> (state', metrics). The rho ledger, the resource
+cost and the budget probes are the JAX package's float64 host math, bit for
+bit.
+
+Tensors follow the device of the state: ``init_state`` places everything on
+``device`` (the GPU unless the caller asks for another), and every round
+runs there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.api.engines import chunked_round_fn_for, round_fn_for
+from repro_torch.api.spec import FederationSpec
+from repro_torch.core.fl import draw_round_noise
+from repro_torch.core.privacy import (
+    PrivacyAccountant,
+    gaussian_zcdp,
+    grad_sensitivity,
+    per_step_charges,
+    zcdp_to_dp,
+)
+from repro_torch.utils.convert import tree_from_numpy
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import (
+    tree_broadcast_axis0,
+    tree_leaves,
+    tree_map,
+    tree_mean_over_axis0,
+)
+
+
+class BudgetExceeded(RuntimeError):
+    """Raised by run_round when the next round would break a budget."""
+
+    def __init__(self, which: str, message: str):
+        super().__init__(message)
+        self.which = which          # "resource" | "privacy"
+
+
+class PrefetchFailed(RuntimeError):
+    """The ``prefetch`` callback of :func:`run_rounds` raised after the
+    chunk ran. The chunk's DP releases happened, so the completed successor
+    state and records are attached (``.state`` / ``.records``); the original
+    exception is chained as ``__cause__``."""
+
+    def __init__(self, cause: BaseException, state: "FLState",
+                 records: list):
+        super().__init__(f"run_rounds prefetch callback failed: {cause!r}")
+        self.state = state
+        self.records = records
+
+
+@dataclass(frozen=True)
+class FLState:
+    """Complete training state of one federation (immutable).
+
+    params/opt_state carry the leading client axis C on every leaf. ``key``
+    is the state of the ``torch.Generator`` (of the params' device) that the
+    rounds draw their noise from, as a tensor, so the state stays a value.
+    The accountant snapshot (rho, steps) lives host-side as plain numpy.
+    """
+    params: Any
+    opt_state: Any
+    key: torch.Tensor               # generator state, one draw per round
+    rho: np.ndarray                 # (C,) spent zCDP per client (Lemma 1)
+    steps: int = 0                  # local iterations accounted so far
+    resource_spent: float = 0.0     # accumulated Eq.-(8) cost
+    rounds_done: int = 0
+
+    def replace(self, **changes) -> "FLState":
+        return dataclasses.replace(self, **changes)
+
+
+def _device_of(state: FLState) -> torch.device:
+    return tree_leaves(state.params)[0].device
+
+
+def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
+    """Fresh FLState: params0 (no client axis) replicated C times on
+    ``device`` (default ``"cuda"``; raises when no GPU is present)."""
+    dev = resolve_device(device)
+    params0 = tree_from_numpy(params0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(spec.seed)
+    return FLState(
+        params=tree_broadcast_axis0(params0, spec.n_clients),
+        opt_state=tree_broadcast_axis0(spec.optimizer.init(params0),
+                                       spec.n_clients),
+        key=gen.get_state(),
+        rho=np.zeros((spec.n_clients,), np.float64))
+
+
+# ---------------------------------------------------------------------------
+# per-spec ledger constants (cached per ledger key)
+# ---------------------------------------------------------------------------
+
+_SIGMA_CACHE: dict[tuple, torch.Tensor] = {}
+_RHO_STEP_CACHE: dict[tuple, np.ndarray] = {}
+_LEDGER_CACHE_MAX = 128
+
+
+def _ledger_cached(cache: dict, key, build):
+    val = cache.get(key)
+    if val is None:
+        if len(cache) >= _LEDGER_CACHE_MAX:
+            cache.clear()          # tiny (C,) vectors; simple bound suffices
+        val = cache[key] = build()
+    return val
+
+
+def _sigmas_on(spec: FederationSpec, device: torch.device) -> torch.Tensor:
+    """The (C,) f32 sigma vector for ``spec`` on ``device``, cached per
+    ledger key so rounds do not copy the same constants every time."""
+    return _ledger_cached(
+        _SIGMA_CACHE, (spec.ledger_key(), str(device)),
+        lambda: torch.as_tensor(spec.resolved_sigmas(), dtype=torch.float32,
+                                device=device))
+
+
+def _rho_steps(spec: FederationSpec) -> np.ndarray:
+    """(C,) per-local-step zCDP charge per client at q=1 (Lemma 2 with the
+    §5.2 sensitivity), as ``PrivacyAccountant`` computes it."""
+    def build():
+        sig = spec.resolved_sigmas()
+        return np.asarray(
+            [gaussian_zcdp(grad_sensitivity(spec.clip_norm, x), float(s))
+             for x, s in zip(spec.resolved_batch_sizes(), sig)], np.float64)
+
+    return _ledger_cached(_RHO_STEP_CACHE, spec.ledger_key(), build)
+
+
+def round_rho_charges(spec: FederationSpec) -> np.ndarray:
+    """(C,) per-round rho increments: tau steps at the accounting rate."""
+    return spec.tau * per_step_charges(_rho_steps(spec), spec.accounting_q())
+
+
+def accountant_view(spec: FederationSpec,
+                    state: FLState | None = None) -> PrivacyAccountant:
+    """A PrivacyAccountant materialized from spec (+ optional state)."""
+    acc = PrivacyAccountant(clip_norm=spec.clip_norm, delta=spec.delta)
+    sig = spec.resolved_sigmas()
+    for m, x in enumerate(spec.resolved_batch_sizes()):
+        acc.register_client(m, x, float(sig[m]))
+    if state is not None:
+        for m in range(spec.n_clients):
+            acc._rho[m] = float(state.rho[m])
+        acc.steps = state.steps
+    return acc
+
+
+def max_epsilon(spec: FederationSpec, state: FLState) -> float:
+    return accountant_view(spec, state).max_epsilon()
+
+
+def peek_epsilon_fast(spec: FederationSpec, state: FLState,
+                      extra_steps: int) -> float:
+    """Worst-client eps if every client took ``extra_steps`` more local
+    iterations, from the state's rho snapshot plus the cached per-step
+    charges; bit-identical to ``PrivacyAccountant.peek_epsilon``."""
+    extra = extra_steps * per_step_charges(_rho_steps(spec),
+                                           spec.accounting_q())
+    return zcdp_to_dp(float(np.max(state.rho + extra)), spec.delta)
+
+
+def exceeds_budgets(spec: FederationSpec, state: FLState) -> str | None:
+    """Would one more round break a budget? -> "resource" / "privacy" /
+    None."""
+    if state.resource_spent + spec.round_cost() > spec.c_th:
+        return "resource"
+    if peek_epsilon_fast(spec, state, spec.tau) > spec.eps_th:
+        return "privacy"
+    return None
+
+
+def rounds_within_budgets(spec: FederationSpec, state: FLState,
+                          limit: int) -> tuple[int, str | None]:
+    """How many consecutive future rounds certainly fit the budgets, capped
+    at ``limit``, plus the budget that would bind next. Replays
+    ``exceeds_budgets``'s per-round probes, so its decisions are the
+    per-round driver's."""
+    charges = round_rho_charges(spec)
+    rho = state.rho
+    spent = state.resource_spent
+    cost = spec.round_cost()
+    n = 0
+    while n < limit:
+        if spent + cost > spec.c_th:
+            return n, "resource"
+        if zcdp_to_dp(float(np.max(rho + charges)), spec.delta) > spec.eps_th:
+            return n, "privacy"
+        rho = rho + charges
+        spent = spent + cost
+        n += 1
+    return n, None
+
+
+def _raise_budget(which: str, spec: FederationSpec):
+    if which == "resource":
+        raise BudgetExceeded("resource", f"round cost {spec.round_cost()} "
+                             f"would exceed C_th={spec.c_th}")
+    raise BudgetExceeded("privacy", f"tau={spec.tau} more steps would "
+                         f"exceed eps_th={spec.eps_th}")
+
+
+def run_round(spec: FederationSpec, state: FLState, batch: Any,
+              check_budgets: bool = True) -> tuple[FLState, dict]:
+    """One DP-PASGD round (Eq. 7a-7b): tau local steps + the topology's
+    collective.
+
+    batch leaves are (C, tau, B, ...), numpy arrays or tensors. The round's
+    (C, tau, N) noise is drawn in one ``torch.randn`` call from the state's
+    generator. Returns the successor state and a metrics record whose metric
+    values are 0-d device tensors (no sync; :func:`materialize_record` turns
+    them into floats). Raises :class:`BudgetExceeded` (state untouched) when
+    ``check_budgets`` and the round would overrun ``c_th`` / ``eps_th``."""
+    if check_budgets:
+        which = exceeds_budgets(spec, state)
+        if which is not None:
+            _raise_budget(which, spec)
+    dev = _device_of(state)
+    noise, key = draw_round_noise(state.key, state.params, spec.tau)
+    new_p, new_s, ms = round_fn_for(spec)(
+        state.params, state.opt_state, tree_from_numpy(batch, dev), noise,
+        _sigmas_on(spec, dev))
+    rho = state.rho + round_rho_charges(spec)
+    new_state = state.replace(
+        params=new_p, opt_state=new_s, key=key, rho=rho,
+        steps=state.steps + spec.tau,
+        resource_spent=state.resource_spent + spec.round_cost(),
+        rounds_done=state.rounds_done + 1)
+    rec = dict(ms)                 # lazy: 0-d device tensors, no sync
+    rec["round"] = new_state.rounds_done
+    rec["iterations"] = new_state.rounds_done * spec.tau
+    rec["max_epsilon"] = zcdp_to_dp(float(np.max(rho)), spec.delta)
+    rec["resource_spent"] = new_state.resource_spent
+    rec["participants"] = float(spec.n_clients)
+    return new_state, rec
+
+
+def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
+               n_rounds: int | None = None, check_budgets: bool = True,
+               prefetch: Callable[[], None] | None = None,
+               ) -> tuple[FLState, list[dict]]:
+    """A chunk of R rounds in one call, equal to R sequential
+    :func:`run_round` calls (the same noise draws in the same order).
+
+    ``batches`` leaves are (R, C, tau, B, ...) (see :func:`round_batches`).
+    ``prefetch()``, if given, runs after the chunk is enqueued, so callers
+    build the next chunk's host batches while the device computes. If it
+    raises, :class:`PrefetchFailed` carries the completed state and
+    records. Raises BudgetExceeded (state untouched) when ``check_budgets``
+    and any of the R rounds would overrun a budget."""
+    lead = int(tree_leaves(batches)[0].shape[0])
+    if n_rounds is None:
+        n_rounds = lead
+    if n_rounds <= 0:
+        raise ValueError(f"n_rounds must be positive, got {n_rounds}")
+    if n_rounds != lead:
+        raise ValueError(f"n_rounds={n_rounds} != stacked batches leading "
+                         f"axis {lead}")
+    if check_budgets:
+        ok, which = rounds_within_budgets(spec, state, n_rounds)
+        if ok < n_rounds:
+            _raise_budget(which, spec)
+    dev = _device_of(state)
+    new_p, new_s, key, ms = chunked_round_fn_for(spec)(
+        state.params, state.opt_state, tree_from_numpy(batches, dev),
+        state.key, _sigmas_on(spec, dev))
+    prefetch_exc = None
+    if prefetch is not None:
+        try:
+            prefetch()
+        except Exception as e:        # noqa: BLE001 — re-raised below
+            prefetch_exc = e
+    # exact ledger replay at the chunk boundary
+    acc = accountant_view(spec, state)
+    worst_rho = acc.step_many([spec.tau] * n_rounds, q=spec.accounting_q())
+    rho = np.asarray([acc.rho(m) for m in range(spec.n_clients)], np.float64)
+    recs = []
+    spent = state.resource_spent
+    for r in range(n_rounds):
+        spent = spent + spec.round_cost()   # repeated add: bit-identical to
+        #   the per-round driver's accumulation
+        rec = {k: v[r] for k, v in ms.items()}      # lazy 0-d device slices
+        rec["round"] = state.rounds_done + r + 1
+        rec["iterations"] = (state.rounds_done + r + 1) * spec.tau
+        rec["max_epsilon"] = zcdp_to_dp(float(worst_rho[r]), spec.delta)
+        rec["resource_spent"] = spent
+        rec["participants"] = float(spec.n_clients)
+        recs.append(rec)
+    new_state = state.replace(
+        params=new_p, opt_state=new_s, key=key, rho=rho,
+        steps=state.steps + n_rounds * spec.tau,
+        resource_spent=spent,
+        rounds_done=state.rounds_done + n_rounds)
+    if prefetch_exc is not None:
+        raise PrefetchFailed(prefetch_exc, new_state, recs) from prefetch_exc
+    return new_state, recs
+
+
+def materialize_record(rec: dict) -> dict:
+    """Force the device-resident metric values of a round record to host
+    floats (the drivers' one deliberate sync point)."""
+    return {k: (v if isinstance(v, (bool, int, float, str)) else float(v))
+            for k, v in rec.items()}
+
+
+# ---------------------------------------------------------------------------
+# data plumbing + budget-aware driver
+# ---------------------------------------------------------------------------
+
+def round_batch(spec: FederationSpec, sampler: Callable, rng) -> Any:
+    """Stack per-client samples into the (C, tau, B, ...) numpy round batch.
+    ``sampler(client, tau, rng)`` returns one client's (tau, B, ...) tree."""
+    per_client = [sampler(m, spec.tau, rng) for m in range(spec.n_clients)]
+    return tree_map(lambda *xs: np.stack(xs), *per_client)
+
+
+def round_batches(spec: FederationSpec, sampler: Callable, rng,
+                  n_rounds: int) -> Any:
+    """Stack ``n_rounds`` round batches into the (R, C, tau, B, ...) chunk
+    operand of :func:`run_rounds`, drawing from ``rng`` in the order of
+    ``n_rounds`` sequential :func:`round_batch` calls."""
+    rounds = [round_batch(spec, sampler, rng) for _ in range(n_rounds)]
+    return tree_map(lambda *xs: np.stack(xs), *rounds)
+
+
+def collapse_clients(params: Any, topology: str) -> Any:
+    """Client-stacked params -> the single eval model: any replica after
+    full averaging, the cross-client mean under local_only."""
+    if topology == "full_average":
+        return tree_map(lambda x: x[0], params)
+    return tree_mean_over_axis0(params)
+
+
+def eval_params(spec: FederationSpec, state: FLState) -> Any:
+    """The single evaluation model for ``spec``'s topology."""
+    return collapse_clients(state.params, spec.topology)
+
+
+def budget_train_loop(*, state, max_rounds: int, eval_fn: Callable | None,
+                      eval_every: int, history: list[dict],
+                      chunk_rounds: int,
+                      rounds_done: Callable[[Any], int],
+                      exceeds: Callable[[Any], bool],
+                      safe_rounds: Callable[[Any, int], int],
+                      run_single: Callable[[Any], tuple],
+                      build_chunk: Callable[[int, int], Any],
+                      run_chunk: Callable[..., tuple],
+                      run_tail: Callable[[Any, Any, int], tuple],
+                      eval_model: Callable[[Any], Any]) -> tuple[Any, dict]:
+    """The budget-aware driver loop, parameterized over an opaque ``state``
+    and an opaque prepared ``chunk``:
+
+        rounds_done(state) -> int          completed-round counter
+        exceeds(state) -> bool             would one more round overrun?
+        safe_rounds(state, cap) -> int     certain-to-fit round count
+        run_single(state) -> (state, rec)  one round, building its own batch
+        build_chunk(start, n) -> chunk     host-build n rounds from ``start``
+        run_chunk(state, chunk, n, prefetch) -> (state, recs)
+        run_tail(state, chunk, r) -> (state, rec)   row r of chunk, per round
+        eval_model(state) -> params        the eval_fn operand
+
+    Tracks theta* = argmin of the evaluated loss (the paper uses the best
+    model among K iterations); appends materialized records to ``history``;
+    returns (state, best).
+    """
+    best = {"loss": float("inf"), "round": 0}
+
+    def track_best(rec: dict, evaluated: bool):
+        nonlocal best
+        if eval_fn is None:
+            crit = rec["loss"]
+        elif evaluated:
+            crit = rec["eval_loss"]
+        else:
+            crit = float("inf")
+        if crit < best["loss"]:
+            best = {**rec, "loss": crit, "round": rec["round"]}
+
+    if chunk_rounds <= 1:
+        while rounds_done(state) < max_rounds:
+            if exceeds(state):
+                break
+            state, rec = run_single(state)
+            rec = materialize_record(rec)
+            history.append(rec)
+            evaluated = False
+            if eval_fn is not None and rounds_done(state) % eval_every == 0:
+                rec.update(eval_fn(eval_model(state)))
+                evaluated = True
+            track_best(rec, evaluated)
+        return state, best
+
+    pending = None            # double buffer: (chunk, n) prefetched
+    while rounds_done(state) < max_rounds:
+        cap = min(2 * chunk_rounds, max_rounds - rounds_done(state))
+        safe = safe_rounds(state, cap)
+        if pending is not None:
+            # prefetched chunks were sized by the post-chunk projection, so
+            # they always fit; run them whole to keep the sampler stream
+            # aligned with the per-round driver
+            chunk, n = pending
+            pending = None
+        elif safe == 0:
+            break
+        else:
+            n = min(chunk_rounds, safe)
+            chunk = build_chunk(rounds_done(state), n)
+        next_n = min(chunk_rounds, safe - n,
+                     max_rounds - rounds_done(state) - n)
+        next_start = rounds_done(state) + n
+
+        def build_next(next_n=next_n, next_start=next_start):
+            nonlocal pending
+            if next_n > 0:
+                pending = (build_chunk(next_start, next_n), next_n)
+
+        deferred = None
+        if n < chunk_rounds:
+            # tail chunk (budget/max_rounds edge): drive the rows through
+            # the per-round path
+            recs = []
+            for r in range(n):
+                state, rec = run_tail(state, chunk, r)
+                recs.append(rec)
+        else:
+            try:
+                state, recs = run_chunk(state, chunk, n, build_next)
+            except PrefetchFailed as pf:
+                # keep the completed chunk, re-raise the sampler's error
+                # after recording it
+                state, recs, deferred = pf.state, pf.records, pf.__cause__
+        recs = [materialize_record(r) for r in recs]
+        history.extend(recs)
+        evaluated = False
+        if eval_fn is not None and (
+                rounds_done(state) // eval_every
+                > (rounds_done(state) - n) // eval_every):
+            # an eval was due mid-chunk: run it once, at the boundary
+            recs[-1].update(eval_fn(eval_model(state)))
+            evaluated = True
+        for rec in recs[:-1]:
+            track_best(rec, False)
+        track_best(recs[-1], evaluated)
+        if deferred is not None:
+            raise deferred
+    return state, best
+
+
+def train(spec: FederationSpec, state: FLState, sampler: Callable,
+          max_rounds: int = 10_000, eval_fn: Callable | None = None,
+          eval_every: int = 1, rng=None,
+          history: list[dict] | None = None,
+          chunk_rounds: int = 1) -> tuple[FLState, dict]:
+    """Run rounds until a budget (resource or privacy) would be exceeded.
+
+    Returns (final_state, summary) with best/rounds/resource_spent/
+    max_epsilon/history. ``chunk_rounds=R > 1`` drives training in
+    :func:`run_rounds` chunks, the next chunk's batches built and moved to
+    the device while the current one runs; chunks are sized by
+    :func:`rounds_within_budgets`, so no round runs that the per-round
+    driver would refuse. ``eval_fn`` then runs at chunk boundaries only.
+    """
+    if rng is None:
+        rng = np.random.default_rng(spec.seed)
+    history = [] if history is None else history
+    dev = _device_of(state)
+    state, best = budget_train_loop(
+        state=state, max_rounds=max_rounds, eval_fn=eval_fn,
+        eval_every=eval_every, history=history, chunk_rounds=chunk_rounds,
+        rounds_done=lambda s: s.rounds_done,
+        exceeds=lambda s: exceeds_budgets(spec, s) is not None,
+        safe_rounds=lambda s, cap: rounds_within_budgets(spec, s, cap)[0],
+        run_single=lambda s: run_round(
+            spec, s, round_batch(spec, sampler, rng), check_budgets=False),
+        build_chunk=lambda start, n: tree_from_numpy(
+            round_batches(spec, sampler, rng, n), dev),
+        run_chunk=lambda s, chunk, n, prefetch: run_rounds(
+            spec, s, chunk, n, check_budgets=False, prefetch=prefetch),
+        run_tail=lambda s, chunk, r: run_round(
+            spec, s, tree_map(lambda x: x[r], chunk), check_budgets=False),
+        eval_model=lambda s: eval_params(spec, s))
+    return state, {
+        "best": best, "rounds": state.rounds_done,
+        "resource_spent": state.resource_spent,
+        "max_epsilon": max_epsilon(spec, state),
+        "history": history,
+    }

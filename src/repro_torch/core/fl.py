@@ -1,0 +1,184 @@
+"""DP-PASGD round engine (paper Eq. 7a–7b).
+
+One *round* = tau local noisy-SGD steps on each of C clients (no
+cross-client communication) followed by one global model average over the
+client axis (Eq. 7b). Params and optimizer state carry a leading client
+axis C on every leaf.
+
+The client axis is an explicit batch dimension, and the tau steps are a
+loop outside it: each step computes every client's gradient at once
+(``torch.func.vmap``), makes **one** ``dp_clip_noise`` kernel call on the
+(C, N) gradient block, and applies the optimizer to the C-stacked state.
+(The JAX package vmaps a whole local round per client instead; a kernel
+launched through ctypes has no vmap batching rule.) The ``map`` engine
+(``vmap_clients=False``) runs the same code one client at a time, so each of
+its kernel calls has one row.
+
+Randomness enters as an operand: a round takes ``noise`` (C, tau, N)
+standard normals, drawn by :func:`draw_round_noise` from the federation's
+generator state. N is the number of parameters per client, leaves laid end
+to end in ``jax.tree.flatten`` order.
+
+New code should go through :mod:`repro_torch.api`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch.core.clipping import make_dp_grad_fn, make_plain_grad_fn
+from repro_torch.core.privacy import sigma_star
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.utils.tree import (
+    tree_add,
+    tree_broadcast_axis0,
+    tree_leaves,
+    tree_map,
+    tree_mean_over_axis0,
+)
+
+TOPOLOGIES = ("full_average", "local_only")
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Configuration of one DP-PASGD federation."""
+    n_clients: int
+    tau: int                      # global aggregation period (local steps/round)
+    clip_norm: float = 1.0        # G (sensitivity bound)
+    dp: bool = True               # False -> PASGD (no noise, no clipping)
+    num_microbatches: int = 1     # see clipping.py; =local batch -> per-example
+    vmap_microbatches: bool = True
+    grad_accumulate: str = "stack"  # "stack" | "scan"
+    average_opt_state: bool = True  # average optimizer state with the models
+    vmap_clients: bool = True     # False -> one client at a time ("map")
+    kernel_backend: str = "auto"  # "auto" (the kernel on CUDA tensors) | "ref"
+
+
+def make_grad_fn(loss_fn: Callable, cfg: FLConfig) -> Callable:
+    """The per-step gradient: DP (clip + noise, Eq. 7a) or plain."""
+    if cfg.dp:
+        return make_dp_grad_fn(loss_fn, cfg.clip_norm, cfg.num_microbatches,
+                               cfg.vmap_microbatches, cfg.grad_accumulate,
+                               kernel_backend=cfg.kernel_backend)
+    return make_plain_grad_fn(loss_fn)
+
+
+def make_local_round(grad_fn: Callable, optimizer: Optimizer, tau: int):
+    """tau local DP-SGD steps of a block of clients (Eq. 7a). No collectives.
+
+    Returns ``local_round(params, opt_state, batches, noise, sigmas)`` ->
+    ``(params, opt_state, metrics)``; batch leaves are (C, tau, B, ...),
+    ``noise`` is (C, tau, N) (or ``None`` for a plain gradient), metrics are
+    (C,) means over the tau steps."""
+    update = vmap(optimizer.update)
+
+    def local_round(params, opt_state, batches, noise, sigmas):
+        steps = []
+        for t in range(tau):
+            mb = tree_map(lambda x: x[:, t], batches)
+            g, metrics = grad_fn(params, mb,
+                                 None if noise is None else noise[:, t],
+                                 sigmas)
+            upd, opt_state = update(g, opt_state, params)
+            params = tree_add(params, upd)
+            steps.append(metrics)
+        ms = {k: torch.mean(torch.stack([m[k] for m in steps]), dim=0)
+              for k in steps[0]}
+        return params, opt_state, ms
+
+    return local_round
+
+
+def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
+                    topology: str = "full_average"):
+    """Build ``round_step(params, opt_state, batch, noise, sigmas)``.
+
+    params/opt_state : pytrees with leading client axis C on every leaf
+    batch            : pytree with leading axes (C, tau, local_batch, ...)
+    noise            : (C, tau, N) f32 standard normals
+    sigmas           : (C,) f32 per-client per-step noise std (Eq. 23)
+    topology         : "full_average" (Eq. 7b averaging each round) or
+                       "local_only" (ablation: no communication ever)
+    returns          : (new_params, new_opt_state, metrics)
+    """
+    if topology not in TOPOLOGIES:
+        raise ValueError(f"topology must be one of {TOPOLOGIES}, "
+                         f"got {topology!r}")
+    local_round = make_local_round(make_grad_fn(loss_fn, cfg), optimizer,
+                                   cfg.tau)
+
+    def _local_rounds(params, opt_state, batch, noise, sigmas):
+        if cfg.vmap_clients:
+            return local_round(params, opt_state, batch, noise, sigmas)
+        outs = [local_round(*tree_map(lambda x: x[c:c + 1],
+                                      (params, opt_state, batch, noise,
+                                       sigmas)))
+                for c in range(cfg.n_clients)]
+        return tree_map(lambda *xs: torch.cat(xs), *outs)
+
+    def round_step(params, opt_state, batch, noise, sigmas):
+        new_p, new_s, ms = _local_rounds(params, opt_state, batch, noise,
+                                         sigmas)
+        if topology == "full_average":
+            # ---- Eq. (7b): periodic global averaging ----------------------
+            new_p = tree_broadcast_axis0(tree_mean_over_axis0(new_p),
+                                         cfg.n_clients)
+            if cfg.average_opt_state:
+                # keep_dtype: int leaves (step counters) stay int
+                new_s = tree_broadcast_axis0(
+                    tree_mean_over_axis0(new_s, keep_dtype=True),
+                    cfg.n_clients)
+        return new_p, new_s, {k: torch.mean(v) for k, v in ms.items()}
+
+    return round_step
+
+
+def draw_round_noise(key, params, tau: int):
+    """One round's (C, tau, N) f32 standard normals, in one ``torch.randn``
+    call on the params' device, from the generator state ``key``.
+    Returns ``(noise, next_key)``."""
+    leaves = tree_leaves(params)
+    n_clients = leaves[0].shape[0]
+    n = sum(x[0].numel() for x in leaves)
+    gen = torch.Generator(device=leaves[0].device)
+    gen.set_state(key)
+    noise = torch.randn((n_clients, tau, n), generator=gen,
+                        dtype=torch.float32, device=leaves[0].device)
+    return noise, gen.get_state()
+
+
+def make_chunked_round(round_fn: Callable) -> Callable:
+    """R rounds of ``round_fn`` as one call (a plain loop):
+
+        chunk_fn(params, opt_state, batches, key, sigmas)
+            -> (params, opt_state, key, metrics)
+
+    with ``batches`` leaves shaped (R, C, tau, B, ...) and metrics stacked
+    (R,). Each round draws its noise from the carried generator state
+    exactly as :func:`repro_torch.api.run_round` does, so a chunk equals R
+    sequential run_round calls."""
+    def chunk_fn(params, opt_state, batches, key, sigmas):
+        n_rounds, _, tau = tree_leaves(batches)[0].shape[:3]
+        ms = []
+        for r in range(n_rounds):
+            noise, key = draw_round_noise(key, params, tau)
+            params, opt_state, m = round_fn(
+                params, opt_state, tree_map(lambda x: x[r], batches), noise,
+                sigmas)
+            ms.append(m)
+        return params, opt_state, key, {
+            k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return chunk_fn
+
+
+def design_sigmas(k: int, clip_norm: float, batch_sizes: list[int],
+                  eps_th: float, delta: float) -> np.ndarray:
+    """Vector of Eq.-(23) optimal noise levels, one per client."""
+    return np.asarray([sigma_star(k, clip_norm, x, eps_th, delta)
+                       for x in batch_sizes], dtype=np.float32)

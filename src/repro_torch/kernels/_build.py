@@ -1,0 +1,89 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/lib<name>-<hash>.so``. The hash
+is of the source, so an edited kernel never loads a stale library. Nothing
+is built or imported when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD = Path(__file__).parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit to build the port's kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD / f"lib{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is built; -> (Popen, tmp,
+    target) or None."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, started) -> str:
+    proc, tmp, target = started
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, target)          # atomic: concurrent builders are safe
+    return log
+
+
+def build_all() -> dict[str, tuple[float, str]]:
+    """Build every kernel source, one nvcc per source, all started together.
+    -> {name: (seconds, compiler output)}; an already built library reports
+    0 seconds and no output."""
+    t0 = time.perf_counter()
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    started = {n: _start(n) for n in names}
+    out = {}
+    for n in names:
+        if started[n] is None:
+            out[n] = (0.0, "")
+        else:
+            log = _finish(n, started[n])
+            out[n] = (time.perf_counter() - t0, log)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        started = _start(name)
+        if started is not None:
+            _finish(name, started)
+        lib = _LOADED[name] = ctypes.CDLL(str(_target(name)))
+    return lib
