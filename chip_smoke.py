@@ -6,14 +6,24 @@
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, with the
-     kernel's, the plain version's and the bound's times;
+     kernel's, the plain version's and the bound's times (quantize_decompress
+     must be bit-identical);
   3. the main path at full width: DP-PASGD on adult_like() split by
      education (16 clients, d = 104) through repro_torch.api on cuda,
      engine "vmap", trained until a budget binds; the kernel's launches in
      that run must be 2 x tau x rounds;
   4. three rounds with kernel_backend="auto" against "ref" from one seed;
   5. the steady time of one round, and where its device time goes
-     (torch.profiler, reported when it can trace; the rounds always run).
+     (torch.profiler, reported when it can trace; the rounds always run);
+  6. the aggregation pipeline at full width: the comm sweep of
+     benchmarks/fig4_resource_tradeoff.py (dense, topk25, topk25 at q 0.5,
+     qsgd8 at q 0.5) on Adult-2 (adult_like(seed=0) split iid over 16
+     clients) with benchmarks/common.run_dp_pasgd's spec, each row's
+     rounds, cost, epsilon and both kernels' launches checked; then the
+     qsgd8_q50 round's steady time and profile, as in phase 5;
+  7. three qsgd8_q50 rounds with kernel_backend="auto" against "ref": without
+     DP bitwise equal; with DP every param gap explained by the QSGD levels
+     that dp_clip_noise's rounding flipped.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA GPU and the repository's src/.
 """
@@ -31,6 +41,13 @@ F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
 BATCH, LR, CLIP = 32, 0.3, 1.0
 SHAPES = ((16, 210), (23, 202), (16, 4_194_304))   # main path, Vehicle-1, big
+QSGD_BITS = (1, 4, 8, 16)
+# benchmarks/fig4_resource_tradeoff.py PIPELINES: (label, q, compressor, ratio)
+PIPELINES = (("dense_q100", 1.0, "none", 1.0),
+             ("topk25_q100", 1.0, "topk", 0.25),
+             ("topk25_q50", 0.5, "topk", 0.25),
+             ("qsgd8_q50", 0.5, "qsgd", 0.25))
+SWEEP_TAU, SWEEP_K, SWEEP_EPS = 5, 100, 10.0
 
 
 def _fail(msg: str) -> int:
@@ -53,13 +70,23 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _bound_ms(rows: int, n: int, with_noise: bool) -> tuple[float, str]:
-    """The least time the card could take, and what bounds it. Bytes: g
-    (and noise, sigma) read once, y and norm written once, f32. Operations:
-    per element a square-and-add (2), the scale (1) and, with noise, a
-    multiply-add (2)."""
+    """The least time the card could take for dp_clip_noise, and what
+    bounds it. Bytes: g (and noise, sigma) read once, y and norm written
+    once, f32. Operations: per element a square-and-add (2), the scale (1)
+    and, with noise, a multiply-add (2)."""
     nbytes = 4 * (rows * n * (3 if with_noise else 2)
                   + rows * (2 if with_noise else 1))
-    ops = rows * n * (5 if with_noise else 3)
+    return _larger_bound(nbytes, rows * n * (5 if with_noise else 3))
+
+
+def _qsgd_bound_ms(rows: int, n: int) -> tuple[float, str]:
+    """The same for quantize_decompress. Bytes: x and u read once, y and
+    scale written once, f32. Operations: per element abs and max (2),
+    divide, add, floor (3), sign and two multiplies (3)."""
+    return _larger_bound(4 * (3 * rows * n + rows), 8 * rows * n)
+
+
+def _larger_bound(nbytes: int, ops: int) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_FLOPS_PER_S * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
@@ -103,6 +130,46 @@ def check_kernels(torch, dp_clip_noise, dp_clip_noise_ref):
             if (rows, n) == SHAPES[0] and with_noise:
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by}
+    return ok, main, worst
+
+
+def check_qsgd_kernel(torch, quantize_decompress, quantize_decompress_ref):
+    """Phase 2, quantize_decompress: bit-identical to its plain version at
+    SHAPES and QSGD_BITS (y and scale), timed at 8 bits, the comm sweep's.
+    Returns (ok, record of the main-path shape, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ok, main, worst = True, None, 0.0
+    for rows, n in SHAPES:
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        x *= torch.logspace(-4, 1, rows, device="cuda")[:, None]
+        x[0] = 0.0                               # an all-zero row
+        u = torch.rand((rows, n), generator=gen, device="cuda")
+        for bits in QSGD_BITS:
+            y, scale = quantize_decompress(x, u, bits)
+            wy, ws = quantize_decompress_ref(x, u, bits)
+            torch.cuda.synchronize()
+            err = float((y - wy).abs().max())
+            good = bool(torch.equal(y, wy)) and bool(torch.equal(scale, ws))
+            ok &= good
+            worst = max(worst, err)
+            line = (f"kernel quantize_decompress ({rows}, {n}) bits {bits}: "
+                    f"max|dy|={err:.3e} scales "
+                    f"{'equal' if bool(torch.equal(scale, ws)) else 'DIFFER'}"
+                    f" {'ok' if good else 'MISMATCH'}")
+            if bits == 8:
+                iters = 20 if n > 1_000_000 else 200
+                ms = _time_ms(lambda: quantize_decompress(x, u, bits), iters)
+                plain_ms = _time_ms(
+                    lambda: quantize_decompress_ref(x, u, bits), iters)
+                bound_ms, bound_by = _qsgd_bound_ms(rows, n)
+                line += (f"  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                         f"bound {bound_ms:.6f} ms ({bound_by})  library: "
+                         f"none (no single PyTorch call computes this "
+                         f"function)")
+                if (rows, n) == SHAPES[0]:
+                    main = {"ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+            print(line, flush=True)
     return ok, main, worst
 
 
@@ -189,11 +256,12 @@ def compare_backends(torch, np, api, linear, spec, fed):
     return diff <= 1e-5
 
 
-def profile_rounds(torch, np, api, linear, spec, fed, n_timed=20):
-    """Phase 5: steady per-round time of the main path's round (batches
-    built beforehand), then device time by kernel over 3 rounds. The rounds
-    always run; only the profiler's start, stop and report are optional.
-    Returns whether every round left finite params."""
+def profile_rounds(torch, np, api, linear, spec, fed, label, n_timed=20):
+    """Phase 5 (and the end of phase 6): steady per-round time of ``spec``'s
+    round (batches built beforehand), then device time by kernel over 3
+    rounds; ``label`` starts each line. The rounds always run; only the
+    profiler's start, stop and report are optional. Returns whether every
+    round left finite params."""
     from torch.profiler import ProfilerActivity, profile
     state = api.init_state(spec, linear.init_linear(
         fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
@@ -208,14 +276,15 @@ def profile_rounds(torch, np, api, linear, spec, fed, n_timed=20):
         state, _ = api.run_round(spec, state, b, check_budgets=False)
     torch.cuda.synchronize()
     per_round = (time.perf_counter() - t0) * 1e3 / n_timed
-    print(f"steady round (tau={spec.tau}, batches prebuilt, no eval): "
-          f"{per_round:.3f} ms/round over {n_timed} rounds", flush=True)
+    print(f"{label}: steady round (tau={spec.tau}, batches prebuilt, no "
+          f"eval): {per_round:.3f} ms/round over {n_timed} rounds",
+          flush=True)
     try:
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         prof.start()
     except Exception as e:        # noqa: BLE001 — the profiler is optional
-        print(f"profile: unavailable ({e!r})", flush=True)
+        print(f"{label}: profile unavailable ({e!r})", flush=True)
         prof = None
     t0 = time.perf_counter()
     for b in batches[-3:]:
@@ -223,7 +292,7 @@ def profile_rounds(torch, np, api, linear, spec, fed, n_timed=20):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     finite = all(bool(torch.isfinite(x).all()) for x in state.params.values())
-    print(f"phase 5: {n_timed + 5} rounds, params finite: {finite}",
+    print(f"{label}: {n_timed + 5} rounds, params finite: {finite}",
           flush=True)
     if prof is None:
         return finite
@@ -231,23 +300,154 @@ def profile_rounds(torch, np, api, linear, spec, fed, n_timed=20):
         prof.stop()
         averages = prof.key_averages()
     except Exception as e:        # noqa: BLE001 — the profiler is optional
-        print(f"profile: unavailable ({e!r})", flush=True)
+        print(f"{label}: profile unavailable ({e!r})", flush=True)
         return finite
     events = [e for e in averages
               if e.device_type.name == "CUDA" and e.device_time_total > 0]
     device_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"profile, 3 rounds: wall {wall_ms:.3f} ms, device busy "
+    print(f"{label}: profile, 3 rounds: wall {wall_ms:.3f} ms, device busy "
           f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%}), "
           f"{sum(e.count for e in events)} kernel launches", flush=True)
     for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
     host = [e for e in averages if e.device_type.name == "CPU"]
-    print("profile, 3 rounds: host ops by self CPU time", flush=True)
+    print(f"{label}: profile, 3 rounds: host ops by self CPU time",
+          flush=True)
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
     return finite
+
+
+def _sweep_spec(api, linear, optim, fl, fed, q, compressor, ratio):
+    """benchmarks/common.run_dp_pasgd's spec for one comm-sweep row: tau 5,
+    K 100, eps_th 10, C_th 10 K (c1/tau + c2) that never binds."""
+    x_m = fed.batch_sizes(BATCH)
+    return api.FederationSpec(
+        n_clients=fed.n_clients, tau=SWEEP_TAU, loss_fn=linear.logreg_loss,
+        optimizer=optim.sgd(LR), clip_norm=CLIP, dp=True, participation=q,
+        compressor=compressor, compression_ratio=ratio, compression_bits=8,
+        sigmas=tuple(float(s) for s in fl.design_sigmas(
+            SWEEP_K, CLIP, x_m, SWEEP_EPS, DELTA)),
+        batch_sizes=tuple(x_m), eps_th=SWEEP_EPS, delta=DELTA,
+        c_th=10 * SWEEP_K * (100.0 / SWEEP_TAU + 1.0), c1=100.0, c2=1.0,
+        seed=0)
+
+
+def run_comm_sweep(torch, np, api, linear, data, optim, fl, dp_clip_noise,
+                   quantize_decompress):
+    """Phase 6: the four comm-sweep rows at full width on cuda, each trained
+    for K / tau rounds or until privacy binds, with eval every round.
+    Returns (ok, the qsgd row's quantize_decompress launches, Adult-2)."""
+    fed = data.split_iid(data.adult_like(seed=0), 16)
+    dim = fed.clients[0].x_train.shape[1]
+    xt, yt = fed.eval_arrays("test")
+    eval_fn = linear.make_eval_fn(linear.logreg_loss, xt, yt)
+    ok, qsgd_launches = True, 0
+    for label, q, compressor, ratio in PIPELINES:
+        spec = _sweep_spec(api, linear, optim, fl, fed, q, compressor,
+                           ratio)
+        state = api.init_state(spec, linear.init_linear(dim, device="cuda"),
+                               device="cuda")
+        init_loss = eval_fn(api.eval_params(spec, state))["eval_loss"]
+        torch.cuda.synchronize()
+        dp_clip_noise.launches = quantize_decompress.launches = 0
+        t0 = time.perf_counter()
+        state, out = api.train(spec, state, fed.make_sampler(BATCH),
+                               max_rounds=SWEEP_K // SWEEP_TAU,
+                               eval_fn=eval_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        clip_launches = dp_clip_noise.launches
+        q_launches = quantize_decompress.launches
+        rounds, best = out["rounds"], out["best"]
+        participants = sorted({r["participants"] for r in out["history"]})
+        print(f"comm sweep {label}: rounds={rounds} "
+              f"resource_spent={out['resource_spent']} "
+              f"max_epsilon={out['max_epsilon']:.6f} participants per round "
+              f"{participants} eval loss {init_loss:.5f} -> "
+              f"{best['eval_loss']:.5f} (best, round {best['round']}) best "
+              f"acc {best['eval_acc']:.4f} ms_per_round="
+              f"{wall / max(rounds, 1) * 1e3:.3f} (train loop wall / rounds,"
+              f" eval included) launches dp_clip_noise={clip_launches} "
+              f"quantize_decompress={q_launches}", flush=True)
+        good = (clip_launches == 2 * SWEEP_TAU * rounds
+                and best["eval_loss"] < init_loss
+                and all(bool(torch.isfinite(x).all())
+                        for x in state.params.values()))
+        if q == 1.0:
+            good &= (rounds == 19
+                     and round(out["max_epsilon"], 6) == 9.701942
+                     and out["resource_spent"] == {"none": 1995.0,
+                                                   "topk": 570.0}[compressor])
+        else:
+            good &= (rounds == 20 and out["resource_spent"] == 350.0
+                     and participants == [8.0]
+                     and out["max_epsilon"] <= SWEEP_EPS)
+        if compressor == "qsgd":
+            good &= q_launches == 2 * rounds
+            qsgd_launches = q_launches
+        else:
+            good &= q_launches == 0
+        ok &= good
+        if not good:
+            print(f"comm sweep {label}: CHECK FAILED", flush=True)
+    return ok, qsgd_launches, fed
+
+
+def compare_qsgd_routes(torch, np, api, linear, optim, fl, fed):
+    """Phase 7: three qsgd8_q50 rounds on "auto" (both kernels) and on "ref"
+    (their plain versions) from one seed. Without DP the QSGD kernel is the
+    only difference, so params and residual must be bitwise equal. With DP,
+    dp_clip_noise's FMA rounding can flip a stochastic-rounding level: each
+    round runs both routes from the same state, and every param gap must be
+    within the flipped levels' residual jumps / P + 1e-5."""
+    dim = fed.clients[0].x_train.shape[1]
+    spec = _sweep_spec(api, linear, optim, fl, fed, 0.5, "qsgd", 0.25)
+    n_p = spec.participants_per_round()
+
+    def flat(params):
+        return torch.cat([params[k][0].reshape(-1) for k in sorted(params)])
+
+    finals = []
+    for backend in ("auto", "ref"):
+        s = spec.replace(dp=False, kernel_backend=backend)
+        state = api.init_state(s, linear.init_linear(dim, device="cuda"),
+                               device="cuda")
+        rng = np.random.default_rng(1)
+        for _ in range(3):
+            state, _ = api.run_round(s, state, api.round_batch(
+                s, fed.make_sampler(BATCH), rng), check_budgets=False)
+        finals.append(state)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(finals[0].params[k], finals[1].params[k])
+                for k in finals[0].params)
+            and torch.equal(finals[0].residual, finals[1].residual))
+    print(f"qsgd8_q50 auto vs ref, dp=False, 3 rounds: params and residual "
+          f"bitwise {'equal' if same else 'DIFFERENT'}", flush=True)
+    ok = same
+    auto, ref = spec, spec.replace(kernel_backend="ref")
+    state = api.init_state(auto, linear.init_linear(dim, device="cuda"),
+                           device="cuda")
+    rng = np.random.default_rng(1)
+    for r in range(3):
+        batch = api.round_batch(auto, fed.make_sampler(BATCH), rng)
+        sa, _ = api.run_round(auto, state, batch, check_budgets=False)
+        sr, _ = api.run_round(ref, state, batch, check_budgets=False)
+        dres = (sa.residual - sr.residual).abs()
+        flipped = dres > 1e-5
+        dparams = (flat(sa.params) - flat(sr.params)).abs()
+        allowed = (dres * flipped).sum(dim=0) / n_p + 1e-5
+        good = bool((dparams <= allowed).all())
+        ok &= good
+        print(f"qsgd8_q50 auto vs ref, dp=True, round {r + 1} from one "
+              f"state: max|dparams|={float(dparams.max()):.3e} "
+              f"max|dresidual|={float(dres.max()):.3e} flipped "
+              f"coordinates={int(flipped.sum())} "
+              f"{'ok' if good else 'UNEXPLAINED GAP'}", flush=True)
+        state = sa
+    return ok
 
 
 def main() -> int:
@@ -265,10 +465,14 @@ def main() -> int:
 
     from repro_torch import api, data, optim
     from repro_torch.core import convergence as conv
-    from repro_torch.core import design
+    from repro_torch.core import design, fl
     from repro_torch.kernels import _build
     from repro_torch.kernels.dp_clip_noise import dp_clip_noise
-    from repro_torch.kernels.ref import dp_clip_noise_ref
+    from repro_torch.kernels.quantize_decompress import quantize_decompress
+    from repro_torch.kernels.ref import (
+        dp_clip_noise_ref,
+        quantize_decompress_ref,
+    )
     from repro_torch.models import linear
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -290,6 +494,8 @@ def main() -> int:
     # -- 2. kernels against their plain versions --------------------------
     ok_k, main_rec, worst = check_kernels(torch, dp_clip_noise,
                                           dp_clip_noise_ref)
+    ok_q, q_rec, q_worst = check_qsgd_kernel(torch, quantize_decompress,
+                                             quantize_decompress_ref)
 
     # -- 3. main path ---------------------------------------------------------
     ok_m, launches, spec, fed = run_main_path(
@@ -299,7 +505,18 @@ def main() -> int:
     ok_b = compare_backends(torch, np, api, linear, spec, fed)
 
     # -- 5. steady rounds, and where their device time goes ----------------
-    ok_s = profile_rounds(torch, np, api, linear, spec, fed)
+    ok_s = profile_rounds(torch, np, api, linear, spec, fed, "phase 5")
+
+    # -- 6. the aggregation pipeline: the comm sweep at full width ----------
+    ok_c, q_launches, fed2 = run_comm_sweep(
+        torch, np, api, linear, data, optim, fl, dp_clip_noise,
+        quantize_decompress)
+    ok_c &= profile_rounds(torch, np, api, linear, _sweep_spec(
+        api, linear, optim, fl, fed2, 0.5, "qsgd", 0.25), fed2,
+        "phase 6 qsgd8_q50")
+
+    # -- 7. the pipeline's kernel route against its plain route -------------
+    ok_r = compare_qsgd_routes(torch, np, api, linear, optim, fl, fed2)
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -308,12 +525,24 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+        "library_ms": None}, {
+        "name": "quantize_decompress", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
+        "replaces": "src/repro/kernels/quantize_decompress.py:44",
+        "launches": q_launches, "max_abs_err": q_worst,
+        "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
+        "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
         "library_ms": None}]}), flush=True)
     for ok, what in ((ok_k, "a kernel disagrees with its plain version"),
+                     (ok_q, "quantize_decompress is not bit-identical to "
+                            "its plain version"),
                      (ok_m, "the main path's checks failed"),
                      (ok_b, "the kernel round disagrees with the plain "
                             "round"),
-                     (ok_s, "the steady rounds gave non-finite params")):
+                     (ok_s, "the steady rounds gave non-finite params"),
+                     (ok_c, "the comm sweep's checks failed"),
+                     (ok_r, "the pipeline's kernel route disagrees with its "
+                            "plain route")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

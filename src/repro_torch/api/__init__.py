@@ -13,6 +13,11 @@ or drive rounds yourself with ``run_round(spec, state, batch)``; budget
 checks raise :class:`BudgetExceeded` before a round would overrun eps_th /
 C_th. ``run_rounds`` runs a chunk of R rounds, equal to R ``run_round``
 calls. ``init_state(..., device="cpu")`` runs on the CPU.
+
+``FederationSpec(participation=0.5, compressor="qsgd")`` (or ``"topk"`` /
+``"randk"``) runs the aggregation pipeline: a fresh participant set every
+round, compressed error-fed updates (``FLState.residual``). ``save_state`` /
+``load_state`` checkpoint a state.
 """
 from repro_torch.api.engines import (
     chunked_round_fn_for,
@@ -20,6 +25,11 @@ from repro_torch.api.engines import (
     round_fn_for,
 )
 from repro_torch.api.spec import COMPRESSORS, ENGINES, FederationSpec
+from repro_torch.core.aggregation import (
+    AggregationPipeline,
+    make_compressor,
+    participation_mask,
+)
 from repro_torch.api.state import (
     BudgetExceeded,
     FLState,
@@ -30,6 +40,7 @@ from repro_torch.api.state import (
     eval_params,
     exceeds_budgets,
     init_state,
+    load_state,
     materialize_record,
     max_epsilon,
     peek_epsilon_fast,
@@ -39,15 +50,18 @@ from repro_torch.api.state import (
     rounds_within_budgets,
     run_round,
     run_rounds,
+    save_state,
     train,
 )
 
 __all__ = [
     "COMPRESSORS", "ENGINES", "FederationSpec",
+    "AggregationPipeline", "make_compressor", "participation_mask",
     "chunked_round_fn_for", "resolve_engine", "round_fn_for",
     "BudgetExceeded", "FLState", "PrefetchFailed", "accountant_view",
     "budget_train_loop", "collapse_clients", "eval_params",
-    "exceeds_budgets", "init_state", "materialize_record", "max_epsilon",
-    "peek_epsilon_fast", "round_batch", "round_batches", "round_rho_charges",
-    "rounds_within_budgets", "run_round", "run_rounds", "train",
+    "exceeds_budgets", "init_state", "load_state", "materialize_record",
+    "max_epsilon", "peek_epsilon_fast", "round_batch", "round_batches",
+    "round_rho_charges", "rounds_within_budgets", "run_round", "run_rounds",
+    "save_state", "train",
 ]

@@ -7,13 +7,19 @@ A *round engine* turns a :class:`FederationSpec` into the round function
 
 with params/opt_state carrying a leading client axis C, batch leaves shaped
 (C, tau, B, ...), ``noise`` the round's (C, tau, N) standard normals and
-sigmas (C,). Two engines ship:
+sigmas (C,). A spec with an aggregation pipeline gets the pipeline round,
+
+    round_fn(params, opt_state, batch, noise, sigmas, mask, residual,
+             agg_rand) -> (new_params, new_opt_state, new_residual, metrics)
+
+(see :func:`repro_torch.core.fl.make_round_step`). Two engines ship:
 
     "vmap"  all C clients as one batch: one dp_clip_noise call per step
     "map"   the same math one client at a time (one row per kernel call)
 
 ``engine="auto"`` resolves to "vmap" (one device). Every engine's Eq.-7a
-clip + noise runs through the ``dp_clip_noise`` kernel on the spec's
+clip + noise runs through the ``dp_clip_noise`` kernel, and the qsgd
+compressor through ``quantize_decompress``, on the spec's
 ``kernel_backend``. Round functions are cached per ``spec.engine_key()``.
 """
 from __future__ import annotations
@@ -50,7 +56,7 @@ def round_fn_for(spec: FederationSpec) -> RoundFn:
         fn = make_round_step(
             spec.loss_fn, spec.optimizer,
             spec.fl_config(vmap_clients=resolve_engine(spec) == "vmap"),
-            topology=spec.topology)
+            topology=spec.topology, pipeline=spec.aggregation_pipeline())
         while len(_ROUND_FN_CACHE) >= _ROUND_FN_CACHE_MAX:
             _ROUND_FN_CACHE.pop(next(iter(_ROUND_FN_CACHE)))
     _ROUND_FN_CACHE[key] = fn      # (re)insert at MRU position
@@ -59,5 +65,7 @@ def round_fn_for(spec: FederationSpec) -> RoundFn:
 
 def chunked_round_fn_for(spec: FederationSpec) -> RoundFn:
     """The R-round chunk function for ``spec``: the engine's round wrapped
-    by :func:`repro_torch.core.fl.make_chunked_round` (a plain loop)."""
-    return make_chunked_round(round_fn_for(spec))
+    by :func:`repro_torch.core.fl.make_chunked_round` (a plain loop; the
+    pipeline form draws each round's mask inside it)."""
+    return make_chunked_round(round_fn_for(spec),
+                              pipeline=spec.aggregation_pipeline())

@@ -1,9 +1,10 @@
 """Declarative configuration of one DP-PASGD federation.
 
 :class:`FederationSpec` has the JAX package's fields and validation. The
-port runs the resident dense protocol on the ``vmap`` and ``map`` engines;
-a spec that asks for a plane the port does not have yet (an aggregation
-pipeline, a population, secure aggregation, the sharded or async engines)
+port runs the resident protocol, dense or through the aggregation pipeline
+(partial participation, compressed error-fed updates), on the ``vmap`` and
+``map`` engines; a spec that asks for a plane the port does not have yet (a
+population, robust or secure aggregation, the sharded or async engines)
 raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -15,12 +16,19 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch.core.aggregation import (
+    COMPRESSORS,
+    AggregationPipeline,
+    compression_wire_ratio,
+    make_compressor,
+    validate_compression,
+)
 from repro_torch.core.fl import TOPOLOGIES, FLConfig, design_sigmas
+from repro_torch.core.privacy import composed_subsampling_q
 from repro_torch.kernels.ops import validate_backend
 from repro_torch.optim.optimizers import Optimizer
 
 ENGINES = ("vmap", "map", "shard_map", "mesh_2d", "async_buffered", "auto")
-COMPRESSORS = ("none", "topk", "randk", "qsgd")
 AGGREGATORS = ("mean", "median", "trimmed_mean", "norm_bound")
 ATTACKS = ("none", "sign_flip", "scale")
 
@@ -53,7 +61,7 @@ class FederationSpec:
     #   tensors, its plain version on CPU tensors | "ref": always the plain
     #   version
 
-    # -- aggregation pipeline (ROADMAP queue 1 item 6) ---------------------
+    # -- aggregation pipeline ----------------------------------------------
     participation: float = 1.0
     compressor: str = "none"
     compression_ratio: float = 0.1
@@ -117,9 +125,6 @@ class FederationSpec:
         if self.is_adversarial():
             raise _not_ported("robust aggregation, secure aggregation and "
                               "update attacks", "item 8")
-        if self.has_pipeline():
-            raise _not_ported("the aggregation pipeline (partial "
-                              "participation, compression)", "item 6")
 
     def _validate(self):
         """The JAX package's validation, check for check."""
@@ -134,15 +139,8 @@ class FederationSpec:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {self.engine!r}")
         validate_backend(self.kernel_backend)
-        if self.compressor not in COMPRESSORS:
-            raise ValueError(f"compressor must be one of {COMPRESSORS}, "
-                             f"got {self.compressor!r}")
-        if not 0.0 < self.compression_ratio <= 1.0:
-            raise ValueError(f"compression_ratio must be in (0, 1], "
-                             f"got {self.compression_ratio}")
-        if not 1 <= self.compression_bits <= 16:
-            raise ValueError(f"compression_bits must be in [1, 16], "
-                             f"got {self.compression_bits}")
+        validate_compression(self.compressor, self.compression_ratio,
+                             self.compression_bits)
         if isinstance(self.participation, bool) or not (
                 isinstance(self.participation, (int, float))):
             raise ValueError(f"participation must be a fraction in (0, 1] or "
@@ -304,11 +302,28 @@ class FederationSpec:
         return max(1, min(self.n_clients,
                           round(self.participation * self.n_clients)))
 
+    def participation_fraction(self) -> float:
+        """Realized q = participants / n_clients (drives amplification)."""
+        return self.participants_per_round() / self.n_clients
+
     def accounting_q(self) -> float:
-        """The q the privacy ledger charges per realized step: 1.0, the full
-        Lemma-2 rho. Every spec the port runs has full participation and no
-        population, so ``amplify_participation`` has nothing to amplify."""
+        """The q the privacy ledger charges per realized step: 1.0 (the
+        full Lemma-2 rho, the sound conditional ledger) by default; with
+        ``amplify_participation``, the probability that a given client
+        realizes a step in a round (no population: cohort fraction 1 times
+        the participation fraction)."""
+        if self.amplify_participation:
+            return composed_subsampling_q(1.0, self.participation_fraction())
         return 1.0
+
+    def wire_ratio(self) -> float:
+        """Compressed-update bytes as a fraction of the dense f32 update."""
+        return compression_wire_ratio(self.compressor, self.compression_ratio,
+                                      self.compression_bits)
+
+    def comm_scale(self) -> float:
+        """Eq.-8 comm-cost multiplier of the pipeline: wire_ratio * q."""
+        return self.wire_ratio() * self.participation_fraction()
 
     def is_adversarial(self) -> bool:
         return (self.aggregator != "mean" or self.secure_agg
@@ -320,10 +335,23 @@ class FederationSpec:
                 or self.participants_per_round() < self.n_clients
                 or self.is_adversarial())
 
+    def aggregation_pipeline(self) -> AggregationPipeline | None:
+        """The AggregationPipeline of this spec, or None for the dense
+        full-participation protocol."""
+        if not self.has_pipeline():
+            return None
+        return AggregationPipeline(
+            n_clients=self.n_clients,
+            compressor=make_compressor(self.compressor, self.compression_ratio,
+                                       self.compression_bits,
+                                       self.kernel_backend),
+            average_opt_state=self.average_opt_state,
+            n_participants=self.participants_per_round())
+
     def round_cost(self) -> float:
-        """Eq. (8) per round: c1 * comm_scale + c2 * tau. The dense
-        full-participation protocol has comm_scale 1.0."""
-        return self.c1 * 1.0 + self.c2 * self.tau
+        """Eq. (8) per round: c1 * comm_scale + c2 * tau; the pipeline
+        scales only the communication term."""
+        return self.c1 * self.comm_scale() + self.c2 * self.tau
 
     def resolved_batch_sizes(self) -> tuple[int, ...]:
         return self.batch_sizes or (1,) * self.n_clients
@@ -358,9 +386,11 @@ class FederationSpec:
     def engine_key(self) -> tuple:
         """Hash key of everything that shapes the round function. Budget and
         accounting fields are excluded, so budget edits reuse the cached
-        round."""
+        round. Participation enters only as ``has_pipeline()``: the
+        participant count is a runtime operand (the mask)."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
                 self.average_opt_state, self.topology, self.engine,
-                self.kernel_backend)
+                self.kernel_backend, self.has_pipeline(), self.compressor,
+                self.compression_ratio, self.compression_bits)

@@ -2,10 +2,11 @@
 
 The state of a federation is one immutable :class:`FLState` value: model
 replicas, optimizer state, the generator state the noise is drawn from,
-the privacy-accountant snapshot and the spent resources. ``run_round`` maps
-(spec, state, batch) -> (state', metrics). The rho ledger, the resource
-cost and the budget probes are the JAX package's float64 host math, bit for
-bit.
+the privacy-accountant snapshot, the spent resources and, with a
+compressor, the error-feedback residual. ``run_round`` maps
+(spec, state, batch) -> (state', metrics); ``save_state`` / ``load_state``
+checkpoint it. The rho ledger, the resource cost and the budget probes are
+the JAX package's float64 host math, bit for bit.
 
 Tensors follow the device of the state: ``init_state`` places everything on
 ``device`` (the GPU unless the caller asks for another), and every round
@@ -22,7 +23,12 @@ import torch
 
 from repro_torch.api.engines import chunked_round_fn_for, round_fn_for
 from repro_torch.api.spec import FederationSpec
-from repro_torch.core.fl import draw_round_noise
+from repro_torch.checkpoint import (
+    checkpoint_leaf_paths,
+    load_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.core.fl import draw_pipeline_round, draw_round_noise
 from repro_torch.core.privacy import (
     PrivacyAccountant,
     gaussian_zcdp,
@@ -77,6 +83,8 @@ class FLState:
     steps: int = 0                  # local iterations accounted so far
     resource_spent: float = 0.0     # accumulated Eq.-(8) cost
     rounds_done: int = 0
+    residual: Any = None            # (C, D) f32 error-feedback residual of
+    #   the aggregation pipeline; None unless the spec sets a compressor
 
     def replace(self, **changes) -> "FLState":
         return dataclasses.replace(self, **changes)
@@ -93,12 +101,14 @@ def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
     params0 = tree_from_numpy(params0, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(spec.seed)
+    pipe = spec.aggregation_pipeline()
     return FLState(
         params=tree_broadcast_axis0(params0, spec.n_clients),
         opt_state=tree_broadcast_axis0(spec.optimizer.init(params0),
                                        spec.n_clients),
         key=gen.get_state(),
-        rho=np.zeros((spec.n_clients,), np.float64))
+        rho=np.zeros((spec.n_clients,), np.float64),
+        residual=pipe.init_residual(params0) if pipe is not None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -220,22 +230,41 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
 
     batch leaves are (C, tau, B, ...), numpy arrays or tensors. The round's
     (C, tau, N) noise is drawn in one ``torch.randn`` call from the state's
-    generator. Returns the successor state and a metrics record whose metric
-    values are 0-d device tensors (no sync; :func:`materialize_record` turns
-    them into floats). Raises :class:`BudgetExceeded` (state untouched) when
+    generator. Under an aggregation pipeline the round draws its
+    participation mask, noise and compressor operand
+    (:func:`repro_torch.core.fl.draw_pipeline_round`), brings the mask to
+    the host (the round's one sync) and charges rho to the participants
+    only. Returns the successor state and a metrics record whose metric
+    values are 0-d device tensors (:func:`materialize_record` turns them
+    into floats). Raises :class:`BudgetExceeded` (state untouched) when
     ``check_budgets`` and the round would overrun ``c_th`` / ``eps_th``."""
     if check_budgets:
         which = exceeds_budgets(spec, state)
         if which is not None:
             _raise_budget(which, spec)
     dev = _device_of(state)
-    noise, key = draw_round_noise(state.key, state.params, spec.tau)
-    new_p, new_s, ms = round_fn_for(spec)(
-        state.params, state.opt_state, tree_from_numpy(batch, dev), noise,
-        _sigmas_on(spec, dev))
-    rho = state.rho + round_rho_charges(spec)
+    batch = tree_from_numpy(batch, dev)
+    per_round = round_rho_charges(spec)
+    pipe = spec.aggregation_pipeline()
+    residual = state.residual
+    if pipe is not None:
+        mask, noise, agg_rand, key = draw_pipeline_round(
+            state.key, state.params, spec.tau, pipe)
+        mask_np = mask.cpu().numpy()
+        new_p, new_s, residual, ms = round_fn_for(spec)(
+            state.params, state.opt_state, batch, noise,
+            _sigmas_on(spec, dev), mask, state.residual, agg_rand)
+        rho = state.rho + np.where(mask_np > 0, per_round, 0.0)
+        n_participants = int(mask_np.sum())
+    else:
+        noise, key = draw_round_noise(state.key, state.params, spec.tau)
+        new_p, new_s, ms = round_fn_for(spec)(
+            state.params, state.opt_state, batch, noise,
+            _sigmas_on(spec, dev))
+        rho = state.rho + per_round
+        n_participants = spec.n_clients
     new_state = state.replace(
-        params=new_p, opt_state=new_s, key=key, rho=rho,
+        params=new_p, opt_state=new_s, key=key, residual=residual, rho=rho,
         steps=state.steps + spec.tau,
         resource_spent=state.resource_spent + spec.round_cost(),
         rounds_done=state.rounds_done + 1)
@@ -244,7 +273,7 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
     rec["iterations"] = new_state.rounds_done * spec.tau
     rec["max_epsilon"] = zcdp_to_dp(float(np.max(rho)), spec.delta)
     rec["resource_spent"] = new_state.resource_spent
-    rec["participants"] = float(spec.n_clients)
+    rec["participants"] = float(n_participants)
     return new_state, rec
 
 
@@ -259,8 +288,12 @@ def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
     ``prefetch()``, if given, runs after the chunk is enqueued, so callers
     build the next chunk's host batches while the device computes. If it
     raises, :class:`PrefetchFailed` carries the completed state and
-    records. Raises BudgetExceeded (state untouched) when ``check_budgets``
-    and any of the R rounds would overrun a budget."""
+    records. Under an aggregation pipeline the chunk draws each round's
+    mask inside its loop and the stacked (R, C) masks come to the host once,
+    after ``prefetch``, to replay the conditional ledger. Raises
+    BudgetExceeded (state untouched) when ``check_budgets`` and any of the
+    R rounds could overrun a budget (a worst-case projection: exact for
+    full participation, conservative under partial participation)."""
     lead = int(tree_leaves(batches)[0].shape[0])
     if n_rounds is None:
         n_rounds = lead
@@ -274,18 +307,33 @@ def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
         if ok < n_rounds:
             _raise_budget(which, spec)
     dev = _device_of(state)
-    new_p, new_s, key, ms = chunked_round_fn_for(spec)(
-        state.params, state.opt_state, tree_from_numpy(batches, dev),
-        state.key, _sigmas_on(spec, dev))
+    fn = chunked_round_fn_for(spec)
+    batches = tree_from_numpy(batches, dev)
+    sig = _sigmas_on(spec, dev)
+    residual = state.residual
+    if spec.has_pipeline():
+        new_p, new_s, key, residual, ms, masks = fn(
+            state.params, state.opt_state, batches, state.key, sig,
+            state.residual)
+    else:
+        new_p, new_s, key, ms = fn(state.params, state.opt_state, batches,
+                                   state.key, sig)
+        masks = None
     prefetch_exc = None
     if prefetch is not None:
         try:
             prefetch()
         except Exception as e:        # noqa: BLE001 — re-raised below
             prefetch_exc = e
+    if masks is None:
+        participants = np.full((n_rounds,), float(spec.n_clients))
+    else:
+        masks = masks.cpu().numpy()             # the chunk's one sync
+        participants = masks.sum(axis=1)
     # exact ledger replay at the chunk boundary
     acc = accountant_view(spec, state)
-    worst_rho = acc.step_many([spec.tau] * n_rounds, q=spec.accounting_q())
+    worst_rho = acc.step_many([spec.tau] * n_rounds, masks=masks,
+                              q=spec.accounting_q())
     rho = np.asarray([acc.rho(m) for m in range(spec.n_clients)], np.float64)
     recs = []
     spent = state.resource_spent
@@ -297,10 +345,10 @@ def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
         rec["iterations"] = (state.rounds_done + r + 1) * spec.tau
         rec["max_epsilon"] = zcdp_to_dp(float(worst_rho[r]), spec.delta)
         rec["resource_spent"] = spent
-        rec["participants"] = float(spec.n_clients)
+        rec["participants"] = float(participants[r])
         recs.append(rec)
     new_state = state.replace(
-        params=new_p, opt_state=new_s, key=key, rho=rho,
+        params=new_p, opt_state=new_s, key=key, residual=residual, rho=rho,
         steps=state.steps + n_rounds * spec.tau,
         resource_spent=spent,
         rounds_done=state.rounds_done + n_rounds)
@@ -498,3 +546,54 @@ def train(spec: FederationSpec, state: FLState, sampler: Callable,
         "max_epsilon": max_epsilon(spec, state),
         "history": history,
     }
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / resume
+# ---------------------------------------------------------------------------
+
+def save_state(directory: str, state: FLState,
+               extra: dict | None = None) -> None:
+    """Persist an FLState (arrays + accountant snapshot) to ``directory``,
+    in the JAX package's checkpoint layout. ``key`` is the port's generator
+    state, not a JAX key."""
+    meta = {
+        "rho": [float(r) for r in state.rho],
+        "steps": int(state.steps),
+        "resource_spent": float(state.resource_spent),
+        "rounds_done": int(state.rounds_done),
+        **(extra or {}),
+    }
+    arrays = {"params": state.params, "opt_state": state.opt_state,
+              "key": state.key}
+    if state.residual is not None:
+        arrays["residual"] = state.residual
+    save_checkpoint(directory, arrays, step=state.rounds_done, extra=meta)
+
+
+def load_state(directory: str, like: FLState) -> tuple[FLState, dict]:
+    """Restore an FLState saved by :func:`save_state` onto ``like``'s
+    device. ``like`` supplies the structure (e.g. a fresh ``init_state``).
+    Returns (state, extra) with any caller metadata passed to save_state."""
+    like_tree = {"params": like.params, "opt_state": like.opt_state,
+                 "key": like.key}
+    # ask for the residual only when both sides have one: a dense-trained
+    # checkpoint resumed under a compressor keeps like's zero residual, a
+    # compressed checkpoint resumed dense drops it
+    has_residual = any(p == "residual" or p.startswith("residual/")
+                       for p in checkpoint_leaf_paths(directory))
+    if like.residual is not None and has_residual:
+        like_tree["residual"] = like.residual
+    tree, _, extra = load_checkpoint(directory, like=like_tree)
+    dev = _device_of(like)
+    state = like.replace(
+        params=tree_from_numpy(tree["params"], dev),
+        opt_state=tree_from_numpy(tree["opt_state"], dev),
+        key=torch.as_tensor(tree["key"]),
+        residual=(tree_from_numpy(tree["residual"], dev)
+                  if "residual" in tree else like.residual),
+        rho=np.asarray(extra["rho"], np.float64),
+        steps=int(extra["steps"]),
+        resource_spent=float(extra["resource_spent"]),
+        rounds_done=int(extra["rounds_done"]))
+    return state, extra

@@ -17,7 +17,9 @@ its kernel calls has one row.
 Randomness enters as an operand: a round takes ``noise`` (C, tau, N)
 standard normals, drawn by :func:`draw_round_noise` from the federation's
 generator state. N is the number of parameters per client, leaves laid end
-to end in ``jax.tree.flatten`` order.
+to end in ``jax.tree.flatten`` order. A round with an aggregation pipeline
+(:mod:`repro_torch.core.aggregation`) also takes the participation ``mask``
+and the compressor's ``agg_rand``, drawn by :func:`draw_pipeline_round`.
 
 New code should go through :mod:`repro_torch.api`.
 """
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.core.aggregation import participation_mask
 from repro_torch.core.clipping import make_dp_grad_fn, make_plain_grad_fn
 from repro_torch.core.privacy import sigma_star
 from repro_torch.optim.optimizers import Optimizer
@@ -95,7 +98,7 @@ def make_local_round(grad_fn: Callable, optimizer: Optimizer, tau: int):
 
 
 def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
-                    topology: str = "full_average"):
+                    topology: str = "full_average", pipeline=None):
     """Build ``round_step(params, opt_state, batch, noise, sigmas)``.
 
     params/opt_state : pytrees with leading client axis C on every leaf
@@ -104,11 +107,22 @@ def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
     sigmas           : (C,) f32 per-client per-step noise std (Eq. 23)
     topology         : "full_average" (Eq. 7b averaging each round) or
                        "local_only" (ablation: no communication ever)
+    pipeline         : optional :class:`repro_torch.core.aggregation
+                       .AggregationPipeline`. ``None`` keeps the dense
+                       all-clients protocol; with a pipeline the function is
+                       ``round_step(params, opt_state, batch, noise, sigmas,
+                       mask, residual, agg_rand) -> (new_params,
+                       new_opt_state, new_residual, metrics)``, ``mask``
+                       the 0/1 (C,) participation mask and ``agg_rand`` the
+                       compressor's random operand
     returns          : (new_params, new_opt_state, metrics)
     """
     if topology not in TOPOLOGIES:
         raise ValueError(f"topology must be one of {TOPOLOGIES}, "
                          f"got {topology!r}")
+    if pipeline is not None and topology != "full_average":
+        raise ValueError("the aggregation pipeline requires "
+                         "topology='full_average'")
     local_round = make_local_round(make_grad_fn(loss_fn, cfg), optimizer,
                                    cfg.tau)
 
@@ -135,7 +149,19 @@ def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
                     cfg.n_clients)
         return new_p, new_s, {k: torch.mean(v) for k, v in ms.items()}
 
-    return round_step
+    def round_step_pipeline(params, opt_state, batch, noise, sigmas, mask,
+                            residual, agg_rand):
+        new_p, new_s, ms = _local_rounds(params, opt_state, batch, noise,
+                                         sigmas)
+        new_p, new_s, residual = pipeline.aggregate(
+            params, new_p, new_s, opt_state, residual, mask, agg_rand)
+        return new_p, new_s, residual, pipeline.masked_metrics(ms, mask)
+
+    return round_step if pipeline is None else round_step_pipeline
+
+
+def _n_params(params) -> int:
+    return sum(x[0].numel() for x in tree_leaves(params))
 
 
 def draw_round_noise(key, params, tau: int):
@@ -143,17 +169,35 @@ def draw_round_noise(key, params, tau: int):
     call on the params' device, from the generator state ``key``.
     Returns ``(noise, next_key)``."""
     leaves = tree_leaves(params)
-    n_clients = leaves[0].shape[0]
-    n = sum(x[0].numel() for x in leaves)
     gen = torch.Generator(device=leaves[0].device)
     gen.set_state(key)
-    noise = torch.randn((n_clients, tau, n), generator=gen,
-                        dtype=torch.float32, device=leaves[0].device)
+    noise = torch.randn((leaves[0].shape[0], tau, _n_params(params)),
+                        generator=gen, dtype=torch.float32,
+                        device=leaves[0].device)
     return noise, gen.get_state()
 
 
-def make_chunked_round(round_fn: Callable) -> Callable:
-    """R rounds of ``round_fn`` as one call (a plain loop):
+def draw_pipeline_round(key, params, tau: int, pipeline):
+    """The randomness of one pipeline round from the generator state
+    ``key``, drawn on the params' device in this order: the participation
+    mask (:func:`~repro_torch.core.aggregation.participation_mask`), the
+    (C, tau, N) noise, then the compressor's ``agg_rand`` (``None`` without
+    one). Returns ``(mask, noise, agg_rand, next_key)``."""
+    leaves = tree_leaves(params)
+    dev, n_clients, n = leaves[0].device, leaves[0].shape[0], _n_params(params)
+    gen = torch.Generator(device=dev)
+    gen.set_state(key)
+    mask = participation_mask(gen, n_clients, pipeline.n_participants, dev)
+    noise = torch.randn((n_clients, tau, n), generator=gen,
+                        dtype=torch.float32, device=dev)
+    agg_rand = (None if pipeline.compressor is None
+                else pipeline.compressor.draw(gen, n_clients, n, dev))
+    return mask, noise, agg_rand, gen.get_state()
+
+
+def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:
+    """R rounds of ``round_fn`` as one call (a plain loop). Without a
+    pipeline:
 
         chunk_fn(params, opt_state, batches, key, sigmas)
             -> (params, opt_state, key, metrics)
@@ -161,7 +205,14 @@ def make_chunked_round(round_fn: Callable) -> Callable:
     with ``batches`` leaves shaped (R, C, tau, B, ...) and metrics stacked
     (R,). Each round draws its noise from the carried generator state
     exactly as :func:`repro_torch.api.run_round` does, so a chunk equals R
-    sequential run_round calls."""
+    sequential run_round calls. With a pipeline:
+
+        chunk_fn(params, opt_state, batches, key, sigmas, residual)
+            -> (params, opt_state, key, residual, metrics, masks)
+
+    where each round draws its mask, noise and ``agg_rand`` with
+    :func:`draw_pipeline_round` inside the loop, and the realized masks come
+    back stacked (R, C) for the host ledger."""
     def chunk_fn(params, opt_state, batches, key, sigmas):
         n_rounds, _, tau = tree_leaves(batches)[0].shape[:3]
         ms = []
@@ -174,7 +225,22 @@ def make_chunked_round(round_fn: Callable) -> Callable:
         return params, opt_state, key, {
             k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
-    return chunk_fn
+    def chunk_fn_pipeline(params, opt_state, batches, key, sigmas, residual):
+        n_rounds, _, tau = tree_leaves(batches)[0].shape[:3]
+        ms, masks = [], []
+        for r in range(n_rounds):
+            mask, noise, agg_rand, key = draw_pipeline_round(
+                key, params, tau, pipeline)
+            params, opt_state, residual, m = round_fn(
+                params, opt_state, tree_map(lambda x: x[r], batches), noise,
+                sigmas, mask, residual, agg_rand)
+            ms.append(m)
+            masks.append(mask)
+        return params, opt_state, key, residual, {
+            k: torch.stack([m[k] for m in ms]) for k in ms[0]
+        }, torch.stack(masks)
+
+    return chunk_fn if pipeline is None else chunk_fn_pipeline
 
 
 def design_sigmas(k: int, clip_norm: float, batch_sizes: list[int],

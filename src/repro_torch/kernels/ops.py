@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
-from repro_torch.kernels.ref import dp_clip_noise_ref
+from repro_torch.kernels.quantize_decompress import quantize_decompress
+from repro_torch.kernels.ref import dp_clip_noise_ref, quantize_decompress_ref
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 KERNEL_BACKENDS = ("auto", "ref")
@@ -51,3 +52,13 @@ def dp_clip_noise_tree(grads, noise, clip_norm, sigma, backend: str = "auto"):
         news.append(out[:, off:off + n].reshape(x.shape).to(x.dtype))
         off += n
     return tree_unflatten(treedef, news), norm
+
+
+def quantize_decompress_rows(x, u, bits: int, backend: str = "auto"):
+    """QSGD quantize -> dequantize of every row of ``x`` (R, D) f32 in one
+    kernel call, ``u`` (R, D) ~ U[0, 1) the stochastic-rounding operand.
+    Returns ``(y (R, D), scale (R,))``."""
+    validate_backend(backend)
+    kernel = quantize_decompress_ref if backend == "ref" else \
+        quantize_decompress
+    return kernel(x, u, bits)

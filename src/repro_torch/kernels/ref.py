@@ -6,6 +6,7 @@ against them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,24 @@ def dp_clip_noise_ref(g, noise, clip_norm, sigma):
     if noise is not None:
         y = y + sigma[:, None] * noise.to(torch.float32)
     return y.to(g.dtype), norm
+
+
+def quantize_decompress_ref(x, u, bits: int):
+    """Row-batched QSGD round trip: for every row r of ``x`` (R, D)
+
+        scale[r] = max(max|x[r]|, 1e-30) * f32(1 / (2**bits - 1))
+        y[r]     = sign(x[r]) * floor(|x[r]| / scale[r] + u[r]) * scale[r]
+
+    ``u`` (R, D) ~ U[0, 1) drives the stochastic rounding. The scale is the
+    max times the f32 reciprocal of the level count, as the JAX package
+    computes it under ``jit`` (XLA turns the division by the constant level
+    count into that multiply); ``|x| / scale`` is a true divide. An all-zero
+    row comes back as zeros. Returns ``(y, scale (R,))``, ``y`` in
+    ``x.dtype``."""
+    levels = (1 << bits) - 1
+    inv_levels = float(np.float32(1) / np.float32(levels))
+    x32 = x.to(torch.float32)
+    absx = torch.abs(x32)
+    scale = torch.clamp(torch.amax(absx, dim=1), min=1e-30) * inv_levels
+    level = torch.floor(absx / scale[:, None] + u.to(torch.float32))
+    return (torch.sign(x32) * level * scale[:, None]).to(x.dtype), scale

@@ -53,6 +53,31 @@ def tree_unflatten(treedef, leaves):
     return build(treedef)
 
 
+def tree_leaf_paths(tree) -> list[str]:
+    """The path of every leaf, in :func:`tree_flatten` order, named as
+    ``jax.tree_util.tree_flatten_with_path`` names it: dict keys,
+    NamedTuple field names and sequence indices joined by "/"."""
+    paths = []
+
+    def walk(x, prefix):
+        if x is None:
+            return
+        if isinstance(x, dict):
+            items = [(str(k), x[k]) for k in sorted(x)]
+        elif _is_namedtuple(x):
+            items = list(zip(x._fields, x))
+        elif isinstance(x, (tuple, list)):
+            items = [(str(i), v) for i, v in enumerate(x)]
+        else:
+            paths.append("/".join(prefix))
+            return
+        for name, v in items:
+            walk(v, prefix + [name])
+
+    walk(tree, [])
+    return paths
+
+
 def _structure(treedef):
     """treedef with NamedTuple classes replaced by their field names, so two
     NamedTuple classes with the same fields count as one structure."""

@@ -70,7 +70,6 @@ def test_spec_validation_matches_jax(bad):
     (dict(engine="async_buffered"), "item 9"), (dict(population=16), "item 7"),
     (dict(secure_agg=True), "item 8"), (dict(aggregator="median"), "item 8"),
     (dict(attack="sign_flip", byzantine_fraction=0.25), "item 8"),
-    (dict(compressor="topk"), "item 6"), (dict(participation=0.5), "item 6"),
 ])
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     _jspec(**plane)                       # a valid spec in the JAX package
@@ -85,10 +84,21 @@ def test_kernel_backend_takes_auto_or_ref():
             _tspec(kernel_backend=bad)
 
 
-def test_spec_views_match_jax():
+@pytest.mark.parametrize("pipe", [
+    {}, dict(participation=0.5), dict(participation=1),
+    dict(compressor="topk", compression_ratio=0.25),
+    dict(compressor="randk", compression_ratio=0.3, participation=0.75),
+    dict(compressor="qsgd", compression_bits=4, participation=3),
+], ids=["dense", "q50", "q1client", "topk25", "randk30-q75", "qsgd4-p3"])
+def test_spec_views_match_jax(pipe):
     kw = dict(sigmas=None, dp=True, eps_th=2.0, total_steps=120, c1=50.0,
-              c2=2.0, batch_sizes=(4, 8, 16, 32))
+              c2=2.0, batch_sizes=(4, 8, 16, 32), **pipe)
     js, ts = _jspec(**kw), _tspec(**kw)
+    assert ts.has_pipeline() == js.has_pipeline() == bool(pipe)
+    assert ts.participants_per_round() == js.participants_per_round()
+    assert ts.participation_fraction() == js.participation_fraction()
+    assert ts.wire_ratio() == js.wire_ratio()
+    assert ts.comm_scale() == js.comm_scale()
     assert ts.round_cost() == js.round_cost()
     assert ts.resolved_sigmas().dtype == np.float32
     np.testing.assert_array_equal(ts.resolved_sigmas(), js.resolved_sigmas())
@@ -99,6 +109,10 @@ def test_spec_views_match_jax():
     assert ts.replace(eps_th=9.0).engine_key() == ts.engine_key()
     assert (ts.replace(kernel_backend="ref").engine_key()
             != ts.engine_key())
+    assert (ts.replace(amplify_participation=True).engine_key()
+            == ts.engine_key())
+    assert (ts.replace(compressor="qsgd").engine_key() != ts.engine_key()
+            or ts.compressor == "qsgd")
     assert tapi.resolve_engine(ts) == "vmap"
     assert tapi.resolve_engine(ts.replace(engine="map")) == "map"
 

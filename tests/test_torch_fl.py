@@ -53,12 +53,12 @@ def _specs(opt="sgd", **kw):
                                 **base))
 
 
-def jax_round_noise(key, params0, n_clients, tau):
-    """The (C, tau, N) normals a JAX round with FLState key ``key`` adds."""
-    _, sub = jax.random.split(key)                       # state.py:258
+def jax_client_noise(client_keys, params0, tau):
+    """The (C, tau, N) normals JAX's local rounds add, one client per key
+    of ``client_keys`` (core/fl.py:87, then kernels/ops.py:44-47)."""
     leaves = jax.tree.leaves(params0)                    # per-client leaves
     out = []
-    for kc in jax.random.split(sub, n_clients):          # fl.py:173
+    for kc in client_keys:
         steps = []
         for kt in jax.random.split(kc, tau):             # fl.py:87
             lk = jax.random.split(kt, len(leaves))       # ops.py:44
@@ -67,6 +67,13 @@ def jax_round_noise(key, params0, n_clients, tau):
                 for k, x in zip(lk, leaves)]))
         out.append(np.stack(steps))
     return torch.as_tensor(np.stack(out))
+
+
+def jax_round_noise(key, params0, n_clients, tau):
+    """The (C, tau, N) normals a JAX round with FLState key ``key`` adds."""
+    _, sub = jax.random.split(key)                       # state.py:258
+    return jax_client_noise(jax.random.split(sub, n_clients),  # fl.py:173
+                            params0, tau)
 
 
 def _run_both(jspec, tspec, fed, n_rounds=2):

@@ -1,10 +1,13 @@
-"""The port's dp_clip_noise kernel module against the JAX package.
+"""The port's kernel modules (``dp_clip_noise``, ``quantize_decompress``)
+against the JAX package.
 
-On the CPU the wrapper runs the kernel's plain version, so here the plain
-version is held against JAX's Pallas kernel (interpret mode) and its jnp
-reference on the same numpy-seeded inputs, at atol 1e-6 (sums taken in
-another order). The hand-written CUDA kernel itself is held against the
-plain version by the ``gpu`` test at the end, which needs a card:
+On the CPU a wrapper runs its kernel's plain version, so here the plain
+``dp_clip_noise`` is held against JAX's Pallas kernel (interpret mode) and
+its jnp reference on the same numpy-seeded inputs, at atol 1e-6 (sums taken
+in another order); the plain ``quantize_decompress`` is held bit for bit
+against JAX in ``tests/test_torch_aggregation.py``. The hand-written CUDA
+kernels themselves are held against their plain versions by the ``gpu``
+tests at the end, which need a card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
@@ -25,8 +28,12 @@ except ModuleNotFoundError:
     jax = None
 
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
-from repro_torch.kernels.ops import dp_clip_noise_tree
-from repro_torch.kernels.ref import dp_clip_noise_ref
+from repro_torch.kernels.ops import (
+    dp_clip_noise_tree,
+    quantize_decompress_rows,
+)
+from repro_torch.kernels.quantize_decompress import quantize_decompress
+from repro_torch.kernels.ref import dp_clip_noise_ref, quantize_decompress_ref
 
 ATOL = 1e-6
 
@@ -192,6 +199,44 @@ def test_tree_wrapper_rejects_unknown_backend():
                            backend="pallas")
 
 
+# --------------------------- quantize_decompress -----------------------------
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "u_shape", "u_dtype",
+                                 "u_strided", "empty", "bits0", "bits17",
+                                 "bits_float", "bits_bool"])
+def test_quantize_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, u, bits = torch.ones((2, 5)), torch.full((2, 5), 0.5), 8
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "rank":
+        x, u = x.reshape(10), u.reshape(10)
+    elif bad == "u_shape":
+        u = torch.full((2, 4), 0.5)
+    elif bad == "u_dtype":
+        u = u.double()
+    elif bad == "u_strided":
+        u = torch.full((5, 2), 0.5).t()
+    elif bad == "empty":
+        x, u = torch.ones((2, 0)), torch.ones((2, 0))
+    else:
+        bits = {"bits0": 0, "bits17": 17, "bits_float": 8.0,
+                "bits_bool": True}[bad]
+    with pytest.raises(ValueError):
+        quantize_decompress(x, u, bits)
+
+
+def test_quantize_rows_backends_agree_on_cpu_and_reject_unknown():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(3, 50)).astype(np.float32))
+    u = torch.as_tensor(rng.uniform(size=(3, 50)).astype(np.float32))
+    got = quantize_decompress_rows(x, u, 6, backend="auto")
+    want = quantize_decompress_rows(x, u, 6, backend="ref")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        quantize_decompress_rows(x, u, 6, backend="pallas")
+
+
 # ------------------------------ on the card ---------------------------------
 
 @pytest.fixture
@@ -216,6 +261,26 @@ def test_cuda_kernel_matches_plain_version(cuda_device, rows, n, with_noise):
     wy, wn = dp_clip_noise_ref(tg, tn, 1.0, ts)
     torch.testing.assert_close(y, wy, atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(norm, wn, atol=0, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(16, 210), (23, 202), (3, 100_003)])
+@pytest.mark.parametrize("bits", [1, 4, 8, 16])
+def test_cuda_quantize_decompress_equals_plain_version_bitwise(cuda_device,
+                                                               rows, n, bits):
+    rng = np.random.default_rng(n + bits)
+    x = (rng.normal(size=(rows, n))
+         * np.logspace(-4, 1, rows)[:, None]).astype(np.float32)
+    x[0] = 0.0                                   # an all-zero row
+    u = rng.uniform(size=(rows, n)).astype(np.float32)
+    tx, tu = (torch.as_tensor(a).to(cuda_device) for a in (x, u))
+    before = quantize_decompress.launches
+    y, scale = quantize_decompress(tx, tu, bits)
+    torch.cuda.synchronize()
+    assert quantize_decompress.launches == before + 2
+    wy, ws = quantize_decompress_ref(tx, tu, bits)
+    assert torch.equal(scale, ws)
+    assert torch.equal(y, wy)
 
 
 if __name__ == "__main__":
