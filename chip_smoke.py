@@ -23,9 +23,22 @@ Phases (each prints its lines; any failure exits non-zero):
      qsgd8_q50 round's steady time and profile, as in phase 5;
   7. three qsgd8_q50 rounds with kernel_backend="auto" against "ref": without
      DP bitwise equal; with DP every param gap explained by the QSGD levels
-     that dp_clip_noise's rounding flipped.
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Needs a CUDA GPU and the repository's src/.
+     that dp_clip_noise's rounding flipped;
+  8. the population plane at full width, M == C = 16: Adult-2 as
+     population_from_federated(fed2, 32) with the topk25_q100 spec, through
+     train_population per round and resident (chunk 4, S = 16): 19 rounds,
+     570.0 and the JAX package's epsilon exactly, params bitwise equal to
+     a dense train, the cache stats and cohort_gather_scatter's launches;
+  9. the population quickstart's resident step (M = 100,000, K = 16,
+     S = 256, chunk 8, 24 rounds, stationary Dirichlet(0.3) shards):
+     bitwise equal to 24 run_cohort_round calls, the JAX package's epsilon,
+     cost and cache stats exactly, the launch formula; then ms per round of
+     the per-round, chunk-boundary and resident drivers, a profile of one
+     steady resident chunk and its blocking host syncs.
+Phase 2 also holds cohort_gather_scatter bitwise against its plain version
+at the resident driver's shapes. The last two lines are the kernels' JSON
+record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
+repository's src/.
 """
 from __future__ import annotations
 
@@ -33,6 +46,8 @@ import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +63,17 @@ PIPELINES = (("dense_q100", 1.0, "none", 1.0),
              ("topk25_q50", 0.5, "topk", 0.25),
              ("qsgd8_q50", 0.5, "qsgd", 0.25))
 SWEEP_TAU, SWEEP_K, SWEEP_EPS = 5, 100, 10.0
+# cohort_gather_scatter: (S, K, D, dtype) - the residuals of phases 9 and 8,
+# the data leaves (x, y) of phase 9, tests/test_kernels.py's shapes, and a
+# 1 GiB cache where bandwidth means something
+COHORT_SHAPES = ((256, 16, 42, "float32"), (16, 16, 210, "float32"),
+                 (256, 16, 800, "float32"), (256, 16, 40, "int32"),
+                 (9, 3, 5, "float32"), (16, 4, 33, "bfloat16"),
+                 (64, 16, 4_194_304, "float32"))
+# examples/population_quickstart.py: M, K, dim, batch, tau, sigma, rounds
+QS_M, QS_K, QS_DIM, QS_BATCH, QS_TAU, QS_SIGMA, QS_ROUNDS = (
+    100_000, 16, 20, 8, 5, 0.8, 24)
+QS_CACHE, QS_CHUNK = 256, 8
 
 
 def _fail(msg: str) -> int:
@@ -170,6 +196,65 @@ def check_qsgd_kernel(torch, quantize_decompress, quantize_decompress_ref):
                     main = {"ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by}
             print(line, flush=True)
+    return ok, main, worst
+
+
+def check_cohort_kernel(torch, cohort_gather_scatter, ref, vector_width):
+    """Phase 2, cohort_gather_scatter: gather and scatter bitwise equal to
+    the plain version (index_select / index_copy_) at COHORT_SHAPES, the
+    whole cache compared after a scatter; the kernel's, the plain version's
+    and the library call's times beside the bound. Returns (ok, record of
+    the main-path shape's gather, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ok, main, worst = True, None, 0.0
+    for s, k, d, dtype in COHORT_SHAPES:
+        dt = getattr(torch, dtype)
+        if dt.is_floating_point:
+            cache = torch.randn((s, d), generator=gen, device="cuda").to(dt)
+            rows = torch.randn((k, d), generator=gen, device="cuda").to(dt)
+        else:
+            cache = torch.randint(-2**31, 2**31 - 1, (s, d), generator=gen,
+                                  device="cuda", dtype=dt)
+            rows = torch.randint(-2**31, 2**31 - 1, (k, d), generator=gen,
+                                 device="cuda", dtype=dt)
+        slots = torch.randperm(s, generator=gen, device="cuda")[:k]
+        got = cohort_gather_scatter(cache, slots)
+        want = ref(cache, slots)
+        mine, plain = cache.clone(), cache.clone()
+        cohort_gather_scatter(mine, slots, rows)
+        ref(plain, slots, rows)
+        torch.cuda.synchronize()
+        err = max(float((got.double() - want.double()).abs().max()),
+                  float((mine.double() - plain.double()).abs().max()))
+        good = bool(torch.equal(got, want)) and bool(torch.equal(mine,
+                                                                 plain))
+        del mine, plain
+        ok &= good
+        worst = max(worst, err)
+        iters = 20 if d > 1_000_000 else 200
+        times = {
+            "gather": _time_ms(lambda: cohort_gather_scatter(cache, slots),
+                               iters),
+            "gather plain": _time_ms(lambda: ref(cache, slots), iters),
+            "gather library": _time_ms(
+                lambda: torch.index_select(cache, 0, slots), iters),
+            "scatter": _time_ms(
+                lambda: cohort_gather_scatter(cache, slots, rows), iters),
+            "scatter plain": _time_ms(lambda: ref(cache, slots, rows),
+                                      iters),
+            "scatter library": _time_ms(
+                lambda: cache.index_copy_(0, slots, rows), iters)}
+        bound_ms, bound_by = _larger_bound(
+            2 * k * d * cache.element_size() + 8 * k, 0)
+        print(f"kernel cohort_gather_scatter S={s} K={k} D={d} {dtype} "
+              f"({vector_width(cache, rows)}-byte copies): gather and "
+              f"scatter {'bitwise equal' if good else 'MISMATCH'}  "
+              + "  ".join(f"{n} {t:.5f} ms" for n, t in times.items())
+              + f"  bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+        if (s, k, d, dtype) == COHORT_SHAPES[0]:
+            main = {"ms": times["gather"], "plain_ms": times["gather plain"],
+                    "library_ms": times["gather library"],
+                    "bound_ms": bound_ms, "bound_by": bound_by}
     return ok, main, worst
 
 
@@ -450,6 +535,236 @@ def compare_qsgd_routes(torch, np, api, linear, optim, fl, fed):
     return ok
 
 
+def _same_params(torch, a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def run_population_m_equals_c(torch, api, linear, optim, fl, pop_mod, fed,
+                              cohort_gather_scatter):
+    """Phase 8: Adult-2 as an M == C = 16 population with the topk25_q100
+    spec, per round and resident (chunk 4, S = 16), against a dense train
+    of the same spec and seed. The resident run's kernel launches: 2 per
+    chunked round (residual gather + scatter) over 4 chunks of 4, 1 per
+    chunk (the FLState's residual view), 1 for the first chunk's promotion
+    and 1 for the flush before the 3-round budget tail."""
+    dim = fed.clients[0].x_train.shape[1]
+    spec = _sweep_spec(api, linear, optim, fl, fed, 1.0, "topk", 0.25)
+    dense, dout = api.train(spec, api.init_state(
+        spec, linear.init_linear(dim, device="cuda"), device="cuda"),
+        fed.make_sampler(BATCH), max_rounds=SWEEP_K // SWEEP_TAU)
+    pspec = spec.replace(population=fed.n_clients, cohort_size=fed.n_clients)
+    pop = pop_mod.population_from_federated(fed, BATCH)
+    ok = True
+    for label, kw, launches_want in (
+            ("per round", dict(chunk_rounds=1), 0),
+            ("resident chunk 4 S 16", dict(chunk_rounds=4,
+                                           resident_cache=16),
+             2 * 16 + 4 + 1 + 1)):
+        ps = pop_mod.init_population_state(
+            pspec, linear.init_linear(dim, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        cohort_gather_scatter.launches = 0
+        t0 = time.perf_counter()
+        ps, out = pop_mod.train_population(
+            pspec, ps, pop, max_rounds=SWEEP_K // SWEEP_TAU, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cohort_gather_scatter.launches
+        same = _same_params(torch, ps.fl.params, dense.params)
+        stats = out.get("resident_cache")
+        good = (out["rounds"] == dout["rounds"] == 19
+                and out["resource_spent"] == dout["resource_spent"] == 570.0
+                and out["max_epsilon"] == dout["max_epsilon"]
+                == 9.701942456923485
+                and same and launches == launches_want
+                and stats in (None, {"hits": 48, "misses": 16,
+                                     "evictions": 0, "flushes": 2}))
+        ok &= good
+        print(f"population M=C=16 {label}: rounds={out['rounds']} "
+              f"resource_spent={out['resource_spent']} "
+              f"max_epsilon={out['max_epsilon']!r} params vs dense train "
+              f"{'bitwise equal' if same else 'DIFFERENT'} cache {stats} "
+              f"cohort_gather_scatter launches={launches} (expected "
+              f"{launches_want}) ms_per_round="
+              f"{wall / max(out['rounds'], 1) * 1e3:.3f} (no eval) "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    return ok
+
+
+def _quickstart_spec(api, linear, optim):
+    return api.FederationSpec(
+        n_clients=QS_K, tau=QS_TAU, loss_fn=linear.logreg_loss,
+        optimizer=optim.sgd(0.3), clip_norm=1.0, dp=True,
+        population=QS_M, cohort_size=QS_K, compressor="topk",
+        compression_ratio=0.25, sigmas=(QS_SIGMA,) * QS_K,
+        batch_sizes=(QS_BATCH,) * QS_K, eps_th=1e9, c_th=1e9)
+
+
+def run_quickstart_resident(torch, np, api, linear, optim, pop_mod,
+                            cohort_gather_scatter):
+    """Phase 9: examples/population_quickstart.py's resident step on cuda
+    against 24 per-round calls. Returns (ok, launches). Launch formula: 4
+    per round (residual gather and scatter, the x and y shard gathers), 1
+    per chunk (the residual view), the promotions (per chunk the cold
+    residual rows and the 2 data leaves: 3, 3, and 4 in chunk 3, which
+    also gathers its 126 evicted rows), and 1 for the final flush."""
+    spec = _quickstart_spec(api, linear, optim)
+    pop = pop_mod.synthetic_population(QS_M, dim=QS_DIM,
+                                       batch_size=QS_BATCH, alpha=0.3,
+                                       seed=0, stationary=True)
+    want = 4 * QS_ROUNDS + 3 + (3 + 3 + 4) + 1
+    rs = pop_mod.init_population_state(
+        spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    cohort_gather_scatter.launches = 0
+    rs, out = pop_mod.train_population(spec, rs, pop, max_rounds=QS_ROUNDS,
+                                       chunk_rounds=QS_CHUNK,
+                                       resident_cache=QS_CACHE)
+    torch.cuda.synchronize()
+    launches = cohort_gather_scatter.launches
+    ps = pop_mod.init_population_state(
+        spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(QS_ROUNDS):
+        ps, _ = pop_mod.run_cohort_round(spec, ps, pop, rng,
+                                         check_budgets=False)
+    torch.cuda.synchronize()
+    vids = np.arange(QS_M)
+    same = (_same_params(torch, ps.fl.params, rs.fl.params)
+            and np.array_equal(ps.store.rho, rs.store.rho)
+            and np.array_equal(ps.store.gather_residual(vids),
+                               rs.store.gather_residual(vids)))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in rs.fl.params.values())
+    stats = out["resident_cache"]
+    hist = out["history"]
+    ok = (same and finite and out["rounds"] == QS_ROUNDS
+          and out["max_epsilon"] == 4.729618937506673
+          and out["resource_spent"] == 720.0
+          and stats == {"hits": 1, "misses": 382, "evictions": 126,
+                        "flushes": 1}
+          and rs.store.residual_rows() == 382 and launches == want)
+    print(f"population quickstart resident (M={QS_M:,}, K={QS_K}, "
+          f"S={QS_CACHE}, chunk {QS_CHUNK}): rounds={out['rounds']} "
+          f"max_epsilon={out['max_epsilon']!r} "
+          f"resource_spent={out['resource_spent']} cache {stats} residual "
+          f"rows {rs.store.residual_rows()} loss {hist[0]['loss']:.5f} -> "
+          f"{hist[-1]['loss']:.5f}; params, store.rho and every residual "
+          f"row vs {QS_ROUNDS} run_cohort_round calls "
+          f"{'bitwise equal' if same else 'DIFFERENT'}; "
+          f"cohort_gather_scatter launches={launches} (expected {want}) "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, launches, spec, pop
+
+
+def time_population_drivers(torch, linear, pop_mod, spec, pop):
+    """Phase 9: ms per round, eval off, of the per-round, chunk-boundary
+    (chunk 8) and resident (chunk 8, S 256) drivers, each training 24
+    rounds from a fresh state, in turns A B C C B A within this call."""
+    drivers = {"per-round": dict(chunk_rounds=1),
+               "chunk-boundary": dict(chunk_rounds=QS_CHUNK),
+               "resident": dict(chunk_rounds=QS_CHUNK,
+                                resident_cache=QS_CACHE)}
+    order = list(drivers) + list(drivers)[::-1]
+    times = {k: [] for k in drivers}
+    for name in order:
+        ps = pop_mod.init_population_state(
+            spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps, out = pop_mod.train_population(spec, ps, pop,
+                                           max_rounds=QS_ROUNDS,
+                                           **drivers[name])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / out["rounds"])
+    print("population drivers, ms per round over 24 rounds (eval off; "
+          "turns per-round, chunk-boundary, resident, resident, "
+          "chunk-boundary, per-round): " + "; ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in times.items()),
+          flush=True)
+
+
+def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
+    """Phase 9: one steady resident chunk (the third of the run: 8 rounds,
+    128 promotions, evictions) under torch.profiler, then the next chunk
+    under torch.cuda.set_sync_debug_mode("warn") to count its blocking host
+    syncs. Returns whether the chunks left finite params."""
+    from torch.profiler import ProfilerActivity, profile
+    st = pop_mod.init_population_state(
+        spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
+    cache = pop_mod.init_resident_cache(spec, st, QS_CACHE, population=pop)
+    rng = np.random.default_rng(0)
+
+    def chunk(st):
+        return pop_mod.run_resident_rounds(spec, st, pop, rng, cache,
+                                           n_rounds=QS_CHUNK,
+                                           check_budgets=False)[0]
+
+    for _ in range(2):
+        st = chunk(st)
+    torch.cuda.synchronize()
+    prof = None
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"phase 9: profile unavailable ({e!r})", flush=True)
+        prof = None
+    t0 = time.perf_counter()
+    st = chunk(st)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if prof is not None:
+        try:
+            prof.stop()
+            averages = prof.key_averages()
+            events = [e for e in averages if e.device_type.name == "CUDA"
+                      and e.device_time_total > 0]
+            device_ms = sum(e.device_time_total for e in events) / 1e3
+            n_launch = sum(e.count for e in events)
+            print(f"phase 9 resident chunk ({QS_CHUNK} rounds): wall "
+                  f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
+                  f"({device_ms / wall_ms:.1%}), {n_launch} kernel launches "
+                  f"({n_launch / QS_CHUNK:.1f} per round)", flush=True)
+            for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+                print(f"  {e.device_time_total / 1e3:9.4f} ms  "
+                      f"x{e.count:<5d} {e.key[:90]}", flush=True)
+            host = [e for e in averages if e.device_type.name == "CPU"]
+            print("phase 9 resident chunk: host ops by self CPU time",
+                  flush=True)
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+                print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  "
+                      f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        except Exception as e:    # noqa: BLE001 — the profiler is optional
+            print(f"phase 9: profile unavailable ({e!r})", flush=True)
+    syncs = []
+
+    def record(message, *args, **kwargs):
+        # each blocking call warns once; keep the innermost repro_torch line
+        # it came from
+        if "called a synchronizing CUDA operation" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "repro_torch" in f.filename]
+            syncs.append(f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                         if ours else "outside repro_torch")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st = chunk(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"phase 9 resident chunk under set_sync_debug_mode: "
+          f"{len(syncs)} blocking host syncs"
+          + "".join(f"\n  x{syncs.count(o)} {o}" for o in sorted(set(syncs))),
+          flush=True)
+    return all(bool(torch.isfinite(x).all()) for x in st.fl.params.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -464,12 +779,18 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import api, data, optim
+    from repro_torch import population as pop_mod
     from repro_torch.core import convergence as conv
     from repro_torch.core import design, fl
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cohort_gather_scatter import (
+        cohort_gather_scatter,
+        vector_width,
+    )
     from repro_torch.kernels.dp_clip_noise import dp_clip_noise
     from repro_torch.kernels.quantize_decompress import quantize_decompress
     from repro_torch.kernels.ref import (
+        cohort_gather_scatter_ref,
         dp_clip_noise_ref,
         quantize_decompress_ref,
     )
@@ -496,6 +817,9 @@ def main() -> int:
                                           dp_clip_noise_ref)
     ok_q, q_rec, q_worst = check_qsgd_kernel(torch, quantize_decompress,
                                              quantize_decompress_ref)
+    ok_g, g_rec, g_worst = check_cohort_kernel(
+        torch, cohort_gather_scatter, cohort_gather_scatter_ref,
+        vector_width)
 
     # -- 3. main path ---------------------------------------------------------
     ok_m, launches, spec, fed = run_main_path(
@@ -518,6 +842,17 @@ def main() -> int:
     # -- 7. the pipeline's kernel route against its plain route -------------
     ok_r = compare_qsgd_routes(torch, np, api, linear, optim, fl, fed2)
 
+    # -- 8. the population plane, M == C, against the dense path ------------
+    ok_p8 = run_population_m_equals_c(torch, api, linear, optim, fl, pop_mod,
+                                      fed2, cohort_gather_scatter)
+
+    # -- 9. the population quickstart's resident step -------------------------
+    ok_p9, g_launches, qs_spec, qs_pop = run_quickstart_resident(
+        torch, np, api, linear, optim, pop_mod, cohort_gather_scatter)
+    time_population_drivers(torch, linear, pop_mod, qs_spec, qs_pop)
+    ok_p9 &= profile_resident_chunk(torch, np, linear, pop_mod, qs_spec,
+                                    qs_pop)
+
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
@@ -532,7 +867,14 @@ def main() -> int:
         "launches": q_launches, "max_abs_err": q_worst,
         "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
         "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "cohort_gather_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
+        "replaces": "src/repro/kernels/cohort_gather.py:64",
+        "launches": g_launches, "max_abs_err": g_worst,
+        "ms": g_rec["ms"], "plain_ms": g_rec["plain_ms"],
+        "bound_ms": g_rec["bound_ms"], "bound_by": g_rec["bound_by"],
+        "library_ms": g_rec["library_ms"]}]}), flush=True)
     for ok, what in ((ok_k, "a kernel disagrees with its plain version"),
                      (ok_q, "quantize_decompress is not bit-identical to "
                             "its plain version"),
@@ -542,7 +884,12 @@ def main() -> int:
                      (ok_s, "the steady rounds gave non-finite params"),
                      (ok_c, "the comm sweep's checks failed"),
                      (ok_r, "the pipeline's kernel route disagrees with its "
-                            "plain route")):
+                            "plain route"),
+                     (ok_g, "cohort_gather_scatter is not bit-identical to "
+                            "its plain version"),
+                     (ok_p8, "the M == C population's checks failed"),
+                     (ok_p9, "the quickstart resident step's checks "
+                             "failed")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

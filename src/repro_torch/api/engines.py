@@ -21,13 +21,20 @@ sigmas (C,). A spec with an aggregation pipeline gets the pipeline round,
 clip + noise runs through the ``dp_clip_noise`` kernel, and the qsgd
 compressor through ``quantize_decompress``, on the spec's
 ``kernel_backend``. Round functions are cached per ``spec.engine_key()``.
+The population plane's resident chunk
+(:func:`resident_chunked_round_fn_for`) moves cohort rows through the
+``cohort_gather_scatter`` kernel.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
 from repro_torch.api.spec import FederationSpec
-from repro_torch.core.fl import make_chunked_round, make_round_step
+from repro_torch.core.fl import (
+    make_chunked_round,
+    make_resident_chunked_round,
+    make_round_step,
+)
 
 RoundFn = Callable[..., tuple[Any, Any, dict]]
 _PORTED = ("vmap", "map")
@@ -69,3 +76,39 @@ def chunked_round_fn_for(spec: FederationSpec) -> RoundFn:
     pipeline form draws each round's mask inside it)."""
     return make_chunked_round(round_fn_for(spec),
                               pipeline=spec.aggregation_pipeline())
+
+
+# the resident chunk draws each round's mask inside its loop, so the
+# participant count is baked in and keys the cache beside the engine key
+_RESIDENT_FN_CACHE: dict[tuple, RoundFn] = {}
+
+
+def resident_chunked_round_fn_for(spec: FederationSpec,
+                                  data_resident: bool = False) -> RoundFn:
+    """The R-round chunk of the resident-cohort population driver: the
+    engine's pipeline round wrapped by
+    :func:`repro_torch.core.fl.make_resident_chunked_round`,
+
+        fn(params, opt_state, batches, slots, key, sigmas, cache)
+            -> (params, opt_state, key, cache, metrics, masks)
+
+    ``data_resident=True`` takes the (S, tau, B, ...) warm-shard cache as
+    ``batches`` (stationary populations). Cached per (engine key,
+    participant count, data_resident). A spec without a pipeline has no
+    device-resident sticky state, so it is refused: its resident driver
+    uses :func:`chunked_round_fn_for`."""
+    if not spec.has_pipeline():
+        raise ValueError(
+            "resident_chunked_round_fn_for is the pipeline (compressed / "
+            "partial-participation) form; without a pipeline there is no "
+            "device-resident sticky state: use chunked_round_fn_for")
+    key = (spec.engine_key(), spec.participants_per_round(), data_resident)
+    fn = _RESIDENT_FN_CACHE.pop(key, None)
+    if fn is None:
+        fn = make_resident_chunked_round(
+            round_fn_for(spec), spec.aggregation_pipeline(),
+            kernel_backend=spec.kernel_backend, data_resident=data_resident)
+        while len(_RESIDENT_FN_CACHE) >= _ROUND_FN_CACHE_MAX:
+            _RESIDENT_FN_CACHE.pop(next(iter(_RESIDENT_FN_CACHE)))
+    _RESIDENT_FN_CACHE[key] = fn   # (re)insert at MRU position
+    return fn

@@ -2,10 +2,12 @@
 
 :class:`FederationSpec` has the JAX package's fields and validation. The
 port runs the resident protocol, dense or through the aggregation pipeline
-(partial participation, compressed error-fed updates), on the ``vmap`` and
-``map`` engines; a spec that asks for a plane the port does not have yet (a
-population, robust or secure aggregation, the sharded or async engines)
-raises ``NotImplementedError`` naming its ROADMAP item.
+(partial participation, compressed error-fed updates), and cohorts of K
+drawn from a virtual population of M (``population=M``, driven by
+:mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines; a spec
+that asks for a plane the port does not have yet (robust or secure
+aggregation, the sharded or async engines) raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -79,9 +81,11 @@ class FederationSpec:
     byzantine_fraction: float = 0.0
     attack_scale: float = 10.0
 
-    # -- virtual client population (item 7) --------------------------------
-    population: int | None = None
-    cohort_size: int | None = None
+    # -- virtual client population (repro_torch.population) ---------------
+    population: int | None = None   # M virtual clients; n_clients is then
+    #   the per-round cohort K. Not part of engine_key(): sweeping M reuses
+    #   the round function, and the device block holds K replicas
+    cohort_size: int | None = None  # K (defaults to n_clients; must equal it)
 
     # -- 2D mesh plane (item 12) -------------------------------------------
     mesh_shape: tuple[int, int] | None = None
@@ -120,8 +124,6 @@ class FederationSpec:
         if self.engine in _UNPORTED_ENGINES:
             raise _not_ported(f"engine={self.engine!r}",
                               _UNPORTED_ENGINES[self.engine])
-        if self.population is not None:
-            raise _not_ported("population mode", "item 7")
         if self.is_adversarial():
             raise _not_ported("robust aggregation, secure aggregation and "
                               "update attacks", "item 8")
@@ -306,14 +308,27 @@ class FederationSpec:
         """Realized q = participants / n_clients (drives amplification)."""
         return self.participants_per_round() / self.n_clients
 
+    def is_population(self) -> bool:
+        """Cohort execution: n_clients is a per-round cohort of K drawn from
+        ``population`` virtual clients (:mod:`repro_torch.population`)."""
+        return self.population is not None
+
+    def cohort_fraction(self) -> float:
+        """K/M, the cohort subsampling rate over the population (1.0
+        without a population, where every client is in every round)."""
+        if self.population is None:
+            return 1.0
+        return self.n_clients / self.population
+
     def accounting_q(self) -> float:
         """The q the privacy ledger charges per realized step: 1.0 (the
         full Lemma-2 rho, the sound conditional ledger) by default; with
         ``amplify_participation``, the probability that a given client
-        realizes a step in a round (no population: cohort fraction 1 times
-        the participation fraction)."""
+        realizes a step in a round: the cohort fraction K/M times the
+        within-cohort participation fraction."""
         if self.amplify_participation:
-            return composed_subsampling_q(1.0, self.participation_fraction())
+            return composed_subsampling_q(self.cohort_fraction(),
+                                          self.participation_fraction())
         return 1.0
 
     def wire_ratio(self) -> float:

@@ -35,6 +35,7 @@ from torch.func import vmap
 from repro_torch.core.aggregation import participation_mask
 from repro_torch.core.clipping import make_dp_grad_fn, make_plain_grad_fn
 from repro_torch.core.privacy import sigma_star
+from repro_torch.kernels.ops import cohort_gather, cohort_scatter
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import (
     tree_add,
@@ -241,6 +242,64 @@ def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:
         }, torch.stack(masks)
 
     return chunk_fn if pipeline is None else chunk_fn_pipeline
+
+
+def make_resident_chunked_round(round_fn: Callable, pipeline,
+                                kernel_backend: str = "auto",
+                                data_resident: bool = False) -> Callable:
+    """:func:`make_chunked_round`'s pipeline form with a fresh cohort per
+    round, its sticky rows in the device-resident cohort cache:
+
+        chunk_fn(params, opt_state, batches, slots, key, sigmas, cache)
+            -> (params, opt_state, key, cache, metrics, masks)
+
+    ``slots`` is the (R, K) int64 per-round cohort -> cache-slot plan on the
+    device, ``cache`` the (S, D) f32 error-feedback residual block (or
+    ``None`` for a pipeline without a compressor) and ``batches`` leaves are
+    (R, K, tau, B, ...). Each round gathers its cohort's K residual rows out
+    of the cache with the ``cohort_gather_scatter`` kernel, draws its mask,
+    noise and ``agg_rand`` with :func:`draw_pipeline_round` exactly as
+    :func:`repro_torch.api.run_round` does, runs the unchanged pipeline
+    round, and scatters the updated rows back into the cache in place. So
+    the chunk runs the per-round driver's ops, on the same shapes and in the
+    same order, and equals R per-round calls bit for bit.
+
+    ``data_resident=True`` is the stationary-population form: ``batches`` is
+    then the (S, tau, B, ...) warm-shard cache and each round's
+    (K, tau, B, ...) batch is gathered from it by slot through the same
+    kernel (every leaf viewed as (S, row) rows), so the chunk reads no
+    host-built data."""
+    def gather_shards(batches, slot):
+        def one(x):
+            rows = cohort_gather(x.reshape(x.shape[0], -1), slot,
+                                 backend=kernel_backend)
+            return rows.reshape((slot.shape[0],) + tuple(x.shape[1:]))
+        return tree_map(one, batches)
+
+    def chunk_fn(params, opt_state, batches, slots, key, sigmas, cache):
+        tau = (tree_leaves(batches)[0].shape[1] if data_resident
+               else tree_leaves(batches)[0].shape[2])
+        ms, masks = [], []
+        for r in range(slots.shape[0]):
+            slot = slots[r]
+            batch = (gather_shards(batches, slot) if data_resident
+                     else tree_map(lambda x: x[r], batches))
+            mask, noise, agg_rand, key = draw_pipeline_round(
+                key, params, tau, pipeline)
+            rows = (cohort_gather(cache, slot, backend=kernel_backend)
+                    if cache is not None else None)
+            params, opt_state, rows, m = round_fn(
+                params, opt_state, batch, noise, sigmas, mask, rows,
+                agg_rand)
+            if cache is not None:
+                cohort_scatter(cache, slot, rows, backend=kernel_backend)
+            ms.append(m)
+            masks.append(mask)
+        return params, opt_state, key, cache, {
+            k: torch.stack([m[k] for m in ms]) for k in ms[0]
+        }, torch.stack(masks)
+
+    return chunk_fn
 
 
 def design_sigmas(k: int, clip_norm: float, batch_sizes: list[int],

@@ -8,9 +8,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
 from repro_torch.kernels.quantize_decompress import quantize_decompress
-from repro_torch.kernels.ref import dp_clip_noise_ref, quantize_decompress_ref
+from repro_torch.kernels.ref import (
+    cohort_gather_scatter_ref,
+    dp_clip_noise_ref,
+    quantize_decompress_ref,
+)
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 KERNEL_BACKENDS = ("auto", "ref")
@@ -62,3 +67,21 @@ def quantize_decompress_rows(x, u, bits: int, backend: str = "auto"):
     kernel = quantize_decompress_ref if backend == "ref" else \
         quantize_decompress
     return kernel(x, u, bits)
+
+
+def cohort_gather(cache, slots, backend: str = "auto"):
+    """The cohort's (K, D) rows out of the (S, D) resident cache, as a new
+    tensor (a copy: later scatters into the cache leave it alone)."""
+    validate_backend(backend)
+    kernel = cohort_gather_scatter_ref if backend == "ref" else \
+        cohort_gather_scatter
+    return kernel(cache, slots)
+
+
+def cohort_scatter(cache, slots, rows, backend: str = "auto"):
+    """Write the cohort's updated (K, D) rows into the (S, D) resident
+    cache, in place; returns the cache."""
+    validate_backend(backend)
+    kernel = cohort_gather_scatter_ref if backend == "ref" else \
+        cohort_gather_scatter
+    return kernel(cache, slots, rows)

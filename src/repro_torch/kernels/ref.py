@@ -46,3 +46,17 @@ def quantize_decompress_ref(x, u, bits: int):
     scale = torch.clamp(torch.amax(absx, dim=1), min=1e-30) * inv_levels
     level = torch.floor(absx / scale[:, None] + u.to(torch.float32))
     return (torch.sign(x32) * level * scale[:, None]).to(x.dtype), scale
+
+
+def cohort_gather_scatter_ref(cache, slots, rows=None):
+    """Cohort row gather / scatter: for the (S, D) ``cache`` and the (K,)
+    unique ``slots``
+
+        gather  (``rows=None``): returns ``cache[slots]``, a new (K, D)
+        scatter: ``cache[slots] = rows`` in place, returns ``cache``
+
+    A pure copy, so every route is bit-identical."""
+    slots = slots.to(torch.int64)
+    if rows is None:
+        return torch.index_select(cache, 0, slots)
+    return cache.index_copy_(0, slots, rows)

@@ -23,9 +23,12 @@ class Optimizer:
 
 
 def _resolve_lr(lr, step):
+    """The learning rate as an f32 tensor on the step's device; a constant
+    is filled in place there (a host-to-device copy would block the host
+    once per step)."""
     if callable(lr):
         return lr(step)
-    return torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+    return torch.full((), lr, dtype=torch.float32, device=step.device)
 
 
 def _zero_step(params):

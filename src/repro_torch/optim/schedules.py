@@ -8,7 +8,7 @@ import torch
 
 def constant(lr: float):
     def sched(step):
-        return torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+        return torch.full((), lr, dtype=torch.float32, device=step.device)
     return sched
 
 

@@ -67,7 +67,7 @@ def test_spec_validation_matches_jax(bad):
 
 @pytest.mark.parametrize("plane,item", [
     (dict(engine="shard_map"), "item 12"), (dict(engine="mesh_2d"), "item 12"),
-    (dict(engine="async_buffered"), "item 9"), (dict(population=16), "item 7"),
+    (dict(engine="async_buffered"), "item 9"),
     (dict(secure_agg=True), "item 8"), (dict(aggregator="median"), "item 8"),
     (dict(attack="sign_flip", byzantine_fraction=0.25), "item 8"),
 ])

@@ -1,11 +1,13 @@
-"""The port's kernel modules (``dp_clip_noise``, ``quantize_decompress``)
-against the JAX package.
+"""The port's kernel modules (``dp_clip_noise``, ``quantize_decompress``,
+``cohort_gather_scatter``) against the JAX package.
 
 On the CPU a wrapper runs its kernel's plain version, so here the plain
 ``dp_clip_noise`` is held against JAX's Pallas kernel (interpret mode) and
 its jnp reference on the same numpy-seeded inputs, at atol 1e-6 (sums taken
 in another order); the plain ``quantize_decompress`` is held bit for bit
-against JAX in ``tests/test_torch_aggregation.py``. The hand-written CUDA
+against JAX in ``tests/test_torch_aggregation.py``; the plain
+``cohort_gather_scatter`` bit for bit against JAX's reference and its Pallas
+kernel (interpret mode) here. The hand-written CUDA
 kernels themselves are held against their plain versions by the ``gpu``
 tests at the end, which need a card:
 
@@ -22,18 +24,28 @@ try:        # the reference; absent where only the gpu tests run
     import jax
     import jax.numpy as jnp
     from repro.kernels import ref as jref
+    from repro.kernels.cohort_gather import (
+        cohort_gather_scatter as jax_cohort_gather_scatter,
+    )
     from repro.kernels.dp_clip_noise import dp_clip_noise as jax_dp_clip_noise
     from repro.kernels.ops import dp_clip_noise_tree as jax_dp_clip_noise_tree
 except ModuleNotFoundError:
     jax = None
 
+from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
 from repro_torch.kernels.ops import (
+    cohort_gather,
+    cohort_scatter,
     dp_clip_noise_tree,
     quantize_decompress_rows,
 )
 from repro_torch.kernels.quantize_decompress import quantize_decompress
-from repro_torch.kernels.ref import dp_clip_noise_ref, quantize_decompress_ref
+from repro_torch.kernels.ref import (
+    cohort_gather_scatter_ref,
+    dp_clip_noise_ref,
+    quantize_decompress_ref,
+)
 
 ATOL = 1e-6
 
@@ -237,6 +249,130 @@ def test_quantize_rows_backends_agree_on_cpu_and_reject_unknown():
         quantize_decompress_rows(x, u, 6, backend="pallas")
 
 
+# -------------------------- cohort_gather_scatter ----------------------------
+
+def _cohort_arrays(s, k, d, dtype, seed):
+    """A numpy (S, D) cache, K unique slots and (K, D) rows; ``dtype`` is a
+    numpy dtype name or "bfloat16" (made as f32 values bf16 holds)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(s)[:k].astype(np.int32)
+    if dtype == "int32":
+        return (rng.integers(-2**31, 2**31 - 1, size=(s, d), dtype=np.int32),
+                slots,
+                rng.integers(-2**31, 2**31 - 1, size=(k, d), dtype=np.int32))
+    cache = rng.normal(size=(s, d)).astype(np.float32)
+    rows = rng.normal(size=(k, d)).astype(np.float32)
+    if dtype == "bfloat16":       # values bf16 holds exactly
+        cache = (cache.view(np.uint32) & 0xFFFF0000).view(np.float32)
+        rows = (rows.view(np.uint32) & 0xFFFF0000).view(np.float32)
+    return cache, slots, rows
+
+
+def _to_torch(a, dtype):
+    t = torch.as_tensor(a)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else None)
+
+
+def _bits(x) -> np.ndarray:
+    """The raw bits of a torch or JAX array, for bitwise comparison."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy()
+        return x.numpy().view(np.uint8)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return x.view(np.int16)
+    return x.view(np.uint8)
+
+
+# the shapes of tests/test_kernels.py's cohort_gather_scatter cases, plus
+# int32 rows (the data leaves' labels) and the resident driver's residual
+COHORT_CASES = [(9, 3, 5, "float32"), (64, 8, 130, "float32"),
+                (16, 4, 33, "bfloat16"), (9, 3, 5, "int32"),
+                (256, 16, 40, "int32"), (256, 16, 42, "float32")]
+
+
+@pytest.mark.parametrize("s,k,d,dtype", COHORT_CASES,
+                         ids=[f"s{s}-k{k}-d{d}-{t}"
+                              for s, k, d, t in COHORT_CASES])
+@pytest.mark.parametrize("scatter", [False, True], ids=["gather", "scatter"])
+def test_cohort_plain_version_matches_jax_ref_and_pallas_bitwise(s, k, d,
+                                                                 dtype,
+                                                                 scatter):
+    cache, slots, rows = _cohort_arrays(s, k, d, dtype, seed=s + k + d)
+    tc, ts, tr = _to_torch(cache, dtype), torch.as_tensor(slots), \
+        _to_torch(rows, dtype)
+    jargs = (_to_jax(cache, dtype), jnp.asarray(slots)) + (
+        (_to_jax(rows, dtype),) if scatter else ())
+    got = cohort_gather_scatter(tc, ts, tr if scatter else None)
+    want_ref = jref.cohort_gather_scatter_ref(*jargs)
+    want_pallas = jax_cohort_gather_scatter(*jargs, interpret=True)
+    assert got.shape == want_ref.shape
+    np.testing.assert_array_equal(_bits(got), _bits(want_ref))
+    np.testing.assert_array_equal(_bits(got), _bits(want_pallas))
+    if scatter:                     # in place: the cache itself came back
+        assert got is tc
+
+
+def test_cohort_gather_is_a_copy_and_scatter_keeps_other_rows():
+    """The gathered rows do not alias the cache (a later scatter leaves them
+    alone), and a scatter changes exactly the slot rows."""
+    cache, slots, rows = _cohort_arrays(12, 4, 7, "float32", seed=0)
+    tc = torch.as_tensor(cache.copy())
+    ts = torch.as_tensor(slots).to(torch.int64)
+    before = cohort_gather(tc, ts)
+    ptr = tc.data_ptr()
+    out = cohort_scatter(tc, ts, torch.as_tensor(rows))
+    assert out.data_ptr() == ptr
+    np.testing.assert_array_equal(before.numpy(), cache[slots])
+    want = cache.copy()
+    want[slots] = rows
+    np.testing.assert_array_equal(tc.numpy(), want)
+    for backend in ("auto", "ref"):
+        np.testing.assert_array_equal(
+            cohort_gather(tc, ts, backend=backend).numpy(), rows)
+
+
+@pytest.mark.parametrize("bad", ["rank", "empty_cache", "slots_float",
+                                 "slots_rank", "slots_empty", "rows_dtype",
+                                 "rows_shape", "rows_strided", "backend"])
+def test_cohort_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    cache = torch.zeros((6, 4))
+    slots = torch.tensor([0, 3], dtype=torch.int64)
+    rows = torch.ones((2, 4))
+    if bad == "rank":
+        cache = cache.reshape(24)
+    elif bad == "empty_cache":
+        cache = torch.zeros((6, 0))
+        rows = torch.zeros((2, 0))
+    elif bad == "slots_float":
+        slots = slots.float()
+    elif bad == "slots_rank":
+        slots = slots.reshape(1, 2)
+    elif bad == "slots_empty":
+        slots = slots[:0]
+    elif bad == "rows_dtype":
+        rows = rows.double()
+    elif bad == "rows_shape":
+        rows = torch.ones((3, 4))
+    elif bad == "rows_strided":
+        rows = torch.ones((4, 2)).t()
+    with pytest.raises(ValueError):
+        if bad == "backend":
+            cohort_scatter(cache, slots, rows, backend="pallas")
+        else:
+            cohort_gather_scatter(cache, slots, rows)
+
+
+def test_cohort_plain_version_refuses_out_of_range_slots():
+    with pytest.raises(IndexError):
+        cohort_gather(torch.zeros((4, 3)), torch.tensor([1, 4]))
+
+
 # ------------------------------ on the card ---------------------------------
 
 @pytest.fixture
@@ -281,6 +417,96 @@ def test_cuda_quantize_decompress_equals_plain_version_bitwise(cuda_device,
     wy, ws = quantize_decompress_ref(tx, tu, bits)
     assert torch.equal(scale, ws)
     assert torch.equal(y, wy)
+
+
+# dtypes x row lengths: 16-, 8-, 4-, 2- and 1-byte copies, rows shorter than
+# one vector, and rows that span several blocks
+GPU_COHORT_DTYPES = [torch.float32, torch.bfloat16, torch.int32, torch.uint8,
+                     torch.float64, torch.int16]
+GPU_COHORT_D = [1, 5, 33, 40, 42, 130, 4099]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_COHORT_DTYPES,
+                         ids=[str(t).split(".")[1] for t in GPU_COHORT_DTYPES])
+@pytest.mark.parametrize("d", GPU_COHORT_D)
+def test_cuda_cohort_gather_scatter_equals_plain_version_bitwise(cuda_device,
+                                                                 dtype, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    s, k = 37, 11
+    cache = torch.randint(0, 255, (s, d), generator=gen, device=cuda_device,
+                          dtype=torch.uint8)
+    cache = torch.randn((s, d), generator=gen, device=cuda_device).to(dtype) \
+        if dtype.is_floating_point else cache.to(dtype)
+    slots = torch.randperm(s, generator=gen, device=cuda_device)[:k]
+    rows = cache[torch.randperm(s, generator=gen, device=cuda_device)[:k]] \
+        .flip(1).contiguous()
+    for sl in (slots, slots.to(torch.int32)):
+        before = cohort_gather_scatter.launches
+        got = cohort_gather_scatter(cache, sl)
+        assert cohort_gather_scatter.launches == before + 1
+        assert torch.equal(got, cohort_gather_scatter_ref(cache, sl))
+        mine, plain = cache.clone(), cache.clone()
+        ptr = mine.data_ptr()
+        out = cohort_gather_scatter(mine, sl, rows)
+        torch.cuda.synchronize()
+        assert out is mine and mine.data_ptr() == ptr
+        cohort_gather_scatter_ref(plain, sl, rows)
+        assert torch.equal(mine, plain)
+        untouched = torch.ones(s, dtype=torch.bool, device=cuda_device)
+        untouched[sl.long()] = False
+        assert torch.equal(mine[untouched], cache[untouched])
+
+
+@pytest.mark.gpu
+def test_cuda_cohort_unaligned_pointers_take_narrower_copies(cuda_device):
+    """Contiguous views at odd offsets still copy exactly (the kernel drops
+    to the widest width the pointers allow)."""
+    from repro_torch.kernels.cohort_gather_scatter import vector_width
+    big = torch.arange(9 * 41, dtype=torch.float32,
+                       device=cuda_device).reshape(9, 41)
+    cache = big.reshape(-1)[1:1 + 8 * 40].reshape(8, 40)    # 4-byte aligned
+    rows = torch.arange(3 * 40, dtype=torch.float32,
+                        device=cuda_device).reshape(3, 40) * -1
+    slots = torch.tensor([6, 0, 3], device=cuda_device)
+    assert vector_width(cache, rows) == 4
+    assert torch.equal(cohort_gather_scatter(cache, slots),
+                       cohort_gather_scatter_ref(cache, slots))
+    want = cache.clone()
+    cohort_gather_scatter_ref(want, slots, rows)
+    cohort_gather_scatter(cache, slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, want)
+    aligned = torch.empty((8, 40), device=cuda_device)
+    assert vector_width(aligned, rows) == 16
+
+
+@pytest.mark.gpu
+def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
+    """A slot outside [0, S) never touches memory past the cache: the
+    kernel traps and the next synchronisation raises (in a child process,
+    since a trap ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    code = ("import torch\n"
+            "from repro_torch.kernels.cohort_gather_scatter import "
+            "cohort_gather_scatter as f\n"
+            "c = torch.zeros((4, 8), device='cuda')\n"
+            "f(c, torch.tensor([1, 4], device='cuda'))\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError:\n"
+            "    import os\n"
+            "    os._exit(3)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": src})
+    assert proc.returncode == 3, proc.stderr[-2000:]
 
 
 if __name__ == "__main__":
