@@ -34,7 +34,21 @@ Phases (each prints its lines; any failure exits non-zero):
      bitwise equal to 24 run_cohort_round calls, the JAX package's epsilon,
      cost and cache stats exactly, the launch formula; then ms per round of
      the per-round, chunk-boundary and resident drivers, a profile of one
-     steady resident chunk and its blocking host syncs.
+     steady resident chunk and its blocking host syncs;
+ 10. flash_attention, rwkv6_scan and mamba2_ssd against their plain
+     versions at the serving path's shapes and a ragged small one, f32 and
+     bf16, timed beside their bounds (flash also beside torch's
+     scaled_dot_product_attention, the yardstick the port never calls);
+ 11. static serving at full width through repro_torch.launch.serve.generate
+     (bf16, random weights from a seed, batch 2): gemma3-4b with a
+     2048-token prompt, rwkv6-1.6b and zamba2-7b with 512, 32 greedy tokens
+     each; exact kernel launches (34 flash; 24 x 33 rwkv6_scan; 13 flash +
+     81 mamba2_ssd), finite logits, prefill and decode times, peak memory,
+     one profiled decode step;
+ 12. kernel_backend "auto" against "ref" on the same params, prefill and 8
+     teacher-forced decode steps: f32 with the depth cut to one step of
+     each segment; bf16 at full depth, each route held against the f32
+     computation on the same params.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -53,6 +67,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
 BATCH, LR, CLIP = 32, 0.3, 1.0
 SHAPES = ((16, 210), (23, 202), (16, 4_194_304))   # main path, Vehicle-1, big
@@ -74,6 +89,18 @@ COHORT_SHAPES = ((256, 16, 42, "float32"), (16, 16, 210, "float32"),
 QS_M, QS_K, QS_DIM, QS_BATCH, QS_TAU, QS_SIGMA, QS_ROUNDS = (
     100_000, 16, 20, 8, 5, 0.8, 24)
 QS_CACHE, QS_CHUNK = 256, 8
+# phase 10: (B, H, S, hd, window) gemma3's prefill full and windowed,
+# zamba2's shared attention, a ragged small one; (B, H, S, hd, from s0)
+# rwkv6's prefill and decode step, a ragged small one; (B, S, H, P, N,
+# chunk) zamba2's SSD and a small one of several chunks
+FLASH_SHAPES = ((2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024),
+                (2, 32, 512, 112, 0), (1, 3, 77, 48, 20))
+RWKV_SHAPES = ((2, 32, 512, 64, False), (2, 32, 1, 64, True),
+               (1, 3, 45, 32, True))
+SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (1, 48, 3, 16, 8, 16))
+# phases 11-12: (arch, prompt length, generated tokens), batch 2
+SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
+              ("zamba2-7b", 512, 32))
 
 
 def _fail(msg: str) -> int:
@@ -95,6 +122,50 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _profile_call(torch, fn, label):
+    """``fn()`` under torch.profiler; prints its wall time, the device's
+    busy share, its kernel launches, the top device kernels and the top
+    host ops. ``fn`` always runs; only the profiler's start, stop and report
+    are optional. Returns (fn's result, the launches or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = None
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"{label}: profile unavailable ({e!r})", flush=True)
+        prof = None
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if prof is None:
+        return out, None
+    try:
+        prof.stop()
+        averages = prof.key_averages()
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"{label}: profile unavailable ({e!r})", flush=True)
+        return out, None
+    events = [e for e in averages
+              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    device_ms = sum(e.device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    print(f"{label}: wall {wall_ms:.3f} ms (profiled), device busy "
+          f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%}), {launches} "
+          f"kernel launches", flush=True)
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  {e.device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    host = [e for e in averages if e.device_type.name == "CPU"]
+    print(f"{label}: host ops by self CPU time", flush=True)
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    return out, launches
+
+
 def _bound_ms(rows: int, n: int, with_noise: bool) -> tuple[float, str]:
     """The least time the card could take for dp_clip_noise, and what
     bounds it. Bytes: g (and noise, sigma) read once, y and norm written
@@ -112,9 +183,10 @@ def _qsgd_bound_ms(rows: int, n: int) -> tuple[float, str]:
     return _larger_bound(4 * (3 * rows * n + rows), 8 * rows * n)
 
 
-def _larger_bound(nbytes: int, ops: int) -> tuple[float, str]:
+def _larger_bound(nbytes: int, ops: int,
+                  peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_FLOPS_PER_S * 1e3
+    by_ops = ops / peak * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -344,10 +416,8 @@ def compare_backends(torch, np, api, linear, spec, fed):
 def profile_rounds(torch, np, api, linear, spec, fed, label, n_timed=20):
     """Phase 5 (and the end of phase 6): steady per-round time of ``spec``'s
     round (batches built beforehand), then device time by kernel over 3
-    rounds; ``label`` starts each line. The rounds always run; only the
-    profiler's start, stop and report are optional. Returns whether every
-    round left finite params."""
-    from torch.profiler import ProfilerActivity, profile
+    rounds; ``label`` starts each line. Returns whether every round left
+    finite params."""
     state = api.init_state(spec, linear.init_linear(
         fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
     rng = np.random.default_rng(2)
@@ -364,44 +434,18 @@ def profile_rounds(torch, np, api, linear, spec, fed, label, n_timed=20):
     print(f"{label}: steady round (tau={spec.tau}, batches prebuilt, no "
           f"eval): {per_round:.3f} ms/round over {n_timed} rounds",
           flush=True)
-    try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.start()
-    except Exception as e:        # noqa: BLE001 — the profiler is optional
-        print(f"{label}: profile unavailable ({e!r})", flush=True)
-        prof = None
-    t0 = time.perf_counter()
-    for b in batches[-3:]:
-        state, _ = api.run_round(spec, state, b, check_budgets=False)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def last_rounds():
+        st = state
+        for b in batches[-3:]:
+            st, _ = api.run_round(spec, st, b, check_budgets=False)
+        return st
+
+    state, _ = _profile_call(torch, last_rounds,
+                             f"{label}: profile, 3 rounds")
     finite = all(bool(torch.isfinite(x).all()) for x in state.params.values())
     print(f"{label}: {n_timed + 5} rounds, params finite: {finite}",
           flush=True)
-    if prof is None:
-        return finite
-    try:
-        prof.stop()
-        averages = prof.key_averages()
-    except Exception as e:        # noqa: BLE001 — the profiler is optional
-        print(f"{label}: profile unavailable ({e!r})", flush=True)
-        return finite
-    events = [e for e in averages
-              if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    device_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"{label}: profile, 3 rounds: wall {wall_ms:.3f} ms, device busy "
-          f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%}), "
-          f"{sum(e.count for e in events)} kernel launches", flush=True)
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
-        print(f"  {e.device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
-    host = [e for e in averages if e.device_type.name == "CPU"]
-    print(f"{label}: profile, 3 rounds: host ops by self CPU time",
-          flush=True)
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
-        print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
     return finite
 
 
@@ -689,7 +733,6 @@ def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
     128 promotions, evictions) under torch.profiler, then the next chunk
     under torch.cuda.set_sync_debug_mode("warn") to count its blocking host
     syncs. Returns whether the chunks left finite params."""
-    from torch.profiler import ProfilerActivity, profile
     st = pop_mod.init_population_state(
         spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
     cache = pop_mod.init_resident_cache(spec, st, QS_CACHE, population=pop)
@@ -703,41 +746,11 @@ def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
     for _ in range(2):
         st = chunk(st)
     torch.cuda.synchronize()
-    prof = None
-    try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.start()
-    except Exception as e:        # noqa: BLE001 — the profiler is optional
-        print(f"phase 9: profile unavailable ({e!r})", flush=True)
-        prof = None
-    t0 = time.perf_counter()
-    st = chunk(st)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    if prof is not None:
-        try:
-            prof.stop()
-            averages = prof.key_averages()
-            events = [e for e in averages if e.device_type.name == "CUDA"
-                      and e.device_time_total > 0]
-            device_ms = sum(e.device_time_total for e in events) / 1e3
-            n_launch = sum(e.count for e in events)
-            print(f"phase 9 resident chunk ({QS_CHUNK} rounds): wall "
-                  f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
-                  f"({device_ms / wall_ms:.1%}), {n_launch} kernel launches "
-                  f"({n_launch / QS_CHUNK:.1f} per round)", flush=True)
-            for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
-                print(f"  {e.device_time_total / 1e3:9.4f} ms  "
-                      f"x{e.count:<5d} {e.key[:90]}", flush=True)
-            host = [e for e in averages if e.device_type.name == "CPU"]
-            print("phase 9 resident chunk: host ops by self CPU time",
-                  flush=True)
-            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
-                print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  "
-                      f"x{e.count:<5d} {e.key[:90]}", flush=True)
-        except Exception as e:    # noqa: BLE001 — the profiler is optional
-            print(f"phase 9: profile unavailable ({e!r})", flush=True)
+    label = f"phase 9 resident chunk ({QS_CHUNK} rounds)"
+    st, n_launch = _profile_call(torch, lambda: chunk(st), label)
+    if n_launch is not None:
+        print(f"{label}: {n_launch / QS_CHUNK:.1f} launches per round",
+              flush=True)
     syncs = []
 
     def record(message, *args, **kwargs):
@@ -765,6 +778,383 @@ def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
     return all(bool(torch.isfinite(x).all()) for x in st.fl.params.values())
 
 
+# -- phases 10-12: the transformer serving path -------------------------------
+
+def _visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs causal attention with ``window`` (0: none)
+    computes over S tokens."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _peak(dtype, torch) -> tuple[float, str]:
+    return ((BF16_FLOPS_PER_S, "bf16 tensor cores") if dtype == torch.bfloat16
+            else (F32_FLOPS_PER_S, "f32"))
+
+
+def _flash_bound(torch, b, h, s, hd, window, dtype):
+    """Bytes: q, k, v read once, the output written once. Operations: per
+    visible (query, key) pair 2 hd for the score and 2 hd for P.V."""
+    item = torch.finfo(dtype).bits // 8
+    peak, _ = _peak(dtype, torch)
+    return _larger_bound(4 * b * h * s * hd * item,
+                         4 * hd * b * h * _visible_pairs(s, window), peak)
+
+
+def _rwkv_bound(torch, b, h, s, hd, with_s0, dtype):
+    """Bytes: r, k, v (and y) in the inputs' dtype, w f32, u, s0 and the
+    final state f32, each once. Operations: 7 hd^2 per token and head."""
+    item = torch.finfo(dtype).bits // 8
+    n = b * h * s * hd
+    nbytes = (4 * item + 4) * n + 4 * h * hd + 4 * b * h * hd * hd * (
+        2 if with_s0 else 1)
+    return _larger_bound(nbytes, 7 * hd * hd * b * h * s,
+                         _peak(dtype, torch)[0])
+
+
+def _ssd_bound(torch, b, s, h, p, n, q, dtype):
+    """Bytes: x and y in the inputs' dtype, b and c (B, S, N) once, dt, a
+    and the final state f32. Operations per chunk and head: the scores and
+    M @ x over the Q (Q + 1) / 2 pairs (2 N + 2 P each), the state's
+    contribution and the state update (2 Q P N each)."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (item * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    per_chunk = q * (q + 1) // 2 * (2 * n + 2 * p) + 4 * q * p * n
+    return _larger_bound(nbytes, per_chunk * (s // q) * b * h,
+                         _peak(dtype, torch)[0])
+
+
+def _sdpa_backend(torch, q, k, v, mask, causal) -> str:
+    """The backend torch's scaled_dot_product_attention picks for these
+    inputs (for the yardstick's label only)."""
+    names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+    try:
+        choice = int(torch._fused_sdp_choice(q, k, v, mask, 0.0, causal))
+    except Exception as e:        # noqa: BLE001 — a label, not a check
+        return f"unknown ({type(e).__name__})"
+    return names.get(choice, f"backend {choice}")
+
+
+def _kernel_err(torch, got, want, dtype):
+    """(max |got - want|, within tolerance): atol 1e-5 of the output's
+    largest magnitude (sums in another order), rtol 1e-4 in f32 and 8e-3
+    (two bf16 ulps) where the output is rounded to bf16."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    ok = bool((err <= 1e-5 * scale + rtol * want.abs()).all())
+    return float(err.max()), ok
+
+
+def check_model_kernels(torch, kernels, refs):
+    """Phase 10: flash_attention, rwkv6_scan and mamba2_ssd against their
+    plain versions at the serving path's shapes and a ragged small one, in
+    f32 and in bf16 (the bf16 kernel against the plain version run in f32
+    on the same bf16 values), each timed (kernel, plain version, and for
+    flash the library yardstick) beside its bound. Returns (ok, {name:
+    record at its main shape}, {name: max abs err})."""
+    import torch.nn.functional as F
+    flash, rwkv, ssd = kernels
+    flash_ref, rwkv_ref, ssd_ref = refs
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    ok, recs, worst = True, {}, {"flash_attention": 0.0, "rwkv6_scan": 0.0,
+                                 "mamba2_ssd": 0.0}
+
+    def report(name, label, dtype, err, good, timed, bound, extra=""):
+        nonlocal ok
+        ok &= good
+        worst[name] = max(worst[name], err)
+        line = (f"kernel {name} {label} {str(dtype).split('.')[1]}: "
+                f"max|d|={err:.3e} {'ok' if good else 'MISMATCH'}")
+        if timed is not None:
+            line += (f"  kernel {timed[0]:.5f} ms  plain {timed[1]:.5f} ms  "
+                     f"bound {bound[0]:.6f} ms ({bound[1]}){extra}")
+        print(line, flush=True)
+
+    for b, h, s, hd, window in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, h, s, hd), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            got = flash(q, k, v, window=window)
+            want = flash_ref(q.float(), k.float(), v.float(), window=window)
+            torch.cuda.synchronize()
+            err, good = _kernel_err(torch, got, want, dtype)
+            del want
+            timed = bound = None
+            extra = ""
+            if s >= 512:
+                iters = 10 if s >= 2048 else 30
+                timed = (_time_ms(lambda: flash(q, k, v, window=window),
+                                  iters),
+                         _time_ms(lambda: flash_ref(q, k, v, window=window),
+                                  iters))
+                bound = _flash_bound(torch, b, h, s, hd, window, dtype)
+                if window:
+                    pos = torch.arange(s, device="cuda")
+                    mask = ((pos[None, :] <= pos[:, None])
+                            & (pos[None, :] > pos[:, None] - window))
+                    lib = lambda: F.scaled_dot_product_attention(  # noqa
+                        q, k, v, attn_mask=mask)
+                    backend = _sdpa_backend(torch, q, k, v, mask, False)
+                else:
+                    mask = None
+                    lib = lambda: F.scaled_dot_product_attention(  # noqa
+                        q, k, v, is_causal=True)
+                    backend = _sdpa_backend(torch, q, k, v, None, True)
+                lib_ms = _time_ms(lib, iters)
+                extra = (f"  library scaled_dot_product_attention "
+                         f"({backend} backend"
+                         f"{', boolean window mask' if window else ''}) "
+                         f"{lib_ms:.5f} ms")
+                if (s, hd, window) == (2048, 256, 1024) and \
+                        dtype == torch.bfloat16:
+                    recs["flash_attention"] = {
+                        "ms": timed[0], "plain_ms": timed[1],
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": lib_ms}
+            report("flash_attention", f"({b}, {h}, {s}, {hd}) window "
+                   f"{window}", dtype, err, good, timed, bound, extra)
+            del q, k, v, got
+
+    for b, h, s, hd, with_s0 in RWKV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v = (torch.randn((b, h, s, hd), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            w = torch.sigmoid(torch.randn((b, h, s, hd), generator=gen,
+                                          device="cuda"))
+            u = torch.randn((h, hd), generator=gen, device="cuda")
+            s0 = (torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+                  if with_s0 else None)
+            y, st = rwkv(r, k, v, w, u, s0)
+            wy, ws = rwkv_ref(r.float(), k.float(), v.float(), w, u, s0)
+            torch.cuda.synchronize()
+            e1, g1 = _kernel_err(torch, y, wy, dtype)
+            e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+            timed = bound = None
+            if h == 32:
+                timed = (_time_ms(lambda: rwkv(r, k, v, w, u, s0), 30),
+                         _time_ms(lambda: rwkv_ref(r, k, v, w, u, s0),
+                                  3 if s > 1 else 30))
+                bound = _rwkv_bound(torch, b, h, s, hd, with_s0, dtype)
+                if s > 1 and dtype == torch.bfloat16:
+                    recs["rwkv6_scan"] = {
+                        "ms": timed[0], "plain_ms": timed[1],
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": None}
+            report("rwkv6_scan", f"({b}, {h}, {s}, {hd})"
+                   f"{' from s0' if with_s0 else ''}", dtype, max(e1, e2),
+                   g1 and g2, timed, bound,
+                   "  library: none (no single PyTorch call computes it)")
+
+    for b, s, h, p, n, q in SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+            dt = F.softplus(torch.randn((b, s, h), generator=gen,
+                                        device="cuda"))
+            a = -torch.exp(0.3 * torch.randn((h,), generator=gen,
+                                             device="cuda"))
+            b_in, c_in = (torch.randn((b, s, n), generator=gen,
+                                      device="cuda") for _ in range(2))
+            x, b_in, c_in = (t.to(dtype) for t in (x, b_in, c_in))
+            y, st = ssd(x, dt, a, b_in, c_in, chunk=q)
+            wy, ws = ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
+                             min(q, s))
+            torch.cuda.synchronize()
+            e1, g1 = _kernel_err(torch, y, wy, dtype)
+            e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+            timed = bound = None
+            if s >= 512:
+                timed = (_time_ms(lambda: ssd(x, dt, a, b_in, c_in, chunk=q),
+                                  20),
+                         _time_ms(lambda: ssd_ref(x, dt, a, b_in, c_in, q),
+                                  5))
+                bound = _ssd_bound(torch, b, s, h, p, n, q, dtype)
+                if dtype == torch.bfloat16:
+                    recs["mamba2_ssd"] = {
+                        "ms": timed[0], "plain_ms": timed[1],
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": None}
+            report("mamba2_ssd", f"x ({b}, {s}, {h}, {p}) N {n} chunk {q}",
+                   dtype, max(e1, e2), g1 and g2, timed, bound,
+                   "  library: none (no single PyTorch call computes it)")
+    return ok, recs, worst
+
+
+def run_serving(torch, configs, Transformer, serve, counters):
+    """Phase 11: static serving (``repro_torch.launch.serve.generate``) at
+    full width for SERVE_RUNS, each model initialised on the card in bf16
+    from a seeded CUDA generator and freed before the next. Every kernel
+    counter is set to 0 just before the counted generate and read just
+    after; the hand kernels must have launched exactly as the model's
+    layers say. Returns (ok, {kernel: launches summed over the runs})."""
+    from repro_torch.utils.tree import tree_leaves
+    ok, totals = True, {}
+    for arch, prompt_len, gen_tokens in SERVE_RUNS:
+        cfg = configs.get_arch(arch)
+        model = Transformer(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = model.init(gen, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab, (2, prompt_len), generator=gen,
+                                device="cuda")
+        serve.generate(model, params, prompts[:, :64], 2)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = serve.generate(model, params, prompts, gen_tokens)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mixers = cfg.count_mixers()
+        want = dict.fromkeys(counters, 0)
+        want["flash_attention"] = (mixers.get("attn", 0)
+                                   + mixers.get("shared_attn", 0))
+        want["rwkv6_scan"] = mixers.get("rwkv6", 0) * (1 + gen_tokens)
+        want["mamba2_ssd"] = mixers.get("mamba2", 0)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, caches, pos = model.prefill(params, prompts,
+                                                max_len=prompt_len + 4)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = torch.argmax(logits, dim=-1)
+            (step_logits, caches), _ = _profile_call(
+                torch, lambda: model.decode_step(params, caches, tok, pos),
+                f"phase 11 {arch} one decode step")
+            finite = bool(torch.isfinite(logits).all()
+                          and torch.isfinite(step_logits).all())
+        decode_ms = (total_ms - prefill_ms) / gen_tokens
+        good = (launches == want and finite and out.shape == (2, gen_tokens)
+                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab)
+        ok &= good
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        print(f"serving {arch} ({cfg.dtype}, {n_params / 1e9:.3f} B params, init "
+              f"{init_s:.2f} s): B 2, prompt {prompt_len}, {gen_tokens} "
+              f"greedy tokens: generate {total_ms:.2f} ms, prefill "
+              f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token "
+              f"((generate - prefill) / tokens), "
+              f"{2 * gen_tokens / (total_ms / 1e3):.1f} tokens/s "
+              f"(generated tokens / generate wall), max_memory_allocated "
+              f"{peak_gb:.2f} GB; launches "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()
+                          if v or want[k])
+              + " (expected " + ", ".join(f"{k}={v}" for k, v in want.items()
+                                          if v)
+              + f"); logits finite {finite}; tokens {out[0, :8].tolist()} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+        del params, caches, logits, step_logits, out, model
+        torch.cuda.empty_cache()
+    return ok, totals
+
+
+def _rel(torch, a, b) -> tuple[float, float]:
+    """(max |a - b| / max(1, max |b|), ||a - b|| / ||b||) in f32."""
+    a, b = a.float(), b.float()
+    return (float((a - b).abs().max()) / max(1.0, float(b.abs().max())),
+            float(torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)))
+
+
+def compare_model_routes(torch, configs, Transformer):
+    """Phase 12: the same params through kernel_backend "auto" (the hand
+    kernels) and "ref" (their plain versions), teacher forced: the prefill
+    logits, then 8 decode steps, each fed the auto route's greedy token.
+
+    f32 at full width with the depth cut to one step of each segment: max
+    gap <= 1e-4 of the logits' largest magnitude (the kernels sum in
+    another order, ~1e-6 a call, through up to 10 layers).
+
+    bf16 at full depth. The two routes round to bf16 at different places
+    (the plain flash rounds its scores and probabilities, the kernels
+    round once), and a random-init stack amplifies such differences: on an
+    H100 zamba2's two bf16 routes came out 0.69 apart (relative L2), each
+    ~0.7 from the f32 logits, so bf16 rounding alone moves them that far.
+    So each bf16 route is held against the f32 computation
+    (the "ref" route on the f32 upcast of the same params, fed the same
+    tokens): at every step the kernel route's relative L2 distance to it
+    must be <= 1.25 x the plain route's + 1e-3, i.e. the kernels are no
+    less accurate than their plain versions."""
+    import dataclasses
+    from repro_torch.utils.tree import tree_map
+    print(f"phase 12: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} (both set at the script's "
+          f"start)", flush=True)
+    ok = True
+    for arch, prompt_len, _ in SERVE_RUNS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_arch(arch), dtype=dtype)
+            cut = " at full depth"
+            if dtype == "float32":
+                segs = tuple(configs.Segment(1, s.pattern)
+                             for s in cfg.segments)
+                cfg = dataclasses.replace(
+                    cfg, segments=segs,
+                    n_layers=sum(len(s.pattern) for s in segs))
+                cut = (f" (depth cut to one step of each segment: "
+                       f"{sum(len(s.pattern) for s in segs)} layers)")
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            routes = {"auto": (Transformer(cfg, kernel_backend="auto"),
+                               Transformer(cfg).init(gen, "cuda"))}
+            routes["ref"] = (Transformer(cfg, kernel_backend="ref"),
+                             routes["auto"][1])
+            if dtype == "bfloat16":
+                routes["f32"] = (
+                    Transformer(dataclasses.replace(cfg, dtype="float32"),
+                                kernel_backend="ref"),
+                    tree_map(lambda x: x.float(), routes["auto"][1]))
+            prompts = torch.randint(0, cfg.vocab, (2, prompt_len),
+                                    generator=gen, device="cuda")
+            steps = []                      # per step: {route: logits}
+            with torch.inference_mode():
+                state = {}
+                for name, (model, params) in routes.items():
+                    logits, caches, pos = model.prefill(
+                        params, prompts, max_len=prompt_len + 8)
+                    state[name] = [logits, caches]
+                steps.append({n: v[0] for n, v in state.items()})
+                for i in range(8):
+                    tok = torch.argmax(state["auto"][0], dim=-1)
+                    for name, (model, params) in routes.items():
+                        state[name] = list(model.decode_step(
+                            params, state[name][1], tok, pos + i))
+                    steps.append({n: v[0] for n, v in state.items()})
+            gaps = [_rel(torch, st["auto"], st["ref"]) for st in steps]
+            line = (f"auto vs ref {arch} {dtype}{cut}: prefill + 8 decode "
+                    f"steps, max gap / max|logit| "
+                    f"{max(g[0] for g in gaps):.3e}, relative L2 "
+                    f"{max(g[1] for g in gaps):.3e}")
+            if dtype == "float32":
+                good = max(g[0] for g in gaps) <= 1e-4
+            else:
+                to_f32 = [(_rel(torch, st["auto"], st["f32"])[1],
+                           _rel(torch, st["ref"], st["f32"])[1])
+                          for st in steps]
+                good = all(a <= 1.25 * r + 1e-3 for a, r in to_f32)
+                line += (f"; relative L2 to f32 (prefill, step 8): kernel "
+                         f"route {to_f32[0][0]:.3e}, {to_f32[-1][0]:.3e}, "
+                         f"plain route {to_f32[0][1]:.3e}, "
+                         f"{to_f32[-1][1]:.3e}; worst ratio "
+                         f"{max(a / max(r, 1e-30) for a, r in to_f32):.3f}")
+            ok &= good
+            print(line + f" {'ok' if good else 'CHECK FAILED'}", flush=True)
+            del routes, state, steps
+            torch.cuda.empty_cache()
+    return ok
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -778,7 +1168,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch import api, data, optim
+    from repro_torch import api, configs, data, optim
     from repro_torch import population as pop_mod
     from repro_torch.core import convergence as conv
     from repro_torch.core import design, fl
@@ -788,13 +1178,21 @@ def main() -> int:
         vector_width,
     )
     from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
     from repro_torch.kernels.quantize_decompress import quantize_decompress
     from repro_torch.kernels.ref import (
         cohort_gather_scatter_ref,
         dp_clip_noise_ref,
+        flash_attention_ref,
+        mamba2_ssd_ref,
         quantize_decompress_ref,
+        rwkv6_scan_ref,
     )
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch import serve
     from repro_torch.models import linear
+    from repro_torch.models.transformer import Transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -853,6 +1251,37 @@ def main() -> int:
     ok_p9 &= profile_resident_chunk(torch, np, linear, pop_mod, qs_spec,
                                     qs_pop)
 
+    # -- 10. the model kernels against their plain versions -----------------
+    ok_mk, mk_recs, mk_worst = check_model_kernels(
+        torch, (flash_attention, rwkv6_scan, mamba2_ssd),
+        (flash_attention_ref, rwkv6_scan_ref, mamba2_ssd_ref))
+
+    # -- 11. full-width static serving ----------------------------------------
+    counters = {"dp_clip_noise": dp_clip_noise,
+                "quantize_decompress": quantize_decompress,
+                "cohort_gather_scatter": cohort_gather_scatter,
+                "flash_attention": flash_attention,
+                "rwkv6_scan": rwkv6_scan, "mamba2_ssd": mamba2_ssd}
+    ok_sv, sv_launches = run_serving(torch, configs, Transformer, serve,
+                                     counters)
+
+    # -- 12. the model's kernel route against its plain route ---------------
+    ok_rt = compare_model_routes(torch, configs, Transformer)
+
+    model_kernels = []
+    for name, replaces in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
+            ("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:48"),
+            ("mamba2_ssd", "src/repro/kernels/mamba2_ssd.py:67")):
+        rec = mk_recs[name]
+        model_kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": sv_launches[name],
+            "max_abs_err": mk_worst[name], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
@@ -874,7 +1303,7 @@ def main() -> int:
         "launches": g_launches, "max_abs_err": g_worst,
         "ms": g_rec["ms"], "plain_ms": g_rec["plain_ms"],
         "bound_ms": g_rec["bound_ms"], "bound_by": g_rec["bound_by"],
-        "library_ms": g_rec["library_ms"]}]}), flush=True)
+        "library_ms": g_rec["library_ms"]}] + model_kernels}), flush=True)
     for ok, what in ((ok_k, "a kernel disagrees with its plain version"),
                      (ok_q, "quantize_decompress is not bit-identical to "
                             "its plain version"),
@@ -889,7 +1318,12 @@ def main() -> int:
                             "its plain version"),
                      (ok_p8, "the M == C population's checks failed"),
                      (ok_p9, "the quickstart resident step's checks "
-                             "failed")):
+                             "failed"),
+                     (ok_mk, "a model kernel disagrees with its plain "
+                             "version"),
+                     (ok_sv, "the full-width serving checks failed"),
+                     (ok_rt, "the model's kernel route disagrees with its "
+                             "plain route")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ kernel                       replaces (Pallas TPU kernel)                 source
 ``dp_clip_noise``            ``repro/kernels/dp_clip_noise.py``           ``csrc/dp_clip_noise.cu``
 ``quantize_decompress``      ``repro/kernels/quantize_decompress.py``     ``csrc/quantize_decompress.cu``
 ``cohort_gather_scatter``    ``repro/kernels/cohort_gather.py``           ``csrc/cohort_gather_scatter.cu``
+``flash_attention``          ``repro/kernels/flash_attention.py``         ``csrc/flash_attention.cu``
+``rwkv6_scan``               ``repro/kernels/rwkv6_scan.py``              ``csrc/rwkv6_scan.cu``
+``mamba2_ssd``               ``repro/kernels/mamba2_ssd.py``              ``csrc/mamba2_ssd.cu``
 ===========================  ===========================================  ================================
 
 Kernels build with ``nvcc`` at first use (:mod:`repro_torch.kernels._build`)

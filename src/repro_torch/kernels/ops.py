@@ -1,8 +1,10 @@
-"""Tree-level wrappers over the port's kernels.
+"""The routed entry points of the port's kernels, and tree-level wrappers.
 
 ``backend`` is ``"auto"`` (the hand-written kernel for CUDA tensors, its
 plain version for CPU tensors; the tensor's device decides) or ``"ref"``
-(always the plain version, for parity checks on the card).
+(always the plain version, for parity checks on the card). The model stack
+calls the kernels only through this module (``ops.flash_attention``,
+``ops.rwkv6_scan``, ``ops.mamba2_ssd``), so a test can count its calls.
 """
 from __future__ import annotations
 
@@ -10,12 +12,20 @@ import torch
 
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+from repro_torch.kernels.flash_attention import (
+    flash_attention as flash_attention_kernel,
+)
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd as mamba2_ssd_kernel
 from repro_torch.kernels.quantize_decompress import quantize_decompress
 from repro_torch.kernels.ref import (
     cohort_gather_scatter_ref,
     dp_clip_noise_ref,
+    flash_attention_ref,
+    mamba2_ssd_ref,
     quantize_decompress_ref,
+    rwkv6_scan_ref,
 )
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rwkv6_scan_kernel
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 KERNEL_BACKENDS = ("auto", "ref")
@@ -85,3 +95,32 @@ def cohort_scatter(cache, slots, rows, backend: str = "auto"):
     kernel = cohort_gather_scatter_ref if backend == "ref" else \
         cohort_gather_scatter
     return kernel(cache, slots, rows)
+
+
+def flash_attention(q, k, v, *, window: int = 0, backend: str = "auto"):
+    """Causal (sliding-window when ``window`` > 0) attention of q / k / v
+    (B, H, S, hd), GQA already expanded. Returns (B, H, S, hd)."""
+    validate_backend(backend)
+    if backend == "ref":
+        return flash_attention_ref(q, k, v, window=window)
+    return flash_attention_kernel(q, k, v, window=window)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, backend: str = "auto"):
+    """The WKV6 recurrence over r / k / v / w (B, H, S, hd) from ``s0``
+    (B, H, hd, hd) or zeros. Returns ``(y, final state)``."""
+    validate_backend(backend)
+    if backend == "ref":
+        return rwkv6_scan_ref(r, k, v, w, u, s0)
+    return rwkv6_scan_kernel(r, k, v, w, u, s0)
+
+
+def mamba2_ssd(x, dt, a, b_in, c_in, *, chunk: int = 128,
+               backend: str = "auto"):
+    """Mamba2's SSD chunk scan of x (B, S, H, P) from a zero state, chunk
+    ``min(chunk, S)``. Returns ``(y (B, S, H, P), final state (B, H, P,
+    N))``."""
+    validate_backend(backend)
+    if backend == "ref":
+        return mamba2_ssd_ref(x, dt, a, b_in, c_in, min(chunk, x.shape[1]))
+    return mamba2_ssd_kernel(x, dt, a, b_in, c_in, chunk=chunk)

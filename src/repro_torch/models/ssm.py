@@ -1,0 +1,158 @@
+"""Mamba2 (SSD) mixer, used by zamba2 (a port of the JAX package's
+``repro/models/ssm.py``).
+
+State-space recurrence per head h with state (P, N):
+    H_t = exp(dt_t * A_h) * H_{t-1} + dt_t * x_t (P) outer B_t (N)
+    y_t = H_t @ C_t + D_h * x_t
+Prefill runs the chunked SSD scan in the hand-written ``mamba2_ssd``
+kernel (the JAX model's jnp ``ssd_chunked`` is its baseline); decode is
+the plain one-step recurrence in PyTorch, as in the JAX package.
+
+Shapes: d_inner = expand * d_model; H = d_inner / headdim (P = headdim);
+B / C shared across heads (single group), state size N = cfg.ssm_state.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _dense_init
+
+
+def init_mamba2(generator, d_model: int, d_state: int, headdim: int = 64,
+                expand: int = 2, conv_kernel: int = 4, dtype=torch.float32,
+                device="cpu"):
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    return {
+        # fused input projection: [z, x, B, C, dt]
+        "w_in": _dense_init(generator,
+                            (d_model, 2 * d_inner + 2 * d_state + n_heads),
+                            0, dtype, device),
+        "conv_w": _dense_init(generator,
+                              (conv_kernel, d_inner + 2 * d_state), 0, dtype,
+                              device),
+        "a_log": torch.zeros((n_heads,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((n_heads,), dtype=torch.float32,
+                               device=device),
+        "d_skip": torch.ones((n_heads,), dtype=torch.float32, device=device),
+        "norm_scale": torch.ones((d_inner,), dtype=dtype, device=device),
+        "w_out": _dense_init(generator, (d_inner, d_model), 0, dtype, device),
+    }
+
+
+def _split_proj(proj, d_inner, d_state, n_heads):
+    z = proj[..., :d_inner]
+    xbc = proj[..., d_inner:2 * d_inner + 2 * d_state]
+    dt = proj[..., 2 * d_inner + 2 * d_state:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc, conv_w):
+    """Depthwise causal conv over seq. xbc (B, S, C); conv_w (K, C)."""
+    k = conv_w.shape[0]
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s] * conv_w[i] for i in range(k))
+    return F.silu(out.to(torch.float32)).to(xbc.dtype)
+
+
+def _gated_out(params, y, z, d_model):
+    b, s = y.shape[:2]
+    y = y.reshape(b, s, -1)
+    # RMS-normed gating (Mamba2 uses grouped RMSNorm before out-proj)
+    y32 = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    y32 = (y32 * torch.rsqrt(var + 1e-6)
+           * params["norm_scale"].to(torch.float32))
+    w_out = params["w_out"]
+    return y32.to(w_out.dtype) @ w_out
+
+
+def mamba2_forward(params, x, *, d_state: int, headdim: int, expand: int,
+                   chunk: int = 128, backend: str = "auto"):
+    """Full-sequence Mamba2 mixer. x (B, S, d) -> (B, S, d)."""
+    out, _ = mamba2_forward_state(params, x, d_state=d_state,
+                                  headdim=headdim, expand=expand,
+                                  chunk=chunk, backend=backend)
+    return out
+
+
+def mamba2_forward_state(params, x, *, d_state: int, headdim: int,
+                         expand: int, chunk: int = 128,
+                         backend: str = "auto"):
+    """Full-sequence Mamba2 that also returns the decode cache (final SSM
+    state + conv window). The SSD scan runs in ``ops.mamba2_ssd`` with chunk
+    ``min(chunk, S)``, which must divide S. Its y comes back in x's dtype
+    before ``d_skip * x`` is added in f32, where the JAX package adds it to
+    its f32 y: in bf16 the port rounds once more."""
+    d_model = x.shape[-1]
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    bsz, s = x.shape[:2]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
+    proj = x @ params["w_in"]
+    z, xbc_raw, dt = _split_proj(proj, d_inner, d_state, n_heads)
+    xbc = _causal_conv(xbc_raw, params["conv_w"])
+    xh = xbc[..., :d_inner].reshape(bsz, s, n_heads, headdim).contiguous()
+    b_in = xbc[..., d_inner:d_inner + d_state].contiguous()
+    c_in = xbc[..., d_inner + d_state:].contiguous()
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, h_final = ops.mamba2_ssd(xh, dt.contiguous(), a, b_in, c_in,
+                                chunk=chunk, backend=backend)
+    y = y + params["d_skip"][None, None, :, None] * xh.to(y.dtype)
+    out = _gated_out(params, y.to(x.dtype), z, d_model)
+    cache = {"h": h_final,                          # (B, H, P, N)
+             "conv": xbc_raw[:, -(params["conv_w"].shape[0] - 1):]}
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_mamba2_cache(batch: int, d_model: int, d_state: int, headdim: int,
+                      expand: int, conv_kernel: int, dtype=torch.float32,
+                      device="cpu"):
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    return {
+        "h": torch.zeros((batch, n_heads, headdim, d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, conv_kernel - 1, d_inner + 2 * d_state),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(params, x, cache, *, d_state: int, headdim: int,
+                  expand: int):
+    """One-token step. x (B, 1, d)."""
+    d_model = x.shape[-1]
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    proj = x @ params["w_in"]
+    z, xbc, dt = _split_proj(proj, d_inner, d_state, n_heads)
+    # conv over the cached window + this token
+    win = torch.cat([cache["conv"], xbc], dim=1)           # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", win, params["conv_w"])
+    conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)[:, None]
+    new_conv = win[:, 1:]
+    xin = conv_out[..., :d_inner]
+    b_in = conv_out[..., d_inner:d_inner + d_state]
+    c_in = conv_out[..., d_inner + d_state:]
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])[:, 0]
+    a = -torch.exp(params["a_log"])
+    xh = xin[:, 0].reshape(-1, n_heads, headdim)
+    decay = torch.exp(dt * a[None, :])                     # (B, H)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, xh.to(torch.float32),
+                       b_in[:, 0].to(torch.float32))
+    h_new = cache["h"] * decay[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h_new, c_in[:, 0].to(torch.float32))
+    y = y + params["d_skip"][None, :, None] * xh.to(torch.float32)
+    y = y[:, None].to(x.dtype)                             # (B, 1, H, P)
+    out = _gated_out(params, y, z, d_model)
+    return out, {"h": h_new, "conv": new_conv}

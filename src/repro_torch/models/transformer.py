@@ -1,0 +1,441 @@
+"""Transformer assembly: segments of stacked layer patterns, with the full
+forward and the serving path (prefill + decode); a port of the JAX
+package's ``repro/models/transformer.py``.
+
+Params and caches keep the JAX package's trees: ``params["segments"]`` is a
+list with one dict per segment, ``{"0": layer params, "1": ...}`` by
+pattern position, every leaf carrying a leading ``n_steps`` axis, and
+``init_cache`` gives the same stacked layout. Where the JAX package scans
+over ``n_steps``, the port loops in Python over views of step ``i``.
+``decode_step`` and ``prefill`` write the caches in place (the JAX package
+returns new arrays).
+
+The mixers' hot loops run in the hand-written kernels, through
+``kernels.ops`` with the model's ``kernel_backend``: ``flash_attention``
+at every ``attn`` / ``shared_attn`` prefill, ``rwkv6_scan`` at every
+``rwkv6`` prefill and decoded token, ``mamba2_ssd`` at every ``mamba2``
+prefill. Not ported yet: MoE FFNs (``ffn == "moe"`` raises), the training
+loss (``loss_fn``, ``_chunked_loss``), the serving engine's ``prefill_at``,
+``insert_prefill`` and ``init_paged_cache``, and the sharding axes
+(``param_axes``, ``cache_axes``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.kernels.ops import validate_backend
+from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    _dense_init,
+    embed,
+    init_embed,
+    init_mlp,
+    init_rmsnorm,
+    mlp,
+    rmsnorm,
+    unembed,
+)
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def _dtype(cfg: ArchConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _step(tree, i: int):
+    """Step ``i`` of a stacked tree, as views."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _write(dst, src):
+    """Copy every leaf of ``src`` into the same leaf of ``dst`` (views into
+    stacked tensors), skipping leaves that already are that storage."""
+    for d, s in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
+        if d.data_ptr() != s.data_ptr() or d.shape != s.shape:
+            d.copy_(s)
+
+
+def _stacked(n: int, make):
+    """A tree of ``n`` stacked layers from ``make()`` (one layer a call),
+    filled step by step so that only one extra layer is ever allocated."""
+    first = make()
+    leaves, treedef = tree_flatten(first)
+    out = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+           for x in leaves]
+    for o, x in zip(out, leaves):
+        o[0].copy_(x)
+    del first, leaves
+    for i in range(1, n):
+        for o, x in zip(out, tree_flatten(make())[0]):
+            o[i].copy_(x)
+    return tree_unflatten(treedef, out)
+
+
+class Transformer:
+    """Functional model: params are explicit trees of tensors; methods are
+    pure apart from the in-place cache writes of the serving path.
+
+    ``kernel_backend`` is passed to every kernel call: ``"auto"`` (the
+    hand-written kernel on CUDA tensors, its plain version on CPU tensors)
+    or ``"ref"`` (always the plain version)."""
+
+    def __init__(self, cfg: ArchConfig, kernel_backend: str = "auto"):
+        validate_backend(kernel_backend)
+        if any(ls.ffn == "moe" for ls in cfg.layer_specs()):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE FFNs (models/moe.py) are not ported yet")
+        self.cfg = cfg
+        self.kernel_backend = kernel_backend
+        self.has_shared = any(ls.mixer == "shared_attn"
+                              for ls in cfg.layer_specs())
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+
+    def _init_layer(self, spec: LayerSpec, generator, device):
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        d = cfg.d_model
+        params: dict[str, Any] = {"norm1": init_rmsnorm(d, dt, device)}
+        if spec.mixer == "attn":
+            params["mixer"] = attn.init_attention(
+                generator, d, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, cfg.qkv_bias, dt, device)
+        elif spec.mixer == "mamba2":
+            params["mixer"] = ssm_mod.init_mamba2(
+                generator, d, cfg.ssm_state, cfg.ssm_headdim,
+                cfg.ssm_expand, cfg.conv_kernel, dt, device)
+        elif spec.mixer == "rwkv6":
+            params["mixer"] = rwkv_mod.init_rwkv6_timemix(
+                generator, d, cfg.rwkv_headdim, max(4, cfg.lora_rank or 32),
+                dt, device)
+        elif spec.mixer == "shared_attn":
+            r = max(1, cfg.lora_rank)
+            hd = cfg.resolved_head_dim
+            params["mixer"] = {
+                "lora_q_a": _dense_init(generator, (d, r), 0, dt, device),
+                "lora_q_b": torch.zeros((r, cfg.n_heads * hd), dtype=dt,
+                                        device=device),
+                "lora_o_a": _dense_init(generator, (cfg.n_heads * hd, r), 0,
+                                        dt, device),
+                "lora_o_b": torch.zeros((r, d), dtype=dt, device=device),
+            }
+        else:
+            raise ValueError(f"unknown mixer {spec.mixer}")
+
+        if spec.ffn != "none":
+            params["norm2"] = init_rmsnorm(d, dt, device)
+        if spec.ffn == "mlp":
+            params["ffn"] = init_mlp(generator, d, cfg.d_ff, dt, device)
+        elif spec.ffn == "rwkv_cm":
+            params["ffn"] = rwkv_mod.init_rwkv6_channelmix(
+                generator, d, cfg.d_ff, dt, device)
+        elif spec.ffn in ("none", "shared_mlp"):
+            params["ffn"] = {}
+        else:
+            raise ValueError(f"unknown ffn {spec.ffn}")
+        return params
+
+    def init(self, generator=None, device=None):
+        """Random params from ``generator`` (a ``torch.Generator`` on
+        ``device``; ``None`` draws from the default generator) in the
+        config's dtype, on ``device`` (default: the GPU). On the ``meta``
+        device: shapes and dtypes only."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        dt = _dtype(cfg)
+        params: dict[str, Any] = {
+            "embed": init_embed(generator, cfg.vocab, cfg.d_model,
+                                cfg.tie_head, dt, device),
+            "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+            "segments": [
+                {str(j): _stacked(seg.n_steps,
+                                  lambda ls=ls: self._init_layer(
+                                      ls, generator, device))
+                 for j, ls in enumerate(seg.pattern)}
+                for seg in cfg.segments],
+        }
+        if self.has_shared:
+            params["shared"] = {
+                "attn": attn.init_attention(
+                    generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim, cfg.qkv_bias, dt, device),
+                "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dt,
+                                device),
+            }
+        return params
+
+    # ------------------------------------------------------------------
+    # layer application (full sequence)
+    # ------------------------------------------------------------------
+
+    def _merged_shared_attn(self, lora, shared):
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        d = cfg.d_model
+        dq = (lora["lora_q_a"] @ lora["lora_q_b"]).reshape(d, cfg.n_heads, hd)
+        do = (lora["lora_o_a"] @ lora["lora_o_b"]).reshape(cfg.n_heads, hd, d)
+        p = dict(shared["attn"])
+        p["wq"] = p["wq"] + dq
+        p["wo"] = p["wo"] + do
+        return p
+
+    def _apply_mixer(self, spec: LayerSpec, lparams, shared, h, positions):
+        cfg = self.cfg
+        if spec.mixer in ("attn", "shared_attn"):
+            p = (self._merged_shared_attn(lparams["mixer"], shared)
+                 if spec.mixer == "shared_attn" else lparams["mixer"])
+            return attn.attention_forward(
+                p, h, positions, kind=spec.attn_kind, window=cfg.window,
+                chunk=cfg.chunk, use_rope=spec.use_rope,
+                rope_theta=cfg.rope_theta, backend=self.kernel_backend)
+        if spec.mixer == "mamba2":
+            return ssm_mod.mamba2_forward(
+                lparams["mixer"], h, d_state=cfg.ssm_state,
+                headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
+                chunk=cfg.ssd_chunk, backend=self.kernel_backend)
+        if spec.mixer == "rwkv6":
+            return rwkv_mod.rwkv6_timemix_forward(
+                lparams["mixer"], h, cfg.rwkv_headdim, cfg.rwkv_chunk,
+                backend=self.kernel_backend)
+        raise ValueError(spec.mixer)
+
+    def _apply_ffn(self, spec: LayerSpec, lparams, shared, h):
+        if spec.ffn == "mlp":
+            return mlp(lparams["ffn"], h)
+        if spec.ffn == "rwkv_cm":
+            return rwkv_mod.rwkv6_channelmix_forward(lparams["ffn"], h)
+        if spec.ffn == "shared_mlp":
+            return mlp(shared["mlp"], h)
+        return None
+
+    def _apply_layer(self, spec: LayerSpec, lparams, shared, x, positions):
+        h = rmsnorm(lparams["norm1"], x)
+        x = x + self._apply_mixer(spec, lparams, shared, h, positions)
+        if spec.ffn != "none":
+            h2 = rmsnorm(lparams["norm2"], x)
+            x = x + self._apply_ffn(spec, lparams, shared, h2)
+        return x
+
+    # ------------------------------------------------------------------
+    # full forward (prefill logits)
+    # ------------------------------------------------------------------
+
+    def _embed_scaled(self, params, tokens):
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, cfg.embed_impl)
+        if cfg.embed_scale:
+            # the JAX package multiplies by a weakly typed Python float,
+            # i.e. by sqrt(d) rounded to the activations' dtype
+            x = x * float(torch.tensor(math.sqrt(cfg.d_model),
+                                       dtype=x.dtype))
+        return x
+
+    def _embed_tokens(self, params, tokens, prefix):
+        x = self._embed_scaled(params, tokens)
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        return x
+
+    def forward(self, params, tokens, prefix=None):
+        """tokens (B, S) -> (logits (B, S, V), aux). prefix (B, P, d) stub
+        embeddings are prepended (vlm / audio) and stripped from logits.
+        ``aux`` (the MoE load-balance loss) is 0: no MoE is ported."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens, prefix)
+        positions = torch.arange(x.shape[1], device=x.device)
+        shared = params.get("shared")
+        for seg_params, seg in zip(params["segments"], cfg.segments):
+            for i in range(seg.n_steps):
+                p_step = _step(seg_params, i)
+                for j, ls in enumerate(seg.pattern):
+                    x = self._apply_layer(ls, p_step[str(j)], shared, x,
+                                          positions)
+        x = rmsnorm(params["final_norm"], x)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
+        logits = unembed(params["embed"], x)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------------
+    # serving: prefill + decode
+    # ------------------------------------------------------------------
+
+    def _layer_cache_shape(self, spec: LayerSpec, batch: int, max_len: int,
+                           device):
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        cache: dict[str, Any] = {}
+        if spec.mixer in ("attn", "shared_attn"):
+            cache["mixer"] = attn.init_kv_cache(
+                batch, spec.attn_kind, max_len, cfg.n_kv_heads,
+                cfg.resolved_head_dim, cfg.window, cfg.chunk, dt, device)
+        elif spec.mixer == "mamba2":
+            cache["mixer"] = ssm_mod.init_mamba2_cache(
+                batch, cfg.d_model, cfg.ssm_state, cfg.ssm_headdim,
+                cfg.ssm_expand, cfg.conv_kernel, dt, device)
+        elif spec.mixer == "rwkv6":
+            n_heads = cfg.d_model // cfg.rwkv_headdim
+            cache["mixer"] = {
+                "wkv": torch.zeros((batch, n_heads, cfg.rwkv_headdim,
+                                    cfg.rwkv_headdim), dtype=torch.float32,
+                                   device=device),
+                "tm_last": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                       device=device),
+            }
+        if spec.ffn == "rwkv_cm":
+            cache["ffn"] = {"cm_last": torch.zeros((batch, 1, cfg.d_model),
+                                                   dtype=dt, device=device)}
+        else:
+            cache["ffn"] = {}
+        return cache
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Zeroed caches matching the segment structure. KV caches of swa
+        layers are ring buffers of the window size."""
+        device = resolve_device(device)
+        caches = []
+        for seg in self.cfg.segments:
+            pat = {}
+            for j, ls in enumerate(seg.pattern):
+                one = self._layer_cache_shape(ls, batch, max_len, device)
+                pat[str(j)] = tree_map(
+                    lambda x, n=seg.n_steps: torch.zeros(
+                        (n,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device), one)
+            caches.append(pat)
+        return caches
+
+    def _decode_layer(self, spec: LayerSpec, lparams, shared, cache, x,
+                      pos: int):
+        cfg = self.cfg
+        h = rmsnorm(lparams["norm1"], x)
+        new_cache = dict(cache)
+        if spec.mixer in ("attn", "shared_attn"):
+            p = (self._merged_shared_attn(lparams["mixer"], shared)
+                 if spec.mixer == "shared_attn" else lparams["mixer"])
+            out, kv = attn.decode_attention(
+                p, h, cache["mixer"], pos, kind=spec.attn_kind,
+                window=cfg.window, chunk=cfg.chunk, use_rope=spec.use_rope,
+                rope_theta=cfg.rope_theta)
+            new_cache["mixer"] = kv
+        elif spec.mixer == "mamba2":
+            out, mc = ssm_mod.mamba2_decode(
+                lparams["mixer"], h, cache["mixer"], d_state=cfg.ssm_state,
+                headdim=cfg.ssm_headdim, expand=cfg.ssm_expand)
+            new_cache["mixer"] = mc
+        elif spec.mixer == "rwkv6":
+            out, rc = rwkv_mod.rwkv6_timemix_decode(
+                lparams["mixer"], h, cache["mixer"], cfg.rwkv_headdim,
+                backend=self.kernel_backend)
+            new_cache["mixer"] = {"wkv": rc["wkv"], "tm_last": rc["tm_last"]}
+        else:
+            raise ValueError(spec.mixer)
+        x = x + out
+
+        if spec.ffn != "none":
+            h2 = rmsnorm(lparams["norm2"], x)
+            if spec.ffn == "rwkv_cm":
+                out2, fc = rwkv_mod.rwkv6_channelmix_decode(
+                    lparams["ffn"], h2, cache["ffn"])
+                new_cache["ffn"] = fc
+            else:
+                out2 = self._apply_ffn(spec, lparams, shared, h2)
+            x = x + out2
+        return x, new_cache
+
+    def decode_step(self, params, caches, tokens, pos: int):
+        """One decode step. tokens (B,) integer; ``pos`` (int) the position
+        of this token (prefix-inclusive). Updates ``caches`` in place and
+        returns ``(logits (B, V), caches)``."""
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed_scaled(params, tokens[:, None])
+        shared = params.get("shared")
+        for seg_params, seg_cache, seg in zip(params["segments"], caches,
+                                              cfg.segments):
+            for i in range(seg.n_steps):
+                p_step, c_step = _step(seg_params, i), _step(seg_cache, i)
+                for j, ls in enumerate(seg.pattern):
+                    x, new_c = self._decode_layer(
+                        ls, p_step[str(j)], shared, c_step[str(j)], x, pos)
+                    _write(c_step[str(j)], new_c)
+        x = rmsnorm(params["final_norm"], x)
+        logits = unembed(params["embed"], x)[:, 0]
+        return logits, caches
+
+    def _prefill_states(self, params, tokens, prefix, max_len):
+        """Shared prefill body: final-normed hidden states (B, S_total, d)
+        plus the filled caches."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens, prefix)
+        b, s_total = x.shape[:2]
+        max_len = max_len or s_total
+        positions = torch.arange(s_total, device=x.device)
+        shared = params.get("shared")
+        caches = self.init_cache(b, max_len, x.device)
+        for seg_params, seg_cache, seg in zip(params["segments"], caches,
+                                              cfg.segments):
+            for i in range(seg.n_steps):
+                p_step, c_step = _step(seg_params, i), _step(seg_cache, i)
+                for j, ls in enumerate(seg.pattern):
+                    x, new_c = self._prefill_layer(
+                        ls, p_step[str(j)], shared, c_step[str(j)], x,
+                        positions)
+                    _write(c_step[str(j)], new_c)
+        x = rmsnorm(params["final_norm"], x)
+        return x, caches, s_total
+
+    def prefill(self, params, tokens, prefix=None, max_len=None):
+        """Run the full prompt, building caches. Returns (last-token logits
+        (B, V), caches, next position (int))."""
+        x, caches, s_total = self._prefill_states(params, tokens, prefix,
+                                                  max_len)
+        logits = unembed(params["embed"], x[:, -1:])[:, 0]
+        return logits, caches, s_total
+
+    def _prefill_layer(self, spec: LayerSpec, lparams, shared, cache, x,
+                       positions):
+        cfg = self.cfg
+        h = rmsnorm(lparams["norm1"], x)
+        new_cache = dict(cache)
+        if spec.mixer in ("attn", "shared_attn"):
+            p = (self._merged_shared_attn(lparams["mixer"], shared)
+                 if spec.mixer == "shared_attn" else lparams["mixer"])
+            out, (k, v) = attn.attention_forward_kv(
+                p, h, positions, kind=spec.attn_kind, window=cfg.window,
+                chunk=cfg.chunk, use_rope=spec.use_rope,
+                rope_theta=cfg.rope_theta, backend=self.kernel_backend)
+            new_cache["mixer"] = attn.fill_kv_cache(
+                cache["mixer"], k, v, spec.attn_kind, cfg.window, cfg.chunk)
+        elif spec.mixer == "mamba2":
+            out, st = ssm_mod.mamba2_forward_state(
+                lparams["mixer"], h, d_state=cfg.ssm_state,
+                headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
+                chunk=cfg.ssd_chunk, backend=self.kernel_backend)
+            new_cache["mixer"] = st
+        elif spec.mixer == "rwkv6":
+            out, st = rwkv_mod.rwkv6_timemix_forward_state(
+                lparams["mixer"], h, cfg.rwkv_headdim, cfg.rwkv_chunk,
+                backend=self.kernel_backend)
+            new_cache["mixer"] = st
+        else:
+            raise ValueError(spec.mixer)
+        x = x + out
+        if spec.ffn != "none":
+            h2 = rmsnorm(lparams["norm2"], x)
+            if spec.ffn == "rwkv_cm":
+                out2 = rwkv_mod.rwkv6_channelmix_forward(lparams["ffn"], h2)
+                new_cache["ffn"] = {"cm_last": h2[:, -1:]}
+            else:
+                out2 = self._apply_ffn(spec, lparams, shared, h2)
+            x = x + out2
+        return x, new_cache

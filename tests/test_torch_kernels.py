@@ -1,5 +1,6 @@
 """The port's kernel modules (``dp_clip_noise``, ``quantize_decompress``,
-``cohort_gather_scatter``) against the JAX package.
+``cohort_gather_scatter``, ``flash_attention``, ``rwkv6_scan``,
+``mamba2_ssd``) against the JAX package.
 
 On the CPU a wrapper runs its kernel's plain version, so here the plain
 ``dp_clip_noise`` is held against JAX's Pallas kernel (interpret mode) and
@@ -7,7 +8,11 @@ its jnp reference on the same numpy-seeded inputs, at atol 1e-6 (sums taken
 in another order); the plain ``quantize_decompress`` is held bit for bit
 against JAX in ``tests/test_torch_aggregation.py``; the plain
 ``cohort_gather_scatter`` bit for bit against JAX's reference and its Pallas
-kernel (interpret mode) here. The hand-written CUDA
+kernel (interpret mode) here; the plain ``flash_attention``, ``rwkv6_scan``
+and ``mamba2_ssd`` against the Pallas kernels run directly in interpret mode
+(``repro.kernels.ops`` goes through ``repro.kernels.dispatch``, which fails
+on jax 0.9), JAX's jnp references and the JAX model's own baselines. The
+hand-written CUDA
 kernels themselves are held against their plain versions by the ``gpu``
 tests at the end, which need a card:
 
@@ -16,6 +21,8 @@ tests at the end, which need a card:
 (``--noconftest`` because the suite's conftest imports jax, which a machine
 that only runs the GPU tests need not have.)
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,12 +35,23 @@ try:        # the reference; absent where only the gpu tests run
         cohort_gather_scatter as jax_cohort_gather_scatter,
     )
     from repro.kernels.dp_clip_noise import dp_clip_noise as jax_dp_clip_noise
+    from repro.kernels.flash_attention import (
+        flash_attention as jax_flash_attention,
+    )
+    from repro.kernels.mamba2_ssd import mamba2_ssd as jax_mamba2_ssd
     from repro.kernels.ops import dp_clip_noise_tree as jax_dp_clip_noise_tree
+    from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
+    from repro.models.attention import blocked_causal_attention
+    from repro.models.rwkv import wkv6_scan as jax_wkv6_scan
+    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 except ModuleNotFoundError:
     jax = None
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 from repro_torch.kernels.ops import (
     cohort_gather,
     cohort_scatter,
@@ -44,8 +62,12 @@ from repro_torch.kernels.quantize_decompress import quantize_decompress
 from repro_torch.kernels.ref import (
     cohort_gather_scatter_ref,
     dp_clip_noise_ref,
+    flash_attention_ref,
+    mamba2_ssd_ref,
     quantize_decompress_ref,
+    rwkv6_scan_ref,
 )
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 ATOL = 1e-6
 
@@ -373,6 +395,285 @@ def test_cohort_plain_version_refuses_out_of_range_slots():
         cohort_gather(torch.zeros((4, 3)), torch.tensor([1, 4]))
 
 
+# ---------------- flash_attention, rwkv6_scan, mamba2_ssd -------------------
+# Inputs are made with numpy from a seed and fed to both packages; bf16 cases
+# round the same numpy values into each package's bf16.
+
+def _np_rng(*key):
+    """A numpy generator seeded from ``key`` (stable across processes)."""
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _in(a, dtype):
+    """numpy f32 -> (torch tensor, jax array) in ``dtype``."""
+    if dtype == "bfloat16":
+        return (torch.as_tensor(a).to(torch.bfloat16),
+                jnp.asarray(a, jnp.bfloat16))
+    return torch.as_tensor(a), jnp.asarray(a)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+# (B, H, S, hd, window, Pallas block): tests/test_kernels.py's shape, S not a
+# multiple of the CUDA kernel's 32-row tiles, hd 32 / 64 / 112, windows that
+# bite and that do not (W >= S), and S = 1
+FLASH_CASES = [(1, 4, 128, 32, 0, 32), (1, 4, 128, 32, 24, 32),
+               (2, 2, 40, 32, 0, 8), (1, 2, 37, 112, 0, 37),
+               (1, 2, 37, 112, 16, 37), (2, 3, 70, 64, 100, 10),
+               (1, 1, 1, 32, 0, 1)]
+# f32: the online softmax of the Pallas kernel and the one-pass softmax of
+# the plain version sum in another order (gaps ~6e-7). bf16: the plain
+# version, like JAX's reference, rounds scores and probabilities to bf16
+# (gaps to JAX's reference: the two frameworks' bf16 products, ~1 bf16 ulp
+# of the output, 2^-8 relative); against the Pallas kernel, which keeps them
+# in f32, the scores' rounding adds a few ulps more.
+FLASH_TOL = {"float32": dict(atol=2e-6, rtol=2e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("b,h,s,hd,window,block", FLASH_CASES,
+                         ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}w{c[4]}"
+                              for c in FLASH_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_version_matches_pallas_interpret_and_jax_ref(
+        b, h, s, hd, window, block, dtype):
+    rng = _np_rng("flash", b, h, s, hd)
+    q, k, v = (rng.normal(size=(b, h, s, hd)).astype(np.float32)
+               for _ in range(3))
+    (tq, jq), (tk, jk), (tv, jv) = (_in(a, dtype) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == tq.dtype and got.shape == (b, h, s, hd)
+    want_pallas = jax_flash_attention(jq, jk, jv, window=window,
+                                      block_q=block, block_k=block,
+                                      interpret=True)
+    want_ref = jref.flash_attention_ref(jq, jk, jv, window=window)
+    for want in (want_pallas, want_ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), **FLASH_TOL[dtype])
+
+
+def test_flash_window_at_least_s_is_full_causal():
+    rng = _np_rng("flash-window")
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 2, 19, 16))
+                               .astype(np.float32)) for _ in range(3))
+    assert torch.equal(flash_attention(q, k, v, window=19),
+                       flash_attention(q, k, v))
+    assert not torch.equal(flash_attention(q, k, v, window=18),
+                           flash_attention(q, k, v))
+
+
+def test_flash_plain_version_matches_model_blocked_attention():
+    """The plain version == the JAX model's jnp baseline (GQA expanded),
+    at tests/test_kernels.py's tolerance."""
+    rng = _np_rng("flash-model")
+    b, s, h, hd = 1, 128, 4, 32
+    q, k, v = (rng.normal(size=(b, s, h, hd)).astype(np.float32)
+               for _ in range(3))
+    for window in (0, 24):
+        want = blocked_causal_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), window=window,
+                                        block_q=32)
+        got = ops.flash_attention(
+            *(torch.as_tensor(a).transpose(1, 2).contiguous()
+              for a in (q, k, v)), window=window).transpose(1, 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-5)
+
+
+def _rwkv_inputs(b, h, s, hd, with_s0, seed_key):
+    rng = _np_rng("rwkv", *seed_key)
+    r, k, v = (rng.normal(size=(b, h, s, hd)).astype(np.float32)
+               for _ in range(3))
+    w = (1 / (1 + np.exp(-rng.normal(size=(b, h, s, hd))))).astype(np.float32)
+    u = rng.normal(size=(h, hd)).astype(np.float32)
+    s0 = (rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+          if with_s0 else None)
+    return r, k, v, w, u, s0
+
+
+# (B, H, S, hd): tests/test_kernels.py's shape, S = 1 (a decode step), S not
+# a multiple of the CUDA kernel's 32-token staging, hd 32 and 64
+RWKV_CASES = [(2, 3, 12, 8), (2, 3, 1, 8), (1, 2, 45, 32), (2, 2, 33, 64)]
+
+
+@pytest.mark.parametrize("b,h,s,hd", RWKV_CASES,
+                         ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}"
+                              for c in RWKV_CASES])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_plain_version_matches_pallas_interpret_and_jax_ref(
+        b, h, s, hd, with_s0, dtype):
+    """r / k / v in ``dtype``, w / u / s0 f32, as the model passes them.
+    The plain version equals the Pallas kernel (the same sequential f32
+    recurrence) within 1e-5 and JAX's reference within 1e-5 (after the
+    reference's f32 y is rounded to r's dtype, as the kernels round it);
+    the final state within 1e-5 of both."""
+    r, k, v, w, u, s0 = _rwkv_inputs(b, h, s, hd, with_s0, (b, h, s, hd))
+    (tr, jr), (tk, jk), (tv, jv) = (_in(a, dtype) for a in (r, k, v))
+    tw, tu = torch.as_tensor(w), torch.as_tensor(u)
+    ts0 = None if s0 is None else torch.as_tensor(s0)
+    js0 = None if s0 is None else jnp.asarray(s0)
+    y, st = ops.rwkv6_scan(tr, tk, tv, tw, tu, ts0)
+    assert y.dtype == tr.dtype and st.dtype == torch.float32
+    wy_p, ws_p = jax_rwkv6_scan(jr, jk, jv, jnp.asarray(w), jnp.asarray(u),
+                                js0, interpret=True)
+    wy_r, ws_r = jref.rwkv6_scan_ref(jr, jk, jv, jnp.asarray(w),
+                                     jnp.asarray(u), js0)
+    wy_r = wy_r.astype(jr.dtype)
+    ytol = (dict(atol=1e-5, rtol=1e-5) if dtype == "float32"
+            # one bf16 rounding of y on both sides; f32 sums in another
+            # order can move it across a rounding boundary: 1 ulp
+            else dict(atol=1e-2, rtol=8e-3))
+    for wy, ws in ((wy_p, ws_p), (wy_r, ws_r)):
+        np.testing.assert_allclose(_f32(y), _f32(wy), **ytol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(ws), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_rwkv_plain_version_matches_model_scan():
+    """The plain version == the JAX model's wkv6_scan (its lax.scan
+    baseline) at tests/test_kernels.py's tolerance, with and without s0."""
+    b, h, s, hd = 2, 3, 12, 8
+    for with_s0 in (False, True):
+        r, k, v, w, u, s0 = _rwkv_inputs(b, h, s, hd, with_s0, ("model",))
+        perm = lambda a: np.ascontiguousarray(np.moveaxis(a, 1, 2))  # noqa
+        want_y, want_s = jax_wkv6_scan(
+            *(jnp.asarray(perm(a)) for a in (r, k, v, w)), jnp.asarray(u),
+            None if s0 is None else jnp.asarray(s0))
+        y, st = ops.rwkv6_scan(*(torch.as_tensor(a) for a in (r, k, v, w, u)),
+                               None if s0 is None else torch.as_tensor(s0))
+        np.testing.assert_allclose(y.transpose(1, 2).numpy(),
+                                   np.asarray(want_y), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_s), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _ssd_inputs(b, s, h, p, n, seed_key):
+    rng = _np_rng("ssd", *seed_key)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    a = (-np.exp(rng.normal(size=(h,)) * 0.3)).astype(np.float32)
+    b_in = rng.normal(size=(b, s, n)).astype(np.float32)
+    c_in = rng.normal(size=(b, s, n)).astype(np.float32)
+    return x, dt, a, b_in, c_in
+
+
+# (B, S, H, P, N, chunk): tests/test_kernels.py's shape (4 chunks), several
+# chunks at other widths, one chunk, and chunk > S (clamped to S)
+SSD_CASES = [(2, 32, 2, 8, 4, 8), (1, 64, 3, 16, 8, 16),
+             (2, 24, 2, 8, 4, 24), (1, 12, 2, 32, 16, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES,
+                         ids=[f"b{c[0]}s{c[1]}h{c[2]}p{c[3]}n{c[4]}q{c[5]}"
+                              for c in SSD_CASES])
+def test_ssd_plain_version_matches_pallas_interpret_and_jax_refs(
+        b, s, h, p, n, chunk):
+    """f32: the plain version computes the Pallas kernel's per-chunk math
+    (gaps ~2e-6); JAX's sequential reference and the model's ssd_chunked
+    sum in another order (tests/test_kernels.py's 1e-3 / 1e-4)."""
+    x, dt, a, b_in, c_in = _ssd_inputs(b, s, h, p, n, (b, s, h, p, n))
+    jin = [jnp.asarray(t) for t in (x, dt, a, b_in, c_in)]
+    y, st = ops.mamba2_ssd(*(torch.as_tensor(t)
+                             for t in (x, dt, a, b_in, c_in)), chunk=chunk)
+    assert y.shape == x.shape and st.shape == (b, h, p, n)
+    wy, ws = jax_mamba2_ssd(*jin, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(ws), atol=1e-5,
+                               rtol=1e-5)
+    for wy, ws in (jref.mamba2_ssd_ref(*jin),
+                   jax_ssd_chunked(*jin, chunk=min(chunk, s))):
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), rtol=1e-3,
+                                   atol=1e-4)
+        np.testing.assert_allclose(st.numpy(), np.asarray(ws), rtol=1e-3,
+                                   atol=1e-4)
+
+
+def test_ssd_plain_version_bf16_inputs():
+    """bf16 x / b / c (dt, a f32): y comes back in bf16, within 1 bf16 ulp
+    of the same computation on the f32 upcast of those inputs (the only
+    rounding is y's), and the f32 state matches it within 1e-5."""
+    x, dt, a, b_in, c_in = _ssd_inputs(2, 32, 2, 8, 4, ("bf16",))
+    tx, tb, tc = (torch.as_tensor(t).to(torch.bfloat16)
+                  for t in (x, b_in, c_in))
+    td, ta = torch.as_tensor(dt), torch.as_tensor(a)
+    y, st = mamba2_ssd(tx, td, ta, tb, tc, chunk=8)
+    wy, ws = mamba2_ssd_ref(tx.float(), td, ta, tb.float(), tc.float(), 8)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), wy.numpy(), atol=1e-2,
+                               rtol=8e-3)
+    np.testing.assert_allclose(st.numpy(), ws.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_refuses_a_sequence_the_chunk_does_not_divide():
+    x, dt, a, b_in, c_in = _ssd_inputs(1, 20, 2, 8, 4, ("ragged",))
+    with pytest.raises(ValueError):
+        mamba2_ssd(*(torch.as_tensor(t) for t in (x, dt, a, b_in, c_in)),
+                   chunk=8)
+
+
+def _kernel_call(kernel, bad):
+    """One call of ``kernel`` with valid small CPU inputs but for ``bad``:
+    an input that requires grad, a wrong dtype or a wrong shape."""
+    if kernel == "flash":
+        args = [torch.ones((1, 2, 5, 8)) for _ in range(3)]
+        fn = lambda *a: flash_attention(*a)  # noqa: E731
+        slot = 1
+    elif kernel == "rwkv":
+        args = [torch.ones((1, 2, 5, 8)) for _ in range(4)] + [
+            torch.ones((2, 8)), torch.zeros((1, 2, 8, 8))]
+        fn = rwkv6_scan
+        slot = 3                                   # w
+    else:
+        args = [torch.ones((1, 8, 2, 4)), torch.ones((1, 8, 2)),
+                -torch.ones((2,)), torch.ones((1, 8, 3)),
+                torch.ones((1, 8, 3))]
+        fn = lambda *a: mamba2_ssd(*a, chunk=4)  # noqa: E731
+        slot = 3                                   # b
+    if bad == "grad":
+        args[slot] = args[slot].clone().requires_grad_(True)
+    elif bad == "dtype":
+        args[slot] = args[slot].double()
+    else:
+        args[slot] = args[slot][..., :-1].contiguous()
+    return fn, args
+
+
+@pytest.mark.parametrize("kernel", ["flash", "rwkv", "ssd"])
+@pytest.mark.parametrize("bad", ["grad", "dtype", "shape"])
+def test_model_kernel_wrappers_refuse_what_the_kernel_does_not_take(kernel,
+                                                                    bad):
+    fn, args = _kernel_call(kernel, bad)
+    with pytest.raises(ValueError):
+        fn(*args)
+
+
+def test_model_kernel_ops_take_ref_and_refuse_unknown_backends():
+    rng = _np_rng("ops-backends")
+    q = torch.as_tensor(rng.normal(size=(1, 2, 9, 8)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q, q, backend="ref"),
+                       flash_attention_ref(q, q, q))
+    r, k, v, w, u, s0 = (torch.as_tensor(a) for a in
+                         _rwkv_inputs(1, 2, 3, 8, True, ("ops",)))
+    for a, b in zip(ops.rwkv6_scan(r, k, v, w, u, s0, backend="ref"),
+                    rwkv6_scan_ref(r, k, v, w, u, s0)):
+        assert torch.equal(a, b)
+    ssd_in = [torch.as_tensor(a) for a in _ssd_inputs(1, 8, 2, 4, 3,
+                                                      ("ops",))]
+    for a, b in zip(ops.mamba2_ssd(*ssd_in, chunk=4, backend="ref"),
+                    mamba2_ssd_ref(*ssd_in, 4)):
+        assert torch.equal(a, b)
+    for call in (lambda: ops.flash_attention(q, q, q, backend="pallas"),
+                 lambda: ops.rwkv6_scan(r, k, v, w, u, backend="x"),
+                 lambda: ops.mamba2_ssd(*ssd_in, backend="interpret")):
+        with pytest.raises(ValueError):
+            call()
+
+
 # ------------------------------ on the card ---------------------------------
 
 @pytest.fixture
@@ -509,6 +810,110 @@ def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
     assert proc.returncode == 3, proc.stderr[-2000:]
 
 
+# flash_attention / rwkv6_scan / mamba2_ssd on the card: the CPU tests'
+# shapes and chip_smoke.py's phase-10 shapes (gemma3's prefill with and
+# without its window, zamba2's shared attention, rwkv6's prefill and decode
+# step, zamba2's SSD). f32 against the plain version, bf16 against the plain
+# version run in f32 on the same bf16 values (the kernels compute in f32 and
+# round the output once; the plain flash version would round its scores
+# too). Tolerance: the two sum in another order, which moves an output by up
+# to ~1e-5 of the output tensor's largest magnitude (sums of up to 128
+# terms of size ~|max|; the SSD's outputs reach ~100 at zamba2's shape), so
+# atol = 1e-5 * max(1, max|plain|); rtol 1e-4 in f32, and 8e-3 (two bf16
+# ulps, 2^-7) where the output is rounded to bf16.
+GPU_FLASH = [(b, h, s, hd, w) for b, h, s, hd, w, _ in FLASH_CASES] + [
+    (2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024), (2, 32, 512, 112, 0)]
+GPU_RWKV = [(b, h, s, hd, s0) for b, h, s, hd in RWKV_CASES
+            for s0 in (False, True)] + [(2, 32, 512, 64, False),
+                                        (2, 32, 1, 64, True)]
+GPU_SSD = [c for c in SSD_CASES] + [(2, 512, 112, 64, 64, 128)]
+
+
+def _gpu_close(got, want, dtype):
+    """``got`` (the kernel's output, in ``dtype``) against ``want`` (the
+    plain version in f32) at the tolerance above."""
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(
+        got.float(), want, atol=1e-5 * scale,
+        rtol=1e-4 if dtype == torch.float32 else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,hd,window", GPU_FLASH,
+                         ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}w{c[4]}"
+                              for c in GPU_FLASH])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, b, h, s, hd,
+                                                    window, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hd + window)
+    q, k, v = (torch.randn((b, h, s, hd), generator=gen, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               window=window)
+    _gpu_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,hd,with_s0", GPU_RWKV,
+                         ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}"
+                              f"{'-s0' if c[4] else ''}" for c in GPU_RWKV])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_rwkv6_scan_matches_plain_version(cuda_device, b, h, s, hd,
+                                               with_s0, dtype):
+    r, k, v, w, u, s0 = (None if a is None else
+                         torch.as_tensor(a).to(cuda_device)
+                         for a in _rwkv_inputs(b, h, s, hd, with_s0,
+                                               ("gpu", b, h, s, hd)))
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    before = rwkv6_scan.launches
+    y, st = rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    wy, ws = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
+    _gpu_close(y, wy, dtype)
+    _gpu_close(st, ws, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", GPU_SSD,
+                         ids=[f"b{c[0]}s{c[1]}h{c[2]}p{c[3]}n{c[4]}q{c[5]}"
+                              for c in GPU_SSD])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_mamba2_ssd_matches_plain_version(cuda_device, b, s, h, p, n,
+                                               chunk, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, a, b_in, c_in = (torch.as_tensor(t).to(cuda_device) for t in
+                            _ssd_inputs(b, s, h, p, n, ("gpu", b, s, h)))
+    x, b_in, c_in = (t.to(dtype) for t in (x, b_in, c_in))
+    before = mamba2_ssd.launches
+    y, st = mamba2_ssd(x, dt, a, b_in, c_in, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.launches == before + 1
+    assert y.dtype == dtype and st.shape == (b, h, p, n)
+    wy, ws = mamba2_ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
+                            min(chunk, s))
+    _gpu_close(y, wy, dtype)
+    _gpu_close(st, ws, torch.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_model_kernel_wrappers_refuse_grad_inputs(cuda_device):
+    for kernel in ("flash", "rwkv", "ssd"):
+        fn, args = _kernel_call(kernel, "grad")
+        with pytest.raises(ValueError):
+            fn(*(a.to(cuda_device) for a in args))
+
+
 if __name__ == "__main__":
     # the max |torch - jax| of the plain version against the Pallas kernel
     # (interpret) and the jnp reference over the cases above:
@@ -535,3 +940,50 @@ if __name__ == "__main__":
     for name, (dy, dn) in gaps.items():
         print(f"plain dp_clip_noise vs {name}: max|dy| = {dy:.3e}, "
               f"max rel|dnorm| = {dn:.3e}")
+    # the same for the model kernels' plain versions, f32, over the cases
+    # of their tests above
+    gaps = {}
+
+    def gap(name, got, want):
+        gaps[name] = max(gaps.get(name, 0.0),
+                         float(np.max(np.abs(_f32(got) - _f32(want)))))
+
+    for b, h, s, hd, window, block in FLASH_CASES:
+        rng = _np_rng("flash", b, h, s, hd)
+        qkv = [rng.normal(size=(b, h, s, hd)).astype(np.float32)
+               for _ in range(3)]
+        got = ops.flash_attention(*map(torch.as_tensor, qkv), window=window)
+        jqkv = [jnp.asarray(a) for a in qkv]
+        gap("flash vs pallas interpret", got, jax_flash_attention(
+            *jqkv, window=window, block_q=block, block_k=block,
+            interpret=True))
+        gap("flash vs jnp ref", got,
+            jref.flash_attention_ref(*jqkv, window=window))
+    for b, h, s, hd in RWKV_CASES:
+        for with_s0 in (False, True):
+            r, k, v, w, u, s0 = _rwkv_inputs(b, h, s, hd, with_s0,
+                                             (b, h, s, hd))
+            y, st = ops.rwkv6_scan(
+                *(torch.as_tensor(a) for a in (r, k, v, w, u)),
+                None if s0 is None else torch.as_tensor(s0))
+            jin = [jnp.asarray(a) for a in (r, k, v, w, u)] + [
+                None if s0 is None else jnp.asarray(s0)]
+            for name, (wy, ws) in (
+                    ("pallas interpret", jax_rwkv6_scan(*jin,
+                                                        interpret=True)),
+                    ("jnp ref", jref.rwkv6_scan_ref(*jin))):
+                gap(f"rwkv6_scan y vs {name}", y, wy)
+                gap(f"rwkv6_scan state vs {name}", st, ws)
+    for b, s, h, p, n, chunk in SSD_CASES:
+        ins = _ssd_inputs(b, s, h, p, n, (b, s, h, p, n))
+        y, st = ops.mamba2_ssd(*map(torch.as_tensor, ins), chunk=chunk)
+        jin = [jnp.asarray(a) for a in ins]
+        for name, (wy, ws) in (
+                ("pallas interpret", jax_mamba2_ssd(*jin, chunk=chunk,
+                                                    interpret=True)),
+                ("sequential ref", jref.mamba2_ssd_ref(*jin)),
+                ("ssd_chunked", jax_ssd_chunked(*jin, chunk=min(chunk, s)))):
+            gap(f"mamba2_ssd y vs {name}", y, wy)
+            gap(f"mamba2_ssd state vs {name}", st, ws)
+    for name, g in gaps.items():
+        print(f"plain {name}: max|d| = {g:.3e}")
