@@ -38,7 +38,9 @@ Phases (each prints its lines; any failure exits non-zero):
  10. flash_attention, rwkv6_scan and mamba2_ssd against their plain
      versions at the serving path's shapes and a ragged small one, f32 and
      bf16, timed beside their bounds (flash also beside torch's
-     scaled_dot_product_attention, the yardstick the port never calls);
+     scaled_dot_product_attention, the yardstick the port never calls, and
+     at hd 128 too; each flash case names the instance that ran, and every
+     tensor-core flash instance must build without spills);
  11. static serving at full width through repro_torch.launch.serve.generate
      (bf16, random weights from a seed, batch 2): gemma3-4b with a
      2048-token prompt, rwkv6-1.6b and zamba2-7b with 512, 32 greedy tokens
@@ -57,6 +59,7 @@ repository's src/.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -94,13 +97,42 @@ QS_CACHE, QS_CHUNK = 256, 8
 # rwkv6's prefill and decode step, a ragged small one; (B, S, H, P, N,
 # chunk) zamba2's SSD and a small one of several chunks
 FLASH_SHAPES = ((2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024),
-                (2, 32, 512, 112, 0), (1, 3, 77, 48, 20))
+                (2, 32, 512, 112, 0), (2, 32, 2048, 128, 0),
+                (1, 3, 77, 48, 20))
 RWKV_SHAPES = ((2, 32, 512, 64, False), (2, 32, 1, 64, True),
                (1, 3, 45, 32, True))
 SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (1, 48, 3, 16, 8, 16))
 # phases 11-12: (arch, prompt length, generated tokens), batch 2
 SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
               ("zamba2-7b", 512, 32))
+
+
+def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel instance, registers, spill store bytes, spill load bytes)
+    for every entry function in an ``nvcc -Xptxas -v`` log; the flash
+    instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            tc = re.search(r"flash_tcILi(\d+)E", name)
+            fwd = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)E", name)
+            if tc:
+                name = f"flash_tc<{tc.group(1)}>"
+            elif fwd:
+                name = (f"flash_fwd<{'f32' if fwd.group(1) == 'f' else 'bf16'}"
+                        f", {fwd.group(2)}>")
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name is not None:
+            out.append((name, int(regs.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def _fail(msg: str) -> int:
@@ -880,6 +912,7 @@ def check_model_kernels(torch, kernels, refs):
                                    device="cuda").to(dtype)
                        for _ in range(3))
             got = flash(q, k, v, window=window)
+            variant = flash.last_variant
             want = flash_ref(q.float(), k.float(), v.float(), window=window)
             torch.cuda.synchronize()
             err, good = _kernel_err(torch, got, want, dtype)
@@ -915,9 +948,10 @@ def check_model_kernels(torch, kernels, refs):
                     recs["flash_attention"] = {
                         "ms": timed[0], "plain_ms": timed[1],
                         "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": lib_ms}
+                        "library_ms": lib_ms, "variant": variant}
             report("flash_attention", f"({b}, {h}, {s}, {hd}) window "
-                   f"{window}", dtype, err, good, timed, bound, extra)
+                   f"{window} [{variant}]", dtype, err, good, timed, bound,
+                   extra)
             del q, k, v, got
 
     for b, h, s, hd, with_s0 in RWKV_SHAPES:
@@ -1204,11 +1238,14 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    ok_build = True
     for name, (secs, log) in _build.build_all().items():
         print(f"build {name}: {secs:.2f} s", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {line.strip()}", flush=True)
+        for inst, regs, st, ld in _ptxas_instances(log):
+            print(f"  {name} {inst}: {regs} registers, {st} bytes spill "
+                  f"stores, {ld} bytes spill loads", flush=True)
+            if inst.startswith("flash_tc") and st + ld:
+                ok_build = False
 
     # -- 2. kernels against their plain versions --------------------------
     ok_k, main_rec, worst = check_kernels(torch, dp_clip_noise,
@@ -1281,6 +1318,8 @@ def main() -> int:
             "max_abs_err": mk_worst[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if "variant" in rec:
+            model_kernels[-1]["variant"] = rec["variant"]
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -1304,7 +1343,8 @@ def main() -> int:
         "ms": g_rec["ms"], "plain_ms": g_rec["plain_ms"],
         "bound_ms": g_rec["bound_ms"], "bound_by": g_rec["bound_by"],
         "library_ms": g_rec["library_ms"]}] + model_kernels}), flush=True)
-    for ok, what in ((ok_k, "a kernel disagrees with its plain version"),
+    for ok, what in ((ok_build, "a tensor-core flash instance spills"),
+                     (ok_k, "a kernel disagrees with its plain version"),
                      (ok_q, "quantize_decompress is not bit-identical to "
                             "its plain version"),
                      (ok_m, "the main path's checks failed"),

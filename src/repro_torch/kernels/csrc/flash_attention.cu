@@ -6,7 +6,7 @@
 // (B, H, S, hd) contiguous, f32 or bf16, one head count (GQA expanded by
 // the caller), and every query row q:
 //
-//   s[k]  = (q_row * 1/sqrt(hd)) . k_row        for k <= q and, with a
+//   s[k]  = (q_row . k_row) * 1/sqrt(hd)        for k <= q and, with a
 //           window W > 0, k > q - W; else -1e30
 //   out   = sum_k exp(s[k] - m) v_row / max(sum_k exp(s[k] - m), 1e-30)
 //
@@ -17,30 +17,67 @@
 // tile visits keys [max(q0 - W + 1, 0), q_last] only, so the 29 sliding
 // window layers of gemma3 cost O(S * W), not O(S^2). Any S >= 1: the
 // ragged tail of the last q and k tiles is masked (the TPU kernel asserts
-// S % block == 0 instead).
+// S % block == 0 instead). A fully masked first tile leaves m = -1e30 and
+// p = 1 in the sums, which the next real score erases through
+// alpha = exp(-1e30 - m) = 0, as in the Pallas kernel.
 //
 // What bounds it: operations. At gemma3's prefill (B 2, H 8, S 2048,
 // hd 256) one full layer is 2 * 2 * B*H*S*S/2*hd ~ 34 GFLOP against 67 MB
-// of q, k, v and output, ~500 FLOP per byte. This first version runs them
-// on the f32 CUDA cores (67 TFLOP/s peak) whatever the inputs' type, while
-// the bound of bf16 inputs is the bf16 tensor cores' 989 TFLOP/s: it runs
-// far from that bound, and tensor-core products (`mma` / `wgmma`) are
-// later work.
+// of q, k, v and output, ~500 FLOP per byte, far above the H100's ~295
+// bf16 FLOP per byte of HBM. For bf16 inputs the bound is the bf16 tensor
+// cores' 989 TFLOP/s, for f32 inputs the CUDA cores' 67 TFLOP/s (the
+// tensor cores have no f32 product, and TF32 would round the inputs to 10
+// bits). So the library holds two instances, and the wrapper picks one by
+// shape and dtype (`_variant` in kernels/flash_attention.py):
 //
-// Design: one block of 128 threads per (b*h, 32-row q tile). The q tile
-// (pre-scaled, f32) stays in shared memory; each 32-key tile of k
-// (transposed, so the score loop reads consecutive addresses) and v is
-// staged through shared memory in f32. Thread t owns rows 4*(t/16)..+3 in
-// both products: in the scores it holds a 4 x 2 tile (columns t%16 and
-// t%16 + 16), in P.V a 4 x NC tile of the accumulator (columns t%16 + 16 j),
-// so the rescale by exp(m_old - m_new) happens in registers. The 16
-// threads of a row group (one half-warp) reduce the row max and sum with
-// shuffles. Shared memory at hd 256 is ~104 KB (dynamic, above the 48 KB
-// default), two blocks per SM.
+// * `flash_tc` (bf16, hd a multiple of 16, entry flash_attention_tc_launch):
+//   one warpgroup of 128 threads per (b*h, 64-row q tile), grid
+//   (B*H, q tiles) with the q tiles walked longest-first. Both products
+//   run as `wgmma` m64n64k16 with f32 accumulators. The q tile and a
+//   2-stage ring of 64-key k and v tiles are brought into shared memory
+//   by TMA (3-D tensor maps (hd, S, B*H), so a ragged S tail meets a real
+//   edge of the map and is zero-filled, 128-byte swizzle, hd in boxes of
+//   64 columns), completion reported to one mbarrier per stage; thread 0
+//   issues tile t + 1 while the warpgroup computes on tile t. S = Q K^T
+//   reads both operands from shared memory (K's natural (keys, hd) rows
+//   are K-major for B); 1/sqrt(hd) * log2(e) multiplies the f32 scores
+//   (folding it into a bf16 copy of q would round every score once more at
+//   hd 112 or 48, where the scale is no power of two), and exp2f takes
+//   the place of exp. The mask is applied only on the diagonal and
+//   window-edge tiles; the row max and sum are reduced across the 4
+//   threads that share a row with shuffles. O += P V takes P from
+//   registers (the S fragment converted in place) and V from shared memory
+//   as an MN-major B (the transpose bit of 16-bit types).
+//
+//   P keeps f32 precision: the Pallas kernel multiplies an f32 p by v, and
+//   rounding P once to bf16 moves an output whose terms cancel by ~2^-9 of
+//   their size, beyond the card's bf16 check (1e-5 of the largest output
+//   plus 8e-3 relative, against the plain version in f32). So P is split
+//   into P_hi = bf16(P) and P_lo = bf16(P - P_hi) and both go through
+//   `wgmma` into the same accumulator: 1.5x the tensor-core work of one
+//   bf16 P, and ~2^-17 relative error per term.
+//
+//   At hd 256 the O accumulator takes 128 registers a thread and the tiles
+//   160 KB, so one block per SM (`__launch_bounds__(128, 1)`); smaller hd
+//   fit several.
+//
+// * `flash_fwd` (f32 at any hd, bf16 at hd not a multiple of 16; entry
+//   flash_attention_simt_launch): the SIMT kernel on the CUDA cores. One
+//   block of 128 threads per (b*h, 32-row q tile). The q tile (pre-scaled,
+//   f32) stays in shared memory; each 32-key tile of k (transposed, so the
+//   score loop reads consecutive addresses) and v is staged through shared
+//   memory in f32. Thread t owns rows 4*(t/16)..+3 in both products: in
+//   the scores it holds a 4 x 2 tile (columns t%16 and t%16 + 16), in P.V
+//   a 4 x NC tile of the accumulator (columns t%16 + 16 j), so the rescale
+//   by exp(m_old - m_new) happens in registers. The 16 threads of a row
+//   group (one half-warp) reduce the row max and sum with shuffles.
+//   Shared memory at hd 256 is ~104 KB, two blocks per SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -224,16 +261,415 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   return launch<T, 16>(q, k, v, o, bh, s, hd, window, stream);
 }
 
+// ------------------------- tensor-core instance ----------------------------
+
+constexpr int kTile = 64;                 // q rows per block = keys per tile
+constexpr int kBox = 64;                  // hd columns per TMA box (128 B)
+constexpr int kBoxBytes = kTile * kBox * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tc {
+  static constexpr int kBoxes = (HD + kBox - 1) / kBox;
+  static constexpr int kSteps = HD / 16;       // k16 steps of Q K^T
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  // q, k stages 0-1, v stages 0-1, three mbarriers (q, full[0], full[1]),
+  // and 1 KB to align the base to the 128-byte swizzle's 1024-byte atom
+  static constexpr int kSmem = 5 * kTileBytes + 64 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// waits for the phase `parity` of `bar` to complete; a wait longer than
+// 4 s (a lost TMA transfer) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (start == 0) {
+      start = now;
+    } else if (now - start > 4000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// one 64 x 64 box of a (hd, S, B*H) map at (col, row, bh) into `dst`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand: start address, leading
+// byte offset (the next 64-column box; unused at N = 64), stride byte
+// offset 1024 (the next 8 rows), layout B128; offsets in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kBoxBytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define WG_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_OUT32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+
+// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) B (16 x 64,
+// K-major in shared memory); `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16 bf16, registers) B (16 x 64, MN-major in
+// shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from touching registers that wgmma reads or writes
+// asynchronously across the fence / wait
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// keys [row, row + 64) of k and v into ring stage `stage`, reported to the
+// stage's barrier `full`
+template <int HD>
+__device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, uint32_t sk,
+                                        uint32_t sv, uint32_t full, int stage,
+                                        int row, int bh) {
+  mbar_expect_tx(full, 2 * Tc<HD>::kTileBytes);
+#pragma unroll
+  for (int c = 0; c < Tc<HD>::kBoxes; ++c) {
+    const uint32_t off = stage * Tc<HD>::kTileBytes + c * kBoxBytes;
+    tma_load(sk + off, kmap, full, c * kBox, row, bh);
+    tma_load(sv + off, vmap, full, c * kBox, row, bh);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+flash_tc(const __grid_constant__ CUtensorMap qmap,
+         const __grid_constant__ CUtensorMap kmap,
+         const __grid_constant__ CUtensorMap vmap,
+         __nv_bfloat16* __restrict__ o, int s_len, int window,
+         float scale_log2) {
+  using C = Tc<HD>;
+  extern __shared__ uint8_t smem_tc[];
+  const uint32_t base = (smem_u32(smem_tc) + 1023u) & ~1023u;
+  const uint32_t sq = base;                          // q tile
+  const uint32_t sk = base + C::kTileBytes;          // k stages 0, 1
+  const uint32_t sv = base + 3 * C::kTileBytes;      // v stages 0, 1
+  const uint32_t bar = base + 5 * C::kTileBytes;     // q, full[0], full[1]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // longest first
+  const int tid = threadIdx.x;
+  const int q_last = min(q0 + kTile, s_len) - 1;
+  const int t_first = (window > 0 ? max(q0 - window + 1, 0) : 0) / kTile;
+  const int n_tiles = q_last / kTile - t_first + 1;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar, C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+      tma_load(sq + c * kBoxBytes, &qmap, bar, c * kBox, q0, bh);
+    }
+    load_kv<HD>(&kmap, &vmap, sk, sv, bar + 8, 0, t_first * kTile, bh);
+  }
+  __syncthreads();
+
+  // the wgmma accumulator layout: thread (warp w, lane) holds rows
+  // r0 = 16 w + lane / 4 and r0 + 8, and in each 8-column block i the
+  // columns 8 i + 2 (lane % 4) + {0, 1}: d[4 i + e] is row r0 + 8 (e / 2),
+  // column 8 i + 2 (lane % 4) + e % 2
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+
+  float acc[C::kBoxes][32];
+#pragma unroll
+  for (int c = 0; c < C::kBoxes; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    // every thread is past tile t - 1, whose stage tile t + 1 reuses
+    if (t > 0) __syncthreads();
+    if (tid == 0 && t + 1 < n_tiles) {
+      load_kv<HD>(&kmap, &vmap, sk, sv, bar + 8 + 8 * (stage ^ 1), stage ^ 1,
+                  (t_first + t + 1) * kTile, bh);
+    }
+    mbar_wait(bar + 8 + 8 * stage, (t >> 1) & 1);
+
+    // S = Q K^T: k16 steps walk 32 bytes along a swizzled 128-byte row
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(s[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < C::kSteps; ++j) {
+      const uint32_t off = (j / 4) * kBoxBytes + (j % 4) * 32;
+      wgmma_ss(s, desc_sw128(sq + off),
+               desc_sw128(sk + stage * C::kTileBytes + off), 1);
+    }
+    wgmma_commit_wait();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(s[i]);
+
+    // scale to log2 units, mask the diagonal and window-edge tiles only
+    const int k0 = (t_first + t) * kTile;
+    const bool edge = k0 + kTile - 1 > q0 ||
+                      (window > 0 && k0 <= q0 + kTile - 1 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + c0 + (i & 1);
+        const int row = q0 + r0 + 8 * ((i / 2) & 1);
+        if (key > row || (window > 0 && key <= row - window)) x = kNegInf;
+      }
+      s[i] = x;
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], x);
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+
+    // P = exp2(S - m) as the A fragments of the four k16 steps of P V:
+    // step j, register h holds S[8 j + 2 h], S[8 j + 2 h + 1] (row
+    // r0 + 8 (h % 2)); split into P_hi + P_lo, both bf16
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float mr = m[h & 1];
+        const float p0 = exp2f(s[8 * j + 2 * h] - mr);
+        const float p1 = exp2f(s[8 * j + 2 * h + 1] - mr);
+        sum[h & 1] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[j][h] = pack_bf16(hi);
+        p_lo[j][h] = pack_bf16(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        acc[c][i] *= alpha[(i / 2) & 1];
+        reg_fence(acc[c][i]);
+      }
+    }
+
+    // O += P_hi V + P_lo V; key step j is 16 rows (2048 bytes) of v
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t dv = desc_sw128(sv + stage * C::kTileBytes +
+                                       c * kBoxBytes + j * 16 * 128);
+        wgmma_rs(acc[c], p_hi[j], dv);
+        wgmma_rs(acc[c], p_lo[j], dv);
+      }
+    }
+    wgmma_commit_wait();
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(acc[c][i]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        reg_fence(p_hi[j][h]);
+        reg_fence(p_lo[j][h]);
+      }
+    }
+  }
+
+  // out = O / l, rounded once; rows >= S and columns >= hd not written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= s_len) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* out = o + (static_cast<int64_t>(bh) * s_len + row) * HD;
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (c * kBox + 8 * i < HD) {
+          *reinterpret_cast<__nv_bfloat162*>(out + c * kBox + 8 * i + c0) =
+              __floats2bfloat162_rn(acc[c][4 * i + 2 * r] * inv,
+                                    acc[c][4 * i + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda; nullptr when the driver does not have it
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// the (hd, S, B*H) bf16 map of one of q, k, v in 64 x 64 boxes, 128-byte
+// swizzle, zero fill out of bounds; -> CUresult
+int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+               int64_t bh, int64_t s, int64_t hd) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd * 2),
+                                 static_cast<cuuint64_t>(s * hd * 2)};
+  const cuuint32_t box[3] = {kBox, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+template <int HD>
+int launch_tc(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, void* o, int64_t bh, int64_t s,
+              int64_t window, cudaStream_t stream) {
+  constexpr int bytes = Tc<HD>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(bh),
+                  static_cast<unsigned>((s + kTile - 1) / kTile));
+  flash_tc<HD><<<grid, 128, bytes, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<int>(s),
+      static_cast<int>(window),
+      1.0f / sqrtf(static_cast<float>(HD)) * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v, o (bh, s, hd) contiguous; dtype 0 = f32, 1 = bf16; window 0 =
-// full causal. Launches one kernel on `stream` and returns
+// full causal. Launches the SIMT kernel on `stream` and returns
 // cudaGetLastError() as an int (cudaErrorInvalidValue for bad arguments).
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int64_t bh, int64_t s, int64_t hd,
-                           int64_t window, int dtype, void* stream) {
+int flash_attention_simt_launch(const void* q, const void* k, const void* v,
+                                void* o, int64_t bh, int64_t s, int64_t hd,
+                                int64_t window, int dtype, void* stream) {
   if (bh < 1 || s < 1 || hd < 1 || hd > 256 || window < 0 ||
       (s + kBQ - 1) / kBQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -246,7 +682,54 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// q, k, v, o (bh, s, hd) contiguous bf16, hd a multiple of 16 up to 256,
+// q, k, v 16-byte aligned; window 0 = full causal. Encodes the three
+// tensor maps, launches the tensor-core kernel on `stream` and returns
+// cudaGetLastError() as an int, cudaErrorInvalidValue for bad arguments,
+// or a negative code for a failed tensor-map encode (-1: the driver has
+// no cuTensorMapEncodeTiled; -1000 - CUresult otherwise).
+int flash_attention_tc_launch(const void* q, const void* k, const void* v,
+                              void* o, int64_t bh, int64_t s, int64_t hd,
+                              int64_t window, void* stream) {
+  if (bh < 1 || bh > 0x7fffffff || s < 1 || hd < 16 || hd > 256 ||
+      hd % 16 != 0 || window < 0 || (s + kTile - 1) / kTile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const int res = encode_map(encode, &maps[i], ptrs[i], bh, s, hd);
+    if (res != 0) return -1000 - res;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd / 16) {
+#define FLASH_TC_CASE(n) \
+  case n:                \
+    return launch_tc<16 * n>(maps[0], maps[1], maps[2], o, bh, s, window, st);
+    FLASH_TC_CASE(1) FLASH_TC_CASE(2) FLASH_TC_CASE(3) FLASH_TC_CASE(4)
+    FLASH_TC_CASE(5) FLASH_TC_CASE(6) FLASH_TC_CASE(7) FLASH_TC_CASE(8)
+    FLASH_TC_CASE(9) FLASH_TC_CASE(10) FLASH_TC_CASE(11) FLASH_TC_CASE(12)
+    FLASH_TC_CASE(13) FLASH_TC_CASE(14) FLASH_TC_CASE(15) FLASH_TC_CASE(16)
+#undef FLASH_TC_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 const char* flash_attention_error_string(int err) {
+  static char buf[96];
+  if (err == -1) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err < 0) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
+             -1000 - err);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

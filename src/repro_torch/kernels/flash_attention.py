@@ -6,6 +6,12 @@ The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`. Nothing falls back.
 The kernel has no backward, so an input that requires grad is refused.
+
+The library holds two instances, chosen by :func:`_variant` from the head
+dim and dtype alone: ``"tc"`` (bf16 at hd a multiple of 16: ``wgmma`` on
+the tensor cores, K / V tiles by TMA) and ``"simt"`` (f32 at any hd, bf16
+at any other hd: the f32 CUDA cores). A failed build or launch of either
+raises.
 """
 from __future__ import annotations
 
@@ -17,7 +23,21 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-_MAX_Q_TILES = 65535                 # the kernel's grid.y, 32 rows a tile
+_MAX_Q_TILES = 65535                 # the kernels' grid.y
+_Q_TILE = {"tc": 64, "simt": 32}     # query rows per block
+
+
+def _variant(hd: int, dtype) -> str:
+    """The kernel instance for head dim ``hd`` and ``dtype``: ``"tc"``
+    for bf16 at hd a multiple of 16 (the tensor cores take k16 steps),
+    else ``"simt"`` (the tensor cores have no f32 product)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{dtype}")
+    if not 1 <= hd <= _MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes 1 <= hd <= "
+                         f"{_MAX_HEAD_DIM}, got {hd}")
+    return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "simt"
 
 
 def _check(q, k, v, window):
@@ -44,11 +64,15 @@ def _check(q, k, v, window):
 def _library():
     from repro_torch.kernels._build import load_library
     lib = load_library("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = (
+    if lib.flash_attention_simt_launch.argtypes is None:
+        lib.flash_attention_simt_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
             + [ctypes.c_int, ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_simt_launch.restype = ctypes.c_int
+        lib.flash_attention_tc_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
+            + [ctypes.c_void_p])
+        lib.flash_attention_tc_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -59,8 +83,11 @@ def flash_attention(q, k, v, *, window: int = 0):
     with a sliding window of ``window`` keys (0: full causal); see
     ``flash_attention_ref`` for the math. Returns (B, H, S, hd) in q's
     dtype. Any S >= 1, hd <= 256. On a CUDA tensor every call launches one
-    kernel (f32 inside, one rounding at the end) and adds 1 to
-    ``flash_attention.launches``."""
+    kernel, the instance :func:`_variant` names (f32 inside, one rounding at
+    the end), adds 1 to ``flash_attention.launches`` and sets
+    ``flash_attention.last_variant``. The ``"tc"`` instance reads q, k, v
+    through TMA, which needs 16-byte aligned bases: a misaligned view
+    raises ``ValueError``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
@@ -68,21 +95,32 @@ def flash_attention(q, k, v, *, window: int = 0):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
     b, h, s, hd = q.shape
-    if -(-s // 32) > _MAX_Q_TILES:
-        raise ValueError(f"flash_attention takes S <= {32 * _MAX_Q_TILES}, "
+    variant = _variant(hd, q.dtype)
+    rows = _Q_TILE[variant]
+    if -(-s // rows) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention takes S <= {rows * _MAX_Q_TILES}, "
                          f"got {s}")
+    if variant == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's tensor-core instance reads q, k, "
+                         "v by TMA and needs 16-byte aligned data pointers")
     lib = _library()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            s, hd, window, DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, s, hd, window)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if variant == "tc":
+            err = lib.flash_attention_tc_launch(*args, stream)
+        else:
+            err = lib.flash_attention_simt_launch(*args, DTYPES[q.dtype],
+                                                  stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
     flash_attention.launches += 1
+    flash_attention.last_variant = variant
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_variant = None

@@ -50,7 +50,7 @@ except ModuleNotFoundError:
 from repro_torch.kernels import ops
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import _variant, flash_attention
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 from repro_torch.kernels.ops import (
     cohort_gather,
@@ -419,8 +419,8 @@ def _f32(x) -> np.ndarray:
 
 
 # (B, H, S, hd, window, Pallas block): tests/test_kernels.py's shape, S not a
-# multiple of the CUDA kernel's 32-row tiles, hd 32 / 64 / 112, windows that
-# bite and that do not (W >= S), and S = 1
+# multiple of the CUDA kernels' 32- and 64-row tiles, hd 32 / 64 / 112,
+# windows that bite and that do not (W >= S), and S = 1
 FLASH_CASES = [(1, 4, 128, 32, 0, 32), (1, 4, 128, 32, 24, 32),
                (2, 2, 40, 32, 0, 8), (1, 2, 37, 112, 0, 37),
                (1, 2, 37, 112, 16, 37), (2, 3, 70, 64, 100, 10),
@@ -481,6 +481,28 @@ def test_flash_plain_version_matches_model_blocked_attention():
               for a in (q, k, v)), window=window).transpose(1, 2)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", range(16, 257, 16))
+def test_flash_variant_is_tc_for_bf16_at_multiples_of_16(hd):
+    assert _variant(hd, torch.bfloat16) == "tc"
+    assert _variant(hd, torch.float32) == "simt"
+
+
+@pytest.mark.parametrize("hd", [1, 20, 40, 100, 255])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_variant_is_simt_for_f32_and_other_head_dims(hd, dtype):
+    assert _variant(hd, dtype) == "simt"
+
+
+@pytest.mark.parametrize("hd,dtype", [(257, torch.bfloat16),
+                                      (512, torch.float32),
+                                      (0, torch.bfloat16),
+                                      (64, torch.float16)])
+def test_flash_variant_refuses_what_no_instance_takes(hd, dtype):
+    with pytest.raises(ValueError):
+        _variant(hd, dtype)
 
 
 def _rwkv_inputs(b, h, s, hd, with_s0, seed_key):
@@ -821,8 +843,18 @@ def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
 # terms of size ~|max|; the SSD's outputs reach ~100 at zamba2's shape), so
 # atol = 1e-5 * max(1, max|plain|); rtol 1e-4 in f32, and 8e-3 (two bf16
 # ulps, 2^-7) where the output is rounded to bf16.
+# The bf16 cases at hd a multiple of 16 run the tensor-core instance, the
+# others the SIMT one (bf16 at hd 40 holds the SIMT instance in bf16). Added
+# for it: hd 128 at S 2048 (codeqwen, granite, internvl, mistral), a ragged
+# last q tile of one (b, h) next to the next one's rows, a window narrower
+# than its 64-key tile, and every tensor-core instance (hd 16..256, one to
+# four boxes of 64 columns, the last one partly past hd) on a ragged S of
+# three q tiles.
 GPU_FLASH = [(b, h, s, hd, w) for b, h, s, hd, w, _ in FLASH_CASES] + [
-    (2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024), (2, 32, 512, 112, 0)]
+    (2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024), (2, 32, 512, 112, 0),
+    (1, 4, 2048, 128, 0), (1, 2, 45, 40, 0), (2, 3, 77, 64, 0),
+    (1, 2, 200, 128, 20)] + [(2, 2, 150, hd, w) for hd in range(16, 257, 16)
+                             for w in (0, 70)]
 GPU_RWKV = [(b, h, s, hd, s0) for b, h, s, hd in RWKV_CASES
             for s0 in (False, True)] + [(2, 32, 512, 64, False),
                                         (2, 32, 1, 64, True)]
@@ -854,10 +886,32 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, b, h, s, hd,
     got = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.last_variant == (
+        "tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_ref(q.float(), k.float(), v.float(),
                                window=window)
     _gpu_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_tc_refuses_a_misaligned_view(cuda_device):
+    shape = (1, 2, 33, 64)
+    n = 2 * 33 * 64
+    buf = torch.randn(n + 1, device=cuda_device).to(torch.bfloat16)
+    q = buf[1:].view(shape)                  # 2 bytes past an aligned base
+    k, v = (torch.randn(shape, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    before = flash_attention.launches
+    for args in ((q, k, v), (k, q, v), (k, v, q)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(*args)
+    assert flash_attention.launches == before
+    aligned = q.clone()
+    _gpu_close(flash_attention(aligned, k, v),
+               flash_attention_ref(aligned.float(), k.float(), v.float()),
+               torch.bfloat16)
 
 
 @pytest.mark.gpu
