@@ -7,7 +7,9 @@ Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, with the
      kernel's, the plain version's and the bound's times (quantize_decompress
-     must be bit-identical);
+     must be bit-identical; cohort_gather_scatter also with int32 slots, its
+     gather and scatter timed against index_select / index_copy_, once each
+     and again in turns, and its wrapper's host us per call beside theirs);
   3. the main path at full width: DP-PASGD on adult_like() split by
      education (16 clients, d = 104) through repro_torch.api on cuda,
      engine "vmap", trained until a budget binds; the kernel's launches in
@@ -39,14 +41,18 @@ Phases (each prints its lines; any failure exits non-zero):
      versions at the serving path's shapes and a ragged small one, f32 and
      bf16, timed beside their bounds (flash also beside torch's
      scaled_dot_product_attention, the yardstick the port never calls, and
-     at hd 128 too; each flash case names the instance that ran, and every
-     tensor-core flash instance must build without spills);
+     at hd 128 too; each flash and SSD case names the instance that ran,
+     the SSD also at S 2048 and at batch 1 with its kernel's device time
+     by torch.profiler beside the wrapper's, and every tensor-core flash
+     instance must build without spills);
  11. static serving at full width through repro_torch.launch.serve.generate
      (bf16, random weights from a seed, batch 2): gemma3-4b with a
      2048-token prompt, rwkv6-1.6b and zamba2-7b with 512, 32 greedy tokens
      each; exact kernel launches (34 flash; 24 x 33 rwkv6_scan; 13 flash +
      81 mamba2_ssd), finite logits, prefill and decode times, peak memory,
-     one profiled decode step;
+     one profiled decode step; rope_angles bitwise equal on the card to the
+     host-tensor formula it replaced, and per arch one decode step's
+     blocking host syncs and ms per token with each (none from rope);
  12. kernel_backend "auto" against "ref" on the same params, prefill and 8
      teacher-forced decode steps: f32 with the depth cut to one step of
      each segment; bf16 at full depth, each route held against the f32
@@ -95,13 +101,16 @@ QS_CACHE, QS_CHUNK = 256, 8
 # phase 10: (B, H, S, hd, window) gemma3's prefill full and windowed,
 # zamba2's shared attention, a ragged small one; (B, H, S, hd, from s0)
 # rwkv6's prefill and decode step, a ragged small one; (B, S, H, P, N,
-# chunk) zamba2's SSD and a small one of several chunks
+# chunk) zamba2's SSD at its serving prompt (4 chunks), at S 2048 (a
+# 16-chunk chain) and at batch 1 (112 chains on 132 SMs), and a small one
+# of several chunks
 FLASH_SHAPES = ((2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024),
                 (2, 32, 512, 112, 0), (2, 32, 2048, 128, 0),
                 (1, 3, 77, 48, 20))
 RWKV_SHAPES = ((2, 32, 512, 64, False), (2, 32, 1, 64, True),
                (1, 3, 45, 32, True))
-SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (1, 48, 3, 16, 8, 16))
+SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (2, 2048, 112, 64, 64, 128),
+              (1, 512, 112, 64, 64, 128), (1, 48, 3, 16, 8, 16))
 # phases 11-12: (arch, prompt length, generated tokens), batch 2
 SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
               ("zamba2-7b", 512, 32))
@@ -110,7 +119,8 @@ SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
 def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
     """(kernel instance, registers, spill store bytes, spill load bytes)
     for every entry function in an ``nvcc -Xptxas -v`` log; the flash
-    instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``."""
+    instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``, the
+    SSD's ``ssd_tc<Q, P boxes, N boxes>`` / ``ssd_fwd<type>``."""
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -118,11 +128,19 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
             name = entry.group(1)
             tc = re.search(r"flash_tcILi(\d+)E", name)
             fwd = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)E", name)
+            ssd_tc = re.search(r"ssd_tcILi(\d+)ELi(\d)ELi(\d)E", name)
+            ssd_fwd = re.search(r"ssd_fwdI(f|13__nv_bfloat16)E", name)
             if tc:
                 name = f"flash_tc<{tc.group(1)}>"
             elif fwd:
                 name = (f"flash_fwd<{'f32' if fwd.group(1) == 'f' else 'bf16'}"
                         f", {fwd.group(2)}>")
+            elif ssd_tc:
+                name = (f"ssd_tc<Q {ssd_tc.group(1)}, P boxes "
+                        f"{ssd_tc.group(2)}, N boxes {ssd_tc.group(3)}>")
+            elif ssd_fwd:
+                kind = "f32" if ssd_fwd.group(1) == "f" else "bf16"
+                name = f"ssd_fwd<{kind}>"
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -335,6 +353,16 @@ def check_cohort_kernel(torch, cohort_gather_scatter, ref, vector_width):
         del mine, plain
         ok &= good
         worst = max(worst, err)
+        # int32 slots (the cohort's own type) go to the kernel as they are
+        s32 = slots.to(torch.int32)
+        got32 = cohort_gather_scatter(cache, s32)
+        mine = cache.clone()
+        cohort_gather_scatter(mine, s32, rows)
+        torch.cuda.synchronize()
+        good32 = bool(torch.equal(got32, want)) and bool(
+            torch.equal(mine, ref(cache.clone(), slots, rows)))
+        ok &= good32
+        del mine
         iters = 20 if d > 1_000_000 else 200
         times = {
             "gather": _time_ms(lambda: cohort_gather_scatter(cache, slots),
@@ -347,19 +375,102 @@ def check_cohort_kernel(torch, cohort_gather_scatter, ref, vector_width):
             "scatter plain": _time_ms(lambda: ref(cache, slots, rows),
                                       iters),
             "scatter library": _time_ms(
-                lambda: cache.index_copy_(0, slots, rows), iters)}
+                lambda: cache.index_copy_(0, slots, rows), iters),
+            "gather int32": _time_ms(
+                lambda: cohort_gather_scatter(cache, s32), iters),
+            "scatter int32": _time_ms(
+                lambda: cohort_gather_scatter(cache, s32, rows), iters)}
         bound_ms, bound_by = _larger_bound(
             2 * k * d * cache.element_size() + 8 * k, 0)
         print(f"kernel cohort_gather_scatter S={s} K={k} D={d} {dtype} "
               f"({vector_width(cache, rows)}-byte copies): gather and "
-              f"scatter {'bitwise equal' if good else 'MISMATCH'}  "
+              f"scatter {'bitwise equal' if good else 'MISMATCH'} (int32 "
+              f"slots {'bitwise equal' if good32 else 'MISMATCH'})  "
               + "  ".join(f"{n} {t:.5f} ms" for n, t in times.items())
-              + f"  bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+              + f"  bound {bound_ms:.6f} ms ({bound_by}); library = "
+              f"index_select / index_copy_", flush=True)
         if (s, k, d, dtype) == COHORT_SHAPES[0]:
             main = {"ms": times["gather"], "plain_ms": times["gather plain"],
                     "library_ms": times["gather library"],
                     "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"cohort_gather_scatter at the resident driver's shape: "
+                  + _cohort_verdict(times), flush=True)
+            cohort_in_turns(torch, cohort_gather_scatter, cache, slots, s32,
+                            rows, iters)
+            cohort_host_steps(torch, cohort_gather_scatter, cache, slots,
+                              s32, rows)
     return ok, main, worst
+
+
+def _cohort_verdict(times) -> str:
+    return ", ".join(
+        f"{op} {times[op]:.5f} ms against {lib} {times[f'{op} library']:.5f} "
+        f"({'met' if times[op] <= times[f'{op} library'] else 'missed'})"
+        for op, lib in (("gather", "index_select"),
+                        ("scatter", "index_copy_")))
+
+
+def cohort_in_turns(torch, cohort_gather_scatter, cache, slots, s32, rows,
+                    iters):
+    """Phase 2: gather and scatter at the resident driver's shape timed in
+    turns (library, int64 slots, int32 slots, int32, int64, library), each
+    ``_time_ms`` printed: at a few KB a call these read the host's issue
+    rate, which drifts within a run. Printed only; the record keeps the
+    single ``_time_ms`` of each, as earlier runs took it."""
+    turns = {}
+    for op, kern, lib in (
+            ("gather", lambda sl: cohort_gather_scatter(cache, sl),
+             lambda: torch.index_select(cache, 0, slots)),
+            ("scatter", lambda sl: cohort_gather_scatter(cache, sl, rows),
+             lambda: cache.index_copy_(0, slots, rows))):
+        for name in (f"{op} library", op, f"{op} int32", f"{op} int32", op,
+                     f"{op} library"):
+            sl = s32 if name.endswith("int32") else slots
+            fn = lib if name.endswith("library") else (
+                lambda sl=sl: kern(sl))
+            turns.setdefault(name, []).append(_time_ms(fn, iters))
+    print("cohort_gather_scatter at the resident driver's shape in turns: "
+          + "  ".join(f"{n} " + " / ".join(f"{t:.5f}" for t in v) + " ms"
+                      for n, v in turns.items()), flush=True)
+
+
+def cohort_host_steps(torch, cohort_gather_scatter, cache, slots, s32,
+                      rows, n: int = 4000):
+    """Phase 2: host microseconds per call (perf_counter over ``n`` calls,
+    no synchronisation) of cohort_gather_scatter's wrapper at the resident
+    driver's shape, beside the two ATen calls it is held against; then the
+    device time per launch of the gather and of index_select."""
+    steps = {
+        "wrapper gather": lambda: cohort_gather_scatter(cache, slots),
+        "wrapper gather int32": lambda: cohort_gather_scatter(cache, s32),
+        "wrapper scatter": lambda: cohort_gather_scatter(cache, slots, rows),
+        "index_select": lambda: torch.index_select(cache, 0, slots),
+        "index_copy_": lambda: cache.index_copy_(0, slots, rows)}
+    us = {name: _host_us(torch, fn, n) for name, fn in steps.items()}
+    print("cohort_gather_scatter host us per call (host clock, "
+          f"{n} calls): " + "; ".join(f"{k} {v:.3f}" for k, v in us.items()),
+          flush=True)
+    dev = {name: _kernel_device_ms(torch, steps[name], 200, key)
+           for name, key in (("wrapper gather", "copy_rows"),
+                             ("index_select", ""))}
+    print("cohort_gather_scatter device time per launch (torch.profiler, "
+          "200 calls): " + "; ".join(
+              f"{k} " + ("not measured" if v is None else f"{v:.5f} ms")
+              for k, v in dev.items()), flush=True)
+
+
+def _host_us(torch, fn, n: int) -> float:
+    """Host microseconds per call of ``fn`` (perf_counter over ``n`` calls
+    after 100 warm-up calls, no synchronisation inside)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def run_main_path(torch, np, api, linear, data, conv, design, optim,
@@ -783,6 +894,18 @@ def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
     if n_launch is not None:
         print(f"{label}: {n_launch / QS_CHUNK:.1f} launches per round",
               flush=True)
+    st, syncs = _blocking_syncs(torch, lambda: chunk(st))
+    print(f"phase 9 resident chunk under set_sync_debug_mode: "
+          f"{len(syncs)} blocking host syncs" + _sync_lines(syncs),
+          flush=True)
+    return (all(bool(torch.isfinite(x).all()) for x in st.fl.params.values())
+            and not syncs)
+
+
+def _blocking_syncs(torch, fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("warn"): (its result,
+    one entry per blocking host sync it made, naming the innermost
+    repro_torch line it came from)."""
     syncs = []
 
     def record(message, *args, **kwargs):
@@ -799,15 +922,15 @@ def profile_resident_chunk(torch, np, linear, pop_mod, spec, pop):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            st = chunk(st)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"phase 9 resident chunk under set_sync_debug_mode: "
-          f"{len(syncs)} blocking host syncs"
-          + "".join(f"\n  x{syncs.count(o)} {o}" for o in sorted(set(syncs))),
-          flush=True)
-    return all(bool(torch.isfinite(x).all()) for x in st.fl.params.values())
+    return out, syncs
+
+
+def _sync_lines(syncs) -> str:
+    return "".join(f"\n  x{syncs.count(o)} {o}" for o in sorted(set(syncs)))
 
 
 # -- phases 10-12: the transformer serving path -------------------------------
@@ -856,6 +979,30 @@ def _ssd_bound(torch, b, s, h, p, n, q, dtype):
     per_chunk = q * (q + 1) // 2 * (2 * n + 2 * p) + 4 * q * p * n
     return _larger_bound(nbytes, per_chunk * (s // q) * b * h,
                          _peak(dtype, torch)[0])
+
+
+def _kernel_device_ms(torch, fn, iters: int, name: str):
+    """Mean device time of one launch of the kernels whose name holds
+    ``name`` over ``iters`` calls of ``fn``, by torch.profiler: the
+    kernel's own time, free of the host's issue rate that ``_time_ms``
+    reads when a call is short. None where the profiler shows no such
+    kernel (a measurement, not a check)."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and name in e.key
+                  and e.device_time_total > 0]
+    except Exception as e:        # noqa: BLE001 — the profiler is optional
+        print(f"profile of {name} unavailable ({e!r})", flush=True)
+        return None
+    count = sum(e.count for e in events)
+    return (sum(e.device_time_total for e in events) / 1e3 / count
+            if count else None)
 
 
 def _sdpa_backend(torch, q, k, v, mask, causal) -> str:
@@ -996,27 +1143,124 @@ def check_model_kernels(torch, kernels, refs):
                                       device="cuda") for _ in range(2))
             x, b_in, c_in = (t.to(dtype) for t in (x, b_in, c_in))
             y, st = ssd(x, dt, a, b_in, c_in, chunk=q)
+            variant = ssd.last_variant
             wy, ws = ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
                              min(q, s))
             torch.cuda.synchronize()
             e1, g1 = _kernel_err(torch, y, wy, dtype)
             e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+            del wy, ws
             timed = bound = None
+            extra = "  library: none (no single PyTorch call computes it)"
             if s >= 512:
                 timed = (_time_ms(lambda: ssd(x, dt, a, b_in, c_in, chunk=q),
                                   20),
                          _time_ms(lambda: ssd_ref(x, dt, a, b_in, c_in, q),
                                   5))
                 bound = _ssd_bound(torch, b, s, h, p, n, q, dtype)
-                if dtype == torch.bfloat16:
+                dev_ms = _kernel_device_ms(
+                    torch, lambda: ssd(x, dt, a, b_in, c_in, chunk=q), 20,
+                    "ssd_tc" if variant == "tc" else "ssd_fwd")
+                host_us = _host_us(
+                    torch, lambda: ssd(x, dt, a, b_in, c_in, chunk=q), 200)
+                extra = (f"  ({bound[0] / timed[0]:.1%} of the bound; "
+                         f"device time per launch "
+                         + ("not measured" if dev_ms is None
+                            else f"{dev_ms:.5f} ms")
+                         + f" by torch.profiler over 20 calls; the "
+                         f"wrapper's host time {host_us:.2f} us per call)"
+                         + extra)
+                if (b, s) == (2, 512) and dtype == torch.bfloat16:
                     recs["mamba2_ssd"] = {
                         "ms": timed[0], "plain_ms": timed[1],
                         "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": None}
-            report("mamba2_ssd", f"x ({b}, {s}, {h}, {p}) N {n} chunk {q}",
-                   dtype, max(e1, e2), g1 and g2, timed, bound,
-                   "  library: none (no single PyTorch call computes it)")
+                        "library_ms": None, "variant": variant}
+            report("mamba2_ssd", f"x ({b}, {s}, {h}, {p}) N {n} chunk {q} "
+                   f"[{variant}]", dtype, max(e1, e2), g1 and g2, timed,
+                   bound, extra)
+            del x, dt, a, b_in, c_in, y, st
     return ok, recs, worst
+
+
+def _rope_angles_host_tensor(positions, head_dim: int, theta: float):
+    """rope_angles as the port built it before: the base as a host tensor,
+    a pageable copy to the device on every attention call."""
+    import torch
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def check_rope_on_the_card(torch, configs) -> bool:
+    """Phase 11: rope_angles bitwise equal to the host-tensor formula on
+    the card, for every config's rope_theta and head dim, at decode (B,)
+    and prefill (B, S) positions."""
+    from repro_torch.models.layers import rope_angles
+    positions = (torch.arange(0, 8192, 37, device="cuda"),
+                 torch.arange(2 * 2048, device="cuda",
+                              dtype=torch.int32).reshape(2, 2048))
+    same = True
+    for arch in configs.ASSIGNED_ARCHS:
+        cfg = configs.get_arch(arch)
+        for pos in positions:
+            got = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+            want = _rope_angles_host_tensor(pos, cfg.resolved_head_dim,
+                                            cfg.rope_theta)
+            same &= all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    print(f"rope_angles on the card, {len(configs.ASSIGNED_ARCHS)} configs' "
+          f"theta and head dim, decode and prefill positions: "
+          f"{'bitwise equal' if same else 'DIFFERENT'} to the host-tensor "
+          f"formula", flush=True)
+    return same
+
+
+def rope_syncs_and_decode_ms(torch, model, params, caches, tok, pos, arch,
+                             n_steps: int = 8) -> bool:
+    """Phase 11: one decode step under set_sync_debug_mode("warn") with the
+    host-tensor rope (the formula before) and with the port's, and the ms
+    per decode step of each over ``n_steps`` steps in turns (before, after,
+    after, before), all from the same caches at the same position. Returns
+    whether the port's step made no blocking sync in rope (and, where the
+    model has attention, fewer than the host-tensor rope's)."""
+    from repro_torch.models import attention
+    port_rope = attention.rope_angles
+    ropes = {"before": _rope_angles_host_tensor, "after": port_rope}
+    syncs, ms = {}, {"before": [], "after": []}
+    try:
+        for name in ("before", "after"):
+            attention.rope_angles = ropes[name]
+            _, syncs[name] = _blocking_syncs(
+                torch, lambda: model.decode_step(params, caches, tok, pos))
+        for name in ("before", "after", "after", "before"):
+            attention.rope_angles = ropes[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                model.decode_step(params, caches, tok, pos)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
+    finally:
+        attention.rope_angles = port_rope
+    n_attn = sum(model.cfg.count_mixers().get(k, 0)
+                 for k in ("attn", "shared_attn"))
+    ok = not any(o.startswith("layers.py") for o in syncs["after"])
+    if n_attn:
+        ok &= len(syncs["after"]) < len(syncs["before"])
+    print(f"phase 11 {arch} one decode step ({n_attn} attention calls) "
+          f"under set_sync_debug_mode: {len(syncs['before'])} blocking host "
+          f"syncs with the host-tensor rope (before){_sync_lines(syncs['before'])}"
+          f"\nphase 11 {arch}: {len(syncs['after'])} with the port's rope "
+          f"(after){_sync_lines(syncs['after'])}\nphase 11 {arch} decode "
+          f"step, ms per token over {n_steps} steps, turns before, after, "
+          f"after, before: before {ms['before'][0]:.3f} / "
+          f"{ms['before'][1]:.3f}, after {ms['after'][0]:.3f} / "
+          f"{ms['after'][1]:.3f} {'ok' if ok else 'CHECK FAILED'}",
+          flush=True)
+    return ok
 
 
 def run_serving(torch, configs, Transformer, serve, counters):
@@ -1027,7 +1271,7 @@ def run_serving(torch, configs, Transformer, serve, counters):
     after; the hand kernels must have launched exactly as the model's
     layers say. Returns (ok, {kernel: launches summed over the runs})."""
     from repro_torch.utils.tree import tree_leaves
-    ok, totals = True, {}
+    ok, totals = check_rope_on_the_card(torch, configs), {}
     for arch, prompt_len, gen_tokens in SERVE_RUNS:
         cfg = configs.get_arch(arch)
         model = Transformer(cfg)
@@ -1068,9 +1312,12 @@ def run_serving(torch, configs, Transformer, serve, counters):
                 f"phase 11 {arch} one decode step")
             finite = bool(torch.isfinite(logits).all()
                           and torch.isfinite(step_logits).all())
+            rope_ok = rope_syncs_and_decode_ms(torch, model, params, caches,
+                                               tok, pos, arch)
         decode_ms = (total_ms - prefill_ms) / gen_tokens
         good = (launches == want and finite and out.shape == (2, gen_tokens)
-                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab)
+                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab
+                and rope_ok)
         ok &= good
         for name, n in launches.items():
             totals[name] = totals.get(name, 0) + n

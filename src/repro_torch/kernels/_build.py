@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>-<hash>.so``. The hash
-is of the source, so an edited kernel never loads a stale library. Nothing
-is built or imported when this module is imported.
+is of the source and of the shared headers ``csrc/*.cuh``, so an edited
+kernel or header never loads a stale library. Nothing is built or imported
+when this module is imported.
 """
 from __future__ import annotations
 
@@ -32,8 +33,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    """The library path of kernel ``name``, named by a hash of its source
+    and of every header in ``csrc/`` (any of which it may include)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

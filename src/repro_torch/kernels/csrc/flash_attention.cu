@@ -79,7 +79,17 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "hopper_wgmma.cuh"
+
 namespace {
+
+using hopper::pack_bf16;
+using hopper::reg_fence;
+using hopper::smem_u32;
+using hopper::wgmma_commit_wait;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs;
+using hopper::wgmma_ss;
 
 constexpr int kBQ = 32;        // query rows per block
 constexpr int kBK = 32;        // keys per staged tile
@@ -278,10 +288,6 @@ struct Tc {
   static constexpr int kSmem = 5 * kTileBytes + 64 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1)
                : "memory");
@@ -329,70 +335,9 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled operand: start address, leading
-// byte offset (the next 64-column box; unused at N = 64), stride byte
-// offset 1024 (the next 8 rows), layout B128; offsets in 16-byte units.
+// wgmma descriptor of one of this kernel's 64 x 64 swizzled boxes
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kBoxBytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-#define WG_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WG_OUT32(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31])
-
-// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) B (16 x 64,
-// K-major in shared memory); `accumulate` 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16 bf16, registers) B (16 x 64, MN-major in
-// shared memory)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from touching registers that wgmma reads or writes
-// asynchronously across the fence / wait
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
+  return hopper::desc_sw128(addr, kBoxBytes);
 }
 
 // keys [row, row + 64) of k and v into ring stage `stage`, reported to the

@@ -57,8 +57,9 @@ def rope_angles(positions, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a Python-scalar base: no host-to-device copy (and no blocking sync)
+    # on every attention call; the same f32 powers as a tensor base
+    freqs = torch.pow(float(theta), exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -51,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise
 from repro_torch.kernels.flash_attention import _variant, flash_attention
+from repro_torch.kernels.mamba2_ssd import _variant as _ssd_variant
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 from repro_torch.kernels.ops import (
     cohort_gather,
@@ -390,6 +391,52 @@ def test_cohort_wrapper_rejects_what_the_kernel_does_not_take(bad):
             cohort_gather_scatter(cache, slots, rows)
 
 
+@pytest.mark.parametrize("bad,scatter", [
+    (bad, scatter) for bad in ("cache_strided", "slots_int16", "slots_device")
+    for scatter in (False, True)] + [("rows_device", True)])
+def test_cohort_wrapper_refusals_beyond_shape_and_dtype(bad, scatter):
+    """The other refusals of the wrapper's check: a strided cache, slots of
+    another integer type, and slots or rows on another device than the
+    cache (the meta device stands in for a second device here)."""
+    cache = torch.zeros((6, 4))
+    slots = torch.tensor([0, 3], dtype=torch.int32)
+    rows = torch.ones((2, 4))
+    if bad == "cache_strided":
+        cache = torch.zeros((4, 6)).t()
+    elif bad == "slots_int16":
+        slots = slots.to(torch.int16)
+    elif bad == "slots_device":
+        slots = slots.to("meta")
+    elif bad == "rows_device":
+        rows = rows.to("meta")
+    with pytest.raises(ValueError):
+        cohort_gather_scatter(cache, slots, rows if scatter else None)
+
+
+@pytest.mark.parametrize("s,k,d,dtype", COHORT_CASES,
+                         ids=[f"s{s}-k{k}-d{d}-{t}"
+                              for s, k, d, t in COHORT_CASES])
+def test_cohort_int32_and_int64_slots_give_the_same_rows(s, k, d, dtype):
+    """The wrapper takes the cohort's int32 slots as they are: gather and
+    scatter give the same bits as with the same slots in int64, and a
+    strided slot view the same as its contiguous copy."""
+    cache, slots, rows = _cohort_arrays(s, k, d, dtype, seed=s * k + d)
+    tc, tr = _to_torch(cache, dtype), _to_torch(rows, dtype)
+    s32 = torch.as_tensor(slots)
+    assert s32.dtype == torch.int32
+    s64 = s32.to(torch.int64)
+    strided = torch.stack([s32, s32], dim=1)[:, 0]
+    assert not strided.is_contiguous()
+    got = [cohort_gather_scatter(tc, sl) for sl in (s32, s64, strided)]
+    for g in got[1:]:
+        np.testing.assert_array_equal(_bits(g), _bits(got[0]))
+    caches = [tc.clone() for _ in range(3)]
+    for c, sl in zip(caches, (s32, s64, strided)):
+        cohort_gather_scatter(c, sl, tr)
+    for c in caches[1:]:
+        np.testing.assert_array_equal(_bits(c), _bits(caches[0]))
+
+
 def test_cohort_plain_version_refuses_out_of_range_slots():
     with pytest.raises(IndexError):
         cohort_gather(torch.zeros((4, 3)), torch.tensor([1, 4]))
@@ -638,6 +685,123 @@ def test_ssd_refuses_a_sequence_the_chunk_does_not_divide():
                    chunk=8)
 
 
+@pytest.mark.parametrize("q", [64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+def test_ssd_variant_is_tc_for_bf16_at_64_row_chunks_and_k16_widths(q, p, n):
+    assert _ssd_variant(q, p, n, torch.bfloat16) == "tc"
+
+
+@pytest.mark.parametrize("q", [64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64])
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_ssd_variant_is_simt_for_f32(q, p, n):
+    assert _ssd_variant(q, p, n, torch.float32) == "simt"
+
+
+@pytest.mark.parametrize("q", [8, 16, 24])
+@pytest.mark.parametrize("p,n", [(8, 4), (16, 8), (8, 8), (16, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_variant_is_simt_where_the_tiles_do_not_fit(q, p, n, dtype):
+    assert _ssd_variant(q, p, n, dtype) == "simt"
+
+
+@pytest.mark.parametrize("q,p,n,dtype", [
+    (256, 128, 128, torch.float32), (128, 128, 128, torch.float32),
+    (128, 512, 64, torch.bfloat16),
+    (64, 64, 64, torch.float16), (0, 64, 64, torch.bfloat16),
+    (128, 64, 0, torch.float32)])
+def test_ssd_variant_refuses_what_no_instance_takes(q, p, n, dtype):
+    with pytest.raises(ValueError):
+        _ssd_variant(q, p, n, dtype)
+
+
+def _bf16_terms(v, terms):
+    """v (f32) as ``terms`` bf16 values (as f32) whose sum approximates v:
+    hi = bf16(v), lo = bf16(v - hi), ..., the kernel's operand split."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).to(torch.float32)
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _ssd_tc_emulation(x, dt, a, b_in, c_in, chunk):
+    """The tensor-core SSD instance's arithmetic in plain PyTorch, on bf16
+    x, b, c: per chunk M = G 2^(L_t log2(e) - q_s) with q_s = L_s log2(e)
+    - log2(dt_s), M and the state entering the products as bf16 hi + lo,
+    w x as three bf16 terms, every product of bf16 values accumulated in
+    f32 (exact products), the state kept in f32. Returns (y in bf16, final
+    state f32)."""
+    f32 = torch.float32
+    bsz, s, h, p = x.shape
+    xs = x.to(f32).permute(0, 2, 1, 3)                      # (B, H, S, P)
+    dts = dt.permute(0, 2, 1)
+    bs, cs = b_in.to(f32)[:, None], c_in.to(f32)[:, None]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    state = torch.zeros((bsz, h, p, b_in.shape[-1]), dtype=f32)
+    ys = []
+    for c0 in range(0, s, chunk):
+        xc, dtc = xs[:, :, c0:c0 + chunk], dts[:, :, c0:c0 + chunk]
+        bc, cc = bs[:, :, c0:c0 + chunk], cs[:, :, c0:c0 + chunk]
+        l = torch.cumsum(dtc * a[None, :, None], dim=-1)
+        l2 = l * np.float32(1.4426950408889634)
+        q = l2 - torch.log2(dtc)
+        m = torch.where(tri, (cc @ bc.transpose(-1, -2))
+                        * torch.exp2(l2[..., :, None] - q[..., None, :]),
+                        torch.zeros(()))
+        y = sum(cc @ t.transpose(-1, -2) for t in _bf16_terms(state, 2))
+        y = y * torch.exp(l)[..., None]
+        for t in _bf16_terms(m, 2):
+            y = y + t @ xc
+        w = torch.exp(l[..., -1:] - l) * dtc
+        wx = (w[..., None] * xc).transpose(-1, -2)           # (B, H, P, Q)
+        state = torch.exp(l[..., -1])[..., None, None] * state + sum(
+            t @ bc for t in _bf16_terms(wx, 3))
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype), state
+
+
+def _within_kernel_tol(got, want, rtol):
+    """chip_smoke.py's ``_kernel_err`` check: |got - want| <= 1e-5 *
+    max(1, max|want|) + rtol |want|."""
+    want = torch.as_tensor(np.array(want, np.float32))
+    err = (got.float() - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    return bool((err <= 1e-5 * scale + rtol * want.abs()).all())
+
+
+# SSD_CASES and a multi-chunk case at zamba2's widths (P = N = 64, Q 128)
+SSD_EMULATION_CASES = SSD_CASES + [(1, 512, 3, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_EMULATION_CASES,
+                         ids=[f"b{c[0]}s{c[1]}h{c[2]}p{c[3]}n{c[4]}q{c[5]}"
+                              for c in SSD_EMULATION_CASES])
+def test_ssd_tc_emulation_within_the_cards_tolerance(b, s, h, p, n, chunk):
+    """The tensor-core instance's arithmetic (bf16 splits, exp2 decay, f32
+    accumulation) agrees with the plain version and the Pallas kernel
+    (interpret mode), both run in f32 on the same bf16 values, within the
+    card's tolerances: y at bf16's (8e-3), the final state at f32's
+    (1e-4), each plus 1e-5 of the output's largest magnitude."""
+    x, dt, a, b_in, c_in = _ssd_inputs(b, s, h, p, n, ("emu", b, s, h, p))
+    x, b_in, c_in = (torch.as_tensor(t).to(torch.bfloat16)
+                     for t in (x, b_in, c_in))
+    dt, a = torch.as_tensor(dt), torch.as_tensor(a)
+    q = min(chunk, s)
+    y, st = _ssd_tc_emulation(x, dt, a, b_in, c_in, q)
+    assert y.dtype == torch.bfloat16 and st.shape == (b, h, p, n)
+    f32_in = [t.float() for t in (x, dt, a, b_in, c_in)]
+    wy, ws = mamba2_ssd_ref(*f32_in, q)
+    py, ps = jax_mamba2_ssd(*(jnp.asarray(t.numpy()) for t in f32_in),
+                            chunk=chunk, interpret=True)
+    for want_y, want_s in ((wy, ws), (py, ps)):
+        assert _within_kernel_tol(y, want_y, 8e-3)
+        assert _within_kernel_tol(st, want_s, 1e-4)
+
+
 def _kernel_call(kernel, bad):
     """One call of ``kernel`` with valid small CPU inputs but for ``bad``:
     an input that requires grad, a wrong dtype or a wrong shape."""
@@ -804,11 +968,11 @@ def test_cuda_cohort_unaligned_pointers_take_narrower_copies(cuda_device):
     assert vector_width(aligned, rows) == 16
 
 
-@pytest.mark.gpu
-def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
-    """A slot outside [0, S) never touches memory past the cache: the
-    kernel traps and the next synchronisation raises (in a child process,
-    since a trap ends the CUDA context)."""
+def _cohort_traps(slot_dtype: str) -> tuple[int, str]:
+    """(exit code, stderr) of a child process that gathers slot 4 of a 4-row
+    cache with ``slot_dtype`` slots and synchronises: 3 when the
+    synchronisation raises (a trap ends the CUDA context, hence the
+    child)."""
     import os
     import subprocess
     import sys
@@ -820,7 +984,8 @@ def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
             "from repro_torch.kernels.cohort_gather_scatter import "
             "cohort_gather_scatter as f\n"
             "c = torch.zeros((4, 8), device='cuda')\n"
-            "f(c, torch.tensor([1, 4], device='cuda'))\n"
+            f"f(c, torch.tensor([1, 4], dtype=torch.{slot_dtype}, "
+            "device='cuda'))\n"
             "try:\n"
             "    torch.cuda.synchronize()\n"
             "except RuntimeError:\n"
@@ -829,7 +994,54 @@ def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": src})
-    assert proc.returncode == 3, proc.stderr[-2000:]
+    return proc.returncode, proc.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_cuda_cohort_out_of_range_slot_traps(cuda_device):
+    """A slot outside [0, S) never touches memory past the cache: the
+    kernel traps and the next synchronisation raises (in a child process,
+    since a trap ends the CUDA context)."""
+    code, err = _cohort_traps("int64")
+    assert code == 3, err
+
+
+@pytest.mark.gpu
+def test_cuda_cohort_int32_out_of_range_slot_traps(cuda_device):
+    """The same trap where the kernel reads int32 slots."""
+    code, err = _cohort_traps("int32")
+    assert code == 3, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scatter", [False, True], ids=["gather", "scatter"])
+def test_cuda_cohort_int32_slots_launch_one_kernel_and_no_cast(cuda_device,
+                                                               scatter):
+    """int32 slots (the resident driver's) go to the kernel as they are:
+    bitwise the plain version, one count on the counter, and one kernel on
+    the device (no int64 cast kernel before it) where the profiler traces
+    the card."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    cache = torch.randn((256, 42), generator=gen, device=cuda_device)
+    rows = torch.randn((16, 42), generator=gen, device=cuda_device)
+    slots = torch.randperm(256, generator=gen, device=cuda_device)[:16] \
+        .to(torch.int32)
+    mine, plain = cache.clone(), cache.clone()
+    cohort_gather_scatter(mine, slots, rows if scatter else None)  # build
+    torch.cuda.synchronize()
+    before = cohort_gather_scatter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = cohort_gather_scatter(mine, slots, rows if scatter else None)
+        torch.cuda.synchronize()
+    assert cohort_gather_scatter.launches == before + 1
+    want = cohort_gather_scatter_ref(plain, slots, rows if scatter else None)
+    assert torch.equal(got, want)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    if kernels:                      # the profiler traced the card
+        assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+        assert "copy_rows" in kernels[0].key
 
 
 # flash_attention / rwkv6_scan / mamba2_ssd on the card: the CPU tests'
@@ -858,7 +1070,19 @@ GPU_FLASH = [(b, h, s, hd, w) for b, h, s, hd, w, _ in FLASH_CASES] + [
 GPU_RWKV = [(b, h, s, hd, s0) for b, h, s, hd in RWKV_CASES
             for s0 in (False, True)] + [(2, 32, 512, 64, False),
                                         (2, 32, 1, 64, True)]
-GPU_SSD = [c for c in SSD_CASES] + [(2, 512, 112, 64, 64, 128)]
+# The SSD's bf16 cases at Q 64 / 128 with P and N multiples of 16 run the
+# tensor-core instance, all others the SIMT one: zamba2's prefill at batch
+# 2 (two chains per block) and batch 1 (one), its 16-chunk S 2048, Q 64
+# with P and N below one 64-column box, P and N of two boxes (one stage),
+# widths that end inside a box, and an odd head count split in pairs
+# (B * H above the SM count), whose last block runs one chain. P = N = 128
+# at Q 128 (two boxes each, one stage) runs in bf16 only: the SIMT tiles
+# of that shape exceed shared memory, so f32 raises there.
+GPU_SSD = [c for c in SSD_CASES] + [
+    (2, 512, 112, 64, 64, 128), (1, 512, 112, 64, 64, 128),
+    (2, 2048, 112, 64, 64, 128), (2, 256, 4, 32, 16, 64),
+    (2, 256, 3, 128, 128, 64), (2, 128, 3, 80, 48, 64),
+    (1, 256, 135, 16, 16, 64)]
 
 
 def _gpu_close(got, want, dtype):
@@ -953,10 +1177,49 @@ def test_cuda_mamba2_ssd_matches_plain_version(cuda_device, b, s, h, p, n,
     y, st = mamba2_ssd(x, dt, a, b_in, c_in, chunk=chunk)
     torch.cuda.synchronize()
     assert mamba2_ssd.launches == before + 1
+    assert mamba2_ssd.last_variant == _ssd_variant(min(chunk, s), p, n,
+                                                   dtype)
     assert y.dtype == dtype and st.shape == (b, h, p, n)
     wy, ws = mamba2_ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
                             min(chunk, s))
     _gpu_close(y, wy, dtype)
+    _gpu_close(st, ws, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n", [(128, 128), (64, 128), (128, 64)])
+def test_cuda_mamba2_ssd_tc_two_box_widths_at_chunk_128(cuda_device, p, n):
+    x, dt, a, b_in, c_in = (torch.as_tensor(t).to(cuda_device) for t in
+                            _ssd_inputs(2, 256, 3, p, n, ("gpu-wide", p, n)))
+    with pytest.raises(ValueError):
+        mamba2_ssd(x, dt, a, b_in, c_in, chunk=128)
+    x, b_in, c_in = (t.to(torch.bfloat16) for t in (x, b_in, c_in))
+    y, st = mamba2_ssd(x, dt, a, b_in, c_in, chunk=128)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.last_variant == "tc"
+    wy, ws = mamba2_ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
+                            128)
+    _gpu_close(y, wy, torch.bfloat16)
+    _gpu_close(st, ws, torch.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_ssd_tc_refuses_a_misaligned_view(cuda_device):
+    x, dt, a, b_in, c_in = (torch.as_tensor(t).to(cuda_device) for t in
+                            _ssd_inputs(1, 128, 2, 64, 64, ("misaligned",)))
+    x, b_in, c_in = (t.to(torch.bfloat16) for t in (x, b_in, c_in))
+    buf = torch.empty(b_in.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)
+    shifted = buf[1:].view(b_in.shape)           # 2 bytes past an aligned base
+    shifted.copy_(b_in)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = mamba2_ssd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        mamba2_ssd(x, dt, a, shifted, c_in, chunk=64)
+    assert mamba2_ssd.launches == before
+    y, st = mamba2_ssd(x, dt, a, shifted.clone(), c_in, chunk=64)
+    wy, ws = mamba2_ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(), 64)
+    _gpu_close(y, wy, torch.bfloat16)
     _gpu_close(st, ws, torch.float32)
 
 

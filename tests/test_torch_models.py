@@ -312,6 +312,42 @@ def test_rmsnorm_and_rope_match_jax():
             np.asarray(jlayers.apply_rope(_j(x), jcos, jsin)), atol=2e-5)
 
 
+def _rope_angles_from_a_tensor_base(positions, head_dim, theta):
+    """rope_angles as it was built before: the base as a host tensor copied
+    to the positions' device on every call."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_rope_angles_bitwise_unchanged_without_a_host_tensor(arch,
+                                                             monkeypatch):
+    """rope_angles builds no tensor from host data (a pageable copy and a
+    blocking sync on the card, once per attention call) and gives the same
+    bits as the tensor-base formula, at every config's theta and head dim,
+    for decode positions (B,) and prefill positions (B, S)."""
+    cfg = get_arch(arch)
+    hd = cfg.resolved_head_dim
+    positions = (torch.arange(0, 8192, 37, dtype=torch.int64),
+                 torch.arange(2 * 300, dtype=torch.int32).reshape(2, 300))
+    want = [_rope_angles_from_a_tensor_base(p, hd, cfg.rope_theta)
+            for p in positions]
+
+    def no_host_tensor(*args, **kwargs):
+        raise AssertionError("rope_angles made a tensor from host data")
+
+    monkeypatch.setattr(torch, "tensor", no_host_tensor)
+    for p, (wcos, wsin) in zip(positions, want):
+        cos, sin = layers.rope_angles(p, hd, cfg.rope_theta)
+        assert cos.dtype == sin.dtype == torch.float32
+        assert torch.equal(cos, wcos) and torch.equal(sin, wsin)
+
+
 def test_mlp_embed_unembed_and_cross_entropy_match_jax():
     rng = _layer_rng(1)
     d, f, v = 16, 24, 40
