@@ -41,17 +41,22 @@ Phases (each prints its lines; any failure exits non-zero):
      versions at the serving path's shapes and a ragged small one, f32 and
      bf16, timed beside their bounds (flash also beside torch's
      scaled_dot_product_attention, the yardstick the port never calls, and
-     at hd 128 too; each flash and SSD case names the instance that ran,
-     the SSD also at S 2048 and at batch 1 with its kernel's device time
-     by torch.profiler beside the wrapper's, and every tensor-core flash
-     instance must build without spills);
+     at hd 128 too; each flash, rwkv6 and SSD case names the instance
+     that ran, the SSD also at S 2048 and at batch 1 with its kernel's
+     device time by torch.profiler beside the wrapper's, rwkv6 also at
+     batch 1 and S 2048 with, at every 32-head shape, the device time of
+     one call (its tensor-core instance's three kernels summed, by
+     torch.profiler) and the wrapper's host us per call; every
+     tensor-core flash instance must build without spills);
  11. static serving at full width through repro_torch.launch.serve.generate
      (bf16, random weights from a seed, batch 2): gemma3-4b with a
      2048-token prompt, rwkv6-1.6b and zamba2-7b with 512, 32 greedy tokens
-     each; exact kernel launches (34 flash; 24 x 33 rwkv6_scan; 13 flash +
-     81 mamba2_ssd), finite logits, prefill and decode times, peak memory,
-     one profiled decode step; rope_angles bitwise equal on the card to the
-     host-tensor formula it replaced, and per arch one decode step's
+     each; exact kernel launches (34 flash; 24 x 33 rwkv6_scan calls,
+     each one count whatever its instance launches; 13 flash + 81
+     mamba2_ssd), finite logits, prefill and decode times, peak memory,
+     one profiled prefill and one profiled decode step; rope_angles
+     bitwise equal on the card to the host-tensor formula it replaced,
+     and per arch one decode step's
      blocking host syncs and ms per token with each (none from rope);
  12. kernel_backend "auto" against "ref" on the same params, prefill and 8
      teacher-forced decode steps: f32 with the depth cut to one step of
@@ -100,7 +105,8 @@ QS_M, QS_K, QS_DIM, QS_BATCH, QS_TAU, QS_SIGMA, QS_ROUNDS = (
 QS_CACHE, QS_CHUNK = 256, 8
 # phase 10: (B, H, S, hd, window) gemma3's prefill full and windowed,
 # zamba2's shared attention, a ragged small one; (B, H, S, hd, from s0)
-# rwkv6's prefill and decode step, a ragged small one; (B, S, H, P, N,
+# rwkv6's prefill and decode step, its prefill at batch 1 and at S 2048,
+# a ragged small one; (B, S, H, P, N,
 # chunk) zamba2's SSD at its serving prompt (4 chunks), at S 2048 (a
 # 16-chunk chain) and at batch 1 (112 chains on 132 SMs), and a small one
 # of several chunks
@@ -108,6 +114,7 @@ FLASH_SHAPES = ((2, 8, 2048, 256, 0), (2, 8, 2048, 256, 1024),
                 (2, 32, 512, 112, 0), (2, 32, 2048, 128, 0),
                 (1, 3, 77, 48, 20))
 RWKV_SHAPES = ((2, 32, 512, 64, False), (2, 32, 1, 64, True),
+               (1, 32, 512, 64, False), (2, 32, 2048, 64, False),
                (1, 3, 45, 32, True))
 SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (2, 2048, 112, 64, 64, 128),
               (1, 512, 112, 64, 64, 128), (1, 48, 3, 16, 8, 16))
@@ -120,7 +127,9 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
     """(kernel instance, registers, spill store bytes, spill load bytes)
     for every entry function in an ``nvcc -Xptxas -v`` log; the flash
     instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``, the
-    SSD's ``ssd_tc<Q, P boxes, N boxes>`` / ``ssd_fwd<type>``."""
+    SSD's ``ssd_tc<Q, P boxes, N boxes>`` / ``ssd_fwd<type>``, the WKV's
+    ``wkv_chunk_state<hd>`` / ``wkv_state_pass`` / ``wkv_chunk_out<hd>``
+    (its tensor-core instance) and ``wkv6_fwd<type, columns>``."""
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -130,6 +139,10 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
             fwd = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)E", name)
             ssd_tc = re.search(r"ssd_tcILi(\d+)ELi(\d)ELi(\d)E", name)
             ssd_fwd = re.search(r"ssd_fwdI(f|13__nv_bfloat16)E", name)
+            wkv_tc = re.search(r"(wkv_chunk_state|wkv_chunk_out)ILi(\d+)E",
+                               name)
+            wkv_fwd = re.search(r"wkv6_fwdI(f|13__nv_bfloat16)Li(\d+)E",
+                                name)
             if tc:
                 name = f"flash_tc<{tc.group(1)}>"
             elif fwd:
@@ -141,6 +154,13 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
             elif ssd_fwd:
                 kind = "f32" if ssd_fwd.group(1) == "f" else "bf16"
                 name = f"ssd_fwd<{kind}>"
+            elif wkv_tc:
+                name = f"{wkv_tc.group(1)}<{wkv_tc.group(2)}>"
+            elif "wkv_state_pass" in name:
+                name = "wkv_state_pass"
+            elif wkv_fwd:
+                kind = "f32" if wkv_fwd.group(1) == "f" else "bf16"
+                name = f"wkv6_fwd<{kind}, {wkv_fwd.group(2)}>"
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -981,12 +1001,10 @@ def _ssd_bound(torch, b, s, h, p, n, q, dtype):
                          _peak(dtype, torch)[0])
 
 
-def _kernel_device_ms(torch, fn, iters: int, name: str):
-    """Mean device time of one launch of the kernels whose name holds
-    ``name`` over ``iters`` calls of ``fn``, by torch.profiler: the
-    kernel's own time, free of the host's issue rate that ``_time_ms``
-    reads when a call is short. None where the profiler shows no such
-    kernel (a measurement, not a check)."""
+def _profiled_kernels(torch, fn, iters: int, name: str):
+    """The profiler's averages of the kernels whose name holds ``name`` over
+    ``iters`` calls of ``fn`` (empty where it shows none), or None where
+    the profiler is unavailable (a measurement, not a check)."""
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -994,15 +1012,48 @@ def _kernel_device_ms(torch, fn, iters: int, name: str):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and name in e.key
-                  and e.device_time_total > 0]
+        return [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and name in e.key
+                and e.device_time_total > 0]
     except Exception as e:        # noqa: BLE001 — the profiler is optional
         print(f"profile of {name} unavailable ({e!r})", flush=True)
         return None
-    count = sum(e.count for e in events)
+
+
+def _kernel_device_ms(torch, fn, iters: int, name: str):
+    """Mean device time of one launch of the kernels whose name holds
+    ``name`` over ``iters`` calls of ``fn``, by torch.profiler: the
+    kernel's own time, free of the host's issue rate that ``_time_ms``
+    reads when a call is short. None where the profiler shows no such
+    kernel."""
+    events = _profiled_kernels(torch, fn, iters, name)
+    count = sum(e.count for e in events or ())
     return (sum(e.device_time_total for e in events) / 1e3 / count
             if count else None)
+
+
+def _kernel_label(key: str) -> str:
+    """A profiler kernel name without its namespace, template arguments and
+    parameters ("void (anonymous namespace)::wkv_chunk_out<64>(...)" ->
+    "wkv_chunk_out")."""
+    found = re.search(r"::(\w+)[<(]", key)
+    return found.group(1) if found else key[:40]
+
+
+def _call_device_ms(torch, fn, iters: int, name: str):
+    """Mean device time of one call of ``fn`` over ``iters`` calls, by
+    torch.profiler: every kernel whose name holds ``name``, summed over the
+    run and divided by the calls (not by the kernels, so a call that runs
+    three kernels reads as their sum). Returns (ms per call, "kernel ms,
+    ..." per call of each such kernel), or (None, "") where the profiler
+    shows no such kernel."""
+    events = _profiled_kernels(torch, fn, iters, name)
+    if not events:
+        return None, ""
+    parts = ", ".join(
+        f"{_kernel_label(e.key)} {e.device_time_total / 1e3 / iters:.5f}"
+        for e in events)
+    return sum(e.device_time_total for e in events) / 1e3 / iters, parts
 
 
 def _sdpa_backend(torch, q, k, v, mask, causal) -> str:
@@ -1112,25 +1163,41 @@ def check_model_kernels(torch, kernels, refs):
             s0 = (torch.randn((b, h, hd, hd), generator=gen, device="cuda")
                   if with_s0 else None)
             y, st = rwkv(r, k, v, w, u, s0)
+            variant = rwkv.last_variant
             wy, ws = rwkv_ref(r.float(), k.float(), v.float(), w, u, s0)
             torch.cuda.synchronize()
             e1, g1 = _kernel_err(torch, y, wy, dtype)
             e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+            del wy, ws
             timed = bound = None
+            extra = "  library: none (no single PyTorch call computes it)"
             if h == 32:
-                timed = (_time_ms(lambda: rwkv(r, k, v, w, u, s0), 30),
+                iters = 10 if s >= 2048 else 30
+                timed = (_time_ms(lambda: rwkv(r, k, v, w, u, s0), iters),
                          _time_ms(lambda: rwkv_ref(r, k, v, w, u, s0),
-                                  3 if s > 1 else 30))
+                                  (1 if s >= 2048 else 3) if s > 1 else 30))
                 bound = _rwkv_bound(torch, b, h, s, hd, with_s0, dtype)
-                if s > 1 and dtype == torch.bfloat16:
+                dev_ms, parts = _call_device_ms(
+                    torch, lambda: rwkv(r, k, v, w, u, s0), 20, "wkv")
+                host_us = _host_us(
+                    torch, lambda: rwkv(r, k, v, w, u, s0),
+                    50 if s >= 2048 else 200)
+                extra = (f"  ({bound[0] / timed[0]:.1%} of the bound; "
+                         f"device time per call (its kernels summed) "
+                         + ("not measured" if dev_ms is None
+                            else f"{dev_ms:.5f} ms ({parts})")
+                         + f" by torch.profiler over 20 calls; the "
+                         f"wrapper's host time {host_us:.2f} us per call)"
+                         + extra)
+                if (b, s) == (2, 512) and dtype == torch.bfloat16:
                     recs["rwkv6_scan"] = {
                         "ms": timed[0], "plain_ms": timed[1],
                         "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": None}
+                        "library_ms": None, "variant": variant}
             report("rwkv6_scan", f"({b}, {h}, {s}, {hd})"
-                   f"{' from s0' if with_s0 else ''}", dtype, max(e1, e2),
-                   g1 and g2, timed, bound,
-                   "  library: none (no single PyTorch call computes it)")
+                   f"{' from s0' if with_s0 else ''} [{variant}]", dtype,
+                   max(e1, e2), g1 and g2, timed, bound, extra)
+            del r, k, v, w, u, s0, y, st
 
     for b, s, h, p, n, q in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1306,6 +1373,9 @@ def run_serving(torch, configs, Transformer, serve, counters):
                                                 max_len=prompt_len + 4)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
+            _profile_call(torch, lambda: model.prefill(
+                params, prompts, max_len=prompt_len + 4),
+                f"phase 11 {arch} one prefill")
             tok = torch.argmax(logits, dim=-1)
             (step_logits, caches), _ = _profile_call(
                 torch, lambda: model.decode_step(params, caches, tok, pos),

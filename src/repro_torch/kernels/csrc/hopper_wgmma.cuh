@@ -1,5 +1,5 @@
 // Hopper (sm_90a) warpgroup matrix-multiply helpers shared by the port's
-// tensor-core kernels (flash_attention.cu, mamba2_ssd.cu).
+// tensor-core kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_scan.cu).
 //
 // Operands in shared memory are tiles of 128-byte rows (64 bf16 columns)
 // in the 128-byte swizzle: inside each 1024-byte atom of 8 rows, the
@@ -80,6 +80,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_WG_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 16, f32) += A (64 x 16 bf16, registers) B (16 x 16, K-major in
+// shared memory: 16 rows of N, K along each row). d[4 i + e] is row
+// r0 + 8 (e / 2), column 8 i + 2 (lane % 4) + e % 2, i in {0, 1}: the first
+// two 8-column blocks of the m64n64 layout above.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -42,6 +42,7 @@ try:        # the reference; absent where only the gpu tests run
     from repro.kernels.ops import dp_clip_noise_tree as jax_dp_clip_noise_tree
     from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
     from repro.models.attention import blocked_causal_attention
+    from repro.models.rwkv import wkv6_chunked as jax_wkv6_chunked
     from repro.models.rwkv import wkv6_scan as jax_wkv6_scan
     from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 except ModuleNotFoundError:
@@ -68,6 +69,7 @@ from repro_torch.kernels.ref import (
     quantize_decompress_ref,
     rwkv6_scan_ref,
 )
+from repro_torch.kernels.rwkv6_scan import _variant as _rwkv_variant
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 ATOL = 1e-6
@@ -552,11 +554,26 @@ def test_flash_variant_refuses_what_no_instance_takes(hd, dtype):
         _variant(hd, dtype)
 
 
-def _rwkv_inputs(b, h, s, hd, with_s0, seed_key):
+def _rwkv_inputs(b, h, s, hd, with_s0, seed_key, decay="sigmoid"):
+    """r, k, v, w, u, s0 from a seed. ``decay`` draws w: "sigmoid" (the
+    tests' sigmoid(randn)), "model" (the model's init, exp(-exp(-6 + 0.5
+    randn)), w ~ 0.9975), "strong" (-ln w ~ e^1.5 ~ 4.5) or "edges"
+    (sigmoid with ~5% of w exactly 0 and ~5% exactly 1)."""
     rng = _np_rng("rwkv", *seed_key)
     r, k, v = (rng.normal(size=(b, h, s, hd)).astype(np.float32)
                for _ in range(3))
-    w = (1 / (1 + np.exp(-rng.normal(size=(b, h, s, hd))))).astype(np.float32)
+    z = rng.normal(size=(b, h, s, hd))
+    if decay == "model":
+        w = np.exp(-np.exp(-6 + 0.5 * z))
+    elif decay == "strong":
+        w = np.exp(-np.exp(1.5 + 0.5 * z))
+    else:
+        w = 1 / (1 + np.exp(-z))
+    w = w.astype(np.float32)
+    if decay == "edges":
+        pick = rng.random(size=w.shape)
+        w[pick < 0.05] = 0.0
+        w[pick > 0.95] = 1.0
     u = rng.normal(size=(h, hd)).astype(np.float32)
     s0 = (rng.normal(size=(b, h, hd, hd)).astype(np.float32)
           if with_s0 else None)
@@ -764,13 +781,19 @@ def _ssd_tc_emulation(x, dt, a, b_in, c_in, chunk):
     return torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype), state
 
 
-def _within_kernel_tol(got, want, rtol):
-    """chip_smoke.py's ``_kernel_err`` check: |got - want| <= 1e-5 *
-    max(1, max|want|) + rtol |want|."""
+def _kernel_tol_use(got, want, rtol):
+    """max |got - want| / (1e-5 * max(1, max|want|) + rtol |want|): the
+    share of chip_smoke.py's ``_kernel_err`` tolerance used (<= 1 passes)."""
     want = torch.as_tensor(np.array(want, np.float32))
     err = (got.float() - want).abs()
     scale = max(1.0, float(want.abs().max()))
-    return bool((err <= 1e-5 * scale + rtol * want.abs()).all())
+    return float((err / (1e-5 * scale + rtol * want.abs())).max())
+
+
+def _within_kernel_tol(got, want, rtol):
+    """chip_smoke.py's ``_kernel_err`` check: |got - want| <= 1e-5 *
+    max(1, max|want|) + rtol |want|."""
+    return _kernel_tol_use(got, want, rtol) <= 1.0
 
 
 # SSD_CASES and a multi-chunk case at zamba2's widths (P = N = 64, Q 128)
@@ -800,6 +823,150 @@ def test_ssd_tc_emulation_within_the_cards_tolerance(b, s, h, p, n, chunk):
     for want_y, want_s in ((wy, ws), (py, ps)):
         assert _within_kernel_tol(y, want_y, 8e-3)
         assert _within_kernel_tol(st, want_s, 1e-4)
+
+
+def _split_product(a, b):
+    """a @ b with both f32 operands entered as bf16 hi + lo and lo @ lo
+    dropped, products of bf16 values summed in f32: the tensor-core
+    instance's split products."""
+    a_hi, a_lo = _bf16_terms(a, 2)
+    b_hi, b_lo = _bf16_terms(b, 2)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+WKV_Q, WKV_SUB = 64, 16              # the tc instance's chunk and sub-chunk
+WKV_LOG2_FLOOR = -64.0               # its clamp of log2 w (w = 0)
+
+
+def _wkv_tc_emulation(r, k, v, w, u, s0=None):
+    """The tensor-core WKV instance's arithmetic in plain PyTorch, on bf16
+    r, k, v: S padded to chunks of 64 (k = v = r = 0, log2 w = 0), l =
+    log2 w clamped at -64, L its cumsum over a chunk in f32; per chunk the
+    state's part dS = (k 2^(L_Q - L))^T V, the state passing S <- 2^(L_Q) S
+    + dS in f32, and y = A V + (r 2^(L_{t-1})) S_prev with A's off-diagonal
+    16-token blocks from the folded factors r 2^(L_{t-1} - L_e) and k
+    2^(L_e - L_s) (both <= 1), its diagonal blocks per element in f32
+    (with the bonus u on the diagonal). Every f32 operand of a product
+    enters as bf16 hi + lo, lo lo dropped (V is bf16, one term). Returns
+    (y in r's dtype, final state f32)."""
+    f32 = torch.float32
+    b, h, s, hd = r.shape
+    nc = -(-s // WKV_Q)
+    pad = nc * WKV_Q - s
+    shape = (b, h, nc, WKV_Q, hd)
+
+    def chunks(t):
+        return torch.nn.functional.pad(t.to(f32), (0, 0, 0, pad)).reshape(
+            shape)
+
+    rc, kc, vc = chunks(r), chunks(k), chunks(v)
+    lc = chunks(torch.clamp(torch.log2(w.to(f32)), min=WKV_LOG2_FLOOR))
+    lin = torch.cumsum(lc, dim=3)                        # L_t
+    lex = lin - lc                                       # L_{t-1}
+    lq = lin[:, :, :, -1]                                # L_Q
+    d_state = _split_product(
+        (kc * torch.exp2(lq[:, :, :, None] - lin)).transpose(-1, -2), vc)
+    state = (torch.zeros((b, h, hd, hd), dtype=f32) if s0 is None
+             else s0.to(f32))
+    s_prev = []
+    for c in range(nc):
+        s_prev.append(state)
+        state = state * torch.exp2(lq[:, :, c])[..., None] + d_state[:, :, c]
+    a = torch.zeros((b, h, nc, WKV_Q, WKV_Q), dtype=f32)
+    for blk in range(WKV_Q // WKV_SUB - 1):
+        e = WKV_SUB * blk + WKV_SUB - 1
+        rows = slice(e + 1, WKV_Q)
+        cols = slice(e + 1 - WKV_SUB, e + 1)
+        l_e = lin[:, :, :, e:e + 1]
+        r_f = rc[:, :, :, rows] * torch.exp2(lex[:, :, :, rows] - l_e)
+        k_f = kc[:, :, :, cols] * torch.exp2(l_e - lin[:, :, :, cols])
+        a[:, :, :, rows, cols] = _split_product(r_f, k_f.transpose(-1, -2))
+    lower = torch.tril(torch.ones((WKV_SUB, WKV_SUB), dtype=torch.bool), -1)
+    for blk in range(WKV_Q // WKV_SUB):
+        sl = slice(WKV_SUB * blk, WKV_SUB * (blk + 1))
+        rb, kb = rc[:, :, :, sl], kc[:, :, :, sl]
+        expo = lex[:, :, :, sl, None, :] - lin[:, :, :, None, sl, :]
+        decay = torch.exp2(torch.where(lower[..., None], expo,
+                                       torch.tensor(-float("inf"))))
+        diag = (rb[..., :, None, :] * kb[..., None, :, :] * decay).sum(-1)
+        bonus = (rb * u.to(f32)[None, :, None, None, :] * kb).sum(-1)
+        a[:, :, :, sl, sl] = diag + torch.diag_embed(bonus)
+    a_hi, a_lo = _bf16_terms(a, 2)
+    y = a_hi @ vc + a_lo @ vc + _split_product(rc * torch.exp2(lex),
+                                               torch.stack(s_prev, 2))
+    y = y.reshape(b, h, nc * WKV_Q, hd)[:, :, :s]
+    return y.to(r.dtype), state
+
+
+# RWKV_CASES and rwkv6-1.6b's head width over 8 chunks
+WKV_EMULATION_CASES = RWKV_CASES + [(1, 4, 512, 64)]
+
+
+@pytest.mark.parametrize("b,h,s,hd", WKV_EMULATION_CASES,
+                         ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}"
+                              for c in WKV_EMULATION_CASES])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("decay", ["sigmoid", "model", "strong", "edges"])
+def test_wkv_tc_emulation_within_the_cards_tolerance(b, h, s, hd, with_s0,
+                                                     decay):
+    """The tensor-core WKV instance's arithmetic (sub-chunk folded decay,
+    bf16 hi + lo operands, f32 accumulation and state, the padded ragged
+    chunk) agrees with the plain version, the Pallas kernel (interpret
+    mode) and the JAX model's chunk-parallel ``wkv6_chunked`` (fed ln w,
+    clamped at the instance's floor where w = 0), all run in f32 on the
+    same bf16 values, within the card's tolerances: y at bf16's (8e-3),
+    the final state at f32's (1e-4), each plus 1e-5 of the output's largest
+    magnitude; in the tests' decay, the model's, a strong one, and with w
+    exactly 0 and 1 mixed in."""
+    r, k, v, w, u, s0 = _rwkv_inputs(b, h, s, hd, with_s0,
+                                     ("emu", b, h, s, hd), decay)
+    r, k, v = (torch.as_tensor(t).to(torch.bfloat16) for t in (r, k, v))
+    w, u = torch.as_tensor(w), torch.as_tensor(u)
+    s0 = None if s0 is None else torch.as_tensor(s0)
+    y, st = _wkv_tc_emulation(r, k, v, w, u, s0)
+    assert y.dtype == torch.bfloat16 and st.shape == (b, h, hd, hd)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
+    r32, k32, v32 = (t.float() for t in (r, k, v))
+    js0 = None if s0 is None else jnp.asarray(s0.numpy())
+    jin = [jnp.asarray(t.numpy()) for t in (r32, k32, v32, w, u)]
+    ln_w = torch.clamp(torch.log(w), min=WKV_LOG2_FLOOR * float(np.log(2)))
+
+    def model_layout(t):                 # (B, H, S, hd) -> (B, S, H, hd)
+        return jnp.asarray(np.ascontiguousarray(np.moveaxis(t.numpy(), 1, 2)))
+
+    cy, cs = jax_wkv6_chunked(*(model_layout(t) for t in (r32, k32, v32,
+                                                            ln_w)),
+                              jnp.asarray(u.numpy()), js0, chunk=64)
+    for want_y, want_s in (rwkv6_scan_ref(r32, k32, v32, w, u, s0),
+                           jax_rwkv6_scan(*jin, js0, interpret=True),
+                           (np.moveaxis(np.asarray(cy), 2, 1), cs)):
+        assert _within_kernel_tol(y, want_y, 8e-3)
+        assert _within_kernel_tol(st, want_s, 1e-4)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64])
+@pytest.mark.parametrize("s", [16, 45, 512, 2048])
+def test_rwkv_variant_is_tc_for_bf16_at_k16_widths_above_the_threshold(s,
+                                                                      hd):
+    assert _rwkv_variant(s, hd, torch.bfloat16) == "tc"
+
+
+@pytest.mark.parametrize("s,hd,dtype", [
+    (512, 64, torch.float32), (16, 16, torch.float32),
+    (1, 64, torch.bfloat16), (15, 64, torch.bfloat16),
+    (1, 64, torch.float32), (512, 8, torch.bfloat16),
+    (512, 40, torch.bfloat16), (33, 63, torch.bfloat16)])
+def test_rwkv_variant_is_simt_for_f32_short_s_and_other_widths(s, hd, dtype):
+    assert _rwkv_variant(s, hd, dtype) == "simt"
+
+
+@pytest.mark.parametrize("s,hd,dtype", [
+    (512, 65, torch.bfloat16), (512, 128, torch.float32),
+    (512, 64, torch.float16), (0, 64, torch.bfloat16),
+    (512, 0, torch.float32)])
+def test_rwkv_variant_refuses_what_no_instance_takes(s, hd, dtype):
+    with pytest.raises(ValueError):
+        _rwkv_variant(s, hd, dtype)
 
 
 def _kernel_call(kernel, bad):
@@ -1067,9 +1234,18 @@ GPU_FLASH = [(b, h, s, hd, w) for b, h, s, hd, w, _ in FLASH_CASES] + [
     (1, 4, 2048, 128, 0), (1, 2, 45, 40, 0), (2, 3, 77, 64, 0),
     (1, 2, 200, 128, 20)] + [(2, 2, 150, hd, w) for hd in range(16, 257, 16)
                              for w in (0, 70)]
-GPU_RWKV = [(b, h, s, hd, s0) for b, h, s, hd in RWKV_CASES
-            for s0 in (False, True)] + [(2, 32, 512, 64, False),
-                                        (2, 32, 1, 64, True)]
+# rwkv6: the CPU cases (each from zero and from s0), rwkv6-1.6b's prefill
+# at batch 2 and 1 and at S 2048, its decode step (S = 1 from s0, SIMT); in
+# bf16 the tensor-core instance on a ragged S of three chunks from s0 at hd
+# 64, 32 and 48, the model's decay, a strong one (L falls ~290 a chunk)
+# and w with exact zeros and ones.
+GPU_RWKV = [(b, h, s, hd, s0, "sigmoid") for b, h, s, hd in RWKV_CASES
+            for s0 in (False, True)] + [
+    (2, 32, 512, 64, False, "sigmoid"), (2, 32, 1, 64, True, "sigmoid"),
+    (1, 32, 512, 64, False, "sigmoid"), (2, 32, 2048, 64, False, "sigmoid"),
+    (2, 3, 150, 64, True, "sigmoid"), (2, 3, 150, 32, True, "sigmoid"),
+    (2, 3, 150, 48, False, "sigmoid"), (2, 32, 512, 64, True, "model"),
+    (2, 4, 512, 64, True, "strong"), (2, 3, 150, 64, True, "edges")]
 # The SSD's bf16 cases at Q 64 / 128 with P and N multiples of 16 run the
 # tensor-core instance, all others the SIMT one: zamba2's prefill at batch
 # 2 (two chains per block) and batch 1 (one), its 16-chunk S 2048, Q 64
@@ -1139,25 +1315,49 @@ def test_cuda_flash_tc_refuses_a_misaligned_view(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,s,hd,with_s0", GPU_RWKV,
+@pytest.mark.parametrize("b,h,s,hd,with_s0,decay", GPU_RWKV,
                          ids=[f"b{c[0]}h{c[1]}s{c[2]}d{c[3]}"
-                              f"{'-s0' if c[4] else ''}" for c in GPU_RWKV])
+                              f"{'-s0' if c[4] else ''}"
+                              f"{'' if c[5] == 'sigmoid' else '-' + c[5]}"
+                              for c in GPU_RWKV])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_rwkv6_scan_matches_plain_version(cuda_device, b, h, s, hd,
-                                               with_s0, dtype):
+                                               with_s0, decay, dtype):
     r, k, v, w, u, s0 = (None if a is None else
                          torch.as_tensor(a).to(cuda_device)
                          for a in _rwkv_inputs(b, h, s, hd, with_s0,
-                                               ("gpu", b, h, s, hd)))
+                                               ("gpu", b, h, s, hd), decay))
     r, k, v = (t.to(dtype) for t in (r, k, v))
     before = rwkv6_scan.launches
     y, st = rwkv6_scan(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert rwkv6_scan.launches == before + 1
+    assert rwkv6_scan.last_variant == _rwkv_variant(s, hd, dtype)
     assert y.dtype == dtype and st.dtype == torch.float32
     wy, ws = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
     _gpu_close(y, wy, dtype)
+    _gpu_close(st, ws, torch.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv6_scan_tc_refuses_a_misaligned_view(cuda_device):
+    r, k, v, w, u, s0 = (torch.as_tensor(a).to(cuda_device) for a in
+                         _rwkv_inputs(1, 2, 130, 64, True, ("misaligned",)))
+    r, k, v = (t.to(torch.bfloat16) for t in (r, k, v))
+    buf = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = buf[1:].view(k.shape)              # 2 bytes past an aligned base
+    shifted.copy_(k)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = rwkv6_scan.launches
+    for args in ((shifted, k, v, w), (r, shifted, v, w), (r, k, shifted, w)):
+        with pytest.raises(ValueError, match="16-byte"):
+            rwkv6_scan(*args, u, s0)
+    assert rwkv6_scan.launches == before
+    y, st = rwkv6_scan(r, shifted.clone(), v, w, u, s0)
+    assert rwkv6_scan.last_variant == "tc"
+    wy, ws = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
+    _gpu_close(y, wy, torch.bfloat16)
     _gpu_close(st, ws, torch.float32)
 
 
@@ -1304,3 +1504,22 @@ if __name__ == "__main__":
             gap(f"mamba2_ssd state vs {name}", st, ws)
     for name, g in gaps.items():
         print(f"plain {name}: max|d| = {g:.3e}")
+    # the share of the card's tolerance the tensor-core WKV emulation uses
+    # against the plain version, per decay regime, over its test's cases
+    for decay in ("sigmoid", "model", "strong", "edges"):
+        use = [0.0, 0.0]
+        for b, h, s, hd in WKV_EMULATION_CASES:
+            for with_s0 in (False, True):
+                r, k, v, w, u, s0 = _rwkv_inputs(b, h, s, hd, with_s0,
+                                                 ("emu", b, h, s, hd), decay)
+                r, k, v = (torch.as_tensor(t).to(torch.bfloat16)
+                           for t in (r, k, v))
+                w, u = torch.as_tensor(w), torch.as_tensor(u)
+                s0 = None if s0 is None else torch.as_tensor(s0)
+                y, st = _wkv_tc_emulation(r, k, v, w, u, s0)
+                wy, ws = rwkv6_scan_ref(r.float(), k.float(), v.float(), w,
+                                        u, s0)
+                use = [max(use[0], _kernel_tol_use(y, wy, 8e-3)),
+                       max(use[1], _kernel_tol_use(st, ws, 1e-4))]
+        print(f"wkv tc emulation, {decay} decay: y uses {use[0]:.3f}, the "
+              f"state {use[1]:.3f} of the card's tolerance")
