@@ -2,18 +2,23 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-row-kernels SRC   (see time_row_kernels)
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, with the
      kernel's, the plain version's and the bound's times (quantize_decompress
-     must be bit-identical; cohort_gather_scatter also with int32 slots, its
+     must be bit-identical; dp_clip_noise and quantize_decompress at the
+     main path's, Vehicle-1's, (64, 262144) and (16, 4194304) rows, each
+     case with the instance that ran, the device time of a call and its
+     kernels by torch.profiler (one for row_cta and row_cluster) and the
+     wrapper's host us a call; cohort_gather_scatter also with int32 slots, its
      gather and scatter timed against index_select / index_copy_, once each
      and again in turns, and its wrapper's host us per call beside theirs);
   3. the main path at full width: DP-PASGD on adult_like() split by
      education (16 clients, d = 104) through repro_torch.api on cuda,
-     engine "vmap", trained until a budget binds; the kernel's launches in
-     that run must be 2 x tau x rounds;
+     engine "vmap", trained until a budget binds; dp_clip_noise's calls in
+     that run must be tau x rounds;
   4. three rounds with kernel_backend="auto" against "ref" from one seed;
   5. the steady time of one round, and where its device time goes
      (torch.profiler, reported when it can trace; the rounds always run);
@@ -21,7 +26,8 @@ Phases (each prints its lines; any failure exits non-zero):
      benchmarks/fig4_resource_tradeoff.py (dense, topk25, topk25 at q 0.5,
      qsgd8 at q 0.5) on Adult-2 (adult_like(seed=0) split iid over 16
      clients) with benchmarks/common.run_dp_pasgd's spec, each row's
-     rounds, cost, epsilon and both kernels' launches checked; then the
+     rounds, cost, epsilon and both kernels' calls checked (dp_clip_noise
+     tau x rounds, quantize_decompress rounds in qsgd8_q50); then the
      qsgd8_q50 round's steady time and profile, as in phase 5;
   7. three qsgd8_q50 rounds with kernel_backend="auto" against "ref": without
      DP bitwise equal; with DP every param gap explained by the QSGD levels
@@ -84,7 +90,9 @@ F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
 BATCH, LR, CLIP = 32, 0.3, 1.0
-SHAPES = ((16, 210), (23, 202), (16, 4_194_304))   # main path, Vehicle-1, big
+# main path, Vehicle-1, 64 clients of a 262K-parameter model (row_cluster
+# at its capacity, 64 MiB an operand: past L2), a big one (row_stream)
+SHAPES = ((16, 210), (23, 202), (64, 262_144), (16, 4_194_304))
 QSGD_BITS = (1, 4, 8, 16)
 # benchmarks/fig4_resource_tradeoff.py PIPELINES: (label, q, compressor, ratio)
 PIPELINES = (("dense_q100", 1.0, "none", 1.0),
@@ -129,7 +137,9 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
     instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``, the
     SSD's ``ssd_tc<Q, P boxes, N boxes>`` / ``ssd_fwd<type>``, the WKV's
     ``wkv_chunk_state<hd>`` / ``wkv_state_pass`` / ``wkv_chunk_out<hd>``
-    (its tensor-core instance) and ``wkv6_fwd<type, columns>``."""
+    (its tensor-core instance), ``wkv6_fwd<type, columns>`` and the row
+    kernels' ``row_cta`` / ``row_cluster`` / ``stream_partials`` /
+    ``stream_apply<clip_noise | quantize>`` (", no z": clip only)."""
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -143,6 +153,8 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
                                name)
             wkv_fwd = re.search(r"wkv6_fwdI(f|13__nv_bfloat16)Li(\d+)E",
                                 name)
+            row = re.search(r"rowred\d+(row_cta|row_cluster|stream_partials|"
+                            r"stream_apply)I.*?(clip_noise|quantize)", name)
             if tc:
                 name = f"flash_tc<{tc.group(1)}>"
             elif fwd:
@@ -161,6 +173,9 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
             elif wkv_fwd:
                 kind = "f32" if wkv_fwd.group(1) == "f" else "bf16"
                 name = f"wkv6_fwd<{kind}, {wkv_fwd.group(2)}>"
+            elif row:
+                name = (f"{row.group(1)}<{row.group(2)}"
+                        f"{', no z' if 'ELb0E' in name else ''}>")
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -261,17 +276,59 @@ def _larger_bound(nbytes: int, ops: int,
             else (by_ops, "operations"))
 
 
+def _row_inputs(torch, rows: int, n: int, seed: int):
+    """Phase 2's inputs of the row kernels at (rows, n): x with rows of
+    norms from 1e-4 to 10, row 0 all zeros; z ~ N(0, 1) (noise) and
+    w ~ U[0, 1) (QSGD's u); sigma in [0.1, 1.1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    x *= torch.logspace(-4, 1, rows, device="cuda")[:, None]
+    x[0] = 0.0
+    z = torch.randn((rows, n), generator=gen, device="cuda")
+    w = torch.rand((rows, n), generator=gen, device="cuda")
+    sigma = torch.rand((rows,), generator=gen, device="cuda") + 0.1
+    return x, z, w, sigma
+
+
+def _row_times(torch, fn, n: int, stem: str) -> dict:
+    """A row kernel's call ``fn`` timed as phase 2 times it: ``ms`` by CUDA
+    events over back-to-back calls (``_time_ms``), ``device_ms`` and
+    ``kernels`` (per call, by torch.profiler, the kernels whose name holds
+    ``stem``; "" takes every kernel in the window) and ``host_us`` (the
+    host's time a call, ``_host_us``)."""
+    big = n > 1_000_000
+    device_ms, parts, kernels = _call_device_ms(torch, fn, 5 if big else 50,
+                                                stem)
+    return {"ms": _time_ms(fn, 20 if big else 200), "device_ms": device_ms,
+            "kernels": kernels, "parts": parts,
+            "host_us": _host_us(torch, fn, 20 if big else 200)}
+
+
+def _row_line(rec: dict, plain_ms: float, bound) -> str:
+    dev = ("device not measured" if rec["device_ms"] is None else
+           f"device {rec['device_ms']:.5f} ms a call in {rec['kernels']:g} "
+           f"kernel(s) ({rec['parts']})")
+    return (f"[{rec['variant']}]  kernel {rec['ms']:.5f} ms "
+            f"({bound[0] / rec['ms']:.1%} of the bound)  {dev}  host "
+            f"{rec['host_us']:.2f} us a call  plain {plain_ms:.5f} ms  bound "
+            f"{bound[0]:.6f} ms ({bound[1]})  library: none (no single "
+            f"PyTorch call computes this function)")
+
+
+def _one_kernel_a_call(rec: dict) -> bool:
+    """row_cta and row_cluster must run one kernel a call where the
+    profiler traces the card (row_stream runs two)."""
+    return (rec["kernels"] is None or rec["variant"] == "row_stream"
+            or rec["kernels"] == 1)
+
+
 def check_kernels(torch, dp_clip_noise, dp_clip_noise_ref):
     """Phase 2: the kernel against its plain version at SHAPES, both
-    variants. Returns (ok, record of the main-path shape, max abs err)."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    variants, timed with the instance that ran. Returns (ok, record of the
+    main-path shape, max abs err)."""
     ok, main, worst = True, None, 0.0
     for rows, n in SHAPES:
-        g = torch.randn((rows, n), generator=gen, device="cuda")
-        g *= torch.logspace(-4, 1, rows, device="cuda")[:, None]
-        noise = torch.randn((rows, n), generator=gen, device="cuda")
-        sigma = torch.rand((rows,), generator=gen, device="cuda") + 0.1
-        iters = 20 if n > 1_000_000 else 200
+        g, noise, _, sigma = _row_inputs(torch, rows, n, 0)
         for with_noise in (True, False):
             nz = noise if with_noise else None
             y, norm = dp_clip_noise(g, nz, CLIP, sigma)
@@ -282,63 +339,103 @@ def check_kernels(torch, dp_clip_noise, dp_clip_noise_ref):
                           .max())
             good = (bool(torch.allclose(y, wy, atol=1e-6, rtol=1e-5))
                     and err_n <= 1e-5)
-            ok &= good
             worst = max(worst, err_y)
-            ms = _time_ms(lambda: dp_clip_noise(g, nz, CLIP, sigma), iters)
+            rec = _row_times(torch, lambda: dp_clip_noise(g, nz, CLIP, sigma),
+                             n, "clip_noise")
+            rec["variant"] = dp_clip_noise.last_variant
+            good &= _one_kernel_a_call(rec)
+            ok &= good
             plain_ms = _time_ms(lambda: dp_clip_noise_ref(g, nz, CLIP, sigma),
-                                iters)
-            bound_ms, bound_by = _bound_ms(rows, n, with_noise)
+                                20 if n > 1_000_000 else 200)
+            bound = _bound_ms(rows, n, with_noise)
             print(f"kernel dp_clip_noise ({rows}, {n}) "
                   f"{'noise' if with_noise else 'clip-only'}: "
                   f"max|dy|={err_y:.3e} max rel|dnorm|={err_n:.3e} "
-                  f"{'ok' if good else 'MISMATCH'}  kernel {ms:.5f} ms  "
-                  f"plain {plain_ms:.5f} ms  bound {bound_ms:.6f} ms "
-                  f"({bound_by})  library: none (no single PyTorch call "
-                  f"computes this function)", flush=True)
+                  f"{'ok' if good else 'MISMATCH'}  "
+                  f"{_row_line(rec, plain_ms, bound)}", flush=True)
             if (rows, n) == SHAPES[0] and with_noise:
-                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by}
+                main = {"ms": rec["ms"], "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "variant": rec["variant"]}
     return ok, main, worst
 
 
 def check_qsgd_kernel(torch, quantize_decompress, quantize_decompress_ref):
     """Phase 2, quantize_decompress: bit-identical to its plain version at
-    SHAPES and QSGD_BITS (y and scale), timed at 8 bits, the comm sweep's.
-    Returns (ok, record of the main-path shape, max abs err)."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    SHAPES and QSGD_BITS (y and scale), timed at 8 bits, the comm sweep's,
+    with the instance that ran. Returns (ok, record of the main-path shape,
+    max abs err)."""
     ok, main, worst = True, None, 0.0
     for rows, n in SHAPES:
-        x = torch.randn((rows, n), generator=gen, device="cuda")
-        x *= torch.logspace(-4, 1, rows, device="cuda")[:, None]
-        x[0] = 0.0                               # an all-zero row
-        u = torch.rand((rows, n), generator=gen, device="cuda")
+        x, _, u, _ = _row_inputs(torch, rows, n, 1)
         for bits in QSGD_BITS:
             y, scale = quantize_decompress(x, u, bits)
             wy, ws = quantize_decompress_ref(x, u, bits)
             torch.cuda.synchronize()
             err = float((y - wy).abs().max())
             good = bool(torch.equal(y, wy)) and bool(torch.equal(scale, ws))
-            ok &= good
             worst = max(worst, err)
             line = (f"kernel quantize_decompress ({rows}, {n}) bits {bits}: "
                     f"max|dy|={err:.3e} scales "
-                    f"{'equal' if bool(torch.equal(scale, ws)) else 'DIFFER'}"
-                    f" {'ok' if good else 'MISMATCH'}")
+                    f"{'equal' if bool(torch.equal(scale, ws)) else 'DIFFER'}")
             if bits == 8:
-                iters = 20 if n > 1_000_000 else 200
-                ms = _time_ms(lambda: quantize_decompress(x, u, bits), iters)
+                rec = _row_times(
+                    torch, lambda: quantize_decompress(x, u, bits), n,
+                    "quantize")
+                rec["variant"] = quantize_decompress.last_variant
+                good &= _one_kernel_a_call(rec)
                 plain_ms = _time_ms(
-                    lambda: quantize_decompress_ref(x, u, bits), iters)
-                bound_ms, bound_by = _qsgd_bound_ms(rows, n)
-                line += (f"  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-                         f"bound {bound_ms:.6f} ms ({bound_by})  library: "
-                         f"none (no single PyTorch call computes this "
-                         f"function)")
+                    lambda: quantize_decompress_ref(x, u, bits),
+                    20 if n > 1_000_000 else 200)
+                bound = _qsgd_bound_ms(rows, n)
+                line += (f" {'ok' if good else 'MISMATCH'}  "
+                         f"{_row_line(rec, plain_ms, bound)}")
                 if (rows, n) == SHAPES[0]:
-                    main = {"ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by}
+                    main = {"ms": rec["ms"], "plain_ms": plain_ms,
+                            "bound_ms": bound[0], "bound_by": bound[1],
+                            "variant": rec["variant"]}
+            else:
+                line += f" {'ok' if good else 'MISMATCH'}"
+            ok &= good
             print(line, flush=True)
     return ok, main, worst
+
+
+def time_row_kernels(src: str) -> int:
+    """``python3 chip_smoke.py --time-row-kernels SRC``: time the
+    dp_clip_noise (with noise) and quantize_decompress (8 bits) wrappers of
+    the port under SRC (this tree's ``src``, or another checkout's, such as
+    the parent commit's) at SHAPES on phase 2's inputs, as phase 2 times
+    them (every kernel in the profiler's window counts toward a call's
+    device time), and print the card and one JSON line. Run two trees in
+    turns in one chip call to compare them; nothing is checked here."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.kernels.quantize_decompress import quantize_decompress
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    out = []
+    for rows, n in SHAPES:
+        x, z, w, sigma = _row_inputs(torch, rows, n, 0)
+        for wrapper, fn, bound in (
+                (dp_clip_noise, lambda: dp_clip_noise(x, z, CLIP, sigma),
+                 _bound_ms(rows, n, True)),
+                (quantize_decompress, lambda: quantize_decompress(x, w, 8),
+                 _qsgd_bound_ms(rows, n))):
+            rec = _row_times(torch, fn, n, "")
+            out.append({"kernel": wrapper.__name__, "shape": [rows, n],
+                        "variant": getattr(wrapper, "last_variant", None),
+                        "ms": rec["ms"], "device_ms": rec["device_ms"],
+                        "kernels": rec["kernels"], "parts": rec["parts"],
+                        "host_us": rec["host_us"], "bound_ms": bound[0]})
+    print(json.dumps({"src": src, "rows": out}), flush=True)
+    return 0
 
 
 def check_cohort_kernel(torch, cohort_gather_scatter, ref, vector_width):
@@ -545,13 +642,14 @@ def run_main_path(torch, np, api, linear, data, conv, design, optim,
           f"test majority-class rate {majority:.4f}", flush=True)
     print(f"main path: ms_per_round={wall / max(rounds, 1) * 1e3:.3f} (train "
           f"loop wall / rounds; host batches, eval and first-call costs "
-          f"included) launches={launches} expected={2 * sol.tau * rounds}",
+          f"included) launches={launches} expected={sol.tau * rounds} (one "
+          f"call a local step)",
           flush=True)
     ok = (rounds > 0 and rounds == planned and finite and binds is not None
           and out["max_epsilon"] <= EPS_TH + 1e-6
           and out["resource_spent"] <= C_TH
           and best.get("eval_loss", float("inf")) < init_eval["eval_loss"]
-          and launches == 2 * sol.tau * rounds)
+          and launches == sol.tau * rounds)
     return ok, launches, spec, fed
 
 
@@ -664,7 +762,7 @@ def run_comm_sweep(torch, np, api, linear, data, optim, fl, dp_clip_noise,
               f"{wall / max(rounds, 1) * 1e3:.3f} (train loop wall / rounds,"
               f" eval included) launches dp_clip_noise={clip_launches} "
               f"quantize_decompress={q_launches}", flush=True)
-        good = (clip_launches == 2 * SWEEP_TAU * rounds
+        good = (clip_launches == SWEEP_TAU * rounds
                 and best["eval_loss"] < init_loss
                 and all(bool(torch.isfinite(x).all())
                         for x in state.params.values()))
@@ -678,7 +776,7 @@ def run_comm_sweep(torch, np, api, linear, data, optim, fl, dp_clip_noise,
                      and participants == [8.0]
                      and out["max_epsilon"] <= SWEEP_EPS)
         if compressor == "qsgd":
-            good &= q_launches == 2 * rounds
+            good &= q_launches == rounds
             qsgd_launches = q_launches
         else:
             good &= q_launches == 0
@@ -1045,15 +1143,16 @@ def _call_device_ms(torch, fn, iters: int, name: str):
     torch.profiler: every kernel whose name holds ``name``, summed over the
     run and divided by the calls (not by the kernels, so a call that runs
     three kernels reads as their sum). Returns (ms per call, "kernel ms,
-    ..." per call of each such kernel), or (None, "") where the profiler
-    shows no such kernel."""
+    ..." per call of each such kernel, kernels per call), or (None, "",
+    None) where the profiler shows no such kernel."""
     events = _profiled_kernels(torch, fn, iters, name)
     if not events:
-        return None, ""
+        return None, "", None
     parts = ", ".join(
         f"{_kernel_label(e.key)} {e.device_time_total / 1e3 / iters:.5f}"
         for e in events)
-    return sum(e.device_time_total for e in events) / 1e3 / iters, parts
+    return (sum(e.device_time_total for e in events) / 1e3 / iters, parts,
+            sum(e.count for e in events) / iters)
 
 
 def _sdpa_backend(torch, q, k, v, mask, causal) -> str:
@@ -1177,7 +1276,7 @@ def check_model_kernels(torch, kernels, refs):
                          _time_ms(lambda: rwkv_ref(r, k, v, w, u, s0),
                                   (1 if s >= 2048 else 3) if s > 1 else 30))
                 bound = _rwkv_bound(torch, b, h, s, hd, with_s0, dtype)
-                dev_ms, parts = _call_device_ms(
+                dev_ms, parts, _ = _call_device_ms(
                     torch, lambda: rwkv(r, k, v, w, u, s0), 20, "wkv")
                 host_us = _host_us(
                     torch, lambda: rwkv(r, k, v, w, u, s0),
@@ -1507,6 +1606,12 @@ def compare_model_routes(torch, configs, Transformer):
     return ok
 
 def main() -> int:
+    if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
+        return time_row_kernels(sys.argv[2])
+    if len(sys.argv) > 1:
+        print(f"usage: {sys.argv[0]} [--time-row-kernels SRC]",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -1645,14 +1750,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "variant": main_rec["variant"]}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
         "launches": q_launches, "max_abs_err": q_worst,
         "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
         "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "variant": q_rec["variant"]}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",

@@ -5,16 +5,22 @@
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
 :func:`repro_torch.kernels.ref.dp_clip_noise_ref`. Nothing falls back.
+
+The library holds three instances, chosen by :func:`_variant` from the row
+length alone (``kernels/row_reduce.py``): ``"row_cta"`` (N <= 4,096),
+``"row_cluster"`` (N <= 262,144), both one launch a call that reads g from
+HBM once, and ``"row_stream"`` (two passes). A refused launch raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from repro_torch.kernels import row_reduce
+from repro_torch.kernels.mamba2_ssd import _on
 from repro_torch.kernels.ref import dp_clip_noise_ref
+from repro_torch.kernels.row_reduce import variant as _variant  # noqa: F401
 
-_MAX_ROWS = 65535                    # the kernel's grid.y
+_KERNEL = None                       # (name, launch, error string), once built
 
 
 def _check(g, noise, sigma):
@@ -27,32 +33,16 @@ def _check(g, noise, sigma):
     if noise is None:
         return
     if (noise.dtype != torch.float32 or noise.shape != g.shape
-            or (n > 1 and noise.stride(1) != 1) or noise.device != g.device):
+            or (n > 1 and noise.stride(1) != 1) or not _on(noise, g)):
         raise ValueError(f"noise must be a float32 tensor of g's shape "
                          f"{tuple(g.shape)} with contiguous rows on "
                          f"{g.device}, got {tuple(noise.shape)} "
                          f"{noise.dtype} on {noise.device}")
     if (sigma is None or sigma.dtype != torch.float32
             or sigma.shape != (rows,) or not sigma.is_contiguous()
-            or sigma.device != g.device):
+            or not _on(sigma, g)):
         raise ValueError(f"sigma must be a contiguous ({rows},) float32 "
                          f"tensor on {g.device}")
-
-
-def _library():
-    from repro_torch.kernels._build import load_library
-    lib = load_library("dp_clip_noise")
-    if lib.dp_clip_noise_launch.argtypes is None:
-        lib.dp_clip_noise_partials.argtypes = [ctypes.c_int64]
-        lib.dp_clip_noise_partials.restype = ctypes.c_int64
-        lib.dp_clip_noise_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p, ctypes.c_float] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])
-        lib.dp_clip_noise_launch.restype = ctypes.c_int
-        lib.dp_clip_noise_error_string.argtypes = [ctypes.c_int]
-        lib.dp_clip_noise_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def dp_clip_noise(g, noise, clip_norm: float, sigma):
@@ -61,35 +51,26 @@ def dp_clip_noise(g, noise, clip_norm: float, sigma):
     g (R, N) f32 contiguous, noise (R, N) f32 with contiguous rows (a row
     stride is allowed) or ``None`` (clip only),
     sigma (R,) f32 (unused without noise). Returns ``(y (R, N), norm (R,))``.
-    On a CUDA tensor every call launches two kernels and adds 2 to
-    ``dp_clip_noise.launches``."""
+    On a CUDA tensor every call runs the instance :func:`_variant` names
+    on the current stream, adds 1 to ``dp_clip_noise.launches`` (one per
+    call, whatever the instance launches) and sets
+    ``dp_clip_noise.last_variant``."""
+    global _KERNEL
     _check(g, noise, sigma)
-    if g.device.type == "cpu":
-        return dp_clip_noise_ref(g, noise, clip_norm, sigma)
-    if g.device.type != "cuda":
+    if not g.is_cuda:
+        if g.device.type == "cpu":
+            return dp_clip_noise_ref(g, noise, clip_norm, sigma)
         raise ValueError(f"dp_clip_noise runs on cuda or cpu tensors, got "
                          f"{g.device}")
-    rows, n = g.shape
-    if rows > _MAX_ROWS:
-        raise ValueError(f"dp_clip_noise takes at most {_MAX_ROWS} rows, "
-                         f"got {rows}")
-    lib = _library()
-    with torch.cuda.device(g.device):
-        partial = torch.empty((rows, lib.dp_clip_noise_partials(n)),
-                              dtype=torch.float32, device=g.device)
-        y = torch.empty_like(g)
-        norm = torch.empty((rows,), dtype=torch.float32, device=g.device)
-        err = lib.dp_clip_noise_launch(
-            g.data_ptr(), None if noise is None else noise.data_ptr(),
-            0 if noise is None else noise.stride(0),
-            None if noise is None else sigma.data_ptr(), float(clip_norm),
-            partial.data_ptr(), y.data_ptr(), norm.data_ptr(), rows, n,
-            torch.cuda.current_stream(g.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dp_clip_noise launch failed: "
-                           f"{lib.dp_clip_noise_error_string(err).decode()}")
-    dp_clip_noise.launches += 2
+    if _KERNEL is None:
+        _KERNEL = row_reduce.load("dp_clip_noise")
+    y, norm, variant = row_reduce.launch(
+        _KERNEL, g, noise, 0 if noise is None else noise.stride(0),
+        None if noise is None else sigma, float(clip_norm))
+    dp_clip_noise.launches += 1
+    dp_clip_noise.last_variant = variant
     return y, norm
 
 
 dp_clip_noise.launches = 0
+dp_clip_noise.last_variant = None

@@ -69,6 +69,8 @@ from repro_torch.kernels.ref import (
     quantize_decompress_ref,
     rwkv6_scan_ref,
 )
+from repro_torch.kernels.row_reduce import cluster_shape
+from repro_torch.kernels.row_reduce import variant as _row_variant
 from repro_torch.kernels.rwkv6_scan import _variant as _rwkv_variant
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
@@ -272,6 +274,99 @@ def test_quantize_rows_backends_agree_on_cpu_and_reject_unknown():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         quantize_decompress_rows(x, u, 6, backend="pallas")
+
+
+# ---------------- the row-reduce instances of both kernels -------------------
+
+@pytest.mark.parametrize("rows,n,want", [
+    (16, 210, "row_cta"), (23, 202, "row_cta"), (1, 1, "row_cta"),
+    (100_000, 210, "row_cta"), (3, 4096, "row_cta"), (3, 4097, "row_cluster"),
+    (64, 262_144, "row_cluster"), (1, 262_144, "row_cluster"),
+    (2, 262_145, "row_stream"), (16, 4_194_304, "row_stream")])
+def test_row_variant_picks_by_row_length_at_the_boundaries(rows, n, want):
+    assert _row_variant(rows, n) == want
+
+
+@pytest.mark.parametrize("rows,n", [(0, 5), (5, 0), (2**31, 210),
+                                    (2**28, 262_144)])
+def test_row_variant_refuses_empty_rows_and_grids_past_one_launch(rows, n):
+    with pytest.raises(ValueError):
+        _row_variant(rows, n)
+
+
+@pytest.mark.parametrize("n", [4097, 5000, 8193, 65_536, 100_003, 131_071,
+                               262_143, 262_144])
+def test_row_cluster_shape_covers_the_row_on_chip(n):
+    """2-16 CTAs, each slice a multiple of 4 elements (so it starts at the
+    row's 16-byte phase) that fits its 64 KiB, none of them empty."""
+    ctas, per = cluster_shape(n)
+    assert 2 <= ctas <= 16 and per % 4 == 0 and per <= 16_384
+    assert (ctas - 1) * per < n <= ctas * per
+
+
+def test_row_launch_argument_matches_the_c_struct():
+    """The packed argument is rowred::Args: fourteen 8-byte fields, the
+    fifth (the clip norm / 1 / levels) a double."""
+    from repro_torch.kernels.row_reduce import _ARGS
+    assert _ARGS.size == 14 * 8
+    fields = _ARGS.unpack(_ARGS.pack(*range(5), 0.25, *range(6, 14)))
+    assert fields[5] == 0.25 and fields[:5] == (0, 1, 2, 3, 4)
+
+
+def _fma32(a, b, c):
+    """fmaf on float32 arrays: the exact product (a 48-bit mantissa fits
+    f64) plus c, rounded to f64 and then to f32."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _tree32(v):
+    """The card's __shfl_down tree over the last axis (32 lanes): lane i
+    adds lane i + off for off = 16, 8, 4, 2, 1; lane 0's result."""
+    for off in (16, 8, 4, 2, 1):
+        v = (v[..., :off] + v[..., off:2 * off]).astype(np.float32)
+    return v[..., 0]
+
+
+def _row_norm_emulation(row, ctas, per, threads=256):
+    """The norm of one row as row_cta (ctas 1, per n) and row_cluster take
+    it: CTA c holds elements [c per, (c + 1) per); its thread t folds
+    elements t, t + 256, ... by fmaf from 0; each warp's shuffle tree; warp
+    0's tree over the 8 warp values (the other lanes 0); the CTAs' partials
+    added in rank order; sqrt. Elements past the row count as 0, which
+    adds nothing."""
+    steps = -(-per // threads)
+    x = np.zeros((ctas, steps * threads), np.float32)
+    flat = np.zeros(ctas * per, np.float32)
+    flat[:row.size] = row
+    x[:, :per] = flat.reshape(ctas, per)
+    x = x.reshape(ctas, steps, threads)
+    acc = np.zeros((ctas, threads), np.float32)
+    for k in range(steps):
+        acc = _fma32(x[:, k], x[:, k], acc)
+    warps = _tree32(acc.reshape(ctas, threads // 32, 32))
+    part = _tree32(np.pad(warps, ((0, 0), (0, 32 - threads // 32))))
+    total = np.float32(0)
+    for p in part:
+        total = np.float32(total + p)
+    return np.sqrt(total)
+
+
+@pytest.mark.parametrize("n", [210, 4096, 100_003, 262_144])
+@pytest.mark.parametrize("scale", [1e-3, 10.0])
+def test_row_norm_emulation_matches_pallas_interpret(n, scale):
+    """The card's reduction order for the norm (row_cta at 210 and 4,096,
+    row_cluster at 100,003 and 262,144), emulated in numpy, within rtol
+    1e-5 of the Pallas kernel in interpret mode on the same input."""
+    g = (np.random.default_rng(n).normal(size=n) * scale).astype(np.float32)
+    shape = cluster_shape(n) if _row_variant(1, n) == "row_cluster" else (
+        1, n)
+    got = _row_norm_emulation(g, *shape)
+    _, want = jax_dp_clip_noise(jnp.asarray(g), None, 1.0, 0.0,
+                                interpret=True)
+    np.testing.assert_allclose(got, float(want), rtol=1e-5)
+    np.testing.assert_allclose(got, np.linalg.norm(g.astype(np.float64)),
+                               rtol=1e-6)
 
 
 # -------------------------- cohort_gather_scatter ----------------------------
@@ -1037,40 +1132,154 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# dp_clip_noise / quantize_decompress on the card: every instance, at and
+# one past each _variant boundary (4,096 and 262,144), the main path and
+# Vehicle-1, 64 clients of a 262K-parameter model, a long odd row, and a
+# row too short for one 16-byte load. Row 0 is all zeros.
+GPU_ROWS = [(16, 210), (23, 202), (1, 3), (3, 4096), (3, 4097), (5, 4099),
+            (3, 100_003), (2, 262_144), (64, 262_144), (2, 262_145)]
+
+
+def _gpu_rows(rows, n, device, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, n))
+         * np.logspace(-4, 1, rows)[:, None]).astype(np.float32)
+    x[0] = 0.0                                   # an all-zero row
+    return torch.as_tensor(x).to(device), rng
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,n", [(16, 210), (23, 202), (3, 100_003)])
+@pytest.mark.parametrize("rows,n", GPU_ROWS)
 @pytest.mark.parametrize("with_noise", [True, False])
 def test_cuda_kernel_matches_plain_version(cuda_device, rows, n, with_noise):
-    g, noise, sigma = _rows(rows, n, 1.0, seed=n)
-    tg, tn, ts = (t.to(cuda_device) for t in _torch(g, noise, sigma))
-    tn = tn if with_noise else None
+    tg, rng = _gpu_rows(rows, n, cuda_device, seed=n)
+    tn = torch.as_tensor(rng.normal(size=(rows, n)).astype(np.float32)).to(
+        cuda_device) if with_noise else None
+    ts = torch.as_tensor(rng.uniform(0.1, 2.0, size=rows).astype(
+        np.float32)).to(cuda_device)
     before = dp_clip_noise.launches
     y, norm = dp_clip_noise(tg, tn, 1.0, ts)
     torch.cuda.synchronize()
-    assert dp_clip_noise.launches == before + 2
+    assert dp_clip_noise.launches == before + 1
+    assert dp_clip_noise.last_variant == _row_variant(rows, n)
     wy, wn = dp_clip_noise_ref(tg, tn, 1.0, ts)
     torch.testing.assert_close(y, wy, atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(norm, wn, atol=0, rtol=1e-5)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,n", [(16, 210), (23, 202), (3, 100_003)])
+@pytest.mark.parametrize("rows,n", GPU_ROWS)
 @pytest.mark.parametrize("bits", [1, 4, 8, 16])
 def test_cuda_quantize_decompress_equals_plain_version_bitwise(cuda_device,
                                                                rows, n, bits):
-    rng = np.random.default_rng(n + bits)
-    x = (rng.normal(size=(rows, n))
-         * np.logspace(-4, 1, rows)[:, None]).astype(np.float32)
-    x[0] = 0.0                                   # an all-zero row
-    u = rng.uniform(size=(rows, n)).astype(np.float32)
-    tx, tu = (torch.as_tensor(a).to(cuda_device) for a in (x, u))
+    tx, rng = _gpu_rows(rows, n, cuda_device, seed=n + bits)
+    tu = torch.as_tensor(rng.uniform(size=(rows, n)).astype(np.float32)).to(
+        cuda_device)
     before = quantize_decompress.launches
     y, scale = quantize_decompress(tx, tu, bits)
     torch.cuda.synchronize()
-    assert quantize_decompress.launches == before + 2
+    assert quantize_decompress.launches == before + 1
+    assert quantize_decompress.last_variant == _row_variant(rows, n)
     wy, ws = quantize_decompress_ref(tx, tu, bits)
     assert torch.equal(scale, ws)
     assert torch.equal(y, wy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [210, 4099, 100_003, 262_145])
+def test_cuda_dp_clip_noise_takes_strided_noise_rows(cuda_device, n):
+    """Step t of a (C, tau, N) noise block, a view whose rows start at other
+    16-byte phases than g's and y's (the 4-byte path), equals its copy."""
+    tg, rng = _gpu_rows(4, n, cuda_device, seed=n)
+    block = torch.as_tensor(rng.normal(size=(4, 3, n)).astype(
+        np.float32)).to(cuda_device)
+    ts = torch.full((4,), 0.7, device=cuda_device)
+    got = dp_clip_noise(tg, block[:, 1], 1.0, ts)
+    want = dp_clip_noise(tg, block[:, 1].contiguous(), 1.0, ts)
+    plain = dp_clip_noise_ref(tg, block[:, 1], 1.0, ts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[0], plain[0], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [210, 4097, 100_003, 262_145])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_row_kernels_take_rows_at_any_4_byte_offset(cuda_device, n,
+                                                         offset):
+    """Contiguous views ``offset`` floats past an aligned base: g / x at one
+    16-byte phase, noise at another, y at a third (the wrapper's own,
+    aligned): the kernels' 4-byte paths agree with the plain versions."""
+    tx, rng = _gpu_rows(3, n, cuda_device, seed=offset)
+    buf = torch.empty(3 * n + 4, device=cuda_device)
+    xv = buf[offset:offset + 3 * n].view(3, n)
+    xv.copy_(tx)
+    nbuf = torch.empty(3 * n + 4, device=cuda_device)
+    noise = nbuf[3 - offset:3 - offset + 3 * n].view(3, n)
+    noise.copy_(torch.as_tensor(rng.normal(size=(3, n)).astype(
+        np.float32)))
+    ts = torch.full((3,), 0.3, device=cuda_device)
+    y, norm = dp_clip_noise(xv, noise, 1.0, ts)
+    wy, wn = dp_clip_noise_ref(xv, noise, 1.0, ts)
+    torch.testing.assert_close(y, wy, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(norm, wn, atol=0, rtol=1e-5)
+    u = noise.abs().remainder(1.0)
+    y, scale = quantize_decompress(xv, u.contiguous(), 8)
+    wy, ws = quantize_decompress_ref(xv, u, 8)
+    assert torch.equal(y, wy) and torch.equal(scale, ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(16, 210), (3, 100_003), (2, 262_145)])
+def test_cuda_row_kernels_are_deterministic(cuda_device, rows, n):
+    """Two calls on one input are bitwise equal: every instance takes its
+    reduction in one fixed order."""
+    tx, rng = _gpu_rows(rows, n, cuda_device, seed=7)
+    tz = torch.as_tensor(rng.uniform(size=(rows, n)).astype(np.float32)).to(
+        cuda_device)
+    ts = torch.full((rows,), 0.5, device=cuda_device)
+    for first, second in ((dp_clip_noise(tx, tz, 1.0, ts),
+                           dp_clip_noise(tx, tz, 1.0, ts)),
+                          (quantize_decompress(tx, tz, 8),
+                           quantize_decompress(tx, tz, 8))):
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_row_kernels_replay_in_a_cuda_graph(cuda_device):
+    """One dp_clip_noise and one quantize_decompress call at the main path's
+    (16, 210), captured with torch.cuda.graph and replayed, equal the eager
+    calls bitwise: one launch a call, no scratch and no host sync, so a
+    round can be captured. The counters count at capture, not at replay."""
+    tg, rng = _gpu_rows(16, 210, cuda_device, seed=3)
+    tn, tu = (torch.as_tensor(rng.uniform(size=(16, 210)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    ts = torch.full((16,), 0.9, device=cuda_device)
+    eager = (dp_clip_noise(tg, tn, 1.0, ts), quantize_decompress(tg, tu, 8))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm-up, as capture wants
+        dp_clip_noise(tg, tn, 1.0, ts)
+        quantize_decompress(tg, tu, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (dp_clip_noise.launches, quantize_decompress.launches)
+    with torch.cuda.graph(graph):
+        captured = (dp_clip_noise(tg, tn, 1.0, ts),
+                    quantize_decompress(tg, tu, 8))
+    assert (dp_clip_noise.launches, quantize_decompress.launches) == (
+        before[0] + 1, before[1] + 1)
+    for _ in range(2):
+        for out in captured:
+            for t in out:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 # dtypes x row lengths: 16-, 8-, 4-, 2- and 1-byte copies, rows shorter than
