@@ -67,7 +67,21 @@ Phases (each prints its lines; any failure exits non-zero):
  12. kernel_backend "auto" against "ref" on the same params, prefill and 8
      teacher-forced decode steps: f32 with the depth cut to one step of
      each segment; bf16 at full depth, each route held against the f32
-     computation on the same params.
+     computation on the same params;
+ 13. the paper's §8.1 experiments at full width through
+     benchmarks/common_torch.py: make_cases(fast=False) (Adult-1/2,
+     Vehicle-1/2), estimate_constants per case, fig2's two runs per case
+     (tau 10 and 1, C_th 1000, eps_th 10), each run's rounds, epsilon and
+     cost equal to the same run on the CPU and dp_clip_noise's calls equal
+     to the steps taken, accuracy and ms per round, one whole run
+     profiled; fig6's solver grid on the cuda and the CPU constants;
+ 14. the trust plane: SecureMaskedSum at (16, 210) with partial
+     participation bitwise equal to the host protocol's
+     unmasked_fixed_point_sum and to the CPU route; each robust aggregator
+     against its CPU result; benchmarks/attack_resilience_torch.py --check
+     on cuda; Adult-1 with secure_agg and central accounting, its rounds
+     and epsilon against the host math at 1/P; ms per steady round of
+     mean / median / trimmed_mean / norm_bound / secure in turns.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -129,6 +143,8 @@ SSD_SHAPES = ((2, 512, 112, 64, 64, 128), (2, 2048, 112, 64, 64, 128),
 # phases 11-12: (arch, prompt length, generated tokens), batch 2
 SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
               ("zamba2-7b", 512, 32))
+# phase 13: benchmarks/fig2_efficiency.py's runs, DP-PASGD and DP-SGD
+FIG2_TAUS, FIG2_C, FIG2_EPS = (10, 1), 1000.0, 10.0
 
 
 def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
@@ -1605,6 +1621,257 @@ def compare_model_routes(torch, configs, Transformer):
             torch.cuda.empty_cache()
     return ok
 
+
+# -- phases 13-14: the paper's experiments and the trust plane ---------------
+
+def _fig2_line(case, tau, out, launches, cpu_out) -> tuple[bool, str]:
+    same = all(out[k] == cpu_out[k]
+               for k in ("rounds", "max_epsilon", "resource_spent"))
+    ok = (same and out["rounds"] > 0 and launches == tau * out["rounds"]
+          and out["max_epsilon"] <= FIG2_EPS)
+    return ok, (
+        f"phase 13 fig2 {case.name} tau={tau}: rounds={out['rounds']} "
+        f"max_epsilon={out['max_epsilon']!r} "
+        f"resource_spent={out['resource_spent']!r} (cpu route "
+        f"{cpu_out['rounds']} / {cpu_out['max_epsilon']!r} / "
+        f"{cpu_out['resource_spent']!r}: {'equal' if same else 'DIFFERENT'})"
+        f" best acc {out['best'].get('eval_acc', 0.0):.4f} (cpu route "
+        f"{cpu_out['best'].get('eval_acc', 0.0):.4f}) ms_per_round="
+        f"{out['wall_s'] * 1e3 / max(out['rounds'], 1):.3f} (train loop wall"
+        f" / rounds, eval every round) dp_clip_noise launches={launches} "
+        f"(steps {tau * out['rounds']}) {'ok' if ok else 'CHECK FAILED'}")
+
+
+def run_paper_experiments(torch, dp_clip_noise, card):
+    """Phase 13: benchmarks/common_torch.make_cases(fast=False) on cuda (the
+    paper's four cases at full width), estimate_constants per case, fig2's
+    two runs per case (tau 10 and 1, C_th 1000, eps_th 10) with each run's
+    rounds, epsilon and cost held against the same run on the CPU and
+    dp_clip_noise's calls against the steps taken, then fig6's solver grid
+    on the cuda and the CPU constants. ``card`` is nvidia-smi's name and
+    power limit. Returns (ok, the fig2 runs' dp_clip_noise launches)."""
+    import benchmarks.common_torch as common
+    import benchmarks.fig6_optimal_tau_torch as fig6
+    print(f"phase 13 on {card}", flush=True)
+    ok, total = True, 0
+    t0 = time.perf_counter()
+    cases = common.make_cases(fast=False, device="cuda")
+    cpu_cases = common.make_cases(fast=False, device="cpu")
+    print(f"phase 13 make_cases(fast=False) x2: "
+          f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
+              f"{c.name} {c.fed.n_clients} clients, "
+              f"{sum(cl.n_train for cl in c.fed.clients)} train rows, "
+              f"d={c.dim}, {c.loss_fn.__name__}" for c in cases), flush=True)
+    for case, cpu_case in zip(cases, cpu_cases):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        consts = common.estimate_constants(case)
+        torch.cuda.synchronize()
+        print(f"phase 13 estimate_constants {case.name}: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (30 probe rounds)"
+              f" lip={consts.lip:.6g} lam={consts.lam:.6g} "
+              f"alpha={consts.alpha:.6g} xi2={consts.xi2:.6g}", flush=True)
+        for tau in FIG2_TAUS:
+            torch.cuda.synchronize()
+            dp_clip_noise.launches = 0
+            out = common.run_dp_pasgd(case, tau=tau, c_th=FIG2_C,
+                                      eps_th=FIG2_EPS)
+            torch.cuda.synchronize()
+            launches = dp_clip_noise.launches
+            total += launches
+            cpu_out = common.run_dp_pasgd(cpu_case, tau=tau, c_th=FIG2_C,
+                                          eps_th=FIG2_EPS)
+            good, line = _fig2_line(case, tau, out, launches, cpu_out)
+            ok &= good
+            print(line, flush=True)
+    # where one fig2 run's time goes
+    _profile_call(torch, lambda: common.run_dp_pasgd(
+        cases[0], tau=FIG2_TAUS[0], c_th=FIG2_C, eps_th=FIG2_EPS),
+        f"phase 13 profile, fig2 {cases[0].name} tau={FIG2_TAUS[0]} whole "
+        f"run")
+    grids = {}
+    for dev in ("cuda", "cpu"):
+        rows = fig6.main(fast=False, device=dev)
+        grids[dev] = rows[0]
+        print(f"phase 13 fig6 on {dev}: {rows[0]}", flush=True)
+    same = grids["cuda"].split(",")[2] == grids["cpu"].split(",")[2]
+    ok &= same
+    print(f"phase 13 fig6 grid, cuda vs cpu constants: "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    return ok, total
+
+
+def check_trust_kernels(torch, np):
+    """Phase 14: SecureMaskedSum at (16, 210) with 12 of 16 participating
+    on the card against the host protocol's unmasked_fixed_point_sum and
+    the CPU route, bit for bit; each robust aggregator on the card against
+    its CPU result on the same rows (P 7, 12, 16): median bitwise, the
+    others within 1e-6 of the largest magnitude."""
+    from repro_torch.core import robust, secureagg
+    ok = True
+    c, d, p = 16, 210, 12
+    rng = np.random.default_rng(14)
+    x = (rng.normal(size=(c, d)) * 0.05).astype(np.float32)
+    mask = np.zeros((c,), np.float32)
+    mask[rng.choice(c, size=p, replace=False)] = 1.0
+    sec = secureagg.SecureMaskedSum(c)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        pairs = sec.draw(gen, d, dev)
+        got[dev] = sec.masked_mean(torch.as_tensor(x, device=dev),
+                                   torch.as_tensor(mask, device=dev),
+                                   pairs).cpu().numpy()
+    survivors = [int(i) for i in np.flatnonzero(mask)]
+    total = secureagg.unmasked_fixed_point_sum(dict(enumerate(x)), survivors)
+    scale = np.float32(1 << 16)
+    want = (np.round(total * (1 << 16)).astype(np.int64).astype(np.int32)
+            .astype(np.float32) / scale) / np.float32(p)
+    good = (np.array_equal(got["cuda"], want)
+            and np.array_equal(got["cuda"], got["cpu"]))
+    ok &= good
+    print(f"phase 14 SecureMaskedSum (16, 210), {p} of 16 participating: "
+          f"cuda vs unmasked_fixed_point_sum and vs the cpu route "
+          f"{'bitwise equal' if good else 'DIFFERENT'}", flush=True)
+    for rows in (7, 12, 16):
+        u = (rng.normal(size=(rows, d))
+             * rng.uniform(0.01, 2.0, size=(rows, 1))).astype(np.float32)
+        for name, args in (("median", ()), ("trimmed_mean", (0.25,)),
+                           ("norm_bound", (0.1, 2.0))):
+            agg = robust.make_aggregator(name, *args)
+            a = agg(torch.as_tensor(u, device="cuda")).cpu().numpy()
+            b = agg(torch.as_tensor(u)).numpy()
+            err = float(np.max(np.abs(a - b)))
+            lim = 0.0 if name == "median" else 1e-6 * float(np.abs(b).max())
+            good = err <= lim
+            ok &= good
+            print(f"phase 14 {name} P={rows}: max|cuda - cpu|={err:.3e} "
+                  f"(limit {lim:.3e}) {'ok' if good else 'CHECK FAILED'}",
+                  flush=True)
+    return ok
+
+
+def run_attack_check(torch, dp_clip_noise):
+    """Phase 14: benchmarks/attack_resilience_torch.py --check on cuda at
+    its own config (8 clients, tau 2, 20 rounds, fractions 0 / 0.125 /
+    0.25 / 0.375). Returns (ok, dp_clip_noise launches: 16 runs x 20
+    rounds x tau 2)."""
+    import benchmarks.attack_resilience_torch as attack
+    torch.cuda.synchronize()
+    dp_clip_noise.launches = 0
+    t0 = time.perf_counter()
+    rc = attack.main(["--check", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dp_clip_noise.launches
+    want = 4 * len(attack.AGGREGATORS) * 20 * attack.TAU
+    ok = rc == 0 and launches == want
+    print(f"phase 14 attack_resilience_torch --check: rc={rc} in "
+          f"{time.perf_counter() - t0:.2f} s, dp_clip_noise launches="
+          f"{launches} (expected {want}) {'ok' if ok else 'CHECK FAILED'}",
+          flush=True)
+    return ok, launches
+
+
+def run_secure_central(torch, np, api, linear, spec, fed, dp_clip_noise):
+    """Phase 14: the main path's Adult-1 spec at full width with
+    secure_agg=True, dp_accounting="central", trained until a budget
+    binds; its rounds and epsilon against the host math with every charge
+    at 1/P. Returns (ok, launches)."""
+    from repro_torch.core.privacy import zcdp_to_dp
+    sspec = spec.replace(secure_agg=True, dp_accounting="central")
+    dim = fed.clients[0].x_train.shape[1]
+    state = api.init_state(sspec, linear.init_linear(dim, device="cuda"),
+                           device="cuda")
+    planned, binds = api.rounds_within_budgets(sspec, state, 10_000)
+    charges = api.round_rho_charges(sspec)
+    rho = np.zeros_like(charges)
+    for _ in range(planned):
+        rho = rho + charges
+    want_eps = zcdp_to_dp(float(np.max(rho)), sspec.delta)
+    local = api.round_rho_charges(spec)
+    p = sspec.participants_per_round()
+    torch.cuda.synchronize()
+    dp_clip_noise.launches = 0
+    t0 = time.perf_counter()
+    state, out = api.train(sspec, state, fed.make_sampler(BATCH))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dp_clip_noise.launches
+    ok = (out["rounds"] == planned and out["max_epsilon"] == want_eps
+          and np.allclose(charges, local / p, rtol=1e-12, atol=0)
+          and launches == sspec.tau * out["rounds"]
+          and all(bool(torch.isfinite(v).all())
+                  for v in state.params.values()))
+    print(f"phase 14 Adult-1 secure_agg + central accounting (P={p}): "
+          f"rounds={out['rounds']} (host math {planned}, binds {binds}) "
+          f"max_epsilon={out['max_epsilon']!r} (host math {want_eps!r}) "
+          f"resource_spent={out['resource_spent']!r} ms_per_round="
+          f"{wall * 1e3 / max(out['rounds'], 1):.3f} (train loop wall / "
+          f"rounds, no eval) dp_clip_noise launches={launches} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, launches
+
+
+def time_trust_rounds(torch, np, api, linear, spec, fed, card):
+    """Phase 14: ms per steady round, as phase 5 measures it (batches
+    prebuilt, no eval, 20 rounds after 2 warm-up rounds), of the main
+    path's Adult-1 spec with aggregator mean / median / trimmed_mean /
+    norm_bound and with secure_agg, in three turns within this call (the
+    order reversed in the second), then one profiled 3-round window of
+    each trust variant. ``card`` is nvidia-smi's name and power limit.
+    Returns whether every round left finite params."""
+    variants = {"mean": {}, "median": dict(aggregator="median"),
+                "trimmed_mean": dict(aggregator="trimmed_mean",
+                                     trim_fraction=0.25),
+                "norm_bound": dict(aggregator="norm_bound",
+                                   norm_bound_factor=2.0),
+                "secure": dict(secure_agg=True)}
+    dim = fed.clients[0].x_train.shape[1]
+    rng = np.random.default_rng(2)
+    n_timed = 20
+    batches = [api.round_batch(spec, fed.make_sampler(BATCH), rng)
+               for _ in range(n_timed + 5)]
+    specs, states = {}, {}
+    for name, kw in variants.items():
+        specs[name] = spec.replace(**kw)
+        st = api.init_state(specs[name], linear.init_linear(
+            dim, device="cuda"), device="cuda")
+        for b in batches[:2]:
+            st, _ = api.run_round(specs[name], st, b, check_budgets=False)
+        states[name] = st
+    times = {k: [] for k in variants}
+    order = list(variants)
+    for turn in range(3):
+        for name in (order if turn != 1 else order[::-1]):
+            st = states[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches[2:2 + n_timed]:
+                st, _ = api.run_round(specs[name], st, b,
+                                      check_budgets=False)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / n_timed)
+            states[name] = st
+    print(f"phase 14 steady round on {card} (Adult-1, tau={spec.tau}, "
+          f"batches prebuilt, no eval), ms/round over {n_timed} rounds in "
+          f"three turns: " + "; ".join(
+              f"{k} " + " / ".join(f"{t:.3f}" for t in v)
+              for k, v in times.items()), flush=True)
+    finite = True
+    for name in order[1:]:
+        def last_rounds(name=name):
+            st = states[name]
+            for b in batches[-3:]:
+                st, _ = api.run_round(specs[name], st, b,
+                                      check_budgets=False)
+            return st
+        st, _ = _profile_call(torch, last_rounds,
+                              f"phase 14 profile, 3 rounds {name}")
+        finite &= all(bool(torch.isfinite(v).all())
+                      for v in st.params.values())
+    return finite
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
@@ -1622,6 +1889,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))          # benchmarks/*_torch.py
     import numpy as np
 
     from repro_torch import api, configs, data, optim
@@ -1657,7 +1925,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     ok_build = True
@@ -1727,6 +1996,16 @@ def main() -> int:
     # -- 12. the model's kernel route against its plain route ---------------
     ok_rt = compare_model_routes(torch, configs, Transformer)
 
+    # -- 13. the paper's experiments at full width ---------------------------
+    ok_px, px_launches = run_paper_experiments(torch, dp_clip_noise, card)
+
+    # -- 14. the trust plane ---------------------------------------------------
+    ok_tk = check_trust_kernels(torch, np)
+    ok_at, at_launches = run_attack_check(torch, dp_clip_noise)
+    ok_sc, sc_launches = run_secure_central(torch, np, api, linear, spec,
+                                            fed, dp_clip_noise)
+    ok_tr = time_trust_rounds(torch, np, api, linear, spec, fed, card)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -1750,7 +2029,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None, "variant": main_rec["variant"]}, {
+        "library_ms": None, "variant": main_rec["variant"],
+        "launches_other_paths": {"phase 13 fig2 runs": px_launches,
+                                 "phase 14 attack check": at_launches,
+                                 "phase 14 secure central": sc_launches}}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
@@ -1785,7 +2067,15 @@ def main() -> int:
                              "version"),
                      (ok_sv, "the full-width serving checks failed"),
                      (ok_rt, "the model's kernel route disagrees with its "
-                             "plain route")):
+                             "plain route"),
+                     (ok_px, "the paper's experiments' checks failed"),
+                     (ok_tk, "a trust-plane reduction disagrees between "
+                             "the card and the CPU"),
+                     (ok_at, "attack_resilience_torch --check failed"),
+                     (ok_sc, "the secure central-accounting run's checks "
+                             "failed"),
+                     (ok_tr, "the trust-plane rounds gave non-finite "
+                             "params")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

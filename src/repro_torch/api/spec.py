@@ -2,12 +2,12 @@
 
 :class:`FederationSpec` has the JAX package's fields and validation. The
 port runs the resident protocol, dense or through the aggregation pipeline
-(partial participation, compressed error-fed updates), and cohorts of K
-drawn from a virtual population of M (``population=M``, driven by
-:mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines; a spec
-that asks for a plane the port does not have yet (robust or secure
-aggregation, the sharded or async engines) raises ``NotImplementedError``
-naming its ROADMAP item.
+(partial participation, compressed error-fed updates, robust aggregators,
+secure masked sums with central accounting, byzantine update attacks), and
+cohorts of K drawn from a virtual population of M (``population=M``, driven
+by :mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines; a
+spec that asks for an engine the port does not have yet (sharded or async)
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,12 +27,22 @@ from repro_torch.core.aggregation import (
 )
 from repro_torch.core.fl import TOPOLOGIES, FLConfig, design_sigmas
 from repro_torch.core.privacy import composed_subsampling_q
+from repro_torch.core.robust import (
+    byzantine_flags,
+    make_aggregator,
+    make_attack,
+    validate_aggregator,
+    validate_attack,
+)
+from repro_torch.core.secureagg import (
+    SecureMaskedSum,
+    central_rho_scale,
+    validate_secure,
+)
 from repro_torch.kernels.ops import validate_backend
 from repro_torch.optim.optimizers import Optimizer
 
 ENGINES = ("vmap", "map", "shard_map", "mesh_2d", "async_buffered", "auto")
-AGGREGATORS = ("mean", "median", "trimmed_mean", "norm_bound")
-ATTACKS = ("none", "sign_flip", "scale")
 
 # the planes of the JAX package not yet ported (ROADMAP queue 1)
 _UNPORTED_ENGINES = {"shard_map": "item 12", "mesh_2d": "item 12",
@@ -70,7 +80,7 @@ class FederationSpec:
     compression_bits: int = 8
     amplify_participation: bool = False
 
-    # -- adversarial fleet (item 8) ----------------------------------------
+    # -- adversarial fleet (core/robust.py, core/secureagg.py) -------------
     aggregator: str = "mean"
     trim_fraction: float = 0.1
     norm_bound_factor: float = 3.0
@@ -120,13 +130,10 @@ class FederationSpec:
 
     def __post_init__(self):
         self._validate()
-        # the planes the port does not run yet
+        # the engines the port does not run yet
         if self.engine in _UNPORTED_ENGINES:
             raise _not_ported(f"engine={self.engine!r}",
                               _UNPORTED_ENGINES[self.engine])
-        if self.is_adversarial():
-            raise _not_ported("robust aggregation, secure aggregation and "
-                              "update attacks", "item 8")
 
     def _validate(self):
         """The JAX package's validation, check for check."""
@@ -155,27 +162,11 @@ class FederationSpec:
         elif not 0.0 < self.participation <= 1.0:
             raise ValueError(f"participation fraction must be in (0, 1], "
                              f"got {self.participation}")
-        if self.aggregator not in AGGREGATORS:
-            raise ValueError(f"aggregator must be one of {AGGREGATORS}, "
-                             f"got {self.aggregator!r}")
-        if not 0.0 <= self.trim_fraction < 0.5:
-            raise ValueError(f"trim_fraction must be in [0, 0.5), "
-                             f"got {self.trim_fraction}")
-        if self.norm_bound_factor <= 0.0:
-            raise ValueError(f"norm_bound_factor must be positive, "
-                             f"got {self.norm_bound_factor}")
-        if self.attack not in ATTACKS:
-            raise ValueError(f"attack must be one of {ATTACKS}, "
-                             f"got {self.attack!r}")
-        if not 0.0 <= self.byzantine_fraction < 1.0:
-            raise ValueError(f"byzantine_fraction must be in [0, 1), "
-                             f"got {self.byzantine_fraction}")
-        if self.attack_scale == 0.0:
-            raise ValueError(f"attack_scale must be nonzero, "
-                             f"got {self.attack_scale}")
-        if not 1 <= self.secure_frac_bits <= 24:
-            raise ValueError(f"secure_frac_bits must be in [1, 24], "
-                             f"got {self.secure_frac_bits}")
+        validate_aggregator(self.aggregator, self.trim_fraction,
+                            self.norm_bound_factor)
+        validate_attack(self.attack, self.byzantine_fraction,
+                        self.attack_scale)
+        validate_secure(self.secure_frac_bits)
         if self.secure_agg and self.aggregator != "mean":
             raise ValueError("secure_agg only composes with aggregator='mean'")
         if self.dp_accounting not in ("local", "central"):
@@ -325,11 +316,17 @@ class FederationSpec:
         full Lemma-2 rho, the sound conditional ledger) by default; with
         ``amplify_participation``, the probability that a given client
         realizes a step in a round: the cohort fraction K/M times the
-        within-cohort participation fraction."""
+        within-cohort participation fraction. Under
+        ``dp_accounting="central"`` the charge also scales by
+        :func:`~repro_torch.core.secureagg.central_rho_scale` (1/P for the
+        P pooled participant noises)."""
+        q = 1.0
         if self.amplify_participation:
-            return composed_subsampling_q(self.cohort_fraction(),
-                                          self.participation_fraction())
-        return 1.0
+            q = composed_subsampling_q(self.cohort_fraction(),
+                                       self.participation_fraction())
+        if self.dp_accounting == "central":
+            q *= central_rho_scale(self.participants_per_round())
+        return q
 
     def wire_ratio(self) -> float:
         """Compressed-update bytes as a fraction of the dense f32 update."""
@@ -341,8 +338,18 @@ class FederationSpec:
         return self.wire_ratio() * self.participation_fraction()
 
     def is_adversarial(self) -> bool:
+        """Any trust-plane feature on (robust aggregator, secure sum, update
+        attack)? ``has_pipeline()`` includes them."""
         return (self.aggregator != "mean" or self.secure_agg
                 or self.attack != "none")
+
+    def resolved_byzantine_flags(self) -> tuple[int, ...] | None:
+        """The static 0/1 byzantine membership over the C resident clients
+        (None without an attack), deterministic per (seed, fraction)."""
+        if self.attack == "none":
+            return None
+        return byzantine_flags(self.n_clients, self.byzantine_fraction,
+                               self.seed)
 
     def has_pipeline(self) -> bool:
         """Does this spec leave the all-clients/dense-mean protocol?"""
@@ -355,12 +362,19 @@ class FederationSpec:
         full-participation protocol."""
         if not self.has_pipeline():
             return None
+        flags = self.resolved_byzantine_flags()
         return AggregationPipeline(
             n_clients=self.n_clients,
             compressor=make_compressor(self.compressor, self.compression_ratio,
                                        self.compression_bits,
                                        self.kernel_backend),
             average_opt_state=self.average_opt_state,
+            aggregator=make_aggregator(self.aggregator, self.trim_fraction,
+                                       self.norm_bound_factor),
+            secure=(SecureMaskedSum(self.n_clients, self.secure_frac_bits)
+                    if self.secure_agg else None),
+            attack=(make_attack(self.attack, flags, self.attack_scale)
+                    if flags is not None else None),
             n_participants=self.participants_per_round())
 
     def round_cost(self) -> float:
@@ -402,10 +416,20 @@ class FederationSpec:
         """Hash key of everything that shapes the round function. Budget and
         accounting fields are excluded, so budget edits reuse the cached
         round. Participation enters only as ``has_pipeline()``: the
-        participant count is a runtime operand (the mask)."""
+        participant count is a runtime operand (the mask), except under a
+        robust aggregator, whose row gather takes the static P, so P joins
+        the key exactly when ``aggregator != "mean"``. ``dp_accounting``
+        is accounting-only and stays out; the byzantine flags are in (the
+        attack's select is built from them)."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
                 self.average_opt_state, self.topology, self.engine,
                 self.kernel_backend, self.has_pipeline(), self.compressor,
-                self.compression_ratio, self.compression_bits)
+                self.compression_ratio, self.compression_bits,
+                self.aggregator, self.trim_fraction, self.norm_bound_factor,
+                (self.participants_per_round()
+                 if self.aggregator != "mean" else None),
+                self.secure_agg, self.secure_frac_bits,
+                self.attack, self.attack_scale,
+                self.resolved_byzantine_flags())

@@ -29,6 +29,15 @@ charges ``c1 * wire_ratio * q`` per aggregation).
 
 Non-participants are compressed too (their result is discarded), as the
 JAX package vmaps the compressor over all C clients.
+
+The trust plane plugs in as three optional fields of the pipeline, each off
+by default: ``attack`` (:class:`repro_torch.core.robust.UpdateAttack`, the
+byzantine clients' corruption of what they send), ``secure``
+(:class:`repro_torch.core.secureagg.SecureMaskedSum`, the masked modular
+sum in place of the plain one) and ``aggregator`` (a
+:mod:`repro_torch.core.robust` reduction of the participant rows in place
+of their mean). With ``secure`` set, ``agg_rand`` is the pair
+``(compressor operand, (C, C, D) pair masks)``.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from typing import Any, Protocol
 
 import torch
 
+from repro_torch.core.robust import participant_rows
 from repro_torch.kernels.ops import quantize_decompress_rows
 from repro_torch.utils.tree import (
     tree_flatten,
@@ -224,11 +234,15 @@ def _bcast_rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class AggregationPipeline:
     """The Eq.-7b round boundary with participation masking, compression
-    and error feedback. One instance per FederationSpec."""
+    and error feedback, and the trust plane's attack, secure sum and robust
+    aggregator. One instance per FederationSpec."""
     n_clients: int
     compressor: Compressor | None       # None -> dense updates
     average_opt_state: bool = True
-    n_participants: int | None = None
+    aggregator: Any = None              # robust (P, D) -> (D,) reduction
+    secure: Any = None                  # SecureMaskedSum | None
+    attack: Any = None                  # UpdateAttack | None
+    n_participants: int | None = None   # static P (robust row gather)
 
     def needs_residual(self) -> bool:
         return self.compressor is not None
@@ -248,13 +262,19 @@ class AggregationPipeline:
 
         prev/new params and opt_state are client-stacked pytrees (C, ...);
         ``residual`` is (C, D) or None; ``mask`` the 0/1 (C,) participation
-        mask; ``agg_rand`` the compressor's random operand. Returns
-        ``(params, opt_state, residual)``: the participants' (compressed,
-        error-fed) updates averaged into the global model, re-broadcast to
-        every client. Non-participants keep their residual; their optimizer
-        state is kept when ``average_opt_state=False`` and, like every
-        client's, replaced by the participants' mean when True."""
+        mask; ``agg_rand`` the compressor's random operand (paired with the
+        pair masks under ``secure``). Returns ``(params, opt_state,
+        residual)``: the participants' (compressed, error-fed) updates
+        averaged into the global model, re-broadcast to every client.
+        Non-participants keep their residual; their optimizer state is kept
+        when ``average_opt_state=False`` and, like every client's, replaced
+        by the participants' mean when True. The attack corrupts what is
+        sent, never the residual; the secure sum and the robust
+        aggregators reduce the model update only, the optimizer state keeps
+        the masked mean."""
         denom = torch.sum(mask)                 # >= 1 by the spec
+        if self.secure is not None:
+            agg_rand, pair_masks = agg_rand
 
         def _masked_mean_bcast(new):
             s = torch.sum(_bcast_rows(mask, new) * new.to(torch.float32),
@@ -262,13 +282,26 @@ class AggregationPipeline:
             avg = (s / denom).to(new.dtype)
             return avg.unsqueeze(0).expand(new.shape).contiguous()
 
-        if self.compressor is not None:
+        adversarial = (self.aggregator is not None or self.secure is not None
+                       or self.attack is not None)
+        if self.compressor is not None or adversarial:
             flat_prev = flatten_tree(prev_params)          # (C, D)
-            corrected = (flatten_tree(new_params) - flat_prev) + residual
-            sent = self.compressor(corrected, agg_rand)
             sel = mask[:, None]
-            residual = sel * (corrected - sent) + (1.0 - sel) * residual
-            avg_delta = torch.sum(sel * sent, dim=0) / denom
+            if self.compressor is not None:
+                corrected = (flatten_tree(new_params) - flat_prev) + residual
+                sent = self.compressor(corrected, agg_rand)
+                residual = sel * (corrected - sent) + (1.0 - sel) * residual
+            else:
+                sent = flatten_tree(new_params) - flat_prev
+            if self.attack is not None:
+                sent = self.attack(sent)
+            if self.secure is not None:
+                avg_delta = self.secure.masked_mean(sent, mask, pair_masks)
+            elif self.aggregator is not None:
+                avg_delta = self.aggregator(participant_rows(
+                    sent, mask, self.n_participants))
+            else:
+                avg_delta = torch.sum(sel * sent, dim=0) / denom
             # prev params are synchronized (full_average every round), so
             # replica 0 anchors the new global model
             new_global = (flat_prev[0] + avg_delta).unsqueeze(0)

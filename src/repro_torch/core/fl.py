@@ -183,7 +183,13 @@ def draw_pipeline_round(key, params, tau: int, pipeline):
     ``key``, drawn on the params' device in this order: the participation
     mask (:func:`~repro_torch.core.aggregation.participation_mask`), the
     (C, tau, N) noise, then the compressor's ``agg_rand`` (``None`` without
-    one). Returns ``(mask, noise, agg_rand, next_key)``."""
+    one). Under secure aggregation the (C, C, N) pair masks are drawn last
+    and ride in ``agg_rand`` as ``(agg_rand, pair_masks)``; ``next_key`` is
+    the state before them, so a secure spec draws every mask, noise and
+    ``agg_rand`` the same spec without it draws, as in the JAX package. The
+    pair masks thus reuse the stream the next round's draws start from;
+    they cancel exactly, so no result depends on their values. Nothing
+    comes to the host. Returns ``(mask, noise, agg_rand, next_key)``."""
     leaves = tree_leaves(params)
     dev, n_clients, n = leaves[0].device, leaves[0].shape[0], _n_params(params)
     gen = torch.Generator(device=dev)
@@ -193,7 +199,10 @@ def draw_pipeline_round(key, params, tau: int, pipeline):
                         dtype=torch.float32, device=dev)
     agg_rand = (None if pipeline.compressor is None
                 else pipeline.compressor.draw(gen, n_clients, n, dev))
-    return mask, noise, agg_rand, gen.get_state()
+    next_key = gen.get_state()
+    if pipeline.secure is not None:
+        agg_rand = (agg_rand, pipeline.secure.draw(gen, n, dev))
+    return mask, noise, agg_rand, next_key
 
 
 def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:

@@ -23,11 +23,15 @@ and cohort == population this path is bit for bit the dense
 S warm clients' sticky state (and, for stationary populations, their
 shards) on the device and draws a fresh cohort every round
 (:mod:`repro_torch.population.resident`); the rows move through the
-hand-written ``cohort_gather_scatter`` kernel.
-
-Not ported yet: ``repro.population.attacks`` (``malicious_population``),
-which comes with the trust plane.
+hand-written ``cohort_gather_scatter`` kernel. ``malicious_population``
+wraps a population so a deterministic fraction of its vids serve
+label-flipped shards (:mod:`repro_torch.population.attacks`).
 """
+from repro_torch.population.attacks import (
+    POPULATION_ATTACKS,
+    is_byzantine_vid,
+    malicious_population,
+)
 from repro_torch.population.population import (
     ClientPopulation,
     population_from_federated,
@@ -73,4 +77,5 @@ __all__ = [
     "ResidentCache", "init_resident_cache", "run_resident_rounds",
     "CohortSampler", "HeterogeneousCohort", "UniformCohort", "chunk_cohorts",
     "ClientStore",
+    "POPULATION_ATTACKS", "is_byzantine_vid", "malicious_population",
 ]

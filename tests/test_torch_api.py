@@ -68,13 +68,45 @@ def test_spec_validation_matches_jax(bad):
 @pytest.mark.parametrize("plane,item", [
     (dict(engine="shard_map"), "item 12"), (dict(engine="mesh_2d"), "item 12"),
     (dict(engine="async_buffered"), "item 9"),
-    (dict(secure_agg=True), "item 8"), (dict(aggregator="median"), "item 8"),
-    (dict(attack="sign_flip", byzantine_fraction=0.25), "item 8"),
 ])
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     _jspec(**plane)                       # a valid spec in the JAX package
     with pytest.raises(NotImplementedError, match=item):
         _tspec(**plane)
+
+
+@pytest.mark.parametrize("plane", [
+    dict(secure_agg=True), dict(aggregator="median"),
+    dict(attack="sign_flip", byzantine_fraction=0.25),
+], ids=["secure", "median", "signflip"])
+def test_trust_plane_builds_the_pipeline_jax_builds(plane):
+    """The specs the port refused until the trust plane came: the same
+    pipeline fields, participant count, byzantine flags and engine-key
+    membership as the JAX package's."""
+    js, ts = _jspec(**plane), _tspec(**plane)
+    jp, tp = js.aggregation_pipeline(), ts.aggregation_pipeline()
+    assert ts.has_pipeline() and ts.is_adversarial()
+    assert tp.n_participants == jp.n_participants == C
+    assert tp.compressor is jp.compressor is None
+    for field in ("aggregator", "secure", "attack"):
+        t, j = getattr(tp, field), getattr(jp, field)
+        assert (t is None) == (j is None), field
+        if t is not None:
+            assert type(t).__name__ == type(j).__name__
+            assert vars(t) == {k: v for k, v in vars(j).items()
+                               if not k.startswith("_")}
+    assert ts.resolved_byzantine_flags() == js.resolved_byzantine_flags()
+    plain = _tspec()
+    assert ts.engine_key() != plain.engine_key()
+    assert (ts.replace(eps_th=9.0).engine_key() == ts.engine_key())
+    key = ts.engine_key()
+    for field in ("aggregator", "secure_agg", "attack"):
+        if field in plane:
+            assert plane[field] in key
+    if ts.attack != "none":
+        assert ts.resolved_byzantine_flags() in key
+    if ts.aggregator != "mean":
+        assert ts.participants_per_round() in key
 
 
 def test_kernel_backend_takes_auto_or_ref():

@@ -302,6 +302,10 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    scripts = sorted((ROOT / "benchmarks").glob("*_torch.py")) + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
+    assert len(scripts) >= 11
+    files += scripts
     assert len(files) > 10
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
