@@ -81,7 +81,18 @@ Phases (each prints its lines; any failure exits non-zero):
      against its CPU result; benchmarks/attack_resilience_torch.py --check
      on cuda; Adult-1 with secure_agg and central accounting, its rounds
      and epsilon against the host math at 1/P; ms per steady round of
-     mean / median / trimmed_mean / norm_bound / secure in turns.
+     mean / median / trimmed_mean / norm_bound / secure in turns;
+ 15. the buffered-async plane (repro_torch.asyncfl): (a) the main path's
+     Adult-1 spec as engine "async_buffered" with B 16, a zero-spread clock
+     and alpha 0 against "vmap" for 4 rounds, dense and qsgd8 at q 0.5
+     (quantize_decompress on (16, 210)): params and optimizer state
+     bitwise, rho and cost exactly; (b) B 4 of 16 on a HeteroLatency fleet
+     (slow factor 6, alpha 0.5) through train_async(chunk 8) until a budget
+     binds, flushes, cost, dispatched epsilon and simulated seconds equal
+     to the CPU route, dp_clip_noise's calls tau x (1 + flushes), ms per
+     steady cycle, a profiled chunk and one cycle's blocking host syncs
+     (limit 1); (c) benchmarks/throughput.py's async straggler scenario:
+     async strictly ahead of sync in simulated seconds.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -105,8 +116,11 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
 BATCH, LR, CLIP = 32, 0.3, 1.0
 # main path, Vehicle-1, 64 clients of a 262K-parameter model (row_cluster
-# at its capacity, 64 MiB an operand: past L2), a big one (row_stream)
-SHAPES = ((16, 210), (23, 202), (64, 262_144), (16, 4_194_304))
+# at its capacity, 64 MiB an operand: past L2), a big one (row_stream), and
+# the async dispatch blocks of phases 15b (B 4 of Adult-1) and 15c (B 2 of
+# throughput.py's straggler fleet, dim 32)
+SHAPES = ((16, 210), (23, 202), (64, 262_144), (16, 4_194_304), (4, 210),
+          (2, 66))
 QSGD_BITS = (1, 4, 8, 16)
 # benchmarks/fig4_resource_tradeoff.py PIPELINES: (label, q, compressor, ratio)
 PIPELINES = (("dense_q100", 1.0, "none", 1.0),
@@ -315,8 +329,15 @@ def _row_times(torch, fn, n: int, stem: str) -> dict:
     big = n > 1_000_000
     device_ms, parts, kernels = _call_device_ms(torch, fn, 5 if big else 50,
                                                 stem)
+    first = kernels
+    if kernels is not None and kernels < round(kernels):
+        # every call runs a whole number of kernels, and a kernel record the
+        # trace dropped can only lower the count: take the trace once more.
+        # A count above a whole number is kept, and fails its check
+        device_ms, parts, kernels = _call_device_ms(
+            torch, fn, 5 if big else 50, stem)
     return {"ms": _time_ms(fn, 20 if big else 200), "device_ms": device_ms,
-            "kernels": kernels, "parts": parts,
+            "kernels": kernels, "kernels_first": first, "parts": parts,
             "host_us": _host_us(torch, fn, 20 if big else 200)}
 
 
@@ -324,6 +345,8 @@ def _row_line(rec: dict, plain_ms: float, bound) -> str:
     dev = ("device not measured" if rec["device_ms"] is None else
            f"device {rec['device_ms']:.5f} ms a call in {rec['kernels']:g} "
            f"kernel(s) ({rec['parts']})")
+    if rec["kernels_first"] != rec["kernels"]:
+        dev += f" (retaken: the first trace counted {rec['kernels_first']:g})"
     return (f"[{rec['variant']}]  kernel {rec['ms']:.5f} ms "
             f"({bound[0] / rec['ms']:.1%} of the bound)  {dev}  host "
             f"{rec['host_us']:.2f} us a call  plain {plain_ms:.5f} ms  bound "
@@ -1871,6 +1894,268 @@ def time_trust_rounds(torch, np, api, linear, spec, fed, card):
                       for v in st.params.values())
     return finite
 
+# -- phase 15: the buffered-async plane ---------------------------------------
+
+def _same_bits(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (signed zeros and NaNs included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def _leaves(tree):
+    from repro_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def run_async_identity(torch, np, api, asyncfl, spec, fed, counters):
+    """Phase 15a: the main path's Adult-1 spec as engine="async_buffered"
+    with B = 16, a zero-spread clock and alpha 0 against engine="vmap"
+    from one seed for 4 rounds on cuda, dense and qsgd8 at participation
+    0.5: global params and optimizer state bitwise, rho and cost exactly.
+    Returns (ok, {kernel: calls})."""
+    dim = fed.clients[0].x_train.shape[1]
+    from repro_torch.models import linear
+    lat = asyncfl.UniformLatency(0, compute=(1.0, 1.0), upload=(0.1, 0.1))
+    ok, calls = True, {k: 0 for k in counters}
+    for label, kw in (("dense", {}),
+                      ("qsgd8_q50", dict(compressor="qsgd",
+                                         participation=0.5))):
+        ss = spec.replace(**kw)
+        sa = ss.replace(engine="async_buffered", buffer_size=ss.n_clients,
+                        staleness_alpha=0.0)
+        rng_s, rng_a = np.random.default_rng(5), np.random.default_rng(5)
+        sampler = fed.make_sampler(BATCH)
+        before = {k: c.launches for k, c in counters.items()}
+        st = api.init_state(ss, linear.init_linear(dim, device="cuda"),
+                            device="cuda")
+        at = asyncfl.init_async_state(
+            sa, linear.init_linear(dim, device="cuda"), sampler, rng=rng_a,
+            latency_model=lat, device="cuda")
+        same, stale = True, 0.0
+        for _ in range(4):
+            st, _ = api.run_round(ss, st, api.round_batch(ss, sampler,
+                                                          rng_s),
+                                  check_budgets=False)
+            at, rec = asyncfl.run_async_cycle(sa, at, sampler, rng_a,
+                                              latency_model=lat,
+                                              check_budgets=False)
+            same &= all(_same_bits(torch, x[0], y) for x, y in zip(
+                _leaves(st.params), _leaves(at.global_params)))
+            same &= all(_same_bits(torch, x[0], y) for x, y in zip(
+                _leaves(st.opt_state), _leaves(at.global_opt)))
+            same &= (np.array_equal(st.rho, at.fl.rho)
+                     and st.resource_spent == at.fl.resource_spent)
+            stale = max(stale, rec["staleness_max"])
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            calls[k] += c.launches - before[k]
+        good = same and stale == 0.0
+        ok &= good
+        print(f"phase 15a identity {label}: async B=16 (flat clock, alpha "
+              f"0) vs vmap, 4 rounds on cuda: params, optimizer state "
+              f"bitwise, rho, cost exact: {same}; staleness_max {stale}; "
+              f"rho max {float(np.max(at.fl.rho))!r}, cost "
+              f"{at.fl.resource_spent!r} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    print(f"phase 15a kernel calls (both engines): {calls}", flush=True)
+    return ok, calls
+
+
+def _async_rows(spec, state, sampler, rng, lat, n):
+    """``n`` ScheduleRows projected from ``state`` on cuda, as
+    train_async's chunked driver projects them."""
+    from repro_torch.asyncfl.runtime import project_schedule, schedule_cursor
+    return project_schedule(spec, schedule_cursor(state), sampler, rng, lat,
+                            n, "cuda")
+
+
+def run_async_full_width(torch, np, asyncfl, spec, fed, dp_clip_noise, card):
+    """Phase 15b: Adult-1 at full width with B = 4, HeteroLatency(0,
+    fleet=16, slow_factor=6) and alpha 0.5 through train_async(chunk 8)
+    until a budget binds, three times from one seed: on cuda through the
+    kernels, on cuda with kernel_backend="ref" (the plain versions, from
+    the same generator) and on the CPU route. The kernels' run holds the
+    plain one's global params and optimizer state within 1e-5 (abs); the
+    flushes, cost, dispatched epsilon and simulated seconds equal across
+    all three; dp_clip_noise's calls tau x (1 + flushes) through the
+    kernels and none on the plain route. Then ms per steady cycle
+    (prebuilt rows, no eval),
+    a profiled chunk of 8 cycles, and one steady cycle's blocking host
+    syncs (this spec and the qsgd8_q50 one; limit 1). Returns (ok,
+    launches)."""
+    from repro_torch.models import linear
+    dim = fed.clients[0].x_train.shape[1]
+    aspec = spec.replace(engine="async_buffered", buffer_size=4,
+                         staleness_alpha=0.5)
+    lat = asyncfl.HeteroLatency(0, fleet=aspec.n_clients, slow_factor=6.0)
+    outs = {}
+    for dev, backend in (("cuda", "auto"), ("cuda", "ref"), ("cpu", "auto")):
+        rspec = aspec.replace(kernel_backend=backend)
+        rng = np.random.default_rng(0)
+        sampler = fed.make_sampler(BATCH)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            dp_clip_noise.launches = 0
+        st = asyncfl.init_async_state(
+            rspec, linear.init_linear(dim, device=dev), sampler, rng=rng,
+            latency_model=lat, device=dev)
+        t0 = time.perf_counter()
+        st, out = asyncfl.train_async(rspec, st, sampler, rng=rng,
+                                      chunk_rounds=8, latency_model=lat)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in st.global_params.values())
+        outs[dev, backend] = (out, wall, finite,
+                              asyncfl.exceeds_async_budgets(rspec, st),
+                              dp_clip_noise.launches if dev == "cuda" else 0,
+                              _leaves((st.global_params, st.global_opt)))
+    co, cw, cf, binds, launches, c_leaves = outs["cuda", "auto"]
+    ro, _, rf, _, ref_launches, r_leaves = outs["cuda", "ref"]
+    po, pw, pf, _, _, _ = outs["cpu", "auto"]
+    keys = ("rounds", "resource_spent", "max_epsilon", "sim_seconds")
+    same = all(co[k] == ro[k] == po[k] for k in keys)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(c_leaves, r_leaves))
+    # generation 0 plus one dispatch a flush, tau calls each
+    want = aspec.tau * (1 + co["rounds"])
+    ok = (same and cf and rf and pf and binds is not None
+          and co["rounds"] > 0 and co["max_epsilon"] <= aspec.eps_th
+          and co["resource_spent"] <= aspec.c_th and launches == want
+          and ref_launches == 0 and err <= 1e-5)
+    losses = [r["loss"] for r in co["history"] if "loss" in r]
+    print(f"phase 15b Adult-1 async B=4 hetero (slow 6, alpha 0.5), "
+          f"train_async chunk 8 until {binds} binds: cuda " + ", ".join(
+              f"{k}={co[k]!r}" for k in keys) + " | cuda ref " + ", ".join(
+              f"{k}={ro[k]!r}" for k in keys) + " | cpu " + ", ".join(
+              f"{k}={po[k]!r}" for k in keys) + f" | equal {same}; "
+          f"kernels vs plain route on cuda: params, optimizer state max "
+          f"|d|={err:.3e} (tol 1e-5 abs); dp_clip_noise calls {launches} "
+          f"(tau x (1 + flushes) = {want}), {ref_launches} on the plain "
+          f"route; last loss {losses[-1]:.5f}; train loop wall "
+          f"{cw * 1e3:.1f} ms on cuda "
+          f"({cw * 1e3 / max(co['rounds'], 1):.3f} ms a flush), "
+          f"{pw * 1e3:.1f} ms on the CPU "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+
+    # steady cycles: prebuilt rows, budgets off, after 3 warm-up cycles
+    n_timed = 20
+    rng = np.random.default_rng(1)
+    sampler = fed.make_sampler(BATCH)
+    st = asyncfl.init_async_state(
+        aspec, linear.init_linear(dim, device="cuda"), sampler, rng=rng,
+        latency_model=lat, device="cuda")
+    rows = _async_rows(aspec, st, sampler, rng, lat, 3 + n_timed + 8 + 1)
+    box = [st, 0]
+
+    def one_cycle():
+        box[0], _ = asyncfl.run_async_cycle(aspec, box[0],
+                                            check_budgets=False,
+                                            prebuilt=rows[box[1]])
+        box[1] += 1
+        return box[0]
+
+    ms = _time_ms(one_cycle, n_timed)
+    print(f"phase 15b steady cycle on {card} (B=4 of 16, tau={aspec.tau}, "
+          f"prebuilt rows, no eval): {ms:.3f} ms per cycle (_time_ms over "
+          f"{n_timed} cycles)", flush=True)
+
+    def chunk():
+        for _ in range(8):
+            one_cycle()
+        return box[0]
+
+    _profile_call(torch, chunk, "phase 15b profile, a chunk of 8 cycles")
+    _, syncs = _blocking_syncs(torch, one_cycle)
+    print(f"phase 15b one steady cycle under set_sync_debug_mode: "
+          f"{len(syncs)} blocking host syncs (limit 1)" + _sync_lines(syncs),
+          flush=True)
+    ok &= len(syncs) <= 1
+
+    qspec = aspec.replace(compressor="qsgd", participation=0.5)
+    st = asyncfl.init_async_state(
+        qspec, linear.init_linear(dim, device="cuda"), sampler, rng=rng,
+        latency_model=lat, device="cuda")
+    rows = _async_rows(qspec, st, sampler, rng, lat, 4)
+    for row in rows[:3]:
+        st, _ = asyncfl.run_async_cycle(qspec, st, check_budgets=False,
+                                        prebuilt=row)
+    torch.cuda.synchronize()
+    _, qsyncs = _blocking_syncs(torch, lambda: asyncfl.run_async_cycle(
+        qspec, st, check_budgets=False, prebuilt=rows[3]))
+    print(f"phase 15b one steady qsgd8_q50 cycle under set_sync_debug_mode: "
+          f"{len(qsyncs)} blocking host syncs (limit 1: the new dispatch's "
+          f"mask)" + _sync_lines(qsyncs), flush=True)
+    ok &= len(qsyncs) <= 1
+    return ok, launches
+
+
+def run_async_straggler(torch, np, api, asyncfl, dp_clip_noise):
+    """Phase 15c: benchmarks/throughput.py::run_async_hetero's config (its
+    reference_spec: 8 clients, tau 2, dim 32, batch 8, sigma 0.5, lr 0.3;
+    B 2, alpha 0.5, 12 sync rounds, HeteroLatency(0, fleet=8,
+    slow_factor=6)) on cuda, through the kernels: the async run must land
+    the sync rounds' rho in strictly fewer simulated seconds. Returns
+    (ok, dp_clip_noise calls)."""
+    from repro_torch.models import linear
+    from repro_torch.optim import sgd
+    k, tau, dim, batch, rounds_sync, b = 8, 2, 32, 8, 12, 2
+    flushes = rounds_sync * k // b
+
+    def sampler(m, tau, rng):
+        return {"x": rng.normal(size=(tau, batch, dim)).astype(np.float32),
+                "y": rng.integers(0, 2, size=(tau, batch)).astype(np.int32)}
+
+    base = dict(n_clients=k, tau=tau, loss_fn=linear.logreg_loss,
+                optimizer=sgd(0.3), dp=True, clip_norm=1.0,
+                sigmas=(0.5,) * k, batch_sizes=(batch,) * k, eps_th=1e9,
+                c_th=1e9)
+    sspec = api.FederationSpec(engine="vmap", **base)
+    aspec = api.FederationSpec(engine="async_buffered", buffer_size=b,
+                               staleness_alpha=0.5, **base)
+    lat = asyncfl.HeteroLatency(0, fleet=k, slow_factor=6.0)
+    target_rho = rounds_sync * float(api.round_rho_charges(aspec).sum())
+    sync_sim = sum(asyncfl.sync_round_duration(lat, k, r)
+                   for r in range(rounds_sync))
+    before = dp_clip_noise.launches
+    rng = np.random.default_rng(0)
+    st = api.init_state(sspec, linear.init_linear(dim, device="cuda"),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, sout = api.train(sspec, st, sampler, max_rounds=rounds_sync, rng=rng)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    at = asyncfl.init_async_state(
+        aspec, linear.init_linear(dim, device="cuda"), sampler, rng=rng,
+        latency_model=lat, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at, aout = asyncfl.train_async(aspec, at, sampler, max_rounds=flushes,
+                                   rng=rng, chunk_rounds=8,
+                                   latency_model=lat)
+    torch.cuda.synchronize()
+    async_wall = time.perf_counter() - t0
+    calls = dp_clip_noise.launches - before
+    landed = float(np.sum(at.fl.rho))
+    ok = (sout["rounds"] == rounds_sync and aout["rounds"] == flushes
+          and landed >= target_rho * (1 - 1e-9)
+          and aout["sim_seconds"] < sync_sim
+          and all(bool(torch.isfinite(v).all())
+                  for v in at.global_params.values()))
+    print(f"phase 15c straggler fleet K={k} B={b} (throughput.py "
+          f"run_async_hetero's config, kernels on): landed rho "
+          f"{landed!r} (target {target_rho!r}); simulated seconds sync "
+          f"{sync_sim!r} vs async {aout['sim_seconds']!r} "
+          f"({sync_sim / aout['sim_seconds']:.2f}x); wall on cuda: sync "
+          f"{rounds_sync} rounds {sync_wall * 1e3:.1f} ms, async {flushes} "
+          f"flushes {async_wall * 1e3:.1f} ms; dp_clip_noise calls {calls} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, calls
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
@@ -1892,7 +2177,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))          # benchmarks/*_torch.py
     import numpy as np
 
-    from repro_torch import api, configs, data, optim
+    from repro_torch import api, asyncfl, configs, data, optim
     from repro_torch import population as pop_mod
     from repro_torch.core import convergence as conv
     from repro_torch.core import design, fl
@@ -2006,6 +2291,16 @@ def main() -> int:
                                             fed, dp_clip_noise)
     ok_tr = time_trust_rounds(torch, np, api, linear, spec, fed, card)
 
+    # -- 15. the buffered-async plane -----------------------------------------
+    ok_aa, aa_calls = run_async_identity(
+        torch, np, api, asyncfl, spec, fed,
+        {"dp_clip_noise": dp_clip_noise,
+         "quantize_decompress": quantize_decompress})
+    ok_ab, ab_launches = run_async_full_width(
+        torch, np, asyncfl, spec, fed, dp_clip_noise, card)
+    ok_ac, ac_launches = run_async_straggler(torch, np, api, asyncfl,
+                                             dp_clip_noise)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -2030,16 +2325,24 @@ def main() -> int:
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "variant": main_rec["variant"],
-        "launches_other_paths": {"phase 13 fig2 runs": px_launches,
-                                 "phase 14 attack check": at_launches,
-                                 "phase 14 secure central": sc_launches}}, {
+        "launches_other_paths": {
+            "phase 13 fig2 runs": px_launches,
+            "phase 14 attack check": at_launches,
+            "phase 14 secure central": sc_launches,
+            "phase 15a async identity (async + vmap)":
+                aa_calls["dp_clip_noise"],
+            "phase 15b async full width": ab_launches,
+            "phase 15c async straggler (sync + async)": ac_launches}}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
         "launches": q_launches, "max_abs_err": q_worst,
         "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
         "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
-        "library_ms": None, "variant": q_rec["variant"]}, {
+        "library_ms": None, "variant": q_rec["variant"],
+        "launches_other_paths": {
+            "phase 15a async identity qsgd8_q50 (async + vmap)":
+                aa_calls["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
@@ -2075,7 +2378,10 @@ def main() -> int:
                      (ok_sc, "the secure central-accounting run's checks "
                              "failed"),
                      (ok_tr, "the trust-plane rounds gave non-finite "
-                             "params")):
+                             "params"),
+                     (ok_aa, "the async identity gate on the card failed"),
+                     (ok_ab, "the full-width async run's checks failed"),
+                     (ok_ac, "the async straggler comparison failed")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

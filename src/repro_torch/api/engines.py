@@ -17,7 +17,9 @@ sigmas (C,). A spec with an aggregation pipeline gets the pipeline round,
     "vmap"  all C clients as one batch: one dp_clip_noise call per step
     "map"   the same math one client at a time (one row per kernel call)
 
-``engine="auto"`` resolves to "vmap" (one device). Every engine's Eq.-7a
+``engine="auto"`` resolves to "vmap" (one device), never to
+"async_buffered": the buffered-async engine has no synchronous round
+function and is driven by :mod:`repro_torch.asyncfl`. Every engine's Eq.-7a
 clip + noise runs through the ``dp_clip_noise`` kernel, and the qsgd
 compressor through ``quantize_decompress``, on the spec's
 ``kernel_backend``. Round functions are cached per ``spec.engine_key()``.
@@ -37,11 +39,12 @@ from repro_torch.core.fl import (
 )
 
 RoundFn = Callable[..., tuple[Any, Any, dict]]
-_PORTED = ("vmap", "map")
+_PORTED = ("vmap", "map", "async_buffered")
 
 
 def resolve_engine(spec: FederationSpec) -> str:
-    """Map ``engine="auto"`` to a concrete engine: "vmap" on one device."""
+    """Map ``engine="auto"`` to a concrete engine: "vmap" on one device.
+    "async_buffered" resolves only by name."""
     name = "vmap" if spec.engine == "auto" else spec.engine
     if name not in _PORTED:
         raise ValueError(f"unknown engine {name!r}; ported: {_PORTED}")
@@ -57,6 +60,11 @@ _ROUND_FN_CACHE_MAX = 32
 
 def round_fn_for(spec: FederationSpec) -> RoundFn:
     """The round function for ``spec`` (cached per engine key)."""
+    if spec.is_async():
+        raise ValueError(
+            "engine='async_buffered' has no synchronous round function: "
+            "drive it with repro_torch.asyncfl (init_async_state / "
+            "run_async_cycle / train_async), not run_round/run_rounds")
     key = spec.engine_key()
     fn = _ROUND_FN_CACHE.pop(key, None)
     if fn is None:
@@ -74,6 +82,11 @@ def chunked_round_fn_for(spec: FederationSpec) -> RoundFn:
     """The R-round chunk function for ``spec``: the engine's round wrapped
     by :func:`repro_torch.core.fl.make_chunked_round` (a plain loop; the
     pipeline form draws each round's mask inside it)."""
+    if spec.is_async():
+        raise ValueError(
+            "engine='async_buffered' has no fused sync chunk: drive it with "
+            "repro_torch.asyncfl.train_async (its chunking is host-paced "
+            "over the simulated event schedule)")
     return make_chunked_round(round_fn_for(spec),
                               pipeline=spec.aggregation_pipeline())
 

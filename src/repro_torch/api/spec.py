@@ -5,9 +5,11 @@ port runs the resident protocol, dense or through the aggregation pipeline
 (partial participation, compressed error-fed updates, robust aggregators,
 secure masked sums with central accounting, byzantine update attacks), and
 cohorts of K drawn from a virtual population of M (``population=M``, driven
-by :mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines; a
-spec that asks for an engine the port does not have yet (sharded or async)
-raises ``NotImplementedError`` naming its ROADMAP item.
+by :mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines, and
+buffered-async federation (``engine="async_buffered"``, driven by
+:mod:`repro_torch.asyncfl`); a spec that asks for an engine the port does
+not have yet (the sharded ones) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,8 +47,7 @@ from repro_torch.optim.optimizers import Optimizer
 ENGINES = ("vmap", "map", "shard_map", "mesh_2d", "async_buffered", "auto")
 
 # the planes of the JAX package not yet ported (ROADMAP queue 1)
-_UNPORTED_ENGINES = {"shard_map": "item 12", "mesh_2d": "item 12",
-                     "async_buffered": "item 9"}
+_UNPORTED_ENGINES = {"shard_map": "item 12", "mesh_2d": "item 12"}
 
 
 def _not_ported(what: str, item: str):
@@ -68,7 +69,9 @@ class FederationSpec:
     loss_fn: Callable[[Any, Any], Any]
     optimizer: Optimizer
     topology: str = "full_average"  # "full_average" | "local_only"
-    engine: str = "auto"            # "vmap" | "map" | "auto" (-> "vmap")
+    engine: str = "auto"            # "vmap" | "map" | "async_buffered" |
+    #   "auto" (-> "vmap"). "async_buffered" is driven by
+    #   repro_torch.asyncfl (train_async), never by run_round / train
     kernel_backend: str = "auto"    # "auto": the hand-written kernel on CUDA
     #   tensors, its plain version on CPU tensors | "ref": always the plain
     #   version
@@ -102,9 +105,9 @@ class FederationSpec:
     sharding_rules: Any = None
     replica_bytes: int | None = None
 
-    # -- buffered-async federation (item 9) --------------------------------
-    buffer_size: int | None = None
-    staleness_alpha: float = 0.0
+    # -- buffered-async federation (repro_torch.asyncfl) ------------------
+    buffer_size: int | None = None  # B arrivals per flush (n_clients default)
+    staleness_alpha: float = 0.0    # w(s) = 1 / (1 + s)^alpha
 
     # -- DP mechanism (Eq. 7a) ---------------------------------------------
     dp: bool = True
@@ -299,6 +302,16 @@ class FederationSpec:
         """Realized q = participants / n_clients (drives amplification)."""
         return self.participants_per_round() / self.n_clients
 
+    def is_async(self) -> bool:
+        """Buffered-async execution (:mod:`repro_torch.asyncfl` drivers)."""
+        return self.engine == "async_buffered"
+
+    def resolved_buffer_size(self) -> int:
+        """B, the arrivals aggregated per flush (n_clients unless set)."""
+        if self.buffer_size is not None:
+            return self.buffer_size
+        return self.n_clients
+
     def is_population(self) -> bool:
         """Cohort execution: n_clients is a per-round cohort of K drawn from
         ``population`` virtual clients (:mod:`repro_torch.population`)."""
@@ -420,14 +433,17 @@ class FederationSpec:
         robust aggregator, whose row gather takes the static P, so P joins
         the key exactly when ``aggregator != "mean"``. ``dp_accounting``
         is accounting-only and stays out; the byzantine flags are in (the
-        attack's select is built from them)."""
+        attack's select is built from them). The async buffer size B shapes
+        the flush and dispatch blocks and is in; ``staleness_alpha`` is a
+        runtime weight and stays out."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
                 self.average_opt_state, self.topology, self.engine,
                 self.kernel_backend, self.has_pipeline(), self.compressor,
                 self.compression_ratio, self.compression_bits,
-                self.aggregator, self.trim_fraction, self.norm_bound_factor,
+                self.buffer_size, self.aggregator, self.trim_fraction,
+                self.norm_bound_factor,
                 (self.participants_per_round()
                  if self.aggregator != "mean" else None),
                 self.secure_agg, self.secure_frac_bits,

@@ -429,7 +429,8 @@ def budget_train_loop(*, state, max_rounds: int, eval_fn: Callable | None,
     def track_best(rec: dict, evaluated: bool):
         nonlocal best
         if eval_fn is None:
-            crit = rec["loss"]
+            # an async flush that no participant reached reports no loss
+            crit = rec.get("loss", float("inf"))
         elif evaluated:
             crit = rec["eval_loss"]
         else:

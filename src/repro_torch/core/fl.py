@@ -19,7 +19,8 @@ standard normals, drawn by :func:`draw_round_noise` from the federation's
 generator state. N is the number of parameters per client, leaves laid end
 to end in ``jax.tree.flatten`` order. A round with an aggregation pipeline
 (:mod:`repro_torch.core.aggregation`) also takes the participation ``mask``
-and the compressor's ``agg_rand``, drawn by :func:`draw_pipeline_round`.
+and the compressor's ``agg_rand``, drawn by :func:`draw_pipeline_round`;
+a buffered-async dispatch draws its block's with :func:`draw_dispatch`.
 
 New code should go through :mod:`repro_torch.api`.
 """
@@ -203,6 +204,32 @@ def draw_pipeline_round(key, params, tau: int, pipeline):
     if pipeline.secure is not None:
         agg_rand = (agg_rand, pipeline.secure.draw(gen, n, dev))
     return mask, noise, agg_rand, next_key
+
+
+def draw_dispatch(key, params, tau: int, pipeline, n_participants: int):
+    """The randomness of one buffered-async dispatch of the block of clients
+    that ``params`` stacks (b rows), from the generator state ``key``, on
+    the params' device: ``(mask, noise, agg_rand, next_key)``. Under a
+    pipeline it draws as :func:`draw_pipeline_round` does (the (b,) mask
+    with ``n_participants`` ones, the (b, tau, N) noise, then b rows of the
+    compressor's ``agg_rand``; an async spec has no secure sum). Without
+    one the mask is all ones (made on the device, not drawn) and the noise
+    is :func:`draw_round_noise`'s. So a dispatch of all C clients consumes
+    the generator exactly as a sync round does."""
+    if pipeline is None:
+        noise, next_key = draw_round_noise(key, params, tau)
+        return (torch.ones((noise.shape[0],), dtype=torch.float32,
+                           device=noise.device), noise, None, next_key)
+    leaves = tree_leaves(params)
+    dev, b, n = leaves[0].device, leaves[0].shape[0], _n_params(params)
+    gen = torch.Generator(device=dev)
+    gen.set_state(key)
+    mask = participation_mask(gen, b, n_participants, dev)
+    noise = torch.randn((b, tau, n), generator=gen, dtype=torch.float32,
+                        device=dev)
+    agg_rand = (None if pipeline.compressor is None
+                else pipeline.compressor.draw(gen, b, n, dev))
+    return mask, noise, agg_rand, gen.get_state()
 
 
 def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:

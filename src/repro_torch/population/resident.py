@@ -68,18 +68,9 @@ from repro_torch.kernels.ops import cohort_gather, cohort_scatter
 from repro_torch.population.population import ClientPopulation
 from repro_torch.population.samplers import CohortSampler, chunk_cohorts
 from repro_torch.population.store import ClientStore
-from repro_torch.utils.convert import tree_from_numpy
+from repro_torch.utils.convert import tree_from_numpy, upload
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
-
-
-def _upload(arr, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: from pinned memory without blocking on a
-    GPU (the copy is ordered on the current stream), as is on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 class ResidentCache:
@@ -129,7 +120,7 @@ class ResidentCache:
         self.last_used[idx] = self.clock
 
     def _slots(self, slots) -> torch.Tensor:
-        return _upload(np.asarray(slots, np.int64), self.device)
+        return upload(np.asarray(slots, np.int64), self.device)
 
     def ensure_resident(self, store: ClientStore, vids: np.ndarray, *,
                         population: ClientPopulation | None = None,
@@ -190,7 +181,7 @@ class ResidentCache:
                 rrows = store.gather_residual(np.asarray(cold, np.int64))
                 cohort_scatter(self.residual,
                                self._slots([self.slot_of[v] for v in cold]),
-                               _upload(rrows, self.device),
+                               upload(rrows, self.device),
                                backend=self.kernel_backend)
             if self.data is not None:
                 if population is None or tau is None:
@@ -211,8 +202,8 @@ class ResidentCache:
                 for block, rows in zip(tree_leaves(self.data),
                                        tree_leaves(drows)):
                     cohort_scatter(block.reshape(self.capacity, -1), sl,
-                                   _upload(rows.reshape(len(need), -1),
-                                           self.device),
+                                   upload(rows.reshape(len(need), -1),
+                                          self.device),
                                    backend=self.kernel_backend)
             if self.residual is not None and warm:
                 rows = [self.pending.pop(v) for v in warm]
@@ -383,7 +374,7 @@ def run_resident_rounds(spec: FederationSpec, pstate,
     slots_dev = None
     if pipeline:
         fn = resident_chunked_round_fn_for(spec, data_resident=data_resident)
-        slots_dev = _upload(slots, dev)
+        slots_dev = upload(slots, dev)
         new_p, new_s, key, _, ms, masks = fn(
             fl.params, fl.opt_state,
             cache.data if data_resident else batches, slots_dev, fl.key,

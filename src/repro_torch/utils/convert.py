@@ -26,6 +26,21 @@ def tree_from_numpy(tree, device):
                     else torch.tensor(np.asarray(x), device=device), tree)
 
 
+def upload(arr, device) -> torch.Tensor:
+    """A host array on ``device``: to a GPU from pinned memory without
+    blocking the host (the copy is ordered on the current stream), on the
+    CPU as it is (the tensor shares the array's memory)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def tree_upload(tree, device):
+    """:func:`upload` of every leaf of a tree of host arrays."""
+    return tree_map(lambda x: upload(np.asarray(x), device), tree)
+
+
 def tree_to_numpy(tree):
     """Every tensor leaf as a host numpy array."""
     return tree_map(lambda x: x.detach().cpu().numpy()

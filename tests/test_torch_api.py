@@ -67,12 +67,29 @@ def test_spec_validation_matches_jax(bad):
 
 @pytest.mark.parametrize("plane,item", [
     (dict(engine="shard_map"), "item 12"), (dict(engine="mesh_2d"), "item 12"),
-    (dict(engine="async_buffered"), "item 9"),
 ])
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     _jspec(**plane)                       # a valid spec in the JAX package
     with pytest.raises(NotImplementedError, match=item):
         _tspec(**plane)
+
+
+def test_async_spec_is_accepted_and_keyed_like_jax():
+    """engine="async_buffered" builds in the port as in the JAX package:
+    buffer_size defaults to n_clients, and the engine key tells buffer
+    sizes apart but not staleness_alpha."""
+    for make in (_jspec, _tspec):
+        spec = make(engine="async_buffered")
+        assert spec.is_async() and not make().is_async()
+        assert spec.buffer_size == spec.resolved_buffer_size() == C
+        half = spec.replace(buffer_size=2)
+        assert half.resolved_buffer_size() == 2
+        assert half.engine_key() != spec.engine_key()
+        assert half.replace(staleness_alpha=0.5).engine_key() == \
+            half.engine_key()
+        assert make().resolved_buffer_size() == C
+    with pytest.raises(ValueError, match="buffer_size"):
+        _tspec(engine="async_buffered", buffer_size=C + 1)
 
 
 @pytest.mark.parametrize("plane", [
