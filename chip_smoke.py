@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-row-kernels SRC   (see time_row_kernels)
+    python3 chip_smoke.py --train-memory fixed|expandable TAU
+                                                   (see train_memory)
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
@@ -92,7 +94,27 @@ Phases (each prints its lines; any failure exits non-zero):
      to the CPU route, dp_clip_noise's calls tau x (1 + flushes), ms per
      steady cycle, a profiled chunk and one cycle's blocking host syncs
      (limit 1); (c) benchmarks/throughput.py's async straggler scenario:
-     async strictly ahead of sync in simulated seconds.
+     async strictly ahead of sync in simulated seconds;
+ 16. the transformer training path: (a) gemma3-4b at its published widths,
+     depth cut to one step of its 6-layer pattern (5 swa + 1 full), bf16,
+     2 clients x tau 1 (cut from 2 for memory), batch 1, seq 2048, with
+     expandable allocator segments, 2 rounds through
+     launch.train.build_federation + api.train (kernel_backend "auto"):
+     finite losses, dp_clip_noise tau x rounds calls as row_stream on
+     (2, ~1.24e9), the flash / rwkv6 / SSD counters 0 (training runs the
+     differentiable route), peak memory; (b) one steady round's ms, one
+     profiled round (device busy share), dp_clip_noise's time at that
+     shape against its byte bound and the host ms of dp_clip_noise_tree's
+     flatten and unflatten around it; (c) the kernel's output on that round's
+     real gradient and noise against dp_clip_noise_ref; (d)
+     launch.train.main --smoke on cuda and on the CPU: dense with --save,
+     qsgd at q 0.5, a resident population with topk: rounds,
+     resource_spent and max_epsilon equal (under q 0.5 each route's
+     epsilon its own ledger's), the cuda launches equal the CPU route's
+     kernel calls, and each row kernel's output in the cuda run (its
+     first call of each shape) against its plain version on the same
+     operands; (e) launch.serve.main --fl-checkpoint on (d)'s dense
+     checkpoint: federated params served through flash_attention.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -101,6 +123,7 @@ repository's src/.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -159,6 +182,26 @@ SERVE_RUNS = (("gemma3-4b", 2048, 32), ("rwkv6-1.6b", 512, 32),
               ("zamba2-7b", 512, 32))
 # phase 13: benchmarks/fig2_efficiency.py's runs, DP-PASGD and DP-SGD
 FIG2_TAUS, FIG2_C, FIG2_EPS = (10, 1), 1000.0, 10.0
+# phase 16: gemma3-4b's training at full width, one step of its 6-layer
+# pattern: clients, local steps, batch per client, seq, rounds, eps budget.
+# tau is cut from 2 to 1: at tau 2 fixed allocator segments run out of
+# memory, and expandable ones peak at 78.69 GB of the card's 85.02 with the
+# round's host time in the allocator (--train-memory measures both)
+TRAIN_C, TRAIN_TAU, TRAIN_B, TRAIN_SEQ, TRAIN_ROUNDS, TRAIN_EPS = (
+    2, 1, 1, 2048, 2, 10.0)
+# phase 16d: the launcher's main at --smoke, on cuda and on the CPU
+LAUNCH_BASE = ["--arch", "gemma3-4b", "--smoke", "--rounds", "3",
+               "--tau", "1", "--batch", "1", "--seq", "64"]
+LAUNCH_RUNS = (
+    ("dense", ["--clients", "2"]),
+    ("qsgd_q50", ["--clients", "4", "--compressor", "qsgd",
+                  "--participation", "0.5"]),
+    # the resident cache moves error-feedback rows through
+    # cohort_gather_scatter, so it takes a compressor
+    ("population_resident", ["--population", "64", "--cohort-size", "4",
+                             "--chunk-rounds", "2", "--resident-cache", "16",
+                             "--compressor", "topk", "--compress-ratio",
+                             "0.25"]))
 
 
 def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
@@ -2156,13 +2199,504 @@ def run_async_straggler(torch, np, api, asyncfl, dp_clip_noise):
           f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
     return ok, calls
 
+# -- phase 16: the transformer training path ---------------------------------
+
+def _gemma3_one_pattern_step(configs):
+    """gemma3-4b at its published widths (d_model 2560, 8 heads / 4 KV of
+    256, d_ff 10240, vocab 262,144, window 1024, loss_chunk 1024, bf16) with
+    the depth cut to one step of its 6-layer pattern (5 swa + 1 full)."""
+    import dataclasses
+    cfg = configs.get_arch("gemma3-4b")
+    seg = cfg.segments[0]
+    return dataclasses.replace(
+        cfg, name="gemma3-4b-1step", n_layers=len(seg.pattern),
+        segments=(dataclasses.replace(seg, n_steps=1),))
+
+
+def _memory_reckoning(n: int) -> str:
+    """The round's largest buffers at N params, from the code, in GB."""
+    c, tau = TRAIN_C, TRAIN_TAU
+    parts = (("params, C bf16 replicas", 2 * n * c),
+             ("grads, C bf16", 2 * n * c),
+             ("dp_clip_noise_tree's f32 (C, N) buffer and the kernel's "
+              "output",
+              2 * 4 * n * c),
+             ("the round's (C, tau, N) f32 noise", 4 * n * c * tau))
+    return "; ".join(f"{k} {v / 1e9:.2f}" for k, v in parts) + (
+        f"; sum {sum(v for _, v in parts) / 1e9:.2f} GB plus activations "
+        f"(no remat)")
+
+
+def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
+                            counters, dp_clip_noise, dp_clip_noise_ref,
+                            card):
+    """Phase 16a-c: gemma3-4b's training at full width (depth cut to one
+    pattern step) through ``launch.train.build_federation`` and
+    ``api.train``, kernel_backend "auto": TRAIN_ROUNDS rounds of TRAIN_C
+    clients x TRAIN_TAU local steps, batch TRAIN_B, seq TRAIN_SEQ. Every
+    counter is set to 0 just before the counted train and read just after:
+    dp_clip_noise (row_stream at (C, N)) tau x rounds calls, the model
+    kernels none (the training route has no kernel). Then one steady round
+    timed, one profiled with the operands of its last dp_clip_noise call
+    kept; the kernel's output on them against dp_clip_noise_ref, its time
+    and device time beside its byte bound, and the host ms of the
+    dp_clip_noise_tree call around it. Returns (ok, launches, record)."""
+    from repro_torch.utils.tree import tree_leaves
+    cfg = _gemma3_one_pattern_step(configs)
+    sigmas = fl.design_sigmas(TRAIN_ROUNDS * TRAIN_TAU, CLIP,
+                              [TRAIN_B] * TRAIN_C, TRAIN_EPS, DELTA)
+    torch.cuda.empty_cache()
+    # the round's buffers come in a few large sizes (the (C, N) f32 block,
+    # the noise, 1-2 GB logits chunks): with fixed segments the cached
+    # blocks fragment (at tau 2 a 9.2 GiB request failed with ~30 GB
+    # reserved but unallocated; at tau 1 alone in a process they reserve
+    # 79 GB, --train-memory), so this phase, after fifteen others, maps
+    # expandable segments
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, spec, state, sampler = launch_train.build_federation(
+        cfg, TRAIN_C, TRAIN_TAU, TRAIN_B, TRAIN_SEQ, sigmas, clip_norm=CLIP,
+        delta=DELTA, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(x[0].numel() for x in tree_leaves(state.params))
+    print(f"phase 16 on {card}: {cfg.name} (gemma3-4b's widths, depth cut "
+          f"34 -> {cfg.n_layers} layers: one step of its pattern "
+          f"{[ls.attn_kind for ls in cfg.segments[0].pattern]}), {cfg.dtype},"
+          f" N = {n:,} params a replica ({2 * n / 1e9:.2f} GB), C "
+          f"{TRAIN_C}, tau {TRAIN_TAU} (cut from 2 for memory), batch "
+          f"{TRAIN_B}, seq {TRAIN_SEQ}, expandable segments, "
+          f"loss_chunk {cfg.loss_chunk}, sigma {float(sigmas[0]):.4f}; "
+          f"build_federation {init_s:.2f} s", flush=True)
+    print(f"phase 16 memory reckoning: {_memory_reckoning(n)}", flush=True)
+
+    # -- a. the counted run ------------------------------------------------
+    rng = np.random.default_rng(0)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, out = api.train(spec, state, sampler, max_rounds=TRAIN_ROUNDS,
+                           rng=rng)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: c.launches for name, c in counters.items()}
+    variant = dp_clip_noise.last_variant
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in out["history"]]
+    want = {**dict.fromkeys(counters, 0),
+            "dp_clip_noise": TRAIN_TAU * TRAIN_ROUNDS}
+    finite = (all(math.isfinite(x) for x in losses)
+              and all(bool(torch.isfinite(x).all())
+                      for x in tree_leaves(state.params)))
+    ok = (out["rounds"] == TRAIN_ROUNDS and launches == want and finite
+          and variant == "row_stream")
+    print(f"phase 16a api.train {TRAIN_ROUNDS} rounds: {train_ms:.1f} ms "
+          f"({train_ms / TRAIN_ROUNDS:.1f} ms a round, the first with its "
+          f"warm-up), losses {losses}, max_epsilon {out['max_epsilon']}, "
+          f"resource_spent {out['resource_spent']}; launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + f" (expected dp_clip_noise={want['dp_clip_noise']}, the rest 0),"
+          f" dp_clip_noise instance {variant}; max_memory_allocated "
+          f"{peak_gb:.2f} GB (max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f}) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+
+    # -- b. a steady round, then a profiled one keeping its last call's
+    # operands ----------------------------------------------------------------
+    batch = api.round_batch(spec, sampler, rng)
+    t0 = time.perf_counter()
+    state, _ = api.run_round(spec, state, batch, check_budgets=False)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 16b one steady round on {card}: {round_ms:.1f} ms (host "
+          f"clock to synchronize, batch built before)", flush=True)
+    kept, real = {}, ops.dp_clip_noise
+
+    def keep_last(g, noise, clip_norm, sigma):
+        kept["calls"] = kept.get("calls", 0) + 1
+        if kept["calls"] == TRAIN_TAU:
+            kept.update(g=g, noise=noise, clip=clip_norm, sigma=sigma)
+        return real(g, noise, clip_norm, sigma)
+
+    ops.dp_clip_noise = keep_last
+    try:
+        (state, _), _ = _profile_call(
+            torch, lambda: api.run_round(spec, state, batch,
+                                         check_budgets=False),
+            f"phase 16b profile, one round ({TRAIN_TAU} local steps)")
+    finally:
+        ops.dp_clip_noise = real
+    peak_kept = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 16b max_memory_allocated {peak_kept:.2f} GB (with the "
+          f"kept operands)", flush=True)
+    like = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+            for x in tree_leaves(state.params)]
+    del state, out, batch
+    g, sigma, clip = kept["g"], kept["sigma"], kept["clip"]
+    noise = kept.pop("noise").contiguous()
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    # -- c. the kernel against its plain version on the round's operands ----
+    y, norm = dp_clip_noise(g, noise, clip, sigma)
+    err_y = err_n = 0.0
+    good = dp_clip_noise.last_variant == "row_stream"
+    for r in range(g.shape[0]):
+        wy, wn = dp_clip_noise_ref(g[r:r + 1], noise[r:r + 1], clip,
+                                   sigma[r:r + 1])
+        dy = (y[r] - wy[0]).abs()
+        good &= bool((dy <= 1e-6 + 1e-5 * wy[0].abs()).all())
+        err_y = max(err_y, float(dy.max()))
+        err_n = max(err_n, float((norm[r] - wn[0]).abs() / wn[0]))
+        del wy, wn, dy
+    good &= err_n <= 1e-5
+    ok &= good
+    print(f"phase 16c dp_clip_noise ({g.shape[0]}, {n:,}) on the round's "
+          f"gradient and noise against dp_clip_noise_ref: max|dy| "
+          f"{err_y:.3e}, max rel|dnorm| {err_n:.3e}, norms "
+          f"{norm.tolist()}; tolerance |dy| <= 1e-6 + 1e-5 |y| and 1e-5 on "
+          f"the norm (f32 sums of {n:,} squares in two orders differ by at "
+          f"most ~log2(N) 2^-24 = {math.log2(n) * 2.0 ** -24:.1e} relative; "
+          f"y then by that times |g| plus an ulp of |y|) "
+          f"{'ok' if good else 'MISMATCH'}", flush=True)
+    del y, norm
+    torch.cuda.empty_cache()
+
+    # -- the kernel's time at this shape, and the host's around it ----------
+    def call():
+        return dp_clip_noise(g, noise, clip, sigma)
+
+    rec = _row_times(torch, call, n, "clip_noise")
+    rec["variant"] = dp_clip_noise.last_variant
+    for _ in range(3):
+        # row_stream runs two kernels a call; a trace that counts fewer
+        # dropped a record (it read 1.2 once): take it again, and report
+        # no device time rather than a short one. More than two fails
+        if rec["kernels"] is None or rec["kernels"] >= 2:
+            break
+        rec["device_ms"], rec["parts"], rec["kernels"] = _call_device_ms(
+            torch, call, 5, "clip_noise")
+    if rec["kernels"] is not None and rec["kernels"] > 2:
+        ok = False
+        print(f"phase 16b dp_clip_noise ran {rec['kernels']:g} kernels a "
+              f"call where row_stream runs 2: CHECK FAILED", flush=True)
+    elif rec["kernels"] != 2:
+        rec["device_ms"] = None
+    plain_ms = _time_ms(lambda: dp_clip_noise_ref(g, noise, clip, sigma), 5)
+    bound = _bound_ms(g.shape[0], n, True)
+    print(f"phase 16b kernel dp_clip_noise ({g.shape[0]}, {n:,}) on {card}: "
+          f"{_row_line(rec, plain_ms, bound)}", flush=True)
+    rows = g.shape[0]
+    tree = ops.unflatten_rows(g, like)
+
+    def host_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    flat_ms = host_ms(lambda: ops.flatten_rows(tree))
+    unflat_ms = host_ms(lambda: ops.unflatten_rows(g, tree))
+    print(f"phase 16b around the kernel in dp_clip_noise_tree, on the "
+          f"{len(tree)} bf16 gradient leaves (host clock to synchronize): "
+          f"the flatten into one f32 (C, N) buffer (ops.flatten_rows) "
+          f"{flat_ms:.3f} ms, the unflatten to bf16 leaves "
+          f"(ops.unflatten_rows) {unflat_ms:.3f} ms, each against "
+          f"{(2 + 4) * rows * n / HBM_BYTES_PER_S * 1e3:.3f} ms of bytes "
+          f"(N bf16 read or written and N f32 written or read a row)",
+          flush=True)
+    del tree, g, noise, sigma
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return ok, launches, {
+        "shape": [rows, n], "variant": rec["variant"], "ms": rec["ms"],
+        "device_ms": rec["device_ms"], "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err_y,
+        "flatten_ms": flat_ms, "unflatten_ms": unflat_ms,
+        "round_ms": round_ms, "peak_gb": peak_gb}
+
+
+def _launcher_summary(main, argv):
+    """``main(argv)``'s exit code and printed JSON summary."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    return rc, json.loads(text[text.index("{"):text.rindex("}") + 1])
+
+
+def _keeping_first_calls(torch, ops, names, kept):
+    """Put a wrapper in ``ops`` in place of each kernel of ``names`` that
+    keeps, at the first call of each (kernel, operand shapes and dtypes),
+    clones of the operands and of what the kernel gave (for a scatter, the
+    cache after it) in ``kept``. Returns the real kernels, to put back."""
+    reals = {}
+    for name in names:
+        reals[name] = getattr(ops, name)
+
+        def keeper(*args, _real=reals[name], _name=name):
+            key = (_name,) + tuple(
+                (tuple(a.shape), str(a.dtype)) for a in args
+                if torch.is_tensor(a))
+            if key in kept:
+                return _real(*args)
+            ins = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = _real(*args)
+            kept[key] = (ins, tuple(o.clone() for o in out)
+                         if isinstance(out, tuple) else out.clone())
+            return out
+        setattr(ops, name, keeper)
+    return reals
+
+
+def _check_kept_calls(torch, kept, refs):
+    """Each kept kernel call's output against its plain version on the same
+    operands, with phase 2's criteria: dp_clip_noise's y within 1e-6 +
+    1e-5 |y| and its norms within 1e-5 relative; quantize_decompress and
+    cohort_gather_scatter bit for bit. Returns (ok, {kernel: max abs err},
+    a line for each call)."""
+    ok, worst, lines = True, {}, []
+    for key, (ins, out) in kept.items():
+        name = key[0]
+        want = refs[name](*ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(outs, wants))
+        if name == "dp_clip_noise":
+            (y, norm), (wy, wn) = outs, wants
+            good = (bool(torch.allclose(y, wy, atol=1e-6, rtol=1e-5))
+                    and float(((norm - wn).abs()
+                               / wn.abs().clamp(min=1e-30)).max()) <= 1e-5)
+        else:
+            good = all(bool(torch.equal(a, b)) for a, b in zip(outs, wants))
+        ok &= good
+        worst[name] = max(worst.get(name, 0.0), err)
+        mode = ("scatter" if name == "cohort_gather_scatter"
+                and len(ins) == 3 else "")
+        lines.append(f"{name}{' ' + mode if mode else ''} "
+                     + " ".join(f"{list(sh)}" for sh, _ in key[1:])
+                     + f" max|d| {err:.3e} {'ok' if good else 'MISMATCH'}")
+    return ok, worst, lines
+
+
+def train_memory(segments: str, tau: int) -> int:
+    """``python3 chip_smoke.py --train-memory fixed|expandable TAU``: phase
+    16a's run (gemma3-4b at one pattern step, TRAIN_C clients, TRAIN_ROUNDS
+    rounds through launch.train.build_federation + api.train) at ``tau``
+    local steps, alone in this process, with the caching allocator's
+    segments fixed (PyTorch's default) or expandable
+    (``PYTORCH_CUDA_ALLOC_CONF``, set before the first allocation), then
+    one steady round timed and one profiled (phase 16b's). Prints the card,
+    the peak memory allocated and reserved, and the run's losses and round
+    times or its out-of-memory error: a measurement, so an out-of-memory
+    error is reported, not raised; nothing is checked."""
+    import os
+    if segments == "expandable":
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    else:
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import api, configs
+    from repro_torch.core import fl
+    from repro_torch.launch import train as launch_train
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    cfg = _gemma3_one_pattern_step(configs)
+    sigmas = fl.design_sigmas(TRAIN_ROUNDS * tau, CLIP,
+                              [TRAIN_B] * TRAIN_C, TRAIN_EPS, DELTA)
+    label = f"train memory {segments} segments, tau {tau}"
+    try:
+        _, spec, state, sampler = launch_train.build_federation(
+            cfg, TRAIN_C, tau, TRAIN_B, TRAIN_SEQ, sigmas, clip_norm=CLIP,
+            delta=DELTA, device="cuda")
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        state, out = api.train(spec, state, sampler,
+                               max_rounds=TRAIN_ROUNDS, rng=rng)
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t0) * 1e3
+        batch = api.round_batch(spec, sampler, rng)
+        t0 = time.perf_counter()
+        state, _ = api.run_round(spec, state, batch, check_budgets=False)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3
+        _profile_call(torch, lambda: api.run_round(
+            spec, state, batch, check_budgets=False),
+            f"{label}, profile of one round")
+        result = (f"{out['rounds']} rounds in {train_ms:.1f} ms (the first "
+                  f"with its warm-up), losses "
+                  f"{[h['loss'] for h in out['history']]}, a steady round "
+                  f"{round_ms:.1f} ms (host clock to synchronize, batch "
+                  f"built before)")
+    except torch.cuda.OutOfMemoryError as e:
+        result = f"out of memory: {str(e).splitlines()[0]}"
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{label} on {card}: {cfg.name}, C {TRAIN_C}, batch {TRAIN_B}, "
+          f"seq {TRAIN_SEQ}: {result};"
+          f" max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"max_memory_reserved {torch.cuda.max_memory_reserved() / 1e9:.2f}"
+          f" GB of {total / 1e9:.2f}", flush=True)
+    return 0
+
+
+def run_launcher_smoke(torch, ops, launch_train, serve, configs, counters,
+                       refs, card):
+    """Phase 16d-e: ``repro_torch.launch.train.main`` at --smoke for each of
+    LAUNCH_RUNS on cuda (the kernels' counters set to 0 just before, read
+    just after) and on the CPU (the row kernels' calls counted on a spy of
+    ``kernels.ops``): rounds and resource_spent equal, max_epsilon equal
+    (under partial participation, which draws each route's participants
+    from its own generator: each route's epsilon is its own ledger's,
+    ``zcdp_to_dp(max rho)``, and both ledgers charged the same total), and
+    the cuda launches equal the CPU calls. The cuda run keeps each row
+    kernel's operands and output at its first call of each shape, and
+    holds the output against the kernel's plain version on them (phase
+    2's criteria). Then ``launch.serve.main
+    --fl-checkpoint`` on the dense run's cuda checkpoint: federated params,
+    greedy tokens through flash_attention. Returns (ok, {kernel: cuda
+    launches summed over the runs}, {kernel: max abs err of the kept
+    calls})."""
+    import tempfile
+    from repro_torch.core.privacy import zcdp_to_dp
+    row = ("dp_clip_noise", "quantize_decompress", "cohort_gather_scatter")
+    ok, totals = True, dict.fromkeys(counters, 0)
+    errs = dict.fromkeys(row, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in LAUNCH_RUNS:
+            saves = ({dev: ["--save", f"{tmp}/{label}_{dev}"]
+                      for dev in ("cuda", "cpu")}
+                     if label != "population_resident" else
+                     {"cuda": [], "cpu": []})
+            kept = {}
+            reals = _keeping_first_calls(torch, ops, row, kept)
+            for c in counters.values():
+                c.launches = 0
+            try:
+                t0 = time.perf_counter()
+                rc_g, gpu = _launcher_summary(
+                    launch_train.main,
+                    LAUNCH_BASE + extra + ["--device", "cuda"]
+                    + saves["cuda"])
+                torch.cuda.synchronize()
+                gpu_s = time.perf_counter() - t0
+            finally:
+                for name, real in reals.items():
+                    setattr(ops, name, real)
+            launches = {k: c.launches for k, c in counters.items()}
+            good_k, err_k, kept_lines = _check_kept_calls(torch, kept, refs)
+            for name, err in err_k.items():
+                errs[name] = max(errs[name], err)
+            del kept
+            spied, reals = dict.fromkeys(row, 0), {}
+            for name in row:
+                reals[name] = getattr(ops, name)
+
+                def spy(*a, _real=reals[name], _name=name, **kw):
+                    spied[_name] += 1
+                    return _real(*a, **kw)
+                setattr(ops, name, spy)
+            try:
+                t0 = time.perf_counter()
+                rc_c, cpu = _launcher_summary(
+                    launch_train.main,
+                    LAUNCH_BASE + extra + ["--device", "cpu"] + saves["cpu"])
+                cpu_s = time.perf_counter() - t0
+            finally:
+                for name, real in reals.items():
+                    setattr(ops, name, real)
+            good = (rc_g == rc_c == 0 and gpu["rounds"] == cpu["rounds"] > 0
+                    and gpu["resource_spent"] == cpu["resource_spent"]
+                    and math.isfinite(gpu["final_loss"]) and good_k
+                    and set(err_k) == {k for k in row if launches[k]}
+                    and all(launches[k] == spied[k] for k in row)
+                    and launches["dp_clip_noise"] > 0
+                    and not any(launches[k] for k in counters
+                                if k not in row))
+            if "--participation" in extra:
+                rho = {}
+                for dev in ("cuda", "cpu"):
+                    with open(f"{tmp}/{label}_{dev}/meta.json") as f:
+                        rho[dev] = json.load(f)["extra"]["rho"]
+                good &= (gpu["max_epsilon"]
+                         == zcdp_to_dp(max(rho["cuda"]), DELTA)
+                         and cpu["max_epsilon"]
+                         == zcdp_to_dp(max(rho["cpu"]), DELTA)
+                         and math.isclose(sum(rho["cuda"]), sum(rho["cpu"]),
+                                          rel_tol=1e-12)
+                         and launches["quantize_decompress"]
+                         == gpu["rounds"])
+            else:
+                good &= gpu["max_epsilon"] == cpu["max_epsilon"]
+            if label == "population_resident":
+                good &= launches["cohort_gather_scatter"] > 0
+            ok &= good
+            for k, v in launches.items():
+                totals[k] += v
+            print(f"phase 16d launch.train.main {label} ({' '.join(extra)}):"
+                  f" cuda rounds {gpu['rounds']}, max_epsilon "
+                  f"{gpu['max_epsilon']}, resource_spent "
+                  f"{gpu['resource_spent']}, final_loss {gpu['final_loss']}"
+                  f" in {gpu_s:.2f} s; CPU route {cpu['rounds']}, "
+                  f"{cpu['max_epsilon']}, {cpu['resource_spent']} in "
+                  f"{cpu_s:.2f} s; cuda launches "
+                  + ", ".join(f"{k}={launches[k]}" for k in row)
+                  + " vs CPU calls "
+                  + ", ".join(f"{k}={spied[k]}" for k in row)
+                  + "; the kernels' outputs in the cuda run against their "
+                  "plain versions: " + "; ".join(kept_lines)
+                  + f" {'ok' if good else 'CHECK FAILED'}", flush=True)
+
+        # -- e. serve the dense run's checkpoint ---------------------------
+        for c in counters.values():
+            c.launches = 0
+        rc, res = _launcher_summary(serve.main, [
+            "--arch", "gemma3-4b", "--smoke", "--fl-checkpoint",
+            f"{tmp}/dense_cuda", "--batch", "2", "--prompt-len", "32",
+            "--gen", "4", "--device", "cuda"])
+        torch.cuda.synchronize()
+        flash = counters["flash_attention"].launches
+        totals["flash_attention"] += flash
+        # generate runs twice (warm-up and timed), one flash call a layer
+        n_attn = configs.smoke_variant(
+            configs.get_arch("gemma3-4b")).count_mixers()["attn"]
+        good = (rc == 0 and res["params"] == "federated"
+                and res["generated_shape"] == [2, 4]
+                and flash == 2 * n_attn)
+        ok &= good
+        print(f"phase 16e launch.serve.main --fl-checkpoint (the dense "
+              f"run's) on {card}: params {res['params']}, tokens "
+              f"{res['sample']}, {res['tokens_per_s']} tokens/s, "
+              f"flash_attention launches {flash} (expected {2 * n_attn}) "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    return ok, totals, errs
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
+    if (sys.argv[1:2] == ["--train-memory"] and len(sys.argv) == 4
+            and sys.argv[2] in ("fixed", "expandable")
+            and sys.argv[3].isdigit()):
+        return train_memory(sys.argv[2], int(sys.argv[3]))
     if len(sys.argv) > 1:
-        print(f"usage: {sys.argv[0]} [--time-row-kernels SRC]",
-              file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--time-row-kernels SRC | "
+              f"--train-memory fixed|expandable TAU]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2198,8 +2732,10 @@ def main() -> int:
         quantize_decompress_ref,
         rwkv6_scan_ref,
     )
+    from repro_torch.kernels import ops
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import linear
     from repro_torch.models.transformer import Transformer
 
@@ -2301,6 +2837,16 @@ def main() -> int:
     ok_ac, ac_launches = run_async_straggler(torch, np, api, asyncfl,
                                              dp_clip_noise)
 
+    # -- 16. the transformer training path ------------------------------------
+    ok_tw, tw_launches, tw_rec = run_training_full_width(
+        torch, np, api, fl, ops, launch_train, configs, counters,
+        dp_clip_noise, dp_clip_noise_ref, card)
+    ok_ls, ls_launches, ls_errs = run_launcher_smoke(
+        torch, ops, launch_train, serve, configs, counters,
+        {"dp_clip_noise": dp_clip_noise_ref,
+         "quantize_decompress": quantize_decompress_ref,
+         "cohort_gather_scatter": cohort_gather_scatter_ref}, card)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -2316,12 +2862,16 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if "variant" in rec:
             model_kernels[-1]["variant"] = rec["variant"]
+    model_kernels[0]["launches_other_paths"] = {
+        "phase 16e serving the trained smoke checkpoint":
+            ls_launches["flash_attention"]}
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
         "replaces": "src/repro/kernels/dp_clip_noise.py:54",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches,
+        "max_abs_err": max(worst, ls_errs["dp_clip_noise"]),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "variant": main_rec["variant"],
@@ -2332,24 +2882,37 @@ def main() -> int:
             "phase 15a async identity (async + vmap)":
                 aa_calls["dp_clip_noise"],
             "phase 15b async full width": ab_launches,
-            "phase 15c async straggler (sync + async)": ac_launches}}, {
+            "phase 15c async straggler (sync + async)": ac_launches,
+            "phase 16a gemma3-4b training at full width":
+                tw_launches["dp_clip_noise"],
+            "phase 16d launcher smoke runs (cuda)":
+                ls_launches["dp_clip_noise"]},
+        "phase16_full_width": tw_rec}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
-        "launches": q_launches, "max_abs_err": q_worst,
+        "launches": q_launches,
+        "max_abs_err": max(q_worst, ls_errs["quantize_decompress"]),
         "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
         "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
         "library_ms": None, "variant": q_rec["variant"],
         "launches_other_paths": {
             "phase 15a async identity qsgd8_q50 (async + vmap)":
-                aa_calls["quantize_decompress"]}}, {
+                aa_calls["quantize_decompress"],
+            "phase 16d launcher qsgd_q50 (cuda)":
+                ls_launches["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
-        "launches": g_launches, "max_abs_err": g_worst,
+        "launches": g_launches,
+        "max_abs_err": max(g_worst, ls_errs["cohort_gather_scatter"]),
         "ms": g_rec["ms"], "plain_ms": g_rec["plain_ms"],
         "bound_ms": g_rec["bound_ms"], "bound_by": g_rec["bound_by"],
-        "library_ms": g_rec["library_ms"]}] + model_kernels}), flush=True)
+        "library_ms": g_rec["library_ms"],
+        "launches_other_paths": {
+            "phase 16d launcher population_resident (cuda)":
+                ls_launches["cohort_gather_scatter"]}}] + model_kernels}),
+        flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
                      (ok_q, "quantize_decompress is not bit-identical to "
@@ -2381,7 +2944,10 @@ def main() -> int:
                              "params"),
                      (ok_aa, "the async identity gate on the card failed"),
                      (ok_ab, "the full-width async run's checks failed"),
-                     (ok_ac, "the async straggler comparison failed")):
+                     (ok_ac, "the async straggler comparison failed"),
+                     (ok_tw, "the full-width training run's checks failed"),
+                     (ok_ls, "the launcher's smoke runs or the serving of "
+                             "their checkpoint failed")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

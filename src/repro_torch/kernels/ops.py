@@ -37,6 +37,32 @@ def validate_backend(backend: str) -> None:
                          f"got {backend!r}")
 
 
+def flatten_rows(leaves):
+    """The leaves (each with a leading row axis R) laid end to end in one
+    (R, N) f32 buffer, by one ``torch.cat`` into it: f32 leaves in one
+    copy kernel, other dtypes each cast straight into their slice, so no
+    f32 copy of the tree is made beside the buffer (10 GB at two clients of
+    a 1.24 B-param bf16 model)."""
+    rows = leaves[0].shape[0]
+    flat = torch.empty((rows, sum(x[0].numel() for x in leaves)),
+                       dtype=torch.float32, device=leaves[0].device)
+    return torch.cat([x.reshape(rows, -1) for x in leaves], dim=1, out=flat)
+
+
+def unflatten_rows(flat, leaves):
+    """:func:`flatten_rows` undone: each leaf's (R, n) slice of ``flat``
+    back in the leaf's shape and dtype. The strided slice is cast first,
+    one pass into a contiguous leaf (a reshape first would copy the f32
+    slice as well)."""
+    news = []
+    off = 0
+    for x in leaves:
+        n = x[0].numel()
+        news.append(flat[:, off:off + n].to(x.dtype).reshape(x.shape))
+        off += n
+    return news
+
+
 def dp_clip_noise_tree(grads, noise, clip_norm, sigma, backend: str = "auto"):
     """Clip + noise of a row-batched gradient tree in one kernel call.
 
@@ -50,8 +76,7 @@ def dp_clip_noise_tree(grads, noise, clip_norm, sigma, backend: str = "auto"):
     validate_backend(backend)
     leaves, treedef = tree_flatten(grads)
     rows = leaves[0].shape[0]
-    flat = torch.cat([x.reshape(rows, -1).to(torch.float32) for x in leaves],
-                     dim=1)
+    flat = flatten_rows(leaves)
     if noise is not None:
         sigma = torch.as_tensor(sigma, dtype=torch.float32,
                                 device=flat.device)
@@ -60,13 +85,7 @@ def dp_clip_noise_tree(grads, noise, clip_norm, sigma, backend: str = "auto"):
         sigma = None
     kernel = dp_clip_noise_ref if backend == "ref" else dp_clip_noise
     out, norm = kernel(flat, noise, clip_norm, sigma)
-    news = []
-    off = 0
-    for x in leaves:
-        n = x[0].numel()
-        news.append(out[:, off:off + n].reshape(x.shape).to(x.dtype))
-        off += n
-    return tree_unflatten(treedef, news), norm
+    return tree_unflatten(treedef, unflatten_rows(out, leaves)), norm
 
 
 def quantize_decompress_rows(x, u, bits: int, backend: str = "auto"):

@@ -6,10 +6,11 @@ package's ``repro/launch/serve.py``).
         --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
-written by the JAX package's ``repro.api.save_state`` (or the port's
-``repro_torch.api.save_state``) with the training launcher's
-``federation_meta`` beside it; the driver serves the aggregated model
-instead of random init. The continuous-batching engine (the JAX
+written with the training launcher's ``federation_meta`` beside it, by the
+port's own launcher (``python -m repro_torch.launch.train ... --save DIR``,
+dense, population or async) or by the JAX package's (``repro.launch.train``
+/ ``repro.api.save_state``); the driver serves the aggregated model instead
+of random init. The continuous-batching engine (the JAX
 launcher's default mode) is not ported yet: ``--engine`` raises.
 """
 from __future__ import annotations
@@ -134,8 +135,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--fl-checkpoint", default=None,
-                    help="serve the aggregated model of a save_state "
-                         "checkpoint instead of random init")
+                    help="serve the aggregated model of a checkpoint "
+                         "written by repro_torch.launch.train --save (or "
+                         "the JAX launcher's) instead of random init")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)

@@ -1,14 +1,20 @@
-"""Attention: GQA / MQA / MHA with full-causal and sliding-window variants;
-the prefill runs through the hand-written ``flash_attention`` kernel, the
-one-token decode through a plain cached path (a port of the JAX package's
-``repro/models/attention.py``).
+"""Attention: GQA / MQA / MHA with full-causal and sliding-window variants
+(a port of the JAX package's ``repro/models/attention.py``).
 
-The JAX package's model computes prefill attention with its own jnp path
-(``blocked_causal_attention``); the port routes it through
-``kernels.ops.flash_attention`` and is held against the JAX model's
-outputs. Not ported yet: chunked (llama4) attention, the jnp blocked and
-bucketed paths, and the paged serving cache (``init_paged_kv_cache``,
-``paged_decode_attention``).
+Two routes, chosen by the caller and never by the device:
+
+- serving (``attention_forward``, ``attention_forward_kv``): the prefill
+  runs through the hand-written ``flash_attention`` kernel, the one-token
+  decode through a plain cached path;
+- training (``attention_forward_train``): the JAX model's own
+  differentiable blocked path, ``blocked_causal_attention`` (and
+  ``_bucketed_causal_attention``), in torch ops that run under
+  ``torch.func.vmap(grad_and_value(...))``. The JAX package trains through
+  the same jnp path; the kernel has no backward and refuses tensors that
+  require grad.
+
+Not ported yet: chunked (llama4) attention and the paged serving cache
+(``init_paged_kv_cache``, ``paged_decode_attention``).
 
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
@@ -17,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, apply_rope, rope_angles
@@ -76,6 +83,82 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, sq, h, hd)
 
 
+def blocked_causal_attention(q, k, v, *, window: int = 0,
+                             block_q: int = 512, q_start: int = 0,
+                             causal_buckets: bool = False):
+    """Causal (optionally sliding-window) attention, tiled over q blocks.
+
+    window == 0 -> full causal. window == W -> attend to the last W positions
+    (inclusive of self). q_start offsets q positions relative to k positions
+    (used when a prefix occupies the head of the kv sequence).
+
+    causal_buckets: group q blocks into power-of-two buckets so bucket b only
+    reads kv[0 : 2^(b+1) * block_q] (:func:`_bucketed_causal_attention`).
+
+    The JAX package checkpoints each block's body; the port keeps the
+    blocks' activations for the backward pass (torch's checkpointing does
+    not run under ``torch.func.grad``)."""
+    if causal_buckets and not window and q_start == 0:
+        return _bucketed_causal_attention(q, k, v, block_q=block_q)
+    sq, skv = q.shape[1], k.shape[1]
+    bq = min(block_q, sq)
+    n_blocks = -(-sq // bq)
+    pad = n_blocks * bq - sq
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    kv_positions = torch.arange(skv, device=q.device)
+    offsets = torch.arange(bq, device=q.device)
+    outs = []
+    for i in range(n_blocks):
+        qs = i * bq
+        q_pos = q_start + qs + offsets
+        if window and window + bq < skv:
+            # only the last (window + bq) keys can be visible to this block
+            kv_len = window + bq
+            start = min(max(q_start + qs + bq - kv_len, 0), skv - kv_len)
+            kb = k[:, start:start + kv_len]
+            vb = v[:, start:start + kv_len]
+            k_pos = start + torch.arange(kv_len, device=q.device)
+        else:
+            kb, vb = k, v
+            k_pos = kv_positions
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        outs.append(_sdpa(q[:, qs:qs + bq], kb, vb, mask[None, None, None]))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+def _bucketed_causal_attention(q, k, v, *, block_q: int):
+    """Causal attention with power-of-two kv buckets (static shapes).
+
+    q block i needs kv[0 : (i+1) * bq]. Blocks with i+1 in (2^b/2, 2^b] share
+    the padded kv span kv[0 : 2^b * bq]. FLOPs ~ (2/3) S^2 vs S^2 for the
+    full grid."""
+    sq, skv = q.shape[1], k.shape[1]
+    bq = min(block_q, sq)
+    if sq % bq:
+        raise ValueError(f"seq {sq} not divisible by block_q {bq}")
+    nb = sq // bq
+    offsets = torch.arange(bq, device=q.device)
+    outs = []
+    start = 0
+    span = 1
+    while start < nb:
+        count = min(span - start, nb - start)     # blocks in this bucket
+        kv_len = min(span * bq, skv)
+        kb, vb = k[:, :kv_len], v[:, :kv_len]
+        k_pos = torch.arange(kv_len, device=q.device)
+        for i in range(count):
+            qs = (start + i) * bq
+            q_pos = qs + offsets
+            mask = (q_pos[:, None] >= k_pos[None, :])[None, None, None]
+            outs.append(_sdpa(q[:, qs:qs + bq], kb, vb, mask))
+        start += count
+        span *= 2
+    return torch.cat(outs, dim=1)
+
+
 def _expand_heads(t, n_heads: int):
     """(B, S, KV, hd) -> contiguous (B, H, S, hd): q head h reads KV head
     h // (H / KV), the grouping of :func:`_sdpa`."""
@@ -86,10 +169,32 @@ def _expand_heads(t, n_heads: int):
     return t.contiguous()
 
 
+def attention_forward_train(params, x, positions, *, kind: str = "full",
+                            window: int = 0, chunk: int = 0,
+                            use_rope: bool = True, rope_theta: float = 1e4,
+                            block_q: int = 512,
+                            causal_buckets: bool = False):
+    """Full-sequence attention on the training route: the JAX model's
+    blocked jnp path in differentiable torch ops, no kernel. Returns
+    (B, S, d)."""
+    if kind == "chunk":
+        raise NotImplementedError(
+            "chunked (llama4) attention is not ported yet (ROADMAP queue 1 "
+            "item 10c)")
+    if kind not in ("full", "swa"):
+        raise ValueError(f"unknown attention kind {kind}")
+    q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
+    ctxv = blocked_causal_attention(
+        q, k, v, window=window if kind == "swa" else 0, block_q=block_q,
+        causal_buckets=causal_buckets and kind == "full")
+    return torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
+
+
 def attention_forward(params, x, positions, *, kind: str = "full",
                       window: int = 0, chunk: int = 0, use_rope: bool = True,
                       rope_theta: float = 1e4, backend: str = "auto"):
-    """Full-sequence attention (prefill). Returns (B, S, d)."""
+    """Full-sequence attention on the serving route (prefill). Returns
+    (B, S, d)."""
     out, _ = attention_forward_kv(params, x, positions, kind=kind,
                                   window=window, chunk=chunk,
                                   use_rope=use_rope, rope_theta=rope_theta,

@@ -8,10 +8,13 @@ with w_t = exp(-exp(w0 + lora(x~_t))) data-dependent per channel.
 
 Channel-mix: squared-ReLU MLP with token shift.
 
-Prefill runs the whole prompt through the hand-written ``rwkv6_scan``
-kernel from a zero state; decode runs the same kernel with S = 1 from the
-cached state, as the JAX package's decode calls the same scan as its
-prefill. The chunk-parallel WKV6 (``rwkv_chunk > 0``) is not ported yet.
+Serving: prefill runs the whole prompt through the hand-written
+``rwkv6_scan`` kernel from a zero state; decode runs the same kernel with
+S = 1 from the cached state, as the JAX package's decode calls the same
+scan as its prefill. Training (``rwkv6_timemix_forward_train``) runs the
+JAX model's own per-token recurrence, :func:`wkv6_scan`, in differentiable
+torch ops (the kernel has no backward). The chunk-parallel WKV6
+(``rwkv_chunk > 0``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -73,6 +76,23 @@ def _tm_inputs(params, x, x_prev):
     return r, k, v, g, w, log_decay
 
 
+def wkv6_scan(r, k, v, w, u, s0=None):
+    """Sequential WKV6 recurrence, one token a step (the training route).
+    r / k / v / w (B, S, H, hd); u (H, hd). Returns (y (B, S, H, hd) f32,
+    final state (B, H, hd, hd) f32)."""
+    bsz, s, h, hd = r.shape
+    state = (torch.zeros((bsz, h, hd, hd), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0)
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    ys = []
+    for t in range(s):
+        kv = torch.einsum("bhi,bhj->bhij", k[:, t], v[:, t])
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                               state + u[None, :, :, None] * kv))
+        state = state * w[:, t, ..., None] + kv
+    return torch.stack(ys, dim=1), state
+
+
 def _wkv(r, k, v, w, u, headdim, s0, backend):
     """r / k / v / w (B, S, d) -> heads (B, H, S, hd), the kernel, and
     y back to (B, S, H, hd)."""
@@ -96,6 +116,26 @@ def _tm_output(params, y, g, d_model):
     y = y * F.silu(g.to(torch.float32))
     w_o = params["w_o"]
     return y.to(w_o.dtype) @ w_o
+
+
+def rwkv6_timemix_forward_train(params, x, headdim: int = 64,
+                                chunk: int = 0):
+    """Full-sequence time-mix on the training route: :func:`wkv6_scan`
+    from a zero state, no kernel. Returns (B, S, d)."""
+    if chunk:
+        raise NotImplementedError(
+            "the chunk-parallel WKV6 (rwkv_chunk > 0) is not ported yet "
+            "(ROADMAP queue 1 item 10c)")
+    d_model = x.shape[-1]
+    n_heads = d_model // headdim
+    r, k, v, g, w, _ = _tm_inputs(params, x, _token_shift(x))
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], n_heads, headdim)
+
+    y, _ = wkv6_scan(heads(r), heads(k), heads(v), heads(w),
+                     params["bonus_u"])
+    return _tm_output(params, y.to(x.dtype), g, d_model)
 
 
 def rwkv6_timemix_forward(params, x, headdim: int = 64, chunk: int = 0,

@@ -4,14 +4,18 @@
 State-space recurrence per head h with state (P, N):
     H_t = exp(dt_t * A_h) * H_{t-1} + dt_t * x_t (P) outer B_t (N)
     y_t = H_t @ C_t + D_h * x_t
-Prefill runs the chunked SSD scan in the hand-written ``mamba2_ssd``
-kernel (the JAX model's jnp ``ssd_chunked`` is its baseline); decode is
-the plain one-step recurrence in PyTorch, as in the JAX package.
+Serving: prefill runs the chunked SSD scan in the hand-written
+``mamba2_ssd`` kernel; decode is the plain one-step recurrence in PyTorch,
+as in the JAX package. Training (``mamba2_forward_train``) runs the JAX
+model's own chunked SSD, :func:`ssd_chunked`, in differentiable torch ops
+(the kernel has no backward).
 
 Shapes: d_inner = expand * d_model; H = d_inner / headdim (P = headdim);
 B / C shared across heads (single group), state size N = cfg.ssm_state.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +74,102 @@ def _gated_out(params, y, z, d_model):
     return y32.to(w_out.dtype) @ w_out
 
 
+def _einsum(spec: str, *operands):
+    """``torch.einsum`` with the operands first promoted to one dtype, as
+    ``jnp.einsum`` promotes them (bf16 with f32 -> f32)."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in operands))
+    return torch.einsum(spec, *(t.to(dt) for t in operands))
+
+
+def ssd_chunked(x, dt, a, b_in, c_in, chunk: int = 128, h0=None):
+    """Chunked SSD scan (the training route): the intra-chunk quadratic
+    form plus an inter-chunk state scan, in the JAX model's expressions.
+
+    x (B, S, H, P); dt (B, S, H) (post-softplus); a (H,) negative;
+    b_in / c_in (B, S, N). Returns (y (B, S, H, P), final state
+    (B, H, P, N))."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
+    nc = s // chunk
+
+    xs = x.reshape(bsz, nc, chunk, h, p)
+    dts = dt.reshape(bsz, nc, chunk, h)
+    bs = b_in.reshape(bsz, nc, chunk, n)
+    cs = c_in.reshape(bsz, nc, chunk, n)
+
+    # log-decay within chunk: l[t] = cumsum(dt * a)
+    dta = dts * a[None, None, None, :]                     # (B,nc,Q,H)
+    l = torch.cumsum(dta, dim=2)
+    l_last = l[:, :, -1:]                                  # (B,nc,1,H)
+
+    # ---- intra-chunk (quadratic within chunk) -----------------------------
+    scores = _einsum("bctn,bcsn->bcts", cs, bs)            # (B,nc,Q,Q)
+    decay = torch.exp(l[:, :, :, None, :] - l[:, :, None, :, :])
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    m = scores[..., None] * decay * tri[None, None, :, :, None]
+    y_intra = _einsum("bctsh,bcsh,bcshp->bcthp", m, dts, xs)
+
+    # ---- chunk states ------------------------------------------------------
+    # state contribution of chunk c: sum_s exp(l_last - l_s) dt_s x_s (x) B_s
+    w = torch.exp(l_last - l) * dts                        # (B,nc,Q,H)
+    chunk_state = _einsum("bcsh,bcshp,bcsn->bchpn", w, xs, bs)
+    chunk_decay = torch.exp(l_last[:, :, 0])               # (B,nc,H)
+
+    # ---- inter-chunk state scan -------------------------------------------
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if h0 is None else h0)
+    chunk_state = chunk_state.to(torch.float32)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(carry)                      # the state BEFORE chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # (B,nc,H,P,N)
+
+    # ---- inter-chunk contribution to outputs ------------------------------
+    y_inter = _einsum("bcth,bctn,bchpn->bcthp", torch.exp(l), cs,
+                      h_prevs.to(x.dtype))
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    return y, carry
+
+
+def _mamba2(params, x, scan, *, d_state: int, headdim: int, expand: int,
+            chunk: int):
+    """The Mamba2 mixer around its SSD scan, one body for the serving and
+    the training routes: ``scan(xh, dt, a, b_in, c_in, chunk)`` returns
+    ``(y, final state)`` with chunk ``min(chunk, S)``, which must divide S.
+    Returns ``(out, final state, the conv's raw input)``."""
+    d_model = x.shape[-1]
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    bsz, s = x.shape[:2]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
+    proj = x @ params["w_in"]
+    z, xbc_raw, dt = _split_proj(proj, d_inner, d_state, n_heads)
+    xbc = _causal_conv(xbc_raw, params["conv_w"])
+    xh = xbc[..., :d_inner].reshape(bsz, s, n_heads, headdim).contiguous()
+    b_in = xbc[..., d_inner:d_inner + d_state].contiguous()
+    c_in = xbc[..., d_inner + d_state:].contiguous()
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, h_final = scan(xh, dt.contiguous(), a, b_in, c_in, chunk)
+    y = y + params["d_skip"][None, None, :, None] * xh.to(y.dtype)
+    return _gated_out(params, y.to(x.dtype), z, d_model), h_final, xbc_raw
+
+
+def mamba2_forward_train(params, x, *, d_state: int, headdim: int,
+                         expand: int, chunk: int = 128):
+    """Full-sequence Mamba2 mixer on the training route: :func:`ssd_chunked`
+    with chunk ``min(chunk, S)``, no kernel. x (B, S, d) -> (B, S, d)."""
+    out, _, _ = _mamba2(params, x, ssd_chunked, d_state=d_state,
+                        headdim=headdim, expand=expand, chunk=chunk)
+    return out
+
+
 def mamba2_forward(params, x, *, d_state: int, headdim: int, expand: int,
                    chunk: int = 128, backend: str = "auto"):
     """Full-sequence Mamba2 mixer. x (B, S, d) -> (B, S, d)."""
@@ -87,25 +187,13 @@ def mamba2_forward_state(params, x, *, d_state: int, headdim: int,
     ``min(chunk, S)``, which must divide S. Its y comes back in x's dtype
     before ``d_skip * x`` is added in f32, where the JAX package adds it to
     its f32 y: in bf16 the port rounds once more."""
-    d_model = x.shape[-1]
-    d_inner = expand * d_model
-    n_heads = d_inner // headdim
-    bsz, s = x.shape[:2]
-    chunk = min(chunk, s)
-    if s % chunk:
-        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
-    proj = x @ params["w_in"]
-    z, xbc_raw, dt = _split_proj(proj, d_inner, d_state, n_heads)
-    xbc = _causal_conv(xbc_raw, params["conv_w"])
-    xh = xbc[..., :d_inner].reshape(bsz, s, n_heads, headdim).contiguous()
-    b_in = xbc[..., d_inner:d_inner + d_state].contiguous()
-    c_in = xbc[..., d_inner + d_state:].contiguous()
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
-    y, h_final = ops.mamba2_ssd(xh, dt.contiguous(), a, b_in, c_in,
-                                chunk=chunk, backend=backend)
-    y = y + params["d_skip"][None, None, :, None] * xh.to(y.dtype)
-    out = _gated_out(params, y.to(x.dtype), z, d_model)
+    def scan(xh, dt, a, b_in, c_in, chunk):
+        return ops.mamba2_ssd(xh, dt, a, b_in, c_in, chunk=chunk,
+                              backend=backend)
+
+    out, h_final, xbc_raw = _mamba2(params, x, scan, d_state=d_state,
+                                    headdim=headdim, expand=expand,
+                                    chunk=chunk)
     cache = {"h": h_final,                          # (B, H, P, N)
              "conv": xbc_raw[:, -(params["conv_w"].shape[0] - 1):]}
     return out, cache

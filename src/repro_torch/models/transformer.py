@@ -1,6 +1,6 @@
-"""Transformer assembly: segments of stacked layer patterns, with the full
-forward and the serving path (prefill + decode); a port of the JAX
-package's ``repro/models/transformer.py``.
+"""Transformer assembly: segments of stacked layer patterns, with the
+training loss, the full forward and the serving path (prefill + decode); a
+port of the JAX package's ``repro/models/transformer.py``.
 
 Params and caches keep the JAX package's trees: ``params["segments"]`` is a
 list with one dict per segment, ``{"0": layer params, "1": ...}`` by
@@ -10,14 +10,30 @@ over ``n_steps``, the port loops in Python over views of step ``i``.
 ``decode_step`` and ``prefill`` write the caches in place (the JAX package
 returns new arrays).
 
-The mixers' hot loops run in the hand-written kernels, through
-``kernels.ops`` with the model's ``kernel_backend``: ``flash_attention``
-at every ``attn`` / ``shared_attn`` prefill, ``rwkv6_scan`` at every
-``rwkv6`` prefill and decoded token, ``mamba2_ssd`` at every ``mamba2``
-prefill. Not ported yet: MoE FFNs (``ffn == "moe"`` raises), the training
-loss (``loss_fn``, ``_chunked_loss``), the serving engine's ``prefill_at``,
-``insert_prefill`` and ``init_paged_cache``, and the sharding axes
-(``param_axes``, ``cache_axes``).
+Two routes, fixed by the method and not by the device:
+
+- **serving** (``forward``, ``prefill``, ``decode_step``): the mixers' hot
+  loops run in the hand-written kernels, through ``kernels.ops`` with the
+  model's ``kernel_backend``: ``flash_attention`` at every ``attn`` /
+  ``shared_attn`` prefill, ``rwkv6_scan`` at every ``rwkv6`` prefill and
+  decoded token, ``mamba2_ssd`` at every ``mamba2`` prefill;
+- **training** (``loss_fn``, ``_chunked_loss``, ``_hidden_states``): the
+  JAX model's own differentiable paths (``attention.blocked_causal_attention``,
+  ``rwkv.wkv6_scan``, ``ssm.ssd_chunked``) in torch ops that run under
+  ``torch.func.vmap(grad_and_value(...))``, which is how the DP step calls
+  the loss. The JAX package trains through the same jnp paths and reaches
+  no Pallas kernel there; the three model kernels have no backward and
+  refuse tensors that require grad.
+
+``cfg.remat`` is not carried over: under ``torch.func.grad``,
+``torch.utils.checkpoint`` raises (saved-tensor hooks in the non-reentrant
+form, a missing ``setup_context`` in the reentrant one). The numbers are
+those of the JAX model with or without remat; the port keeps every
+layer's activations for the backward pass instead of recomputing them.
+
+Not ported yet: MoE FFNs (``ffn == "moe"`` raises), the serving engine's
+``prefill_at``, ``insert_prefill`` and ``init_paged_cache``, and the
+sharding axes (``param_axes``, ``cache_axes``).
 """
 from __future__ import annotations
 
@@ -33,6 +49,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     _dense_init,
+    cross_entropy,
     embed,
     init_embed,
     init_mlp,
@@ -43,6 +60,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+
+AUX_WEIGHT = 0.01  # load-balance aux loss weight
 
 
 def _dtype(cfg: ArchConfig):
@@ -188,21 +208,38 @@ class Transformer:
         p["wo"] = p["wo"] + do
         return p
 
-    def _apply_mixer(self, spec: LayerSpec, lparams, shared, h, positions):
+    def _apply_mixer(self, spec: LayerSpec, lparams, shared, h, positions,
+                     train: bool = False):
+        """The layer's mixer over the full sequence: the training route's
+        differentiable paths under ``train``, else the kernels."""
         cfg = self.cfg
         if spec.mixer in ("attn", "shared_attn"):
             p = (self._merged_shared_attn(lparams["mixer"], shared)
                  if spec.mixer == "shared_attn" else lparams["mixer"])
+            if train:
+                return attn.attention_forward_train(
+                    p, h, positions, kind=spec.attn_kind, window=cfg.window,
+                    chunk=cfg.chunk, use_rope=spec.use_rope,
+                    rope_theta=cfg.rope_theta, block_q=cfg.block_q,
+                    causal_buckets=cfg.causal_buckets)
             return attn.attention_forward(
                 p, h, positions, kind=spec.attn_kind, window=cfg.window,
                 chunk=cfg.chunk, use_rope=spec.use_rope,
                 rope_theta=cfg.rope_theta, backend=self.kernel_backend)
         if spec.mixer == "mamba2":
+            if train:
+                return ssm_mod.mamba2_forward_train(
+                    lparams["mixer"], h, d_state=cfg.ssm_state,
+                    headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
+                    chunk=cfg.ssd_chunk)
             return ssm_mod.mamba2_forward(
                 lparams["mixer"], h, d_state=cfg.ssm_state,
                 headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
                 chunk=cfg.ssd_chunk, backend=self.kernel_backend)
         if spec.mixer == "rwkv6":
+            if train:
+                return rwkv_mod.rwkv6_timemix_forward_train(
+                    lparams["mixer"], h, cfg.rwkv_headdim, cfg.rwkv_chunk)
             return rwkv_mod.rwkv6_timemix_forward(
                 lparams["mixer"], h, cfg.rwkv_headdim, cfg.rwkv_chunk,
                 backend=self.kernel_backend)
@@ -217,16 +254,17 @@ class Transformer:
             return mlp(shared["mlp"], h)
         return None
 
-    def _apply_layer(self, spec: LayerSpec, lparams, shared, x, positions):
+    def _apply_layer(self, spec: LayerSpec, lparams, shared, x, positions,
+                     train: bool = False):
         h = rmsnorm(lparams["norm1"], x)
-        x = x + self._apply_mixer(spec, lparams, shared, h, positions)
+        x = x + self._apply_mixer(spec, lparams, shared, h, positions, train)
         if spec.ffn != "none":
             h2 = rmsnorm(lparams["norm2"], x)
             x = x + self._apply_ffn(spec, lparams, shared, h2)
         return x
 
     # ------------------------------------------------------------------
-    # full forward (prefill logits)
+    # full forward (prefill logits) and the training loss
     # ------------------------------------------------------------------
 
     def _embed_scaled(self, params, tokens):
@@ -246,9 +284,46 @@ class Transformer:
         return x
 
     def forward(self, params, tokens, prefix=None):
-        """tokens (B, S) -> (logits (B, S, V), aux). prefix (B, P, d) stub
-        embeddings are prepended (vlm / audio) and stripped from logits.
-        ``aux`` (the MoE load-balance loss) is 0: no MoE is ported."""
+        """tokens (B, S) -> (logits (B, S, V), aux) on the serving route
+        (the kernels). prefix (B, P, d) stub embeddings are prepended (vlm /
+        audio) and stripped from logits. ``aux`` (the MoE load-balance
+        loss) is 0: no MoE is ported."""
+        x, aux = self._hidden_states(params, tokens, prefix, train=False)
+        return unembed(params["embed"], x), aux
+
+    def loss_fn(self, params, batch):
+        """batch: {"tokens": (B,S), "labels": (B,S), ["prefix": (B,P,d)]}.
+        The mean token cross-entropy on the training route, plus
+        ``AUX_WEIGHT`` times the MoE aux loss (0: no MoE is ported).
+        Chunked over the sequence when ``cfg.loss_chunk`` is set."""
+        prefix = batch.get("prefix")
+        if self.cfg.loss_chunk:
+            return self._chunked_loss(params, batch, prefix)
+        x, aux = self._hidden_states(params, batch["tokens"], prefix)
+        logits = unembed(params["embed"], x)
+        return cross_entropy(logits, batch["labels"]) + AUX_WEIGHT * aux
+
+    def _chunked_loss(self, params, batch, prefix):
+        """Cross-entropy computed per sequence chunk of ``cfg.loss_chunk``
+        tokens: never materializes the full (B, S, V) logits (the default
+        for large-vocab archs). Raises ``ValueError`` unless the chunk
+        divides the sequence."""
+        x, aux = self._hidden_states(params, batch["tokens"], prefix)
+        c = self.cfg.loss_chunk
+        s = x.shape[1]
+        if s % c:
+            raise ValueError(f"seq {s} % loss_chunk {c} != 0")
+        labels = batch["labels"]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, c):
+            logits = unembed(params["embed"], x[:, i:i + c])
+            total = total + cross_entropy(logits, labels[:, i:i + c]) * c
+        return total / s + AUX_WEIGHT * aux
+
+    def _hidden_states(self, params, tokens, prefix, train: bool = True):
+        """Final-normed hidden states (B, S, d), prefix stripped, and the
+        aux loss: on the training route (no kernel) unless ``train`` is
+        False."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens, prefix)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -258,12 +333,11 @@ class Transformer:
                 p_step = _step(seg_params, i)
                 for j, ls in enumerate(seg.pattern):
                     x = self._apply_layer(ls, p_step[str(j)], shared, x,
-                                          positions)
+                                          positions, train)
         x = rmsnorm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        logits = unembed(params["embed"], x)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------------
     # serving: prefill + decode
