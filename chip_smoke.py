@@ -114,7 +114,30 @@ Phases (each prints its lines; any failure exits non-zero):
      kernel calls, and each row kernel's output in the cuda run (its
      first call of each shape) against its plain version on the same
      operands; (e) launch.serve.main --fl-checkpoint on (d)'s dense
-     checkpoint: federated params served through flash_attention.
+     checkpoint: federated params served through flash_attention;
+ 17. the continuous-batching engine (repro_torch.serve: SlotEngine, 4
+     slots, KV blocks of 64, serve_continuous under StepClock, 10 Poisson
+     requests with budgets 16 / 32, gemma3-4b at prompts 300 / 700 / 1500,
+     rwkv6-1.6b and zamba2-7b at 256 / 512; each model kernel's output at
+     its first call of each shape in the served workload held against its
+     plain version on the same operands, phase 10's criteria): (a) f32,
+     depth cut to one step of each segment: every request's tokens equal
+     launch.serve.generate on the plain route (kernel_backend "ref") on
+     its exact-length prompt under the top-two gap guard, requests joining
+     mid-stream into recycled slots; (b) bf16 at full depth, random
+     weights from a seeded CUDA generator: exact launches (flash per
+     attention layer and prefill group, rwkv6_scan per layer and group or
+     decode step, mamba2_ssd per layer and group, the row kernels 0),
+     finite logits, tokens against generate under the guard (steps
+     compared printed), prefill ms per group, peak memory beside the
+     pools' reckoned bytes; then 4 requests admitted as one unpadded group
+     and decoded in turns with the static B 4 path over the same span:
+     ms per step, their tokens equal under a guard of 4x their logits'
+     difference (half the steps compared at least), one profiled engine
+     step, blocking host syncs (0 per decode_step(table=...), at most 1
+     per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 3
+     on cuda at gemma3-4b's full width (medians of the modes run in
+     turns); (d) examples/serve_continuous_torch.py on cuda.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -202,6 +225,21 @@ LAUNCH_RUNS = (
                              "--chunk-rounds", "2", "--resident-cache", "16",
                              "--compressor", "topk", "--compress-ratio",
                              "0.25"]))
+# phase 17: the continuous-batching engine. (arch, prompt lengths):
+# gemma3-4b's prompts fall in the buckets 512 / 1024 / max_len, so padding
+# and the 1024 window both bite; the recurrent archs prefill at exact
+# lengths, zamba2's multiples of its ssd_chunk 128. Generation budgets,
+# slots, KV block, requests and their Poisson rate per simulated second,
+# under StepClock: a decode step 1 s, a prefill 1/256 s a padded token, so
+# requests arrive while others decode, queue, and join in groups of 1-3
+# rows (padded to 1 / 2 / 4) into recycled slots
+ENGINE_RUNS = (("gemma3-4b", (300, 700, 1500)), ("rwkv6-1.6b", (256, 512)),
+               ("zamba2-7b", (256, 512)))
+ENGINE_GENS, ENGINE_SLOTS, ENGINE_BLOCK = (16, 32), 4, 64
+ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
+GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
+MODEL_KERNELS = ("flash_attention", "rwkv6_scan", "mamba2_ssd")
+SERVE_REPEATS = 3      # phase 17c: runs of each load, the modes in turns
 
 
 def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
@@ -2666,7 +2704,7 @@ def run_launcher_smoke(torch, ops, launch_train, serve, configs, counters,
         for c in counters.values():
             c.launches = 0
         rc, res = _launcher_summary(serve.main, [
-            "--arch", "gemma3-4b", "--smoke", "--fl-checkpoint",
+            "--arch", "gemma3-4b", "--smoke", "--static", "--fl-checkpoint",
             f"{tmp}/dense_cuda", "--batch", "2", "--prompt-len", "32",
             "--gen", "4", "--device", "cuda"])
         torch.cuda.synchronize()
@@ -2685,6 +2723,574 @@ def run_launcher_smoke(torch, ops, launch_train, serve, configs, counters,
               f"flash_attention launches {flash} (expected {2 * n_attn}) "
               f"{'ok' if good else 'CHECK FAILED'}", flush=True)
     return ok, totals, errs
+
+
+# -- phase 17: the continuous-batching serving engine -------------------------
+
+def _engine_cfg(configs, arch: str, dtype: str):
+    """The arch at its published widths in ``dtype``; in f32 with the depth
+    cut to one step of each segment (phase 12's cut)."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get_arch(arch), dtype=dtype)
+    if dtype == "float32":
+        segs = tuple(configs.Segment(1, s.pattern) for s in cfg.segments)
+        cfg = dataclasses.replace(
+            cfg, segments=segs, n_layers=sum(len(s.pattern) for s in segs))
+    return cfg
+
+
+def _engine_max_len(prompts) -> int:
+    """The span every slot covers: the longest prompt plus the largest
+    budget, in whole blocks (gemma3-4b: 1,536, so a 1,500-token prompt's
+    bucket is max_len; rwkv6-1.6b and zamba2-7b: 576)."""
+    n = max(prompts) + max(ENGINE_GENS)
+    return -(-n // ENGINE_BLOCK) * ENGINE_BLOCK
+
+
+def _pool_bytes(cfg, max_len: int) -> int:
+    """The paged pools' bytes, from the code: attention layers x
+    (n_slots x blocks_per_slot + 1 scratch) x block x KV x hd x 2 (k, v) x
+    the dtype's bytes."""
+    mixers = cfg.count_mixers()
+    n_attn = mixers.get("attn", 0) + mixers.get("shared_attn", 0)
+    bps = -(-max_len // ENGINE_BLOCK)
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    return (n_attn * (ENGINE_SLOTS * bps + 1) * ENGINE_BLOCK
+            * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * size)
+
+
+def _arch_kernels(cfg) -> set:
+    """The model kernels the arch's serving path runs."""
+    mixers = cfg.count_mixers()
+    return ({"flash_attention"} if mixers.get("attn", 0)
+            + mixers.get("shared_attn", 0) else set()) | (
+        {"rwkv6_scan"} if mixers.get("rwkv6", 0) else set()) | (
+        {"mamba2_ssd"} if mixers.get("mamba2", 0) else set())
+
+
+def _keeping_first_model_calls(torch, ops, kept):
+    """``_keeping_first_calls`` for the model kernels' routed entry points
+    (``ops.flash_attention`` / ``rwkv6_scan`` / ``mamba2_ssd``), whose
+    options come as keywords: the first call of each (kernel, operand
+    shapes and dtypes, option values) keeps clones of its operands, its
+    options and its outputs in ``kept``. Returns the real entry points, to
+    put back."""
+    reals = {}
+    for name in MODEL_KERNELS:
+        reals[name] = getattr(ops, name)
+
+        def keeper(*args, _real=reals[name], _name=name, **kw):
+            key = (_name,) + tuple(
+                (tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
+                for a in args) + tuple(sorted(kw.items()))
+            if key in kept:
+                return _real(*args, **kw)
+            ins = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = _real(*args, **kw)
+            kept[key] = (ins, dict(kw), tuple(o.clone() for o in out)
+                         if isinstance(out, tuple) else (out.clone(),))
+            return out
+        setattr(ops, name, keeper)
+    return reals
+
+
+def _check_kept_model_calls(torch, kept, refs):
+    """Each kept model-kernel call against its plain version on the same
+    operands upcast to f32, with phase 10's criteria (``_kernel_err`` at
+    the operands' dtype; rwkv6_scan's and mamba2_ssd's final state at
+    f32's). Returns (ok, {kernel: max abs err}, a line for each call)."""
+    ok, worst, lines = True, {}, []
+    for key, (ins, kw, outs) in kept.items():
+        name = key[0]
+        f32 = [a.float() if torch.is_tensor(a) else a for a in ins]
+        if name == "flash_attention":
+            wants = (refs[name](*f32, window=kw.get("window", 0)),)
+            opts = f" window {kw.get('window', 0)}"
+        elif name == "rwkv6_scan":
+            wants = refs[name](*f32)
+            opts = " from s0" if ins[5] is not None else ""
+        else:
+            chunk = min(kw.get("chunk", 128), ins[0].shape[1])
+            wants = refs[name](*f32, chunk)
+            opts = f" chunk {chunk}"
+        errs = [_kernel_err(torch, got, want,
+                            ins[0].dtype if i == 0 else torch.float32)
+                for i, (got, want) in enumerate(zip(outs, wants))]
+        del wants
+        err, good = max(e for e, _ in errs), all(g for _, g in errs)
+        ok &= good
+        worst[name] = max(worst.get(name, 0.0), err)
+        lines.append(f"{name} {str(ins[0].dtype).split('.')[1]} "
+                     + " ".join(str(list(a.shape)) for a in ins[:3])
+                     + f"{opts} max|d| {err:.3e} "
+                     + ("ok" if good else "MISMATCH"))
+    torch.cuda.synchronize()
+    return ok, worst, lines
+
+
+def _watched_engine(torch, serve_pkg, model, params, **kw):
+    """A SlotEngine that logs in ``log``, through the engine's public
+    surface and while ``watching``: each admitted group's (size, bucket)
+    and wall ms (synchronised), how many of its requests joined while
+    other slots decoded into a slot used before, each request's first
+    logits (its slot's row of ``logits`` after the admission), and per
+    step whether every slot's logits are finite (a device flag, read once
+    at the end)."""
+
+    class Watched(serve_pkg.SlotEngine):
+        def admit(self, reqs):
+            if not self.watching:
+                return super().admit(reqs)
+            log = self.log
+            mid = self.n_active > 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slots = super().admit(reqs)
+            torch.cuda.synchronize()
+            log["ms"].append((time.perf_counter() - t0) * 1e3)
+            log["groups"].append((len(reqs),
+                                  self.bucket_len(reqs[0].prompt_len)))
+            log["recycled"] += sum(mid and s in log["used"] for s in slots)
+            log["used"].update(slots)
+            for r, s in zip(reqs, slots):
+                log["first"][r.rid] = self.logits[s].clone()
+            return slots
+
+        def step(self):
+            out = super().step()
+            if self.watching:
+                self.log["finite"].append(torch.isfinite(self.logits).all())
+            return out
+
+    engine = Watched(model, params, **kw)
+    engine.log = {"groups": [], "ms": [], "recycled": 0, "first": {},
+                  "finite": [], "used": set()}
+    engine.watching = True
+    return engine
+
+
+def _batch_noise(torch, np, serve, model, params, requests, n_probe=2):
+    """How far rounding alone moves the logits when one request decodes in
+    a batch of ENGINE_SLOTS rows instead of alone, the engine's situation
+    against generate's: ``generate`` on the prompt at B 1 and on
+    ENGINE_SLOTS copies of it, both greedy, the largest |logit difference|
+    of row 0 over the steps both took on the same tokens (up to and with
+    the first step whose tokens differ), over ``n_probe`` requests."""
+    from repro_torch.utils.tree import tree_leaves
+    noise = 0.0
+    dev = tree_leaves(params)[0].device
+    for r in requests[:n_probe]:
+        prompt = torch.as_tensor(r.tokens[None].astype(np.int64), device=dev)
+        one, l1 = serve.generate(model, params, prompt, r.max_gen,
+                                 with_logits=True)
+        many, l4 = serve.generate(model, params,
+                                  prompt.expand(ENGINE_SLOTS, -1), r.max_gen,
+                                  with_logits=True)
+        differ = (one[0] != many[0]).nonzero()
+        k = int(differ[0]) + 1 if len(differ) else r.max_gen
+        noise = max(noise, float((l1[0, :k] - l4[0, :k]).abs().max()))
+    return noise
+
+
+def _engine_vs_generate(torch, np, serve, model, params, requests, first,
+                        noise=None):
+    """Each request's tokens against ``launch.serve.generate`` on its
+    exact-length prompt with ``model`` and the same params, under the gap
+    guard (``agree_under_gap``): in f32 (``noise`` None) GUARD_F32 of the
+    largest logit; in bf16 four times ``noise`` (``_batch_noise``: what
+    rounding alone moves between a batch of slots and a lone request), at
+    least one bf16 ulp of the largest logit. Returns (all agree, compared
+    in full, steps compared, largest first-step |engine - generate| /
+    max|logit|, all reference logits finite)."""
+    ok, full, steps, worst, finite = True, 0, 0, 0.0, True
+    dev = first[requests[0].rid].device
+    for r in requests:
+        prompt = torch.as_tensor(r.tokens[None].astype(np.int64),
+                                 device=dev)
+        ref, logits = serve.generate(model, params, prompt, r.max_gen,
+                                     with_logits=True)
+        finite &= bool(torch.isfinite(logits).all())
+        scale = max(1.0, float(logits.abs().max()))
+        d0 = float((first[r.rid].float() - logits[0, 0]).abs().max())
+        worst = max(worst, d0 / scale)
+        tol = (GUARD_F32 * scale if noise is None
+               else max(4 * noise, scale * 2.0 ** -8))
+        agree, n = serve.agree_under_gap(r.out, ref[0], logits[0], tol)
+        if not agree:
+            print(f"  request {r.rid}: engine {r.out[:n + 1]} against "
+                  f"generate {ref[0, :n + 1].tolist()} within the guard "
+                  f"({tol:.3e})", flush=True)
+        ok &= agree
+        full += n == r.max_gen
+        steps += n
+    return ok, full, steps, worst, finite
+
+
+def _serve_workload(torch, serve_pkg, ops, engine, cfg, prompts, kept):
+    """The phase's workload through ``serve_continuous`` under StepClock on
+    a ``_watched_engine``, each model kernel's first call of each shape
+    kept in ``kept``. Returns (report, the engine's log)."""
+    wl = serve_pkg.poisson_workload(
+        ENGINE_REQUESTS, ENGINE_RATE, cfg.vocab, seed=0,
+        prompt_lens=prompts, gen_lens=ENGINE_GENS)
+    reals = _keeping_first_model_calls(torch, ops, kept)
+    try:
+        rep = serve_pkg.serve_continuous(engine, wl, clock=serve_pkg.StepClock(
+            dt_prefill_token=ENGINE_PREFILL_TOKEN_S))
+        torch.cuda.synchronize()
+    finally:
+        for name, real in reals.items():
+            setattr(ops, name, real)
+        engine.watching = False
+    return rep, engine.log
+
+
+def _kept_verdict(torch, kept, refs, cfg):
+    """The kept calls checked (``_check_kept_model_calls``), and every
+    kernel of the arch's path among them. Returns (ok, errs, lines)."""
+    ok, errs, lines = _check_kept_model_calls(torch, kept, refs)
+    return ok and set(errs) == _arch_kernels(cfg), errs, lines
+
+
+def run_engine_exactness(torch, np, configs, Transformer, serve, serve_pkg,
+                         ops, refs, dev):
+    """Phase 17a: the engine on the card in f32 at the published widths,
+    depth cut to one step of each segment, SlotEngine(n_slots 4, block 64)
+    under StepClock, ENGINE_REQUESTS Poisson requests (gemma3-4b's prompts
+    in three buckets, padded; the recurrent archs' at exact lengths): every
+    request completes with its budget, at least one joins mid-stream into a
+    recycled slot, every slot is free at the end, each model kernel's
+    output at its first call of each shape equals its plain version's on
+    the same operands, and each request's tokens are those of generate on
+    the plain route (kernel_backend "ref") under the gap guard (at least
+    one compared in full). Returns (ok, {kernel: max abs err})."""
+    ok, worst = True, {}
+    for arch, prompts in ENGINE_RUNS:
+        cfg = _engine_cfg(configs, arch, "float32")
+        model = Transformer(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(2),
+                            dev)
+        engine = _watched_engine(
+            torch, serve_pkg, model, params, n_slots=ENGINE_SLOTS,
+            max_len=_engine_max_len(prompts), block_size=ENGINE_BLOCK,
+            device=dev)
+        engine.warmup(buckets=prompts)
+        kept = {}
+        t0 = time.perf_counter()
+        rep, log = _serve_workload(torch, serve_pkg, ops, engine, cfg,
+                                   prompts, kept)
+        serve_s = time.perf_counter() - t0
+        k_ok, k_errs, k_lines = _kept_verdict(torch, kept, refs, cfg)
+        del kept
+        for name, err in k_errs.items():
+            worst[name] = max(worst.get(name, 0.0), err)
+        agree, full, steps, d0, finite = _engine_vs_generate(
+            torch, np, serve, Transformer(cfg, kernel_backend="ref"),
+            params, rep.requests, log["first"])
+        finite &= bool(torch.stack(log["finite"]).all())
+        good = (agree and full >= 1 and finite and k_ok
+                and len(rep.requests) == ENGINE_REQUESTS
+                and all(len(r.out) == r.max_gen for r in rep.requests)
+                and log["recycled"] > 0
+                and engine.free_slots == ENGINE_SLOTS)
+        ok &= good
+        print(f"phase 17a {arch} f32 ({cfg.n_layers} layers, max_len "
+              f"{engine.max_len}, block {ENGINE_BLOCK}): "
+              f"{len(rep.requests)} requests, {engine.steps} steps, "
+              f"{len(log['groups'])} prefill groups (size, bucket) "
+              f"{log['groups']}, {log['recycled']} joined mid-stream into "
+              f"recycled slots, served in {serve_s:.2f} s; the kernels at "
+              f"their first call of each shape against their plain "
+              f"versions:" + "".join(f"\n  {x}" for x in k_lines)
+              + f"\nphase 17a {arch} tokens equal generate on the plain "
+              f"route under the guard, {full}/{len(rep.requests)} compared "
+              f"in full, {steps}/{sum(r.max_gen for r in rep.requests)} "
+              f"steps, first-step max |engine - generate| / max|logit| "
+              f"{d0:.3e}; logits finite {finite} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+        del engine, params, model, log
+        torch.cuda.empty_cache()
+    return ok, worst
+
+
+def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
+                     arch, n_steps: int = 8):
+    """Phase 17b: ENGINE_SLOTS requests of p tokens, p a bucket (one group
+    whose prefill pads nothing), the largest budget, admitted as one group;
+    beside them the static path on the same prompts: ``prefill_at`` at B 4
+    over the engine's span (its natural layout) and dense ``decode_step``,
+    argmax, the tokens fetched as serve_static fetches them. Run in turns,
+    static, engine, engine, static, n_steps each: ms per decode step with
+    every slot busy. Both paths run the same shapes over the same span, so
+    their logits should agree to the bit: each row's tokens are held
+    against the static path's, at every step where the logits agree to
+    the bit, else under a guard of 4x the largest |logit difference| up to
+    the first step whose tokens differ, with at least half of the steps
+    compared. Then one profiled engine step, the
+    blocking host syncs of one ``engine.step()`` (limit 1) and of one
+    ``decode_step(table=...)`` on a paged pool of its own (limit 0), and
+    the paged decode's launches against the dense one's per attention
+    layer. Returns (ok, {"static": [...], "engine": [...]})."""
+    dev = engine.device
+    toks_np = np.random.default_rng(17).integers(
+        0, model.cfg.vocab, (ENGINE_SLOTS, p)).astype(np.int32)
+    reqs = [serve_pkg.Request(rid=1000 + i, arrival=0.0, tokens=toks_np[i],
+                              max_gen=max(ENGINE_GENS))
+            for i in range(ENGINE_SLOTS)]
+    slots = torch.as_tensor(engine.admit(reqs), device=dev)
+    toks = torch.as_tensor(toks_np.astype(np.int64), device=dev)
+    with torch.inference_mode():
+        logits, caches, _ = model.prefill_at(
+            params, toks, torch.full((ENGINE_SLOTS,), p, device=dev),
+            max_len=engine.max_len)
+    state = {"logits": logits, "i": 0}
+    rec = {"static": [logits.float()], "engine": [engine.logits[slots]],
+           "tok": []}
+
+    def static_steps():
+        with torch.inference_mode():
+            for _ in range(n_steps):
+                tok = torch.argmax(state["logits"], dim=-1)
+                state["logits"], _ = model.decode_step(
+                    params, caches, tok, p + state["i"])
+                rec["tok"].append(tok.cpu())
+                rec["static"].append(state["logits"].float())
+                state["i"] += 1
+
+    def engine_steps():
+        for _ in range(n_steps):
+            engine.step()
+            rec["engine"].append(engine.logits[slots])
+
+    ms = {"static": [], "engine": []}
+    for name in ("static", "engine", "engine", "static"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (static_steps if name == "static" else engine_steps)()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
+
+    n_tok = 2 * n_steps
+    ref_tok = torch.stack(rec["tok"], dim=1)
+    ref_logits = torch.stack(rec["static"][:n_tok], dim=1)
+    eng_logits = torch.stack(rec["engine"][:n_tok], dim=1)
+    diff = 0.0
+    for i, r in enumerate(reqs):
+        differ = [j for j in range(n_tok) if r.out[j] != int(ref_tok[i, j])]
+        k = differ[0] + 1 if differ else n_tok
+        diff = max(diff, float((eng_logits[i, :k]
+                                - ref_logits[i, :k]).abs().max()))
+    agree, compared = True, 0
+    for i, r in enumerate(reqs):
+        if diff == 0.0:
+            # the same logits to the bit: argmax cannot flip, ties too
+            good, n = r.out[:n_tok] == ref_tok[i].tolist(), n_tok
+        else:
+            good, n = serve.agree_under_gap(r.out[:n_tok], ref_tok[i],
+                                            ref_logits[i], 4 * diff)
+        agree &= good
+        compared += n
+    tok_ok = agree and 2 * compared >= ENGINE_SLOTS * n_tok
+    del rec, ref_logits, eng_logits
+
+    _, eng_launches = _profile_call(
+        torch, engine.step, f"phase 17b {arch} one engine step (4 slots)")
+    _, step_syncs = _blocking_syncs(torch, engine.step)
+    bps = engine.blocks_per_slot
+    pool = model.init_paged_cache(ENGINE_SLOTS, ENGINE_SLOTS * bps + 1,
+                                  ENGINE_BLOCK, dev)
+    table = torch.arange(ENGINE_SLOTS * bps, device=dev).view(
+        ENGINE_SLOTS, bps)
+    pos = torch.full((ENGINE_SLOTS,), p, dtype=torch.int64, device=dev)
+    tok0 = torch.zeros(ENGINE_SLOTS, dtype=torch.int64, device=dev)
+
+    def paged():
+        with torch.inference_mode():
+            return model.decode_step(params, pool, tok0, pos, table)
+
+    _, dec_syncs = _blocking_syncs(torch, paged)
+    n_attn = sum(model.cfg.count_mixers().get(k, 0)
+                 for k in ("attn", "shared_attn"))
+    extra = ""
+    if n_attn:
+        _, l_paged = _profile_call(torch, paged,
+                                   f"phase 17b {arch} one paged decode_step")
+
+        def dense():
+            with torch.inference_mode():
+                return model.decode_step(params, caches, tok0,
+                                         p + state["i"])
+
+        _, l_dense = _profile_call(torch, dense,
+                                   f"phase 17b {arch} one dense decode_step")
+        if l_paged is not None and l_dense is not None:
+            extra = (f"; paged decode_step {l_paged} launches, dense "
+                     f"{l_dense}: {(l_paged - l_dense) / n_attn:.2f} more "
+                     f"per attention layer ({n_attn} layers)")
+    ok = len(step_syncs) <= 1 and not dec_syncs and tok_ok
+    print(f"phase 17b {arch} ms per decode step, every slot busy, "
+          f"{n_steps} steps a turn (static B {ENGINE_SLOTS} over the "
+          f"engine's span of {engine.max_len}, engine, engine, static), "
+          f"prompts of {p}: static {ms['static'][0]:.3f} / "
+          f"{ms['static'][1]:.3f}, engine {ms['engine'][0]:.3f} / "
+          f"{ms['engine'][1]:.3f}; engine step {eng_launches} launches"
+          f"{extra}\nphase 17b {arch} engine against static B "
+          f"{ENGINE_SLOTS} at the same shapes: max |logit difference| "
+          f"{diff:.3e} up to the first differing token, the guard 4x; "
+          f"tokens agree {agree}, {compared}/{ENGINE_SLOTS * n_tok} steps "
+          f"compared (at least half)\nphase 17b {arch} blocking host "
+          f"syncs: {len(step_syncs)} in one engine.step() (limit 1)"
+          f"{_sync_lines(step_syncs)}, {len(dec_syncs)} in one "
+          f"decode_step(table=...) (limit 0){_sync_lines(dec_syncs)} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    del caches, logits, pool
+    return ok, ms
+
+
+def run_engine_full_width(torch, np, configs, Transformer, serve, serve_pkg,
+                          ops, refs, counters, card, dev):
+    """Phase 17b: the engine at the published widths and depths in bf16,
+    random weights from a seeded CUDA generator, the workloads of 17a. The
+    kernels' counters are set to 0 after ``warmup``, just before the
+    served workload, and read just after: flash = attention layers x
+    prefill groups, rwkv6_scan = rwkv6 layers x (groups + decode steps),
+    mamba2_ssd = mamba2 layers x groups, the row kernels 0. Each model
+    kernel's output at its first call of each shape against its plain
+    version on the same operands; finite logits at every step; tokens
+    against generate under the guard (the requests compared in full and
+    the steps printed); prefill ms per group; peak memory beside the
+    pools' reckoned bytes; then ``time_engine_step``. Returns (ok,
+    {kernel: launches summed over the archs}, {kernel: max abs err})."""
+    from repro_torch.utils.tree import tree_leaves
+    ok, totals, worst = True, dict.fromkeys(counters, 0), {}
+    for arch, prompts in ENGINE_RUNS:
+        cfg = _engine_cfg(configs, arch, "bfloat16")
+        model = Transformer(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        max_len = _engine_max_len(prompts)
+        engine = _watched_engine(
+            torch, serve_pkg, model, params, n_slots=ENGINE_SLOTS,
+            max_len=max_len, block_size=ENGINE_BLOCK, device=dev)
+        warm_s = engine.warmup(buckets=prompts)
+        torch.cuda.reset_peak_memory_stats()
+        kept = {}
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rep, log = _serve_workload(torch, serve_pkg, ops, engine, cfg,
+                                   prompts, kept)
+        serve_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        k_ok, k_errs, k_lines = _kept_verdict(torch, kept, refs, cfg)
+        del kept
+        for name, err in k_errs.items():
+            worst[name] = max(worst.get(name, 0.0), err)
+        groups, steps = len(log["groups"]), engine.steps
+        mixers = cfg.count_mixers()
+        want = dict.fromkeys(counters, 0)
+        want["flash_attention"] = (mixers.get("attn", 0)
+                                   + mixers.get("shared_attn", 0)) * groups
+        want["rwkv6_scan"] = mixers.get("rwkv6", 0) * (groups + steps)
+        want["mamba2_ssd"] = mixers.get("mamba2", 0) * groups
+        finite = bool(torch.stack(log["finite"]).all())
+        noise = _batch_noise(torch, np, serve, model, params, rep.requests)
+        agree, full, n_steps, d0, ref_finite = _engine_vs_generate(
+            torch, np, serve, model, params, rep.requests, log["first"],
+            noise)
+        good = (launches == want and finite and ref_finite and agree
+                and k_ok and len(rep.requests) == ENGINE_REQUESTS
+                and all(len(r.out) == r.max_gen for r in rep.requests)
+                and engine.free_slots == ENGINE_SLOTS)
+        by_bucket = {}
+        for (n, bucket), ms in zip(log["groups"], log["ms"]):
+            by_bucket.setdefault((bucket, n), []).append(ms)
+        print(f"phase 17b {arch} bf16 on {card} ({cfg.n_layers} layers, "
+              f"{n_params / 1e9:.3f} B params, max_len {max_len}, block "
+              f"{ENGINE_BLOCK}, {ENGINE_SLOTS} slots): warmup {warm_s:.2f} s "
+              f"(compile_s), {len(rep.requests)} requests in {serve_s:.2f} s "
+              f"wall, {steps} steps, {groups} prefill groups, "
+              f"{log['recycled']} joined mid-stream into recycled slots; "
+              f"prefill ms per group (bucket, rows): "
+              + ", ".join(f"({b}, {n}) " + "/".join(f"{m:.2f}" for m in v)
+                          for (b, n), v in sorted(by_bucket.items()))
+              + f"; max_memory_allocated {peak_gb:.2f} GB (params "
+              f"{2 * n_params / 1e9:.2f} GB, pools reckoned "
+              f"{_pool_bytes(cfg, max_len) / 1e9:.3f} GB); launches "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()
+                          if v or want[k])
+              + " (expected " + ", ".join(f"{k}={v}" for k, v in want.items()
+                                          if v)
+              + f"); the kernels at their first call of each shape against "
+              f"their plain versions:" + "".join(f"\n  {x}" for x in k_lines)
+              + f"\nphase 17b {arch} logits finite {finite and ref_finite}; "
+              f"generate B 1 against B {ENGINE_SLOTS}, max |logit "
+              f"difference| {noise:.3e} (the guard: 4x); tokens equal "
+              f"generate under the guard, {full}/{len(rep.requests)} "
+              f"compared in full, {n_steps}/"
+              f"{sum(r.max_gen for r in rep.requests)} steps, first-step "
+              f"max |engine - generate| / max|logit| {d0:.3e} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+        t_ok, _ = time_engine_step(torch, np, serve, serve_pkg, model,
+                                   params, engine,
+                                   engine.bucket_len(min(prompts)), arch)
+        ok &= good and t_ok
+        for name, n in launches.items():
+            totals[name] += n
+        del engine, params, model, log
+        torch.cuda.empty_cache()
+    return ok, totals, worst
+
+
+def run_serve_benchmark(torch):
+    """Phase 17c: benchmarks/serve_torch.py --check on cuda at gemma3-4b's
+    full width with its own workload (prompts 5 / 8 / 12, budgets 4 / 9,
+    32 requests a load, 4 slots, block 8), each load SERVE_REPEATS times
+    with the two modes in turns: continuous's median tokens/s above
+    static's at every load, and the same tokens in every run. Prints its
+    rows and the medians."""
+    import tempfile
+
+    import benchmarks.serve_torch as bench
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "serve.json"
+        t0 = time.perf_counter()
+        rc = bench.main(["--check", "--device", "cuda", "--repeats",
+                         str(SERVE_REPEATS), "--out", str(out)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        report = json.loads(out.read_text()) if out.exists() else {}
+    for row in report.get("results", ()):
+        print(f"phase 17c row {json.dumps(row)}", flush=True)
+    for med in report.get("median_tokens_per_s", ()):
+        print(f"phase 17c load {med['load']} median tokens/s over "
+              f"{SERVE_REPEATS} runs: continuous {med['continuous']}, static "
+              f"{med['static']} ({med['continuous'] / med['static']:.3f}x)",
+              flush=True)
+    print(f"phase 17c serve_torch --check --device cuda: rc={rc} in "
+          f"{secs:.2f} s, config {json.dumps(report.get('config'))} "
+          f"{'ok' if rc == 0 else 'CHECK FAILED'}", flush=True)
+    torch.cuda.empty_cache()
+    return rc == 0
+
+
+def run_serve_example():
+    """Phase 17d: examples/serve_continuous_torch.py on cuda (federate,
+    serve, hot-swap, exactness) in its own process."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "serve_continuous_torch.py")],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600)
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-12:]:
+        print(f"  {line}", flush=True)
+    print(f"phase 17d serve_continuous_torch.py on cuda: rc="
+          f"{proc.returncode} in {time.perf_counter() - t0:.2f} s "
+          f"{'ok' if proc.returncode == 0 else 'CHECK FAILED'}", flush=True)
+    return proc.returncode == 0
 
 
 def main() -> int:
@@ -2734,6 +3340,7 @@ def main() -> int:
     )
     from repro_torch.kernels import ops
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch import serve as serve_pkg
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import linear
@@ -2847,6 +3454,22 @@ def main() -> int:
          "quantize_decompress": quantize_decompress_ref,
          "cohort_gather_scatter": cohort_gather_scatter_ref}, card)
 
+    # -- 17. the continuous-batching serving engine ---------------------------
+    t17 = time.perf_counter()
+    model_refs = {"flash_attention": flash_attention_ref,
+                  "rwkv6_scan": rwkv6_scan_ref,
+                  "mamba2_ssd": mamba2_ssd_ref}
+    ok_ea, ea_errs = run_engine_exactness(
+        torch, np, configs, Transformer, serve, serve_pkg, ops, model_refs,
+        "cuda")
+    ok_eb, eb_launches, eb_errs = run_engine_full_width(
+        torch, np, configs, Transformer, serve, serve_pkg, ops, model_refs,
+        counters, card, "cuda")
+    ok_ec = run_serve_benchmark(torch)
+    ok_ed = run_serve_example()
+    print(f"phase 17 wall time {time.perf_counter() - t17:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -2857,7 +3480,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": sv_launches[name],
-            "max_abs_err": mk_worst[name], "ms": rec["ms"],
+            "max_abs_err": max(mk_worst[name], ea_errs.get(name, 0.0),
+                               eb_errs.get(name, 0.0)),
+            "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if "variant" in rec:
@@ -2865,6 +3490,9 @@ def main() -> int:
     model_kernels[0]["launches_other_paths"] = {
         "phase 16e serving the trained smoke checkpoint":
             ls_launches["flash_attention"]}
+    for rec in model_kernels:
+        rec.setdefault("launches_other_paths", {})[
+            "phase 17b the engine at full width"] = eb_launches[rec["name"]]
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -2947,7 +3575,14 @@ def main() -> int:
                      (ok_ac, "the async straggler comparison failed"),
                      (ok_tw, "the full-width training run's checks failed"),
                      (ok_ls, "the launcher's smoke runs or the serving of "
-                             "their checkpoint failed")):
+                             "their checkpoint failed"),
+                     (ok_ea, "the engine's f32 exactness checks failed"),
+                     (ok_eb, "the full-width engine's checks failed"),
+                     (ok_ec, "benchmarks/serve_torch.py --check failed"),
+                     (ok_ed, "examples/serve_continuous_torch.py failed"),
+                     (all(eb_launches[n] > 0 for n in (
+                         "flash_attention", "rwkv6_scan", "mamba2_ssd")),
+                      "a model kernel was not launched by the engine")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,27 @@
-"""Static serving driver: one batch through ``prefill``, then one
-``decode_step`` per generated token (a port of the static path of the JAX
-package's ``repro/launch/serve.py``).
+"""Serving driver: the continuous-batching engine (``repro_torch.serve``)
+by default, the static prefill + decode batch kept as the ``--static``
+baseline (a port of the JAX package's ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-        --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+        --smoke --requests 8 --prompt-len 32 --gen 16 [--device cpu]
+
+The engine mode serves a Poisson workload of ``--requests`` requests at
+``--rate`` per simulated second on ``--batch`` slots (paged KV blocks of
+``--block-size``) and prints the scheduler's summary; ``--static`` runs one
+batch through ``prefill``, then one ``decode_step`` per generated token
+(forced for prefix-conditioned archs). ``--env-profile`` / ``--host-devices``
+raise (ROADMAP queue 1 item 13b).
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
 port's own launcher (``python -m repro_torch.launch.train ... --save DIR``,
 dense, population or async) or by the JAX package's (``repro.launch.train``
 / ``repro.api.save_state``); the driver serves the aggregated model instead
-of random init. The continuous-batching engine (the JAX
-launcher's default mode) is not ported yet: ``--engine`` raises.
+of random init.
+
+Both paths warm up before the timed run, so ``tokens_per_s`` is steady
+state; the warm-up (on a GPU the kernels' build, cuBLAS handles and the
+allocator) is reported as ``compile_s``.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.api.spec import _not_ported
 from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.device import resolve_device
@@ -68,7 +79,8 @@ def _sample(logits, temperature: float, generator):
 
 
 def generate(model: Transformer, params, prompts, gen_tokens: int,
-             prefix=None, temperature: float = 0.0, generator=None):
+             prefix=None, temperature: float = 0.0, generator=None,
+             with_logits: bool = False):
     """prompts (B, S) integer -> generated (B, gen_tokens) int64.
 
     Batch ``prefill`` of the prompts (and ``prefix`` embeddings, for the
@@ -76,18 +88,43 @@ def generate(model: Transformer, params, prompts, gen_tokens: int,
     logits (``temperature == 0``) or a ``torch.multinomial`` draw from
     ``softmax(logits / temperature)`` with ``generator``, then one
     ``decode_step``, as the JAX package's loop does. Runs under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``. ``with_logits``: also return the logits
+    each token was drawn from, (B, gen_tokens, V) f32 (the reference of
+    :func:`agree_under_gap`)."""
     with torch.inference_mode():
         b, s = prompts.shape
         max_len = s + gen_tokens + (model.cfg.prefix_len or 0)
         logits, caches, pos = model.prefill(params, prompts, prefix,
                                             max_len=max_len)
-        outs = []
+        outs, seen = [], []
         for i in range(gen_tokens):
             tok = _sample(logits, temperature, generator)
+            if with_logits:
+                seen.append(logits.to(torch.float32))
             logits, caches = model.decode_step(params, caches, tok, pos + i)
             outs.append(tok)
-        return torch.stack(outs, dim=1)
+        out = torch.stack(outs, dim=1)
+        return (out, torch.stack(seen, dim=1)) if with_logits else out
+
+
+def agree_under_gap(tokens, ref_tokens, ref_logits, tol: float):
+    """Greedy tokens held against a reference's where an argmax is well
+    defined: step by step while the reference's top-two logit gap exceeds
+    ``tol`` (logits that differ by less than tol / 2 cannot flip such an
+    argmax). Two paths whose logits differ only by rounding (another batch
+    shape, a padded prefill, a longer masked span) agree there.
+
+    tokens / ref_tokens (G,) sequences; ref_logits (G, V). Returns
+    ``(agree, steps compared)``: compared == G means compared in full."""
+    ref_logits = torch.as_tensor(ref_logits).to(torch.float32)
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+    ref = [int(t) for t in ref_tokens]
+    got = [int(t) for t in tokens]
+    for i, gap in enumerate(gaps):
+        if gap <= tol:
+            return got[:i] == ref[:i], i
+    return got == ref, len(gaps)
 
 
 def _run_static(model, params, args, cfg, device):
@@ -124,15 +161,44 @@ def _run_static(model, params, args, cfg, device):
     }
 
 
+def _run_engine(model, params, args, cfg, device):
+    from repro_torch.serve import (SlotEngine, poisson_workload,
+                                   serve_continuous)
+
+    max_len = args.prompt_len + args.gen
+    engine = SlotEngine(model, params, n_slots=args.batch, max_len=max_len,
+                        block_size=args.block_size,
+                        temperature=args.temperature, device=device)
+    workload = poisson_workload(args.requests, args.rate, cfg.vocab,
+                                prompt_lens=(args.prompt_len,),
+                                gen_lens=(args.gen,))
+    engine.warmup(buckets=[r.prompt_len for r in workload])
+    report = serve_continuous(engine, workload)
+    first = report.requests[0]
+    return {
+        "mode": "continuous",
+        **report.summary(),
+        "sample": first.out[:8],
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--engine", action="store_true",
-                    help="continuous batching (not ported yet: raises)")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--static", action="store_true",
+                    help="pre-engine baseline: one static prefill+decode "
+                         "batch (forced for prefix-conditioned archs)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode slots (engine) / batch rows (static)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="workload size of the engine mode")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="Poisson arrival rate (requests/sim-second)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="paged KV block length (0: one block per slot)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--fl-checkpoint", default=None,
                     help="serve the aggregated model of a checkpoint "
@@ -140,11 +206,17 @@ def main(argv=None):
                          "the JAX launcher's) instead of random init")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--env-profile", default="none",
+                    choices=("none", "host", "cpu-mesh"),
+                    help="tuned launch environment (not ported yet: any "
+                         "profile but 'none' raises)")
+    ap.add_argument("--host-devices", type=int, default=1,
+                    help="host device count of the 'cpu-mesh' profile (not "
+                         "ported yet: anything but 1 raises)")
     args = ap.parse_args(argv)
-    if args.engine:
-        raise NotImplementedError(
-            "the continuous-batching engine (repro/serve) is not ported "
-            "yet; the static path is the default")
+    if args.env_profile != "none" or args.host_devices != 1:
+        raise _not_ported("--env-profile / --host-devices (launch/env.py)",
+                          "item 13b")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
@@ -156,7 +228,10 @@ def main(argv=None):
     else:
         params = model.init(torch.Generator(device=device).manual_seed(0),
                             device)
-    result = _run_static(model, params, args, cfg, device)
+    if args.static or cfg.prefix_len:
+        result = _run_static(model, params, args, cfg, device)
+    else:
+        result = _run_engine(model, params, args, cfg, device)
     print(json.dumps({
         "arch": cfg.name, "batch": args.batch,
         "params": "federated" if args.fl_checkpoint else "random-init",

@@ -13,8 +13,10 @@ Two routes, chosen by the caller and never by the device:
   the same jnp path; the kernel has no backward and refuses tensors that
   require grad.
 
-Not ported yet: chunked (llama4) attention and the paged serving cache
-(``init_paged_kv_cache``, ``paged_decode_attention``).
+The serving engine's paged cache (``init_paged_kv_cache``, ``paged_index``,
+``paged_decode_attention``) is plain PyTorch, as the JAX package keeps it
+in jnp: no TPU kernel carries it. Not ported yet: chunked (llama4)
+attention.
 
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
@@ -54,14 +56,17 @@ def init_attention(generator, d_model: int, n_heads: int, n_kv_heads: int,
     return params
 
 
-def _project_qkv(params, x, positions, use_rope: bool, rope_theta: float):
+def _project_qkv(params, x, positions, use_rope: bool, rope_theta: float,
+                 angles=None):
+    """q / k / v of x, rotated at ``positions`` (or by ``angles``, their
+    precomputed ``rope_angles``)."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if use_rope:
-        cos, sin = rope_angles(positions, q.shape[-1], rope_theta)
+        cos, sin = angles or rope_angles(positions, q.shape[-1], rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
@@ -263,6 +268,79 @@ def fill_kv_cache(cache, k, v, kind: str, window: int = 0, chunk: int = 0):
     cache["k"].copy_(k[:, s - n:][:, order])
     cache["v"].copy_(v[:, s - n:][:, order])
     return cache
+
+
+def init_paged_kv_cache(n_blocks: int, block_size: int, n_kv_heads: int,
+                        head_dim: int, dtype=torch.bfloat16, device="cpu"):
+    """Preallocated block pool for the paged serving cache.
+
+    Unlike the dense per-sequence cache of :func:`init_kv_cache`, the pool
+    is indexed by *physical block id*: a slot owns an arbitrary set of
+    blocks through an engine-managed ``(slots, blocks_per_slot)`` block
+    table, so recycled slots reuse whatever blocks are free rather than a
+    fixed contiguous span. Layout inside a slot's span is natural
+    (position ``p`` lives at logical offset ``p``; no ring truncation:
+    swa visibility is enforced by the decode mask instead), which makes
+    the pool the dense full-attention cache when one block spans
+    ``max_len`` and the table is the identity."""
+    shape = (n_blocks, block_size, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_index(table, pos, block_size: int, kind: str, window: int,
+                head_dim: int, rope_theta: float):
+    """What :func:`paged_decode_attention` derives from the block table and
+    the positions, the same in every attention layer of a kind in one
+    decode step: ``(physical block (B,), offset (B,), visibility mask (B,
+    1, 1, 1, span), rope angles at pos)``. A logical block past the
+    table's end reads its last column, as JAX's gather clamps: only a
+    released slot, whose row is all scratch block, runs that far."""
+    if kind == "chunk":
+        raise NotImplementedError(
+            "chunked (llama4) attention is not ported yet (ROADMAP queue 1 "
+            "item 10c)")
+    if kind not in ("full", "swa"):
+        raise ValueError(f"unknown attention kind {kind}")
+    b, bps = table.shape
+    rows = torch.arange(b, device=table.device)
+    phys = table[rows, torch.clamp(pos // block_size, max=bps - 1)]
+    p = torch.arange(bps * block_size, device=table.device)
+    valid = p[None, :] <= pos[:, None]
+    if kind == "swa":
+        valid &= p[None, :] > pos[:, None] - window
+    return (phys, pos % block_size, valid[:, None, None, None, :],
+            rope_angles(pos[:, None], head_dim, rope_theta))
+
+
+def paged_decode_attention(params, x, cache, table, index, *,
+                           use_rope: bool = True):
+    """One-token decode over B independent slots of a paged KV cache.
+
+    x (B, 1, d); cache {"k" / "v": (NB, bs, KV, hd)} block pool; table
+    (B, bps) integer maps each slot's logical block l to a physical block;
+    ``index``: :func:`paged_index` of the table and the slots' positions
+    (B,), computed once per decode step and attention kind by the caller
+    (the JAX package derives it in every layer and XLA merges the copies).
+    Writes each slot's k / v at (table[b, pos_b // bs], pos_b % bs) in
+    place, gathers the slot's whole logical span back in position order,
+    and masks entries beyond pos_b (and outside the sliding window).
+    Returns ``(out (B, 1, d), cache)``.
+
+    No host sync: the positions stay on the device. With one block
+    spanning the span and an identity table the gathered reads are the
+    dense :func:`decode_attention` cache's, bit for bit; with more blocks
+    they are the same values in the same position order."""
+    phys, off, valid, angles = index
+    b, span = x.shape[0], table.shape[1] * cache["k"].shape[1]
+    q, k, v = _project_qkv(params, x, None, use_rope, 0.0, angles)
+    cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
+    kb = cache["k"][table].reshape(b, span, *cache["k"].shape[2:])
+    vb = cache["v"][table].reshape(b, span, *cache["v"].shape[2:])
+    ctxv = _sdpa(q, kb, vb, valid)
+    out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
+    return out, cache
 
 
 def decode_attention(params, x, cache, pos: int, *, kind: str = "full",

@@ -7,16 +7,19 @@ list with one dict per segment, ``{"0": layer params, "1": ...}`` by
 pattern position, every leaf carrying a leading ``n_steps`` axis, and
 ``init_cache`` gives the same stacked layout. Where the JAX package scans
 over ``n_steps``, the port loops in Python over views of step ``i``.
-``decode_step`` and ``prefill`` write the caches in place (the JAX package
-returns new arrays).
+``decode_step``, ``prefill`` and ``insert_prefill`` write the caches in
+place (the JAX package returns new arrays).
 
 Two routes, fixed by the method and not by the device:
 
-- **serving** (``forward``, ``prefill``, ``decode_step``): the mixers' hot
-  loops run in the hand-written kernels, through ``kernels.ops`` with the
-  model's ``kernel_backend``: ``flash_attention`` at every ``attn`` /
-  ``shared_attn`` prefill, ``rwkv6_scan`` at every ``rwkv6`` prefill and
-  decoded token, ``mamba2_ssd`` at every ``mamba2`` prefill;
+- **serving** (``forward``, ``prefill``, ``prefill_at``, ``decode_step``):
+  the mixers' hot loops run in the hand-written kernels, through
+  ``kernels.ops`` with the model's ``kernel_backend``: ``flash_attention``
+  at every ``attn`` / ``shared_attn`` prefill, ``rwkv6_scan`` at every
+  ``rwkv6`` prefill and decoded token, ``mamba2_ssd`` at every ``mamba2``
+  prefill. The continuous-batching engine (``repro_torch.serve``) adds the
+  paged cache (``init_paged_cache``, ``prefill_at``, ``insert_prefill``,
+  ``decode_step(..., table=...)``), plain PyTorch as in the JAX package;
 - **training** (``loss_fn``, ``_chunked_loss``, ``_hidden_states``): the
   JAX model's own differentiable paths (``attention.blocked_causal_attention``,
   ``rwkv.wkv6_scan``, ``ssm.ssd_chunked``) in torch ops that run under
@@ -31,12 +34,12 @@ form, a missing ``setup_context`` in the reentrant one). The numbers are
 those of the JAX model with or without remat; the port keeps every
 layer's activations for the backward pass instead of recomputing them.
 
-Not ported yet: MoE FFNs (``ffn == "moe"`` raises), the serving engine's
-``prefill_at``, ``insert_prefill`` and ``init_paged_cache``, and the
-sharding axes (``param_axes``, ``cache_axes``).
+Not ported yet: MoE FFNs (``ffn == "moe"`` raises) and the sharding axes
+(``param_axes``, ``cache_axes``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -67,6 +70,13 @@ AUX_WEIGHT = 0.01  # load-balance aux loss weight
 
 def _dtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float (computed once, so
+    a decode step makes no tensor on the host for it)."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def _step(tree, i: int):
@@ -273,8 +283,7 @@ class Transformer:
         if cfg.embed_scale:
             # the JAX package multiplies by a weakly typed Python float,
             # i.e. by sqrt(d) rounded to the activations' dtype
-            x = x * float(torch.tensor(math.sqrt(cfg.d_model),
-                                       dtype=x.dtype))
+            x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
         return x
 
     def _embed_tokens(self, params, tokens, prefix):
@@ -344,14 +353,18 @@ class Transformer:
     # ------------------------------------------------------------------
 
     def _layer_cache_shape(self, spec: LayerSpec, batch: int, max_len: int,
-                           device):
+                           device, natural: bool = False):
         cfg = self.cfg
         dt = _dtype(cfg)
         cache: dict[str, Any] = {}
         if spec.mixer in ("attn", "shared_attn"):
+            # natural: a full-length position-ordered cache even for swa
+            # layers (no ring truncation), the layout the paged serving
+            # pool ingests; visibility is enforced by masks
             cache["mixer"] = attn.init_kv_cache(
-                batch, spec.attn_kind, max_len, cfg.n_kv_heads,
-                cfg.resolved_head_dim, cfg.window, cfg.chunk, dt, device)
+                batch, "full" if natural else spec.attn_kind, max_len,
+                cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window,
+                cfg.chunk, dt, device)
         elif spec.mixer == "mamba2":
             cache["mixer"] = ssm_mod.init_mamba2_cache(
                 batch, cfg.d_model, cfg.ssm_state, cfg.ssm_headdim,
@@ -372,15 +385,19 @@ class Transformer:
             cache["ffn"] = {}
         return cache
 
-    def init_cache(self, batch: int, max_len: int, device=None):
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   natural: bool = False):
         """Zeroed caches matching the segment structure. KV caches of swa
-        layers are ring buffers of the window size."""
+        layers are ring buffers of the window size (or full
+        position-ordered buffers under ``natural``, the serving-ingest
+        layout)."""
         device = resolve_device(device)
         caches = []
         for seg in self.cfg.segments:
             pat = {}
             for j, ls in enumerate(seg.pattern):
-                one = self._layer_cache_shape(ls, batch, max_len, device)
+                one = self._layer_cache_shape(ls, batch, max_len, device,
+                                              natural)
                 pat[str(j)] = tree_map(
                     lambda x, n=seg.n_steps: torch.zeros(
                         (n,) + tuple(x.shape), dtype=x.dtype,
@@ -388,18 +405,53 @@ class Transformer:
             caches.append(pat)
         return caches
 
-    def _decode_layer(self, spec: LayerSpec, lparams, shared, cache, x,
-                      pos: int):
+    def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
+                         device=None):
+        """Serving caches for a continuous-batching engine: attention
+        layers get a physical block pool (block-table indexed, the same
+        geometry in every layer), recurrent layers keep per-slot state rows
+        (their state is O(1) per slot: nothing to page)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        caches = []
+        for seg in cfg.segments:
+            pat = {}
+            for j, ls in enumerate(seg.pattern):
+                one = self._layer_cache_shape(ls, n_slots, 1, "meta")
+                if ls.mixer in ("attn", "shared_attn"):
+                    one["mixer"] = attn.init_paged_kv_cache(
+                        n_blocks, block_size, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, _dtype(cfg), "meta")
+                pat[str(j)] = tree_map(
+                    lambda x, n=seg.n_steps: torch.zeros(
+                        (n,) + tuple(x.shape), dtype=x.dtype,
+                        device=device), one)
+            caches.append(pat)
+        return caches
+
+    def _decode_layer(self, spec: LayerSpec, lparams, shared, cache, x, pos,
+                      table=None, indexes=None):
         cfg = self.cfg
         h = rmsnorm(lparams["norm1"], x)
         new_cache = dict(cache)
         if spec.mixer in ("attn", "shared_attn"):
             p = (self._merged_shared_attn(lparams["mixer"], shared)
                  if spec.mixer == "shared_attn" else lparams["mixer"])
-            out, kv = attn.decode_attention(
-                p, h, cache["mixer"], pos, kind=spec.attn_kind,
-                window=cfg.window, chunk=cfg.chunk, use_rope=spec.use_rope,
-                rope_theta=cfg.rope_theta)
+            if table is None:
+                out, kv = attn.decode_attention(
+                    p, h, cache["mixer"], pos, kind=spec.attn_kind,
+                    window=cfg.window, chunk=cfg.chunk,
+                    use_rope=spec.use_rope, rope_theta=cfg.rope_theta)
+            else:
+                # one paged_index per attention kind and decode step
+                if spec.attn_kind not in indexes:
+                    indexes[spec.attn_kind] = attn.paged_index(
+                        table, pos, cache["mixer"]["k"].shape[1],
+                        spec.attn_kind, cfg.window, cfg.resolved_head_dim,
+                        cfg.rope_theta)
+                out, kv = attn.paged_decode_attention(
+                    p, h, cache["mixer"], table, indexes[spec.attn_kind],
+                    use_rope=spec.use_rope)
             new_cache["mixer"] = kv
         elif spec.mixer == "mamba2":
             out, mc = ssm_mod.mamba2_decode(
@@ -426,12 +478,20 @@ class Transformer:
             x = x + out2
         return x, new_cache
 
-    def decode_step(self, params, caches, tokens, pos: int):
+    def decode_step(self, params, caches, tokens, pos, table=None):
         """One decode step. tokens (B,) integer; ``pos`` (int) the position
         of this token (prefix-inclusive). Updates ``caches`` in place and
-        returns ``(logits (B, V), caches)``."""
+        returns ``(logits (B, V), caches)``.
+
+        With ``table`` (B, blocks_per_slot) integer, ``caches`` are the
+        paged pools of :meth:`init_paged_cache` and ``pos`` is a per-slot
+        (B,) integer tensor: the continuous-batching decode, where every
+        slot sits at its own position. That path reads no value back to
+        the host."""
         cfg = self.cfg
-        pos = int(pos)
+        if table is None:
+            pos = int(pos)
+        indexes = {}
         x = self._embed_scaled(params, tokens[:, None])
         shared = params.get("shared")
         for seg_params, seg_cache, seg in zip(params["segments"], caches,
@@ -440,13 +500,15 @@ class Transformer:
                 p_step, c_step = _step(seg_params, i), _step(seg_cache, i)
                 for j, ls in enumerate(seg.pattern):
                     x, new_c = self._decode_layer(
-                        ls, p_step[str(j)], shared, c_step[str(j)], x, pos)
+                        ls, p_step[str(j)], shared, c_step[str(j)], x, pos,
+                        table, indexes)
                     _write(c_step[str(j)], new_c)
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(params["embed"], x)[:, 0]
         return logits, caches
 
-    def _prefill_states(self, params, tokens, prefix, max_len):
+    def _prefill_states(self, params, tokens, prefix, max_len,
+                        natural: bool = False):
         """Shared prefill body: final-normed hidden states (B, S_total, d)
         plus the filled caches."""
         cfg = self.cfg
@@ -455,7 +517,7 @@ class Transformer:
         max_len = max_len or s_total
         positions = torch.arange(s_total, device=x.device)
         shared = params.get("shared")
-        caches = self.init_cache(b, max_len, x.device)
+        caches = self.init_cache(b, max_len, x.device, natural)
         for seg_params, seg_cache, seg in zip(params["segments"], caches,
                                               cfg.segments):
             for i in range(seg.n_steps):
@@ -475,6 +537,70 @@ class Transformer:
                                                   max_len)
         logits = unembed(params["embed"], x[:, -1:])[:, 0]
         return logits, caches, s_total
+
+    def prefill_at(self, params, tokens, lengths, prefix=None,
+                   max_len=None):
+        """Bucketed prefill for the serving engine: tokens (B, S) are
+        right-padded to a common bucket length, lengths (B,) integer tensor
+        the true prompt lengths. Returns (per-row logits at each row's last
+        true token (B, V), natural-layout caches, per-row next position
+        (B,) int32).
+
+        Rows' cache entries beyond their true length hold pad garbage;
+        paged decode overwrites position p before the ``p <= pos`` mask
+        ever exposes it, so right-padding is safe for attention layers (the
+        logits equal an exact-length prefill's up to the summation order of
+        the longer rows). Recurrent state (mamba2 / rwkv6 / rwkv_cm)
+        consumes pad tokens, so engines must prefill those archs at exact
+        lengths."""
+        p_len = 0 if prefix is None else prefix.shape[1]
+        x, caches, _ = self._prefill_states(params, tokens, prefix, max_len,
+                                            natural=True)
+        b = x.shape[0]
+        idx = p_len + lengths - 1
+        xg = x[torch.arange(b, device=x.device), idx][:, None]
+        logits = unembed(params["embed"], xg)[:, 0]
+        return logits, caches, (p_len + lengths).to(torch.int32)
+
+    def insert_prefill(self, paged, pre, table_rows, slots):
+        """Scatter one prefill batch's natural-layout caches into the paged
+        pools and slot state rows, in place; returns ``paged``.
+
+        paged: pools from :meth:`init_paged_cache`; pre: caches from
+        :meth:`prefill_at` (attention rows in position order, length n);
+        table_rows (nb, bps) integer, the physical blocks of the target
+        slots; slots (nb,) integer slot ids. Only the blocks the prompt
+        span covers are written: later blocks keep stale values that decode
+        overwrites before the position mask exposes them. Duplicate rows
+        (admission padding) carry identical values, so the indexed stores
+        stay deterministic."""
+        def scatter_blocks(pool, rows):
+            # pool (T, NB, bs, KV, hd); rows (T, nb, n, KV, hd)
+            bs = pool.shape[2]
+            n = rows.shape[2]
+            nb_blocks = -(-n // bs)
+            pad = nb_blocks * bs - n
+            if pad:
+                rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+            blocks = rows.reshape(rows.shape[0], rows.shape[1], nb_blocks,
+                                  bs, *rows.shape[3:])
+            pool[:, table_rows[:, :nb_blocks]] = blocks.to(pool.dtype)
+
+        def scatter_rows(g, p):
+            g[:, slots] = p.to(g.dtype)
+
+        for seg_pre, seg_paged, seg in zip(pre, paged, self.cfg.segments):
+            for j, ls in enumerate(seg.pattern):
+                cp, cg = seg_pre[str(j)], seg_paged[str(j)]
+                if ls.mixer in ("attn", "shared_attn"):
+                    scatter_blocks(cg["mixer"]["k"], cp["mixer"]["k"])
+                    scatter_blocks(cg["mixer"]["v"], cp["mixer"]["v"])
+                else:
+                    for name in cg["mixer"]:
+                        scatter_rows(cg["mixer"][name], cp["mixer"][name])
+                for name in cg["ffn"]:
+                    scatter_rows(cg["ffn"][name], cp["ffn"][name])
+        return paged
 
     def _prefill_layer(self, spec: LayerSpec, lparams, shared, cache, x,
                        positions):

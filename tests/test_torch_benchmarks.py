@@ -10,8 +10,9 @@
 - ``run_dp_pasgd`` at fig2's tau 10 on all four cases with JAX's noise
   injected: the stopping round, epsilon and cost exactly, params within
   1e-5.
-- Every figure script, the runner and the four ``examples/*_torch.py``
-  run on ``device="cpu"``; without a GPU the default device raises.
+- Every figure script, the runner, the serving benchmark and six
+  ``examples/*_torch.py`` run on ``device="cpu"``; without a GPU the
+  default device raises.
 """
 import json
 import sys
@@ -178,7 +179,8 @@ def test_runner_writes_each_suite_json(tmp_path, capsys):
 
 @pytest.mark.parametrize("script", [
     "quickstart_torch.py", "optimal_design_torch.py",
-    "population_quickstart_torch.py", "robust_quickstart_torch.py"])
+    "population_quickstart_torch.py", "robust_quickstart_torch.py",
+    "serve_continuous_torch.py", "serve_batched_torch.py"])
 def test_example_runs_on_the_cpu(script):
     import os
     import subprocess
@@ -204,3 +206,54 @@ def test_entry_points_default_to_cuda():
         attack.main(["--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_torch.SUITES["fig6"](fast=True)
+    import benchmarks.serve_torch as serve_bench
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import SlotEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_bench.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "gemma3-4b", "--smoke"])
+    model = Transformer(smoke_variant(get_arch("gemma3-4b")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlotEngine(model, model.init(device="cpu"), n_slots=2, max_len=8)
+
+
+def test_serve_benchmark_runs_on_the_cpu(tmp_path, capsys):
+    """benchmarks/serve_torch.py on the CPU: every load's continuous and
+    static rows, the same greedy tokens in both modes. (Its --check also
+    compares the two modes' host-timed tokens/s, which a loaded CPU makes
+    noisy: that gate runs on the card.)"""
+    import benchmarks.serve_torch as serve_bench
+    out = tmp_path / "serve.json"
+    assert serve_bench.main(["--smoke", "--requests", "6", "--device",
+                             "cpu", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["device"] == "cpu" and report["tokens_byte_identical"]
+    assert [(r["mode"], r["load"]) for r in report["results"]] == [
+        (m, load) for load in serve_bench.LOADS
+        for m in ("continuous", "static")]
+    assert all(r["requests"] == 6 and r["tokens_per_s"] > 0
+               for r in report["results"])
+    assert f"wrote {out}" in capsys.readouterr().out
+
+
+def test_serve_benchmark_repeats_each_load_in_turns(tmp_path):
+    """--repeats N serves every load N times in both modes and reports each
+    mode's median tokens/s per load, the numbers --check compares."""
+    import benchmarks.serve_torch as serve_bench
+    out = tmp_path / "serve.json"
+    assert serve_bench.main(["--smoke", "--requests", "4", "--repeats", "3",
+                             "--device", "cpu", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["config"]["repeats"] == 3
+    assert report["tokens_byte_identical"]
+    assert [(r["load"], r["repeat"], r["mode"]) for r in report["results"]] \
+        == [(load, k, m) for load in serve_bench.LOADS for k in range(3)
+            for m in ("continuous", "static")]
+    for med in report["median_tokens_per_s"]:
+        for mode in ("continuous", "static"):
+            assert med[mode] == float(np.median(
+                [r["tokens_per_s"] for r in report["results"]
+                 if r["load"] == med["load"] and r["mode"] == mode]))

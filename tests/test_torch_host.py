@@ -304,7 +304,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     scripts = sorted((ROOT / "benchmarks").glob("*_torch.py")) + sorted(
         (ROOT / "examples").glob("*_torch.py"))
-    assert len(scripts) >= 11
+    assert len(scripts) >= 14
     files += scripts
     assert len(files) > 10
     for f in files:

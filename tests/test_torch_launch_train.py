@@ -183,9 +183,10 @@ def test_saved_checkpoint_serves(tmp_path, extra, capsys):
         meta = json.load(f)["extra"]
     assert meta["tau"] == 1 and "history" in meta
     capsys.readouterr()
-    assert serve.main(["--arch", "gemma3-4b", "--smoke", "--fl-checkpoint",
-                       ckpt, "--batch", "1", "--prompt-len", "8", "--gen",
-                       "2", "--device", "cpu"]) == 0
+    assert serve.main(["--arch", "gemma3-4b", "--smoke", "--static",
+                       "--fl-checkpoint", ckpt, "--batch", "1",
+                       "--prompt-len", "8", "--gen", "2", "--device",
+                       "cpu"]) == 0
     out = capsys.readouterr().out
     res = json.loads(out[out.index("{"):out.rindex("}") + 1])
     assert res["params"] == "federated"

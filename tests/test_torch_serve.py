@@ -146,7 +146,7 @@ def test_federated_checkpoint_serves_jax_tokens(tmp_path, topology):
 
 
 def test_main_prints_the_static_fields(capsys, tmp_path):
-    argv = ["--arch", "gemma3-4b", "--smoke", "--batch", "2",
+    argv = ["--arch", "gemma3-4b", "--smoke", "--static", "--batch", "2",
             "--prompt-len", "8", "--gen", "4", "--device", "cpu"]
     assert serve.main(argv) == 0
     out = json.loads(capsys.readouterr().out)
@@ -159,7 +159,26 @@ def test_main_prints_the_static_fields(capsys, tmp_path):
     assert json.loads(capsys.readouterr().out)["params"] == "federated"
 
 
-def test_main_engine_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "gemma3-4b", "--smoke", "--engine",
-                    "--device", "cpu"])
+def test_main_engine_mode_prints_the_continuous_fields(capsys):
+    """The engine is the default mode; its summary carries the JAX
+    launcher's continuous fields."""
+    assert serve.main(["--arch", "gemma3-4b", "--smoke", "--batch", "2",
+                       "--requests", "3", "--prompt-len", "8", "--gen", "4",
+                       "--block-size", "4", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["mode"] == "continuous" and out["batch"] == 2
+    assert out["params"] == "random-init"
+    assert out["requests"] == 3 and out["tokens_out"] == 12
+    assert out["free_slots"] == 2 and out["swaps"] == 0
+    for key in ("steps", "occupancy_mean", "compile_s", "duration_s",
+                "tokens_per_s", "p50_latency_s", "p99_latency_s",
+                "max_queue_depth"):
+        assert key in out, key
+    assert len(out["sample"]) == 4
+
+
+def test_main_refuses_the_env_profile_flags():
+    for extra in (["--env-profile", "host"], ["--host-devices", "2"]):
+        with pytest.raises(NotImplementedError, match="13b"):
+            serve.main(["--arch", "gemma3-4b", "--smoke", "--device",
+                        "cpu"] + extra)
