@@ -137,7 +137,28 @@ Phases (each prints its lines; any failure exits non-zero):
      step, blocking host syncs (0 per decode_step(table=...), at most 1
      per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 3
      on cuda at gemma3-4b's full width (medians of the modes run in
-     turns); (d) examples/serve_continuous_torch.py on cuda.
+     turns); (d) examples/serve_continuous_torch.py on cuda;
+ 18. the MoE archs and the chunked mixers, bf16 at the published widths,
+     random weights from a seed, after a check that phase 17 left no
+     memory allocated: (a) launch.serve.generate on phi3.5-moe (16 of 32
+     layers, B 2, prompt 2048, 32 greedy tokens) and llama4-maverick (one
+     period of its pattern, 4 layers, B 1, prompt 16,384: two 8,192-token
+     chunks, decode starting a new one), exact flash launches (one per
+     attention layer, a chunked layer one call over its chunks), the
+     other kernels 0, finite logits, prefill and decode ms, peak memory
+     beside the params' bytes, one profiled prefill naming the MoE stages'
+     device time; (b) the SlotEngine (4 slots, blocks of 64, 6 Poisson
+     requests at prompts 300 / 700, budget 16): exact flash launches,
+     every decode step's MoE one capacity group of all the slots, then
+     17b's same-shape check; (c) kernel_backend "auto" against "ref",
+     prefill + 8 teacher-forced decode steps; every flash call's first
+     output of each shape in (a)-(c) held against flash_attention_ref on
+     the same operands; (d) phi3.5-moe training (1 layer, C 2, tau 1,
+     seq 512, 2 rounds through build_federation + api.train): finite
+     losses, positive aux, dp_clip_noise tau x rounds, the model kernels
+     0, peak memory; (e) the chunk-parallel WKV6 at rwkv6-1.6b's widths
+     (f32, one layer, rwkv_chunk 64, seq 512): the training route against
+     rwkv_chunk 0, the serving route (rwkv6_scan) against both.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -240,6 +261,34 @@ ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
 GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
 MODEL_KERNELS = ("flash_attention", "rwkv6_scan", "mamba2_ssd")
 SERVE_REPEATS = 3      # phase 17c: runs of each load, the modes in turns
+# phase 18: the MoE archs at their published widths, bf16. (arch, steps of
+# its segment pattern kept (the depth cut), batch, prompt, greedy tokens):
+# phi3.5-moe 16 of 32 layers (41.9 GB of params); llama4-maverick one
+# period of its pattern (chunk-MoE, chunk-MLP, chunk-MoE, global NoRoPE
+# MLP: 68.0 GB), a prompt of two 8,192-token chunks, so decode starts a
+# new chunk at 16,384
+MOE_SERVE_RUNS = (("phi3.5-moe-42b-a6.6b", 16, 2, 2048, 32),
+                  ("llama4-maverick-400b-a17b", 1, 1, 16384, 16))
+# 18b: the engine's prompts, requests and budget (slots and block: 17's);
+# 18c: the routes' batch and prompt (the plain flash holds (B, H, S, S) f32
+# scores beside the params)
+MOE_ENGINE_PROMPTS, MOE_ENGINE_REQUESTS, MOE_ENGINE_GEN = (300, 700), 6, 16
+MOE_ROUTE_B, MOE_ROUTE_PROMPT = 1, 2048
+# 18c: the largest relative L2 gap between the bf16 routes' logits, per
+# step, with the plain route's routers pinned to the kernel route's
+# choices: phase 12 measured 2.9e-2 for gemma3-4b's 34 bf16 layers, and
+# 18c's first run 3.3e-2 at phi3.5's prefill before the decode steps'
+# moved expert choices (13% of them) took it to 0.29 unpinned
+MOE_ROUTE_TOL = 0.1
+# 18a: the MoE dispatch's stages, as functions of repro_torch.models.moe,
+# named in the profile of one prefill
+MOE_STAGES = {"_route": "router", "_ranks": "rank",
+              "_dispatch": "dispatch (index_add)",
+              "_expert_ffn": "expert GEMMs", "_combine": "combine (gather)"}
+# 18d: phi3.5-moe's training at full width, depth cut to 1 layer
+MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 1, 512
+# 18e: the chunk-parallel WKV6 at rwkv6-1.6b's widths, f32, one layer
+WKV_CHUNK, WKV_B, WKV_SEQ = 64, 2, 512
 
 
 def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
@@ -318,12 +367,24 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _profile_call(torch, fn, label):
+def _profile_call(torch, fn, label, ranges=None):
     """``fn()`` under torch.profiler; prints its wall time, the device's
     busy share, its kernel launches, the top device kernels and the top
-    host ops. ``fn`` always runs; only the profiler's start, stop and report
-    are optional. Returns (fn's result, the launches or None)."""
-    from torch.profiler import ProfilerActivity, profile
+    host ops. ``ranges`` (a module, {function name: stage}) wraps those
+    functions of the module in named ranges for the call and prints each
+    stage's device ms (the kernels its range launched) and share of the
+    call's device time. ``fn`` always runs; only the profiler's start, stop
+    and report are optional. Returns (fn's result, the launches or None)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    module, stages = ranges or (None, {})
+    reals = {name: getattr(module, name) for name in stages}
+
+    def named(name, real):
+        def call(*a, **kw):
+            with record_function(f"stage{name}"):
+                return real(*a, **kw)
+        return call
+
     prof = None
     try:
         prof = profile(activities=[ProfilerActivity.CPU,
@@ -332,10 +393,16 @@ def _profile_call(torch, fn, label):
     except Exception as e:        # noqa: BLE001 — the profiler is optional
         print(f"{label}: profile unavailable ({e!r})", flush=True)
         prof = None
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    for name, real in reals.items():
+        setattr(module, name, named(name, real))
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, real in reals.items():
+            setattr(module, name, real)
     if prof is None:
         return out, None
     try:
@@ -344,8 +411,10 @@ def _profile_call(torch, fn, label):
     except Exception as e:        # noqa: BLE001 — the profiler is optional
         print(f"{label}: profile unavailable ({e!r})", flush=True)
         return out, None
+    ranged = {f"stage{name}" for name in stages}
     events = [e for e in averages
-              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+              if e.device_type.name == "CUDA" and e.device_time_total > 0
+              and e.key not in ranged]
     device_ms = sum(e.device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
     print(f"{label}: wall {wall_ms:.3f} ms (profiled), device busy "
@@ -359,6 +428,16 @@ def _profile_call(torch, fn, label):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+    if stages:
+        parts = []
+        for name, what in stages.items():
+            ms = max((e.device_time_total for e in averages
+                      if e.key == f"stage{name}"
+                      and e.device_type.name == "CPU"), default=0.0) / 1e3
+            parts.append(f"{what} {ms:.3f} ms "
+                         f"({ms / max(device_ms, 1e-9):.1%})")
+        print(f"{label}: stages by device time (the kernels each range "
+              f"launched): " + ", ".join(parts), flush=True)
     return out, launches
 
 
@@ -2239,16 +2318,18 @@ def run_async_straggler(torch, np, api, asyncfl, dp_clip_noise):
 
 # -- phase 16: the transformer training path ---------------------------------
 
-def _gemma3_one_pattern_step(configs):
-    """gemma3-4b at its published widths (d_model 2560, 8 heads / 4 KV of
-    256, d_ff 10240, vocab 262,144, window 1024, loss_chunk 1024, bf16) with
-    the depth cut to one step of its 6-layer pattern (5 swa + 1 full)."""
+def _depth_cut(configs, arch: str, steps: int):
+    """The arch at its published widths and dtype with the depth cut to
+    ``steps`` steps of its (first) segment's pattern: gemma3-4b's one step
+    is its 6-layer pattern (5 swa + 1 full), llama4-maverick's one period
+    of 4 layers."""
     import dataclasses
-    cfg = configs.get_arch("gemma3-4b")
+    cfg = configs.get_arch(arch)
     seg = cfg.segments[0]
     return dataclasses.replace(
-        cfg, name="gemma3-4b-1step", n_layers=len(seg.pattern),
-        segments=(dataclasses.replace(seg, n_steps=1),))
+        cfg, name=f"{arch}-{steps * len(seg.pattern)}L",
+        n_layers=steps * len(seg.pattern),
+        segments=(dataclasses.replace(seg, n_steps=steps),))
 
 
 def _memory_reckoning(n: int) -> str:
@@ -2267,20 +2348,25 @@ def _memory_reckoning(n: int) -> str:
 
 def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
                             counters, dp_clip_noise, dp_clip_noise_ref,
-                            card):
-    """Phase 16a-c: gemma3-4b's training at full width (depth cut to one
-    pattern step) through ``launch.train.build_federation`` and
-    ``api.train``, kernel_backend "auto": TRAIN_ROUNDS rounds of TRAIN_C
-    clients x TRAIN_TAU local steps, batch TRAIN_B, seq TRAIN_SEQ. Every
-    counter is set to 0 just before the counted train and read just after:
-    dp_clip_noise (row_stream at (C, N)) tau x rounds calls, the model
-    kernels none (the training route has no kernel). Then one steady round
-    timed, one profiled with the operands of its last dp_clip_noise call
-    kept; the kernel's output on them against dp_clip_noise_ref, its time
-    and device time beside its byte bound, and the host ms of the
-    dp_clip_noise_tree call around it. Returns (ok, launches, record)."""
-    from repro_torch.utils.tree import tree_leaves
-    cfg = _gemma3_one_pattern_step(configs)
+                            card, arch="gemma3-4b", steps=1, seq=TRAIN_SEQ,
+                            phases=("16", "16a", "16b", "16c")):
+    """Phase 16a-c (and 18d, with its arch, depth cut, seq and labels
+    ``phases``: the whole phase, then a, b, c): ``arch``'s training at full
+    width (depth cut to ``steps`` steps of its pattern) through
+    ``launch.train.build_federation`` and ``api.train``, kernel_backend
+    "auto": TRAIN_ROUNDS rounds of TRAIN_C clients x TRAIN_TAU local steps,
+    batch TRAIN_B, seq ``seq``. Every counter is set to 0 just before the
+    counted train and read just after: dp_clip_noise (row_stream at (C, N))
+    tau x rounds calls, the model kernels none (the training route has no
+    kernel). An MoE arch also needs a positive, finite aux loss on client
+    0's trained params. Then one steady round timed, one profiled with the
+    operands of its last dp_clip_noise call kept; the kernel's output on
+    them against dp_clip_noise_ref, its time and device time beside its byte
+    bound, and the host ms of the dp_clip_noise_tree call around it.
+    Returns (ok, launches, record)."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    p_all, p_a, p_b, p_c = phases
+    cfg = _depth_cut(configs, arch, steps)
     sigmas = fl.design_sigmas(TRAIN_ROUNDS * TRAIN_TAU, CLIP,
                               [TRAIN_B] * TRAIN_C, TRAIN_EPS, DELTA)
     torch.cuda.empty_cache()
@@ -2293,21 +2379,23 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, spec, state, sampler = launch_train.build_federation(
-        cfg, TRAIN_C, TRAIN_TAU, TRAIN_B, TRAIN_SEQ, sigmas, clip_norm=CLIP,
+    model, spec, state, sampler = launch_train.build_federation(
+        cfg, TRAIN_C, TRAIN_TAU, TRAIN_B, seq, sigmas, clip_norm=CLIP,
         delta=DELTA, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n = sum(x[0].numel() for x in tree_leaves(state.params))
-    print(f"phase 16 on {card}: {cfg.name} (gemma3-4b's widths, depth cut "
-          f"34 -> {cfg.n_layers} layers: one step of its pattern "
+    print(f"phase {p_all} on {card}: {cfg.name} ({arch}'s widths, depth cut "
+          f"{configs.get_arch(arch).n_layers} -> {cfg.n_layers} layers: "
+          f"{'one step' if steps == 1 else f'{steps} steps'} of its pattern "
           f"{[ls.attn_kind for ls in cfg.segments[0].pattern]}), {cfg.dtype},"
           f" N = {n:,} params a replica ({2 * n / 1e9:.2f} GB), C "
           f"{TRAIN_C}, tau {TRAIN_TAU} (cut from 2 for memory), batch "
-          f"{TRAIN_B}, seq {TRAIN_SEQ}, expandable segments, "
+          f"{TRAIN_B}, seq {seq}, expandable segments, "
           f"loss_chunk {cfg.loss_chunk}, sigma {float(sigmas[0]):.4f}; "
           f"build_federation {init_s:.2f} s", flush=True)
-    print(f"phase 16 memory reckoning: {_memory_reckoning(n)}", flush=True)
+    print(f"phase {p_all} memory reckoning: {_memory_reckoning(n)}",
+          flush=True)
 
     # -- a. the counted run ------------------------------------------------
     rng = np.random.default_rng(0)
@@ -2329,10 +2417,22 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
                       for x in tree_leaves(state.params)))
     ok = (out["rounds"] == TRAIN_ROUNDS and launches == want and finite
           and variant == "row_stream")
-    print(f"phase 16a api.train {TRAIN_ROUNDS} rounds: {train_ms:.1f} ms "
+    aux_line = ""
+    if any(ls.ffn == "moe" for ls in cfg.layer_specs()):
+        tokens = torch.as_tensor(sampler(0, 1, rng)["tokens"][0],
+                                 device="cuda")
+        with torch.no_grad():
+            _, aux = model._hidden_states(
+                tree_map(lambda x: x[0], state.params), tokens, None)
+        aux = float(aux)
+        ok &= aux > 0 and math.isfinite(aux)
+        aux_line = f", aux loss on client 0's params {aux:.5f} (> 0)"
+        del tokens
+    print(f"phase {p_a} api.train {TRAIN_ROUNDS} rounds: {train_ms:.1f} ms "
           f"({train_ms / TRAIN_ROUNDS:.1f} ms a round, the first with its "
-          f"warm-up), losses {losses}, max_epsilon {out['max_epsilon']}, "
-          f"resource_spent {out['resource_spent']}; launches "
+          f"warm-up), losses {losses}{aux_line}, max_epsilon "
+          f"{out['max_epsilon']}, resource_spent {out['resource_spent']}; "
+          f"launches "
           + ", ".join(f"{k}={v}" for k, v in launches.items())
           + f" (expected dp_clip_noise={want['dp_clip_noise']}, the rest 0),"
           f" dp_clip_noise instance {variant}; max_memory_allocated "
@@ -2348,7 +2448,7 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
     state, _ = api.run_round(spec, state, batch, check_budgets=False)
     torch.cuda.synchronize()
     round_ms = (time.perf_counter() - t0) * 1e3
-    print(f"phase 16b one steady round on {card}: {round_ms:.1f} ms (host "
+    print(f"phase {p_b} one steady round on {card}: {round_ms:.1f} ms (host "
           f"clock to synchronize, batch built before)", flush=True)
     kept, real = {}, ops.dp_clip_noise
 
@@ -2363,15 +2463,15 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
         (state, _), _ = _profile_call(
             torch, lambda: api.run_round(spec, state, batch,
                                          check_budgets=False),
-            f"phase 16b profile, one round ({TRAIN_TAU} local steps)")
+            f"phase {p_b} profile, one round ({TRAIN_TAU} local steps)")
     finally:
         ops.dp_clip_noise = real
     peak_kept = torch.cuda.max_memory_allocated() / 1e9
-    print(f"phase 16b max_memory_allocated {peak_kept:.2f} GB (with the "
+    print(f"phase {p_b} max_memory_allocated {peak_kept:.2f} GB (with the "
           f"kept operands)", flush=True)
     like = [torch.empty(x.shape, dtype=x.dtype, device="meta")
             for x in tree_leaves(state.params)]
-    del state, out, batch
+    del state, out, batch, model
     g, sigma, clip = kept["g"], kept["sigma"], kept["clip"]
     noise = kept.pop("noise").contiguous()
     kept.clear()
@@ -2391,7 +2491,7 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
         del wy, wn, dy
     good &= err_n <= 1e-5
     ok &= good
-    print(f"phase 16c dp_clip_noise ({g.shape[0]}, {n:,}) on the round's "
+    print(f"phase {p_c} dp_clip_noise ({g.shape[0]}, {n:,}) on the round's "
           f"gradient and noise against dp_clip_noise_ref: max|dy| "
           f"{err_y:.3e}, max rel|dnorm| {err_n:.3e}, norms "
           f"{norm.tolist()}; tolerance |dy| <= 1e-6 + 1e-5 |y| and 1e-5 on "
@@ -2418,13 +2518,13 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
             torch, call, 5, "clip_noise")
     if rec["kernels"] is not None and rec["kernels"] > 2:
         ok = False
-        print(f"phase 16b dp_clip_noise ran {rec['kernels']:g} kernels a "
+        print(f"phase {p_b} dp_clip_noise ran {rec['kernels']:g} kernels a "
               f"call where row_stream runs 2: CHECK FAILED", flush=True)
     elif rec["kernels"] != 2:
         rec["device_ms"] = None
     plain_ms = _time_ms(lambda: dp_clip_noise_ref(g, noise, clip, sigma), 5)
     bound = _bound_ms(g.shape[0], n, True)
-    print(f"phase 16b kernel dp_clip_noise ({g.shape[0]}, {n:,}) on {card}: "
+    print(f"phase {p_b} kernel dp_clip_noise ({g.shape[0]}, {n:,}) on {card}: "
           f"{_row_line(rec, plain_ms, bound)}", flush=True)
     rows = g.shape[0]
     tree = ops.unflatten_rows(g, like)
@@ -2440,8 +2540,8 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
 
     flat_ms = host_ms(lambda: ops.flatten_rows(tree))
     unflat_ms = host_ms(lambda: ops.unflatten_rows(g, tree))
-    print(f"phase 16b around the kernel in dp_clip_noise_tree, on the "
-          f"{len(tree)} bf16 gradient leaves (host clock to synchronize): "
+    print(f"phase {p_b} around the kernel in dp_clip_noise_tree, on the "
+          f"{len(tree)} gradient leaves (host clock to synchronize): "
           f"the flatten into one f32 (C, N) buffer (ops.flatten_rows) "
           f"{flat_ms:.3f} ms, the unflatten to bf16 leaves "
           f"(ops.unflatten_rows) {unflat_ms:.3f} ms, each against "
@@ -2554,7 +2654,7 @@ def train_memory(segments: str, tau: int) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
-    cfg = _gemma3_one_pattern_step(configs)
+    cfg = _depth_cut(configs, "gemma3-4b", 1)
     sigmas = fl.design_sigmas(TRAIN_ROUNDS * tau, CLIP,
                               [TRAIN_B] * TRAIN_C, TRAIN_EPS, DELTA)
     label = f"train memory {segments} segments, tau {tau}"
@@ -2804,7 +2904,14 @@ def _check_kept_model_calls(torch, kept, refs):
         name = key[0]
         f32 = [a.float() if torch.is_tensor(a) else a for a in ins]
         if name == "flash_attention":
-            wants = (refs[name](*f32, window=kw.get("window", 0)),)
+            # head by head where the (B, h, S, S) f32 scores of all heads
+            # would pass 2 GiB (llama4's chunks, phase 18)
+            b, h, s_len = f32[0].shape[:3]
+            step = max(1, min(h, 2 ** 31 // (4 * b * s_len * s_len)))
+            wants = (torch.cat([refs[name](
+                *(a[:, i:i + step] for a in f32[:3]),
+                window=kw.get("window", 0)) for i in range(0, h, step)],
+                dim=1),)
             opts = f" window {kw.get('window', 0)}"
         elif name == "rwkv6_scan":
             wants = refs[name](*f32)
@@ -2926,13 +3033,15 @@ def _engine_vs_generate(torch, np, serve, model, params, requests, first,
     return ok, full, steps, worst, finite
 
 
-def _serve_workload(torch, serve_pkg, ops, engine, cfg, prompts, kept):
-    """The phase's workload through ``serve_continuous`` under StepClock on
-    a ``_watched_engine``, each model kernel's first call of each shape
-    kept in ``kept``. Returns (report, the engine's log)."""
+def _serve_workload(torch, serve_pkg, ops, engine, cfg, prompts, kept,
+                    n=ENGINE_REQUESTS, gens=ENGINE_GENS):
+    """The phase's workload (``n`` requests, budgets ``gens``) through
+    ``serve_continuous`` under StepClock on a ``_watched_engine``, each
+    model kernel's first call of each shape kept in ``kept``. Returns
+    (report, the engine's log)."""
     wl = serve_pkg.poisson_workload(
-        ENGINE_REQUESTS, ENGINE_RATE, cfg.vocab, seed=0,
-        prompt_lens=prompts, gen_lens=ENGINE_GENS)
+        n, ENGINE_RATE, cfg.vocab, seed=0, prompt_lens=prompts,
+        gen_lens=gens)
     reals = _keeping_first_model_calls(torch, ops, kept)
     try:
         rep = serve_pkg.serve_continuous(engine, wl, clock=serve_pkg.StepClock(
@@ -3014,9 +3123,10 @@ def run_engine_exactness(torch, np, configs, Transformer, serve, serve_pkg,
 
 
 def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
-                     arch, n_steps: int = 8):
-    """Phase 17b: ENGINE_SLOTS requests of p tokens, p a bucket (one group
-    whose prefill pads nothing), the largest budget, admitted as one group;
+                     arch, n_steps: int = 8, phase: str = "phase 17b"):
+    """Phase 17b (and 18b, named by ``phase``): ENGINE_SLOTS requests of p
+    tokens, p a bucket (one group whose prefill pads nothing), the largest
+    budget, admitted as one group;
     beside them the static path on the same prompts: ``prefill_at`` at B 4
     over the engine's span (its natural layout) and dense ``decode_step``,
     argmax, the tokens fetched as serve_static fetches them. Run in turns,
@@ -3094,7 +3204,7 @@ def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
     del rec, ref_logits, eng_logits
 
     _, eng_launches = _profile_call(
-        torch, engine.step, f"phase 17b {arch} one engine step (4 slots)")
+        torch, engine.step, f"{phase} {arch} one engine step (4 slots)")
     _, step_syncs = _blocking_syncs(torch, engine.step)
     bps = engine.blocks_per_slot
     pool = model.init_paged_cache(ENGINE_SLOTS, ENGINE_SLOTS * bps + 1,
@@ -3114,7 +3224,7 @@ def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
     extra = ""
     if n_attn:
         _, l_paged = _profile_call(torch, paged,
-                                   f"phase 17b {arch} one paged decode_step")
+                                   f"{phase} {arch} one paged decode_step")
 
         def dense():
             with torch.inference_mode():
@@ -3122,23 +3232,23 @@ def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
                                          p + state["i"])
 
         _, l_dense = _profile_call(torch, dense,
-                                   f"phase 17b {arch} one dense decode_step")
+                                   f"{phase} {arch} one dense decode_step")
         if l_paged is not None and l_dense is not None:
             extra = (f"; paged decode_step {l_paged} launches, dense "
                      f"{l_dense}: {(l_paged - l_dense) / n_attn:.2f} more "
                      f"per attention layer ({n_attn} layers)")
     ok = len(step_syncs) <= 1 and not dec_syncs and tok_ok
-    print(f"phase 17b {arch} ms per decode step, every slot busy, "
+    print(f"{phase} {arch} ms per decode step, every slot busy, "
           f"{n_steps} steps a turn (static B {ENGINE_SLOTS} over the "
           f"engine's span of {engine.max_len}, engine, engine, static), "
           f"prompts of {p}: static {ms['static'][0]:.3f} / "
           f"{ms['static'][1]:.3f}, engine {ms['engine'][0]:.3f} / "
           f"{ms['engine'][1]:.3f}; engine step {eng_launches} launches"
-          f"{extra}\nphase 17b {arch} engine against static B "
+          f"{extra}\n{phase} {arch} engine against static B "
           f"{ENGINE_SLOTS} at the same shapes: max |logit difference| "
           f"{diff:.3e} up to the first differing token, the guard 4x; "
           f"tokens agree {agree}, {compared}/{ENGINE_SLOTS * n_tok} steps "
-          f"compared (at least half)\nphase 17b {arch} blocking host "
+          f"compared (at least half)\n{phase} {arch} blocking host "
           f"syncs: {len(step_syncs)} in one engine.step() (limit 1)"
           f"{_sync_lines(step_syncs)}, {len(dec_syncs)} in one "
           f"decode_step(table=...) (limit 0){_sync_lines(dec_syncs)} "
@@ -3291,6 +3401,357 @@ def run_serve_example():
           f"{proc.returncode} in {time.perf_counter() - t0:.2f} s "
           f"{'ok' if proc.returncode == 0 else 'CHECK FAILED'}", flush=True)
     return proc.returncode == 0
+
+
+# -- phase 18: the MoE archs and the chunked mixers ---------------------------
+
+def _param_reckoning(Transformer, cfg) -> tuple[float, str]:
+    """The params' bytes from the code (``init`` on the meta device), in GB,
+    and a line: the count, the routed experts' share, the routers'."""
+    from repro_torch.utils.tree import tree_flatten, tree_leaf_paths
+    meta = Transformer(cfg).init(device="meta")
+    leaves = list(zip(tree_leaf_paths(meta), tree_flatten(meta)[0]))
+    n = sum(x.numel() for _, x in leaves)
+    gb = sum(x.numel() * x.element_size() for _, x in leaves) / 1e9
+    # the routed experts are the FFN weights with an expert axis: (steps,
+    # E, d, f)
+    experts = sum(x.numel() for p, x in leaves if x.dim() == 4
+                  and p.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down"))
+    routers = sum(x.numel() for p, x in leaves if p.endswith("/router"))
+    return gb, (f"{n / 1e9:.3f} B params, {gb:.2f} GB from the code "
+                f"(routed experts {experts / 1e9:.3f} B, routers "
+                f"{routers:,} f32)")
+
+
+def run_moe_serving(torch, np, configs, Transformer, serve, serve_pkg, ops,
+                    moe_mod, counters, refs, card):
+    """Phase 18a-c, per MoE arch of MOE_SERVE_RUNS, on one model initialised
+    on the card in bf16 from a seeded CUDA generator:
+
+    (a) ``launch.serve.generate`` at the run's batch, prompt and budget; the
+    counters set to 0 just before and read just after: flash_attention once
+    per attention layer (the prefill; a chunked layer as one call over
+    (B * n_chunks, H, chunk, hd)), the other kernels 0; finite logits,
+    prefill ms and decode ms a token, peak memory beside the params' bytes
+    from the code; one profiled prefill naming the MoE stages' device time;
+
+    (b) the SlotEngine (ENGINE_SLOTS slots, blocks of ENGINE_BLOCK),
+    MOE_ENGINE_REQUESTS Poisson requests at MOE_ENGINE_PROMPTS, budget
+    MOE_ENGINE_GEN: flash = attention layers x prefill groups, finite
+    logits; then the phase 17b same-shape check (``time_engine_step``).
+    That a decode step's MoE groups all the slots into one capacity group
+    (``moe._regroup``) is held by tests/test_torch_moe.py;
+
+    (c) kernel_backend "auto" against "ref" on the same params: prefill of
+    MOE_ROUTE_B x MOE_ROUTE_PROMPT and 8 teacher-forced decode steps, the
+    relative L2 gap of the logits at most MOE_ROUTE_TOL a step with the
+    plain route's routers pinned to the kernel route's choices
+    (:func:`compare_moe_routes`).
+
+    Each flash call's first output of each shape in (a)-(c) is kept and,
+    once the model is freed, held against flash_attention_ref on the same
+    operands (phase 17b's criteria). Returns (ok, {path: flash launches},
+    max abs err)."""
+    import gc
+    from repro_torch.utils.tree import tree_leaves
+    ok, paths, worst = True, {}, 0.0
+    for arch, steps, b, prompt, gen in MOE_SERVE_RUNS:
+        cfg = _depth_cut(configs, arch, steps)
+        reckoned_gb, reckoning = _param_reckoning(Transformer, cfg)
+        model = Transformer(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params_gb = torch.cuda.memory_allocated() / 1e9
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        gen_t = torch.Generator(device="cuda").manual_seed(0)
+        prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=gen_t,
+                                device="cuda")
+        print(f"phase 18 {arch} on {card}: {cfg.name} ({cfg.n_layers} of "
+              f"{configs.get_arch(arch).n_layers} layers at the published "
+              f"widths, {cfg.dtype}): {reckoning}; init {init_s:.2f} s, "
+              f"memory_allocated {params_gb:.2f} GB, init peak "
+              f"{init_peak:.2f} GB", flush=True)
+        serve.generate(model, params, prompts[:, :64], 2)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = serve.generate(model, params, prompts, gen)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_attn = cfg.count_mixers().get("attn", 0)
+        want = {**dict.fromkeys(counters, 0), "flash_attention": n_attn}
+        kept = {}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, caches, pos = model.prefill(params, prompts,
+                                                max_len=prompt + gen)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = torch.argmax(logits, dim=-1)
+            step_logits, caches = model.decode_step(params, caches, tok, pos)
+            finite = bool(torch.isfinite(logits).all()
+                          and torch.isfinite(step_logits).all())
+            del caches, logits, step_logits
+            reals = _keeping_first_model_calls(torch, ops, kept)
+            try:
+                model.prefill(params, prompts, max_len=prompt + gen)
+            finally:
+                for name, real in reals.items():
+                    setattr(ops, name, real)
+            _profile_call(torch, lambda: model.prefill(
+                params, prompts, max_len=prompt + gen),
+                f"phase 18a {arch} one prefill (B {b}, {prompt} tokens)",
+                ranges=(moe_mod, MOE_STAGES))
+        decode_ms = (total_ms - prefill_ms) / gen
+        good = (launches == want and finite and out.shape == (b, gen)
+                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab)
+        ok &= good
+        paths["18a"] = paths.get("18a", 0) + launches["flash_attention"]
+        print(f"phase 18a {arch} generate: B {b}, prompt {prompt}, {gen} "
+              f"greedy tokens: {total_ms:.2f} ms, prefill {prefill_ms:.2f} "
+              f"ms, decode {decode_ms:.3f} ms/token ((generate - prefill) / "
+              f"tokens); max_memory_allocated {peak_gb:.2f} GB (params "
+              f"{reckoned_gb:.2f} GB reckoned from the code, "
+              f"{params_gb:.2f} allocated); launches "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()
+                          if v or want[k])
+              + f" (expected flash_attention={n_attn}: one per attention "
+              f"layer, the rest 0); logits finite {finite}; tokens "
+              f"{out[0, :8].tolist()} {'ok' if good else 'CHECK FAILED'}",
+              flush=True)
+        del out
+
+        e_ok, e_launches = run_moe_engine(
+            torch, np, serve, serve_pkg, ops, model, params, cfg, counters,
+            kept, arch)
+        ok &= e_ok
+        paths["18b"] = paths.get("18b", 0) + e_launches
+        r_ok, r_launches = compare_moe_routes(
+            torch, ops, moe_mod, Transformer, cfg, model, params, kept,
+            counters["flash_attention"], arch)
+        ok &= r_ok
+        paths["18c"] = paths.get("18c", 0) + r_launches
+        del params, model, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 18 {arch} freed: memory_allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB (the kept "
+              f"operands)", flush=True)
+        k_ok, k_errs, k_lines = _check_kept_model_calls(torch, kept, refs)
+        del kept
+        torch.cuda.empty_cache()
+        k_ok &= set(k_errs) == {"flash_attention"}
+        worst = max([worst] + list(k_errs.values()))
+        ok &= k_ok
+        print(f"phase 18 {arch}: each flash_attention call's first output "
+              f"of each shape in 18a-c against flash_attention_ref on the "
+              f"same operands (f32):" + "".join(f"\n  {x}" for x in k_lines)
+              + f"\nphase 18 {arch} kept calls "
+              f"{'ok' if k_ok else 'CHECK FAILED'}", flush=True)
+    return ok, paths, worst
+
+
+def run_moe_engine(torch, np, serve, serve_pkg, ops, model, params, cfg,
+                   counters, kept, arch):
+    """Phase 18b on the caller's model (see :func:`run_moe_serving`).
+    Returns (ok, flash launches)."""
+    prompts = MOE_ENGINE_PROMPTS
+    max_len = _engine_max_len(prompts)
+    engine = _watched_engine(torch, serve_pkg, model, params,
+                             n_slots=ENGINE_SLOTS, max_len=max_len,
+                             block_size=ENGINE_BLOCK, device="cuda")
+    warm_s = engine.warmup(buckets=prompts)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rep, log = _serve_workload(torch, serve_pkg, ops, engine, cfg, prompts,
+                               kept, n=MOE_ENGINE_REQUESTS,
+                               gens=(MOE_ENGINE_GEN,))
+    serve_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    groups, steps = len(log["groups"]), engine.steps
+    n_attn = cfg.count_mixers().get("attn", 0)
+    want = {**dict.fromkeys(counters, 0),
+            "flash_attention": n_attn * groups}
+    finite = bool(torch.stack(log["finite"]).all())
+    good = (launches == want and finite
+            and len(rep.requests) == MOE_ENGINE_REQUESTS
+            and all(len(r.out) == r.max_gen for r in rep.requests)
+            and engine.free_slots == ENGINE_SLOTS)
+    by_bucket = {}
+    for (n, bucket), ms in zip(log["groups"], log["ms"]):
+        by_bucket.setdefault((bucket, n), []).append(ms)
+    print(f"phase 18b {arch} engine ({ENGINE_SLOTS} slots, block "
+          f"{ENGINE_BLOCK}, max_len {max_len}): warmup {warm_s:.2f} s, "
+          f"{len(rep.requests)} requests in {serve_s:.2f} s wall, {steps} "
+          f"steps, {groups} prefill groups, {log['recycled']} joined "
+          f"mid-stream into recycled slots; prefill ms per group (bucket, "
+          f"rows): " + ", ".join(f"({bk}, {n}) " + "/".join(
+              f"{m:.2f}" for m in v) for (bk, n), v in sorted(
+                  by_bucket.items()))
+          + f"; max_memory_allocated {peak_gb:.2f} GB; launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()
+                      if v or want[k])
+          + f" (expected flash_attention={want['flash_attention']}); "
+          f"logits finite {finite} "
+          f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    t_ok, _ = time_engine_step(torch, np, serve, serve_pkg, model, params,
+                               engine, engine.bucket_len(min(prompts)), arch,
+                               phase="phase 18b")
+    del engine, log, rep
+    torch.cuda.empty_cache()
+    return good and t_ok, launches["flash_attention"]
+
+
+def compare_moe_routes(torch, ops, moe_mod, Transformer, cfg, model, params,
+                       kept, flash, arch):
+    """Phase 18c on the caller's model (see :func:`run_moe_serving`):
+    prefill and 8 teacher-forced decode steps on the kernel route ("auto"),
+    the plain route ("ref") and the plain route with its routers pinned to
+    the kernel route's choices ("ref pinned": each ``moe._route`` call
+    returns the kernel route's weights, ids and aux of the same call), all
+    fed the kernel route's greedy token. In bf16 a rounding difference
+    moves an expert choice (a near-tie of router probabilities), and one
+    moved choice moves a token's output by a whole expert, so the gate
+    reads the pinned route: its relative L2 gap to the kernel route at most
+    MOE_ROUTE_TOL a step; the unpinned gap and the routers' agreement are
+    printed. Returns (ok, the kernel route's flash launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (MOE_ROUTE_B, MOE_ROUTE_PROMPT),
+                            generator=gen, device="cuda")
+    ref = Transformer(cfg, kernel_backend="ref")
+    routes = {"auto": model, "ref": ref, "ref pinned": ref}
+    ids, chosen, served = {"auto": [], "ref": []}, [], [0]
+    real_route = moe_mod._route
+    current = ["auto"]
+
+    def route(*a, **kw):
+        if current[0] == "ref pinned":
+            served[0] += 1
+            return chosen[served[0] - 1]
+        out = real_route(*a, **kw)
+        ids[current[0]].append(out[1])
+        if current[0] == "auto":
+            chosen.append(out)
+        return out
+
+    steps, state = [], {}
+    flash.launches = 0
+    moe_mod._route = route
+    try:
+        with torch.inference_mode():
+            for name, m in routes.items():
+                current[0] = name
+                reals = (_keeping_first_model_calls(torch, ops, kept)
+                         if name == "auto" else {})
+                try:
+                    logits, caches, pos = m.prefill(
+                        params, prompts, max_len=MOE_ROUTE_PROMPT + 8)
+                finally:
+                    for n, real in reals.items():
+                        setattr(ops, n, real)
+                state[name] = [logits, caches]
+            steps.append({n: v[0] for n, v in state.items()})
+            for i in range(8):
+                tok = torch.argmax(state["auto"][0], dim=-1)
+                for name, m in routes.items():
+                    current[0] = name
+                    state[name] = list(m.decode_step(
+                        params, state[name][1], tok, pos + i))
+                steps.append({n: v[0] for n, v in state.items()})
+    finally:
+        moe_mod._route = real_route
+    launches = flash.launches
+    free = [_rel(torch, st["auto"], st["ref"]) for st in steps]
+    pinned = [_rel(torch, st["auto"], st["ref pinned"]) for st in steps]
+    same = sum(int((a == r).sum()) for a, r in zip(ids["auto"], ids["ref"]))
+    total = sum(a.numel() for a in ids["auto"])
+    finite = all(bool(torch.isfinite(v).all()) for st in steps
+                 for v in st.values())
+    n_attn = cfg.count_mixers().get("attn", 0)
+    good = (finite and max(g[1] for g in pinned) <= MOE_ROUTE_TOL
+            and launches == n_attn and served[0] == len(chosen)
+            and len(ids["auto"]) == len(ids["ref"]))
+    print(f"phase 18c {arch} auto vs ref, {cfg.dtype}, B {MOE_ROUTE_B}, "
+          f"prompt {MOE_ROUTE_PROMPT}, prefill + 8 teacher-forced decode "
+          f"steps: routers pinned to the kernel route's choices, max gap / "
+          f"max|logit| {max(g[0] for g in pinned):.3e}, relative L2 per "
+          f"step " + ", ".join(f"{g[1]:.3e}" for g in pinned)
+          + f" (limit {MOE_ROUTE_TOL}); each route its own router: max gap "
+          f"/ max|logit| {max(g[0] for g in free):.3e}, relative L2 per "
+          f"step " + ", ".join(f"{g[1]:.3e}" for g in free)
+          + f", router ids equal in {same:,} of {total:,} assignments over "
+          f"{len(ids['auto'])} MoE calls; kernel route flash launches "
+          f"{launches} (expected {n_attn}); finite {finite} "
+          f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    del steps, state, routes, ids, chosen
+    torch.cuda.empty_cache()
+    return good, launches
+
+
+def run_chunked_wkv(torch, configs, Transformer, rwkv6_scan, card):
+    """Phase 18e: rwkv6-1.6b's widths (d 2048, 32 heads of 64), one layer,
+    f32, B WKV_B, seq WKV_SEQ, from one seeded init: logits of the training
+    route with ``rwkv_chunk`` WKV_CHUNK (``wkv6_chunked``) against it with
+    ``rwkv_chunk`` 0 (``wkv6_scan``), and the serving route (``forward``:
+    one ``rwkv6_scan`` call, its f32 SIMT instance) against both; each gap
+    at most 1e-4 of the largest logit (phase 12's f32 criterion). Returns
+    (ok, rwkv6_scan launches)."""
+    import dataclasses
+    from repro_torch.models.layers import unembed
+    scan_cfg = dataclasses.replace(_depth_cut(configs, "rwkv6-1.6b", 1),
+                                   dtype="float32")
+    chunk_cfg = dataclasses.replace(scan_cfg, rwkv_chunk=WKV_CHUNK)
+    chunked, scan = Transformer(chunk_cfg), Transformer(scan_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = chunked.init(gen, "cuda")
+    tokens = torch.randint(0, scan_cfg.vocab, (WKV_B, WKV_SEQ),
+                           generator=gen, device="cuda")
+    out, ms = {}, {}
+    with torch.no_grad():
+        for name, fn in (
+                ("train chunked", lambda: unembed(params["embed"], (
+                    chunked._hidden_states(params, tokens, None)[0]))),
+                ("train scan", lambda: unembed(params["embed"], (
+                    scan._hidden_states(params, tokens, None)[0]))),
+                ("serving", lambda: chunked.forward(params, tokens)[0])):
+            rwkv6_scan.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            ms[name] = ((time.perf_counter() - t0) * 1e3,
+                        rwkv6_scan.launches)
+    pairs = (("train chunked", "train scan"), ("serving", "train chunked"),
+             ("serving", "train scan"))
+    gaps = {p: _rel(torch, out[p[0]], out[p[1]]) for p in pairs}
+    n_rwkv = scan_cfg.count_mixers().get("rwkv6", 0)
+    ok = (all(g[0] <= 1e-4 for g in gaps.values())
+          and all(bool(torch.isfinite(v).all()) for v in out.values())
+          and ms["serving"][1] == n_rwkv and ms["train chunked"][1] == 0
+          and ms["train scan"][1] == 0)
+    print(f"phase 18e on {card}: rwkv6-1.6b's widths, {scan_cfg.n_layers} "
+          f"layer, f32, B {WKV_B}, seq {WKV_SEQ}, rwkv_chunk {WKV_CHUNK}: "
+          + "; ".join(f"{a} vs {b} max gap / max|logit| {g[0]:.3e}, "
+                      f"relative L2 {g[1]:.3e}" for (a, b), g in gaps.items())
+          + " (limit 1e-4); ms and rwkv6_scan launches: "
+          + ", ".join(f"{k} {v[0]:.2f} ms / {v[1]}" for k, v in ms.items())
+          + f" (serving {n_rwkv}, {rwkv6_scan.last_variant}; training 0) "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    del out, params
+    torch.cuda.empty_cache()
+    return ok, ms["serving"][1]
 
 
 def main() -> int:
@@ -3470,6 +3931,29 @@ def main() -> int:
     print(f"phase 17 wall time {time.perf_counter() - t17:.1f} s",
           flush=True)
 
+    # -- 18. the MoE archs and the chunked mixers -----------------------------
+    t18 = time.perf_counter()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    ok_mem = left_gb <= 1.0
+    print(f"phase 18: memory_allocated after phase 17 {left_gb:.3f} GB "
+          f"(limit 1.0: what the earlier phases still hold) "
+          f"{'ok' if ok_mem else 'CHECK FAILED'}", flush=True)
+    from repro_torch.models import moe as moe_mod
+    ok_ma, ma_launches, ma_err = run_moe_serving(
+        torch, np, configs, Transformer, serve, serve_pkg, ops, moe_mod,
+        counters, model_refs, card)
+    ok_md, md_launches, md_rec = run_training_full_width(
+        torch, np, api, fl, ops, launch_train, configs, counters,
+        dp_clip_noise, dp_clip_noise_ref, card, arch="phi3.5-moe-42b-a6.6b",
+        steps=MOE_TRAIN_STEPS, seq=MOE_TRAIN_SEQ, phases=("18d",) * 4)
+    ok_me, me_launches = run_chunked_wkv(torch, configs, Transformer,
+                                         rwkv6_scan, card)
+    print(f"phase 18 wall time {time.perf_counter() - t18:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -3481,7 +3965,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": sv_launches[name],
             "max_abs_err": max(mk_worst[name], ea_errs.get(name, 0.0),
-                               eb_errs.get(name, 0.0)),
+                               eb_errs.get(name, 0.0),
+                               ma_err if name == "flash_attention" else 0.0),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
@@ -3493,13 +3978,21 @@ def main() -> int:
     for rec in model_kernels:
         rec.setdefault("launches_other_paths", {})[
             "phase 17b the engine at full width"] = eb_launches[rec["name"]]
+    model_kernels[0]["launches_other_paths"].update({
+        "phase 18a static MoE serving (phi3.5-moe 16 layers, llama4 one "
+        "period)": ma_launches["18a"],
+        "phase 18b the engine with the MoE archs": ma_launches["18b"],
+        "phase 18c the MoE archs' kernel route": ma_launches["18c"]})
+    model_kernels[1]["launches_other_paths"][
+        "phase 18e the serving route at rwkv_chunk 64"] = me_launches
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
         "replaces": "src/repro/kernels/dp_clip_noise.py:54",
         "launches": launches,
-        "max_abs_err": max(worst, ls_errs["dp_clip_noise"]),
+        "max_abs_err": max(worst, ls_errs["dp_clip_noise"],
+                           tw_rec["max_abs_err"], md_rec["max_abs_err"]),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "variant": main_rec["variant"],
@@ -3514,8 +4007,10 @@ def main() -> int:
             "phase 16a gemma3-4b training at full width":
                 tw_launches["dp_clip_noise"],
             "phase 16d launcher smoke runs (cuda)":
-                ls_launches["dp_clip_noise"]},
-        "phase16_full_width": tw_rec}, {
+                ls_launches["dp_clip_noise"],
+            "phase 18d phi3.5-moe training at full width":
+                md_launches["dp_clip_noise"]},
+        "phase16_full_width": tw_rec, "phase18d_full_width": md_rec}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
@@ -3582,7 +4077,11 @@ def main() -> int:
                      (ok_ed, "examples/serve_continuous_torch.py failed"),
                      (all(eb_launches[n] > 0 for n in (
                          "flash_attention", "rwkv6_scan", "mamba2_ssd")),
-                      "a model kernel was not launched by the engine")):
+                      "a model kernel was not launched by the engine"),
+                     (ok_mem, "the earlier phases left memory allocated"),
+                     (ok_ma, "the MoE serving checks failed"),
+                     (ok_md, "the MoE training run's checks failed"),
+                     (ok_me, "the chunked WKV6 checks failed")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,23 @@
-"""Attention: GQA / MQA / MHA with full-causal and sliding-window variants
-(a port of the JAX package's ``repro/models/attention.py``).
+"""Attention: GQA / MQA / MHA with full-causal, sliding-window and chunked
+(llama4's iRoPE) variants (a port of the JAX package's
+``repro/models/attention.py``).
 
 Two routes, chosen by the caller and never by the device:
 
 - serving (``attention_forward``, ``attention_forward_kv``): the prefill
-  runs through the hand-written ``flash_attention`` kernel, the one-token
+  runs through the hand-written ``flash_attention`` kernel (a chunked layer
+  as one causal call over (B * n_chunks, H, chunk, hd)), the one-token
   decode through a plain cached path;
 - training (``attention_forward_train``): the JAX model's own
-  differentiable blocked path, ``blocked_causal_attention`` (and
-  ``_bucketed_causal_attention``), in torch ops that run under
-  ``torch.func.vmap(grad_and_value(...))``. The JAX package trains through
-  the same jnp path; the kernel has no backward and refuses tensors that
-  require grad.
+  differentiable paths, ``blocked_causal_attention`` (and
+  ``_bucketed_causal_attention``) and ``chunked_causal_attention``, in
+  torch ops that run under ``torch.func.vmap(grad_and_value(...))``. The
+  JAX package trains through the same jnp paths; the kernel has no
+  backward and refuses tensors that require grad.
 
 The serving engine's paged cache (``init_paged_kv_cache``, ``paged_index``,
 ``paged_decode_attention``) is plain PyTorch, as the JAX package keeps it
-in jnp: no TPU kernel carries it. Not ported yet: chunked (llama4)
-attention.
+in jnp: no TPU kernel carries it.
 
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
@@ -164,6 +165,36 @@ def _bucketed_causal_attention(q, k, v, *, block_q: int):
     return torch.cat(outs, dim=1)
 
 
+def _chunks(s: int, chunk: int) -> int:
+    """How many chunks of ``chunk`` tokens split a sequence of ``s`` (1 when
+    ``s <= chunk``); a longer ``s`` must be a multiple of ``chunk``, as the
+    JAX package asserts."""
+    if chunk < 1:
+        raise ValueError(f"chunked attention needs chunk >= 1, got {chunk}")
+    if s <= chunk:
+        return 1
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    return s // chunk
+
+
+def chunked_causal_attention(q, k, v, chunk: int):
+    """Llama4-style chunked attention: tokens attend causally only within
+    their own chunk; plain causal when ``s <= chunk``. O(S * chunk). The
+    JAX package maps over the chunks; the port takes them as one batch of
+    B * n_chunks sequences (the same sums per chunk)."""
+    b, s, h, hd = q.shape
+    n = _chunks(s, chunk)
+    c = s // n
+    pos = torch.arange(c, device=q.device)
+    mask = (pos[:, None] >= pos[None, :])[None, None, None]
+
+    def split(t):
+        return t.reshape(b * n, c, *t.shape[2:])
+
+    return _sdpa(split(q), split(k), split(v), mask).reshape(b, s, h, hd)
+
+
 def _expand_heads(t, n_heads: int):
     """(B, S, KV, hd) -> contiguous (B, H, S, hd): q head h reads KV head
     h // (H / KV), the grouping of :func:`_sdpa`."""
@@ -180,15 +211,14 @@ def attention_forward_train(params, x, positions, *, kind: str = "full",
                             block_q: int = 512,
                             causal_buckets: bool = False):
     """Full-sequence attention on the training route: the JAX model's
-    blocked jnp path in differentiable torch ops, no kernel. Returns
-    (B, S, d)."""
-    if kind == "chunk":
-        raise NotImplementedError(
-            "chunked (llama4) attention is not ported yet (ROADMAP queue 1 "
-            "item 10c)")
-    if kind not in ("full", "swa"):
+    blocked (or chunked) jnp path in differentiable torch ops, no kernel.
+    Returns (B, S, d)."""
+    if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
     q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
+    if kind == "chunk":
+        ctxv = chunked_causal_attention(q, k, v, chunk)
+        return torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
     ctxv = blocked_causal_attention(
         q, k, v, window=window if kind == "swa" else 0, block_q=block_q,
         causal_buckets=causal_buckets and kind == "full")
@@ -212,19 +242,22 @@ def attention_forward_kv(params, x, positions, *, kind: str = "full",
                          use_rope: bool = True, rope_theta: float = 1e4,
                          backend: str = "auto"):
     """Like :func:`attention_forward` but also returns the (k, v) pair for
-    the prefill cache. ``full`` and ``swa`` run ``ops.flash_attention`` on
-    (B, H, S, hd) with GQA expanded."""
-    if kind == "chunk":
-        raise NotImplementedError(
-            "chunked (llama4) attention is not ported yet")
-    if kind not in ("full", "swa"):
+    the prefill cache. One ``ops.flash_attention`` call a layer on
+    (B, H, S, hd) with GQA expanded; a ``chunk`` layer longer than its
+    chunk as (B * n_chunks, H, chunk, hd), causal within each chunk."""
+    if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
     q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
-    h = q.shape[2]
+    b, s, h, hd = q.shape
+    n = _chunks(s, chunk) if kind == "chunk" else 1
+
+    def split(t):
+        return t.reshape(b * n, s // n, *t.shape[2:])
+
     ctxv = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), _expand_heads(k, h),
-        _expand_heads(v, h), window=window if kind == "swa" else 0,
-        backend=backend).transpose(1, 2)
+        split(q).transpose(1, 2).contiguous(), _expand_heads(split(k), h),
+        _expand_heads(split(v), h), window=window if kind == "swa" else 0,
+        backend=backend).transpose(1, 2).reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
     return out, (k, v)
 
@@ -254,8 +287,9 @@ def fill_kv_cache(cache, k, v, kind: str, window: int = 0, chunk: int = 0):
     """Write a full prefill sequence into the cache, in place (possibly
     ring-truncated), and return it.
 
-    k / v (B, S, KV, hd). For swa caches only the tail that remains visible
-    is stored, laid out in ring order (slot = pos % cache_len)."""
+    k / v (B, S, KV, hd). For swa / chunk caches only the tail that
+    remains visible is stored, laid out in ring order (slot = pos %
+    cache_len)."""
     n = cache["k"].shape[1]
     s = k.shape[1]
     if s <= n:
@@ -280,8 +314,8 @@ def init_paged_kv_cache(n_blocks: int, block_size: int, n_kv_heads: int,
     table, so recycled slots reuse whatever blocks are free rather than a
     fixed contiguous span. Layout inside a slot's span is natural
     (position ``p`` lives at logical offset ``p``; no ring truncation:
-    swa visibility is enforced by the decode mask instead), which makes
-    the pool the dense full-attention cache when one block spans
+    swa / chunk visibility is enforced by the decode mask instead), which
+    makes the pool the dense full-attention cache when one block spans
     ``max_len`` and the table is the identity."""
     shape = (n_blocks, block_size, n_kv_heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -289,19 +323,19 @@ def init_paged_kv_cache(n_blocks: int, block_size: int, n_kv_heads: int,
 
 
 def paged_index(table, pos, block_size: int, kind: str, window: int,
-                head_dim: int, rope_theta: float):
+                head_dim: int, rope_theta: float, chunk: int = 0):
     """What :func:`paged_decode_attention` derives from the block table and
     the positions, the same in every attention layer of a kind in one
     decode step: ``(physical block (B,), offset (B,), visibility mask (B,
-    1, 1, 1, span), rope angles at pos)``. A logical block past the
-    table's end reads its last column, as JAX's gather clamps: only a
-    released slot, whose row is all scratch block, runs that far."""
-    if kind == "chunk":
-        raise NotImplementedError(
-            "chunked (llama4) attention is not ported yet (ROADMAP queue 1 "
-            "item 10c)")
-    if kind not in ("full", "swa"):
+    1, 1, 1, span), rope angles at pos)``. The mask is ``p <= pos``, and
+    within the window (``swa``) or the token's own chunk (``chunk``). A
+    logical block past the table's end reads its last column, as JAX's
+    gather clamps: only a released slot, whose row is all scratch block,
+    runs that far."""
+    if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
+    if kind == "chunk" and chunk < 1:
+        raise ValueError(f"chunked attention needs chunk >= 1, got {chunk}")
     b, bps = table.shape
     rows = torch.arange(b, device=table.device)
     phys = table[rows, torch.clamp(pos // block_size, max=bps - 1)]
@@ -309,6 +343,8 @@ def paged_index(table, pos, block_size: int, kind: str, window: int,
     valid = p[None, :] <= pos[:, None]
     if kind == "swa":
         valid &= p[None, :] > pos[:, None] - window
+    elif kind == "chunk":
+        valid &= p[None, :] >= (pos[:, None] // chunk) * chunk
     return (phys, pos % block_size, valid[:, None, None, None, :],
             rope_angles(pos[:, None], head_dim, rope_theta))
 
@@ -324,7 +360,7 @@ def paged_decode_attention(params, x, cache, table, index, *,
     (the JAX package derives it in every layer and XLA merges the copies).
     Writes each slot's k / v at (table[b, pos_b // bs], pos_b % bs) in
     place, gathers the slot's whole logical span back in position order,
-    and masks entries beyond pos_b (and outside the sliding window).
+    and masks entries beyond pos_b (and outside the window or the chunk).
     Returns ``(out (B, 1, d), cache)``.
 
     No host sync: the positions stay on the device. With one block

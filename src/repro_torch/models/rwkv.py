@@ -11,10 +11,13 @@ Channel-mix: squared-ReLU MLP with token shift.
 Serving: prefill runs the whole prompt through the hand-written
 ``rwkv6_scan`` kernel from a zero state; decode runs the same kernel with
 S = 1 from the cached state, as the JAX package's decode calls the same
-scan as its prefill. Training (``rwkv6_timemix_forward_train``) runs the
-JAX model's own per-token recurrence, :func:`wkv6_scan`, in differentiable
-torch ops (the kernel has no backward). The chunk-parallel WKV6
-(``rwkv_chunk > 0``) is not ported yet.
+scan as its prefill. With ``rwkv_chunk > 0`` the JAX package prefills
+through its chunk-parallel :func:`wkv6_chunked`; the port keeps the kernel,
+whose bf16 instance is chunk-parallel itself, and holds it against
+``wkv6_chunked``. Training (``rwkv6_timemix_forward_train``) runs the JAX
+model's own paths in differentiable torch ops (the kernel has no
+backward): the per-token recurrence :func:`wkv6_scan`, or
+:func:`wkv6_chunked` when ``rwkv_chunk > 0``.
 """
 from __future__ import annotations
 
@@ -93,6 +96,62 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     return torch.stack(ys, dim=1), state
 
 
+def wkv6_chunked(r, k, v, log_decay, u, s0=None, chunk: int = 64):
+    """Chunk-parallel WKV6 (fla-style): an intra-chunk quadratic form plus
+    one state read / write per chunk instead of per token. Exact (every
+    exponent is <= 0 under the causal mask, so nothing overflows).
+
+    r / k / v / log_decay (B, S, H, hd); u (H, hd). Returns (y (B, S, H, hd)
+    f32, final state (B, H, hd, hd) f32). The JAX package streams the
+    intra-chunk decay tensor over (head x channel-block) tiles of 8
+    channels; the port takes the same 8-channel blocks for all heads at
+    once and sums the blocks' score matrices before the product with v."""
+    bsz, s, h, hd = r.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % rwkv chunk {chunk}")
+    nc = s // chunk
+    if s0 is None:
+        s0 = torch.zeros((bsz, h, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    shp = (bsz, nc, chunk, h, hd)
+    rc, kc, vc, ld = (t.to(torch.float32).reshape(shp)
+                      for t in (r, k, v, log_decay))
+    lc = torch.cumsum(ld, dim=2)                    # L_t = sum_{s<=t} log w_s
+    lcm1 = lc - ld                                  # L_{t-1}
+    lq = lc[:, :, -1:]                              # L_Q (chunk total)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)   # s < t
+
+    # A[t, s] = sum_i r_t k_s exp(L_{t-1} - L_s), s < t (exponent <= 0)
+    blk = min(8, hd)
+    a = 0.0
+    for i in range(0, hd, blk):
+        sl = slice(i, i + blk)
+        diff = lcm1[..., None, :, sl] - lc[:, :, None, :, :, sl]
+        diff = diff.masked_fill(~tri[:, :, None, None], float("-inf"))
+        a = a + torch.einsum("bcthi,bcshi,bctshi->bchts", rc[..., sl],
+                             kc[..., sl], torch.exp(diff))
+    y_intra = torch.einsum("bchts,bcshj->bcthj", a, vc)
+
+    # bonus (diagonal) term: (r_t . u k_t) v_t
+    bonus = torch.einsum("bcthi,hi,bcthi->bcth", rc, u.to(torch.float32), kc)
+    y_intra = y_intra + bonus[..., None] * vc
+
+    # inter-chunk: state scan, one (hd, hd) read / write per chunk
+    r_tilde = rc * torch.exp(lcm1)                  # exponent <= 0
+    k_hat = kc * torch.exp(lq - lc)                 # exponent <= 0
+    chunk_states = torch.einsum("bcthi,bcthj->bchij", k_hat, vc)
+    chunk_decay = torch.exp(lq[:, :, 0])            # (B, nc, H, hd)
+    state, prev = s0, []
+    for c in range(nc):
+        prev.append(state)                          # state BEFORE chunk c
+        state = state * chunk_decay[:, c, ..., None] + chunk_states[:, c]
+    y_state = torch.einsum("bcthi,bchij->bcthj", r_tilde,
+                           torch.stack(prev, dim=1))
+    return (y_intra + y_state).reshape(bsz, s, h, hd), state
+
+
 def _wkv(r, k, v, w, u, headdim, s0, backend):
     """r / k / v / w (B, S, d) -> heads (B, H, S, hd), the kernel, and
     y back to (B, S, H, hd)."""
@@ -120,21 +179,22 @@ def _tm_output(params, y, g, d_model):
 
 def rwkv6_timemix_forward_train(params, x, headdim: int = 64,
                                 chunk: int = 0):
-    """Full-sequence time-mix on the training route: :func:`wkv6_scan`
-    from a zero state, no kernel. Returns (B, S, d)."""
-    if chunk:
-        raise NotImplementedError(
-            "the chunk-parallel WKV6 (rwkv_chunk > 0) is not ported yet "
-            "(ROADMAP queue 1 item 10c)")
+    """Full-sequence time-mix on the training route, from a zero state, no
+    kernel: :func:`wkv6_scan`, or :func:`wkv6_chunked` when ``chunk`` > 0.
+    Returns (B, S, d)."""
     d_model = x.shape[-1]
     n_heads = d_model // headdim
-    r, k, v, g, w, _ = _tm_inputs(params, x, _token_shift(x))
+    r, k, v, g, w, log_decay = _tm_inputs(params, x, _token_shift(x))
 
     def heads(t):
         return t.reshape(t.shape[0], t.shape[1], n_heads, headdim)
 
-    y, _ = wkv6_scan(heads(r), heads(k), heads(v), heads(w),
-                     params["bonus_u"])
+    if chunk:
+        y, _ = wkv6_chunked(heads(r), heads(k), heads(v), heads(log_decay),
+                            params["bonus_u"], chunk=chunk)
+    else:
+        y, _ = wkv6_scan(heads(r), heads(k), heads(v), heads(w),
+                         params["bonus_u"])
     return _tm_output(params, y.to(x.dtype), g, d_model)
 
 
@@ -148,10 +208,11 @@ def rwkv6_timemix_forward(params, x, headdim: int = 64, chunk: int = 0,
 def rwkv6_timemix_forward_state(params, x, headdim: int = 64,
                                 chunk: int = 0, backend: str = "auto"):
     """Full-sequence time-mix that also returns the decode cache; the WKV
-    recurrence runs in ``ops.rwkv6_scan`` from a zero state."""
-    if chunk:
-        raise NotImplementedError(
-            "the chunk-parallel WKV6 (rwkv_chunk > 0) is not ported yet")
+    recurrence runs in ``ops.rwkv6_scan`` from a zero state, ``chunk`` or
+    not. A ``chunk`` > 0 that does not divide the sequence raises, as the
+    JAX package's ``wkv6_chunked`` does."""
+    if chunk and x.shape[1] % min(chunk, x.shape[1]):
+        raise ValueError(f"seq {x.shape[1]} % rwkv chunk {chunk}")
     d_model = x.shape[-1]
     x_prev = _token_shift(x)
     r, k, v, g, w, _ = _tm_inputs(params, x, x_prev)

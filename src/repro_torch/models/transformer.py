@@ -34,8 +34,9 @@ form, a missing ``setup_context`` in the reentrant one). The numbers are
 those of the JAX model with or without remat; the port keeps every
 layer's activations for the backward pass instead of recomputing them.
 
-Not ported yet: MoE FFNs (``ffn == "moe"`` raises) and the sharding axes
-(``param_axes``, ``cache_axes``).
+MoE FFNs (``models/moe.py``) run on both routes in plain PyTorch, as in
+the JAX package; their aux loss is summed over layers into ``loss_fn``.
+Not ported: the sharding axes (``param_axes``, ``cache_axes``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.ops import validate_backend
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -94,8 +96,12 @@ def _write(dst, src):
 
 def _stacked(n: int, make):
     """A tree of ``n`` stacked layers from ``make()`` (one layer a call),
-    filled step by step so that only one extra layer is ever allocated."""
+    filled step by step so that only one extra layer is ever allocated; a
+    single layer (``n == 1``) is returned as ``unsqueeze(0)`` views, with
+    no copy."""
     first = make()
+    if n == 1:
+        return tree_map(lambda x: x.unsqueeze(0), first)
     leaves, treedef = tree_flatten(first)
     out = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
            for x in leaves]
@@ -118,9 +124,6 @@ class Transformer:
 
     def __init__(self, cfg: ArchConfig, kernel_backend: str = "auto"):
         validate_backend(kernel_backend)
-        if any(ls.ffn == "moe" for ls in cfg.layer_specs()):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs (models/moe.py) are not ported yet")
         self.cfg = cfg
         self.kernel_backend = kernel_backend
         self.has_shared = any(ls.mixer == "shared_attn"
@@ -165,6 +168,10 @@ class Transformer:
             params["norm2"] = init_rmsnorm(d, dt, device)
         if spec.ffn == "mlp":
             params["ffn"] = init_mlp(generator, d, cfg.d_ff, dt, device)
+        elif spec.ffn == "moe":
+            params["ffn"] = moe_mod.init_moe(
+                generator, d, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                cfg.top_k, cfg.shared_expert, dt, device)
         elif spec.ffn == "rwkv_cm":
             params["ffn"] = rwkv_mod.init_rwkv6_channelmix(
                 generator, d, cfg.d_ff, dt, device)
@@ -256,22 +263,33 @@ class Transformer:
         raise ValueError(spec.mixer)
 
     def _apply_ffn(self, spec: LayerSpec, lparams, shared, h):
+        """(out, aux): the FFN of ``h`` and its aux loss (a tensor for MoE,
+        the Python 0.0 otherwise, as in the JAX package, so that dense
+        archs add nothing on the device)."""
+        cfg = self.cfg
         if spec.ffn == "mlp":
-            return mlp(lparams["ffn"], h)
+            return mlp(lparams["ffn"], h), 0.0
+        if spec.ffn == "moe":
+            return moe_mod.moe_apply(
+                lparams["ffn"], h, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl)
         if spec.ffn == "rwkv_cm":
-            return rwkv_mod.rwkv6_channelmix_forward(lparams["ffn"], h)
+            return rwkv_mod.rwkv6_channelmix_forward(lparams["ffn"], h), 0.0
         if spec.ffn == "shared_mlp":
-            return mlp(shared["mlp"], h)
-        return None
+            return mlp(shared["mlp"], h), 0.0
+        return None, 0.0
 
     def _apply_layer(self, spec: LayerSpec, lparams, shared, x, positions,
                      train: bool = False):
+        """(x after the layer, the layer's aux loss)."""
+        aux = 0.0
         h = rmsnorm(lparams["norm1"], x)
         x = x + self._apply_mixer(spec, lparams, shared, h, positions, train)
         if spec.ffn != "none":
             h2 = rmsnorm(lparams["norm2"], x)
-            x = x + self._apply_ffn(spec, lparams, shared, h2)
-        return x
+            out, aux = self._apply_ffn(spec, lparams, shared, h2)
+            x = x + out
+        return x, aux
 
     # ------------------------------------------------------------------
     # full forward (prefill logits) and the training loss
@@ -295,15 +313,15 @@ class Transformer:
     def forward(self, params, tokens, prefix=None):
         """tokens (B, S) -> (logits (B, S, V), aux) on the serving route
         (the kernels). prefix (B, P, d) stub embeddings are prepended (vlm /
-        audio) and stripped from logits. ``aux`` (the MoE load-balance
-        loss) is 0: no MoE is ported."""
+        audio) and stripped from logits. ``aux`` is the MoE aux loss summed
+        over layers (0 without MoE)."""
         x, aux = self._hidden_states(params, tokens, prefix, train=False)
         return unembed(params["embed"], x), aux
 
     def loss_fn(self, params, batch):
         """batch: {"tokens": (B,S), "labels": (B,S), ["prefix": (B,P,d)]}.
         The mean token cross-entropy on the training route, plus
-        ``AUX_WEIGHT`` times the MoE aux loss (0: no MoE is ported).
+        ``AUX_WEIGHT`` times the MoE aux loss summed over layers.
         Chunked over the sequence when ``cfg.loss_chunk`` is set."""
         prefix = batch.get("prefix")
         if self.cfg.loss_chunk:
@@ -331,22 +349,25 @@ class Transformer:
 
     def _hidden_states(self, params, tokens, prefix, train: bool = True):
         """Final-normed hidden states (B, S, d), prefix stripped, and the
-        aux loss: on the training route (no kernel) unless ``train`` is
-        False."""
+        aux loss summed over layers (f32): on the training route (no
+        kernel) unless ``train`` is False."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens, prefix)
         positions = torch.arange(x.shape[1], device=x.device)
         shared = params.get("shared")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg_params, seg in zip(params["segments"], cfg.segments):
             for i in range(seg.n_steps):
                 p_step = _step(seg_params, i)
                 for j, ls in enumerate(seg.pattern):
-                    x = self._apply_layer(ls, p_step[str(j)], shared, x,
-                                          positions, train)
+                    x, a = self._apply_layer(ls, p_step[str(j)], shared, x,
+                                             positions, train)
+                    if torch.is_tensor(a):
+                        aux = aux + a
         x = rmsnorm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     # ------------------------------------------------------------------
     # serving: prefill + decode
@@ -448,7 +469,7 @@ class Transformer:
                     indexes[spec.attn_kind] = attn.paged_index(
                         table, pos, cache["mixer"]["k"].shape[1],
                         spec.attn_kind, cfg.window, cfg.resolved_head_dim,
-                        cfg.rope_theta)
+                        cfg.rope_theta, cfg.chunk)
                 out, kv = attn.paged_decode_attention(
                     p, h, cache["mixer"], table, indexes[spec.attn_kind],
                     use_rope=spec.use_rope)
@@ -474,7 +495,7 @@ class Transformer:
                     lparams["ffn"], h2, cache["ffn"])
                 new_cache["ffn"] = fc
             else:
-                out2 = self._apply_ffn(spec, lparams, shared, h2)
+                out2, _ = self._apply_ffn(spec, lparams, shared, h2)
             x = x + out2
         return x, new_cache
 
@@ -636,6 +657,6 @@ class Transformer:
                 out2 = rwkv_mod.rwkv6_channelmix_forward(lparams["ffn"], h2)
                 new_cache["ffn"] = {"cm_last": h2[:, -1:]}
             else:
-                out2 = self._apply_ffn(spec, lparams, shared, h2)
+                out2, _ = self._apply_ffn(spec, lparams, shared, h2)
             x = x + out2
         return x, new_cache

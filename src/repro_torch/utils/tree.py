@@ -4,6 +4,11 @@ Leaves come out in ``jax.tree.flatten`` order: dict keys sorted, tuple and
 NamedTuple fields in order, ``None`` an empty subtree. Code that lays leaves
 end to end (the flat clip+noise buffer) relies on that order, so a noise
 vector drawn for one package addresses the same parameters in the other.
+
+The walks are module-level functions that take their accumulator as an
+argument: a nested function that calls itself is a reference cycle, and
+its closure would keep every leaf (a model's weights, on the device) alive
+until Python's cycle collector happens to run.
 """
 from __future__ import annotations
 
@@ -14,43 +19,58 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _flatten(x, leaves):
+    if x is None:
+        return ("none",)
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_flatten(x[k], leaves) for k in keys))
+    if _is_namedtuple(x):
+        return ("namedtuple", type(x), tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, (tuple, list)):
+        return (type(x), None, tuple(_flatten(v, leaves) for v in x))
+    leaves.append(x)
+    return ("leaf",)
+
+
 def tree_flatten(tree):
     """-> (leaves, treedef). ``treedef`` is a nested tuple of node records."""
     leaves = []
-
-    def walk(x):
-        if x is None:
-            return ("none",)
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if _is_namedtuple(x):
-            return ("namedtuple", type(x), tuple(walk(v) for v in x))
-        if isinstance(x, (tuple, list)):
-            return (type(x), None, tuple(walk(v) for v in x))
-        leaves.append(x)
-        return ("leaf",)
-
-    treedef = walk(tree)
+    treedef = _flatten(tree, leaves)
     return leaves, treedef
 
 
+def _build(d, it):
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "namedtuple":
+        return d[1](*(_build(c, it) for c in d[2]))
+    return kind(_build(c, it) for c in d[2])
+
+
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "namedtuple":
-            return d[1](*(build(c) for c in d[2]))
-        return kind(build(c) for c in d[2])
 
-    return build(treedef)
+def _paths(x, prefix, paths):
+    if x is None:
+        return
+    if isinstance(x, dict):
+        items = [(str(k), x[k]) for k in sorted(x)]
+    elif _is_namedtuple(x):
+        items = list(zip(x._fields, x))
+    elif isinstance(x, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(x)]
+    else:
+        paths.append("/".join(prefix))
+        return
+    for name, v in items:
+        _paths(v, prefix + [name], paths)
 
 
 def tree_leaf_paths(tree) -> list[str]:
@@ -58,23 +78,7 @@ def tree_leaf_paths(tree) -> list[str]:
     ``jax.tree_util.tree_flatten_with_path`` names it: dict keys,
     NamedTuple field names and sequence indices joined by "/"."""
     paths = []
-
-    def walk(x, prefix):
-        if x is None:
-            return
-        if isinstance(x, dict):
-            items = [(str(k), x[k]) for k in sorted(x)]
-        elif _is_namedtuple(x):
-            items = list(zip(x._fields, x))
-        elif isinstance(x, (tuple, list)):
-            items = [(str(i), v) for i, v in enumerate(x)]
-        else:
-            paths.append("/".join(prefix))
-            return
-        for name, v in items:
-            walk(v, prefix + [name])
-
-    walk(tree, [])
+    _paths(tree, [], paths)
     return paths
 
 

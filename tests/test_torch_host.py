@@ -200,6 +200,29 @@ def test_tree_math_matches_jax():
               tree_to_numpy(ttree.tree_scale(tf, 0.5)))
 
 
+def test_tree_walks_leave_no_reference_cycle():
+    """tree_flatten / tree_unflatten / tree_map / tree_leaf_paths keep no
+    leaf alive once their results are dropped, with the cycle collector
+    off: a self-calling closure would hold its leaves in a cycle, which on
+    the card keeps a model's weights allocated until a collection."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        t = torch.zeros(3)
+        ref = weakref.ref(t)
+        tree = {"a": [t, (t, None)], "b": jopt.SgdState(step=t)}
+        leaves, treedef = ttree.tree_flatten(tree)
+        back = ttree.tree_unflatten(treedef, leaves)
+        mapped = ttree.tree_map(lambda x: x + 1, tree)
+        assert ttree.tree_leaf_paths(tree) == ["a/0", "a/1/0", "b/step"]
+        del t, tree, leaves, treedef, back, mapped
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_convert_round_trip_keeps_optimizer_state_int32():
     params = jlin.init_linear(6)
     state = jopt.sgd(0.1).init(params)

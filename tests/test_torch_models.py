@@ -7,7 +7,10 @@ Weights are JAX's own ``Transformer.init`` carried across as numpy arrays by
 numpy from a seed and fed to both. On the CPU the port's kernel wrappers run
 their plain versions, so the mixers here are the plain ``flash_attention``,
 ``rwkv6_scan`` and ``mamba2_ssd``, held against the JAX model's own jnp
-paths (``blocked_causal_attention``, ``wkv6_scan``, ``ssd_chunked``).
+paths (``blocked_causal_attention``, ``chunked_causal_attention``,
+``wkv6_scan``, ``ssd_chunked``). The two MoE archs run their FFNs in plain
+PyTorch against JAX's ``moe_scatter``; their router picks the same experts
+as JAX's (``test_router_ids_match_jax``).
 
 Model-level tolerance: ``max|port - jax| <= MODEL_TOL * max(1, max|jax|)``
 per tensor, MODEL_TOL = 2e-5. Each mixer's plain version sums in another
@@ -18,6 +21,7 @@ magnitude ~4 and ~9e-5 on SSM states of magnitude ~14 (relative ~7e-6).
 ``python tests/test_torch_models.py`` prints the largest gap per arch.
 """
 import functools
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -93,7 +97,7 @@ def _jax_run(arch):
     """JAX's forward logits, prefill (logits, caches, pos) and the
     teacher-forced decode trajectory [(logits, caches)] as numpy."""
     jm, jp, model, _, (tokens, prefix, decode) = _models(arch)
-    logits, _ = jax.jit(jm.forward)(jp, _j(tokens), _j(prefix))
+    logits, aux = jax.jit(jm.forward)(jp, _j(tokens), _j(prefix))
     max_len = S + N_DECODE + (model.cfg.prefix_len or 0)
     pl, pc, pos = jax.jit(lambda p, t, pre: jm.prefill(
         p, t, pre, max_len=max_len))(jp, _j(tokens), _j(prefix))
@@ -104,7 +108,7 @@ def _jax_run(arch):
         lg, caches = step(jp, caches, jnp.asarray(decode[i]),
                           jnp.int32(int(pos) + i))
         traj.append((np.asarray(lg), _to_numpy_tree(caches)))
-    return np.asarray(logits), prefill, traj
+    return (np.asarray(logits), float(aux)), prefill, traj
 
 
 def _close_caches(got, want, what, arch):
@@ -116,20 +120,26 @@ def _close_caches(got, want, what, arch):
         _close(g, w, f"{what} {path}", arch)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_forward_logits_match_jax(arch):
+    """Logits and the aux loss (0 for the dense archs, the MoE layers'
+    summed load-balance and z losses for the MoE archs)."""
     _, _, model, params, (tokens, prefix, _) = _models(arch)
-    want, _, _ = _jax_run(arch)
+    (want, want_aux), _, _ = _jax_run(arch)
     got, aux = model.forward(params, _t(tokens), _t(prefix))
-    assert got.shape == (B, S, model.cfg.vocab) and float(aux) == 0.0
+    assert got.shape == (B, S, model.cfg.vocab)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert (float(aux) == 0.0) == (arch in DENSE_ARCHS) == (want_aux == 0.0)
+    _close(aux, want_aux, "forward aux", arch)
     _close(got, want, "forward logits", arch)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_prefill_logits_and_every_cache_leaf_match_jax(arch):
     """Includes gemma3's ring-ordered sliding-window KV (S 32 > window 16),
-    rwkv's wkv / tm_last / cm_last, mamba's h / conv, and the prefix archs'
-    caches over prefix + prompt."""
+    llama4's ring-ordered chunk KV (S 32, two chunks of 16), rwkv's wkv /
+    tm_last / cm_last, mamba's h / conv, and the prefix archs' caches over
+    prefix + prompt."""
     _, _, model, params, (tokens, prefix, _) = _models(arch)
     _, (wl, wc, wpos), _ = _jax_run(arch)
     max_len = S + N_DECODE + (model.cfg.prefix_len or 0)
@@ -140,8 +150,11 @@ def test_prefill_logits_and_every_cache_leaf_match_jax(arch):
     _close_caches(caches, wc, "prefill cache", arch)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_teacher_forced_decode_matches_jax_at_every_step(arch):
+    """Eight steps from position 32; llama4's chunked layers start a new
+    chunk there, and the MoE archs route the B decode tokens as one
+    group."""
     _, _, model, params, (tokens, prefix, decode) = _models(arch)
     _, (_, _, pos), traj = _jax_run(arch)
     max_len = S + N_DECODE + (model.cfg.prefix_len or 0)
@@ -154,12 +167,12 @@ def test_teacher_forced_decode_matches_jax_at_every_step(arch):
         _close_caches(caches, wc, f"decode {i} cache", arch)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_kernel_launch_formulas_on_a_spy(arch, monkeypatch):
     """Each attn / shared_attn layer calls flash_attention once per prefill
-    (and per forward), each rwkv6 layer calls rwkv6_scan once per prefill
-    and once per decoded token, each mamba2 layer calls mamba2_ssd once per
-    prefill; decode calls neither flash nor the SSD. Counted on a spy of
+    (and per forward; llama4's chunked layers too, over both chunks), each
+    rwkv6 layer calls rwkv6_scan once per prefill and once per decoded
+    token, each mamba2 layer calls mamba2_ssd once per prefill; decode calls neither flash nor the SSD. Counted on a spy of
     ``repro_torch.kernels.ops``, since the CPU wrappers' launch counters do
     not move."""
     _, _, model, params, (tokens, prefix, decode) = _models(arch)
@@ -187,22 +200,82 @@ def test_kernel_launch_formulas_on_a_spy(arch, monkeypatch):
                      "mamba2_ssd": n_mamba}
 
 
+def _recording(real, record):
+    """``moe_apply`` that records each MoE layer's (params, input)."""
+    def rec(params, x, **kw):
+        record.append((params, x))
+        return real(params, x, **kw)
+    return rec
+
+
+def _jax_moe_ids(arch):
+    """JAX's router ids and top-k probabilities (with the next one) at every
+    MoE layer of the forward: JAX's own ``_apply_layer`` run eagerly layer
+    by layer (``forward``'s scan would hide the inputs), ``moe_apply``
+    wrapped to record each layer's params and input, then ``_route`` and the
+    softmax per dispatch group."""
+    from repro.models import moe as jmoe
+    from repro.models import transformer as jtr
+    jm, jp, model, _, (tokens, prefix, _) = _models(arch)
+    record = []
+    real = jmoe.moe_apply
+    jtr.moe_mod.moe_apply = _recording(real, record)
+    try:
+        x = jm._embed_tokens(jp, _j(tokens), _j(prefix))
+        positions = jnp.arange(x.shape[1])
+        for seg_params, seg in zip(jp["segments"], model.cfg.segments):
+            for i in range(seg.n_steps):
+                p_step = jax.tree.map(lambda t, i=i: t[i], seg_params)
+                for j, ls in enumerate(seg.pattern):
+                    x, _ = jm._apply_layer(ls, p_step[str(j)],
+                                           jp.get("shared"), x, positions)
+    finally:
+        jtr.moe_mod.moe_apply = real
+    out = []
+    for p, h in record:
+        groups = jmoe._regroup(h)
+        ids = jax.vmap(lambda xr, p=p: jmoe._route(
+            p, xr, model.cfg.top_k)[1])(groups)
+        probs = jax.nn.softmax(jnp.einsum(
+            "gtd,de->gte", groups.astype(jnp.float32), p["router"]), -1)
+        top = jax.lax.top_k(probs, model.cfg.top_k + 1)[0]
+        out.append((np.asarray(ids), np.asarray(top)))
+    return out
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_archs_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError):
-        Transformer(smoke_variant(get_arch(arch)))
+def test_router_ids_match_jax(arch):
+    """The port's router picks JAX's experts at every MoE layer of the
+    forward (phi3.5: 1 layer x 2 rows x 32 tokens x top-2; llama4: 2 layers
+    x top-1). A flip is allowed only at a near-tie: where JAX's k-th and
+    (k+1)-th probabilities lie within 1e-5, an argmax that rounding can
+    move (none at these inputs)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as ttr
+    _, _, model, params, (tokens, prefix, _) = _models(arch)
+    record = []
+    real = moe.moe_apply
+    ttr.moe_mod.moe_apply = _recording(real, record)
+    try:
+        model.forward(params, _t(tokens), _t(prefix))
+    finally:
+        ttr.moe_mod.moe_apply = real
+    want = _jax_moe_ids(arch)
+    n_moe = sum(ls.ffn == "moe" for ls in model.cfg.layer_specs())
+    assert len(record) == len(want) == n_moe > 0
+    flips = 0
+    for (p, h), (wids, wtop) in zip(record, want):
+        _, ids, _ = moe._route(p, moe._regroup(h), model.cfg.top_k)
+        ids = ids.numpy()
+        assert ids.shape == wids.shape == (B, S, model.cfg.top_k)
+        differ = ids != wids
+        gaps = wtop[..., :-1] - wtop[..., 1:]
+        assert np.all(gaps[differ] <= 1e-5), (arch, np.argwhere(differ))
+        flips += int(differ.sum())
+    assert flips == 0
 
 
-def test_chunked_attention_is_not_ported_yet():
-    from repro_torch.models.attention import attention_forward
-    p = {"wq": torch.ones((4, 1, 4)), "wk": torch.ones((4, 1, 4)),
-         "wv": torch.ones((4, 1, 4)), "wo": torch.ones((1, 4, 4))}
-    with pytest.raises(NotImplementedError):
-        attention_forward(p, torch.ones((1, 4, 4)), torch.arange(4),
-                          kind="chunk", chunk=2)
-
-
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_port_init_has_jax_tree_shapes_and_dtypes(arch):
     _, jp, model, _, _ = _models(arch)
     mine = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -246,6 +319,53 @@ def test_port_init_distribution():
                        tm["w_r"])
     other = Transformer(rc).init(gen, "cpu")["segments"][0]["0"]["mixer"]
     assert not torch.equal(other["w_r"], tm["w_r"])
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_init_on_meta_and_cpu_give_the_same_tree(arch):
+    """``init`` on the meta device and on the CPU: the same leaf paths,
+    shapes and dtypes (those of JAX's tree,
+    ``test_port_init_has_jax_tree_shapes_and_dtypes``), at the smoke size
+    (one step a segment: the ``unsqueeze(0)`` views of ``_stacked``) and
+    at two steps a segment (the filled stack)."""
+    cfg = smoke_variant(get_arch(arch))
+    two = replace(cfg, segments=tuple(replace(sg, n_steps=2)
+                                      for sg in cfg.segments))
+    for c in (cfg, two):
+        model = Transformer(c)
+        meta = model.init(device="meta")
+        cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        assert tree_leaf_paths(meta) == tree_leaf_paths(cpu)
+        for path, a, b in zip(tree_leaf_paths(cpu), tree_flatten(meta)[0],
+                              tree_flatten(cpu)[0]):
+            assert a.device.type == "meta" and b.device.type == "cpu"
+            assert a.shape == b.shape and a.dtype == b.dtype, path
+
+
+def test_stacked_single_step_is_views_of_one_draw():
+    """``_stacked(1, make)`` gives ``make()``'s values as ``unsqueeze(0)``
+    views (no second copy); ``_stacked(n, make)`` stacks n draws in
+    order."""
+    from repro_torch.models.transformer import _stacked
+    gen = torch.Generator().manual_seed(5)
+
+    def make():
+        return {"a": torch.randn((3, 4), generator=gen),
+                "b": {"c": torch.randn((2,), generator=gen)}}
+    one = _stacked(1, make)
+    gen.manual_seed(5)
+    want = make()
+    assert one["a"].shape == (1, 3, 4)
+    assert torch.equal(one["a"][0], want["a"])
+    assert torch.equal(one["b"]["c"][0], want["b"]["c"])
+    assert one["a"]._base is not None           # a view, not a copy
+    gen.manual_seed(5)
+    three = _stacked(3, make)
+    gen.manual_seed(5)
+    for i in range(3):
+        w = make()
+        assert torch.equal(three["a"][i], w["a"])
+        assert torch.equal(three["b"]["c"][i], w["b"]["c"])
 
 
 def test_init_on_meta_gives_shapes_only():
@@ -401,7 +521,7 @@ def test_causal_conv_and_gated_out_match_jax():
 if __name__ == "__main__":
     # the largest relative gap per arch over forward, prefill and decode:
     # PYTHONPATH=src python tests/test_torch_models.py
-    for arch in DENSE_ARCHS:
+    for arch in ASSIGNED_ARCHS:
         test_forward_logits_match_jax(arch)
         test_prefill_logits_and_every_cache_leaf_match_jax(arch)
         test_teacher_forced_decode_matches_jax_at_every_step(arch)

@@ -33,7 +33,8 @@ from repro_torch.utils.tree import tree_flatten
 
 LOGIT_TOL = 1e-4
 PROMPT, GEN = 32, 8
-SERVE_ARCHS = ["gemma3-4b", "rwkv6-1.6b", "zamba2-7b"]
+SERVE_ARCHS = ["gemma3-4b", "rwkv6-1.6b", "zamba2-7b", "phi3.5-moe-42b-a6.6b",
+               "llama4-maverick-400b-a17b"]
 
 
 @functools.lru_cache(maxsize=None)

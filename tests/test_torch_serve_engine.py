@@ -14,6 +14,12 @@ own weights carried across.
   agree_under_gap``). The engine's batch shapes and its longer masked span
   sum in another order than the dense path, so logits agree to rounding,
   not bitwise.
+- The MoE archs are held against JAX's engine at equal shapes, never
+  against an exact-length ``generate``: an MoE capacity comes from the
+  group's padded length (and at S <= 8 from all the engine's slots), so
+  in both packages a request's tokens depend on its bucket and its
+  neighbours; and llama4's chunked layers refuse a prompt longer than a
+  chunk that is not a multiple of it, as JAX's do.
 """
 import jax
 import jax.numpy as jnp
@@ -114,10 +120,12 @@ def _close(got, want, what):
     ("gemma3-4b", (3, 6, 4), 6),           # right-padded, one bucket
     ("rwkv6-1.6b", (6, 6, 6), 6),          # recurrent: exact lengths
     ("zamba2-7b", (8, 8, 8), 8),           # a multiple of ssd_chunk
+    ("phi3.5-moe-42b-a6.6b", (3, 6, 4), 6),
+    ("llama4-maverick-400b-a17b", (20, 32, 27), 32),   # two chunks of 16
 ])
 def test_paged_pools_after_insert_equal_jax(arch, lens, bucket):
     jm, jp, model, params = _models(arch)
-    n_slots, bs, ml = 4, 4, 16
+    n_slots, bs, ml = 4, 4, max(16, bucket)
     bps = ml // bs
     rng = np.random.default_rng(7)
     toks = rng.integers(0, model.cfg.vocab, size=(3, bucket)).astype(np.int32)
@@ -177,22 +185,29 @@ def _paged_vs_dense(arch, s, ml, bs, table_fn, steps):
             assert torch.equal(ld, lp), (arch, i)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-7b"])
+PAGED_ARCHS = {"gemma3-4b": 6, "zamba2-7b": 8, "phi3.5-moe-42b-a6.6b": 6,
+               "llama4-maverick-400b-a17b": 12}   # arch: prompt length
+
+
+@pytest.mark.parametrize("arch", list(PAGED_ARCHS))
 def test_paged_matches_dense_one_block(arch):
     """One block spanning max_len with an identity table IS the dense
     cache: every decode step's logits bitwise."""
-    s = 6 if arch == "gemma3-4b" else 8
-    _paged_vs_dense(arch, s, 16, 16,
+    _paged_vs_dense(arch, PAGED_ARCHS[arch], 16, 16,
                     lambda b, bps: np.arange(b)[:, None], 3)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", list(PAGED_ARCHS))
 def test_paged_matches_dense_shuffled_multiblock(arch):
     """Real paging: 4 blocks per slot in shuffled physical order; the
-    decode crosses two block boundaries, bitwise."""
-    s = 6 if arch == "gemma3-4b" else 8
-    _paged_vs_dense(arch, s, 16, 4, lambda b, bps: np.random.default_rng(
-        3).permutation(b * bps).reshape(b, bps), 8)
+    decode crosses two block boundaries, bitwise. llama4's decode from
+    position 12 crosses its 16-token chunk, where the paged chunk mask
+    (``p >= (pos // chunk) * chunk``) and the dense ring cache must hide
+    the first chunk alike."""
+    ml = 32 if arch.startswith("llama4") else 16
+    _paged_vs_dense(arch, PAGED_ARCHS[arch], ml, 4,
+                    lambda b, bps: np.random.default_rng(3).permutation(
+                        b * bps).reshape(b, bps), 8)
 
 
 def test_prefill_at_matches_exact_length_prefill():
@@ -215,10 +230,21 @@ def test_prefill_at_matches_exact_length_prefill():
 
 
 def test_paged_decode_refuses_chunked_attention():
-    with pytest.raises(NotImplementedError, match="10c"):
-        attention.paged_index(torch.zeros((1, 2), dtype=torch.int64),
-                              torch.zeros(1, dtype=torch.int64), 4, "chunk",
-                              0, 16, 1e4)
+    """A chunked layer's paged index needs its chunk size (the mask is
+    ``p >= (pos // chunk) * chunk``): ``chunk`` 0 is refused, as is an
+    unknown kind. With a chunk, positions 16-19 of a 32-token span see
+    only their own chunk."""
+    table = torch.arange(8, dtype=torch.int64).view(1, 8)
+    for kind, chunk in (("chunk", 0), ("local", 16)):
+        with pytest.raises(ValueError):
+            attention.paged_index(table, torch.zeros(1, dtype=torch.int64),
+                                  4, kind, 0, 16, 1e4, chunk)
+    pos = torch.tensor([3, 16, 19, 31])
+    _, _, valid, _ = attention.paged_index(table.expand(4, 8), pos, 4,
+                                           "chunk", 0, 16, 1e4, 16)
+    p = torch.arange(32)
+    want = (p[None] <= pos[:, None]) & (p[None] >= pos[:, None] // 16 * 16)
+    assert torch.equal(valid[:, 0, 0, 0], want)
 
 
 # ------------------------------ schedules and tokens vs JAX's engine --------
@@ -258,6 +284,71 @@ def test_schedule_and_tokens_equal_jax_engine(arch, kw, wl):
     assert _guarded_full(model, params, rep.requests) == len(rep.requests)
     assert _guarded_full(model, params, rep.requests,
                          [r.out for r in jrep.requests]) == len(rep.requests)
+
+
+class _LoggedEngine(SlotEngine):
+    """A SlotEngine that keeps, per request, the logits each of its tokens
+    was drawn from (its slot's row of ``logits`` before each step), through
+    the engine's public surface: ``admit``'s slots and ``step``'s
+    emitted requests."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.slot_of, self.seen = {}, {}
+
+    def admit(self, reqs):
+        slots = super().admit(reqs)
+        for r, s in zip(reqs, slots):
+            self.slot_of[r.rid] = s
+        return slots
+
+    def step(self):
+        held = self.logits.clone()
+        emitted, finished = super().step()
+        for r in emitted:
+            self.seen.setdefault(r.rid, []).append(held[self.slot_of[r.rid]])
+        return emitted, finished
+
+
+@pytest.mark.parametrize("arch,wl", [
+    ("llama4-maverick-400b-a17b",
+     dict(n=6, seed=5, prompt_lens=(12, 20, 30), gen_lens=(4, 9))),
+    ("phi3.5-moe-42b-a6.6b", {}),
+])
+def test_moe_engine_equals_jax_engine(arch, wl):
+    """The MoE archs through both engines at equal shapes (buckets 16 / 32,
+    decode groups of all 3 slots): the same schedule under StepClock, and
+    each request's tokens JAX's engine's while the port's top-two logit gap
+    exceeds LOGIT_TOL. llama4's prompts of 20 and 30 tokens prefill as two
+    16-token chunks and its decode crosses into the third chunk at 32."""
+    jm, jp, model, params = _models(arch)
+    kw = dict(n_slots=3, max_len=48, block_size=8)
+    jengine = JaxSlotEngine(jm, jp, **kw)
+    jwl = _workload(arch, fn=jax_poisson_workload, **wl)
+    jengine.warmup(buckets=[r.prompt_len for r in jwl])
+    jrep = jax_serve_continuous(jengine, jwl, clock=JaxStepClock())
+
+    engine = _LoggedEngine(model, params, device="cpu", **kw)
+    twl = _workload(arch, **wl)
+    engine.warmup(buckets=[r.prompt_len for r in twl])
+    rep = serve_continuous(engine, twl, clock=StepClock())
+
+    assert [r.rid for r in rep.requests] == [r.rid for r in jrep.requests]
+    for a, b in zip(rep.requests, jrep.requests):
+        assert a.emit_times == b.emit_times and len(a.out) == a.max_gen
+    assert rep.queue_depth == jrep.queue_depth
+    assert rep.occupancy == jrep.occupancy
+    assert engine._free_slots == jengine._free_slots
+    full = 0
+    for a, b in zip(rep.requests, jrep.requests):
+        agree, n = agree_under_gap(b.out, a.out,
+                                   torch.stack(engine.seen[a.rid]), LOGIT_TOL)
+        assert agree, (a.rid, a.out, b.out)
+        full += n == a.max_gen
+    assert full == len(rep.requests)
+    if arch.startswith("llama4"):
+        assert max(r.prompt_len + r.max_gen for r in twl) > 32
+        assert {engine.bucket_len(r.prompt_len) for r in twl} == {16, 32}
 
 
 # ------------------------------ the port's own gates ------------------------

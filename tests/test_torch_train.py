@@ -1,9 +1,11 @@
 """The port's transformer training path against the JAX package's, on the
 CPU at ``smoke_variant`` size in f32: the token task
 (``repro_torch.data.tokens``), the training mixers
-(``attention.blocked_causal_attention``, ``rwkv.wkv6_scan``,
-``ssm.ssd_chunked``), ``Transformer.loss_fn`` / ``_chunked_loss`` and their
-``torch.func`` gradients, and one DP-PASGD round with JAX's noise injected.
+(``attention.blocked_causal_attention``, ``chunked_causal_attention``,
+``rwkv.wkv6_scan``, ``rwkv.wkv6_chunked``, ``ssm.ssd_chunked``),
+``Transformer.loss_fn`` / ``_chunked_loss`` and their ``torch.func``
+gradients (the MoE archs' aux loss included), and one DP-PASGD round with
+JAX's noise injected.
 
 Weights are JAX's own ``Transformer.init`` carried across by
 ``transformer_params_from_jax``; tokens and mixer operands are made with
@@ -69,9 +71,6 @@ MODEL_TOL = 2e-5
 GRAD_TOL = 4e-5
 B, S = 2, 16
 LOSS_CHUNK = 8
-DENSE_ARCHS = [a for a in ASSIGNED_ARCHS
-               if a not in ("phi3.5-moe-42b-a6.6b",
-                            "llama4-maverick-400b-a17b")]
 MODEL_KERNELS = ("flash_attention", "rwkv6_scan", "mamba2_ssd")
 
 
@@ -212,35 +211,84 @@ def test_training_mixers_match_the_serving_forward(arch):
 
 
 def test_training_route_refuses_what_is_not_ported():
+    """``moe._iterative_top_k`` (an XLA workaround) is not ported:
+    ``iterative_topk=True`` raises. What the JAX package refuses, the port
+    refuses: a chunked layer or a chunked WKV6 whose chunk does not divide
+    the sequence."""
+    from repro_torch.models import moe
     p = {"wq": torch.ones((4, 1, 4)), "wk": torch.ones((4, 1, 4)),
          "wv": torch.ones((4, 1, 4)), "wo": torch.ones((1, 4, 4))}
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        attention.attention_forward_train(p, torch.ones((1, 4, 4)),
-                                          torch.arange(4), kind="chunk",
-                                          chunk=2)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        rwkv.rwkv6_timemix_forward_train({}, torch.ones((1, 4, 64)),
-                                         chunk=16)
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        attention.attention_forward_train(p, torch.ones((1, 6, 4)),
+                                          torch.arange(6), kind="chunk",
+                                          chunk=4)
+    tm = rwkv.init_rwkv6_timemix(torch.Generator().manual_seed(0), 64, 32,
+                                 4)
+    with pytest.raises(ValueError, match="rwkv chunk"):
+        rwkv.rwkv6_timemix_forward_train(tm, torch.ones((1, 12, 64)), 32,
+                                         chunk=8)
+    mp = moe.init_moe(torch.Generator().manual_seed(0), 4, 8, 2, 1)
+    with pytest.raises(ValueError, match="iterative_topk"):
+        moe.moe_apply(mp, torch.ones((1, 4, 4)), top_k=1,
+                      iterative_topk=True)
+
+
+def _attn_case(seed, s, h=4, kv=2, hd=8, d=16):
+    rng = np.random.default_rng(seed)
+    p = {"wq": _normal(rng, d, h, hd, scale=0.3),
+         "wk": _normal(rng, d, kv, hd, scale=0.3),
+         "wv": _normal(rng, d, kv, hd, scale=0.3),
+         "wo": _normal(rng, h, hd, d, scale=0.3)}
+    return p, _normal(rng, 2, s, d)
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (24, 8), (8, 16), (16, 16)])
+def test_chunked_attention_matches_jax_on_both_routes(s, chunk):
+    """A chunked (llama4 iRoPE) layer across chunk boundaries (and within
+    one chunk, plain causal): the training route's
+    ``chunked_causal_attention`` and the serving route's one
+    ``flash_attention`` call over (B * n_chunks, H, chunk, hd) against JAX's
+    ``attention_forward(kind="chunk")``, and the training route's input
+    gradient against JAX's."""
+    p, x = _attn_case(s + chunk, s)
+    pos = np.arange(s)
+    kw = dict(kind="chunk", chunk=chunk, rope_theta=5e5)
+    want = jattn.attention_forward(jax.tree.map(jnp.asarray, p),
+                                   jnp.asarray(x), jnp.asarray(pos), **kw)
+    tp = tree_map(torch.as_tensor, p)
+    train = attention.attention_forward_train(tp, torch.as_tensor(x),
+                                              torch.as_tensor(pos), **kw)
+    serve = attention.attention_forward(tp, torch.as_tensor(x),
+                                        torch.as_tensor(pos), **kw)
+    _close(train, want, MODEL_TOL, "chunked train route")
+    _close(serve, want, MODEL_TOL, "chunked serving route")
+    jg = jax.grad(lambda x: jnp.sum(jattn.attention_forward(
+        jax.tree.map(jnp.asarray, p), x, jnp.asarray(pos), **kw) ** 2))(
+        jnp.asarray(x))
+    g, _ = grad_and_value(lambda x: torch.sum(
+        attention.attention_forward_train(tp, x, torch.as_tensor(pos),
+                                          **kw) ** 2))(torch.as_tensor(x))
+    _close(g, jg, GRAD_TOL, "chunked train route grad")
 
 
 # ---------------------------- loss_fn and its grads --------------------------
 
 @functools.lru_cache(maxsize=None)
-def _models(arch, loss_chunk):
+def _models(arch, loss_chunk, changes=()):
     jm = JaxTransformer(replace(jax_smoke_variant(jax_get_arch(arch)),
-                                loss_chunk=loss_chunk))
+                                loss_chunk=loss_chunk, **dict(changes)))
     jp = jm.init(jax.random.PRNGKey(0))
     model = Transformer(replace(smoke_variant(get_arch(arch)),
-                                loss_chunk=loss_chunk))
+                                loss_chunk=loss_chunk, **dict(changes)))
     params = transformer_params_from_jax(jax.tree.map(np.asarray, jp), model,
                                          "cpu")
     return jm, jp, model, params
 
 
-def _token_batch(cfg, seed, lead=()):
+def _token_batch(cfg, seed, lead=(), seq=S):
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, lead + (B, S)),
-             "labels": rng.integers(0, cfg.vocab, lead + (B, S))}
+    batch = {"tokens": rng.integers(0, cfg.vocab, lead + (B, seq)),
+             "labels": rng.integers(0, cfg.vocab, lead + (B, seq))}
     batch = {k: v.astype(np.int32) for k, v in batch.items()}
     if cfg.prefix_len:
         batch["prefix"] = _normal(rng, *lead, B, cfg.prefix_len, cfg.d_model,
@@ -250,13 +298,30 @@ def _token_batch(cfg, seed, lead=()):
 
 @pytest.mark.parametrize("loss_chunk", [0, LOSS_CHUNK],
                          ids=["unchunked", "chunked"])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_loss_and_grads_match_jax(arch, loss_chunk):
     """loss_fn and torch.func.grad_and_value of it on JAX's weights against
     jax.value_and_grad, and the same under vmap over two clients (the DP
-    step's form); on the training route no model kernel is called."""
-    jm, jp, model, params = _models(arch, loss_chunk)
-    batch = _token_batch(model.cfg, len(arch))
+    step's form); on the training route no model kernel is called. The
+    MoE archs' loss carries AUX_WEIGHT times their aux loss, and their
+    router and expert gradients are held too."""
+    _check_loss_and_grads(arch, loss_chunk, {}, S)
+
+
+@pytest.mark.parametrize("arch,changes,seq", [
+    ("rwkv6-1.6b", dict(rwkv_chunk=8), 16),          # two WKV chunks
+    ("llama4-maverick-400b-a17b", {}, 32),            # two attention chunks
+], ids=["rwkv-chunked-wkv", "llama4-two-chunks"])
+def test_chunked_mixers_loss_and_grads_match_jax(arch, changes, seq):
+    """The chunk-parallel WKV6 (``rwkv_chunk`` 8 over 16 tokens) and
+    llama4's chunked layers across a chunk boundary (32 tokens, chunk 16)
+    in the loss and its gradients."""
+    _check_loss_and_grads(arch, 0, changes, seq)
+
+
+def _check_loss_and_grads(arch, loss_chunk, changes, seq):
+    jm, jp, model, params = _models(arch, loss_chunk, tuple(changes.items()))
+    batch = _token_batch(model.cfg, len(arch), seq=seq)
     jl, jg = jax.jit(jax.value_and_grad(jm.loss_fn))(
         jp, jax.tree.map(jnp.asarray, batch))
     tb = tree_from_numpy(batch, "cpu")
@@ -379,11 +444,14 @@ def test_dp_round_matches_jax_with_its_noise():
         _close(g, w, MODEL_TOL, f"round params {path}")
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-1.6b", "zamba2-7b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
 def test_model_kernels_stay_unlaunched_in_a_training_round(arch):
     """A round through build_federation and run_round on each arch with a
-    model kernel: flash_attention, rwkv6_scan and mamba2_ssd are never
-    called; dp_clip_noise is called tau times."""
+    model kernel (the MoE archs: flash in their attention layers):
+    flash_attention, rwkv6_scan and mamba2_ssd are never called;
+    dp_clip_noise is called tau times."""
     cfg = smoke_variant(get_arch(arch))
     _, spec, state, sampler = build_federation(cfg, 2, 2, 1, 16, [0.5, 0.5],
                                                device="cpu")
