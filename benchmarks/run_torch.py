@@ -1,7 +1,9 @@
 """Benchmark harness on the PyTorch port: the paper's figures 2-6.
 
 Prints ``name,us_per_call,derived`` CSV rows, as ``benchmarks/run.py``
-does for the JAX package (its ``roofline`` suite has no port yet).
+does for the JAX package; ``roofline`` tables the dry run's records
+(``benchmarks/roofline_torch.py``; run ``repro_torch.launch.dryrun --all``
+first).
 ``--full`` uses the paper-scale dataset sizes; the default fast mode uses
 the statistically matched reduced sizes. Each suite's JSON goes to
 ``--out-dir``.
@@ -24,6 +26,7 @@ from benchmarks import (  # noqa: E402
     fig4_resource_tradeoff_torch,
     fig5_privacy_tradeoff_torch,
     fig6_optimal_tau_torch,
+    roofline_torch,
 )
 
 SUITES = {
@@ -32,6 +35,7 @@ SUITES = {
     "fig4": fig4_resource_tradeoff_torch.main,
     "fig5": fig5_privacy_tradeoff_torch.main,
     "fig6": fig6_optimal_tau_torch.main,
+    "roofline": roofline_torch.main,
 }
 
 

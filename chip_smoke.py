@@ -158,7 +158,21 @@ Phases (each prints its lines; any failure exits non-zero):
      losses, positive aux, dp_clip_noise tau x rounds, the model kernels
      0, peak memory; (e) the chunk-parallel WKV6 at rwkv6-1.6b's widths
      (f32, one layer, rwkv_chunk 64, seq 512): the training route against
-     rwkv_chunk 0, the serving route (rwkv6_scan) against both.
+     rwkv_chunk 0, the serving route (rwkv6_scan) against both;
+ 19. the measurement toolchain and the last API names: (a)
+     benchmarks/throughput_torch.py --smoke --check --device cuda in this
+     process, every row kernel against its plain version and its H100
+     bound; (b) repro_torch.launch.dryrun --all on meta tensors (started
+     in the background after the build, with no CUDA device visible to
+     it; 19b runs before 19a and waits for it), then gemma3-4b's prefill
+     shape traced here (memory_allocated unchanged) and its bf16 prefill
+     at B 2 x 2,048 run for real against the dry run's bound and live
+     bytes for that shape; (c)
+     api.Federation on the main path's Adult-1 spec against api.train, and
+     its save_federation_state / load_federation_state resume bitwise;
+     (d) launch.train --smoke --env-profile host --replica-hint in a fresh
+     process (one re-exec, trains), and the same with
+     REPRO_DEVICE_MEM_BYTES below the footprint (raises naming item 12).
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -3754,6 +3768,338 @@ def run_chunked_wkv(torch, configs, Transformer, rwkv6_scan, card):
     return ok, ms["serving"][1]
 
 
+# -- phase 19: the measurement toolchain and the last API names ---------------
+
+ROW_KERNELS = ("dp_clip_noise", "quantize_decompress",
+               "cohort_gather_scatter")
+OUT19 = ROOT / "experiments" / "chip_smoke_phase19"   # git-ignored
+# 19b: phase 11's gemma3-4b prefill shape (B 2 x 2,048, bf16), and the
+# share of the dry run's live bytes its measured peak must fall within
+PREFILL_B, PREFILL_S, PREFILL_ITERS, MEM_TOL = 2, 2048, 5, 0.25
+# 19d: the launcher's smoke command, and a device budget below any
+# replica's footprint
+ENV_ARGV = ["--arch", "gemma3-4b", "--smoke", "--rounds", "2", "--clients",
+            "2", "--tau", "1", "--batch", "1", "--seq", "64",
+            "--env-profile", "host", "--replica-hint"]
+SMALL_BUDGET = str(1 << 20)
+# 19b: the background dry run's worker processes, and how long phase 19
+# waits for it at most
+DRYRUN_JOBS, DRYRUN_WAIT_S = 2, 300
+
+
+def run_throughput_smoke(torch, counters):
+    """Phase 19a: benchmarks/throughput_torch.py --smoke --check --device
+    cuda in this process. Every row prints; each row kernel is timed
+    against its plain version on the same operands and must equal it
+    (bitwise for QSGD and the gather, 1e-5 for dp_clip_noise); its time
+    is set beside its H100 bound. Returns (ok, the row kernels' launches on
+    the benchmark's driver paths: the kernel roofline's comparison calls
+    are left out)."""
+    import benchmarks.throughput_torch as tp
+    OUT19.mkdir(parents=True, exist_ok=True)
+    out = OUT19 / "BENCH_throughput_torch.json"
+    compared = dict.fromkeys(ROW_KERNELS, 0)
+    real = tp.run_kernel_roofline
+
+    def roofline(*a, **kw):
+        before = {n: counters[n].launches for n in ROW_KERNELS}
+        res = real(*a, **kw)
+        for n in ROW_KERNELS:
+            compared[n] += counters[n].launches - before[n]
+        return res
+
+    for n in ROW_KERNELS:
+        counters[n].launches = 0
+    tp.run_kernel_roofline = roofline
+    t0 = time.perf_counter()
+    try:
+        rc = tp.main(["--smoke", "--check", "--device", "cuda", "--out",
+                      str(out)])
+    finally:
+        tp.run_kernel_roofline = real
+    wall = time.perf_counter() - t0
+    launches = {n: counters[n].launches - compared[n] for n in ROW_KERNELS}
+    report = json.loads(out.read_text())
+    rows = report["kernel_roofline"]["rows"]
+    by = {(r["kernel"], r["backend"]): r for r in rows}
+    for name in ROW_KERNELS:
+        k, p = by[(name, "kernel")], by[(name, "plain")]
+        print(f"phase 19a roofline {name} {k['shape']}: kernel "
+              f"{k['wall_us'] / 1e3:.5f} ms, plain {p['wall_us'] / 1e3:.5f} "
+              f"ms, H100 bound {k['h100_bound_us'] / 1e3:.6f} ms "
+              f"({k['h100_bottleneck']}-bound; {k['flops']:.0f} flops, "
+              f"{k['hbm_bytes']:.0f} bytes from the kernel's cost), share "
+              f"of the bound {k['h100_bound_us'] / k['wall_us']:.4f}, "
+              f"{k['fraction_of_h100_hbm_bw']:.4f} of HBM bandwidth; vs "
+              f"plain {k['max_abs_err_vs_plain']!r} "
+              f"{'ok' if k['matches_plain'] else 'MISMATCH'}", flush=True)
+    ok = (rc == 0 and all(r["matches_plain"] for r in rows)
+          and launches["dp_clip_noise"] > 0
+          and launches["cohort_gather_scatter"] > 0)
+    print(f"phase 19a throughput_torch.py --smoke --check --device cuda: "
+          f"exit {rc}, {wall:.1f} s; driver-path launches "
+          + ", ".join(f"{n}={v}" for n, v in launches.items())
+          + f" (roofline comparison calls left out: {compared}) "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, launches
+
+
+def start_dryrun():
+    """Phase 19b's dry run (``repro_torch.launch.dryrun --all``: the ten
+    archs at the four shapes, on meta tensors), started in the background
+    after the build, with no CUDA device visible to it, so it overlaps
+    the card's phases 2-18 (its traces are host work, minutes of it).
+    Returns ``(process, start time)``; the process is killed at exit if
+    it is still running."""
+    import atexit
+    import os
+    import signal
+    OUT19.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(OUT19 / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out-dir", str(OUT19 / "dryrun")],
+        env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def run_dryrun_and_prefill(torch, configs, Transformer, counters, card,
+                           dry):
+    """Phase 19b: the dry run of all ten archs at the four shapes on meta
+    tensors (``dry``, from :func:`start_dryrun`: no device visible to it),
+    then gemma3-4b's prefill shape traced here on meta (no device memory
+    allocated) and run for real in bf16 at B 2 x 2,048: its measured ms
+    against the dry run's roofline bound for that shape (the model-level
+    share of the bound) and its measured peak memory against the dry
+    run's live bytes. Returns (ok, flash launches of the timed prefills,
+    the record)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    proc, t_start = dry
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t0
+    recs = [json.loads(p.read_text())
+            for p in sorted((OUT19 / "dryrun").glob("*.json"))]
+    status = {s: sum(r["status"] == s for r in recs)
+              for s in ("traced", "skipped", "error")}
+    traced_s = sum(r.get("trace_s", 0.0) for r in recs)
+    print(f"phase 19b dryrun --all --jobs {DRYRUN_JOBS} on meta (no CUDA "
+          f"device visible): exit {rc}, {status}, {traced_s:.1f} s of "
+          f"traces, started {t0 - t_start:.1f} s before this phase, waited "
+          f"{waited:.1f} s here", flush=True)
+    for r in recs:
+        if r["status"] == "error":
+            print(f"  {r['arch']} {r['shape']}: {r['error']}", flush=True)
+        elif r["status"] == "traced":
+            t = r["roofline"]
+            print(f"  {r['arch']} {r['shape']}: bound "
+                  f"{dryrun.bound_ms(r):.3f} ms ({t['bottleneck']}), "
+                  f"{t['flops_per_device']:.4g} flops, "
+                  f"{t['hbm_bytes_per_device']:.4g} bytes, live "
+                  f"{r['live_bytes_per_device'] / 2**30:.2f} GiB, useful "
+                  f"{t['useful_flops_fraction']:.3f}, trace "
+                  f"{r['trace_s']} s", flush=True)
+    shape = InputShape(f"prefill_{PREFILL_S // 1024}k", PREFILL_S, PREFILL_B,
+                       "prefill")
+    mem0 = torch.cuda.memory_allocated()
+    rec = dryrun.run_one("gemma3-4b", shape.name, shape=shape)
+    mem1 = torch.cuda.memory_allocated()
+    bound = dryrun.bound_ms(rec)
+    live = rec["live_bytes_per_device"]
+    cfg = configs.get_arch("gemma3-4b")
+    model = Transformer(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                            generator=gen, device="cuda")
+    flash = counters["flash_attention"]
+    with torch.inference_mode():
+        model.prefill(params, prompts, max_len=PREFILL_S)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.launches = 0
+        times = []
+        for _ in range(PREFILL_ITERS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, caches, _ = model.prefill(params, prompts,
+                                              max_len=PREFILL_S)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            finite = bool(torch.isfinite(logits).all())
+            del logits, caches
+        launches = flash.launches
+        peak = torch.cuda.max_memory_allocated()
+    ms = sorted(times)[len(times) // 2]
+    attn = cfg.count_mixers().get("attn", 0)
+    r = rec["roofline"]
+    ratio = peak / live
+    print(f"phase 19b gemma3-4b prefill B {PREFILL_B} x {PREFILL_S} bf16 on "
+          f"{card}: median {ms:.3f} ms of {PREFILL_ITERS} "
+          f"({', '.join(f'{t:.3f}' for t in times)}); dry-run bound "
+          f"{bound:.3f} ms ({r['bottleneck']}-bound: compute "
+          f"{r['t_compute_s'] * 1e3:.3f} ms for {r['flops_per_device']:.4g} "
+          f"flops, memory {r['t_memory_s'] * 1e3:.3f} ms for "
+          f"{r['hbm_bytes_per_device']:.4g} bytes), share of the bound "
+          f"{bound / ms:.4f}; useful flops "
+          f"{r['useful_flops_fraction']:.4f}", flush=True)
+    print(f"phase 19b the prefill's dry run here: memory_allocated {mem0} "
+          f"-> {mem1} bytes, trace {rec['trace_s']} s", flush=True)
+    print(f"phase 19b memory: measured peak {peak / 1e9:.3f} GB against the "
+          f"dry run's live bytes {live / 1e9:.3f} GB (params "
+          f"{rec['memory_analysis']['params_bytes'] / 1e9:.3f} + inputs "
+          f"{rec['memory_analysis']['inputs_bytes'] / 1e9:.6f} + trace peak "
+          f"{rec['memory_analysis']['temp_peak_bytes'] / 1e9:.3f}): ratio "
+          f"{ratio:.4f} ({'within' if abs(ratio - 1) <= MEM_TOL else 'OUTSIDE'}"
+          f" {MEM_TOL:.0%}); flash launches {launches} (expected "
+          f"{attn * PREFILL_ITERS})", flush=True)
+    ok = (rc == 0 and mem1 == mem0 and status["error"] == 0
+          and status["traced"] + status["skipped"] == 40
+          and finite and launches == attn * PREFILL_ITERS)
+    print(f"phase 19b {'ok' if ok else 'CHECK FAILED'}", flush=True)
+    del params, prompts, model
+    torch.cuda.empty_cache()
+    rec.update({"measured_ms": ms, "measured_peak_bytes": peak})
+    (OUT19 / "gemma3_prefill_2k.json").write_text(json.dumps(rec, indent=2))
+    return ok, launches, rec
+
+
+def run_federation(torch, np, api, linear, optim, spec, fed, dp_clip_noise):
+    """Phase 19c: repro_torch.api.Federation trains the main path's Adult-1
+    spec at full width on cuda under its budgets (the quickstart's C_th
+    1000, eps_th 4) and must equal api.train on the same spec (rounds,
+    resource_spent, epsilon, params) with dp_clip_noise launched on its
+    path; then a Federation saved halfway by save_federation_state and
+    loaded into a fresh one resumes to the uninterrupted run bitwise.
+    Returns (ok, dp_clip_noise launches of the Federation.train run)."""
+    import tempfile
+
+    from repro_torch.checkpoint import (
+        load_federation_state,
+        save_federation_state,
+    )
+    from repro_torch.core.fl import FLConfig
+    dim = fed.clients[0].x_train.shape[1]
+
+    def make():
+        return api.Federation(
+            cfg=FLConfig(n_clients=spec.n_clients, tau=spec.tau,
+                         clip_norm=spec.clip_norm, dp=True),
+            loss_fn=linear.logreg_loss, optimizer=optim.sgd(LR),
+            params0=linear.init_linear(dim, device="cuda"),
+            sampler=fed.make_sampler(BATCH), sigmas=np.asarray(spec.sigmas),
+            delta=spec.delta, batch_sizes=list(spec.batch_sizes),
+            seed=spec.seed, device="cuda")
+
+    state = api.init_state(spec, linear.init_linear(dim, device="cuda"),
+                           device="cuda")
+    state, ref = api.train(spec, state, fed.make_sampler(BATCH))
+    budgets = spec.budgets()
+    f = make()
+    torch.cuda.synchronize()
+    dp_clip_noise.launches = 0
+    t0 = time.perf_counter()
+    out = f.train(budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dp_clip_noise.launches
+    same = (out["rounds"], out["resource_spent"], out["max_epsilon"]) == (
+        ref["rounds"], ref["resource_spent"], ref["max_epsilon"])
+    bitwise = all(torch.equal(f.params[k], state.params[k])
+                  for k in state.params)
+    half = max(1, out["rounds"] // 2)
+    g = make()
+    g.train(budgets, max_rounds=half)
+    with tempfile.TemporaryDirectory() as d:
+        save_federation_state(d, g)
+        rng = g._rng.bit_generator.state
+        g.train(budgets)
+        h = make()
+        load_federation_state(d, h)
+    h._rng.bit_generator.state = rng
+    h.train(budgets)
+    resumed = (h.rounds_done == g.rounds_done == out["rounds"]
+               and all(torch.equal(h.params[k], g.params[k])
+                       for k in g.params)
+               and h.accountant.max_epsilon() == g.accountant.max_epsilon())
+    ok = (same and bitwise and resumed
+          and launches == spec.tau * out["rounds"] > 0)
+    print(f"phase 19c Federation.train on Adult-1 (cuda): rounds "
+          f"{out['rounds']} cost {out['resource_spent']!r} epsilon "
+          f"{out['max_epsilon']!r} against api.train {ref['rounds']} "
+          f"{ref['resource_spent']!r} {ref['max_epsilon']!r} "
+          f"({'equal' if same else 'DIFFERENT'}; params "
+          f"{'bitwise equal' if bitwise else 'DIFFERENT'}); "
+          f"{wall * 1e3:.1f} ms; dp_clip_noise launches {launches} "
+          f"(expected tau x rounds {spec.tau * out['rounds']}); saved at "
+          f"round {half} and resumed: "
+          f"{'bitwise equal' if resumed else 'DIFFERENT'} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, launches
+
+
+def run_launcher_env():
+    """Phase 19d: ``launch.train --smoke --env-profile host --replica-hint``
+    on cuda in a fresh process: it re-execs once under the host profile
+    and trains (the replica hint fits, engine 'auto' resolves to vmap);
+    with REPRO_DEVICE_MEM_BYTES below the footprint the same command
+    raises naming item 12."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_ENV_PROFILE_APPLIED", None)
+    env.pop("REPRO_DEVICE_MEM_BYTES", None)
+    argv = [sys.executable, "-m", "repro_torch.launch.train"] + ENV_ARGV
+    t0 = time.perf_counter()
+    runs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=e,
+                             cwd=ROOT)
+            for e in (env, dict(env, REPRO_DEVICE_MEM_BYTES=SMALL_BUDGET))]
+    (p_out, p_err), (q_out, q_err) = (r.communicate(timeout=600)
+                                      for r in runs)
+    wall = time.perf_counter() - t0
+    p = subprocess.CompletedProcess(argv, runs[0].returncode, p_out, p_err)
+    q = subprocess.CompletedProcess(argv, runs[1].returncode, q_out, q_err)
+    out = p.stdout
+    try:
+        summary = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    except ValueError:
+        summary = {}
+    env_lines = [ln for ln in out.splitlines() if ln.startswith("[env]")]
+    hint = [ln for ln in out.splitlines() if "replica footprint" in ln]
+    ok_run = (p.returncode == 0 and len(env_lines) == 1
+              and len(hint) == 1 and summary.get("rounds") == 2)
+    ok_big = q.returncode != 0 and "item 12" in q.stderr
+    print(f"phase 19d launch.train {' '.join(ENV_ARGV)} (cuda; the two "
+          f"runs side by side, {wall:.1f} s): exit "
+          f"{p.returncode}, {env_lines} {hint}, rounds "
+          f"{summary.get('rounds')} final_loss {summary.get('final_loss')} "
+          f"{'ok' if ok_run else 'CHECK FAILED'}", flush=True)
+    if not ok_run:
+        print(p.stdout[-2000:], p.stderr[-3000:], flush=True)
+    last = (q.stderr.strip().splitlines() or [""])[-1]
+    print(f"phase 19d the same with REPRO_DEVICE_MEM_BYTES={SMALL_BUDGET}: "
+          f"exit {q.returncode}: {last} "
+          f"{'ok' if ok_big else 'CHECK FAILED'}", flush=True)
+    return ok_run and ok_big
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
@@ -3826,6 +4172,8 @@ def main() -> int:
                   f"stores, {ld} bytes spill loads", flush=True)
             if inst.startswith("flash_tc") and st + ld:
                 ok_build = False
+
+    dry = start_dryrun()                   # phase 19b's, in the background
 
     # -- 2. kernels against their plain versions --------------------------
     ok_k, main_rec, worst = check_kernels(torch, dp_clip_noise,
@@ -3954,6 +4302,19 @@ def main() -> int:
     print(f"phase 18 wall time {time.perf_counter() - t18:.1f} s",
           flush=True)
 
+    # -- 19. the measurement toolchain and the last API names ----------------
+    t19 = time.perf_counter()
+    # 19b first: it waits for the background dry run, whose host work
+    # would otherwise share the CPU with 19a's host-timed drivers
+    ok_dr, dr_launches, dr_rec = run_dryrun_and_prefill(
+        torch, configs, Transformer, counters, card, dry)
+    ok_ta, ta_launches = run_throughput_smoke(torch, counters)
+    ok_fd, fd_launches = run_federation(torch, np, api, linear, optim, spec,
+                                        fed, dp_clip_noise)
+    ok_le = run_launcher_env()
+    print(f"phase 19 wall time {time.perf_counter() - t19:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -3985,6 +4346,9 @@ def main() -> int:
         "phase 18c the MoE archs' kernel route": ma_launches["18c"]})
     model_kernels[1]["launches_other_paths"][
         "phase 18e the serving route at rwkv_chunk 64"] = me_launches
+    model_kernels[0]["launches_other_paths"][
+        "phase 19b gemma3-4b prefill B 2 x 2048 (dry run's real path)"] = \
+        dr_launches
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -4009,7 +4373,10 @@ def main() -> int:
             "phase 16d launcher smoke runs (cuda)":
                 ls_launches["dp_clip_noise"],
             "phase 18d phi3.5-moe training at full width":
-                md_launches["dp_clip_noise"]},
+                md_launches["dp_clip_noise"],
+            "phase 19a throughput_torch.py --smoke drivers":
+                ta_launches["dp_clip_noise"],
+            "phase 19c Federation.train": fd_launches},
         "phase16_full_width": tw_rec, "phase18d_full_width": md_rec}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
@@ -4023,7 +4390,9 @@ def main() -> int:
             "phase 15a async identity qsgd8_q50 (async + vmap)":
                 aa_calls["quantize_decompress"],
             "phase 16d launcher qsgd_q50 (cuda)":
-                ls_launches["quantize_decompress"]}}, {
+                ls_launches["quantize_decompress"],
+            "phase 19a throughput_torch.py --smoke drivers":
+                ta_launches["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
@@ -4034,7 +4403,9 @@ def main() -> int:
         "library_ms": g_rec["library_ms"],
         "launches_other_paths": {
             "phase 16d launcher population_resident (cuda)":
-                ls_launches["cohort_gather_scatter"]}}] + model_kernels}),
+                ls_launches["cohort_gather_scatter"],
+            "phase 19a throughput_torch.py --smoke drivers":
+                ta_launches["cohort_gather_scatter"]}}] + model_kernels}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -4081,7 +4452,14 @@ def main() -> int:
                      (ok_mem, "the earlier phases left memory allocated"),
                      (ok_ma, "the MoE serving checks failed"),
                      (ok_md, "the MoE training run's checks failed"),
-                     (ok_me, "the chunked WKV6 checks failed")):
+                     (ok_me, "the chunked WKV6 checks failed"),
+                     (ok_ta, "benchmarks/throughput_torch.py --smoke "
+                             "--check failed on cuda"),
+                     (ok_dr, "the dry run or gemma3-4b's real prefill "
+                             "failed"),
+                     (ok_fd, "Federation.train or its resume failed"),
+                     (ok_le, "the launcher's env profile or replica hint "
+                             "checks failed")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

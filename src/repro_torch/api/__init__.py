@@ -17,13 +17,20 @@ calls. ``init_state(..., device="cpu")`` runs on the CPU.
 ``FederationSpec(participation=0.5, compressor="qsgd")`` (or ``"topk"`` /
 ``"randk"``) runs the aggregation pipeline: a fresh participant set every
 round, compressed error-fed updates (``FLState.residual``). ``save_state`` /
-``load_state`` checkpoint a state.
+``load_state`` checkpoint a state. :class:`Federation` is the
+back-compat mutable wrapper over the same functions, and
+``register_engine`` / ``get_engine`` the round-engine registry.
 """
 from repro_torch.api.engines import (
+    RoundEngine,
+    available_engines,
     chunked_round_fn_for,
+    get_engine,
+    register_engine,
     resolve_engine,
     round_fn_for,
 )
+from repro_torch.api.federation import Federation
 from repro_torch.api.spec import COMPRESSORS, ENGINES, FederationSpec
 from repro_torch.core.aggregation import (
     AggregationPipeline,
@@ -51,17 +58,20 @@ from repro_torch.api.state import (
     run_round,
     run_rounds,
     save_state,
+    sigmas_for,
     train,
 )
 
 __all__ = [
     "COMPRESSORS", "ENGINES", "FederationSpec",
     "AggregationPipeline", "make_compressor", "participation_mask",
-    "chunked_round_fn_for", "resolve_engine", "round_fn_for",
+    "RoundEngine", "available_engines", "chunked_round_fn_for", "get_engine",
+    "register_engine", "resolve_engine", "round_fn_for",
     "BudgetExceeded", "FLState", "PrefetchFailed", "accountant_view",
     "budget_train_loop", "collapse_clients", "eval_params",
     "exceeds_budgets", "init_state", "load_state", "materialize_record",
     "max_epsilon", "peek_epsilon_fast", "round_batch", "round_batches",
     "round_rho_charges", "rounds_within_budgets", "run_round", "run_rounds",
-    "save_state", "train",
+    "save_state", "sigmas_for", "train",
+    "Federation",
 ]

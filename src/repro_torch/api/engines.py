@@ -1,6 +1,7 @@
-"""Round engines.
+"""Round engines and their registry.
 
-A *round engine* turns a :class:`FederationSpec` into the round function
+A *round engine* is a builder that turns a :class:`FederationSpec` into the
+round function
 
     round_fn(params, opt_state, batch, noise, sigmas)
         -> (new_params, new_opt_state, metrics)
@@ -12,26 +13,40 @@ sigmas (C,). A spec with an aggregation pipeline gets the pipeline round,
     round_fn(params, opt_state, batch, noise, sigmas, mask, residual,
              agg_rand) -> (new_params, new_opt_state, new_residual, metrics)
 
-(see :func:`repro_torch.core.fl.make_round_step`). Two engines ship:
+(see :func:`repro_torch.core.fl.make_round_step`). Three engines are
+registered:
 
-    "vmap"  all C clients as one batch: one dp_clip_noise call per step
-    "map"   the same math one client at a time (one row per kernel call)
+    "vmap"            all C clients as one batch: one dp_clip_noise call
+                      per step
+    "map"             the same math one client at a time (one row per
+                      kernel call)
+    "async_buffered"  the buffered-async executor
+                      (:class:`repro_torch.asyncfl.engine.AsyncBufferedExecutor`),
+                      not a round function: it is driven by
+                      :mod:`repro_torch.asyncfl`
+
+``register_engine`` adds an execution strategy without touching the
+drivers, which select purely through ``FederationSpec.engine``. The JAX
+package's sharded engines (``shard_map``, ``mesh_2d``) are not registered:
+a spec naming them raises, naming ROADMAP queue 1 item 12.
 
 ``engine="auto"`` resolves to "vmap" (one device), never to
-"async_buffered": the buffered-async engine has no synchronous round
-function and is driven by :mod:`repro_torch.asyncfl`. Every engine's Eq.-7a
-clip + noise runs through the ``dp_clip_noise`` kernel, and the qsgd
-compressor through ``quantize_decompress``, on the spec's
-``kernel_backend``. Round functions are cached per ``spec.engine_key()``.
-The population plane's resident chunk
+"async_buffered". A ``replica_bytes`` hint is read against the device's
+memory (:func:`device_memory_budget`): a replica that does not fit would
+need the model axis sharded (the JAX package's ``mesh_2d``), so it raises.
+Every engine's Eq.-7a clip + noise runs through the ``dp_clip_noise``
+kernel, and the qsgd compressor through ``quantize_decompress``, on the
+spec's ``kernel_backend``. Round functions are cached per
+``spec.engine_key()``. The population plane's resident chunk
 (:func:`resident_chunked_round_fn_for`) moves cohort rows through the
 ``cohort_gather_scatter`` kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import os
+from typing import Any, Callable, Protocol
 
-from repro_torch.api.spec import FederationSpec
+from repro_torch.api.spec import ENGINES, FederationSpec, _not_ported
 from repro_torch.core.fl import (
     make_chunked_round,
     make_resident_chunked_round,
@@ -39,16 +54,124 @@ from repro_torch.core.fl import (
 )
 
 RoundFn = Callable[..., tuple[Any, Any, dict]]
-_PORTED = ("vmap", "map", "async_buffered")
+
+
+class RoundEngine(Protocol):
+    """Builder protocol: spec -> round_fn."""
+
+    def __call__(self, spec: FederationSpec) -> RoundFn: ...
+
+
+_REGISTRY: dict[str, RoundEngine] = {}
+
+
+def register_engine(name: str, builder: RoundEngine | None = None):
+    """Register a round-engine builder under ``name``.
+
+    Usable directly (``register_engine("x", build)``) or as a decorator
+    (``@register_engine("x")``).
+    """
+    def _add(b: RoundEngine) -> RoundEngine:
+        _REGISTRY[name] = b
+        return b
+
+    return _add if builder is None else _add(builder)
+
+
+def available_engines() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# -- placement (copies of the JAX package's repro/mesh/placement.py) --------
+
+ENV_DEVICE_MEM = "REPRO_DEVICE_MEM_BYTES"
+# an H100 80GB HBM3's memory as torch reports it (79.18 GiB): the budget
+# where no card is present to ask
+H100_MEM_BYTES = 85_017_493_504
+
+
+def device_memory_budget(default: int | None = None) -> int:
+    """Per-device memory budget in bytes: the ``REPRO_DEVICE_MEM_BYTES``
+    override, else ``default``, else the current CUDA device's total
+    memory (an H100's where there is no card)."""
+    env = os.environ.get(ENV_DEVICE_MEM)
+    if env:
+        budget = int(env)
+        if budget <= 0:
+            raise ValueError(f"{ENV_DEVICE_MEM} must be positive, "
+                             f"got {budget}")
+        return budget
+    if default is not None:
+        return int(default)
+    import torch
+    if torch.cuda.is_available():
+        return int(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory)
+    return H100_MEM_BYTES
+
+
+def replica_fits(replica_bytes: int, hbm_bytes: int | None = None) -> bool:
+    """Does one whole model replica (+ optimizer state) fit one device?"""
+    return int(replica_bytes) <= device_memory_budget(hbm_bytes)
 
 
 def resolve_engine(spec: FederationSpec) -> str:
-    """Map ``engine="auto"`` to a concrete engine: "vmap" on one device.
-    "async_buffered" resolves only by name."""
-    name = "vmap" if spec.engine == "auto" else spec.engine
-    if name not in _PORTED:
-        raise ValueError(f"unknown engine {name!r}; ported: {_PORTED}")
-    return name
+    """Map ``engine="auto"`` to a concrete engine: "vmap" on one device
+    when the spec's ``replica_bytes`` hint (if any) fits the device's
+    memory; a hint over it raises (the model axis would have to shard:
+    item 12). "async_buffered" resolves only by name."""
+    if spec.engine != "auto":
+        return spec.engine
+    if spec.replica_bytes is not None and not replica_fits(
+            spec.replica_bytes):
+        raise _not_ported(
+            f"a replica of {spec.replica_bytes:,} bytes over the device "
+            f"budget of {device_memory_budget():,} (engine='auto' would "
+            f"place it on the sharded mesh_2d engine)", "item 12")
+    return "vmap"
+
+
+def get_engine(name_or_spec: str | FederationSpec) -> RoundEngine:
+    """Look up an engine builder by name, or resolve it from a spec."""
+    name = (resolve_engine(name_or_spec)
+            if isinstance(name_or_spec, FederationSpec) else name_or_spec)
+    if name == "auto":
+        raise ValueError("pass a FederationSpec to resolve engine='auto'")
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown engine {name!r}; registered: "
+                       f"{available_engines()}") from None
+
+
+# ---------------------------------------------------------------------------
+# built-in engines
+# ---------------------------------------------------------------------------
+
+@register_engine("vmap")
+def build_vmap_engine(spec: FederationSpec) -> RoundFn:
+    return make_round_step(spec.loss_fn, spec.optimizer,
+                           spec.fl_config(vmap_clients=True),
+                           topology=spec.topology,
+                           pipeline=spec.aggregation_pipeline())
+
+
+@register_engine("map")
+def build_map_engine(spec: FederationSpec) -> RoundFn:
+    return make_round_step(spec.loss_fn, spec.optimizer,
+                           spec.fl_config(vmap_clients=False),
+                           topology=spec.topology,
+                           pipeline=spec.aggregation_pipeline())
+
+
+@register_engine("async_buffered")
+def build_async_engine(spec: FederationSpec):
+    """The spec's :class:`repro_torch.asyncfl.engine.AsyncBufferedExecutor`:
+    a flush / dispatch executor, NOT a ``round_fn`` (``round_fn_for``
+    refuses async specs). Imported lazily: asyncfl builds on
+    repro_torch.api."""
+    from repro_torch.asyncfl.engine import AsyncBufferedExecutor
+    return AsyncBufferedExecutor(spec)
 
 
 # round functions keyed on the engine-relevant slice of the spec, so budget
@@ -68,10 +191,7 @@ def round_fn_for(spec: FederationSpec) -> RoundFn:
     key = spec.engine_key()
     fn = _ROUND_FN_CACHE.pop(key, None)
     if fn is None:
-        fn = make_round_step(
-            spec.loss_fn, spec.optimizer,
-            spec.fl_config(vmap_clients=resolve_engine(spec) == "vmap"),
-            topology=spec.topology, pipeline=spec.aggregation_pipeline())
+        fn = get_engine(spec)(spec)
         while len(_ROUND_FN_CACHE) >= _ROUND_FN_CACHE_MAX:
             _ROUND_FN_CACHE.pop(next(iter(_ROUND_FN_CACHE)))
     _ROUND_FN_CACHE[key] = fn      # (re)insert at MRU position
@@ -125,3 +245,8 @@ def resident_chunked_round_fn_for(spec: FederationSpec,
             _RESIDENT_FN_CACHE.pop(next(iter(_RESIDENT_FN_CACHE)))
     _RESIDENT_FN_CACHE[key] = fn   # (re)insert at MRU position
     return fn
+
+
+_UNREGISTERED = {"shard_map", "mesh_2d", "auto"}
+assert set(ENGINES) - _UNREGISTERED == set(_REGISTRY), \
+    "built-in engines drifted"

@@ -27,7 +27,7 @@ from repro_torch.core.aggregation import (
     make_compressor,
     validate_compression,
 )
-from repro_torch.core.fl import TOPOLOGIES, FLConfig, design_sigmas
+from repro_torch.core.fl import TOPOLOGIES, Budgets, FLConfig, design_sigmas
 from repro_torch.core.privacy import composed_subsampling_q
 from repro_torch.core.robust import (
     byzantine_flags,
@@ -289,6 +289,10 @@ class FederationSpec:
             average_opt_state=self.average_opt_state,
             vmap_clients=vmap_clients,
             kernel_backend=self.kernel_backend)
+
+    def budgets(self) -> Budgets:
+        return Budgets(c_th=self.c_th, eps_th=self.eps_th,
+                       c1=self.c1, c2=self.c2)
 
     def participants_per_round(self) -> int:
         """The fixed per-round participant count (fraction q rounded to a

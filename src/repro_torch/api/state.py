@@ -129,9 +129,11 @@ def _ledger_cached(cache: dict, key, build):
     return val
 
 
-def _sigmas_on(spec: FederationSpec, device: torch.device) -> torch.Tensor:
-    """The (C,) f32 sigma vector for ``spec`` on ``device``, cached per
-    ledger key so rounds do not copy the same constants every time."""
+def sigmas_for(spec: FederationSpec, device=None) -> torch.Tensor:
+    """The (C,) f32 sigma vector for ``spec`` on ``device`` (default: the
+    GPU), cached per ``spec.ledger_key()`` and device so rounds stop
+    copying the same constants to the device every time."""
+    device = resolve_device(device)
     return _ledger_cached(
         _SIGMA_CACHE, (spec.ledger_key(), str(device)),
         lambda: torch.as_tensor(spec.resolved_sigmas(), dtype=torch.float32,
@@ -253,14 +255,14 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
         mask_np = mask.cpu().numpy()
         new_p, new_s, residual, ms = round_fn_for(spec)(
             state.params, state.opt_state, batch, noise,
-            _sigmas_on(spec, dev), mask, state.residual, agg_rand)
+            sigmas_for(spec, dev), mask, state.residual, agg_rand)
         rho = state.rho + np.where(mask_np > 0, per_round, 0.0)
         n_participants = int(mask_np.sum())
     else:
         noise, key = draw_round_noise(state.key, state.params, spec.tau)
         new_p, new_s, ms = round_fn_for(spec)(
             state.params, state.opt_state, batch, noise,
-            _sigmas_on(spec, dev))
+            sigmas_for(spec, dev))
         rho = state.rho + per_round
         n_participants = spec.n_clients
     new_state = state.replace(
@@ -309,7 +311,7 @@ def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
     dev = _device_of(state)
     fn = chunked_round_fn_for(spec)
     batches = tree_from_numpy(batches, dev)
-    sig = _sigmas_on(spec, dev)
+    sig = sigmas_for(spec, dev)
     residual = state.residual
     if spec.has_pipeline():
         new_p, new_s, key, residual, ms, masks = fn(

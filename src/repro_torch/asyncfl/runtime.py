@@ -45,11 +45,11 @@ from repro_torch.api.spec import FederationSpec
 from repro_torch.api.state import (
     BudgetExceeded,
     FLState,
-    _sigmas_on,
     accountant_view,
     budget_train_loop,
     round_batch,
     round_rho_charges,
+    sigmas_for,
 )
 from repro_torch.asyncfl.clock import LatencyModel, UniformLatency
 from repro_torch.asyncfl.engine import executor_for
@@ -304,7 +304,7 @@ def init_async_state(spec: FederationSpec, params0: Any, sampler: Callable,
                  else None)
     batch = tree_upload(round_batch(spec, sampler, rng), dev)
     out = executor_for(spec).init_dispatch(
-        global_params, global_opt, batch, key, _sigmas_on(spec, dev),
+        global_params, global_opt, batch, key, sigmas_for(spec, dev),
         residual=residual0)
     mask_np = _host_mask(out["mask"], pipe is not None, k)
     fl = FLState(params=out["slot_params"], opt_state=out["slot_opt"],
@@ -376,7 +376,7 @@ def run_async_cycle(spec: FederationSpec, state: AsyncState,
     out = executor_for(spec).cycle(
         state.global_params, state.global_opt, state.fl.params,
         state.fl.opt_state, state.slot_metrics, state.fl.key,
-        _sigmas_on(spec, dev), idx, weights, arr_mask, batch,
+        sigmas_for(spec, dev), idx, weights, arr_mask, batch,
         sent=state.sent, residual=state.fl.residual)
     nmask = _host_mask(out["mask"], spec.has_pipeline(), b)
     charges = round_rho_charges(spec)

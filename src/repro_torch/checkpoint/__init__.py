@@ -1,7 +1,11 @@
 from repro_torch.checkpoint.checkpoint import (
     checkpoint_leaf_paths,
     load_checkpoint,
+    load_federation_state,
     save_checkpoint,
+    save_federation_state,
 )
 
-__all__ = ["checkpoint_leaf_paths", "load_checkpoint", "save_checkpoint"]
+__all__ = ["checkpoint_leaf_paths", "load_checkpoint",
+           "load_federation_state", "save_checkpoint",
+           "save_federation_state"]

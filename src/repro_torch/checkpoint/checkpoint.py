@@ -104,3 +104,24 @@ def load_checkpoint(directory: str, like: Any | None = None):
             node = node.setdefault(p, {})
         node[parts[-1]] = arr
     return root, meta["step"], meta["extra"]
+
+
+def save_federation_state(directory: str, fed) -> None:
+    """Persist a ``repro_torch.api.Federation``: its FLState + sigmas and
+    history.
+
+    Thin sugar over ``repro_torch.api.save_state`` (which handles the
+    arrays and the accountant snapshot); use that directly for functional
+    drivers.
+    """
+    from repro_torch.api.state import save_state
+    save_state(directory, fed.state,
+               extra={"sigmas": np.asarray(fed.sigmas).tolist(),
+                      "history": fed.history})
+
+
+def load_federation_state(directory: str, fed) -> None:
+    """Restore a Federation saved by :func:`save_federation_state`."""
+    from repro_torch.api.state import load_state
+    state, extra = load_state(directory, fed.state)
+    fed.restore(state, history=extra.get("history"))

@@ -17,7 +17,12 @@ from repro_torch.core.design import (
     ResourceModel,
     grid_search_reference,
 )
-from repro_torch.core.fl import FLConfig, design_sigmas, make_round_step
+from repro_torch.core.fl import (
+    Budgets,
+    FLConfig,
+    design_sigmas,
+    make_round_step,
+)
 from repro_torch.core.privacy import (
     PrivacyAccountant,
     compose_zcdp,
@@ -33,7 +38,7 @@ __all__ = [
     "clip_tree", "make_dp_grad_fn", "make_plain_grad_fn",
     "ProblemConstants", "bound_b", "theorem1_bound",
     "DesignProblem", "DesignSolution", "ResourceModel", "grid_search_reference",
-    "FLConfig", "design_sigmas", "make_round_step",
+    "Budgets", "FLConfig", "design_sigmas", "make_round_step",
     "PrivacyAccountant", "compose_zcdp", "epsilon_after_k", "gaussian_zcdp",
     "grad_sensitivity", "privacy_z", "sigma_star", "zcdp_to_dp",
 ]

@@ -338,6 +338,15 @@ def make_resident_chunked_round(round_fn: Callable, pipeline,
     return chunk_fn
 
 
+@dataclass
+class Budgets:
+    """Per-device budgets of the optimal-design problem (paper §5.3)."""
+    c_th: float = float("inf")     # resource budget C_th
+    eps_th: float = float("inf")   # privacy budget eps_th
+    c1: float = 100.0              # comm cost / aggregation (paper §8.1 default)
+    c2: float = 1.0                # compute cost / local step
+
+
 def design_sigmas(k: int, clip_norm: float, batch_sizes: list[int],
                   eps_th: float, delta: float) -> np.ndarray:
     """Vector of Eq.-(23) optimal noise levels, one per client."""

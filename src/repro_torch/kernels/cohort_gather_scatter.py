@@ -4,8 +4,11 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.cohort_gather_scatter_ref`. Nothing falls
-back. The scatter writes the cache in place on both routes, where the JAX
+:func:`repro_torch.kernels.ref.cohort_gather_scatter_ref`, and a ``meta``
+tensor gets outputs of the right shapes and dtypes and no copy. Any other
+device raises. Nothing falls back. Under
+:func:`repro_torch.utils.cost.cost_of` a call counts as :func:`cost`,
+whatever implements it. The scatter writes the cache in place on both routes, where the JAX
 form aliases the cache into its output.
 """
 from __future__ import annotations
@@ -16,6 +19,7 @@ import struct
 import torch
 
 from repro_torch.kernels.ref import cohort_gather_scatter_ref
+from repro_torch.utils.cost import counted
 
 _MAX_ROWS = 65535                    # the kernel's grid.y
 _SLOT_BYTES = {torch.int32: 4, torch.int64: 8}
@@ -73,6 +77,14 @@ def _library():
     return _LIB
 
 
+def cost(k: int, d: int, itemsize: int = 4,
+         slot_itemsize: int = 8) -> tuple[int, int]:
+    """(flops, bytes) of one gather or scatter of K rows of D elements:
+    the rows read once and written once, the slots read once; no
+    arithmetic."""
+    return 0, 2 * k * d * itemsize + slot_itemsize * k
+
+
 def cohort_gather_scatter(cache, slots, rows=None):
     """Gather (``rows=None``) or scatter rows of the (S, D) cohort cache.
 
@@ -85,12 +97,24 @@ def cohort_gather_scatter(cache, slots, rows=None):
     of the cache's dtype. On a CUDA tensor every call launches one kernel,
     which reads the slots in their own type (no cast kernel), and adds 1 to
     ``cohort_gather_scatter.launches``; a slot outside [0, S) makes that
-    kernel trap."""
+    kernel trap. On a ``meta`` tensor it returns the empty gather (or the
+    cache) and copies nothing."""
     _check(cache, slots, rows)
+    return counted(
+        "cohort_gather_scatter",
+        lambda: cost(slots.shape[0], cache.shape[1], cache.element_size(),
+                     slots.element_size()),
+        lambda: _run(cache, slots, rows))
+
+
+def _run(cache, slots, rows):
     if not cache.is_cuda:
         if cache.device.type == "cpu":
             return cohort_gather_scatter_ref(cache, slots, rows)
-        raise ValueError(f"cohort_gather_scatter runs on cuda or cpu "
+        if cache.device.type == "meta":
+            return (cache.new_empty((slots.shape[0], cache.shape[1]))
+                    if rows is None else cache)
+        raise ValueError(f"cohort_gather_scatter runs on cuda, cpu or meta "
                          f"tensors, got {cache.device}")
     k = slots.shape[0]
     if k > _MAX_ROWS:
@@ -104,7 +128,7 @@ def cohort_gather_scatter(cache, slots, rows=None):
         # a launch goes to the current device: make it the cache's (the
         # common single-device case never enters this context)
         with torch.cuda.device(dev):
-            return cohort_gather_scatter(cache, slots, rows)
+            return _run(cache, slots, rows)
     d = cache.shape[1]
     out = cache.new_empty((k, d)) if rows is None else cache
     err = lib.cohort_gather_scatter_launch(_ARGS.pack(

@@ -4,7 +4,10 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.dp_clip_noise_ref`. Nothing falls back.
+:func:`repro_torch.kernels.ref.dp_clip_noise_ref`, and a ``meta`` tensor
+gets outputs of the right shapes and dtypes and no arithmetic. Any other
+device raises. Nothing falls back. Under :func:`repro_torch.utils.cost.cost_of`
+a call counts as :func:`cost`, whatever implements it.
 
 The library holds three instances, chosen by :func:`_variant` from the row
 length alone (``kernels/row_reduce.py``): ``"row_cta"`` (N <= 4,096),
@@ -19,6 +22,7 @@ from repro_torch.kernels import row_reduce
 from repro_torch.kernels.mamba2_ssd import _on
 from repro_torch.kernels.ref import dp_clip_noise_ref
 from repro_torch.kernels.row_reduce import variant as _variant  # noqa: F401
+from repro_torch.utils.cost import counted
 
 _KERNEL = None                       # (name, launch, error string), once built
 
@@ -45,6 +49,16 @@ def _check(g, noise, sigma):
                          f"tensor on {g.device}")
 
 
+def cost(rows: int, n: int, with_noise: bool = True) -> tuple[int, int]:
+    """(flops, bytes) of one call on (rows, n), f32. Bytes: g (and noise,
+    sigma) read once, y and norm written once. Operations: per element a
+    square-and-add (2), the scale (1) and, with noise, a multiply-add
+    (2)."""
+    nbytes = 4 * (rows * n * (3 if with_noise else 2)
+                  + rows * (2 if with_noise else 1))
+    return rows * n * (5 if with_noise else 3), nbytes
+
+
 def dp_clip_noise(g, noise, clip_norm: float, sigma):
     """Row-batched clip + noise; see ``dp_clip_noise_ref`` for the math.
 
@@ -54,14 +68,23 @@ def dp_clip_noise(g, noise, clip_norm: float, sigma):
     On a CUDA tensor every call runs the instance :func:`_variant` names
     on the current stream, adds 1 to ``dp_clip_noise.launches`` (one per
     call, whatever the instance launches) and sets
-    ``dp_clip_noise.last_variant``."""
-    global _KERNEL
+    ``dp_clip_noise.last_variant``. On a ``meta`` tensor it returns empty
+    outputs and runs nothing."""
     _check(g, noise, sigma)
+    return counted("dp_clip_noise",
+                   lambda: cost(*g.shape, with_noise=noise is not None),
+                   lambda: _run(g, noise, clip_norm, sigma))
+
+
+def _run(g, noise, clip_norm, sigma):
+    global _KERNEL
     if not g.is_cuda:
         if g.device.type == "cpu":
             return dp_clip_noise_ref(g, noise, clip_norm, sigma)
-        raise ValueError(f"dp_clip_noise runs on cuda or cpu tensors, got "
-                         f"{g.device}")
+        if g.device.type == "meta":
+            return torch.empty_like(g), g.new_empty(g.shape[:1])
+        raise ValueError(f"dp_clip_noise runs on cuda, cpu or meta tensors, "
+                         f"got {g.device}")
     if _KERNEL is None:
         _KERNEL = row_reduce.load("dp_clip_noise")
     y, norm, variant = row_reduce.launch(

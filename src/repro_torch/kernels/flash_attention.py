@@ -4,7 +4,11 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.flash_attention_ref`. Nothing falls back.
+:func:`repro_torch.kernels.ref.flash_attention_ref`, and a ``meta`` tensor
+gets an output of the right shape and dtype and no arithmetic. Any other
+device raises. Nothing falls back. Under
+:func:`repro_torch.utils.cost.cost_of` a call counts as :func:`cost`,
+whatever implements it.
 The kernel has no backward, so an input that requires grad is refused.
 
 The library holds two instances, chosen by :func:`_variant` from the head
@@ -20,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.utils.cost import counted
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
@@ -78,6 +83,24 @@ def _library():
     return lib
 
 
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs causal attention with ``window`` (0: none)
+    computes over S tokens."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def cost(b: int, h: int, s: int, hd: int, window: int = 0,
+         itemsize: int = 2) -> tuple[int, int]:
+    """(flops, bytes) of one call on (B, H, S, hd). Bytes: q, k, v read
+    once, the output written once. Operations: per visible (query, key)
+    pair (the causal and window skipping) 2 hd for the score and 2 hd
+    for P V."""
+    return (4 * hd * b * h * visible_pairs(s, window),
+            4 * b * h * s * hd * itemsize)
+
+
 def flash_attention(q, k, v, *, window: int = 0):
     """Causal attention of q / k / v (B, H, S, hd), float32 or bfloat16,
     with a sliding window of ``window`` keys (0: full causal); see
@@ -87,13 +110,23 @@ def flash_attention(q, k, v, *, window: int = 0):
     the end), adds 1 to ``flash_attention.launches`` and sets
     ``flash_attention.last_variant``. The ``"tc"`` instance reads q, k, v
     through TMA, which needs 16-byte aligned bases: a misaligned view
-    raises ``ValueError``."""
+    raises ``ValueError``. On a ``meta`` tensor it returns an empty output
+    and runs nothing."""
     _check(q, k, v, window)
+    return counted("flash_attention",
+                   lambda: cost(*q.shape, window=window,
+                                itemsize=q.element_size()),
+                   lambda: _run(q, k, v, window))
+
+
+def _run(q, k, v, window):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
-                         f"{q.device}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta "
+                         f"tensors, got {q.device}")
     b, h, s, hd = q.shape
     variant = _variant(hd, q.dtype)
     rows = _Q_TILE[variant]

@@ -4,8 +4,11 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.mamba2_ssd_ref`. Nothing falls back. The
-kernel has no backward, so an input that requires grad is refused.
+:func:`repro_torch.kernels.ref.mamba2_ssd_ref`, and a ``meta`` tensor gets
+outputs of the right shapes and dtypes and no arithmetic. Any other device
+raises. Nothing falls back. Under :func:`repro_torch.utils.cost.cost_of` a
+call counts as :func:`cost`, whatever implements it. The kernel has no
+backward, so an input that requires grad is refused.
 
 The library holds two instances, chosen by :func:`_variant` from the chunk,
 the head and state widths and the dtype alone: ``"tc"`` (bf16 at Q 64 or
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import DTYPES
 from repro_torch.kernels.ref import mamba2_ssd_ref
+from repro_torch.utils.cost import counted
 
 _MAX_SMEM = 232_448                  # bytes a block may use on Hopper
 _TC_WIDTHS = range(16, 129, 16)      # P and N the tensor-core tiles take
@@ -112,6 +116,19 @@ def _library():
     return _LIB
 
 
+def cost(b: int, s: int, h: int, p: int, n: int, q: int,
+         itemsize: int = 2) -> tuple[int, int]:
+    """(flops, bytes) of one call on x (B, S, H, P), b / c (B, S, N) at
+    chunk Q. Bytes: x and y in the inputs' dtype, b and c once, dt, a and
+    the final state f32. Operations per chunk and head: the scores and
+    M x over the Q (Q + 1) / 2 pairs (2 N + 2 P each), the state's
+    contribution and the state update (2 Q P N each)."""
+    nbytes = (itemsize * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    per_chunk = q * (q + 1) // 2 * (2 * n + 2 * p) + 4 * q * p * n
+    return per_chunk * (s // q) * b * h, nbytes
+
+
 def mamba2_ssd(x, dt, a, b_in, c_in, *, chunk: int = 128):
     """Mamba2's SSD chunk scan from a zero state; see ``mamba2_ssd_ref``
     for the math. x (B, S, H, P) float32 or bfloat16 in the model's
@@ -123,14 +140,26 @@ def mamba2_ssd(x, dt, a, b_in, c_in, *, chunk: int = 128):
     ``mamba2_ssd.launches`` and sets ``mamba2_ssd.last_variant``. The
     ``"tc"`` instance copies x, b and c in 16-byte pieces, which needs
     16-byte aligned data pointers: a misaligned view raises
-    ``ValueError``."""
+    ``ValueError``. On a ``meta`` tensor it returns empty outputs and runs
+    nothing."""
     chunk = min(chunk, x.shape[1]) if x.dim() == 4 else chunk
     _check(x, dt, a, b_in, c_in, chunk)
+    return counted("mamba2_ssd",
+                   lambda: cost(*x.shape, b_in.shape[-1], chunk,
+                                itemsize=x.element_size()),
+                   lambda: _run(x, dt, a, b_in, c_in, chunk))
+
+
+def _run(x, dt, a, b_in, c_in, chunk):
     if not x.is_cuda:
         if x.device.type == "cpu":
             return mamba2_ssd_ref(x, dt, a, b_in, c_in, chunk)
-        raise ValueError(f"mamba2_ssd runs on cuda or cpu tensors, got "
-                         f"{x.device}")
+        if x.device.type == "meta":
+            bsz, _, h, p = x.shape
+            return (torch.empty_like(x),
+                    dt.new_empty((bsz, h, p, b_in.shape[-1])))
+        raise ValueError(f"mamba2_ssd runs on cuda, cpu or meta tensors, "
+                         f"got {x.device}")
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
     variant = _variant(chunk, p, n, x.dtype)
@@ -145,7 +174,7 @@ def mamba2_ssd(x, dt, a, b_in, c_in, *, chunk: int = 128):
         # a launch goes to the current device: make it x's (the common
         # single-device case never enters this context)
         with torch.cuda.device(dev):
-            return mamba2_ssd(x, dt, a, b_in, c_in, chunk=chunk)
+            return _run(x, dt, a, b_in, c_in, chunk)
     y = torch.empty_like(x)
     state = dt.new_empty((bsz, h, p, n))
     err = lib.mamba2_ssd_launch(_ARGS.pack(

@@ -4,7 +4,11 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.quantize_decompress_ref`. Nothing falls back.
+:func:`repro_torch.kernels.ref.quantize_decompress_ref`, and a ``meta``
+tensor gets outputs of the right shapes and dtypes and no arithmetic. Any
+other device raises. Nothing falls back. Under
+:func:`repro_torch.utils.cost.cost_of` a call counts as :func:`cost`,
+whatever implements it.
 
 The library holds three instances, chosen by :func:`_variant` from the row
 length alone (``kernels/row_reduce.py``): ``"row_cta"`` (N <= 4,096),
@@ -20,6 +24,7 @@ from repro_torch.kernels import row_reduce
 from repro_torch.kernels.mamba2_ssd import _on
 from repro_torch.kernels.ref import quantize_decompress_ref
 from repro_torch.kernels.row_reduce import variant as _variant  # noqa: F401
+from repro_torch.utils.cost import counted
 
 _KERNEL = None                       # (name, launch, error string), once built
 # f32(1 / levels) for bits 1..16, as the scale takes it
@@ -43,6 +48,13 @@ def _check(x, u, bits):
         raise ValueError(f"bits must be an int in [1, 16], got {bits!r}")
 
 
+def cost(rows: int, n: int) -> tuple[int, int]:
+    """(flops, bytes) of one call on (rows, n), f32. Bytes: x and u read
+    once, y and scale written once. Operations: per element abs and max
+    (2), divide, add, floor (3), sign and two multiplies (3)."""
+    return 8 * rows * n, 4 * (3 * rows * n + rows)
+
+
 def quantize_decompress(x, u, bits: int):
     """Row-batched QSGD round trip; see ``quantize_decompress_ref`` for the
     math.
@@ -51,14 +63,22 @@ def quantize_decompress(x, u, bits: int):
     ``(y (R, N), scale (R,))``. On a CUDA tensor every call runs the
     instance :func:`_variant` names on the current stream, adds 1 to
     ``quantize_decompress.launches`` (one per call, whatever the instance
-    launches) and sets ``quantize_decompress.last_variant``."""
-    global _KERNEL
+    launches) and sets ``quantize_decompress.last_variant``. On a ``meta``
+    tensor it returns empty outputs and runs nothing."""
     _check(x, u, bits)
+    return counted("quantize_decompress", lambda: cost(*x.shape),
+                   lambda: _run(x, u, bits))
+
+
+def _run(x, u, bits):
+    global _KERNEL
     if not x.is_cuda:
         if x.device.type == "cpu":
             return quantize_decompress_ref(x, u, bits)
-        raise ValueError(f"quantize_decompress runs on cuda or cpu tensors, "
-                         f"got {x.device}")
+        if x.device.type == "meta":
+            return torch.empty_like(x), x.new_empty(x.shape[:1])
+        raise ValueError(f"quantize_decompress runs on cuda, cpu or meta "
+                         f"tensors, got {x.device}")
     if _KERNEL is None:
         _KERNEL = row_reduce.load("quantize_decompress")
     y, scale, variant = row_reduce.launch(_KERNEL, x, u, x.shape[1], None,

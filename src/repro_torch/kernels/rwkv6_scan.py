@@ -4,8 +4,11 @@
 
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.rwkv6_scan_ref`. Nothing falls back. The
-kernel has no backward, so an input that requires grad is refused.
+:func:`repro_torch.kernels.ref.rwkv6_scan_ref`, and a ``meta`` tensor gets
+outputs of the right shapes and dtypes and no arithmetic. Any other device
+raises. Nothing falls back. Under :func:`repro_torch.utils.cost.cost_of` a
+call counts as :func:`cost`, whatever implements it. The kernel has no
+backward, so an input that requires grad is refused.
 
 The library holds two instances, chosen by :func:`_variant` from S, hd and
 the dtype alone: ``"tc"`` (bf16 at hd 16, 32, 48 or 64 and S >= 16: the
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels.flash_attention import DTYPES
 from repro_torch.kernels.mamba2_ssd import _on
 from repro_torch.kernels.ref import rwkv6_scan_ref
+from repro_torch.utils.cost import counted
 
 _MAX_HEAD_DIM = 64                   # every config's rwkv_headdim
 _TC_WIDTHS = (16, 32, 48, 64)        # hd the tensor-core tiles take
@@ -120,6 +124,17 @@ def _library():
     return _LIB
 
 
+def cost(b: int, h: int, s: int, hd: int, with_s0: bool = False,
+         itemsize: int = 2) -> tuple[int, int]:
+    """(flops, bytes) of one call on (B, H, S, hd). Bytes: r, k, v (and y)
+    in the inputs' dtype, w f32, u, s0 and the final state f32, each once.
+    Operations: 7 hd^2 per token and head."""
+    n = b * h * s * hd
+    nbytes = (4 * itemsize + 4) * n + 4 * h * hd + 4 * b * h * hd * hd * (
+        2 if with_s0 else 1)
+    return 7 * hd * hd * b * h * s, nbytes
+
+
 def rwkv6_scan(r, k, v, w, u, s0=None):
     """The WKV6 recurrence; see ``rwkv6_scan_ref`` for the math. r, k, v
     (B, H, S, hd) float32 or bfloat16, w (B, H, S, hd) float32, u (H, hd)
@@ -133,13 +148,24 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     state passing, the outputs) with scratch of (B, H, ceil(S / 64), hd,
     hd + 1) float32, and reads r, k, v and w in 16-byte pieces, which needs
     16-byte aligned data pointers: a misaligned view raises
-    ``ValueError``."""
+    ``ValueError``. On a ``meta`` tensor it returns empty outputs and runs
+    nothing."""
     _check(r, k, v, w, u, s0)
+    return counted("rwkv6_scan",
+                   lambda: cost(*r.shape, with_s0=s0 is not None,
+                                itemsize=r.element_size()),
+                   lambda: _run(r, k, v, w, u, s0))
+
+
+def _run(r, k, v, w, u, s0):
     if not r.is_cuda:
         if r.device.type == "cpu":
             return rwkv6_scan_ref(r, k, v, w, u, s0)
-        raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors, got "
-                         f"{r.device}")
+        if r.device.type == "meta":
+            b, h, _, hd = r.shape
+            return torch.empty_like(r), w.new_empty((b, h, hd, hd))
+        raise ValueError(f"rwkv6_scan runs on cuda, cpu or meta tensors, "
+                         f"got {r.device}")
     b, h, s, hd = r.shape
     variant = _variant(s, hd, r.dtype)
     rp, kp, vp, wp = r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr()
@@ -153,7 +179,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
         # a launch goes to the current device: make it r's (the common
         # single-device case never enters this context)
         with torch.cuda.device(dev):
-            return rwkv6_scan(r, k, v, w, u, s0)
+            return _run(r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_out = w.new_empty((b, h, hd, hd))
     states = decay = 0

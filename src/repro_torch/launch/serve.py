@@ -9,8 +9,10 @@ The engine mode serves a Poisson workload of ``--requests`` requests at
 ``--rate`` per simulated second on ``--batch`` slots (paged KV blocks of
 ``--block-size``) and prints the scheduler's summary; ``--static`` runs one
 batch through ``prefill``, then one ``decode_step`` per generated token
-(forced for prefix-conditioned archs). ``--env-profile`` / ``--host-devices``
-raise (ROADMAP queue 1 item 13b).
+(forced for prefix-conditioned archs). ``--env-profile host`` re-execs the
+launcher once under tcmalloc (:mod:`repro_torch.launch.env`);
+``--env-profile cpu-mesh`` and ``--host-devices`` above 1 raise (ROADMAP
+queue 1 item 12).
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
@@ -33,8 +35,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api.spec import _not_ported
 from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.launch.env import add_env_profile_args, apply_env_profile
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.device import resolve_device
 
@@ -206,17 +208,9 @@ def main(argv=None):
                          "the JAX launcher's) instead of random init")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    ap.add_argument("--env-profile", default="none",
-                    choices=("none", "host", "cpu-mesh"),
-                    help="tuned launch environment (not ported yet: any "
-                         "profile but 'none' raises)")
-    ap.add_argument("--host-devices", type=int, default=1,
-                    help="host device count of the 'cpu-mesh' profile (not "
-                         "ported yet: anything but 1 raises)")
+    add_env_profile_args(ap)
     args = ap.parse_args(argv)
-    if args.env_profile != "none" or args.host_devices != 1:
-        raise _not_ported("--env-profile / --host-devices (launch/env.py)",
-                          "item 13b")
+    apply_env_profile(args.env_profile, host_devices=args.host_devices)
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)

@@ -25,10 +25,16 @@ aggregates the first B arrivals per flush on a simulated device clock
 (``--latency-profile {uniform,lognormal,hetero}``) with staleness-damped
 updates (``--staleness-alpha``) and dispatch-time privacy charging.
 
-The flags of the planes the port has not yet reached raise
-``NotImplementedError`` naming their ROADMAP item: ``--engine shard_map``
-/ ``mesh_2d`` and ``--mesh-shape`` (item 12), ``--replica-hint`` and
-``--env-profile`` / ``--host-devices`` (item 13b). The model's params come
+``--env-profile host`` re-execs the launcher once under tcmalloc
+(:mod:`repro_torch.launch.env`). ``--replica-hint`` passes the arch's
+param + optimizer-state bytes (``configs.shapes.replica_footprint_bytes``)
+to the spec as ``replica_bytes``: ``engine="auto"`` then resolves to
+``vmap`` when one replica fits the device's memory and raises when it does
+not. The flags of the plane the port has not yet reached raise
+``NotImplementedError`` naming ROADMAP queue 1 item 12: ``--engine
+shard_map`` / ``mesh_2d``, ``--mesh-shape``, ``--env-profile cpu-mesh`` /
+``--host-devices`` above 1, and a replica hint over the device's memory
+(the JAX package would place it on ``mesh_2d``). The model's params come
 from a ``torch.Generator`` seeded with ``--seed``, so they differ from the
 JAX launcher's; the summary's ``rounds``, ``max_epsilon`` and
 ``resource_spent`` do not depend on them.
@@ -42,7 +48,13 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api import FederationSpec, init_state, save_state, train
+from repro_torch.api import (
+    FederationSpec,
+    init_state,
+    resolve_engine,
+    save_state,
+    train,
+)
 from repro_torch.api.spec import _not_ported
 from repro_torch.asyncfl import (
     LATENCY_PROFILES,
@@ -56,6 +68,7 @@ from repro_torch.core.convergence import ProblemConstants
 from repro_torch.core.design import DesignProblem, ResourceModel
 from repro_torch.core.fl import design_sigmas
 from repro_torch.data.tokens import FederatedTokenStream, TokenTaskConfig
+from repro_torch.launch.env import add_env_profile_args, apply_env_profile
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import sgd
 from repro_torch.population import (
@@ -66,8 +79,6 @@ from repro_torch.population import (
     train_population,
 )
 from repro_torch.utils.device import resolve_device
-
-ENV_PROFILES = ("none", "host", "cpu-mesh")
 
 
 def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
@@ -85,6 +96,7 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
                      dp_accounting: str = "local", attack: str = "none",
                      byzantine_fraction: float = 0.0,
                      attack_scale: float = 10.0,
+                     replica_bytes: int | None = None,
                      rng=None, device=None):
     """Assemble the ``repro_torch.api`` handles for a transformer federation
     on ``device`` (default: the GPU).
@@ -106,6 +118,9 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
     ``train_async``; ``buffer_size`` / ``staleness_alpha`` /
     ``latency_model`` configure the flush and the simulated clocks.
 
+    ``replica_bytes`` is the placement hint of ``engine="auto"``: a
+    replica over the device's memory raises before anything is allocated.
+
     The model's params are ``Transformer.init`` from a ``torch.Generator``
     on ``device`` seeded with ``seed``.
     """
@@ -116,8 +131,6 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
     stream = FederatedTokenStream(task, batch_size,
                                   prefix_len=cfg.prefix_len,
                                   d_model=cfg.d_model)
-    params0 = model.init(torch.Generator(device=device).manual_seed(seed),
-                         device)
     spec = FederationSpec(
         n_clients=n_clients, tau=tau, loss_fn=model.loss_fn,
         optimizer=sgd(lr), engine=engine, dp=True, clip_norm=clip_norm,
@@ -136,7 +149,11 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
         staleness_alpha=(staleness_alpha if engine == "async_buffered"
                          else 0.0),
         sigmas=tuple(float(s) for s in np.asarray(sigmas)),
-        batch_sizes=(batch_size,) * n_clients, delta=delta, seed=seed)
+        batch_sizes=(batch_size,) * n_clients, delta=delta, seed=seed,
+        replica_bytes=replica_bytes)
+    resolve_engine(spec)
+    params0 = model.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
     if population:
         state = init_population_state(spec, params0, device)
     elif spec.is_async():
@@ -172,11 +189,6 @@ def _refuse_unported(args) -> None:
         raise _not_ported(f"--engine {args.engine}", "item 12")
     if args.mesh_shape:
         raise _not_ported("--mesh-shape", "item 12")
-    if args.replica_hint:
-        raise _not_ported("--replica-hint (configs/shapes.py)", "item 13b")
-    if args.env_profile != "none" or args.host_devices != 1:
-        raise _not_ported("--env-profile / --host-devices (launch/env.py)",
-                          "item 13b")
 
 
 def main(argv=None):
@@ -209,8 +221,10 @@ def main(argv=None):
     ap.add_argument("--mesh-shape", default=None,
                     help="mesh_2d's dc,dm (not ported yet: raises)")
     ap.add_argument("--replica-hint", action="store_true",
-                    help="size engine='auto' from the replica footprint "
-                         "(not ported yet: raises)")
+                    help="pass the arch's param+opt-state bytes "
+                         "(configs.shapes.replica_footprint_bytes) to the "
+                         "spec: engine='auto' raises when one replica "
+                         "exceeds the device's memory (item 12)")
     ap.add_argument("--async-buffer", type=int, default=0,
                     help="B > 0 switches to buffered-async federation "
                          "(repro_torch.asyncfl): aggregate the first B "
@@ -227,12 +241,7 @@ def main(argv=None):
     ap.add_argument("--staleness-alpha", type=float, default=0.0,
                     help="staleness damping w(s) = 1/(1+s)^alpha applied "
                          "to late arrivals at the flush")
-    ap.add_argument("--env-profile", default="none", choices=ENV_PROFILES,
-                    help="tuned launch environment (not ported yet: any "
-                         "profile but 'none' raises)")
-    ap.add_argument("--host-devices", type=int, default=1,
-                    help="host device count of the 'cpu-mesh' profile (not "
-                         "ported yet: anything but 1 raises)")
+    add_env_profile_args(ap)
     ap.add_argument("--chunk-rounds", type=int, default=1,
                     help="run this many rounds per run_rounds call; eval "
                          "then happens at chunk boundaries only")
@@ -289,6 +298,7 @@ def main(argv=None):
                     help="multiplier of --attack scale")
     ap.add_argument("--save", default=None)
     args = ap.parse_args(argv)
+    apply_env_profile(args.env_profile, host_devices=args.host_devices)
     _refuse_unported(args)
     device = resolve_device(args.device)
 
@@ -329,6 +339,13 @@ def main(argv=None):
         print(f"[design] K*={sol.k} tau*={tau} sigma*={sigmas[0]:.4f} "
               f"bound={sol.predicted_bound:.4f} cost={sol.cost:.0f}")
 
+    replica_bytes = None
+    if args.replica_hint:
+        from repro_torch.configs.shapes import replica_footprint_bytes
+        replica_bytes = replica_footprint_bytes(cfg, optimizer=sgd(args.lr))
+        print(f"[mesh] replica footprint "
+              f"{replica_bytes / 1024 ** 3:.2f} GiB (params + opt state)")
+
     latency_model = (latency_profile(args.latency_profile, seed=0,
                                      fleet=n_resident,
                                      scale=args.latency_scale)
@@ -348,7 +365,8 @@ def main(argv=None):
         secure_agg=args.secure_agg, secure_frac_bits=args.secure_frac_bits,
         dp_accounting=args.dp_accounting, attack=args.attack,
         byzantine_fraction=args.byzantine_fraction,
-        attack_scale=args.attack_scale, rng=rng, device=device)
+        attack_scale=args.attack_scale, replica_bytes=replica_bytes,
+        rng=rng, device=device)
     spec = spec.replace(eps_th=args.eps, c_th=args.cth,
                         c1=args.c1, c2=args.c2)
     t0 = time.time()

@@ -60,8 +60,8 @@ from repro_torch.api.state import (
     PrefetchFailed,
     _device_of,
     _raise_budget,
-    _sigmas_on,
     round_rho_charges,
+    sigmas_for,
 )
 from repro_torch.core.privacy import zcdp_to_dp
 from repro_torch.kernels.ops import cohort_gather, cohort_scatter
@@ -358,7 +358,7 @@ def run_resident_rounds(spec: FederationSpec, pstate,
                           data_rows=data_rows)
     slots = cache.slots_for(cohorts)
 
-    sig = _sigmas_on(spec, dev)
+    sig = sigmas_for(spec, dev)
     pipeline = spec.has_pipeline()
     full_part = spec.participants_per_round() >= spec.n_clients
     prefetch_exc = None

@@ -11,6 +11,7 @@ at aggregation.py:157 and 178) and inject them into the port's
 participant counts and the stopping round exactly. The QSGD plain version
 equals the JAX package's jitted reference and its Pallas kernel bit for bit.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

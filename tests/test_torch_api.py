@@ -5,6 +5,7 @@ and the stopping round are host math and must match ``repro.api`` exactly;
 the port's own noise stream is held by its distribution, and its chunked
 driver by bitwise equality with the per-round one.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import numpy as np
 import pytest

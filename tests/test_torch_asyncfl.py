@@ -19,6 +19,7 @@ On a GPU machine without jax, the ``gpu`` test alone runs:
 ``PYTHONPATH=src python3 -m pytest --noconftest -m gpu
 tests/test_torch_asyncfl.py -q``.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

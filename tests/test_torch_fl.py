@@ -8,6 +8,7 @@ and feeds it to the port's round function as its ``noise`` operand. JAX runs
 with ``kernel_backend="ref"``. Tolerances: 1e-6 without DP (the same f32
 math), 1e-5 with DP (clip and noise sums taken in another order).
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ gradients and optimizer updates are f32 device math and match within 1e-6.
 Also the import guard: nothing under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import dataclasses
 from pathlib import Path
@@ -327,9 +328,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     scripts = sorted((ROOT / "benchmarks").glob("*_torch.py")) + sorted(
         (ROOT / "examples").glob("*_torch.py"))
-    assert len(scripts) >= 14
+    assert len(scripts) >= 16
     files += scripts
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for must in ("benchmarks/throughput_torch.py",
+                 "benchmarks/roofline_torch.py",
+                 "src/repro_torch/utils/roofline.py",
+                 "src/repro_torch/utils/cost.py",
+                 "src/repro_torch/configs/shapes.py",
+                 "src/repro_torch/launch/env.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/api/federation.py",
+                 "src/repro_torch/core/adaptive.py"):
+        assert must in names, must
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

@@ -21,6 +21,7 @@ tests at the end, which need a card:
 (``--noconftest`` because the suite's conftest imports jax, which a machine
 that only runs the GPU tests need not have.)
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import zlib
 
 import numpy as np

@@ -10,8 +10,10 @@ each package. Partial participation is left out of that comparison: which
 clients a round draws comes from each package's own random stream, and the
 epsilon of the busiest client with it. The kernel calls the launcher makes
 are counted on spies of ``repro_torch.kernels.ops`` (the CPU wrappers'
-launch counters do not move).
+launch counters do not move). gemma3-4b's documented command and the
+save -> serve round trip are in ``tests/test_torch_launch_train_gemma3.py``.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
 import io
 import json
@@ -25,7 +27,6 @@ from repro.optim import sgd as jsgd
 
 import repro_torch.kernels.ops as tops
 from repro_torch.api import FederationSpec as TSpec
-from repro_torch.launch import serve
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import sgd as tsgd
 
@@ -98,18 +99,6 @@ def test_main_matches_jax_launcher(case, monkeypatch):
         assert tsum.get(k) == jsum.get(k), k
 
 
-@pytest.mark.parametrize("tau", ["2", "0"])
-def test_gemma3_smoke_matches_jax_launcher(tau, monkeypatch):
-    """The documented command: gemma3-4b --smoke, 2 rounds of 2 clients,
-    seq 64, at tau 2 and with the design solver (tau 0)."""
-    argv = ["--arch", "gemma3-4b", "--smoke", "--rounds", "2", "--clients",
-            "2", "--tau", tau, "--seq", "64"]
-    jsum, jdesign = _run(jtrain.main, argv)
-    tsum, tdesign, _ = _run_port(argv, monkeypatch)
-    assert [tsum[k] for k in SUMMARY_KEYS] == [jsum[k] for k in SUMMARY_KEYS]
-    assert tdesign == jdesign and bool(tdesign) == (tau == "0")
-
-
 def test_partial_participation_runs_each_round_on_half_the_clients(
         monkeypatch):
     """qsgd at q 0.5: the JAX launcher's rounds and cost; one
@@ -152,42 +141,58 @@ def test_federation_meta_equals_jax(kw):
     (["--engine", "shard_map"], "item 12"),
     (["--engine", "mesh_2d"], "item 12"),
     (["--mesh-shape", "2,1"], "item 12"),
-    (["--replica-hint"], "item 13b"),
-    (["--env-profile", "host"], "item 13b"),
-    (["--host-devices", "2"], "item 13b"),
+    (["--replica-hint"], "item 12"),
+    (["--env-profile", "cpu-mesh"], "item 12"),
+    (["--host-devices", "2"], "item 12"),
 ])
-def test_unported_flags_raise_naming_their_item(extra, item):
+def test_unported_flags_raise_naming_their_item(extra, item, monkeypatch):
+    """The sharded plane's flags raise naming item 12; so does a replica
+    hint over the device's memory (a budget of 1 KiB here), where the JAX
+    launcher would place the spec on mesh_2d."""
+    monkeypatch.setenv("REPRO_DEVICE_MEM_BYTES", "1024")
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(BASE + extra + ["--device", "cpu"])
+
+
+def test_env_profile_host_reexecs_once_and_trains(monkeypatch):
+    """``--env-profile host`` re-execs the launcher under the profile's
+    environment with the guard set; in the re-exec'd process (guard set) it
+    trains, and ``--replica-hint`` that fits resolves engine='auto' to
+    vmap, printing the footprint JAX's launcher prints."""
+    import os
+    import sys
+
+    from repro.configs.shapes import replica_footprint_bytes as jfootprint
+    from repro_torch.configs import get_arch, smoke_variant
+
+    monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)
+    captured = {}
+
+    def fake_exec(exe, argv, env):
+        captured.update(exe=exe, argv=argv, env=env)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(os, "execvpe", fake_exec)
+    argv = BASE + ["--env-profile", "host", "--replica-hint", "--device",
+                   "cpu"]
+    with pytest.raises(SystemExit):
+        ttrain.main(argv)
+    assert captured["exe"] == sys.executable
+    assert captured["env"]["REPRO_ENV_PROFILE_APPLIED"] == "1"
+
+    monkeypatch.setenv("REPRO_ENV_PROFILE_APPLIED", "1")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert ttrain.main(argv) == 0
+    out = buf.getvalue()
+    want = jfootprint(smoke_variant(get_arch("codeqwen1.5-7b")),
+                      optimizer=jsgd(0.1))
+    assert f"replica footprint {want / 1024 ** 3:.2f} GiB" in out
+    summary = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    assert summary["rounds"] == 3
 
 
 def test_async_and_population_are_exclusive():
     with pytest.raises(SystemExit, match="mutually exclusive"):
         ttrain.main(BASE + ["--async-buffer", "2", "--population", "8",
                             "--device", "cpu"])
-
-
-@pytest.mark.parametrize("extra", [
-    [], ["--population", "16", "--cohort-size", "2"],
-    ["--async-buffer", "2"]], ids=["dense", "population", "async"])
-def test_saved_checkpoint_serves(tmp_path, extra, capsys):
-    """--save writes the state with federation_meta beside it; the port's
-    serve driver loads the aggregated model from it (the async checkpoint's
-    global_params) and serves federated params."""
-    ckpt = str(tmp_path / "ckpt")
-    argv = ["--arch", "gemma3-4b", "--smoke", "--rounds", "1", "--clients",
-            "2", "--tau", "1", "--batch", "1", "--seq", "8", "--save", ckpt,
-            "--device", "cpu"]
-    assert ttrain.main(argv + extra) == 0
-    with open(f"{ckpt}/meta.json") as f:
-        meta = json.load(f)["extra"]
-    assert meta["tau"] == 1 and "history" in meta
-    capsys.readouterr()
-    assert serve.main(["--arch", "gemma3-4b", "--smoke", "--static",
-                       "--fl-checkpoint", ckpt, "--batch", "1",
-                       "--prompt-len", "8", "--gen", "2", "--device",
-                       "cpu"]) == 0
-    out = capsys.readouterr().out
-    res = json.loads(out[out.index("{"):out.rindex("}") + 1])
-    assert res["params"] == "federated"
-    assert res["generated_shape"] == [1, 2]

@@ -20,6 +20,7 @@ largest, on zamba2's seven stacked mamba2 layers, are ~3e-5 on logits of
 magnitude ~4 and ~9e-5 on SSM states of magnitude ~14 (relative ~7e-6).
 ``python tests/test_torch_models.py`` prints the largest gap per arch.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 from dataclasses import replace
 

@@ -7,6 +7,7 @@ MODEL_TOL = 2e-5 (the model stack's, tests/test_torch_models.py) for
 values, GRAD_TOL = 4e-5 for gradients. Router ids and capacities are held
 exactly, as are the ranks that decide which tokens a capacity drops.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

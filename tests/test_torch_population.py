@@ -17,6 +17,7 @@ package.
 - The reference values of the population quickstart's resident step and of
   Adult-2 as an M == C population, at full size.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ gap the model tests allow between the packages (2e-5 of logits of
 magnitude <= ~5, tests/test_torch_models.py), so an argmax cannot flip
 between them.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import json
 
@@ -178,8 +179,24 @@ def test_main_engine_mode_prints_the_continuous_fields(capsys):
     assert len(out["sample"]) == 4
 
 
-def test_main_refuses_the_env_profile_flags():
-    for extra in (["--env-profile", "host"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="13b"):
+def test_main_refuses_the_env_profile_flags(monkeypatch):
+    """The mesh profile and a host split into devices raise, naming item
+    12; ``--env-profile host`` re-execs the launcher once (guarded)."""
+    import os
+    for extra in (["--env-profile", "cpu-mesh"], ["--host-devices", "2"]):
+        with pytest.raises(NotImplementedError, match="item 12"):
             serve.main(["--arch", "gemma3-4b", "--smoke", "--device",
                         "cpu"] + extra)
+    monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)
+    execs = []
+
+    def fake_exec(exe, argv, env):
+        execs.append(env)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(os, "execvpe", fake_exec)
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu",
+                    "--env-profile", "host"])
+    assert len(execs) == 1
+    assert execs[0]["REPRO_ENV_PROFILE_APPLIED"] == "1"

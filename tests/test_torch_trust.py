@@ -15,6 +15,7 @@ pipeline's adversarial branch) against the JAX package.
   trained runs, the central ledger and a population cohort round match JAX:
   params within 1e-5, rho, costs and epsilons exactly.
 """
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 import sys
 from pathlib import Path
 
