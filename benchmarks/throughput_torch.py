@@ -17,10 +17,10 @@ the qsgd rows ``quantize_decompress``.
 
 The scenarios, as in the JAX benchmark:
 
-- the driver grid: ``vmap`` / ``map`` x none / topk / qsgd x chunk 1 / 2 /
-  8 (``--smoke``: two configs, chunks 1 and 8). The JAX grid's
-  ``shard_map`` rows are reported as skipped, naming ROADMAP queue 1 item
-  12;
+- the driver grid: ``vmap`` / ``map`` / ``shard_map`` x none / topk /
+  qsgd x chunk 1 / 2 / 8 (``--smoke``: two configs, chunks 1 and 8), the
+  ``shard_map`` rows on the process's world (a world of one unless the
+  benchmark runs under a launcher);
 - cohort scaling over the virtual population M (rounds/s and
   ``device_block_bytes``, both flat in M);
 - the resident cohort (``resident_cache=S``) against the chunk-boundary
@@ -33,8 +33,9 @@ The scenarios, as in the JAX benchmark:
   :mod:`repro_torch.utils.roofline`;
 - the async straggler fleet (simulated seconds to a target rho, sync
   barrier vs B-of-K buffered async);
-- the mesh plane: skipped (item 12), as the JAX one is on fewer than 8
-  devices.
+- the mesh plane: skipped on fewer than 8 ranks, as the JAX one is on
+  fewer than 8 devices; its (4, 2) row, a model axis over 1, is ROADMAP
+  queue 1 item 12b.
 
 ``--check`` keeps every gate the JAX benchmark has (the fused driver at
 0.8x or more of the per-round one for the pipeline configs; device bytes
@@ -91,7 +92,6 @@ from repro_torch.utils.roofline import HBM_BW, RooflineTerms  # noqa: E402
 # overhead (what this benchmark tracks) dominates
 C, TAU, DIM, BATCH = 8, 2, 32, 8
 SIGMA, LR, CLIP = 0.5, 0.3, 1.0
-ITEM_12 = "not ported to repro_torch yet (ROADMAP queue 1 item 12)"
 
 
 def _sync(device) -> None:
@@ -265,7 +265,7 @@ def run_resident_cohort(smoke: bool, device, rounds: int | None = None
     chunk of 32, the baseline at the scaling rows' 8 (the JAX benchmark's
     asymmetry)."""
     m = 100_000
-    n, repeats = (32, 11) if smoke else (64, 7)
+    n, repeats = (32, 21) if smoke else (64, 7)
     n = rounds or n
     chunk_base, chunk_res = 8, 32
     cache = chunk_res * C               # S = 256: one full chunk of warm slots
@@ -411,9 +411,14 @@ def run_kernel_roofline(smoke: bool, device) -> dict:
 
 
 def run_mesh_plane(smoke: bool) -> dict:
-    """The 2D mesh engine against the 1D shard_map plane: not ported."""
+    """The 2D mesh engine against the 1D shard_map plane: it needs 8 ranks
+    for the JAX benchmark's (4, 2) mesh, whose model axis is not ported
+    (ROADMAP queue 1 item 12b)."""
+    from repro_torch.launch.mesh import world_size
+    n = world_size()
     return {"skipped": True,
-            "reason": f"the mesh_2d and shard_map engines are {ITEM_12}"}
+            "reason": f"needs 8 ranks for the (4,2) mesh, have {n} (and its "
+                      f"model axis of 2 is ROADMAP queue 1 item 12b)"}
 
 
 def run_async_hetero(smoke: bool, device, rounds: int | None = None
@@ -477,15 +482,6 @@ def run_grid(smoke: bool, device=None, rounds: int | None = None) -> dict:
     n = rounds or n
     results = []
     for engine, compressor, participation in grid:
-        if engine == "shard_map":
-            for chunk in chunks:
-                results.append({
-                    "engine": engine, "compressor": compressor,
-                    "participation": participation, "chunk_rounds": chunk,
-                    "skipped": True, "reason": f"{engine} is {ITEM_12}"})
-            print(f"{engine:10s} {compressor:5s} q={participation:<4} "
-                  f"skipped ({ITEM_12})", flush=True)
-            continue
         spec = reference_spec(engine, compressor, participation)
         for r in time_drivers(spec, n, chunks, repeats, device):
             chunk = r["chunk_rounds"]
@@ -608,7 +604,7 @@ def main(argv=None) -> int:
               f"roofline memory-bound and equal to the plain versions for "
               f"{sorted(KERNELS)}; async "
               f"{report['async_hetero']['sim_speedup']}x sync in simulated "
-              f"seconds; mesh plane skipped (item 12)")
+              f"seconds; mesh plane skipped (needs 8 ranks)")
     return 0
 
 

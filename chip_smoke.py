@@ -172,7 +172,21 @@ Phases (each prints its lines; any failure exits non-zero):
      its save_federation_state / load_federation_state resume bitwise;
      (d) launch.train --smoke --env-profile host --replica-hint in a fresh
      process (one re-exec, trains), and the same with
-     REPRO_DEVICE_MEM_BYTES below the footprint (raises naming item 12).
+     REPRO_DEVICE_MEM_BYTES below the footprint (raises naming item 12b);
+ 20. the sharded engines' client axis (repro_torch.core.fl_shard_map,
+     repro_torch.mesh): (a) a world of one under NCCL: the main path's
+     Adult-1 spec trained until a budget binds as "shard_map" and
+     "mesh_2d" (1, 1), dense, qsgd8_q50 and trimmed_mean (shard_map only),
+     each bitwise "vmap" (params, optimizer state, key, rho, rounds, cost)
+     with the row kernels' launches equal, ms per steady round of vmap and
+     shard_map in turns, and the population quickstart's resident driver
+     under shard_map bitwise vmap's (cohort_gather_scatter launched); (b)
+     two gloo ranks sharing the card (repro_torch.launch.mesh.HostWorld):
+     Adult-1 as shard_map, block 8, dense and qsgd8_q50, within 1e-5 of
+     vmap with the ledger exact, the ranks alike, each rank's launches tau
+     x rounds (dp_clip_noise) and rounds (quantize_decompress); every row
+     kernel's first call of each shape in 20a and in each rank held
+     against its plain version.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -4060,7 +4074,7 @@ def run_launcher_env():
     on cuda in a fresh process: it re-execs once under the host profile
     and trains (the replica hint fits, engine 'auto' resolves to vmap);
     with REPRO_DEVICE_MEM_BYTES below the footprint the same command
-    raises naming item 12."""
+    raises naming item 12b (mesh_2d's model axis)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("REPRO_ENV_PROFILE_APPLIED", None)
@@ -4085,7 +4099,7 @@ def run_launcher_env():
     hint = [ln for ln in out.splitlines() if "replica footprint" in ln]
     ok_run = (p.returncode == 0 and len(env_lines) == 1
               and len(hint) == 1 and summary.get("rounds") == 2)
-    ok_big = q.returncode != 0 and "item 12" in q.stderr
+    ok_big = q.returncode != 0 and "item 12b" in q.stderr
     print(f"phase 19d launch.train {' '.join(ENV_ARGV)} (cuda; the two "
           f"runs side by side, {wall:.1f} s): exit "
           f"{p.returncode}, {env_lines} {hint}, rounds "
@@ -4098,6 +4112,308 @@ def run_launcher_env():
           f"exit {q.returncode}: {last} "
           f"{'ok' if ok_big else 'CHECK FAILED'}", flush=True)
     return ok_run and ok_big
+
+
+SHARD_RUNS = (("dense", {}),
+              ("qsgd8_q50", dict(compressor="qsgd", compression_bits=8,
+                                 participation=0.5)),
+              ("trimmed_mean", dict(aggregator="trimmed_mean",
+                                    trim_fraction=0.1)))
+SHARD_TIMED = 50       # phase 20a: steady rounds a timed turn
+
+
+def _fl_bits(torch, np, a, b) -> bool:
+    """Two FLStates (or population states' .fl) equal bit for bit: params,
+    optimizer state, residual, generator key, rho, steps, cost, rounds."""
+    same = all(_same_bits(torch, x, y) for x, y in zip(
+        _leaves((a.params, a.opt_state, a.residual, a.key)),
+        _leaves((b.params, b.opt_state, b.residual, b.key))))
+    return (same and np.array_equal(a.rho, b.rho)
+            and (a.steps, a.resource_spent, a.rounds_done)
+            == (b.steps, b.resource_spent, b.rounds_done))
+
+
+def _train_counted(torch, api, linear, spec, fed, counters):
+    """api.train of ``spec`` from a fresh cuda state until a budget binds,
+    the kernels' counters set to 0 just before and read just after."""
+    state = api.init_state(spec, linear.init_linear(
+        fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, out = api.train(spec, state, fed.make_sampler(BATCH))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, out, {n: k.launches for n, k in counters.items()}, wall
+
+
+def _steady_ms(torch, np, api, linear, spec, fed, n_timed=SHARD_TIMED):
+    """ms per steady round of ``spec`` (batches prebuilt, no eval, 2
+    warm-up rounds), as phase 5 times it."""
+    state = api.init_state(spec, linear.init_linear(
+        fed.clients[0].x_train.shape[1], device="cuda"), device="cuda")
+    rng = np.random.default_rng(2)
+    batches = [api.round_batch(spec, fed.make_sampler(BATCH), rng)
+               for _ in range(n_timed + 2)]
+    for b in batches[:2]:
+        state, _ = api.run_round(spec, state, b, check_budgets=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        state, _ = api.run_round(spec, state, b, check_budgets=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_timed
+
+
+def run_sharded_world_of_one(torch, np, api, linear, pop_mod, ops, spec,
+                             fed, qs_spec, qs_pop, counters, refs, card):
+    """Phase 20a: a world of one under NCCL. The main path's Adult-1 spec
+    (16 clients) trained until a budget binds on engine "shard_map" and on
+    "mesh_2d" at (1, 1), dense, qsgd8_q50 and trimmed_mean (mesh_2d refuses
+    the adversarial aggregator), each against "vmap" bit for bit: params,
+    optimizer state, key, rho, rounds, cost; the row kernels' launches per
+    run; each kernel call's first output of each shape held against its
+    plain version; ms per steady round of vmap and shard_map in turns (v s
+    s v); then the population quickstart's resident driver (24 rounds,
+    chunk 8, S 256) under shard_map against vmap, its
+    cohort_gather_scatter launches. Returns (ok, {kernel: launches on the
+    sharded runs}, max abs err)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        print("phase 20a: a process group is already initialized "
+              "CHECK FAILED", flush=True)
+        return False, dict.fromkeys(counters, 0), 0.0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    print(f"phase 20a: world of {dist.get_world_size()}, backend "
+          f"{dist.get_backend()} ({card})", flush=True)
+    ok, launches, kept = True, {n: 0 for n in counters}, {}
+    reals = _keeping_first_calls(torch, ops, list(counters), kept)
+    try:
+        for name, extra in SHARD_RUNS:
+            base = spec.replace(**extra)
+            want, w_out, w_l, w_wall = _train_counted(
+                torch, api, linear, base, fed, counters)
+            engines = (("shard_map", {}), ("mesh_2d", {"mesh_shape": (1, 1)}))
+            for engine, kw in engines:
+                if engine == "mesh_2d" and base.is_adversarial():
+                    continue
+                s = base.replace(engine=engine, **kw)
+                got, out, got_l, wall = _train_counted(
+                    torch, api, linear, s, fed, counters)
+                same = _fl_bits(torch, np, want, got)
+                want_l = {"dp_clip_noise": s.tau * out["rounds"],
+                          "quantize_decompress": (
+                              out["rounds"] if s.compressor == "qsgd"
+                              else 0),
+                          "cohort_gather_scatter": 0}
+                good = (same and out["rounds"] == w_out["rounds"] > 0
+                        and out["max_epsilon"] == w_out["max_epsilon"]
+                        and got_l == want_l == w_l)
+                ok &= good
+                for n, v in got_l.items():
+                    launches[n] += v
+                print(f"phase 20a {name} {engine}"
+                      f"{kw.get('mesh_shape', '')}: rounds {out['rounds']} "
+                      f"eps {out['max_epsilon']!r} cost "
+                      f"{out['resource_spent']!r} vs vmap "
+                      f"{w_out['rounds']} {w_out['max_epsilon']!r} "
+                      f"{w_out['resource_spent']!r}; state "
+                      f"{'bitwise equal' if same else 'DIFFERENT'}; "
+                      f"launches {got_l} (vmap {w_l}); train wall "
+                      f"{wall * 1e3:.1f} ms (vmap {w_wall * 1e3:.1f}) "
+                      f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+        for name, extra in SHARD_RUNS[:2]:
+            base = spec.replace(**extra)
+            times = {"vmap": [], "shard_map": []}
+            for engine in ("vmap", "shard_map", "shard_map", "vmap"):
+                times[engine].append(_steady_ms(
+                    torch, np, api, linear, base.replace(engine=engine),
+                    fed))
+            print(f"phase 20a {name} ms per steady round (tau {base.tau}, "
+                  f"{SHARD_TIMED} rounds a turn, turns v s s v): vmap "
+                  f"{times['vmap'][0]:.3f} / {times['vmap'][1]:.3f}, "
+                  f"shard_map {times['shard_map'][0]:.3f} / "
+                  f"{times['shard_map'][1]:.3f} ({card})", flush=True)
+        res = {}
+        for engine in ("vmap", "shard_map"):
+            st = pop_mod.init_population_state(
+                qs_spec.replace(engine=engine), linear.init_linear(
+                    QS_DIM, device="cuda"), device="cuda")
+            torch.cuda.synchronize()
+            for k in counters.values():
+                k.launches = 0
+            st, out = pop_mod.train_population(
+                qs_spec.replace(engine=engine), st, qs_pop,
+                max_rounds=QS_ROUNDS, chunk_rounds=QS_CHUNK,
+                resident_cache=QS_CACHE)
+            torch.cuda.synchronize()
+            res[engine] = (st, out, {n: k.launches
+                                     for n, k in counters.items()})
+        (vs, vo, vl), (ss, so, sl) = res["vmap"], res["shard_map"]
+        vids = np.arange(QS_M)
+        same = (_fl_bits(torch, np, vs.fl, ss.fl)
+                and np.array_equal(vs.store.rho, ss.store.rho)
+                and np.array_equal(vs.store.gather_residual(vids),
+                                   ss.store.gather_residual(vids)))
+        good = (same and vo["rounds"] == so["rounds"] == QS_ROUNDS
+                and so["max_epsilon"] == vo["max_epsilon"]
+                and sl == vl and sl["cohort_gather_scatter"] > 0)
+        ok &= good
+        for n, v in sl.items():
+            launches[n] += v
+        print(f"phase 20a population quickstart resident (M={QS_M:,}, "
+              f"K={QS_K}, S={QS_CACHE}) shard_map vs vmap: rounds "
+              f"{so['rounds']} eps {so['max_epsilon']!r} state, store rho "
+              f"and residual rows {'bitwise equal' if same else 'DIFFERENT'}"
+              f"; launches {sl} (vmap {vl}) "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    finally:
+        for n, f in reals.items():
+            setattr(ops, n, f)
+        dist.destroy_process_group()
+    ok_k, worst, lines = _check_kept_calls(torch, kept, refs)
+    for ln in lines:
+        print(f"phase 20a kernel vs plain: {ln}", flush=True)
+    return ok and ok_k, launches, max(worst.values(), default=0.0)
+
+
+def _shard_rank(kw: dict, settings) -> dict:
+    """Phase 20b's program on one rank of a gloo world sharing the card:
+    the Adult-1 spec ``kw`` as engine "shard_map" under each of
+    ``settings``, trained until a budget binds on cuda; each row kernel's
+    first call of each shape held against its plain version. Returns the
+    states as numpy, the ledgers and the kernels' launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, data, optim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.cohort_gather_scatter import (
+        cohort_gather_scatter,
+    )
+    from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.kernels.quantize_decompress import quantize_decompress
+    from repro_torch.models import linear
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"dp_clip_noise": dp_clip_noise,
+                "quantize_decompress": quantize_decompress,
+                "cohort_gather_scatter": cohort_gather_scatter}
+    fed = data.split_by_group(data.adult_like())
+    kept = {}
+    reals = _keeping_first_calls(torch, ops, list(counters), kept)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "rank": dist.get_rank(), "runs": {}}
+    try:
+        for name, extra in settings:
+            spec = api.FederationSpec(loss_fn=linear.logreg_loss,
+                                      optimizer=optim.sgd(LR),
+                                      engine="shard_map", **kw, **extra)
+            state, res, launched, wall = _train_counted(
+                torch, api, linear, spec, fed, counters)
+            out["runs"][name] = {
+                "params": {k: v.cpu().numpy()
+                           for k, v in state.params.items()},
+                "residual": (None if state.residual is None
+                             else state.residual.cpu().numpy()),
+                "rho": np.asarray(state.rho), "rounds": res["rounds"],
+                "max_epsilon": res["max_epsilon"],
+                "resource_spent": res["resource_spent"],
+                "launches": launched, "tau": spec.tau,
+                "ms_per_round": wall * 1e3 / max(res["rounds"], 1)}
+    finally:
+        for n, f in reals.items():
+            setattr(ops, n, f)
+    refs = {"dp_clip_noise": ref.dp_clip_noise_ref,
+            "quantize_decompress": ref.quantize_decompress_ref,
+            "cohort_gather_scatter": ref.cohort_gather_scatter_ref}
+    out["kernels_ok"], out["kernel_err"], out["kernel_lines"] = \
+        _check_kept_calls(torch, kept, refs)
+    return out
+
+
+def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
+                          card):
+    """Phase 20b: two gloo ranks sharing the one card (NCCL refuses two
+    ranks on one device; gloo reduces CUDA tensors, and the engine's row
+    gather sums each block's bytes into a zero buffer there). Adult-1
+    (16 clients, block 8) as shard_map, dense and qsgd8_q50, trained until
+    a budget binds in each rank, against vmap in this process: params and
+    residual within 1e-5, rho, rounds, epsilon and cost exactly, both
+    ranks bit for bit alike; each rank's dp_clip_noise launches tau x
+    rounds on its (8, N) block and quantize_decompress one a round.
+    Returns (ok, {kernel: launches summed over the ranks}, max abs err)."""
+    from repro_torch.launch.mesh import HostWorld
+    settings = SHARD_RUNS[:2]
+    kw = dict(n_clients=spec.n_clients, tau=spec.tau,
+              clip_norm=spec.clip_norm, dp=True, sigmas=spec.sigmas,
+              batch_sizes=spec.batch_sizes, eps_th=spec.eps_th,
+              delta=spec.delta, c_th=spec.c_th)
+    t0 = time.perf_counter()
+    try:
+        with HostWorld(2) as world:
+            ranks = world.run(_shard_rank, kw, settings)
+    except RuntimeError as e:
+        print(f"phase 20b: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, dict.fromkeys(counters, 0), 0.0
+    wall = time.perf_counter() - t0
+    launches = {n: 0 for n in counters}
+    ok = True
+    worst = max((e for r in ranks for e in r["kernel_err"].values()),
+                default=0.0)
+    print(f"phase 20b: {len(ranks)} ranks, backend {ranks[0]['backend']}, "
+          f"world {ranks[0]['world']}, on one card ({card}); "
+          f"{wall:.1f} s with the ranks' start", flush=True)
+    for name, extra in settings:
+        want, w_out, _, _ = _train_counted(
+            torch, api, linear, spec.replace(**extra), fed, counters)
+        runs = [r["runs"][name] for r in ranks]
+        r0 = runs[0]
+        alike = all(
+            all(np.array_equal(r0["params"][k], r["params"][k])
+                for k in r0["params"])
+            and np.array_equal(r0["rho"], r["rho"]) for r in runs[1:])
+        gap = max(float(np.max(np.abs(r0["params"][k]
+                                      - want.params[k].cpu().numpy())))
+                  for k in r0["params"])
+        if r0["residual"] is not None:
+            gap = max(gap, float(np.max(np.abs(
+                r0["residual"] - want.residual.cpu().numpy()))))
+        ledger = (np.array_equal(r0["rho"], want.rho)
+                  and (r0["rounds"], r0["max_epsilon"], r0["resource_spent"])
+                  == (w_out["rounds"], w_out["max_epsilon"],
+                      w_out["resource_spent"]))
+        want_l = {"dp_clip_noise": r0["tau"] * r0["rounds"],
+                  "quantize_decompress": (r0["rounds"] if extra.get(
+                      "compressor") == "qsgd" else 0),
+                  "cohort_gather_scatter": 0}
+        good = (alike and gap <= 1e-5 and ledger and r0["rounds"] > 0
+                and all(r["launches"] == want_l for r in runs))
+        ok &= good
+        for r in runs:
+            for n, v in r["launches"].items():
+                launches[n] += v
+        print(f"phase 20b {name} shard_map on 2 ranks (block "
+              f"{spec.n_clients // 2}): rounds {r0['rounds']} eps "
+              f"{r0['max_epsilon']!r} cost {r0['resource_spent']!r} vs "
+              f"vmap {w_out['rounds']} {w_out['max_epsilon']!r} "
+              f"{w_out['resource_spent']!r} ({'exact' if ledger else 'DIFFERENT'}); "
+              f"max |d| vs vmap {gap:.3e} (limit 1e-5); ranks "
+              f"{'bit for bit alike' if alike else 'DIFFERENT'}; launches "
+              f"per rank {[r['launches'] for r in runs]} (expected "
+              f"{want_l}); ms per round in rank 0 "
+              f"{r0['ms_per_round']:.3f} (train wall / rounds) "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    for r in ranks:
+        ok &= r["kernels_ok"]
+        for ln in r["kernel_lines"]:
+            print(f"phase 20b rank {r['rank']} kernel vs plain: {ln}",
+                  flush=True)
+    return ok, launches, worst
 
 
 def main() -> int:
@@ -4315,6 +4631,20 @@ def main() -> int:
     print(f"phase 19 wall time {time.perf_counter() - t19:.1f} s",
           flush=True)
 
+    # -- 20. the sharded engines' client axis ---------------------------------
+    t20 = time.perf_counter()
+    row_counters = {n: counters[n] for n in ROW_KERNELS}
+    row_refs = {"dp_clip_noise": dp_clip_noise_ref,
+                "quantize_decompress": quantize_decompress_ref,
+                "cohort_gather_scatter": cohort_gather_scatter_ref}
+    ok_sa, sa_launches, sa_err = run_sharded_world_of_one(
+        torch, np, api, linear, pop_mod, ops, spec, fed, qs_spec, qs_pop,
+        row_counters, row_refs, card)
+    ok_sb, sb_launches, sb_err = run_sharded_two_ranks(
+        torch, np, api, linear, spec, fed, row_counters, card)
+    print(f"phase 20 wall time {time.perf_counter() - t20:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -4356,7 +4686,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/dp_clip_noise.py:54",
         "launches": launches,
         "max_abs_err": max(worst, ls_errs["dp_clip_noise"],
-                           tw_rec["max_abs_err"], md_rec["max_abs_err"]),
+                           tw_rec["max_abs_err"], md_rec["max_abs_err"],
+                           sa_err, sb_err),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "variant": main_rec["variant"],
@@ -4376,7 +4707,11 @@ def main() -> int:
                 md_launches["dp_clip_noise"],
             "phase 19a throughput_torch.py --smoke drivers":
                 ta_launches["dp_clip_noise"],
-            "phase 19c Federation.train": fd_launches},
+            "phase 19c Federation.train": fd_launches,
+            "phase 20a shard_map / mesh_2d, a world of one (NCCL)":
+                sa_launches["dp_clip_noise"],
+            "phase 20b shard_map, two gloo ranks on the card (both ranks)":
+                sb_launches["dp_clip_noise"]},
         "phase16_full_width": tw_rec, "phase18d_full_width": md_rec}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
@@ -4392,7 +4727,11 @@ def main() -> int:
             "phase 16d launcher qsgd_q50 (cuda)":
                 ls_launches["quantize_decompress"],
             "phase 19a throughput_torch.py --smoke drivers":
-                ta_launches["quantize_decompress"]}}, {
+                ta_launches["quantize_decompress"],
+            "phase 20a shard_map / mesh_2d qsgd8_q50, a world of one":
+                sa_launches["quantize_decompress"],
+            "phase 20b shard_map qsgd8_q50, two ranks (both ranks)":
+                sb_launches["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
@@ -4405,7 +4744,9 @@ def main() -> int:
             "phase 16d launcher population_resident (cuda)":
                 ls_launches["cohort_gather_scatter"],
             "phase 19a throughput_torch.py --smoke drivers":
-                ta_launches["cohort_gather_scatter"]}}] + model_kernels}),
+                ta_launches["cohort_gather_scatter"],
+            "phase 20a the resident quickstart under shard_map":
+                sa_launches["cohort_gather_scatter"]}}] + model_kernels}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -4459,7 +4800,11 @@ def main() -> int:
                              "failed"),
                      (ok_fd, "Federation.train or its resume failed"),
                      (ok_le, "the launcher's env profile or replica hint "
-                             "checks failed")):
+                             "checks failed"),
+                     (ok_sa, "the sharded engines in a world of one "
+                             "differ from vmap"),
+                     (ok_sb, "the sharded engine on two ranks disagrees "
+                             "with vmap")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -13,37 +13,48 @@ sigmas (C,). A spec with an aggregation pipeline gets the pipeline round,
     round_fn(params, opt_state, batch, noise, sigmas, mask, residual,
              agg_rand) -> (new_params, new_opt_state, new_residual, metrics)
 
-(see :func:`repro_torch.core.fl.make_round_step`). Three engines are
+(see :func:`repro_torch.core.fl.make_round_step`). Five engines are
 registered:
 
     "vmap"            all C clients as one batch: one dp_clip_noise call
                       per step
     "map"             the same math one client at a time (one row per
                       kernel call)
+    "shard_map"       the client axis over the ranks of the
+                      ``torch.distributed`` world (``n_client_shards(C,
+                      world)`` of them): each rank runs its block as "vmap"
+                      does, then one collective (:mod:`repro_torch.core
+                      .fl_shard_map`)
+    "mesh_2d"         the same on a (dc, dm) mesh (``spec.mesh_shape`` or
+                      :func:`~repro_torch.mesh.placement.default_mesh_shape`),
+                      padding clients that do not divide dc; dm > 1 raises
+                      (ROADMAP queue 1 item 12b)
     "async_buffered"  the buffered-async executor
                       (:class:`repro_torch.asyncfl.engine.AsyncBufferedExecutor`),
                       not a round function: it is driven by
                       :mod:`repro_torch.asyncfl`
 
 ``register_engine`` adds an execution strategy without touching the
-drivers, which select purely through ``FederationSpec.engine``. The JAX
-package's sharded engines (``shard_map``, ``mesh_2d``) are not registered:
-a spec naming them raises, naming ROADMAP queue 1 item 12.
+drivers, which select purely through ``FederationSpec.engine``. The
+sharded engines run every rank's copy of the driver (SPMD): they take and
+return the full client-stacked trees. Where no process group is
+initialized they build a world of one (:func:`repro_torch.launch.mesh
+.ensure_world`).
 
-``engine="auto"`` resolves to "vmap" (one device), never to
-"async_buffered". A ``replica_bytes`` hint is read against the device's
-memory (:func:`device_memory_budget`): a replica that does not fit would
-need the model axis sharded (the JAX package's ``mesh_2d``), so it raises.
+``engine="auto"`` follows :func:`~repro_torch.mesh.placement.choose_engine`
+over the world's ranks, never "async_buffered". A ``replica_bytes`` hint
+over the per-device budget resolves to "mesh_2d" on any world, one rank
+included (the JAX package keeps "vmap" on one device, where the replica
+would not fit either); building it raises for the model axis it needs.
 Every engine's Eq.-7a clip + noise runs through the ``dp_clip_noise``
 kernel, and the qsgd compressor through ``quantize_decompress``, on the
 spec's ``kernel_backend``. Round functions are cached per
-``spec.engine_key()``. The population plane's resident chunk
-(:func:`resident_chunked_round_fn_for`) moves cohort rows through the
-``cohort_gather_scatter`` kernel.
+``spec.engine_key()`` and process group. The population plane's resident
+chunk (:func:`resident_chunked_round_fn_for`) moves cohort rows through
+the ``cohort_gather_scatter`` kernel.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Callable, Protocol
 
 from repro_torch.api.spec import ENGINES, FederationSpec, _not_ported
@@ -51,6 +62,17 @@ from repro_torch.core.fl import (
     make_chunked_round,
     make_resident_chunked_round,
     make_round_step,
+)
+from repro_torch.launch.mesh import make_mesh_2d, world_size
+from repro_torch.mesh.engine import refuse_model_axis
+from repro_torch.mesh.placement import (  # noqa: F401  (re-exported)
+    ENV_DEVICE_MEM,
+    H100_MEM_BYTES,
+    choose_engine,
+    default_mesh_shape,
+    device_memory_budget,
+    n_client_shards,
+    replica_fits,
 )
 
 RoundFn = Callable[..., tuple[Any, Any, dict]]
@@ -82,53 +104,50 @@ def available_engines() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-# -- placement (copies of the JAX package's repro/mesh/placement.py) --------
-
-ENV_DEVICE_MEM = "REPRO_DEVICE_MEM_BYTES"
-# an H100 80GB HBM3's memory as torch reports it (79.18 GiB): the budget
-# where no card is present to ask
-H100_MEM_BYTES = 85_017_493_504
-
-
-def device_memory_budget(default: int | None = None) -> int:
-    """Per-device memory budget in bytes: the ``REPRO_DEVICE_MEM_BYTES``
-    override, else ``default``, else the current CUDA device's total
-    memory (an H100's where there is no card)."""
-    env = os.environ.get(ENV_DEVICE_MEM)
-    if env:
-        budget = int(env)
-        if budget <= 0:
-            raise ValueError(f"{ENV_DEVICE_MEM} must be positive, "
-                             f"got {budget}")
-        return budget
-    if default is not None:
-        return int(default)
-    import torch
-    if torch.cuda.is_available():
-        return int(torch.cuda.get_device_properties(
-            torch.cuda.current_device()).total_memory)
-    return H100_MEM_BYTES
-
-
-def replica_fits(replica_bytes: int, hbm_bytes: int | None = None) -> bool:
-    """Does one whole model replica (+ optimizer state) fit one device?"""
-    return int(replica_bytes) <= device_memory_budget(hbm_bytes)
+def _world_key():
+    """The process group a sharded round function is built on (None when
+    no group is initialized): part of the round-function cache keys."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return None
+    return (dist.get_world_size(), dist.get_rank(),
+            dist.distributed_c10d._get_default_group())
 
 
 def resolve_engine(spec: FederationSpec) -> str:
-    """Map ``engine="auto"`` to a concrete engine: "vmap" on one device
-    when the spec's ``replica_bytes`` hint (if any) fits the device's
-    memory; a hint over it raises (the model axis would have to shard:
-    item 12). "async_buffered" resolves only by name."""
+    """Map ``engine="auto"`` to a concrete engine by
+    :func:`~repro_torch.mesh.placement.choose_engine` over the world's
+    ranks; a ``replica_bytes`` hint over the device budget resolves to
+    "mesh_2d" on any world (a non-adversarial spec). "async_buffered"
+    resolves only by name."""
     if spec.engine != "auto":
         return spec.engine
-    if spec.replica_bytes is not None and not replica_fits(
-            spec.replica_bytes):
-        raise _not_ported(
-            f"a replica of {spec.replica_bytes:,} bytes over the device "
-            f"budget of {device_memory_budget():,} (engine='auto' would "
-            f"place it on the sharded mesh_2d engine)", "item 12")
-    return "vmap"
+    if (spec.replica_bytes is not None and not spec.is_adversarial()
+            and not replica_fits(spec.replica_bytes)):
+        return "mesh_2d"
+    return choose_engine(spec.n_clients, world_size(), spec.replica_bytes,
+                         adversarial=spec.is_adversarial())
+
+
+def mesh_shape_for(spec: FederationSpec) -> tuple[int, int]:
+    """The (dc, dm) of a mesh_2d spec: ``spec.mesh_shape``, else the
+    placement default over the world's ranks. A model axis over 1, or a
+    default mesh whose one-rank slab cannot hold the hinted replica,
+    raises naming ROADMAP queue 1 item 12b."""
+    if spec.mesh_shape is not None:
+        shape = spec.mesh_shape
+    else:
+        shape = default_mesh_shape(spec.n_clients, world_size(),
+                                   replica_bytes=spec.replica_bytes)
+        if (spec.replica_bytes is not None
+                and not replica_fits(-(-spec.replica_bytes // shape[1]))):
+            raise _not_ported(
+                f"a replica of {spec.replica_bytes:,} bytes over the "
+                f"device budget of {device_memory_budget():,} on "
+                f"{world_size()} rank(s) (mesh_2d would split it over a "
+                f"model axis)", "item 12b")
+    refuse_model_axis(shape[1])
+    return shape
 
 
 def get_engine(name_or_spec: str | FederationSpec) -> RoundEngine:
@@ -164,6 +183,33 @@ def build_map_engine(spec: FederationSpec) -> RoundFn:
                            pipeline=spec.aggregation_pipeline())
 
 
+@register_engine("shard_map")
+def build_shard_map_engine(spec: FederationSpec) -> RoundFn:
+    """The client axis over ``n_client_shards(C, world)`` ranks of the
+    world (a 1D mesh: the degenerate (n, 1) 2D mesh)."""
+    from repro_torch.core.fl_shard_map import make_shard_map_round
+    mesh = make_mesh_2d((n_client_shards(spec.n_clients, world_size()), 1))
+    return make_shard_map_round(spec.loss_fn, spec.optimizer,
+                                spec.fl_config(vmap_clients=True), mesh,
+                                topology=spec.topology,
+                                pipeline=spec.aggregation_pipeline())
+
+
+@register_engine("mesh_2d")
+def build_mesh_2d_engine(spec: FederationSpec) -> RoundFn:
+    """The 2D client x model plane (:mod:`repro_torch.mesh`) at
+    :func:`mesh_shape_for`'s shape; clients that do not divide the client
+    axis are padded inside the engine."""
+    from repro_torch.mesh.engine import make_mesh_2d_round
+    shape = mesh_shape_for(spec)
+    rules = dict(spec.sharding_rules) if spec.sharding_rules else None
+    return make_mesh_2d_round(spec.loss_fn, spec.optimizer,
+                              spec.fl_config(vmap_clients=True),
+                              make_mesh_2d(shape), rules=rules,
+                              topology=spec.topology,
+                              pipeline=spec.aggregation_pipeline())
+
+
 @register_engine("async_buffered")
 def build_async_engine(spec: FederationSpec):
     """The spec's :class:`repro_torch.asyncfl.engine.AsyncBufferedExecutor`:
@@ -174,21 +220,22 @@ def build_async_engine(spec: FederationSpec):
     return AsyncBufferedExecutor(spec)
 
 
-# round functions keyed on the engine-relevant slice of the spec, so budget
-# edits (spec.replace(eps_th=...)) reuse the built round. Bounded: the keys
-# hold loss/optimizer closures.
+# round functions keyed on the engine-relevant slice of the spec and the
+# process group, so budget edits (spec.replace(eps_th=...)) reuse the built
+# round. Bounded: the keys hold loss/optimizer closures.
 _ROUND_FN_CACHE: dict[tuple, RoundFn] = {}
 _ROUND_FN_CACHE_MAX = 32
 
 
 def round_fn_for(spec: FederationSpec) -> RoundFn:
-    """The round function for ``spec`` (cached per engine key)."""
+    """The round function for ``spec`` (cached per engine key and process
+    group)."""
     if spec.is_async():
         raise ValueError(
             "engine='async_buffered' has no synchronous round function: "
             "drive it with repro_torch.asyncfl (init_async_state / "
             "run_async_cycle / train_async), not run_round/run_rounds")
-    key = spec.engine_key()
+    key = (spec.engine_key(), _world_key())
     fn = _ROUND_FN_CACHE.pop(key, None)
     if fn is None:
         fn = get_engine(spec)(spec)
@@ -235,7 +282,8 @@ def resident_chunked_round_fn_for(spec: FederationSpec,
             "resident_chunked_round_fn_for is the pipeline (compressed / "
             "partial-participation) form; without a pipeline there is no "
             "device-resident sticky state: use chunked_round_fn_for")
-    key = (spec.engine_key(), spec.participants_per_round(), data_resident)
+    key = (spec.engine_key(), _world_key(), spec.participants_per_round(),
+           data_resident)
     fn = _RESIDENT_FN_CACHE.pop(key, None)
     if fn is None:
         fn = make_resident_chunked_round(
@@ -247,6 +295,6 @@ def resident_chunked_round_fn_for(spec: FederationSpec,
     return fn
 
 
-_UNREGISTERED = {"shard_map", "mesh_2d", "auto"}
+_UNREGISTERED = {"auto"}
 assert set(ENGINES) - _UNREGISTERED == set(_REGISTRY), \
     "built-in engines drifted"

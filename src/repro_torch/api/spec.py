@@ -5,11 +5,12 @@ port runs the resident protocol, dense or through the aggregation pipeline
 (partial participation, compressed error-fed updates, robust aggregators,
 secure masked sums with central accounting, byzantine update attacks), and
 cohorts of K drawn from a virtual population of M (``population=M``, driven
-by :mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines, and
-buffered-async federation (``engine="async_buffered"``, driven by
-:mod:`repro_torch.asyncfl`); a spec that asks for an engine the port does
-not have yet (the sharded ones) raises ``NotImplementedError`` naming its
-ROADMAP item.
+by :mod:`repro_torch.population`), on the ``vmap`` and ``map`` engines,
+on the sharded ``shard_map`` and ``mesh_2d`` engines (the client axis over
+the ranks of a ``torch.distributed`` world), and buffered-async federation
+(``engine="async_buffered"``, driven by :mod:`repro_torch.asyncfl`). A
+part of the JAX package the port does not have yet (a mesh_2d model axis
+over 1) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,9 +47,6 @@ from repro_torch.optim.optimizers import Optimizer
 
 ENGINES = ("vmap", "map", "shard_map", "mesh_2d", "async_buffered", "auto")
 
-# the planes of the JAX package not yet ported (ROADMAP queue 1)
-_UNPORTED_ENGINES = {"shard_map": "item 12", "mesh_2d": "item 12"}
-
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
@@ -69,9 +67,11 @@ class FederationSpec:
     loss_fn: Callable[[Any, Any], Any]
     optimizer: Optimizer
     topology: str = "full_average"  # "full_average" | "local_only"
-    engine: str = "auto"            # "vmap" | "map" | "async_buffered" |
-    #   "auto" (-> "vmap"). "async_buffered" is driven by
-    #   repro_torch.asyncfl (train_async), never by run_round / train
+    engine: str = "auto"            # "vmap" | "map" | "shard_map" |
+    #   "mesh_2d" | "async_buffered" | "auto" (repro_torch.mesh.placement).
+    #   "async_buffered" is driven by repro_torch.asyncfl (train_async),
+    #   never by run_round / train; the sharded engines split the client
+    #   axis over the ranks of the torch.distributed world
     kernel_backend: str = "auto"    # "auto": the hand-written kernel on CUDA
     #   tensors, its plain version on CPU tensors | "ref": always the plain
     #   version
@@ -100,10 +100,16 @@ class FederationSpec:
     #   the round function, and the device block holds K replicas
     cohort_size: int | None = None  # K (defaults to n_clients; must equal it)
 
-    # -- 2D mesh plane (item 12) -------------------------------------------
-    mesh_shape: tuple[int, int] | None = None
-    sharding_rules: Any = None
-    replica_bytes: int | None = None
+    # -- 2D mesh plane (repro_torch.mesh; engine="mesh_2d" or "auto") -----
+    mesh_shape: tuple[int, int] | None = None  # (dc, dm) client blocks x
+    #   model shards over the ranks; None -> mesh.placement
+    #   .default_mesh_shape. dm > 1 raises when the engine is built (item
+    #   12b). Part of engine_key()
+    sharding_rules: Any = None      # logical->mesh axis overrides (dict or
+    #   (name, axis) pairs, normalized to a sorted tuple of pairs)
+    replica_bytes: int | None = None  # per-replica params + opt-state
+    #   footprint hint: engine="auto" places a replica over the per-device
+    #   budget on mesh_2d
 
     # -- buffered-async federation (repro_torch.asyncfl) ------------------
     buffer_size: int | None = None  # B arrivals per flush (n_clients default)
@@ -133,10 +139,6 @@ class FederationSpec:
 
     def __post_init__(self):
         self._validate()
-        # the engines the port does not run yet
-        if self.engine in _UNPORTED_ENGINES:
-            raise _not_ported(f"engine={self.engine!r}",
-                              _UNPORTED_ENGINES[self.engine])
 
     def _validate(self):
         """The JAX package's validation, check for check."""
@@ -439,14 +441,19 @@ class FederationSpec:
         is accounting-only and stays out; the byzantine flags are in (the
         attack's select is built from them). The async buffer size B shapes
         the flush and dispatch blocks and is in; ``staleness_alpha`` is a
-        runtime weight and stays out."""
+        runtime weight and stays out. The mesh shape, the sharding rules
+        and the replica hint are in, as in the JAX package."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
                 self.average_opt_state, self.topology, self.engine,
                 self.kernel_backend, self.has_pipeline(), self.compressor,
                 self.compression_ratio, self.compression_bits,
-                self.buffer_size, self.aggregator, self.trim_fraction,
+                self.buffer_size,
+                # the mesh shape and rules are the round's collective
+                # layout; replica_bytes steers what engine="auto" resolves to
+                self.mesh_shape, self.sharding_rules, self.replica_bytes,
+                self.aggregator, self.trim_fraction,
                 self.norm_bound_factor,
                 (self.participants_per_round()
                  if self.aggregator != "mean" else None),

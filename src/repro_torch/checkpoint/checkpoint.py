@@ -9,9 +9,14 @@ Leaf paths are named as ``jax.tree_util.tree_flatten_with_path`` names them
 (dict keys, NamedTuple field names and sequence indices joined by "/", e.g.
 ``opt_state/step``), so the two packages read each other's arrays. Leaves
 are tensors or numpy arrays; they are written from the host.
+
+Under a ``torch.distributed`` world every rank holds the same full state
+(the sharded engines return whole trees), so rank 0 writes and the other
+ranks wait at a barrier (:func:`one_writer`).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Any
@@ -34,8 +39,27 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+@contextlib.contextmanager
+def one_writer():
+    """Yield whether this process writes: rank 0 of an initialized process
+    group, or the only process. Every rank meets at a barrier on exit, so
+    no rank reads what is not written yet."""
+    import torch.distributed as dist
+    world = dist.is_available() and dist.is_initialized()
+    yield not world or dist.get_rank() == 0
+    if world:
+        dist.barrier()
+
+
 def save_checkpoint(directory: str, tree: Any, step: int = 0,
                     extra: dict | None = None) -> None:
+    with one_writer() as writer:
+        if writer:
+            _write_checkpoint(directory, tree, step, extra)
+
+
+def _write_checkpoint(directory: str, tree: Any, step: int,
+                      extra: dict | None) -> None:
     os.makedirs(os.path.join(directory, "arrays"), exist_ok=True)
     leaves, _ = tree_flatten(tree)
     meta = {"step": step, "extra": extra or {}, "leaves": []}

@@ -42,7 +42,7 @@ of their mean). With ``secure`` set, ``agg_rand`` is the pair
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Protocol
+from typing import Any, Callable, Protocol
 
 import torch
 
@@ -227,6 +227,10 @@ def participation_mask(gen: torch.Generator, n_clients: int,
 # the pipeline
 # ---------------------------------------------------------------------------
 
+def _identity(x):
+    return x
+
+
 def _bcast_rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
@@ -257,35 +261,51 @@ class AggregationPipeline:
                            device=tree_leaves(params0)[0].device)
 
     def aggregate(self, prev_params, new_params, new_opt_state,
-                  prev_opt_state, residual, mask, agg_rand):
-        """Replace the dense mean of Eq. 7b.
+                  prev_opt_state, residual, mask, agg_rand, metrics,
+                  all_sum: Callable[[list], list] = _identity,
+                  all_gather: Callable[[Any], Any] = _identity):
+        """Replace the dense mean of Eq. 7b for one block of clients.
 
-        prev/new params and opt_state are client-stacked pytrees (C, ...);
-        ``residual`` is (C, D) or None; ``mask`` the 0/1 (C,) participation
-        mask; ``agg_rand`` the compressor's random operand (paired with the
-        pair masks under ``secure``). Returns ``(params, opt_state,
-        residual)``: the participants' (compressed, error-fed) updates
-        averaged into the global model, re-broadcast to every client.
-        Non-participants keep their residual; their optimizer state is kept
-        when ``average_opt_state=False`` and, like every client's, replaced
-        by the participants' mean when True. The attack corrupts what is
-        sent, never the residual; the secure sum and the robust
-        aggregators reduce the model update only, the optimizer state keeps
-        the masked mean."""
-        denom = torch.sum(mask)                 # >= 1 by the spec
+        prev/new params and opt_state are client-stacked pytrees whose
+        leading axis is the block's B rows (all C clients on the
+        single-process engines, one rank's block under the sharded ones);
+        ``residual`` is (B, D) or None; ``mask`` the block's 0/1 (B,)
+        participation slice; ``agg_rand`` its compressor operand (paired
+        with the whole (C, C, D) pair masks under ``secure``);
+        ``metrics`` the block's per-client (B,) metrics. ``all_sum`` takes
+        the list of the block's partial sums (the participant count, the
+        masked update sums and the metrics' masked sums) and returns each
+        summed over the blocks: the round's one collective under the
+        sharded engines. ``all_gather`` concatenates the blocks' rows into
+        the global (C, ...) view, consulted only by the adversarial
+        extensions (the attack and the robust / secure reductions need
+        every client's row, not block partial sums), which then compute the
+        same global result on every block.
+
+        Returns ``(params, opt_state, residual, metrics)`` over the block's
+        rows: the participants' (compressed, error-fed) updates averaged
+        into the global model, re-broadcast to every row, and each metric's
+        mean over the participants (non-participants' local work is
+        discarded, so is their loss). Non-participants keep their
+        residual; their optimizer state is kept when
+        ``average_opt_state=False`` and, like every client's, replaced by
+        the participants' mean when True. The attack corrupts what is sent,
+        never the residual; the secure sum and the robust aggregators
+        reduce the model update only, the optimizer state keeps the masked
+        mean."""
+        block = mask.shape[0]
         if self.secure is not None:
             agg_rand, pair_masks = agg_rand
 
-        def _masked_mean_bcast(new):
-            s = torch.sum(_bcast_rows(mask, new) * new.to(torch.float32),
-                          dim=0)
-            avg = (s / denom).to(new.dtype)
-            return avg.unsqueeze(0).expand(new.shape).contiguous()
+        def _masked_sum(new):
+            return torch.sum(_bcast_rows(mask, new) * new.to(torch.float32),
+                             dim=0)
 
         adversarial = (self.aggregator is not None or self.secure is not None
                        or self.attack is not None)
-        if self.compressor is not None or adversarial:
-            flat_prev = flatten_tree(prev_params)          # (C, D)
+        flat = self.compressor is not None or adversarial
+        if flat:
+            flat_prev = flatten_tree(prev_params)          # (B, D)
             sel = mask[:, None]
             if self.compressor is not None:
                 corrected = (flatten_tree(new_params) - flat_prev) + residual
@@ -293,28 +313,55 @@ class AggregationPipeline:
                 residual = sel * (corrected - sent) + (1.0 - sel) * residual
             else:
                 sent = flatten_tree(new_params) - flat_prev
-            if self.attack is not None:
-                sent = self.attack(sent)
-            if self.secure is not None:
-                avg_delta = self.secure.masked_mean(sent, mask, pair_masks)
-            elif self.aggregator is not None:
-                avg_delta = self.aggregator(participant_rows(
-                    sent, mask, self.n_participants))
+        # the block's partial sums, summed over the blocks in one call
+        p_leaves, p_def = tree_flatten(new_params)
+        s_leaves, s_def = tree_flatten(new_opt_state)
+        partials = [torch.sum(mask)]                        # >= 1 by the spec
+        if not flat:
+            partials += [_masked_sum(x) for x in p_leaves]
+        elif not adversarial:
+            partials.append(torch.sum(sel * sent, dim=0))
+        if self.average_opt_state:
+            partials += [_masked_sum(x) for x in s_leaves]
+        partials += [torch.sum(mask * v) for v in metrics.values()]
+        sums = iter(all_sum(partials))
+        denom = next(sums)
+
+        def _mean_bcast(new):
+            avg = (next(sums) / denom).to(new.dtype)
+            return avg.unsqueeze(0).expand(new.shape).contiguous()
+
+        if flat:
+            if adversarial:
+                g_sent, g_mask = all_gather(sent), all_gather(mask)
+                if self.attack is not None:
+                    g_sent = self.attack(g_sent)
+                if self.secure is not None:
+                    avg_delta = self.secure.masked_mean(g_sent, g_mask,
+                                                        pair_masks)
+                elif self.aggregator is not None:
+                    avg_delta = self.aggregator(participant_rows(
+                        g_sent, g_mask, self.n_participants))
+                else:
+                    avg_delta = (torch.sum(g_mask[:, None] * g_sent, dim=0)
+                                 / torch.sum(g_mask))
             else:
-                avg_delta = torch.sum(sel * sent, dim=0) / denom
+                avg_delta = next(sums) / denom
             # prev params are synchronized (full_average every round), so
-            # replica 0 anchors the new global model
+            # row 0 anchors the new global model
             new_global = (flat_prev[0] + avg_delta).unsqueeze(0)
-            params = unflatten_like(
-                new_global.expand(self.n_clients, -1), prev_params)
+            params = unflatten_like(new_global.expand(block, -1),
+                                    prev_params)
             params = tree_map(torch.Tensor.contiguous, params)
         else:
             # dense updates against a synchronized global model: the masked
             # mean of the participants' replicas is the new global model
-            params = tree_map(_masked_mean_bcast, new_params)
+            params = tree_unflatten(p_def, [_mean_bcast(x)
+                                            for x in p_leaves])
 
         if self.average_opt_state:
-            opt_state = tree_map(_masked_mean_bcast, new_opt_state)
+            opt_state = tree_unflatten(s_def, [_mean_bcast(x)
+                                               for x in s_leaves])
         else:
             # non-participants did not really train: keep their old state
             def _mask_leaf(new, old):
@@ -322,9 +369,5 @@ class AggregationPipeline:
                 return (m * new.to(torch.float32)
                         + (1.0 - m) * old.to(torch.float32)).to(new.dtype)
             opt_state = tree_map(_mask_leaf, new_opt_state, prev_opt_state)
-        return params, opt_state, residual
-
-    def masked_metrics(self, metrics: dict[str, Any], mask) -> dict:
-        """Mean of per-client (C,) metrics over the participants only."""
-        denom = torch.sum(mask)
-        return {k: torch.sum(mask * v) / denom for k, v in metrics.items()}
+        metrics = {k: next(sums) / denom for k in metrics}
+        return params, opt_state, residual, metrics

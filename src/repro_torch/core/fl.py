@@ -41,9 +41,11 @@ from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import (
     tree_add,
     tree_broadcast_axis0,
+    tree_flatten,
     tree_leaves,
     tree_map,
     tree_mean_over_axis0,
+    tree_unflatten,
 )
 
 TOPOLOGIES = ("full_average", "local_only")
@@ -99,6 +101,27 @@ def make_local_round(grad_fn: Callable, optimizer: Optimizer, tau: int):
     return local_round
 
 
+def make_local_rounds(loss_fn: Callable, optimizer: Optimizer,
+                      cfg: FLConfig) -> Callable:
+    """The engine's Eq.-7a stage on a block of B clients (no collectives):
+    ``local_rounds(params, opt_state, batch, noise, sigmas)`` over the
+    block's (B, ...) operands, all B at once (``vmap_clients``) or one
+    client at a time."""
+    local_round = make_local_round(make_grad_fn(loss_fn, cfg), optimizer,
+                                   cfg.tau)
+
+    def local_rounds(params, opt_state, batch, noise, sigmas):
+        if cfg.vmap_clients:
+            return local_round(params, opt_state, batch, noise, sigmas)
+        outs = [local_round(*tree_map(lambda x: x[c:c + 1],
+                                      (params, opt_state, batch, noise,
+                                       sigmas)))
+                for c in range(sigmas.shape[0])]
+        return tree_map(lambda *xs: torch.cat(xs), *outs)
+
+    return local_rounds
+
+
 def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
                     topology: str = "full_average", pipeline=None):
     """Build ``round_step(params, opt_state, batch, noise, sigmas)``.
@@ -119,27 +142,12 @@ def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
                        compressor's random operand
     returns          : (new_params, new_opt_state, metrics)
     """
-    if topology not in TOPOLOGIES:
-        raise ValueError(f"topology must be one of {TOPOLOGIES}, "
-                         f"got {topology!r}")
-    if pipeline is not None and topology != "full_average":
-        raise ValueError("the aggregation pipeline requires "
-                         "topology='full_average'")
-    local_round = make_local_round(make_grad_fn(loss_fn, cfg), optimizer,
-                                   cfg.tau)
-
-    def _local_rounds(params, opt_state, batch, noise, sigmas):
-        if cfg.vmap_clients:
-            return local_round(params, opt_state, batch, noise, sigmas)
-        outs = [local_round(*tree_map(lambda x: x[c:c + 1],
-                                      (params, opt_state, batch, noise,
-                                       sigmas)))
-                for c in range(cfg.n_clients)]
-        return tree_map(lambda *xs: torch.cat(xs), *outs)
+    check_topology(topology, pipeline)
+    local_rounds = make_local_rounds(loss_fn, optimizer, cfg)
 
     def round_step(params, opt_state, batch, noise, sigmas):
-        new_p, new_s, ms = _local_rounds(params, opt_state, batch, noise,
-                                         sigmas)
+        new_p, new_s, ms = local_rounds(params, opt_state, batch, noise,
+                                        sigmas)
         if topology == "full_average":
             # ---- Eq. (7b): periodic global averaging ----------------------
             new_p = tree_broadcast_axis0(tree_mean_over_axis0(new_p),
@@ -153,13 +161,43 @@ def make_round_step(loss_fn: Callable, optimizer: Optimizer, cfg: FLConfig,
 
     def round_step_pipeline(params, opt_state, batch, noise, sigmas, mask,
                             residual, agg_rand):
-        new_p, new_s, ms = _local_rounds(params, opt_state, batch, noise,
-                                         sigmas)
-        new_p, new_s, residual = pipeline.aggregate(
-            params, new_p, new_s, opt_state, residual, mask, agg_rand)
-        return new_p, new_s, residual, pipeline.masked_metrics(ms, mask)
+        new_p, new_s, ms = local_rounds(params, opt_state, batch, noise,
+                                        sigmas)
+        return pipeline.aggregate(params, new_p, new_s, opt_state, residual,
+                                  mask, agg_rand, ms)
 
     return round_step if pipeline is None else round_step_pipeline
+
+
+def check_topology(topology: str, pipeline) -> None:
+    """The engines' shared refusal of an unknown topology, and of a
+    pipeline without ``full_average``."""
+    if topology not in TOPOLOGIES:
+        raise ValueError(f"topology must be one of {TOPOLOGIES}, "
+                         f"got {topology!r}")
+    if pipeline is not None and topology != "full_average":
+        raise ValueError("the aggregation pipeline requires "
+                         "topology='full_average'")
+
+
+def tree_valid_mean_axis0(tree, valid, denom, all_sum=lambda xs: xs):
+    """Mean over axis 0 of every leaf, weighted by the 0/1 ``valid`` vector
+    and normalized by the (possibly cross-rank) ``denom`` count.
+
+    The padded-client Eq.-7b boundary of the mesh_2d engine
+    (:mod:`repro_torch.mesh`): when C clients do not divide the client
+    axis, blocks are padded to Cp rows and pad rows carry ``valid = 0``;
+    this weighted form with ``denom`` = C reproduces the exact mean over
+    the C real clients. Sums run in f32 and cast back per leaf (int leaves
+    such as optimizer step counters round-trip exactly: weighted means of
+    identical integers are integral). ``all_sum`` takes the list of every
+    leaf's block sum and returns them summed over the ranks (one
+    collective for the whole tree)."""
+    leaves, treedef = tree_flatten(tree)
+    sums = all_sum([torch.sum(valid.reshape((-1,) + (1,) * (x.dim() - 1))
+                              * x.to(torch.float32), dim=0) for x in leaves])
+    return tree_unflatten(treedef, [(s / denom).to(x.dtype)
+                                    for s, x in zip(sums, leaves)])
 
 
 def _n_params(params) -> int:

@@ -17,9 +17,11 @@ The port of the JAX package's ``repro/launch/dryrun.py``, for one card:
   the trace's peak of temporaries), ``fits_hbm`` against the card's
   79.18 GiB, and ``roofline``.
 
-Not ported (ROADMAP queue 1 item 12): ``--multi-pod``,
-``make_production_mesh``, ``mesh_report`` and the sharding rules, which
-place the program on a TPU mesh; ``--multi-pod`` raises. The ``--opt``
+Not ported (ROADMAP queue 1 item 12b, the model axis): ``--multi-pod`` and
+``mesh_report``, which shard each replica over a mesh's model axis;
+``--multi-pod`` raises. (``make_production_mesh`` and the sharding rules
+are in :mod:`repro_torch.launch.mesh` and :mod:`repro_torch.models
+.sharding`; a trace here is of one replica on one card.) The ``--opt``
 names that only steer XLA's lowering (``scan_accum``, ``gather_weights``,
 ``ddp``, ``no_donate``) raise ``ValueError``: the port's decode writes its
 caches in place, as a donated JAX cache is.
@@ -38,8 +40,9 @@ from dataclasses import replace
 
 import torch
 
-from repro_torch.api.engines import H100_MEM_BYTES, get_engine
+from repro_torch.api.engines import get_engine
 from repro_torch.api.spec import FederationSpec, _not_ported
+from repro_torch.mesh.placement import H100_MEM_BYTES
 from repro_torch.configs import ASSIGNED_ARCHS, get_arch
 from repro_torch.configs.shapes import (
     InputShape,
@@ -429,7 +432,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported: the JAX package's 2x16x16 mesh "
-                         "(item 12)")
+                         "(item 12b)")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--tau", type=int, default=4)
     ap.add_argument("--microbatches", type=int, default=None)
@@ -444,7 +447,7 @@ def main(argv=None):
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12")
+        raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12b")
     if not args.all and not (args.arch and args.shape):
         ap.error("pass --arch and --shape, or --all")
 

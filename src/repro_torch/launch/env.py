@@ -20,10 +20,12 @@ implicitly: a profile re-execs the process, see below). The profiles:
     meaning for PyTorch and are left out.
 
 ``cpu-mesh``
-    The JAX profile splits the host CPU into ``--host-devices`` XLA
-    devices for the sharded engines. The port has no sharded engine yet,
-    so this profile, and ``--host-devices`` above 1, raise
-    ``NotImplementedError`` naming ROADMAP queue 1 item 12.
+    Everything in ``host``, and the launcher runs as ``--host-devices`` N
+    gloo ranks on this host (:class:`repro_torch.launch.mesh.HostWorld`,
+    one torch thread each), where the JAX profile splits the host CPU into
+    N XLA devices: the sharded engines then place their client blocks on
+    the ranks. :func:`host_ranks` is that count; ``--host-devices`` means
+    nothing under the other profiles, as in the JAX package.
 
 Because ``LD_PRELOAD`` must be set before the process starts,
 :func:`apply_env_profile` re-execs the current interpreter with the
@@ -50,14 +52,6 @@ TCMALLOC_PATHS = (
 )
 
 
-def _refuse_mesh(profile: str, host_devices: int) -> None:
-    if profile == "cpu-mesh" or host_devices > 1:
-        from repro_torch.api.spec import _not_ported
-        raise _not_ported("--env-profile cpu-mesh / --host-devices > 1 (a "
-                          "host split into devices for the sharded "
-                          "engines)", "item 12")
-
-
 def find_tcmalloc(paths: tuple[str, ...] = TCMALLOC_PATHS) -> str | None:
     """First installed tcmalloc shared object, or None."""
     for p in paths:
@@ -75,7 +69,6 @@ def profile_env(profile: str, *, host_devices: int = 1,
                          f"got {profile!r}")
     if host_devices < 1:
         raise ValueError(f"host_devices must be >= 1, got {host_devices}")
-    _refuse_mesh(profile, host_devices)
     base = dict(os.environ if base is None else base)
     if profile == "none":
         return {}
@@ -94,11 +87,20 @@ def add_env_profile_args(ap) -> None:
     argparse parser, as every JAX launcher has them."""
     ap.add_argument("--env-profile", default="none", choices=ENV_PROFILES,
                     help="re-exec under a tuned launch environment (the "
-                         "host allocator); 'cpu-mesh' is not ported (item "
-                         "12)")
+                         "host allocator); 'cpu-mesh' also runs the "
+                         "launcher as --host-devices gloo ranks")
     ap.add_argument("--host-devices", type=int, default=1,
-                    help="host device count of the 'cpu-mesh' profile "
-                         "(anything but 1 raises: item 12)")
+                    help="gloo ranks of the 'cpu-mesh' env profile (one "
+                         "torch thread each); the sharded engines place "
+                         "their client blocks on them")
+
+
+def host_ranks(profile: str | None, host_devices: int = 1) -> int:
+    """How many gloo ranks a launcher runs as: ``host_devices`` under the
+    ``cpu-mesh`` profile, else 1."""
+    if host_devices < 1:
+        raise ValueError(f"host_devices must be >= 1, got {host_devices}")
+    return host_devices if profile == "cpu-mesh" else 1
 
 
 def apply_env_profile(profile: str | None, *,
@@ -113,10 +115,8 @@ def apply_env_profile(profile: str | None, *,
     the very top of a launcher ``main``, before any CUDA work.
     """
     if profile is None or profile == "none":
-        _refuse_mesh("none", host_devices)
         return False
     if os.environ.get(_APPLIED_VAR) == "1":
-        _refuse_mesh(profile, host_devices)
         print(f"[env] profile {profile} applied: LD_PRELOAD="
               f"{os.environ.get('LD_PRELOAD', '')}", flush=True)
         return False

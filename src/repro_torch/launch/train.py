@@ -26,15 +26,19 @@ aggregates the first B arrivals per flush on a simulated device clock
 updates (``--staleness-alpha``) and dispatch-time privacy charging.
 
 ``--env-profile host`` re-execs the launcher once under tcmalloc
-(:mod:`repro_torch.launch.env`). ``--replica-hint`` passes the arch's
-param + optimizer-state bytes (``configs.shapes.replica_footprint_bytes``)
-to the spec as ``replica_bytes``: ``engine="auto"`` then resolves to
-``vmap`` when one replica fits the device's memory and raises when it does
-not. The flags of the plane the port has not yet reached raise
-``NotImplementedError`` naming ROADMAP queue 1 item 12: ``--engine
-shard_map`` / ``mesh_2d``, ``--mesh-shape``, ``--env-profile cpu-mesh`` /
-``--host-devices`` above 1, and a replica hint over the device's memory
-(the JAX package would place it on ``mesh_2d``). The model's params come
+(:mod:`repro_torch.launch.env`); ``--env-profile cpu-mesh --host-devices
+N`` runs it as N gloo ranks on this host, each driving the same
+federation, rank 0 printing the summary and writing ``--save``. Under a
+launcher that sets ``WORLD_SIZE`` (``torchrun``) the ranks come from the
+environment. ``--engine shard_map`` splits the client axis over the ranks;
+``--engine mesh_2d --mesh-shape dc,1`` lays a (dc, 1) mesh over them,
+padding clients that do not divide dc. ``--replica-hint`` passes the
+arch's param + optimizer-state bytes
+(``configs.shapes.replica_footprint_bytes``) to the spec as
+``replica_bytes``: ``engine="auto"`` places a replica over the device's
+memory on ``mesh_2d``. A model axis over 1 (``--mesh-shape dc,dm`` with dm
+> 1, or a replica hint that needs one) raises ``NotImplementedError``
+naming ROADMAP queue 1 item 12b. The model's params come
 from a ``torch.Generator`` seeded with ``--seed``, so they differ from the
 JAX launcher's; the summary's ``rounds``, ``max_epsilon`` and
 ``resource_spent`` do not depend on them.
@@ -42,7 +46,9 @@ JAX launcher's; the summary's ``rounds``, ``max_epsilon`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
@@ -55,7 +61,7 @@ from repro_torch.api import (
     save_state,
     train,
 )
-from repro_torch.api.spec import _not_ported
+from repro_torch.api.engines import mesh_shape_for
 from repro_torch.asyncfl import (
     LATENCY_PROFILES,
     init_async_state,
@@ -68,7 +74,12 @@ from repro_torch.core.convergence import ProblemConstants
 from repro_torch.core.design import DesignProblem, ResourceModel
 from repro_torch.core.fl import design_sigmas
 from repro_torch.data.tokens import FederatedTokenStream, TokenTaskConfig
-from repro_torch.launch.env import add_env_profile_args, apply_env_profile
+from repro_torch.launch.env import (
+    add_env_profile_args,
+    apply_env_profile,
+    host_ranks,
+)
+from repro_torch.launch.mesh import run_on_host_world, world_size
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import sgd
 from repro_torch.population import (
@@ -97,6 +108,7 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
                      byzantine_fraction: float = 0.0,
                      attack_scale: float = 10.0,
                      replica_bytes: int | None = None,
+                     mesh_shape: tuple[int, int] | None = None,
                      rng=None, device=None):
     """Assemble the ``repro_torch.api`` handles for a transformer federation
     on ``device`` (default: the GPU).
@@ -118,8 +130,9 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
     ``train_async``; ``buffer_size`` / ``staleness_alpha`` /
     ``latency_model`` configure the flush and the simulated clocks.
 
-    ``replica_bytes`` is the placement hint of ``engine="auto"``: a
-    replica over the device's memory raises before anything is allocated.
+    ``replica_bytes`` is the placement hint of ``engine="auto"`` and
+    ``mesh_shape`` the (dc, dm) of ``mesh_2d``: a spec that needs a model
+    axis over 1 raises (item 12b) before anything is allocated.
 
     The model's params are ``Transformer.init`` from a ``torch.Generator``
     on ``device`` seeded with ``seed``.
@@ -150,8 +163,9 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
                          else 0.0),
         sigmas=tuple(float(s) for s in np.asarray(sigmas)),
         batch_sizes=(batch_size,) * n_clients, delta=delta, seed=seed,
-        replica_bytes=replica_bytes)
-    resolve_engine(spec)
+        replica_bytes=replica_bytes, mesh_shape=mesh_shape)
+    if resolve_engine(spec) == "mesh_2d":
+        mesh_shape_for(spec)        # a model axis over 1 raises here
     params0 = model.init(torch.Generator(device=device).manual_seed(seed),
                          device)
     if population:
@@ -182,15 +196,6 @@ def federation_meta(spec) -> dict:
             "topology": spec.topology}
 
 
-def _refuse_unported(args) -> None:
-    """The flags of the planes the port has not reached raise, naming their
-    ROADMAP item, as ``FederationSpec`` does for engines."""
-    if args.engine in ("shard_map", "mesh_2d"):
-        raise _not_ported(f"--engine {args.engine}", "item 12")
-    if args.mesh_shape:
-        raise _not_ported("--mesh-shape", "item 12")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -217,14 +222,19 @@ def main(argv=None):
     ap.add_argument("--engine", default="auto",
                     choices=("vmap", "map", "shard_map", "mesh_2d",
                              "async_buffered", "auto"),
-                    help="shard_map / mesh_2d are not ported yet (raise)")
+                    help="shard_map / mesh_2d split the client axis over "
+                         "the ranks (--env-profile cpu-mesh --host-devices "
+                         "N, or a launcher's WORLD_SIZE)")
     ap.add_argument("--mesh-shape", default=None,
-                    help="mesh_2d's dc,dm (not ported yet: raises)")
+                    help="dc,dm ranks of the mesh_2d engine (client x "
+                         "model); dm > 1 raises (item 12b). Default: "
+                         "repro_torch.mesh.placement.default_mesh_shape")
     ap.add_argument("--replica-hint", action="store_true",
                     help="pass the arch's param+opt-state bytes "
                          "(configs.shapes.replica_footprint_bytes) to the "
-                         "spec: engine='auto' raises when one replica "
-                         "exceeds the device's memory (item 12)")
+                         "spec: engine='auto' places a replica over the "
+                         "device's memory on mesh_2d, whose model axis "
+                         "raises (item 12b)")
     ap.add_argument("--async-buffer", type=int, default=0,
                     help="B > 0 switches to buffered-async federation "
                          "(repro_torch.asyncfl): aggregate the first B "
@@ -299,7 +309,26 @@ def main(argv=None):
     ap.add_argument("--save", default=None)
     args = ap.parse_args(argv)
     apply_env_profile(args.env_profile, host_devices=args.host_devices)
-    _refuse_unported(args)
+    n_ranks = host_ranks(args.env_profile, args.host_devices)
+    if n_ranks > 1 and world_size() != n_ranks:     # not yet on the ranks
+        from repro_torch.launch import train as launcher  # by module name,
+        #   so the ranks unpickle it whether this runs as __main__ or not
+        return run_on_host_world(n_ranks, launcher.run, args)[0]
+    return run(args)
+
+
+def run(args) -> int:
+    """The launcher's work on parsed ``args``, on every rank of the world
+    (if any): rank 0 prints and saves, the others stay quiet."""
+    dist = torch.distributed
+    if dist.is_initialized() and dist.get_rank() > 0:
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _run(args)
+    return _run(args)
+
+
+def _run(args) -> int:
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
@@ -339,6 +368,8 @@ def main(argv=None):
         print(f"[design] K*={sol.k} tau*={tau} sigma*={sigmas[0]:.4f} "
               f"bound={sol.predicted_bound:.4f} cost={sol.cost:.0f}")
 
+    mesh_shape = (tuple(int(x) for x in args.mesh_shape.split(","))
+                  if args.mesh_shape else None)
     replica_bytes = None
     if args.replica_hint:
         from repro_torch.configs.shapes import replica_footprint_bytes
@@ -366,7 +397,7 @@ def main(argv=None):
         dp_accounting=args.dp_accounting, attack=args.attack,
         byzantine_fraction=args.byzantine_fraction,
         attack_scale=args.attack_scale, replica_bytes=replica_bytes,
-        rng=rng, device=device)
+        mesh_shape=mesh_shape, rng=rng, device=device)
     spec = spec.replace(eps_th=args.eps, c_th=args.cth,
                         c1=args.c1, c2=args.c2)
     t0 = time.time()

@@ -58,6 +58,7 @@ from repro_torch.api.state import (
     run_rounds,
     save_state,
 )
+from repro_torch.checkpoint.checkpoint import one_writer
 from repro_torch.core.aggregation import tree_dim
 from repro_torch.core.privacy import rho_budget, zcdp_to_dp
 from repro_torch.population.population import ClientPopulation
@@ -552,7 +553,9 @@ def save_population_state(directory: str, pstate: PopulationState,
     save_state(directory, pstate.fl,
                extra={"population": int(pstate.store.population),
                       **(extra or {})})
-    pstate.store.save(os.path.join(directory, STORE_FILENAME))
+    with one_writer() as writer:
+        if writer:
+            pstate.store.save(os.path.join(directory, STORE_FILENAME))
 
 
 def load_population_state(directory: str, like: PopulationState,

@@ -204,19 +204,20 @@ def test_sigmas_for_is_cached_per_ledger_key():
 
 
 def test_engine_registry():
-    """tests/test_api.py:80-89, for the engines the port registers; the
-    sharded ones stay unregistered and a spec naming them raises."""
-    assert set(tapi.available_engines()) == {"vmap", "map", "async_buffered"}
+    """tests/test_api.py:80-89: the port registers every engine the JAX
+    package does, the sharded ones included."""
+    assert set(tapi.available_engines()) == {
+        "vmap", "map", "shard_map", "mesh_2d", "async_buffered"}
     with pytest.raises(KeyError):
         tapi.get_engine("nope")
-    with pytest.raises(KeyError):
-        tapi.get_engine("shard_map")
+    from repro_torch.api import engines
+    assert tapi.get_engine("shard_map") is engines.build_shard_map_engine
     with pytest.raises(ValueError, match="FederationSpec"):
         tapi.get_engine("auto")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.FederationSpec(n_clients=C, tau=1, loss_fn=tlin.logreg_loss,
-                            optimizer=tsgd(0.1), engine="shard_map")
-    from repro_torch.api import engines
+    sharded = tapi.FederationSpec(n_clients=C, tau=1,
+                                  loss_fn=tlin.logreg_loss,
+                                  optimizer=tsgd(0.1), engine="shard_map")
+    assert tapi.get_engine(sharded) is engines.build_shard_map_engine
     try:
         @tapi.register_engine("_test_engine")
         def _builder(spec):
@@ -234,11 +235,14 @@ def test_engine_registry():
     assert tapi.get_engine(spec) is engines.build_vmap_engine
     assert tapi.get_engine(spec.replace(engine="map")) is \
         engines.build_map_engine
+    assert tapi.get_engine(spec.replace(engine="mesh_2d")) is \
+        engines.build_mesh_2d_engine
 
 
 def test_replica_hint_places_engine_auto(monkeypatch):
-    """A replica that fits the device resolves engine='auto' to vmap; one
-    over the budget raises naming item 12 (the JAX package's mesh_2d);
+    """A replica that fits the device resolves engine='auto' to vmap on one
+    rank; one over the budget resolves to mesh_2d, whose build raises
+    naming item 12b (the model axis it would need);
     REPRO_DEVICE_MEM_BYTES overrides the budget, as in the JAX package."""
     from repro_torch.api import engines
     monkeypatch.delenv(engines.ENV_DEVICE_MEM, raising=False)
@@ -251,10 +255,11 @@ def test_replica_hint_places_engine_auto(monkeypatch):
     monkeypatch.setenv(engines.ENV_DEVICE_MEM, "4096")
     assert engines.replica_fits(4096) and not engines.replica_fits(4097)
     assert tapi.resolve_engine(spec) == "vmap"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.resolve_engine(spec.replace(replica_bytes=4097))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.get_engine(spec.replace(replica_bytes=4097))
+    big = spec.replace(replica_bytes=4097)
+    assert tapi.resolve_engine(big) == "mesh_2d"
+    assert tapi.get_engine(big) is engines.build_mesh_2d_engine
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tapi.round_fn_for(big)
     assert tapi.resolve_engine(spec.replace(replica_bytes=4097,
                                             engine="map")) == "map"
     monkeypatch.setenv(engines.ENV_DEVICE_MEM, "0")
@@ -361,7 +366,9 @@ def test_throughput_smoke_runs_in_process_on_the_cpu(tmp_path):
                for r in rows)
     assert rows[0]["hbm_bytes"] == 4 * (3 * 65536 + 1)
     assert report["mesh_plane"]["skipped"]
-    assert "item 12" in report["mesh_plane"]["reason"]
+    assert report["mesh_plane"]["reason"].startswith(
+        "needs 8 ranks for the (4,2) mesh, have 1")
+    assert "item 12b" in report["mesh_plane"]["reason"]
     assert tp.check(report, timing=False) == []
     with pytest.raises(SystemExit):
         tp.main(["--out", "BENCH_throughput.json", "--device", "cpu"])

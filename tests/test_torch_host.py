@@ -330,6 +330,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         (ROOT / "examples").glob("*_torch.py"))
     assert len(scripts) >= 16
     files += scripts
+    # what the ranks of a HostWorld import in the sharded-engine tests
+    files.append(ROOT / "tests" / "_torch_world_cases.py")
     assert len(files) > 10
     names = {str(f.relative_to(ROOT)) for f in files}
     for must in ("benchmarks/throughput_torch.py",
@@ -340,7 +342,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "src/repro_torch/launch/env.py",
                  "src/repro_torch/launch/dryrun.py",
                  "src/repro_torch/api/federation.py",
-                 "src/repro_torch/core/adaptive.py"):
+                 "src/repro_torch/core/adaptive.py",
+                 "src/repro_torch/core/fl_shard_map.py",
+                 "src/repro_torch/mesh/placement.py",
+                 "src/repro_torch/mesh/engine.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/models/sharding.py",
+                 "examples/mesh_quickstart_torch.py",
+                 "tests/_torch_world_cases.py"):
         assert must in names, must
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}

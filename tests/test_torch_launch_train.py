@@ -138,20 +138,67 @@ def test_federation_meta_equals_jax(kw):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--engine", "shard_map"], "item 12"),
-    (["--engine", "mesh_2d"], "item 12"),
-    (["--mesh-shape", "2,1"], "item 12"),
-    (["--replica-hint"], "item 12"),
-    (["--env-profile", "cpu-mesh"], "item 12"),
-    (["--host-devices", "2"], "item 12"),
+    (["--engine", "shard_map"], None),
+    (["--engine", "mesh_2d", "--mesh-shape", "2,2"], "item 12b"),
+    (["--engine", "mesh_2d", "--mesh-shape", "1,1"], None),
+    (["--replica-hint"], "item 12b"),
+    (["--env-profile", "cpu-mesh"], None),
+    (["--host-devices", "2"], None),
 ])
 def test_unported_flags_raise_naming_their_item(extra, item, monkeypatch):
-    """The sharded plane's flags raise naming item 12; so does a replica
-    hint over the device's memory (a budget of 1 KiB here), where the JAX
-    launcher would place the spec on mesh_2d."""
+    """The sharded plane's flags run (a world of one here) and train the
+    vmap run's rounds, epsilon and cost; a model axis over 1 raises naming
+    item 12b, as does a replica hint over the device's memory (a budget of
+    1 KiB here: engine='auto' places it on mesh_2d, which would have to
+    split it)."""
     monkeypatch.setenv("REPRO_DEVICE_MEM_BYTES", "1024")
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(BASE + extra + ["--device", "cpu"])
+    monkeypatch.setenv("REPRO_ENV_PROFILE_APPLIED", "1")   # no re-exec
+    argv = BASE + extra + ["--device", "cpu"]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            ttrain.main(argv)
+        return
+    got, _ = _run(ttrain.main, argv)
+    want, _ = _run(ttrain.main, BASE + ["--engine", "vmap", "--device",
+                                        "cpu"])
+    assert {k: got[k] for k in SUMMARY_KEYS} == \
+        {k: want[k] for k in SUMMARY_KEYS}
+
+
+def _launch(argv):
+    """``python -m repro_torch.launch.train argv`` in a fresh process (one
+    torch thread): its printed summary."""
+    import os
+    import subprocess
+    import sys
+
+    from _torch_threads import SUBPROCESS_ENV
+    env = {**os.environ, **SUBPROCESS_ENV,
+           "PYTHONPATH": os.pathsep.join(p for p in sys.path if p)}
+    env.pop("REPRO_ENV_PROFILE_APPLIED", None)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                         + argv, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout[out.stdout.index("{"):
+                                 out.stdout.rindex("}") + 1]), out.stdout
+
+
+def test_cpu_mesh_launch_on_two_ranks_equals_vmap(tmp_path):
+    """``--engine shard_map --env-profile cpu-mesh --host-devices 2``: the
+    launcher re-execs, runs as two gloo ranks (one summary, printed by rank
+    0; rank 0 saves) and equals the vmap run in rounds, epsilon and cost."""
+    argv = BASE + ["--device", "cpu"]
+    want, _ = _launch(argv + ["--engine", "vmap"])
+    got, stdout = _launch(argv + ["--engine", "shard_map", "--env-profile",
+                                  "cpu-mesh", "--host-devices", "2",
+                                  "--save", str(tmp_path / "st")])
+    assert stdout.count('"rounds"') == 1
+    assert "[env] profile cpu-mesh applied" in stdout
+    assert {k: got[k] for k in SUMMARY_KEYS} == \
+        {k: want[k] for k in SUMMARY_KEYS}
+    meta = json.loads((tmp_path / "st" / "meta.json").read_text())
+    assert meta["extra"]["rounds_done"] == got["rounds"]
 
 
 def test_env_profile_host_reexecs_once_and_trains(monkeypatch):

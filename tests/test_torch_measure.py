@@ -188,10 +188,31 @@ def test_profile_env_validates_and_matches_jax_without_xla():
 @pytest.mark.parametrize("profile,devices", [("cpu-mesh", 1), ("host", 2),
                                              ("none", 4)])
 def test_mesh_profiles_raise_naming_item_12(profile, devices, monkeypatch):
+    """The cpu-mesh profile and --host-devices are accepted: a profile
+    re-execs with the host profile's environment, and only cpu-mesh runs
+    the launcher as --host-devices gloo ranks (--host-devices means
+    nothing under the others, as in the JAX package)."""
     monkeypatch.delenv(tenv._APPLIED_VAR, raising=False)
-    monkeypatch.setattr(os, "execvpe", lambda *a: pytest.fail("exec'd"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tenv.apply_env_profile(profile, host_devices=devices)
+    execs = []
+
+    def fake_exec(exe, argv, env):
+        execs.append(env)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(os, "execvpe", fake_exec)
+    if profile == "none":
+        assert tenv.apply_env_profile(profile, host_devices=devices) is False
+        assert execs == []
+    else:
+        with pytest.raises(SystemExit):
+            tenv.apply_env_profile(profile, host_devices=devices)
+        assert execs[0][tenv._APPLIED_VAR] == "1"
+    assert tenv.profile_env("cpu-mesh", host_devices=devices,
+                            base={}) == tenv.profile_env("host", base={})
+    assert tenv.host_ranks(profile, devices) == (
+        devices if profile == "cpu-mesh" else 1)
+    with pytest.raises(ValueError):
+        tenv.host_ranks(profile, 0)
 
 
 def test_find_tcmalloc_prefers_listed_order(tmp_path):
@@ -423,7 +444,7 @@ def test_dryrun_refuses_what_only_steers_xla():
     for opt in tdryrun.XLA_OPTS:
         with pytest.raises(ValueError, match="XLA"):
             tdryrun.apply_opts(tconfigs.get_arch("gemma3-4b"), (opt,))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         tdryrun.main(["--all", "--multi-pod"])
     skipped = tdryrun.run_one("granite-20b", "long_500k")
     assert skipped["status"] == "skipped" and "skip" in skipped["reason"]

@@ -180,11 +180,12 @@ def test_main_engine_mode_prints_the_continuous_fields(capsys):
 
 
 def test_main_refuses_the_env_profile_flags(monkeypatch):
-    """The mesh profile and a host split into devices raise, naming item
-    12; ``--env-profile host`` re-execs the launcher once (guarded)."""
+    """The mesh profile and a host split into ranks raise, naming item 12b
+    (serving over several ranks needs the serving mesh); ``--env-profile
+    host`` re-execs the launcher once (guarded)."""
     import os
     for extra in (["--env-profile", "cpu-mesh"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             serve.main(["--arch", "gemma3-4b", "--smoke", "--device",
                         "cpu"] + extra)
     monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)
