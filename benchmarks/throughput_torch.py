@@ -265,7 +265,7 @@ def run_resident_cohort(smoke: bool, device, rounds: int | None = None
     chunk of 32, the baseline at the scaling rows' 8 (the JAX benchmark's
     asymmetry)."""
     m = 100_000
-    n, repeats = (32, 21) if smoke else (64, 7)
+    n, repeats = (32, 11) if smoke else (64, 7)
     n = rounds or n
     chunk_base, chunk_res = 8, 32
     cache = chunk_res * C               # S = 256: one full chunk of warm slots

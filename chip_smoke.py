@@ -184,7 +184,9 @@ Phases (each prints its lines; any failure exits non-zero):
      two gloo ranks sharing the card (repro_torch.launch.mesh.HostWorld):
      Adult-1 as shard_map, block 8, dense and qsgd8_q50, within 1e-5 of
      vmap with the ledger exact, the ranks alike, each rank's launches tau
-     x rounds (dp_clip_noise) and rounds (quantize_decompress); every row
+     x rounds (dp_clip_noise) and rounds (quantize_decompress), then
+     dense as mesh_2d (1, 1), whose one client block leaves rank 1
+     outside the mesh to receive each round's state; every row
      kernel's first call of each shape in 20a and in each rank held
      against its plain version.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
@@ -4119,6 +4121,10 @@ SHARD_RUNS = (("dense", {}),
                                  participation=0.5)),
               ("trimmed_mean", dict(aggregator="trimmed_mean",
                                     trim_fraction=0.1)))
+# phase 20b: one client block in a world of two, the second rank outside
+# the mesh
+SHARD_SPECTATOR = ("dense mesh_2d(1,1)", dict(engine="mesh_2d",
+                                              mesh_shape=(1, 1)))
 SHARD_TIMED = 50       # phase 20a: steady rounds a timed turn
 
 
@@ -4281,8 +4287,8 @@ def run_sharded_world_of_one(torch, np, api, linear, pop_mod, ops, spec,
 
 def _shard_rank(kw: dict, settings) -> dict:
     """Phase 20b's program on one rank of a gloo world sharing the card:
-    the Adult-1 spec ``kw`` as engine "shard_map" under each of
-    ``settings``, trained until a budget binds on cuda; each row kernel's
+    the Adult-1 spec ``kw`` as engine "shard_map" (unless a setting names
+    another) under each of ``settings``, trained until a budget binds on cuda; each row kernel's
     first call of each shape held against its plain version. Returns the
     states as numpy, the ledgers and the kernels' launches."""
     import numpy as np
@@ -4311,7 +4317,8 @@ def _shard_rank(kw: dict, settings) -> dict:
         for name, extra in settings:
             spec = api.FederationSpec(loss_fn=linear.logreg_loss,
                                       optimizer=optim.sgd(LR),
-                                      engine="shard_map", **kw, **extra)
+                                      **{"engine": "shard_map", **kw,
+                                         **extra})
             state, res, launched, wall = _train_counted(
                 torch, api, linear, spec, fed, counters)
             out["runs"][name] = {
@@ -4344,10 +4351,13 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
     a budget binds in each rank, against vmap in this process: params and
     residual within 1e-5, rho, rounds, epsilon and cost exactly, both
     ranks bit for bit alike; each rank's dp_clip_noise launches tau x
-    rounds on its (8, N) block and quantize_decompress one a round.
+    rounds on its (8, N) block and quantize_decompress one a round. Then
+    dense as mesh_2d (1, 1): one client block on rank 0, and rank 1,
+    outside the mesh, receives each round's CUDA state from it
+    (ClientGroup.share) and launches no kernel.
     Returns (ok, {kernel: launches summed over the ranks}, max abs err)."""
     from repro_torch.launch.mesh import HostWorld
-    settings = SHARD_RUNS[:2]
+    settings = SHARD_RUNS[:2] + (SHARD_SPECTATOR,)
     kw = dict(n_clients=spec.n_clients, tau=spec.tau,
               clip_norm=spec.clip_norm, dp=True, sigmas=spec.sigmas,
               batch_sizes=spec.batch_sizes, eps_th=spec.eps_th,
@@ -4369,8 +4379,11 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
           f"world {ranks[0]['world']}, on one card ({card}); "
           f"{wall:.1f} s with the ranks' start", flush=True)
     for name, extra in settings:
+        blocks = extra.get("mesh_shape", (2, 1))[0]
+        plain = {k: v for k, v in extra.items()
+                 if k not in ("engine", "mesh_shape")}
         want, w_out, _, _ = _train_counted(
-            torch, api, linear, spec.replace(**extra), fed, counters)
+            torch, api, linear, spec.replace(**plain), fed, counters)
         runs = [r["runs"][name] for r in ranks]
         r0 = runs[0]
         alike = all(
@@ -4391,21 +4404,23 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
                   "quantize_decompress": (r0["rounds"] if extra.get(
                       "compressor") == "qsgd" else 0),
                   "cohort_gather_scatter": 0}
+        want_ls = [want_l if r["rank"] < blocks
+                   else dict.fromkeys(want_l, 0) for r in ranks]
         good = (alike and gap <= 1e-5 and ledger and r0["rounds"] > 0
-                and all(r["launches"] == want_l for r in runs))
+                and [r["launches"] for r in runs] == want_ls)
         ok &= good
         for r in runs:
             for n, v in r["launches"].items():
                 launches[n] += v
-        print(f"phase 20b {name} shard_map on 2 ranks (block "
-              f"{spec.n_clients // 2}): rounds {r0['rounds']} eps "
+        print(f"phase 20b {name} on 2 ranks ({blocks} block(s) of "
+              f"{spec.n_clients // blocks}): rounds {r0['rounds']} eps "
               f"{r0['max_epsilon']!r} cost {r0['resource_spent']!r} vs "
               f"vmap {w_out['rounds']} {w_out['max_epsilon']!r} "
               f"{w_out['resource_spent']!r} ({'exact' if ledger else 'DIFFERENT'}); "
               f"max |d| vs vmap {gap:.3e} (limit 1e-5); ranks "
               f"{'bit for bit alike' if alike else 'DIFFERENT'}; launches "
               f"per rank {[r['launches'] for r in runs]} (expected "
-              f"{want_l}); ms per round in rank 0 "
+              f"{want_ls}); ms per round in rank 0 "
               f"{r0['ms_per_round']:.3f} (train wall / rounds) "
               f"{'ok' if good else 'CHECK FAILED'}", flush=True)
     for r in ranks:
@@ -4710,7 +4725,8 @@ def main() -> int:
             "phase 19c Federation.train": fd_launches,
             "phase 20a shard_map / mesh_2d, a world of one (NCCL)":
                 sa_launches["dp_clip_noise"],
-            "phase 20b shard_map, two gloo ranks on the card (both ranks)":
+            "phase 20b shard_map and mesh_2d(1,1), two gloo ranks on the card "
+            "(both ranks)":
                 sb_launches["dp_clip_noise"]},
         "phase16_full_width": tw_rec, "phase18d_full_width": md_rec}, {
         "name": "quantize_decompress", "route": "cuda",

@@ -202,10 +202,9 @@ def build_mesh_2d_engine(spec: FederationSpec) -> RoundFn:
     axis are padded inside the engine."""
     from repro_torch.mesh.engine import make_mesh_2d_round
     shape = mesh_shape_for(spec)
-    rules = dict(spec.sharding_rules) if spec.sharding_rules else None
     return make_mesh_2d_round(spec.loss_fn, spec.optimizer,
                               spec.fl_config(vmap_clients=True),
-                              make_mesh_2d(shape), rules=rules,
+                              make_mesh_2d(shape),
                               topology=spec.topology,
                               pipeline=spec.aggregation_pipeline())
 

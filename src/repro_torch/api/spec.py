@@ -106,7 +106,8 @@ class FederationSpec:
     #   .default_mesh_shape. dm > 1 raises when the engine is built (item
     #   12b). Part of engine_key()
     sharding_rules: Any = None      # logical->mesh axis overrides (dict or
-    #   (name, axis) pairs, normalized to a sorted tuple of pairs)
+    #   (name, axis) pairs, normalized to a sorted tuple of pairs); they
+    #   place nothing until the model axis is ported (item 12b)
     replica_bytes: int | None = None  # per-replica params + opt-state
     #   footprint hint: engine="auto" places a replica over the per-device
     #   budget on mesh_2d
@@ -441,8 +442,9 @@ class FederationSpec:
         is accounting-only and stays out; the byzantine flags are in (the
         attack's select is built from them). The async buffer size B shapes
         the flush and dispatch blocks and is in; ``staleness_alpha`` is a
-        runtime weight and stays out. The mesh shape, the sharding rules
-        and the replica hint are in, as in the JAX package."""
+        runtime weight and stays out. The mesh shape and the replica hint
+        are in. The sharding rules stay out: they place nothing at a model
+        axis of 1, and a larger one is not ported (item 12b)."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
@@ -450,9 +452,9 @@ class FederationSpec:
                 self.kernel_backend, self.has_pipeline(), self.compressor,
                 self.compression_ratio, self.compression_bits,
                 self.buffer_size,
-                # the mesh shape and rules are the round's collective
-                # layout; replica_bytes steers what engine="auto" resolves to
-                self.mesh_shape, self.sharding_rules, self.replica_bytes,
+                # the mesh shape is the round's collective layout;
+                # replica_bytes steers what engine="auto" resolves to
+                self.mesh_shape, self.replica_bytes,
                 self.aggregator, self.trim_fraction,
                 self.norm_bound_factor,
                 (self.participants_per_round()

@@ -98,25 +98,13 @@ class ClientGroup:
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The blocks' (b, ...) rows, concatenated in rank order:
-        (n_shards * b, ...). NCCL gathers into one tensor, gloo gathers CPU
-        tensors as a list; gloo does not gather CUDA tensors, so there each
-        rank writes its block into a zero buffer and the group sums the
-        buffers' bytes (one addend per byte is not zero: exact)."""
-        if self.n_shards == 1:
-            return x
-        x = x.contiguous()
+        (n_shards * b, ...). Each rank writes its block into a zero buffer
+        and the group sums the buffers' bytes: one addend per byte is not
+        zero, so the sum is exact, and it runs on every backend (gloo does
+        not gather CUDA tensors)."""
         b = x.shape[0]
-        out_shape = (self.n_shards * b,) + tuple(x.shape[1:])
-        backend = dist.get_backend(self.group)
-        if x.is_cuda and "nccl" in backend:
-            out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-            dist.all_gather_into_tensor(out, x, group=self.group)
-            return out
-        if not x.is_cuda:
-            parts = [torch.empty_like(x) for _ in range(self.n_shards)]
-            dist.all_gather(parts, x, group=self.group)
-            return torch.cat(parts)
-        out = torch.zeros(out_shape, dtype=x.dtype, device=x.device)
+        out = torch.zeros((self.n_shards * b,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
         out[self.index * b:(self.index + 1) * b] = x
         dist.all_reduce(out.view(-1).view(torch.uint8), group=self.group)
         return out
@@ -124,8 +112,6 @@ class ClientGroup:
     def all_gather_tree(self, tree):
         """:meth:`all_gather_rows` of every leaf, leaves of one dtype laid
         side by side so each dtype makes one gather."""
-        if self.n_shards == 1:
-            return tree
         leaves, treedef = tree_flatten(tree)
         out = list(leaves)
         for dtype in dict.fromkeys(x.dtype for x in leaves):  # rank-stable
@@ -224,12 +210,11 @@ def make_shard_map_round(loss_fn: Callable, optimizer: Optimizer,
             new_p, new_s, res_b, ms = pipeline.aggregate(
                 p_b, new_p, new_s, s_b, res_b, mask_b, rand_b, ms,
                 all_sum=grp.all_sum, all_gather=grp.all_gather_rows)
-            if block != n_clients:
-                new_p = widen(new_p, n_clients)
-                new_s = (widen(new_s, n_clients) if cfg.average_opt_state
-                         else grp.all_gather_tree(new_s))
-                if res_b is not None:
-                    res_b = grp.all_gather_rows(res_b)
+            new_p = widen(new_p, n_clients)
+            new_s = (widen(new_s, n_clients) if cfg.average_opt_state
+                     else grp.all_gather_tree(new_s))
+            if res_b is not None:
+                res_b = grp.all_gather_rows(res_b)
             result = (new_p, new_s, res_b, ms)
         return grp.share(result)
 

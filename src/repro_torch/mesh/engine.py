@@ -46,7 +46,7 @@ from repro_torch.core.fl_shard_map import (
     make_shard_map_round,
     widen,
 )
-from repro_torch.models.sharding import P, axis_rules, mesh2d_rules
+from repro_torch.models.sharding import P
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import tree_broadcast_axis0, tree_map
 
@@ -92,14 +92,14 @@ def refuse_model_axis(dm: int) -> None:
 
 
 def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
-                       cfg: FLConfig, mesh, *, rules=None,
+                       cfg: FLConfig, mesh, *,
                        topology: str = "full_average", pipeline=None):
     """Build ``round_step`` on a 2D ("client", "model") mesh with the
     signature and randomness operands of the other engines:
     ``(params, opt_state, batch, noise, sigmas) -> (params, opt_state,
     metrics)``, or with ``pipeline`` the 8-operand masked / residual form.
-    ``rules`` are the logical->mesh rules installed around the local
-    rounds (default :func:`repro_torch.models.sharding.mesh2d_rules`)."""
+    With a model axis of 1 no logical->mesh rule places anything, so none
+    is installed around the local rounds (the model axis is item 12b)."""
     check_topology(topology, pipeline)
     if pipeline is not None and (pipeline.aggregator is not None
                                  or pipeline.secure is not None
@@ -118,7 +118,6 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
         return make_shard_map_round(loss_fn, optimizer, cfg, mesh,
                                     client_axis=CLIENT_AXIS,
                                     topology=topology, pipeline=pipeline)
-    rules = mesh2d_rules() if rules is None else dict(rules)
     grp = ClientGroup(mesh, CLIENT_AXIS)
     local_rounds = make_local_rounds(loss_fn, optimizer, cfg)
 
@@ -142,9 +141,8 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
         if not grp.idle:
             idx, valid = block_rows(noise.device)
             denom = torch.tensor(float(n_clients), device=noise.device)
-            with axis_rules(mesh, rules):
-                new_p, new_s, ms = local_rounds(*take(
-                    (params, opt_state, batch, noise, sigmas), idx))
+            new_p, new_s, ms = local_rounds(*take(
+                (params, opt_state, batch, noise, sigmas), idx))
             full = topology == "full_average"
             avg_s = full and cfg.average_opt_state
             # ---- Eq. (7b) with pad rows weighted out: one all-reduce
@@ -168,9 +166,8 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
             mask_b = mask.index_select(0, idx) * valid
             res_b = (None if residual is None
                      else residual.index_select(0, idx) * valid[:, None])
-            with axis_rules(mesh, rules):
-                new_p, new_s, ms = local_rounds(p_b, s_b, batch_b, noise_b,
-                                                sig_b)
+            new_p, new_s, ms = local_rounds(p_b, s_b, batch_b, noise_b,
+                                            sig_b)
             new_p, new_s, res_b, ms = pipeline.aggregate(
                 p_b, new_p, new_s, s_b, res_b, mask_b, rand_b, ms,
                 all_sum=grp.all_sum)
