@@ -34,8 +34,7 @@ The scenarios, as in the JAX benchmark:
 - the async straggler fleet (simulated seconds to a target rho, sync
   barrier vs B-of-K buffered async);
 - the mesh plane: skipped on fewer than 8 ranks, as the JAX one is on
-  fewer than 8 devices; its (4, 2) row, a model axis over 1, is ROADMAP
-  queue 1 item 12b.
+  fewer than 8 devices.
 
 ``--check`` keeps every gate the JAX benchmark has (the fused driver at
 0.8x or more of the per-round one for the pipeline configs; device bytes
@@ -412,13 +411,12 @@ def run_kernel_roofline(smoke: bool, device) -> dict:
 
 def run_mesh_plane(smoke: bool) -> dict:
     """The 2D mesh engine against the 1D shard_map plane: it needs 8 ranks
-    for the JAX benchmark's (4, 2) mesh, whose model axis is not ported
-    (ROADMAP queue 1 item 12b)."""
+    for the JAX benchmark's (4, 2) mesh; this script runs in one process
+    (a world of one), so the row is skipped."""
     from repro_torch.launch.mesh import world_size
     n = world_size()
     return {"skipped": True,
-            "reason": f"needs 8 ranks for the (4,2) mesh, have {n} (and its "
-                      f"model axis of 2 is ROADMAP queue 1 item 12b)"}
+            "reason": f"needs 8 ranks for the (4,2) mesh, have {n}"}
 
 
 def run_async_hetero(smoke: bool, device, rounds: int | None = None

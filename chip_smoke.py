@@ -172,7 +172,8 @@ Phases (each prints its lines; any failure exits non-zero):
      its save_federation_state / load_federation_state resume bitwise;
      (d) launch.train --smoke --env-profile host --replica-hint in a fresh
      process (one re-exec, trains), and the same with
-     REPRO_DEVICE_MEM_BYTES below the footprint (raises naming item 12b);
+     REPRO_DEVICE_MEM_BYTES below the footprint (a world of one cannot
+     split the replica: ValueError naming the ranks it needs);
  20. the sharded engines' client axis (repro_torch.core.fl_shard_map,
      repro_torch.mesh): (a) a world of one under NCCL: the main path's
      Adult-1 spec trained until a budget binds as "shard_map" and
@@ -188,7 +189,21 @@ Phases (each prints its lines; any failure exits non-zero):
      dense as mesh_2d (1, 1), whose one client block leaves rank 1
      outside the mesh to receive each round's state; every row
      kernel's first call of each shape in 20a and in each rank held
-     against its plain version.
+     against its plain version;
+ 21. the model axis of mesh_2d (dm > 1: each replica's weights and matmuls
+     split over the ranks of a slab, repro_torch.mesh.collectives), two
+     gloo ranks sharing the card: (a) the Adult-1 spec as mesh_2d (1, 2)
+     (w split on d_in), dense and qsgd8_q50, until a budget binds: within
+     1e-5 of vmap, ledger and participant counts exact, each rank's
+     row_sumsq and clip_noise_apply launches tau x rounds (the split
+     Eq.-7a clip: the norm all-reduced between the two kernels),
+     quantize_decompress as vmap's; (b) gemma3-4b's widths, f32, depth cut
+     to 1 layer, C 2, tau 1, seq 2048, 2 rounds as mesh_2d (1, 2) and as
+     vmap on rank 0, in turns: params within 2e-5 of each tensor's largest
+     magnitude, ms per round, each rank's peak memory, the model group's
+     all-reduces a local step; (c) row_sumsq and clip_noise_apply at a
+     rank's rows of (a) and (b) against their plain versions and their
+     bounds.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -2627,8 +2642,10 @@ def _keeping_first_calls(torch, ops, names, kept):
 def _check_kept_calls(torch, kept, refs):
     """Each kept kernel call's output against its plain version on the same
     operands, with phase 2's criteria: dp_clip_noise's y within 1e-6 +
-    1e-5 |y| and its norms within 1e-5 relative; quantize_decompress and
-    cohort_gather_scatter bit for bit. Returns (ok, {kernel: max abs err},
+    1e-5 |y| and its norms within 1e-5 relative (phase 21's split form
+    alike: row_sumsq's sums within 1e-5 relative, clip_noise_apply's y
+    within 1e-6 + 1e-5 |y|); quantize_decompress and cohort_gather_scatter
+    bit for bit. Returns (ok, {kernel: max abs err},
     a line for each call)."""
     ok, worst, lines = True, {}, []
     for key, (ins, out) in kept.items():
@@ -2643,6 +2660,12 @@ def _check_kept_calls(torch, kept, refs):
             good = (bool(torch.allclose(y, wy, atol=1e-6, rtol=1e-5))
                     and float(((norm - wn).abs()
                                / wn.abs().clamp(min=1e-30)).max()) <= 1e-5)
+        elif name == "row_sumsq":            # phase 21: the split form
+            good = float(((outs[0] - wants[0]).abs()
+                          / wants[0].abs().clamp(min=1e-30)).max()) <= 1e-5
+        elif name == "clip_noise_apply":
+            good = bool(torch.allclose(outs[0], wants[0], atol=1e-6,
+                                       rtol=1e-5))
         else:
             good = all(bool(torch.equal(a, b)) for a, b in zip(outs, wants))
         ok &= good
@@ -4076,7 +4099,8 @@ def run_launcher_env():
     on cuda in a fresh process: it re-execs once under the host profile
     and trains (the replica hint fits, engine 'auto' resolves to vmap);
     with REPRO_DEVICE_MEM_BYTES below the footprint the same command
-    raises naming item 12b (mesh_2d's model axis)."""
+    raises ValueError: engine 'auto' places the replica on mesh_2d, and a
+    world of one has no model axis to split it over."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("REPRO_ENV_PROFILE_APPLIED", None)
@@ -4101,7 +4125,8 @@ def run_launcher_env():
     hint = [ln for ln in out.splitlines() if "replica footprint" in ln]
     ok_run = (p.returncode == 0 and len(env_lines) == 1
               and len(hint) == 1 and summary.get("rounds") == 2)
-    ok_big = q.returncode != 0 and "item 12b" in q.stderr
+    ok_big = (q.returncode != 0 and "ValueError" in q.stderr
+              and "needs a model axis of at least" in q.stderr)
     print(f"phase 19d launch.train {' '.join(ENV_ARGV)} (cuda; the two "
           f"runs side by side, {wall:.1f} s): exit "
           f"{p.returncode}, {env_lines} {hint}, rounds "
@@ -4431,6 +4456,425 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
     return ok, launches, worst
 
 
+# phase 21: the model axis of mesh_2d (dm > 1), two gloo ranks sharing the
+# card. 21a: phase 3's Adult-1 spec as mesh_2d (1, 2) (w (104, 2) split on
+# d_in); 21b: gemma3-4b's widths, f32, depth cut 34 -> 1 (swa) layer, C 2,
+# tau 1, batch 1, seq 2048, 2 rounds, (1, 2), in turns with vmap
+MA_SHAPE = (1, 2)
+MA_RUNS = (("dense", {}),
+           ("qsgd8_q50", dict(compressor="qsgd", compression_bits=8,
+                              participation=0.5)))
+MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
+              "quantize_decompress")
+MA_TF_C, MA_TF_TAU, MA_TF_B, MA_TF_SEQ, MA_TF_ROUNDS = 2, 1, 1, 2048, 2
+MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
+
+
+def _ma_counters():
+    from repro_torch.kernels.dp_clip_noise import (
+        clip_noise_apply,
+        dp_clip_noise,
+        row_sumsq,
+    )
+    from repro_torch.kernels.quantize_decompress import quantize_decompress
+    return {"row_sumsq": row_sumsq, "clip_noise_apply": clip_noise_apply,
+            "dp_clip_noise": dp_clip_noise,
+            "quantize_decompress": quantize_decompress}
+
+
+def _ma_refs():
+    from repro_torch.kernels import ref
+    return {"row_sumsq": ref.row_sumsq_ref,
+            "clip_noise_apply": ref.clip_noise_apply_ref,
+            "quantize_decompress": ref.quantize_decompress_ref}
+
+
+def _model_axis_rank(kw: dict, settings) -> dict:
+    """Phase 21a's program on one rank of a gloo world sharing the card:
+    the Adult-1 spec ``kw`` as mesh_2d MA_SHAPE under each of ``settings``,
+    trained until a budget binds on cuda (counters set to 0 just before,
+    read just after); each split kernel's and quantize_decompress's first
+    call of each shape held against its plain version. Returns numpy."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, data, optim
+    from repro_torch.kernels import ops
+    from repro_torch.models import linear
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _ma_counters()
+    fed = data.split_by_group(data.adult_like())
+    kept = {}
+    reals = _keeping_first_calls(torch, ops, list(_ma_refs()), kept)
+    out = {"rank": dist.get_rank(), "runs": {}}
+    try:
+        for name, extra in settings:
+            spec = api.FederationSpec(
+                loss_fn=linear.logreg_loss, optimizer=optim.sgd(LR),
+                **{**kw, **extra, "engine": "mesh_2d",
+                   "mesh_shape": MA_SHAPE})
+            state, res, launched, wall = _train_counted(
+                torch, api, linear, spec, fed, counters)
+            out["runs"][name] = {
+                "params": {k: v.cpu().numpy()
+                           for k, v in state.params.items()},
+                "residual": (None if state.residual is None
+                             else state.residual.cpu().numpy()),
+                "rho": np.asarray(state.rho), "rounds": res["rounds"],
+                "max_epsilon": res["max_epsilon"],
+                "resource_spent": res["resource_spent"],
+                "participants": [h.get("participants")
+                                 for h in res["history"]],
+                "launches": launched, "tau": spec.tau,
+                "ms_per_round": wall * 1e3 / max(res["rounds"], 1)}
+    finally:
+        for n, f in reals.items():
+            setattr(ops, n, f)
+    out["shapes"] = sorted({(k[0], k[1][0]) for k in kept})
+    out["kernels_ok"], out["kernel_err"], out["kernel_lines"] = \
+        _check_kept_calls(torch, kept, _ma_refs())
+    return out
+
+
+def run_model_axis_adult(torch, np, api, linear, spec, fed, card):
+    """Phase 21a: two gloo ranks sharing the card, Adult-1 (16 clients, N
+    210, w (104, 2) split on d_in: 106 columns a rank) as mesh_2d (1, 2),
+    dense and qsgd8_q50, trained until a budget binds in each rank,
+    against vmap in this process: params and residual within 1e-5, rho,
+    rounds, epsilon, cost and the participant counts exactly, both ranks
+    bit for bit alike; each rank's row_sumsq and clip_noise_apply launches
+    tau x rounds, dp_clip_noise none, quantize_decompress as vmap's (one a
+    round). Returns (ok, {kernel: launches summed over the ranks}, {kernel:
+    max abs err vs plain}, the ranks' split-kernel shapes)."""
+    from repro_torch.launch.mesh import HostWorld
+    counters = _ma_counters()
+    kw = dict(n_clients=spec.n_clients, tau=spec.tau,
+              clip_norm=spec.clip_norm, dp=True, sigmas=spec.sigmas,
+              batch_sizes=spec.batch_sizes, eps_th=spec.eps_th,
+              delta=spec.delta, c_th=spec.c_th)
+    t0 = time.perf_counter()
+    try:
+        with HostWorld(2) as world:
+            ranks = world.run(_model_axis_rank, kw, MA_RUNS)
+    except RuntimeError as e:
+        print(f"phase 21a: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, dict.fromkeys(counters, 0), {}, []
+    wall = time.perf_counter() - t0
+    launches = dict.fromkeys(counters, 0)
+    ok = True
+    print(f"phase 21a: 2 gloo ranks on one card ({card}), mesh_2d "
+          f"{MA_SHAPE}; {wall:.1f} s with the ranks' start", flush=True)
+    for name, extra in MA_RUNS:
+        want, w_out, w_launch, w_wall = _train_counted(
+            torch, api, linear, spec.replace(**extra), fed, counters)
+        runs = [r["runs"][name] for r in ranks]
+        r0 = runs[0]
+        alike = all(
+            all(np.array_equal(r0["params"][k], r["params"][k])
+                for k in r0["params"])
+            and np.array_equal(r0["rho"], r["rho"]) for r in runs[1:])
+        gap = max(float(np.max(np.abs(r0["params"][k]
+                                      - want.params[k].cpu().numpy())))
+                  for k in r0["params"])
+        if r0["residual"] is not None:
+            gap = max(gap, float(np.max(np.abs(
+                r0["residual"] - want.residual.cpu().numpy()))))
+        ledger = (np.array_equal(r0["rho"], want.rho)
+                  and (r0["rounds"], r0["max_epsilon"], r0["resource_spent"])
+                  == (w_out["rounds"], w_out["max_epsilon"],
+                      w_out["resource_spent"])
+                  and r0["participants"] == [h.get("participants")
+                                             for h in w_out["history"]])
+        steps = r0["tau"] * r0["rounds"]
+        want_l = {"row_sumsq": steps, "clip_noise_apply": steps,
+                  "dp_clip_noise": 0,
+                  "quantize_decompress": w_launch["quantize_decompress"]}
+        good = (alike and gap <= 1e-5 and ledger and r0["rounds"] > 0
+                and all(r["launches"] == want_l for r in runs)
+                and w_launch["dp_clip_noise"] == steps)
+        ok &= good
+        for r in runs:
+            for n, v in r["launches"].items():
+                launches[n] += v
+        print(f"phase 21a {name}: rounds {r0['rounds']} eps "
+              f"{r0['max_epsilon']!r} cost {r0['resource_spent']!r} "
+              f"participants {r0['participants']} vs vmap "
+              f"{w_out['rounds']} {w_out['max_epsilon']!r} "
+              f"{w_out['resource_spent']!r} "
+              f"({'exact' if ledger else 'DIFFERENT'}); max |d| vs vmap "
+              f"{gap:.3e} (limit 1e-5); ranks "
+              f"{'bit for bit alike' if alike else 'DIFFERENT'}; launches "
+              f"per rank {[r['launches'] for r in runs]} (expected "
+              f"{want_l}; vmap's {w_launch}); ms per round in rank 0 "
+              f"{r0['ms_per_round']:.3f}, vmap {w_wall * 1e3 / max(w_out['rounds'], 1):.3f}"
+              f" (train wall / rounds) {'ok' if good else 'CHECK FAILED'}",
+              flush=True)
+    errs = {}
+    for r in ranks:
+        ok &= r["kernels_ok"]
+        for n, e in r["kernel_err"].items():
+            errs[n] = max(errs.get(n, 0.0), e)
+        for ln in r["kernel_lines"]:
+            print(f"phase 21a rank {r['rank']} kernel vs plain: {ln}",
+                  flush=True)
+    return ok, launches, errs, [r["shapes"] for r in ranks]
+
+
+def _gemma_one_layer(configs):
+    """gemma3-4b at its published widths, f32, depth cut 34 -> 1 layer
+    (the first, sliding-window layer of its pattern)."""
+    import dataclasses
+    cfg = configs.get_arch("gemma3-4b")
+    seg = cfg.segments[0]
+    return dataclasses.replace(
+        cfg, name="gemma3-4b-1L", n_layers=1, dtype="float32",
+        segments=(dataclasses.replace(seg, n_steps=1,
+                                      pattern=seg.pattern[:1]),))
+
+
+def _gemma_split_columns(configs) -> int:
+    """A rank's columns of the flat gradient on phase 21b's (1, 2) mesh (the
+    split leaves' slices and the whole leaves), what the split kernels
+    take: counted on meta tensors."""
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_leaves
+    one = Transformer(_gemma_one_layer(configs)).init(device="meta")
+    dims = tree_leaves(sharding.param_split_dims(one, MA_SHAPE[1]))
+    return sum(x.numel() // (MA_SHAPE[1] if d >= 0 else 1)
+               for x, d in zip(tree_leaves(one), dims))
+
+
+def _model_axis_gemma_rank(sigmas, turns: int) -> dict:
+    """Phase 21b's program on one rank: gemma3-4b one layer (f32) built by
+    launch.train.build_federation as mesh_2d MA_SHAPE and as vmap from the
+    same seed; MA_TF_ROUNDS rounds of each from the same state on the same
+    batches, in turns (mesh, vmap, mesh, ...; vmap on rank 0 only, rank 1
+    waiting at a barrier), counters set to 0 just before each mesh turn
+    and read after it. Returns the last turns' params (as numpy on rank
+    0), losses, ms per round, per-rank peak memory and the model group's
+    all-reduces, and the split kernels' first calls held against their
+    plain versions."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.mesh import collectives
+    from repro_torch.utils.tree import tree_leaves
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    rank = dist.get_rank()
+    cfg = _gemma_one_layer(configs)
+    counters = _ma_counters()
+    out = {"rank": rank, "mesh_ms": [], "vmap_ms": [], "losses": {},
+           "launches": [], "all_reduce": [], "gather": []}
+    batches = None
+    for turn in range(turns):
+        for engine in ("mesh_2d", "vmap"):
+            dist.barrier()
+            if engine == "vmap" and rank != 0:
+                continue
+            # each turn builds its state anew from the seed (the same
+            # params and generator state every time) and frees it after,
+            # so the two ranks' mesh turns and rank 0's vmap turn never
+            # hold another turn's buffers
+            t_build = time.perf_counter()
+            model, spec, state, sampler = launch_train.build_federation(
+                cfg, MA_TF_C, MA_TF_TAU, MA_TF_B, MA_TF_SEQ, sigmas,
+                clip_norm=CLIP, delta=DELTA, engine=engine,
+                mesh_shape=MA_SHAPE if engine == "mesh_2d" else None,
+                device="cuda")
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t_build
+            if batches is None:
+                rng = np.random.default_rng(0)
+                batches = [api.round_batch(spec, sampler, rng)
+                           for _ in range(MA_TF_ROUNDS)]
+                out["n_params"] = sum(x[0].numel()
+                                      for x in tree_leaves(state.params))
+            del sampler
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            collectives.counts.update(all_reduce=0, gather=0)
+            losses = []
+            t0 = time.perf_counter()
+            for batch in batches:
+                state, rec = api.run_round(spec, state, batch,
+                                           check_budgets=False)
+                losses.append(float(rec["loss"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / MA_TF_ROUNDS
+            out[f"{'mesh' if engine == 'mesh_2d' else 'vmap'}_ms"].append(ms)
+            out["losses"][engine] = losses
+            if engine == "mesh_2d":
+                out["launches"].append({n: c.launches
+                                        for n, c in counters.items()})
+                out["all_reduce"].append(collectives.counts["all_reduce"])
+                out["gather"].append(collectives.counts["gather"])
+                out["mesh_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            else:       # the first turn's: the last one also holds the
+                #             mesh turn's params to compare them
+                out.setdefault("vmap_peak_gb",
+                               torch.cuda.max_memory_allocated() / 1e9)
+            if turn == turns - 1 and rank == 0:
+                if engine == "mesh_2d":
+                    final = state.params     # held until the vmap turn's
+                else:
+                    out["param_gaps"] = [
+                        float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(tree_leaves(final),
+                                        tree_leaves(state.params))]
+                    del final
+            out.setdefault("build_s", []).append(round(t_build, 3))
+            del model, spec, state, rec
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def run_model_axis_gemma(torch, np, fl, configs, card):
+    """Phase 21b: gemma3-4b's published widths (d_model 2560, 8 / 4 heads
+    of 256, ffn 10240, vocab 262144) at depth 1, f32, C 2, tau 1, batch 1,
+    seq 2048, as mesh_2d (1, 2) on two gloo ranks sharing the card, and as
+    vmap on rank 0 from the same seed, state and batches, in turns: params
+    within MA_TF_TOL of each tensor's largest magnitude, the losses,
+    ms per round of each in turns, each rank's peak memory, the model
+    group's all-reduces a local step, launches (row_sumsq and
+    clip_noise_apply tau x rounds a rank, dp_clip_noise none).
+    Returns (ok, {kernel: launches summed over the ranks, last turn},
+    record)."""
+    from repro_torch.launch.mesh import HostWorld
+    sigmas = fl.design_sigmas(MA_TF_ROUNDS * MA_TF_TAU, CLIP,
+                              [MA_TF_B] * MA_TF_C, TRAIN_EPS, DELTA)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        with HostWorld(2) as world:
+            ranks = world.run(_model_axis_gemma_rank, sigmas, 2)
+    except RuntimeError as e:
+        print(f"phase 21b: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, dict.fromkeys(MA_KERNELS, 0), {}
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    gaps = r0["param_gaps"]
+    steps = MA_TF_TAU * MA_TF_ROUNDS
+    want_l = {"row_sumsq": steps, "clip_noise_apply": steps,
+              "dp_clip_noise": 0, "quantize_decompress": 0}
+    launches_ok = all(all(ln == want_l for ln in r["launches"])
+                      for r in ranks)
+    finite = all(math.isfinite(x) for r in ranks
+                 for x in r["losses"]["mesh_2d"])
+    alike = ranks[0]["losses"]["mesh_2d"] == ranks[1]["losses"]["mesh_2d"]
+    loss_gap = max(abs(a - b) for a, b in zip(r0["losses"]["mesh_2d"],
+                                              r0["losses"]["vmap"]))
+    ok = max(gaps) <= MA_TF_TOL and launches_ok and finite and alike
+    per_step = [a / steps for a in r0["all_reduce"]]
+    print(f"phase 21b on {card}: gemma3-4b's widths, f32, depth cut 34 -> "
+          f"1 layer (swa), N = {r0['n_params']:,} params a replica, C "
+          f"{MA_TF_C}, tau {MA_TF_TAU}, batch {MA_TF_B}, seq {MA_TF_SEQ}, "
+          f"{MA_TF_ROUNDS} rounds, mesh_2d {MA_SHAPE} on 2 gloo ranks vs "
+          f"vmap on rank 0; {wall:.1f} s with the ranks' start", flush=True)
+    print(f"phase 21b params: max |d| / max |vmap| per tensor "
+          f"{max(gaps):.3e} (limit {MA_TF_TOL}); losses mesh "
+          f"{r0['losses']['mesh_2d']} vmap {r0['losses']['vmap']} (max |d| "
+          f"{loss_gap:.3e}); ranks' losses "
+          f"{'alike' if alike else 'DIFFERENT'}", flush=True)
+    print(f"phase 21b ms per round in turns (m v m v): mesh "
+          f"{[round(x, 3) for x in r0['mesh_ms']]} vmap "
+          f"{[round(x, 3) for x in r0['vmap_ms']]} (rank 0's builds "
+          f"{r0['build_s']} s); peak memory allocated "
+          f"per rank (mesh) {[round(r['mesh_peak_gb'], 3) for r in ranks]} "
+          f"GB, vmap (rank 0 alone) {r0['vmap_peak_gb']:.3f} GB", flush=True)
+    print(f"phase 21b model-group all-reduces a local step {per_step} "
+          f"(forward, backward and the clip norm), output gathers a round "
+          f"{[g / MA_TF_ROUNDS for g in r0['gather']]}; launches per rank "
+          f"and turn "
+          f"{[r['launches'] for r in ranks]} (expected {want_l}) "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    launches = {n: sum(r["launches"][-1][n] for r in ranks)
+                for n in MA_KERNELS}
+    rec = {"max_rel_param_gap": max(gaps), "losses": r0["losses"],
+           "mesh_ms": r0["mesh_ms"], "vmap_ms": r0["vmap_ms"],
+           "peak_gb_per_rank": [r["mesh_peak_gb"] for r in ranks],
+           "vmap_peak_gb": r0["vmap_peak_gb"],
+           "all_reduces_per_local_step": per_step,
+           "gathers_per_round": [g / MA_TF_ROUNDS for g in r0["gather"]]}
+    return ok, launches, rec
+
+
+def check_split_kernels(torch, shapes, card):
+    """Phase 21c: row_sumsq and clip_noise_apply at a rank's rows of 21a
+    and 21b, against their plain versions (row_sumsq within 1e-5
+    relative; y within 1e-6 + 1e-5 |y|), timed (CUDA events) beside the
+    plain version and the bound (bytes over HBM's rate, operations over
+    the f32 peak: the larger). Returns (ok, {kernel: record at the first
+    shape, with the others under "at"}, {kernel: max abs err})."""
+    from repro_torch.kernels.dp_clip_noise import (
+        clip_noise_apply,
+        clip_noise_apply_cost,
+        row_sumsq,
+        row_sumsq_cost,
+    )
+    from repro_torch.kernels.ref import clip_noise_apply_ref, row_sumsq_ref
+    ok, recs, errs = True, {}, {}
+    for rows, n in shapes:
+        big = rows * n > 1e8
+        x, z, _, sigma = _row_inputs(torch, rows, n, 1)
+        sq = row_sumsq(x)
+        want_sq = row_sumsq_ref(x)
+        norm = torch.sqrt(want_sq)
+        y = clip_noise_apply(x, z, norm, CLIP, sigma)
+        want_y = clip_noise_apply_ref(x, z, norm, CLIP, sigma)
+        torch.cuda.synchronize()
+        rel = float(((sq - want_sq).abs()
+                     / want_sq.abs().clamp(min=1e-30)).max())
+        err_y = float((y - want_y).abs().max())
+        good = rel <= 1e-5 and bool(torch.allclose(y, want_y, atol=1e-6,
+                                                   rtol=1e-5))
+        ok &= good
+        errs["row_sumsq"] = max(errs.get("row_sumsq", 0.0),
+                                float((sq - want_sq).abs().max()))
+        errs["clip_noise_apply"] = max(errs.get("clip_noise_apply", 0.0),
+                                       err_y)
+        iters = 5 if big else 200
+        for name, fn, plain, cost in (
+                ("row_sumsq", lambda: row_sumsq(x),
+                 lambda: row_sumsq_ref(x), row_sumsq_cost(rows, n)),
+                ("clip_noise_apply",
+                 lambda: clip_noise_apply(x, z, norm, CLIP, sigma),
+                 lambda: clip_noise_apply_ref(x, z, norm, CLIP, sigma),
+                 clip_noise_apply_cost(rows, n))):
+            ms, plain_ms = _time_ms(fn, iters), _time_ms(plain, iters)
+            bound, by = _larger_bound(cost[1], cost[0])
+            rec = {"rows": rows, "n": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by}
+            if name in recs:
+                recs[name].setdefault("at", []).append(rec)
+            else:
+                recs[name] = dict(rec)
+            print(f"phase 21c {name} ({rows}, {n:,}): kernel {ms:.5f} ms "
+                  f"({bound / ms:.1%} of the bound)  plain {plain_ms:.5f} "
+                  f"ms  bound {bound:.6f} ms ({by})  library: none (no "
+                  f"single PyTorch call computes this function); vs plain "
+                  f"{'row_sumsq rel ' + format(rel, '.2e') if name == 'row_sumsq' else 'y max|d| ' + format(err_y, '.2e')} "
+                  f"{'ok' if good else 'MISMATCH'} ({card})", flush=True)
+        del x, z, y, want_y, sq, want_sq, norm
+        torch.cuda.empty_cache()
+    return ok, recs, errs
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
@@ -4660,6 +5104,22 @@ def main() -> int:
     print(f"phase 20 wall time {time.perf_counter() - t20:.1f} s",
           flush=True)
 
+    # -- 21. the model axis of mesh_2d (dm > 1) ------------------------------
+    t21 = time.perf_counter()
+    ok_xa, xa_launches, xa_errs, xa_shapes = run_model_axis_adult(
+        torch, np, api, linear, spec, fed, card)
+    ok_xb, xb_launches, xb_rec = run_model_axis_gemma(torch, np, fl,
+                                                      configs, card)
+    # 21c at a rank's rows: 21a's (clients, columns of rank 0) and 21b's
+    split_shapes = [shape for name, shape in (xa_shapes[0] if xa_shapes
+                                              else [])
+                    if name == "clip_noise_apply"][:1]
+    split_shapes.append((MA_TF_C, _gemma_split_columns(configs)))
+    ok_xc, split_recs, xc_errs = check_split_kernels(torch, split_shapes,
+                                                     card)
+    print(f"phase 21 wall time {time.perf_counter() - t21:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -4694,6 +5154,25 @@ def main() -> int:
     model_kernels[0]["launches_other_paths"][
         "phase 19b gemma3-4b prefill B 2 x 2048 (dry run's real path)"] = \
         dr_launches
+
+    split_kernels = []
+    for name in ("row_sumsq", "clip_noise_apply"):
+        rec = split_recs.get(name, {})
+        split_kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+            "replaces": "src/repro/kernels/dp_clip_noise.py:54",
+            "launches": xa_launches[name],
+            "max_abs_err": max(xa_errs.get(name, 0.0),
+                               xc_errs.get(name, 0.0)),
+            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"),
+            "bound_by": rec.get("bound_by"), "library_ms": None,
+            "shape": [rec.get("rows"), rec.get("n")],
+            "at_other_shapes": rec.get("at", []),
+            "launches_other_paths": {
+                "phase 21b gemma3-4b's widths on a (1, 2) mesh, both ranks, "
+                "the last turn": xb_launches.get(name, 0)}})
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -4747,7 +5226,9 @@ def main() -> int:
             "phase 20a shard_map / mesh_2d qsgd8_q50, a world of one":
                 sa_launches["quantize_decompress"],
             "phase 20b shard_map qsgd8_q50, two ranks (both ranks)":
-                sb_launches["quantize_decompress"]}}, {
+                sb_launches["quantize_decompress"],
+            "phase 21a mesh_2d (1, 2) qsgd8_q50, on whole gathered rows "
+            "(both ranks)": xa_launches["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
@@ -4762,7 +5243,8 @@ def main() -> int:
             "phase 19a throughput_torch.py --smoke drivers":
                 ta_launches["cohort_gather_scatter"],
             "phase 20a the resident quickstart under shard_map":
-                sa_launches["cohort_gather_scatter"]}}] + model_kernels}),
+                sa_launches["cohort_gather_scatter"]}}] + model_kernels
+        + split_kernels, "phase21b_gemma3_model_axis": xb_rec}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -4820,7 +5302,17 @@ def main() -> int:
                      (ok_sa, "the sharded engines in a world of one "
                              "differ from vmap"),
                      (ok_sb, "the sharded engine on two ranks disagrees "
-                             "with vmap")):
+                             "with vmap"),
+                     (ok_xa, "mesh_2d (1, 2) on two ranks disagrees with "
+                             "vmap (Adult-1)"),
+                     (ok_xb, "gemma3-4b on the (1, 2) mesh disagrees with "
+                             "vmap or missed a check"),
+                     (ok_xc, "a split clip kernel disagrees with its plain "
+                             "version"),
+                     (all(xa_launches[n] > 0 for n in ("row_sumsq",
+                                                       "clip_noise_apply")),
+                      "a split clip kernel was not launched on the model "
+                      "axis' path")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,24 @@
-"""Mesh quickstart on the PyTorch port: DP-PASGD on the client axis of the
-2D client x model plane.
+"""Mesh quickstart on the PyTorch port: DP-PASGD on the 2D client x model
+plane.
 
 The 1D planes hold one full model replica per client. ``engine="mesh_2d"``
 lays a (client, model) mesh over the ranks of a ``torch.distributed``
 world: clients block over the first axis exactly as under
-``engine="shard_map"``; a model axis over 1 (each replica split over ``dm``
-ranks) is not ported yet (ROADMAP queue 1 item 12b), where the JAX
-package's ``examples/mesh_quickstart.py`` trains on a (4, 2) mesh. This
-script starts ``--ranks`` gloo ranks on this host, runs the walkthrough on
-each (rank 0 prints) and takes a few seconds on the CPU:
+``engine="shard_map"``, and a model axis over 1 splits each replica's
+weights and matmuls over ``dm`` ranks (tensor parallelism written by
+hand), as the JAX package's ``examples/mesh_quickstart.py`` does on a
+(4, 2) mesh. This script starts ``--ranks`` gloo ranks on this host, runs
+the walkthrough on each (rank 0 prints) and takes a few seconds on the
+CPU:
 
-  1. build the (4, 1) mesh and inspect the logical-axis rules that would
-     place each weight (``mesh2d_rules``: fsdp / tp / act -> "model");
-  2. run the same federation on vmap, on shard_map and on the degenerate
-     (4, 1) mesh (bitwise the shard_map protocol): losses agree;
+  1. build the (1, n) mesh and inspect the logical-axis rules that place
+     each weight (``mesh2d_rules``: fsdp / tp / act -> "model");
+  2. run the same federation on vmap, on shard_map, on the degenerate
+     (n, 1) mesh (bitwise the shard_map protocol) and on the (1, n) mesh
+     (each replica split over the n ranks): losses agree;
   3. let ``engine="auto"`` place an oversized replica: a footprint hint
-     over the per-device budget routes onto mesh_2d, whose model axis
-     raises naming item 12b;
+     over the per-device budget routes onto mesh_2d with a model axis
+     that splits it, and the round runs;
   4. train under a non-dividing client count: pad rows are copies of
      client 0, masked out of the Eq.-7b mean.
 
@@ -76,23 +78,28 @@ def walkthrough(device: str) -> dict:
         return float(rec["loss"])
 
     n = world_size()
-    say(f"== 1. the mesh over {n} ranks and its logical-axis rules ==")
-    mesh = make_mesh_2d((n, 1))
+    say(f"== 1. the (1, {n}) mesh over {n} ranks and its logical-axis "
+        f"rules ==")
+    mesh = make_mesh_2d((1, n))
     say(f"   mesh axes {mesh.mesh_dim_names}, shape {tuple(mesh.shape)}")
     with axis_rules(mesh, mesh2d_rules()):
-        for logical in [("fsdp", "tp"), ("batch", "seq", "tp"),
-                        ("client",)]:
+        for logical, what in [(("fsdp", "tp"), "the linear model's w"),
+                              (("batch", "seq", "tp"), "an activation"),
+                              (("client",), "the client axis")]:
             say(f"   {str(logical):28s} -> {resolve_spec(logical)} "
-                f"(a model axis of 1: every weight stays whole)")
+                f"({what})")
 
-    say("== 2. one DP round: vmap vs shard_map vs the degenerate mesh ==")
+    say("== 2. one DP round: vmap vs shard_map vs the two meshes ==")
     losses = {"vmap": one_round(spec_for("vmap")),
               "shard_map": one_round(spec_for("shard_map")),
-              "mesh_2d": one_round(spec_for("mesh_2d", mesh_shape=(n, 1)))}
+              "mesh_2d": one_round(spec_for("mesh_2d", mesh_shape=(n, 1))),
+              f"mesh_2d (1, {n})": one_round(spec_for(
+                  "mesh_2d", mesh_shape=(1, n)))}
     for name, loss in losses.items():
-        say(f"   {name:10s} {loss:.6f}")
+        say(f"   {name:14s} {loss:.6f}")
     assert losses["mesh_2d"] == losses["shard_map"]
     assert abs(losses["shard_map"] - losses["vmap"]) < 1e-4
+    assert abs(losses[f"mesh_2d (1, {n})"] - losses["vmap"]) < 1e-4
 
     say("== 3. auto placement: an oversized replica routes onto mesh_2d ==")
     replica = 100 * DIM * 4                     # synthetic footprint hint
@@ -100,14 +107,13 @@ def walkthrough(device: str) -> dict:
     try:
         auto = spec_for("auto", replica_bytes=replica)
         shape = default_mesh_shape(C, n, replica_bytes=replica)
-        try:
-            round_fn_for(auto)
-            raised = None
-        except NotImplementedError as e:
-            raised = str(e)
+        round_fn_for(auto)
+        losses["auto"] = one_round(auto)
         say(f"   replica {replica} B vs 4096 B/rank budget -> "
-            f"engine={resolve_engine(auto)}, mesh {shape}: {raised}")
-        assert raised is not None and "item 12b" in raised
+            f"engine={resolve_engine(auto)}, mesh {shape}: loss "
+            f"{losses['auto']:.6f}")
+        assert resolve_engine(auto) == "mesh_2d" and shape[1] > 1
+        assert abs(losses["auto"] - losses["vmap"]) < 1e-4
     finally:
         del os.environ[ENV_DEVICE_MEM]
 

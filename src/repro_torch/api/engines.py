@@ -27,8 +27,9 @@ registered:
                       .fl_shard_map`)
     "mesh_2d"         the same on a (dc, dm) mesh (``spec.mesh_shape`` or
                       :func:`~repro_torch.mesh.placement.default_mesh_shape`),
-                      padding clients that do not divide dc; dm > 1 raises
-                      (ROADMAP queue 1 item 12b)
+                      padding clients that do not divide dc; dm > 1
+                      splits each replica over a slab's ranks (tensor
+                      parallelism written by hand, :mod:`repro_torch.mesh`)
     "async_buffered"  the buffered-async executor
                       (:class:`repro_torch.asyncfl.engine.AsyncBufferedExecutor`),
                       not a round function: it is driven by
@@ -45,7 +46,8 @@ initialized they build a world of one (:func:`repro_torch.launch.mesh
 over the world's ranks, never "async_buffered". A ``replica_bytes`` hint
 over the per-device budget resolves to "mesh_2d" on any world, one rank
 included (the JAX package keeps "vmap" on one device, where the replica
-would not fit either); building it raises for the model axis it needs.
+would not fit either); on a world too small to split the replica,
+building it raises ``ValueError`` saying how many ranks the replica needs.
 Every engine's Eq.-7a clip + noise runs through the ``dp_clip_noise``
 kernel, and the qsgd compressor through ``quantize_decompress``, on the
 spec's ``kernel_backend``. Round functions are cached per
@@ -57,14 +59,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Protocol
 
-from repro_torch.api.spec import ENGINES, FederationSpec, _not_ported
+from repro_torch.api.spec import ENGINES, FederationSpec
 from repro_torch.core.fl import (
     make_chunked_round,
     make_resident_chunked_round,
     make_round_step,
 )
 from repro_torch.launch.mesh import make_mesh_2d, world_size
-from repro_torch.mesh.engine import refuse_model_axis
 from repro_torch.mesh.placement import (  # noqa: F401  (re-exported)
     ENV_DEVICE_MEM,
     H100_MEM_BYTES,
@@ -131,22 +132,21 @@ def resolve_engine(spec: FederationSpec) -> str:
 
 def mesh_shape_for(spec: FederationSpec) -> tuple[int, int]:
     """The (dc, dm) of a mesh_2d spec: ``spec.mesh_shape``, else the
-    placement default over the world's ranks. A model axis over 1, or a
-    default mesh whose one-rank slab cannot hold the hinted replica,
-    raises naming ROADMAP queue 1 item 12b."""
+    placement default over the world's ranks. A default mesh whose slab
+    cannot hold the hinted replica (a world too small to split it) raises
+    ``ValueError`` saying how many ranks the replica needs."""
     if spec.mesh_shape is not None:
-        shape = spec.mesh_shape
-    else:
-        shape = default_mesh_shape(spec.n_clients, world_size(),
-                                   replica_bytes=spec.replica_bytes)
-        if (spec.replica_bytes is not None
-                and not replica_fits(-(-spec.replica_bytes // shape[1]))):
-            raise _not_ported(
-                f"a replica of {spec.replica_bytes:,} bytes over the "
-                f"device budget of {device_memory_budget():,} on "
-                f"{world_size()} rank(s) (mesh_2d would split it over a "
-                f"model axis)", "item 12b")
-    refuse_model_axis(shape[1])
+        return spec.mesh_shape
+    shape = default_mesh_shape(spec.n_clients, world_size(),
+                               replica_bytes=spec.replica_bytes)
+    if (spec.replica_bytes is not None
+            and not replica_fits(-(-spec.replica_bytes // shape[1]))):
+        budget = device_memory_budget()
+        need = -(-spec.replica_bytes // budget)
+        raise ValueError(
+            f"a replica of {spec.replica_bytes:,} bytes over the device "
+            f"budget of {budget:,} needs a model axis of at least {need} "
+            f"ranks to split it; the world has {world_size()} rank(s)")
     return shape
 
 
@@ -202,9 +202,10 @@ def build_mesh_2d_engine(spec: FederationSpec) -> RoundFn:
     axis are padded inside the engine."""
     from repro_torch.mesh.engine import make_mesh_2d_round
     shape = mesh_shape_for(spec)
+    rules = dict(spec.sharding_rules) if spec.sharding_rules else None
     return make_mesh_2d_round(spec.loss_fn, spec.optimizer,
                               spec.fl_config(vmap_clients=True),
-                              make_mesh_2d(shape),
+                              make_mesh_2d(shape), rules=rules,
                               topology=spec.topology,
                               pipeline=spec.aggregation_pipeline())
 

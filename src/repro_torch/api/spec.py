@@ -103,11 +103,11 @@ class FederationSpec:
     # -- 2D mesh plane (repro_torch.mesh; engine="mesh_2d" or "auto") -----
     mesh_shape: tuple[int, int] | None = None  # (dc, dm) client blocks x
     #   model shards over the ranks; None -> mesh.placement
-    #   .default_mesh_shape. dm > 1 raises when the engine is built (item
-    #   12b). Part of engine_key()
+    #   .default_mesh_shape. dm > 1 splits each replica over a slab's
+    #   ranks. Part of engine_key()
     sharding_rules: Any = None      # logical->mesh axis overrides (dict or
-    #   (name, axis) pairs, normalized to a sorted tuple of pairs); they
-    #   place nothing until the model axis is ported (item 12b)
+    #   (name, axis) pairs, normalized to a sorted tuple of pairs) for the
+    #   model axis' placement; None -> models.sharding.mesh2d_rules()
     replica_bytes: int | None = None  # per-replica params + opt-state
     #   footprint hint: engine="auto" places a replica over the per-device
     #   budget on mesh_2d
@@ -443,8 +443,8 @@ class FederationSpec:
         attack's select is built from them). The async buffer size B shapes
         the flush and dispatch blocks and is in; ``staleness_alpha`` is a
         runtime weight and stays out. The mesh shape and the replica hint
-        are in. The sharding rules stay out: they place nothing at a model
-        axis of 1, and a larger one is not ported (item 12b)."""
+        are in, and so are the sharding rules (the model axis' placement),
+        as in the JAX package."""
         return (self.loss_fn, self.optimizer, self.n_clients, self.tau,
                 self.clip_norm, self.dp, self.num_microbatches,
                 self.vmap_microbatches, self.grad_accumulate,
@@ -454,7 +454,7 @@ class FederationSpec:
                 self.buffer_size,
                 # the mesh shape is the round's collective layout;
                 # replica_bytes steers what engine="auto" resolves to
-                self.mesh_shape, self.replica_bytes,
+                self.mesh_shape, self.sharding_rules, self.replica_bytes,
                 self.aggregator, self.trim_fraction,
                 self.norm_bound_factor,
                 (self.participants_per_round()

@@ -16,6 +16,15 @@ operand (N = parameters per client, leaves laid end to end in
 ``jax.tree.flatten`` order) and ``sigma`` the (C,) noise stds. The clip (and
 the flat path's noise) runs through the ``dp_clip_noise`` kernel in one call
 for all rows.
+
+Under a model axis over 1 (the ``mesh_2d`` engine at ``dm > 1``) each
+rank holds its slices of the split leaves and the whole other leaves, and
+the clip norm is still the norm of the whole per-client gradient: the
+split leaves' squares summed over the model ranks plus the whole leaves'
+counted once (:func:`repro_torch.kernels.ops.dp_clip_noise_split_tree`:
+``row_sumsq``, an all-reduce, then ``clip_noise_apply``). The noise
+operand then holds this rank's columns of the flat draw, split leaves
+first (:func:`repro_torch.kernels.ops.split_order`).
 """
 from __future__ import annotations
 
@@ -24,7 +33,13 @@ from typing import Callable
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.kernels.ops import dp_clip_noise_tree, validate_backend
+from repro_torch.kernels.ops import (
+    dp_clip_noise_split_tree,
+    dp_clip_noise_tree,
+    split_order,
+    validate_backend,
+)
+from repro_torch.models.sharding import model_group, model_placement
 from repro_torch.utils.tree import (
     tree_flatten,
     tree_leaves,
@@ -44,19 +59,30 @@ def clip_tree(grads, clip_norm: float):
     return clipped, norm
 
 
-def _add_noise(tree, noise, sigma):
+def _add_noise(tree, noise, sigma, order=None):
     """x + sigma * noise per leaf, each leaf reading its slice of the flat
-    (C, N) noise; dtypes are kept (the legacy per-leaf mechanism)."""
+    (C, N) noise, the leaves taken in ``order`` (default: tree order);
+    dtypes are kept (the legacy per-leaf mechanism)."""
     leaves, treedef = tree_flatten(tree)
-    news = []
+    news = [None] * len(leaves)
     off = 0
-    for x in leaves:
+    for i in (range(len(leaves)) if order is None else order):
+        x = leaves[i]
         n = x[0].numel()
         s = sigma.reshape((-1,) + (1,) * (x.dim() - 1))
         nz = noise[:, off:off + n].reshape(x.shape)
-        news.append((x.to(torch.float32) + s * nz).to(x.dtype))
+        news[i] = (x.to(torch.float32) + s * nz).to(x.dtype)
         off += n
     return tree_unflatten(treedef, news)
+
+
+def _model_split():
+    """(group, per-leaf split dims) under a model axis over 1, else
+    ``None``."""
+    group = model_group()
+    if group is None:
+        return None
+    return group, tree_leaves(model_placement())
 
 
 def make_dp_grad_fn(
@@ -83,15 +109,22 @@ def make_dp_grad_fn(
     validate_backend(kernel_backend)
     vg_fn = vmap(grad_and_value(loss_fn))
 
+    def _clip_noise(g, noise, sigma):
+        split = _model_split()
+        if split is None:
+            return dp_clip_noise_tree(g, noise, clip_norm, sigma,
+                                      backend=kernel_backend)
+        return dp_clip_noise_split_tree(g, noise, clip_norm, sigma,
+                                        split[1], split[0],
+                                        backend=kernel_backend)
+
     def _clip(g):
-        return dp_clip_noise_tree(g, None, clip_norm, None,
-                                  backend=kernel_backend)
+        return _clip_noise(g, None, None)
 
     def dp_grad(params, batch, noise, sigma):
         if num_microbatches == 1:
             g, loss = vg_fn(params, batch)
-            noisy, pre_norm = dp_clip_noise_tree(g, noise, clip_norm, sigma,
-                                                 backend=kernel_backend)
+            noisy, pre_norm = _clip_noise(g, noise, sigma)
             return noisy, {"loss": loss, "grad_norm_preclip": pre_norm}
 
         m = num_microbatches
@@ -138,7 +171,9 @@ def make_dp_grad_fn(
                                *[o[0] for o in outs])
             pre_norm = torch.mean(torch.stack([o[1] for o in outs], 1), 1)
             loss = torch.mean(torch.stack([o[2] for o in outs], 1), 1)
-        noisy = _add_noise(clipped, noise, sigma)
+        split = _model_split()
+        noisy = _add_noise(clipped, noise, sigma,
+                           None if split is None else split_order(split[1]))
         return noisy, {"loss": loss, "grad_norm_preclip": pre_norm}
 
     return dp_grad
@@ -151,7 +186,19 @@ def make_plain_grad_fn(loss_fn: Callable) -> Callable:
     def plain_grad(params, batch, noise, sigma):
         del noise, sigma
         g, loss = vg_fn(params, batch)
-        return g, {"loss": loss,
-                   "grad_norm_preclip": torch.sqrt(vmap(tree_sq_norm)(g))}
+        split = _model_split()
+        if split is None:
+            sq = vmap(tree_sq_norm)(g)
+        else:
+            # the whole gradient's norm: split leaves summed over the
+            # model ranks, whole leaves (alike on every rank) once
+            group, dims = split
+            leaves = tree_leaves(g)
+            sq = group.all_sum(sum(
+                (torch.sum(torch.square(x.reshape(x.shape[0], -1).to(
+                    torch.float32)), dim=1)
+                 for x, d in zip(leaves, dims) if d >= 0 or group.index == 0),
+                torch.zeros(leaves[0].shape[:1], device=leaves[0].device)))
+        return g, {"loss": loss, "grad_norm_preclip": torch.sqrt(sq)}
 
     return plain_grad

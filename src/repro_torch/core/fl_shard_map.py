@@ -31,6 +31,13 @@ all-gather of the blocks along axis 0, rank order being row order.
 
 Ranks of the world outside the mesh (fewer client blocks than ranks) take
 no block; they receive the round's results from the mesh's first rank.
+
+On a 2D mesh with a model axis over 1 (:mod:`repro_torch.mesh.engine`) a
+:class:`ClientGroup` is taken at this rank's model coordinate: its ranks
+hold the same slices of every replica, so the Eq.-7b sums run on the
+slices, and the round's outputs are made whole by a gather over the model
+group (:func:`repro_torch.models.sharding.to_whole`) before the row
+gathers here.
 """
 from __future__ import annotations
 

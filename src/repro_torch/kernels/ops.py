@@ -11,18 +11,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
-from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+from repro_torch.kernels.dp_clip_noise import (
+    clip_noise_apply,
+    dp_clip_noise,
+    row_sumsq,
+)
 from repro_torch.kernels.flash_attention import (
     flash_attention as flash_attention_kernel,
 )
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd as mamba2_ssd_kernel
 from repro_torch.kernels.quantize_decompress import quantize_decompress
 from repro_torch.kernels.ref import (
+    clip_noise_apply_ref,
     cohort_gather_scatter_ref,
     dp_clip_noise_ref,
     flash_attention_ref,
     mamba2_ssd_ref,
     quantize_decompress_ref,
+    row_sumsq_ref,
     rwkv6_scan_ref,
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rwkv6_scan_kernel
@@ -86,6 +92,59 @@ def dp_clip_noise_tree(grads, noise, clip_norm, sigma, backend: str = "auto"):
     kernel = dp_clip_noise_ref if backend == "ref" else dp_clip_noise
     out, norm = kernel(flat, noise, clip_norm, sigma)
     return tree_unflatten(treedef, unflatten_rows(out, leaves)), norm
+
+
+def split_order(dims) -> list[int]:
+    """The order of a split gradient's leaves in its flat (R, N_local)
+    buffer: the leaves split over the model axis (``dims`` >= 0, in
+    ``jax.tree.flatten`` order), then the whole ones. ``dims`` is the
+    per-leaf split-dim list (:func:`repro_torch.models.sharding
+    .param_split_dims`, flattened)."""
+    return ([i for i, d in enumerate(dims) if d >= 0]
+            + [i for i, d in enumerate(dims) if d < 0])
+
+
+def split_row_sq_norm(flat, n_split: int, group, backend: str = "auto"):
+    """Each row's squared norm of a gradient split over ``group``'s ranks:
+    the sum of squares of the split leaves' columns (``flat[:, :n_split]``)
+    all-reduced over the group, plus the whole leaves' (the other columns,
+    alike on every rank) counted once: model rank 0 sums all its columns,
+    the others their split columns only, in one ``row_sumsq`` call each."""
+    part = flat if group.index == 0 else flat[:, :n_split]
+    if part.shape[1] == 0:
+        s = flat.new_zeros(flat.shape[:1])
+    else:
+        s = (row_sumsq_ref if backend == "ref" else row_sumsq)(part)
+    return group.all_sum(s)
+
+
+def dp_clip_noise_split_tree(grads, noise, clip_norm, sigma, dims, group,
+                             backend: str = "auto"):
+    """:func:`dp_clip_noise_tree` for a gradient whose leaves are split
+    over the model ``group`` (``dims``: each leaf's split dim, -1 whole).
+    The leaves go into one (R, N_local) f32 buffer in :func:`split_order`;
+    the row norm is the whole gradient's (:func:`split_row_sq_norm`, then
+    the square root) and ``clip_noise_apply`` clips and adds ``noise``,
+    whose columns come in the same order (``None``: clip only). Two kernel
+    calls, an all-reduce between them. Returns ``(tree, norm (R,))``, the
+    norm the same on every rank."""
+    validate_backend(backend)
+    leaves, treedef = tree_flatten(grads)
+    order = split_order(dims)
+    ordered = [leaves[i] for i in order]
+    flat = flatten_rows(ordered)
+    n_split = sum(leaves[i][0].numel() for i in order if dims[i] >= 0)
+    norm = torch.sqrt(split_row_sq_norm(flat, n_split, group, backend))
+    if noise is not None:
+        sigma = torch.as_tensor(sigma, dtype=torch.float32,
+                                device=flat.device)
+        sigma = sigma.expand(flat.shape[0]).contiguous()
+    apply = clip_noise_apply_ref if backend == "ref" else clip_noise_apply
+    out = apply(flat, noise, norm, clip_norm, sigma)
+    news = [None] * len(leaves)
+    for i, x in zip(order, unflatten_rows(out, ordered)):
+        news[i] = x
+    return tree_unflatten(treedef, news), norm
 
 
 def quantize_decompress_rows(x, u, bits: int, backend: str = "auto"):

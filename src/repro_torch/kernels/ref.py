@@ -29,6 +29,24 @@ def dp_clip_noise_ref(g, noise, clip_norm, sigma):
     return y.to(g.dtype), norm
 
 
+def row_sumsq_ref(x):
+    """Each row's sum of squares of ``x`` (R, N), in f32: the first phase
+    of :func:`dp_clip_noise_ref` split off (``norm = sqrt(row_sumsq)``)."""
+    return torch.sum(torch.square(x.to(torch.float32)), dim=1)
+
+
+def clip_noise_apply_ref(x, noise, norm, clip_norm, sigma):
+    """The second phase of :func:`dp_clip_noise_ref` from a given ``norm``
+    (R,): ``y[r] = x[r] * min(1, C / max(norm[r], 1e-12)) + sigma[r] *
+    noise[r]`` (``noise=None``: the clip only). ``y`` in ``x.dtype``."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    y = x32 * scale[:, None]
+    if noise is not None:
+        y = y + sigma[:, None] * noise.to(torch.float32)
+    return y.to(x.dtype)
+
+
 def quantize_decompress_ref(x, u, bits: int):
     """Row-batched QSGD round trip: for every row r of ``x`` (R, D)
 

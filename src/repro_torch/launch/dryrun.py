@@ -17,7 +17,7 @@ The port of the JAX package's ``repro/launch/dryrun.py``, for one card:
   the trace's peak of temporaries), ``fits_hbm`` against the card's
   79.18 GiB, and ``roofline``.
 
-Not ported (ROADMAP queue 1 item 12b, the model axis): ``--multi-pod`` and
+Not ported (ROADMAP queue 1 item 12d, the serving mesh): ``--multi-pod`` and
 ``mesh_report``, which shard each replica over a mesh's model axis;
 ``--multi-pod`` raises. (``make_production_mesh`` and the sharding rules
 are in :mod:`repro_torch.launch.mesh` and :mod:`repro_torch.models
@@ -432,7 +432,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported: the JAX package's 2x16x16 mesh "
-                         "(item 12b)")
+                         "(item 12d)")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--tau", type=int, default=4)
     ap.add_argument("--microbatches", type=int, default=None)
@@ -447,7 +447,7 @@ def main(argv=None):
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12b")
+        raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12d")
     if not args.all and not (args.arch and args.shape):
         ap.error("pass --arch and --shape, or --all")
 

@@ -21,7 +21,12 @@ comes from one of three places:
   sharded engines build a one-device mesh.
 
 :func:`make_mesh_2d` lays a ``("client", "model")`` ``DeviceMesh`` over the
-world's ranks, each client block a contiguous row-major slab.
+world's ranks, each client block a contiguous row-major slab. Building it
+creates both sub-groups: ``mesh.get_group("client")`` (the ranks at this
+rank's model coordinate, which meet in the Eq.-7b reduction,
+:class:`repro_torch.core.fl_shard_map.ClientGroup`) and
+``mesh.get_group("model")`` (the ranks of this rank's slab, which split a
+replica: :class:`repro_torch.mesh.collectives.ModelGroup`).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ batch through ``prefill``, then one ``decode_step`` per generated token
 (forced for prefix-conditioned archs). ``--env-profile host`` re-execs the
 launcher once under tcmalloc (:mod:`repro_torch.launch.env`);
 ``--env-profile cpu-mesh`` and ``--host-devices`` above 1 raise: serving
-over several ranks needs the serving mesh (ROADMAP queue 1 item 12b).
+over several ranks needs the serving mesh (ROADMAP queue 1 item 12d).
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
@@ -214,7 +214,7 @@ def main(argv=None):
         from repro_torch.api.spec import _not_ported
         raise _not_ported("serving over several ranks (--env-profile "
                           "cpu-mesh / --host-devices > 1: the serving mesh)",
-                          "item 12b")
+                          "item 12d")
     apply_env_profile(args.env_profile, host_devices=args.host_devices)
 
     device = resolve_device(args.device)

@@ -31,14 +31,15 @@ N`` runs it as N gloo ranks on this host, each driving the same
 federation, rank 0 printing the summary and writing ``--save``. Under a
 launcher that sets ``WORLD_SIZE`` (``torchrun``) the ranks come from the
 environment. ``--engine shard_map`` splits the client axis over the ranks;
-``--engine mesh_2d --mesh-shape dc,1`` lays a (dc, 1) mesh over them,
-padding clients that do not divide dc. ``--replica-hint`` passes the
-arch's param + optimizer-state bytes
+``--engine mesh_2d --mesh-shape dc,dm`` lays a (dc, dm) mesh over them,
+padding clients that do not divide dc and, with dm > 1, splitting each
+replica's weights and matmuls over the dm ranks of a slab (attention +
+MLP archs; RWKV, SSM and MoE layers raise naming ROADMAP item 12c).
+``--replica-hint`` passes the arch's param + optimizer-state bytes
 (``configs.shapes.replica_footprint_bytes``) to the spec as
 ``replica_bytes``: ``engine="auto"`` places a replica over the device's
-memory on ``mesh_2d``. A model axis over 1 (``--mesh-shape dc,dm`` with dm
-> 1, or a replica hint that needs one) raises ``NotImplementedError``
-naming ROADMAP queue 1 item 12b. The model's params come
+memory on ``mesh_2d`` with a model axis large enough to split it, and
+raises ``ValueError`` on a world too small for that. The model's params come
 from a ``torch.Generator`` seeded with ``--seed``, so they differ from the
 JAX launcher's; the summary's ``rounds``, ``max_epsilon`` and
 ``resource_spent`` do not depend on them.
@@ -131,8 +132,8 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
     ``latency_model`` configure the flush and the simulated clocks.
 
     ``replica_bytes`` is the placement hint of ``engine="auto"`` and
-    ``mesh_shape`` the (dc, dm) of ``mesh_2d``: a spec that needs a model
-    axis over 1 raises (item 12b) before anything is allocated.
+    ``mesh_shape`` the (dc, dm) of ``mesh_2d``: a replica hint that the
+    world is too small to split raises before anything is allocated.
 
     The model's params are ``Transformer.init`` from a ``torch.Generator``
     on ``device`` seeded with ``seed``.
@@ -165,7 +166,7 @@ def build_federation(cfg, n_clients: int, tau: int, batch_size: int,
         batch_sizes=(batch_size,) * n_clients, delta=delta, seed=seed,
         replica_bytes=replica_bytes, mesh_shape=mesh_shape)
     if resolve_engine(spec) == "mesh_2d":
-        mesh_shape_for(spec)        # a model axis over 1 raises here
+        mesh_shape_for(spec)        # a world too small raises here
     params0 = model.init(torch.Generator(device=device).manual_seed(seed),
                          device)
     if population:
@@ -227,14 +228,15 @@ def main(argv=None):
                          "N, or a launcher's WORLD_SIZE)")
     ap.add_argument("--mesh-shape", default=None,
                     help="dc,dm ranks of the mesh_2d engine (client x "
-                         "model); dm > 1 raises (item 12b). Default: "
+                         "model); dm > 1 splits each replica over dm "
+                         "ranks. Default: "
                          "repro_torch.mesh.placement.default_mesh_shape")
     ap.add_argument("--replica-hint", action="store_true",
-                    help="pass the arch's param+opt-state bytes "
+                    help="pass the arch's param + optimizer-state bytes "
                          "(configs.shapes.replica_footprint_bytes) to the "
                          "spec: engine='auto' places a replica over the "
-                         "device's memory on mesh_2d, whose model axis "
-                         "raises (item 12b)")
+                         "device's memory on mesh_2d with a model axis "
+                         "that splits it")
     ap.add_argument("--async-buffer", type=int, default=0,
                     help="B > 0 switches to buffered-async federation "
                          "(repro_torch.asyncfl): aggregate the first B "

@@ -1,14 +1,15 @@
 """repro_torch.mesh: the 2D client x model execution plane (the port of
-the JAX package's ``repro/mesh``), client axis only.
+the JAX package's ``repro/mesh``).
 
 The 1D ``shard_map`` engine shards the *client* axis: every rank holds
 whole model replicas. ``engine="mesh_2d"`` lays a ``(dc, dm)`` mesh over
 the ranks (:func:`repro_torch.launch.mesh.make_mesh_2d`): the client axis
 is the 1D engine's, padded where clients do not divide ``dc``; a model
-axis ``dm > 1`` (each replica split over ``dm`` ranks) raises naming
-ROADMAP queue 1 item 12b. :mod:`repro_torch.mesh.placement` holds the
-``engine="auto"`` decision table. Select via ``FederationSpec(
-engine="mesh_2d", mesh_shape=(dc, 1))``.
+axis ``dm > 1`` splits each replica's weights and matmuls over the ``dm``
+ranks of a slab, by hand-written tensor parallelism
+(:mod:`repro_torch.mesh.collectives`). :mod:`repro_torch.mesh.placement`
+holds the ``engine="auto"`` decision table. Select via ``FederationSpec(
+engine="mesh_2d", mesh_shape=(dc, dm))``.
 """
 from repro_torch.mesh.engine import default_param_specs, make_mesh_2d_round
 from repro_torch.mesh.placement import (

@@ -19,6 +19,15 @@ The serving engine's paged cache (``init_paged_kv_cache``, ``paged_index``,
 ``paged_decode_attention``) is plain PyTorch, as the JAX package keeps it
 in jnp: no TPU kernel carries it.
 
+Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
+the training route splits the heads: each rank holds its heads' slices of
+``wq`` / ``wk`` / ``wv`` (and the qkv biases) and of ``wo``, takes the
+replicated input through an identity-forward / all-reduce-backward
+function, attends over its own q and kv heads (with GQA the group size is
+the whole model's, so q head h still reads kv head h // (H / KV)), and
+sums the ranks' output projections in one all-reduce. The sliding window
+keeps its mask.
+
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
 from __future__ import annotations
@@ -29,7 +38,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dense_init, apply_rope, rope_angles
+from repro_torch.models.layers import (
+    _dense_init,
+    _not_covered,
+    apply_rope,
+    rope_angles,
+)
+from repro_torch.models.sharding import model_dim, model_group, shard_hint
 
 NEG_INF = -1e30
 
@@ -215,14 +230,41 @@ def attention_forward_train(params, x, positions, *, kind: str = "full",
     Returns (B, S, d)."""
     if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
+    grp = model_group()
+    split = grp is not None and _head_split(params)
+    if split:
+        x = grp.copy_in(x)
     q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
     if kind == "chunk":
         ctxv = chunked_causal_attention(q, k, v, chunk)
-        return torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
-    ctxv = blocked_causal_attention(
-        q, k, v, window=window if kind == "swa" else 0, block_q=block_q,
-        causal_buckets=causal_buckets and kind == "full")
-    return torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
+    else:
+        ctxv = blocked_causal_attention(
+            q, k, v, window=window if kind == "swa" else 0, block_q=block_q,
+            causal_buckets=causal_buckets and kind == "full")
+    out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
+    return grp.reduce_out(out) if split else out
+
+
+_HEAD_HINTS = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
+               "wv": ("wg", "tp", None), "wo": ("tp", None, "fsdp"),
+               "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
+
+
+def _head_split(params) -> bool:
+    """Are the layer's heads split over the model axis (every projection
+    and bias on its heads dim)? ``False`` where every leaf is whole; any
+    other placement raises."""
+    dims = {}
+    for name, hint in _HEAD_HINTS.items():
+        if name in params:
+            shard_hint(params[name], *hint)
+            dims[name] = model_dim(*hint)
+    heads = {n: 0 if n in ("wo", "bq", "bk", "bv") else 1 for n in dims}
+    if dims == heads:
+        return True
+    if set(dims.values()) != {-1}:
+        raise _not_covered("attention", dims)
+    return False
 
 
 def attention_forward(params, x, positions, *, kind: str = "full",

@@ -4,8 +4,19 @@ of the JAX package's ``repro/models/layers.py``).
 Every f32 upcast sits where the JAX package has it, so a bf16 model rounds
 at the same places. ``init_*`` functions take a ``torch.Generator`` and a
 device and return the same param dicts as JAX's (the logical-axes trees of
-the JAX package are not ported). On the ``meta`` device they return shapes
-and dtypes only.
+the JAX package live in :func:`repro_torch.models.sharding
+.param_logical_axes`). On the ``meta`` device they return shapes and dtypes
+only.
+
+Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
+the MLP runs column-parallel (``w_gate`` / ``w_up`` split on ``ffn``) then
+row-parallel (``w_down``), with one all-reduce forward; the embedding split
+on the vocabulary looks each token up on the rank that holds its row
+(zeros elsewhere, summed over the ranks), and :func:`lm_loss` takes the
+logits of the rank's vocabulary slice through a vocabulary-parallel
+softmax cross-entropy (the max, the sum of exponentials and the gold logit
+each all-reduced). Norm scales stay whole. Another placement (a custom
+rule splitting another dim) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import model_dim, model_group, shard_hint
 
 
 def _normal(generator, shape, device):
@@ -88,11 +101,32 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype=torch.float32,
     }
 
 
+def _not_covered(what: str, dims):
+    return NotImplementedError(
+        f"{what} placed {dims} under a model axis: the port's tensor "
+        f"parallelism covers the split the default mesh2d rules give (or "
+        f"none)")
+
+
 def mlp(params, x):
-    h = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    w_gate = shard_hint(params["w_gate"], "wg", "tp")
+    w_up = shard_hint(params["w_up"], "wg", "tp")
+    w_down = shard_hint(params["w_down"], "tp", "wg")
+    grp = model_group()
+    split = False
+    if grp is not None:
+        dims = (model_dim("wg", "tp"), model_dim("wg", "tp"),
+                model_dim("tp", "wg"))
+        split = dims == (1, 1, 0)
+        if not split and dims != (-1, -1, -1):
+            raise _not_covered("the MLP", dims)
+        if split:                    # column-parallel in
+            x = grp.copy_in(x)
+    h = x @ w_gate
+    u = x @ w_up
     h = F.silu(h.to(torch.float32)).to(x.dtype) * u
-    return h @ params["w_down"]
+    out = h @ w_down
+    return grp.reduce_out(out) if split else out   # row-parallel out
 
 
 # ---------------------------------------------------------------------------
@@ -109,18 +143,71 @@ def init_embed(generator, vocab: int, d_model: int, tie_head: bool = True,
     return params
 
 
-def embed(params, tokens, impl: str = "gather"):
-    table = params["embedding"]
+def _lookup(table, tokens, impl: str):
     if impl == "one_hot":
         oh = F.one_hot(tokens.to(torch.int64), table.shape[0]).to(table.dtype)
         return torch.einsum("bsv,vd->bsd", oh, table)
     return F.embedding(tokens, table)
 
 
+def embed(params, tokens, impl: str = "gather"):
+    table = params["embedding"]
+    grp = model_group()
+    dim = model_dim("tp", "fsdp")
+    if grp is None or dim < 0:
+        return _lookup(table, tokens, impl)
+    if dim != 0:
+        raise _not_covered("the embedding", dim)
+    # vocabulary-parallel: each token's row on the rank that holds it
+    v = table.shape[0]
+    local = tokens - grp.index * v
+    inside = (local >= 0) & (local < v)
+    e = _lookup(table, torch.where(inside, local, 0), impl)
+    return grp.reduce_out(torch.where(inside[..., None], e, 0.0))
+
+
 def unembed(params, x):
     if "head" in params:
         return x @ params["head"]
     return x @ params["embedding"].T
+
+
+def lm_loss(params, x, labels, ignore_id: int = -1):
+    """The mean token cross-entropy of the LM head on the hidden states
+    ``x``: ``cross_entropy(unembed(params, x), labels)``, and under a model
+    axis that splits the tied embedding on the vocabulary its
+    vocabulary-parallel form (an untied head is not covered: no arch of the
+    repo has one)."""
+    grp = model_group()
+    dim = -1 if grp is None else model_dim("tp", "fsdp")
+    if dim < 0 and (grp is None or "head" not in params):
+        return cross_entropy(unembed(params, x), labels, ignore_id)
+    if dim != 0 or "head" in params:
+        raise _not_covered("the LM head", dim)
+    w = params["embedding"]                    # this rank's (V_local, d)
+    return vocab_parallel_cross_entropy(
+        grp, grp.copy_in(x) @ w.T, labels, grp.index * w.shape[0], ignore_id)
+
+
+def vocab_parallel_cross_entropy(grp, logits, labels, lo: int,
+                                 ignore_id: int = -1):
+    """:func:`cross_entropy` of logits whose vocabulary is split over the
+    model group ``grp``: ``logits`` holds this rank's columns, vocabulary
+    ids ``[lo, lo + V_local)``. The softmax's shift is the max over every
+    rank (no gradient), the sum of exponentials and the gold logit are
+    summed over the ranks."""
+    logits = logits.to(torch.float32)
+    m = grp.all_max(torch.amax(logits.detach(), dim=-1))
+    sumexp = grp.reduce_out(torch.sum(torch.exp(logits - m[..., None]),
+                                      dim=-1))
+    logz = torch.log(sumexp) + m
+    local = labels.to(torch.int64) - lo
+    inside = (local >= 0) & (local < logits.shape[-1]) & (labels != ignore_id)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = grp.reduce_out(torch.where(inside, gold[..., 0], 0.0))
+    nll = logz - gold
+    mask = (labels != ignore_id).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def cross_entropy(logits, labels, ignore_id: int = -1):

@@ -14,12 +14,20 @@ Logical names used across the model stack:
   "batch"   data batch                          -> mesh "replica" / "data"
   "seq"     sequence dim (sharded only for long-context decode caches)
 
-The port shards the client axis only (:mod:`repro_torch.core.fl_shard_map`):
-each client's replica stays whole on its rank. So :func:`shard_hint` is the
-identity wherever every mesh axis it resolves to has size 1, and raises
-where a tensor would split over ranks within a client (a model axis over
-1: ROADMAP queue 1 item 12b). :class:`PartitionSpec` is a tuple of mesh-axis
-names (or ``None``) standing in for ``jax.sharding.PartitionSpec``.
+Under the ``mesh_2d`` engine with a model axis over 1
+(:mod:`repro_torch.mesh.engine`), each rank holds its slice of every split
+weight and the model code runs the model axis' collectives by hand
+(:mod:`repro_torch.mesh.collectives`): PyTorch has no partitioner. Where a
+weight is split comes from these rules, as in the JAX package:
+:func:`param_split_dims` resolves each leaf's logical axes
+(:func:`param_logical_axes`, the JAX models' ``shard_hint`` sites) with
+:func:`resolve_spec` on the whole shapes, and the engine cuts the slices
+(:func:`to_local`) and joins them again (:func:`to_whole`). Inside the
+round :func:`shard_hint` is the identity on a weight's local slice (it
+checks the slice against its spec) and on activations, and
+:func:`model_dim` tells the model code which dim of a weight is split.
+:class:`PartitionSpec` is a tuple of mesh-axis names (or ``None``)
+standing in for ``jax.sharding.PartitionSpec``.
 """
 from __future__ import annotations
 
@@ -49,16 +57,24 @@ def _current():
 
 
 @contextlib.contextmanager
-def axis_rules(mesh, rules: dict[str, Any]):
+def axis_rules(mesh, rules: dict[str, Any], placement=None):
     """Install mesh + logical->mesh rules for model code in this thread.
     ``mesh`` is a ``DeviceMesh`` with named dims, or any object whose
-    ``shape`` maps axis names to sizes."""
-    prev = _current()
+    ``shape`` maps axis names to sizes. ``placement`` is the split-dim tree
+    of the params the code runs on (:func:`param_split_dims`), which the
+    clip of Eq. 7a reads (:func:`model_placement`)."""
+    prev = _current(), getattr(_state, "placement", None)
     _state.ctx = (mesh, dict(rules))
+    _state.placement = placement
     try:
         yield
     finally:
-        _state.ctx = prev
+        _state.ctx, _state.placement = prev
+
+
+def model_placement():
+    """The split-dim tree installed with the active rules, or ``None``."""
+    return getattr(_state, "placement", None) if _current() else None
 
 
 def train_rules() -> dict[str, Any]:
@@ -137,20 +153,231 @@ def resolve_spec(logical: tuple, shape: tuple[int, ...] | None = None
     return P(*out)
 
 
+MODEL_AXIS = "model"
+
+
+def _model_size(mesh) -> int:
+    names = getattr(mesh, "mesh_dim_names", None)
+    axes = mesh.shape if names is None else names
+    return _axis_size(mesh, MODEL_AXIS) if MODEL_AXIS in axes else 1
+
+
+def _split_of(spec: PartitionSpec, mesh) -> int:
+    """The dim of ``spec`` that the model axis splits (-1: none). An axis
+    other than the model axis over 1 is not split by hand: it raises."""
+    dim = -1
+    for i, axis in enumerate(spec):
+        for a in (() if axis is None else _atomic_axes(axis)):
+            if a == MODEL_AXIS:
+                dim = i
+            elif _axis_size(mesh, a) > 1:
+                from repro_torch.api.spec import _not_ported
+                raise _not_ported(f"splitting a tensor over the mesh axis "
+                                  f"{a!r} inside a client replica",
+                                  "item 12d")
+    return dim
+
+
 def shard_hint(x, *logical):
-    """The identity on ``x``: outside a rules context, and under a mesh
-    where every axis the hint resolves to has size 1. A hint that would
-    split ``x`` over ranks raises (the model axis: item 12b)."""
+    """The identity on ``x``. Outside a rules context, or where every axis
+    the hint resolves to has size 1, nothing is checked. Under a model axis
+    over 1, ``x`` is a weight's local slice or an activation: the hint must
+    name each of its dims (``ValueError`` otherwise), and a hint that would
+    split it over another mesh axis raises (``NotImplementedError``)."""
     ctx = _current()
     if ctx is None:
         return x
     mesh, _ = ctx
-    spec = resolve_spec(logical, tuple(x.shape))
-    if any(_mesh_axis_size(mesh, a) > 1 for a in spec if a is not None):
-        from repro_torch.api.spec import _not_ported
-        raise _not_ported(f"sharding a tensor over {spec} (a model axis "
-                          f"over 1)", "item 12b")
+    spec = resolve_spec(logical)
+    if all(_mesh_axis_size(mesh, a) == 1 for a in spec if a is not None):
+        return x
+    if x.dim() != len(logical):
+        raise ValueError(f"a hint of {len(logical)} logical axes "
+                         f"{logical} on a tensor of {x.dim()} dims "
+                         f"{tuple(x.shape)}")
+    _split_of(spec, mesh)
     return x
+
+
+def model_group():
+    """The :class:`repro_torch.mesh.collectives.ModelGroup` of the active
+    rules context when its mesh has a model axis over 1, else ``None``
+    (the model code then runs whole)."""
+    ctx = _current()
+    if ctx is None or _model_size(ctx[0]) == 1:
+        return None
+    mesh = ctx[0]
+    cached = getattr(_state, "group", None)
+    if cached is None or cached[0] is not mesh:
+        from repro_torch.mesh.collectives import ModelGroup
+        cached = _state.group = (mesh, ModelGroup(mesh, MODEL_AXIS))
+    return cached[1]
+
+
+def model_dim(*logical) -> int:
+    """The dim of a weight hinted ``logical`` that the active model axis
+    splits, or -1 (whole, or no model axis over 1). The engine places a
+    weight only where its spec resolves alike with and without its whole
+    shape (:func:`param_split_dims`), so the local slice needs no shape."""
+    ctx = _current()
+    if ctx is None or _model_size(ctx[0]) == 1:
+        return -1
+    return _split_of(resolve_spec(logical), ctx[0])
+
+
+# -- the placement of a model's params ----------------------------------------
+
+# the logical axes of each weight at its use site in the JAX models
+# (``shard_hint`` in repro/models/{linear,layers,attention}.py), else its
+# init axes there (the embedding, an untied head, the qkv biases); every
+# other leaf (norm scales, the linear model's bias) stays whole
+_ATTN_AXES = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
+              "wv": ("wg", "tp", None), "wo": ("tp", None, "fsdp"),
+              "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
+_MLP_AXES = {"w_gate": ("wg", "tp"), "w_up": ("wg", "tp"),
+             "w_down": ("tp", "wg")}
+_EMBED_AXES = {"embedding": ("tp", "fsdp"), "head": ("fsdp", "tp")}
+LINEAR_AXES = {"w": ("fsdp", "tp"), "b": ()}
+
+
+def _refuse_mixer(what: str):
+    from repro_torch.api.spec import _not_ported
+    return _not_ported(f"{what} under a model axis over 1", "item 12c")
+
+
+def _layer_axes(layer: dict) -> dict:
+    out = {}
+    for name, sub in layer.items():
+        if name in ("norm1", "norm2"):
+            out[name] = {k: () for k in sub}
+        elif name == "mixer":
+            if not set(sub) <= set(_ATTN_AXES) or "wq" not in sub:
+                raise _refuse_mixer(f"the mixer with params {sorted(sub)} "
+                                    f"(RWKV, SSM or shared attention)")
+            out[name] = {k: _ATTN_AXES[k] for k in sub}
+        elif name == "ffn":
+            if sub and set(sub) != set(_MLP_AXES):
+                raise _refuse_mixer(f"the FFN with params {sorted(sub)} "
+                                    f"(MoE or RWKV channel mix)")
+            out[name] = {k: _MLP_AXES[k] for k in sub}
+        else:
+            raise _refuse_mixer(f"the layer part {name!r}")
+    return out
+
+
+def param_logical_axes(params) -> dict:
+    """A tree like ``params`` (one client's, no client axis) of each
+    leaf's logical axes, one name a dim (``()`` for a whole leaf): the
+    linear models of §8.1, the attention + MLP transformer, or one of its
+    MLP or attention layers. Stacked
+    layers get a leading ``None`` for their step axis. Other mixers and
+    FFNs raise ``NotImplementedError`` naming ROADMAP item 12c."""
+    if set(params) == set(LINEAR_AXES):
+        return dict(LINEAR_AXES)
+    if set(params) == set(_MLP_AXES):                  # one MLP
+        return dict(_MLP_AXES)
+    if "wq" in params and set(params) <= set(_ATTN_AXES):   # one attention
+        return {k: _ATTN_AXES[k] for k in params}
+    if "segments" not in params:
+        raise _refuse_mixer(f"a model with params {sorted(params)}")
+    if "shared" in params:
+        raise _refuse_mixer("shared attention (zamba2)")
+    out = {"embed": {k: _EMBED_AXES[k] for k in params["embed"]},
+           "final_norm": {k: () for k in params["final_norm"]},
+           "segments": []}
+    for seg in params["segments"]:
+        out["segments"].append({
+            j: {part: {k: ax and (None,) + ax for k, ax in leaves.items()}
+                for part, leaves in _layer_axes(layer).items()}
+            for j, layer in seg.items()})
+    return out
+
+
+def param_split_dims(params, dm: int, rules: dict | None = None):
+    """Each leaf's split dim (-1: whole) in a tree like ``params`` (one
+    client's whole params, torch or numpy): its logical axes
+    (:func:`param_logical_axes`) resolved by :func:`resolve_spec` under
+    ``rules`` (default :func:`mesh2d_rules`) on a mesh with a model axis of
+    ``dm``, on the whole shapes. A leaf whose spec changes with its shape
+    (a first-named dim the model axis does not divide, so the split would
+    fall on a later dim) raises ``ValueError``: the port splits a weight on
+    the dim its hint names first, which the model code finds again from
+    the hint alone (:func:`model_dim`)."""
+    import types
+    mesh = types.SimpleNamespace(shape={MODEL_AXIS: dm})
+
+    def one(logical, leaf):
+        spec = resolve_spec(logical, tuple(leaf.shape))
+        if tuple(resolve_spec(logical)) != tuple(spec):
+            raise ValueError(
+                f"a model axis of {dm} does not divide the dim a weight "
+                f"hinted {logical} splits on (its whole shape "
+                f"{tuple(leaf.shape)} resolves to {spec}); use a model axis "
+                f"that divides it")
+        return _split_of(spec, mesh) if dm > 1 else -1
+
+    with axis_rules(mesh, mesh2d_rules() if rules is None else rules):
+        return _map_logical(one, param_logical_axes(params), params)
+
+
+def to_local(tree, dims, index: int, dm: int, lead: int = 0):
+    """This rank's slices of ``tree`` (torch tensors or numpy arrays):
+    leaf by leaf its ``index``-th of ``dm`` parts along ``dims``' dim
+    (shifted by ``lead`` leading axes, e.g. 1 for the client axis); whole
+    leaves (-1) pass through. Torch slices are contiguous copies."""
+    def one(x, d):
+        if d < 0:
+            return x
+        d += lead
+        per = x.shape[d] // dm
+        if hasattr(x, "narrow"):
+            return x.narrow(d, index * per, per).contiguous()
+        return x.take(range(index * per, (index + 1) * per), axis=d)
+
+    return _zip_dims(one, tree, dims)
+
+
+def to_whole(tree, dims, group, lead: int = 0):
+    """The slices of ``tree`` joined over the model ``group``
+    (:class:`repro_torch.mesh.collectives.ModelGroup`) into whole leaves:
+    :func:`to_local` undone, on every rank."""
+    return _zip_dims(lambda x, d: x if d < 0 else group.gather(x, d + lead),
+                     tree, dims)
+
+
+def _zip_dims(fn, tree, dims):
+    if isinstance(tree, dict):
+        return {k: _zip_dims(fn, v, dims[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_dims(fn, v, d) for v, d in zip(tree, dims)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_dims(fn, v, d) for v, d in zip(tree, dims))
+    if tree is None:
+        return None
+    return fn(tree, dims)
+
+
+def state_split_dims(state, params, dims):
+    """Split dims for an optimizer state over ``params``: each subtree
+    shaped like ``params`` (momentum, AdamW moments) is split as the params
+    are (``dims``); every other leaf (step counters) stays whole."""
+    from repro_torch.utils.tree import tree_flatten
+    want = tree_flatten(params)[1]
+
+    def walk(node):
+        if node is None:
+            return None
+        if tree_flatten(node)[1] == want:
+            return dims
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return -1
+
+    return walk(state)
 
 
 def _is_logical(x) -> bool:

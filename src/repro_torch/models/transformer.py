@@ -54,15 +54,16 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     _dense_init,
-    cross_entropy,
     embed,
     init_embed,
     init_mlp,
     init_rmsnorm,
+    lm_loss,
     mlp,
     rmsnorm,
     unembed,
 )
+from repro_torch.models.sharding import model_group
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -230,6 +231,8 @@ class Transformer:
         """The layer's mixer over the full sequence: the training route's
         differentiable paths under ``train``, else the kernels."""
         cfg = self.cfg
+        if spec.mixer != "attn" and train:
+            self._refuse_model_axis(f"{spec.mixer} mixer")
         if spec.mixer in ("attn", "shared_attn"):
             p = (self._merged_shared_attn(lparams["mixer"], shared)
                  if spec.mixer == "shared_attn" else lparams["mixer"])
@@ -267,6 +270,8 @@ class Transformer:
         the Python 0.0 otherwise, as in the JAX package, so that dense
         archs add nothing on the device)."""
         cfg = self.cfg
+        if spec.ffn not in ("mlp", "none"):
+            self._refuse_model_axis(f"{spec.ffn} FFN")
         if spec.ffn == "mlp":
             return mlp(lparams["ffn"], h), 0.0
         if spec.ffn == "moe":
@@ -318,6 +323,14 @@ class Transformer:
         x, aux = self._hidden_states(params, tokens, prefix, train=False)
         return unembed(params["embed"], x), aux
 
+    def _refuse_model_axis(self, what: str) -> None:
+        """A mixer or FFN other than attention and the dense MLP under a
+        model axis over 1 is ROADMAP queue 1 item 12c."""
+        if model_group() is not None:
+            from repro_torch.api.spec import _not_ported
+            raise _not_ported(f"the {what} under a model axis over 1",
+                              "item 12c")
+
     def loss_fn(self, params, batch):
         """batch: {"tokens": (B,S), "labels": (B,S), ["prefix": (B,P,d)]}.
         The mean token cross-entropy on the training route, plus
@@ -327,8 +340,7 @@ class Transformer:
         if self.cfg.loss_chunk:
             return self._chunked_loss(params, batch, prefix)
         x, aux = self._hidden_states(params, batch["tokens"], prefix)
-        logits = unembed(params["embed"], x)
-        return cross_entropy(logits, batch["labels"]) + AUX_WEIGHT * aux
+        return lm_loss(params["embed"], x, batch["labels"]) + AUX_WEIGHT * aux
 
     def _chunked_loss(self, params, batch, prefix):
         """Cross-entropy computed per sequence chunk of ``cfg.loss_chunk``
@@ -343,8 +355,8 @@ class Transformer:
         labels = batch["labels"]
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, s, c):
-            logits = unembed(params["embed"], x[:, i:i + c])
-            total = total + cross_entropy(logits, labels[:, i:i + c]) * c
+            total = total + lm_loss(params["embed"], x[:, i:i + c],
+                                    labels[:, i:i + c]) * c
         return total / s + AUX_WEIGHT * aux
 
     def _hidden_states(self, params, tokens, prefix, train: bool = True):

@@ -199,7 +199,7 @@ def resident_and_per_round(kw: dict, dim: int, population: int,
 
 def mesh_views() -> dict:
     """The meshes of :mod:`repro_torch.launch.mesh` seen from this rank of
-    a world of 4, and the refusals."""
+    a world of 4, the refusals, and a (2, 2) mesh_2d round's build."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as lmesh
@@ -240,4 +240,194 @@ def mesh_views() -> dict:
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = (type(e).__name__, str(e))
+    return out
+
+
+# ------------------------- the model axis (dm > 1) ---------------------------
+
+def federate_on_budget(kw: dict, dim: int, batches: list, draws, budget):
+    """:func:`federate` with the device budget ``REPRO_DEVICE_MEM_BYTES``
+    set to ``budget`` on this rank; also the engine and mesh shape an
+    ``engine="auto"`` spec resolves to."""
+    import os
+
+    from repro_torch.api.engines import mesh_shape_for
+    from repro_torch.mesh.placement import ENV_DEVICE_MEM
+    os.environ[ENV_DEVICE_MEM] = str(budget)
+    try:
+        spec = make_spec(kw)
+        engine = tapi.resolve_engine(spec)
+        shape = mesh_shape_for(spec) if engine == "mesh_2d" else None
+        out = federate(kw, dim, batches, draws)
+    finally:
+        del os.environ[ENV_DEVICE_MEM]
+    return dict(out, engine=engine, mesh_shape=shape)
+
+
+def _mesh_group(shape):
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.mesh.collectives import ModelGroup
+    mesh = lmesh.make_mesh_2d(shape)
+    return mesh, ModelGroup(mesh)
+
+
+def tp_layers(shape, seed: int) -> dict:
+    """The MLP and attention with their weights split over the model axis
+    of a ``shape`` mesh (this rank's slices, under the model context),
+    against the same layers whole on this rank: each layer's output and
+    its gradients (w.r.t. every weight, and the input) under
+    ``vmap(grad_and_value)`` and under the ``map`` engine's loop over
+    clients (no vmap). Returns each quantity's largest gap divided by its
+    largest magnitude."""
+    from torch.func import grad, grad_and_value, vmap
+
+    from repro_torch.models import attention, layers, sharding
+    mesh, grp = _mesh_group(shape)
+    rng = np.random.default_rng(seed)
+    c, b, s, d, f, h, kv, hd = 3, 2, 12, 16, 24, 4, 2, 8
+
+    def normal(*sh):
+        return torch.as_tensor(rng.standard_normal(sh).astype(np.float32))
+
+    mlp_p = {"w_gate": normal(c, d, f) / 4, "w_up": normal(c, d, f) / 4,
+             "w_down": normal(c, f, d) / 5}
+    att_p = {"wq": normal(c, d, h, hd) / 4, "wk": normal(c, d, kv, hd) / 4,
+             "wv": normal(c, d, kv, hd) / 4, "wo": normal(c, h, hd, d) / 5,
+             "bq": normal(c, h, hd) / 10, "bk": normal(c, kv, hd) / 10,
+             "bv": normal(c, kv, hd) / 10}
+    x = normal(c, b, s, d)
+    pos = torch.arange(s)
+    layers_ = {
+        "mlp": (mlp_p, lambda p, x: layers.mlp(p, x)),
+        "attention_swa": (att_p, lambda p, x: attention
+                          .attention_forward_train(p, x, pos, kind="swa",
+                                                   window=5, block_q=4)),
+        "attention_full": (att_p, lambda p, x: attention
+                           .attention_forward_train(p, x, pos, block_q=4))}
+    out = {}
+    for name, (params, layer) in layers_.items():
+        def loss(p, x, layer=layer):
+            y = layer(p, x)
+            return torch.sum(y * torch.sin(y))
+
+        dims = sharding.param_split_dims(
+            {k: v[0] for k, v in params.items()}, grp.size)
+        local = sharding.to_local(params, dims, grp.index, grp.size, lead=1)
+        g_w, l_w = vmap(grad_and_value(loss))(params, x)
+        gx_w = vmap(grad(loss, argnums=1))(params, x)
+        with sharding.axis_rules(mesh, sharding.mesh2d_rules()):
+            g_s, l_s = vmap(grad_and_value(loss))(local, x)
+            gx_s = vmap(grad(loss, argnums=1))(local, x)
+            loop = [grad_and_value(loss)({k: v[i] for k, v in local.items()},
+                                         x[i]) for i in range(c)]
+        g_s = sharding.to_whole(g_s, dims, grp, lead=1)
+        g_m = sharding.to_whole({k: torch.stack([g[0][k] for g in loop])
+                                 for k in local}, dims, grp, lead=1)
+        l_m = torch.stack([g[1] for g in loop])
+
+        def rel(a, w):
+            return float(torch.max(torch.abs(a - w))
+                         / torch.clamp(torch.max(torch.abs(w)), min=1e-30))
+
+        out[name] = {
+            "dims": dims,
+            "loss_vmap": rel(l_s, l_w), "loss_map": rel(l_m, l_w),
+            "input_grad": rel(gx_s, gx_w),
+            **{f"grad_{k}_vmap": rel(g_s[k], g_w[k]) for k in params},
+            **{f"grad_{k}_map": rel(g_m[k], g_w[k]) for k in params}}
+    return out
+
+
+def split_clip(shape, seed: int) -> dict:
+    """A (R, ...) gradient tree, some leaves split over the model axis of a
+    ``shape`` mesh and some whole, clipped and noised by the split form
+    (``row_sumsq`` -> all-reduce -> ``clip_noise_apply``) on this rank's
+    slices, with and without noise: the result made whole again (in tree
+    order, one (R, N) block) and the norms."""
+    from repro_torch.kernels import ops
+    from repro_torch.mesh.engine import local_noise
+    from repro_torch.models import sharding
+    from repro_torch.utils.tree import tree_flatten
+    mesh, grp = _mesh_group(shape)
+    rng = np.random.default_rng(seed)
+    r = 5
+    tree = {"a": rng.standard_normal((r, 6, 4)), "b": rng.standard_normal(
+        (r, 3)), "c": rng.standard_normal((r, 2, 8, 3)),
+        "d": rng.standard_normal((r, 7))}
+    # rows over and under the clip norm
+    scale = np.array([0.05, 0.1, 1.0, 3.0, 10.0]) / 3
+    tree = {k: torch.as_tensor((v * scale.reshape((r,) + (1,) * (v.ndim - 1))
+                                ).astype(np.float32))
+            for k, v in tree.items()}
+    dims = {"a": 1, "b": -1, "c": 1, "d": -1}
+    n = sum(x[0].numel() for x in tree.values())
+    noise = torch.as_tensor(rng.standard_normal((r, n)).astype(np.float32))
+    sigma = torch.as_tensor(np.linspace(0.1, 0.9, r).astype(np.float32))
+    local_nz = local_noise(noise, {k: v[0] for k, v in tree.items()}, dims,
+                           grp.index, grp.size)
+    local = sharding.to_local(tree, dims, grp.index, grp.size, lead=1)
+    flat_dims = tree_flatten(dims)[0]
+    out = {}
+    for name, nz in (("noise", noise), ("clip_only", None)):
+        got, norm = ops.dp_clip_noise_split_tree(
+            local, None if nz is None else local_nz, 1.5,
+            sigma, flat_dims, grp)
+        whole = sharding.to_whole(got, dims, grp, lead=1)
+        out[name] = (torch.cat([x.reshape(r, -1) for x in
+                                tree_flatten(whole)[0]], 1).numpy(),
+                     norm.numpy())
+    out["inputs"] = (torch.cat([x.reshape(r, -1) for x in
+                                tree_flatten(tree)[0]], 1).numpy(),
+                     noise.numpy(), sigma.numpy())
+    return out
+
+
+def transformer_round(cfg, params0, batch, noise, sigmas, kw: dict) -> dict:
+    """One DP round of the transformer ``cfg`` from ``params0`` (numpy, one
+    client's tree in the port's layout) on ``batch`` with the (C, tau, N) ``noise`` under
+    ``kw``'s spec (its engine and mesh shape), through the engine's round
+    function; plus, under a model axis, the first step's per-client loss
+    gradients (made whole) and the Eq.-7a clip's pre-clip norms. Returns
+    numpy."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.core.clipping import make_dp_grad_fn
+    from repro_torch.kernels.ops import flatten_rows
+    from repro_torch.mesh.engine import local_noise
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
+    from repro_torch.utils.tree import tree_flatten, tree_map
+    model = Transformer(cfg)
+    spec = tapi.FederationSpec(loss_fn=model.loss_fn, optimizer=tsgd(0.05),
+                               **kw)
+    p0 = tree_from_numpy(params0, "cpu")
+    state = tapi.init_state(spec, p0, device="cpu")
+    tb = tree_from_numpy(batch, "cpu")
+    sig = torch.as_tensor(np.asarray(sigmas, np.float32))
+    tp, _, ms = tapi.round_fn_for(spec)(state.params, state.opt_state, tb,
+                                        torch.as_tensor(noise), sig)
+    out = {"params": tree_to_numpy(tp), "loss": float(ms["loss"]),
+           "grad_norm_preclip": float(ms["grad_norm_preclip"])}
+    shape = kw.get("mesh_shape")
+    if shape is None or shape[1] == 1:
+        return out
+    mesh, grp = _mesh_group(shape)
+    if grp.index is None:               # a rank outside the mesh
+        return out
+    step0 = tree_map(lambda x: x[:, 0], tb)
+    one = p0
+    dims = sharding.param_split_dims(one, grp.size)
+    local = sharding.to_local(state.params, dims, grp.index, grp.size,
+                              lead=1)
+    dp_grad = make_dp_grad_fn(model.loss_fn, spec.clip_norm)
+    with sharding.axis_rules(mesh, sharding.mesh2d_rules(), placement=dims):
+        g, loss = vmap(grad_and_value(model.loss_fn))(local, step0)
+        _, metrics = dp_grad(local, step0, local_noise(
+            torch.as_tensor(noise[:, 0]), one, dims, grp.index, grp.size),
+            sig)
+    whole = sharding.to_whole(g, dims, grp, lead=1)
+    out.update(grads=tree_to_numpy(whole), step_loss=loss.numpy(),
+               step_norm=metrics["grad_norm_preclip"].numpy(),
+               flat_grads=flatten_rows(tree_flatten(whole)[0]).numpy())
     return out

@@ -67,17 +67,30 @@ def test_spec_validation_matches_jax(bad):
 
 
 @pytest.mark.parametrize("plane,item", [
-    (dict(engine="shard_map"), "item 12b"), (dict(engine="mesh_2d"), "item 12b"),
+    (dict(engine="shard_map"), "item 12c"), (dict(engine="mesh_2d"), "item 12d"),
 ])
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     """The sharded engines build, in the port as in the JAX package (a
-    world of one here); what of their plane is not ported, a model axis
-    over 1, raises naming its ROADMAP item when the round is built."""
+    world of one here), and a model axis over 1 needs more ranks than that;
+    what of the model axis is not ported raises naming its ROADMAP item:
+    an RWKV model's placement (item 12c) and a weight split over the
+    serving mesh's data axis (item 12d)."""
+    import types
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
     _jspec(**plane)
     assert callable(tapi.round_fn_for(_tspec(**plane)))
-    shape = (1, 2) if plane["engine"] == "shard_map" else (2, 2)
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        tapi.round_fn_for(_tspec(engine="mesh_2d", mesh_shape=(2, 2)))
     with pytest.raises(NotImplementedError, match=item):
-        tapi.round_fn_for(_tspec(engine="mesh_2d", mesh_shape=shape))
+        if item == "item 12c":
+            model = Transformer(smoke_variant(get_arch("rwkv6-1.6b")))
+            sharding.param_split_dims(model.init(device="meta"), 2)
+        mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+        with sharding.axis_rules(mesh, sharding.serve_rules(True)):
+            sharding.shard_hint(torch.ones(4, 6), "fsdp", "tp")
 
 
 def test_async_spec_is_accepted_and_keyed_like_jax():

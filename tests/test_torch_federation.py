@@ -242,7 +242,8 @@ def test_engine_registry():
 def test_replica_hint_places_engine_auto(monkeypatch):
     """A replica that fits the device resolves engine='auto' to vmap on one
     rank; one over the budget resolves to mesh_2d, whose build raises
-    naming item 12b (the model axis it would need);
+    ValueError saying how many ranks the replica needs (a world of one
+    cannot split it);
     REPRO_DEVICE_MEM_BYTES overrides the budget, as in the JAX package."""
     from repro_torch.api import engines
     monkeypatch.delenv(engines.ENV_DEVICE_MEM, raising=False)
@@ -258,7 +259,9 @@ def test_replica_hint_places_engine_auto(monkeypatch):
     big = spec.replace(replica_bytes=4097)
     assert tapi.resolve_engine(big) == "mesh_2d"
     assert tapi.get_engine(big) is engines.build_mesh_2d_engine
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(ValueError, match="needs a model axis of at least 2 "
+                                         "ranks to split it; the world has "
+                                         "1 rank"):
         tapi.round_fn_for(big)
     assert tapi.resolve_engine(spec.replace(replica_bytes=4097,
                                             engine="map")) == "map"
@@ -366,9 +369,8 @@ def test_throughput_smoke_runs_in_process_on_the_cpu(tmp_path):
                for r in rows)
     assert rows[0]["hbm_bytes"] == 4 * (3 * 65536 + 1)
     assert report["mesh_plane"]["skipped"]
-    assert report["mesh_plane"]["reason"].startswith(
-        "needs 8 ranks for the (4,2) mesh, have 1")
-    assert "item 12b" in report["mesh_plane"]["reason"]
+    assert report["mesh_plane"]["reason"] == \
+        "needs 8 ranks for the (4,2) mesh, have 1"
     assert tp.check(report, timing=False) == []
     with pytest.raises(SystemExit):
         tp.main(["--out", "BENCH_throughput.json", "--device", "cpu"])

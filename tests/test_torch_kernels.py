@@ -51,7 +51,13 @@ except ModuleNotFoundError:
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
-from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+from repro_torch.kernels.dp_clip_noise import (
+    clip_noise_apply,
+    clip_noise_apply_cost,
+    dp_clip_noise,
+    row_sumsq,
+    row_sumsq_cost,
+)
 from repro_torch.kernels.flash_attention import _variant, flash_attention
 from repro_torch.kernels.mamba2_ssd import _variant as _ssd_variant
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd
@@ -68,6 +74,7 @@ from repro_torch.kernels.ref import (
     flash_attention_ref,
     mamba2_ssd_ref,
     quantize_decompress_ref,
+    row_sumsq_ref,
     rwkv6_scan_ref,
 )
 from repro_torch.kernels.row_reduce import cluster_shape
@@ -1123,6 +1130,66 @@ def test_model_kernel_ops_take_ref_and_refuse_unknown_backends():
             call()
 
 
+# ------------------- the split form (a model axis' clip) ---------------------
+
+@pytest.mark.parametrize("rows,n,scale", [(1, 1, 3.0), (3, 37, 1.0),
+                                          (4, 5003, 10.0), (2, 9000, 0.05)])
+@pytest.mark.parametrize("with_noise", [True, False])
+def test_split_form_equals_the_one_call_plain_version(rows, n, scale,
+                                                      with_noise):
+    """row_sumsq then clip_noise_apply from its square root is the plain
+    dp_clip_noise bit for bit on the CPU (the same expressions), and within
+    1e-6 of JAX's Pallas kernel in interpret mode; row_sumsq takes rows of
+    a wider buffer (a row stride) as they are."""
+    g, noise, sigma = _rows(rows, n, scale, seed=n)
+    tg, tn, ts = _torch(g, noise, sigma)
+    tn = tn if with_noise else None
+    norm = torch.sqrt(row_sumsq(tg))
+    y = clip_noise_apply(tg, tn, norm, 1.0, ts)
+    wy, wn = dp_clip_noise_ref(tg, tn, 1.0, ts)
+    assert torch.equal(norm, wn) and torch.equal(y, wy)
+    wide = torch.cat([tg, torch.ones(rows, 5)], dim=1)
+    assert torch.equal(row_sumsq(wide[:, :n]), row_sumsq_ref(tg))
+    if jax is not None:
+        for r in range(rows):
+            jy, jn = jax_dp_clip_noise(jnp.asarray(g[r]), jnp.asarray(
+                noise[r]) if with_noise else None, 1.0, float(sigma[r]),
+                interpret=True)
+            np.testing.assert_allclose(y[r].numpy(), np.asarray(jy),
+                                       rtol=0, atol=ATOL)
+            assert abs(float(norm[r]) - float(jn)) <= ATOL * max(
+                1.0, float(jn))
+
+
+def test_split_form_costs_and_refusals():
+    """Each phase counts its own (flops, bytes) under cost_of on meta
+    tensors, launches nothing, and refuses what its kernel cannot take."""
+    from repro_torch.utils.cost import cost_of
+    x = torch.empty(16, 105, device="meta")
+    norm = torch.empty(16, device="meta")
+    c, out = cost_of(row_sumsq, x)
+    assert out.shape == (16,)
+    assert (c.flops, c.hbm_bytes) == row_sumsq_cost(16, 105) == (
+        2 * 16 * 105, 4 * (16 * 105 + 16))
+    for noise, mult in ((x, 3), (None, 2)):
+        c, out = cost_of(clip_noise_apply, x, noise, norm, 1.0, norm)
+        assert out.shape == (16, 105)
+        assert (c.flops, c.hbm_bytes) == clip_noise_apply_cost(
+            16, 105, noise is not None) == (3 * 16 * 105,
+                                            4 * (mult * 16 * 105 + 16))
+    assert row_sumsq.launches == clip_noise_apply.launches == 0
+    with pytest.raises(ValueError, match="float32"):
+        row_sumsq(torch.zeros(3, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="non-empty"):
+        row_sumsq(torch.zeros(3, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        clip_noise_apply(torch.zeros(6, 4)[::2], None, torch.ones(3), 1.0,
+                         None)
+    with pytest.raises(ValueError, match="norm and sigma"):
+        clip_noise_apply(torch.zeros(3, 4), torch.zeros(3, 4),
+                         torch.ones(3), 1.0, None)
+
+
 # ------------------------------ on the card ---------------------------------
 
 @pytest.fixture
@@ -1202,6 +1269,36 @@ def test_cuda_dp_clip_noise_takes_strided_noise_rows(cuda_device, n):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     torch.testing.assert_close(got[0], plain[0], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", GPU_ROWS + [(2, 3 * 8192), (2, 8193)])
+@pytest.mark.parametrize("with_noise", [True, False])
+def test_cuda_split_form_matches_plain_version(cuda_device, rows, n,
+                                               with_noise):
+    """row_sumsq (one launch for rows of one 8,192-element chunk, two
+    beyond) on the leading columns of a wider buffer, then
+    clip_noise_apply with step t of a (C, tau, N) noise block: each within
+    1e-5 relative of its plain version, one count a call."""
+    tg, rng = _gpu_rows(rows, n, cuda_device, seed=n)
+    wide = torch.cat([tg, torch.ones(rows, 3, device=cuda_device)], 1)
+    block = torch.as_tensor(rng.normal(size=(rows, 2, n)).astype(
+        np.float32)).to(cuda_device)
+    tn = block[:, 1] if with_noise else None
+    ts = torch.as_tensor(rng.uniform(0.1, 2.0, size=rows).astype(
+        np.float32)).to(cuda_device)
+    before = (row_sumsq.launches, clip_noise_apply.launches)
+    sq = row_sumsq(wide[:, :n])
+    norm = torch.sqrt(sq)
+    y = clip_noise_apply(tg, tn, norm, 1.0, ts)
+    torch.cuda.synchronize()
+    assert (row_sumsq.launches, clip_noise_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(sq, row_sumsq_ref(tg), atol=0, rtol=1e-5)
+    wy, _ = dp_clip_noise_ref(tg, tn, 1.0, ts)
+    torch.testing.assert_close(y, wy, atol=1e-6, rtol=1e-5)
+    again = row_sumsq(wide[:, :n])
+    assert torch.equal(again, sq)                  # one fixed order
 
 
 @pytest.mark.gpu

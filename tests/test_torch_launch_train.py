@@ -139,28 +139,34 @@ def test_federation_meta_equals_jax(kw):
 
 @pytest.mark.parametrize("extra,item", [
     (["--engine", "shard_map"], None),
-    (["--engine", "mesh_2d", "--mesh-shape", "2,2"], "item 12b"),
+    (["--engine", "mesh_2d", "--mesh-shape", "2,2"], "four ranks"),
     (["--engine", "mesh_2d", "--mesh-shape", "1,1"], None),
-    (["--replica-hint"], "item 12b"),
+    (["--replica-hint"], "needs a model axis of at least"),
     (["--env-profile", "cpu-mesh"], None),
     (["--host-devices", "2"], None),
 ])
 def test_unported_flags_raise_naming_their_item(extra, item, monkeypatch):
     """The sharded plane's flags run (a world of one here) and train the
-    vmap run's rounds, epsilon and cost; a model axis over 1 raises naming
-    item 12b, as does a replica hint over the device's memory (a budget of
-    1 KiB here: engine='auto' places it on mesh_2d, which would have to
-    split it)."""
+    vmap run's rounds, epsilon and cost; a (2, 2) mesh runs as four gloo
+    ranks (``--env-profile cpu-mesh --host-devices 4``) and does the same;
+    a replica hint over the device's memory (a budget of 1 KiB here:
+    engine='auto' places it on mesh_2d, which must split it) raises
+    ValueError on a world of one, saying how many ranks it needs."""
     monkeypatch.setenv("REPRO_DEVICE_MEM_BYTES", "1024")
     monkeypatch.setenv("REPRO_ENV_PROFILE_APPLIED", "1")   # no re-exec
     argv = BASE + extra + ["--device", "cpu"]
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            ttrain.main(argv)
-        return
-    got, _ = _run(ttrain.main, argv)
     want, _ = _run(ttrain.main, BASE + ["--engine", "vmap", "--device",
                                         "cpu"])
+    if item == "four ranks":
+        got, stdout = _launch(argv + ["--env-profile", "cpu-mesh",
+                                      "--host-devices", "4"])
+        assert stdout.count('"rounds"') == 1
+    elif item is not None:
+        with pytest.raises(ValueError, match=item):
+            ttrain.main(argv)
+        return
+    else:
+        got, _ = _run(ttrain.main, argv)
     assert {k: got[k] for k in SUMMARY_KEYS} == \
         {k: want[k] for k in SUMMARY_KEYS}
 

@@ -444,7 +444,7 @@ def test_dryrun_refuses_what_only_steers_xla():
     for opt in tdryrun.XLA_OPTS:
         with pytest.raises(ValueError, match="XLA"):
             tdryrun.apply_opts(tconfigs.get_arch("gemma3-4b"), (opt,))
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         tdryrun.main(["--all", "--multi-pod"])
     skipped = tdryrun.run_one("granite-20b", "long_500k")
     assert skipped["status"] == "skipped" and "skip" in skipped["reason"]

@@ -9,8 +9,10 @@ engine in a gloo world of 4 ranks.
 * Spec plumbing and the logical-axis rules: ``mesh_shape`` /
   ``sharding_rules`` / ``replica_bytes`` validation and engine keys as in
   the JAX package, ``resolve_spec`` against JAX's under ``mesh2d_rules``,
-  ``train_rules`` and ``serve_rules``, ``shard_hint`` the identity where
-  every axis has size 1 and a refusal naming item 12b elsewhere.
+  ``train_rules`` and ``serve_rules``, ``shard_hint`` the identity on a
+  weight's local slice under a model axis (and a refusal of a hint that
+  does not name each dim). The model axis itself (``dm > 1``) is held
+  against the JAX package in tests/test_torch_mesh_model_axis.py.
 * The meshes over a world's ranks, and ``mesh_2d`` at (4, 1): bitwise
   ``shard_map`` where clients divide, within 1e-5 of ``vmap`` where they
   do not (C = 3, 5, 7).
@@ -188,8 +190,9 @@ def test_spec_mesh_fields_key_the_engine_cache():
 
 def test_auto_on_one_rank_and_the_model_axis(monkeypatch):
     """One rank: engine='auto' is vmap; a replica over the budget resolves
-    to mesh_2d, whose build raises naming item 12b, as does an explicit
-    model axis over 1 (the JAX package keeps vmap on one device)."""
+    to mesh_2d, whose build raises ValueError saying how many ranks the
+    replica needs, and an explicit model axis over 1 needs more ranks than
+    the world has (the JAX package keeps vmap on one device)."""
     monkeypatch.setenv(tplace.ENV_DEVICE_MEM, "4096")
     spec = _tspec(engine="auto")
     assert tapi.resolve_engine(spec) == "vmap"
@@ -198,9 +201,11 @@ def test_auto_on_one_rank_and_the_model_axis(monkeypatch):
     assert tapi.resolve_engine(big) == "mesh_2d"
     assert tapi.resolve_engine(big.replace(
         aggregator="median", participation=0.5)) == "vmap"
-    for s in (big, _tspec(engine="mesh_2d", mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            tapi.round_fn_for(s)
+    with pytest.raises(ValueError, match="needs a model axis of at least 2 "
+                                         "ranks"):
+        tapi.round_fn_for(big)
+    with pytest.raises(ValueError, match="needs 2 ranks, only 1"):
+        tapi.round_fn_for(_tspec(engine="mesh_2d", mesh_shape=(1, 2)))
 
 
 # ---------------------------- logical-axis rules -----------------------------
@@ -258,16 +263,29 @@ def test_spec_tree_matches_jax():
 
 
 def test_shard_hint_identity_and_model_axis_refusal():
+    """shard_hint is the identity everywhere; under a model axis of 2 it
+    checks that a hint names each dim of its (local) tensor, and
+    model_dim gives the dim the model axis splits; a hint that would split
+    a tensor over another mesh axis raises naming item 12d."""
     x = torch.ones(4, 6)
     assert tshard.shard_hint(x, "fsdp", "tp") is x
     one = types.SimpleNamespace(shape={"client": 4, "model": 1})
     with tshard.axis_rules(one, tshard.mesh2d_rules()):
         assert tshard.shard_hint(x, "fsdp", "tp") is x
         assert tshard.shard_hint(x, "client", "act") is x
+        assert tshard.model_dim("fsdp", "tp") == -1
     two = types.SimpleNamespace(shape={"client": 2, "model": 2})
     with tshard.axis_rules(two, tshard.mesh2d_rules()):
+        assert tshard.shard_hint(x, "fsdp", "tp") is x
         assert tshard.shard_hint(torch.ones(3, 5), "fsdp", "tp") is not None
-        with pytest.raises(NotImplementedError, match="item 12b"):
+        assert tshard.model_dim("fsdp", "tp") == 0
+        assert tshard.model_dim("wg", "tp", None) == 1
+        assert tshard.model_dim("batch", "seq", None) == -1
+        with pytest.raises(ValueError, match="2 logical axes"):
+            tshard.shard_hint(torch.ones(2, 3, 4), "fsdp", "tp")
+    data = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    with tshard.axis_rules(data, tshard.serve_rules(fsdp_over_data=True)):
+        with pytest.raises(NotImplementedError, match="item 12d"):
             tshard.shard_hint(x, "fsdp", "tp")
 
 
@@ -307,8 +325,7 @@ def test_meshes_over_a_world_of_four(worlds):
         for name, need in (("production", 256), ("multi_pod", 512)):
             assert v[name][0] == "ValueError"
             assert f"{need} ranks, have 4" in v[name][1]
-        assert v["model_axis"][0] == "NotImplementedError"
-        assert "item 12b" in v["model_axis"][1]
+        assert v["model_axis"] is None          # (2, 2) builds
 
 
 # ------------------------------ mesh_2d engine -------------------------------
@@ -378,8 +395,9 @@ def test_fewer_blocks_than_ranks_hand_results_to_the_rest(worlds):
 
 def test_mesh_quickstart_example_runs_on_two_ranks():
     """examples/mesh_quickstart_torch.py starts its gloo ranks and ends
-    with 0: vmap / shard_map / mesh_2d agree, the oversized replica names
-    item 12b, the padded clients match vmap."""
+    with 0: vmap / shard_map / mesh_2d at (2, 1) and (1, 2) agree, the
+    oversized replica trains on a (1, 2) mesh, the padded clients match
+    vmap."""
     import os
     import pathlib
     import subprocess
@@ -394,7 +412,9 @@ def test_mesh_quickstart_example_runs_on_two_ranks():
          "--ranks", "2", "--device", "cpu"],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert "item 12b" in out.stdout and out.stdout.rstrip().endswith("done.")
+    assert "mesh_2d (1, 2)" in out.stdout
+    assert "engine=mesh_2d, mesh (1, 2): loss" in out.stdout
+    assert out.stdout.rstrip().endswith("done.")
     assert out.stdout.count("== 1.") == 1          # rank 0 prints alone
 
 

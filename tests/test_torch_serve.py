@@ -180,12 +180,12 @@ def test_main_engine_mode_prints_the_continuous_fields(capsys):
 
 
 def test_main_refuses_the_env_profile_flags(monkeypatch):
-    """The mesh profile and a host split into ranks raise, naming item 12b
+    """The mesh profile and a host split into ranks raise, naming item 12d
     (serving over several ranks needs the serving mesh); ``--env-profile
     host`` re-execs the launcher once (guarded)."""
     import os
     for extra in (["--env-profile", "cpu-mesh"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="item 12b"):
+        with pytest.raises(NotImplementedError, match="item 12d"):
             serve.main(["--arch", "gemma3-4b", "--smoke", "--device",
                         "cpu"] + extra)
     monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)
