@@ -135,9 +135,9 @@ Phases (each prints its lines; any failure exits non-zero):
      ms per step, their tokens equal under a guard of 4x their logits'
      difference (half the steps compared at least), one profiled engine
      step, blocking host syncs (0 per decode_step(table=...), at most 1
-     per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 3
-     on cuda at gemma3-4b's full width (medians of the modes run in
-     turns); (d) examples/serve_continuous_torch.py on cuda;
+     per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 1
+     on cuda at gemma3-4b's full width (the modes run in turns, one run of
+     each a load); (d) examples/serve_continuous_torch.py on cuda;
  18. the MoE archs and the chunked mixers, bf16 at the published widths,
      random weights from a seed, after a check that phase 17 left no
      memory allocated: (a) launch.serve.generate on phi3.5-moe (16 of 32
@@ -201,9 +201,15 @@ Phases (each prints its lines; any failure exits non-zero):
      to 1 layer, C 2, tau 1, seq 2048, 2 rounds as mesh_2d (1, 2) and as
      vmap on rank 0, in turns: params within 2e-5 of each tensor's largest
      magnitude, ms per round, each rank's peak memory, the model group's
-     all-reduces a local step; (c) row_sumsq and clip_noise_apply at a
-     rank's rows of (a) and (b) against their plain versions and their
-     bounds.
+     all-reduces a local step; (d)-(f) the other families as (b), f32,
+     tau 1, 2 rounds, in turns with vmap: (d) rwkv6-1.6b's widths, depth
+     24 -> 4, C 2, seq 512; (e) zamba2-7b's widths, its shared attention
+     + MLP block and one Mamba2 layer, C 2, seq 2048; (f) phi3.5-moe's
+     widths, 1 layer (experts split over the ranks), C 1, seq 512. 21b
+     and 21d-f share one world of two ranks; (c), after them:
+     row_sumsq and clip_noise_apply at a rank's rows of (a), (b) and
+     (d)-(f) (for (b) and (d)-(f) also row_sumsq on rank 1's split
+     columns) against their plain versions and their bounds.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -305,7 +311,9 @@ ENGINE_GENS, ENGINE_SLOTS, ENGINE_BLOCK = (16, 32), 4, 64
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
 GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
 MODEL_KERNELS = ("flash_attention", "rwkv6_scan", "mamba2_ssd")
-SERVE_REPEATS = 3      # phase 17c: runs of each load, the modes in turns
+# phase 17c: runs of each load, the modes in turns (one: three took 178 s
+# of the script's 1,200 s, which phases 21d-f need)
+SERVE_REPEATS = 1
 # phase 18: the MoE archs at their published widths, bf16. (arch, steps of
 # its segment pattern kept (the depth cut), batch, prompt, greedy tokens):
 # phi3.5-moe 16 of 32 layers (41.9 GB of params); llama4-maverick one
@@ -4458,15 +4466,24 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
 
 # phase 21: the model axis of mesh_2d (dm > 1), two gloo ranks sharing the
 # card. 21a: phase 3's Adult-1 spec as mesh_2d (1, 2) (w (104, 2) split on
-# d_in); 21b: gemma3-4b's widths, f32, depth cut 34 -> 1 (swa) layer, C 2,
-# tau 1, batch 1, seq 2048, 2 rounds, (1, 2), in turns with vmap
+# d_in); 21b, d-f: a transformer at its published widths, f32, depth cut,
+# tau 1, batch 1, 2 rounds, (1, 2), in turns with vmap: phase -> (arch, the
+# depth cut: steps of the layers kept (indices into its first segment's
+# pattern), C, seq). rwkv6's seq is cut 2048 -> 512 (and its loss chunk
+# 1024 -> 512 with it): its training route's per-token WKV scan keeps
+# every token's (hd, hd) states a head for the backward, and at 2048 a mesh
+# rank ran the card out of memory
 MA_SHAPE = (1, 2)
+MA_CELLS = {"21b": ("gemma3-4b", 1, (0,), 2, 2048),
+            "21d": ("rwkv6-1.6b", 4, (0,), 2, 512),
+            "21e": ("zamba2-7b", 1, (0, 1), 2, 2048),
+            "21f": ("phi3.5-moe-42b-a6.6b", 1, (0,), 1, 512)}
 MA_RUNS = (("dense", {}),
            ("qsgd8_q50", dict(compressor="qsgd", compression_bits=8,
                               participation=0.5)))
 MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
               "quantize_decompress")
-MA_TF_C, MA_TF_TAU, MA_TF_B, MA_TF_SEQ, MA_TF_ROUNDS = 2, 1, 1, 2048, 2
+MA_TF_TAU, MA_TF_B, MA_TF_ROUNDS = 1, 1, 2
 MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
 
 
@@ -4623,41 +4640,52 @@ def run_model_axis_adult(torch, np, api, linear, spec, fed, card):
     return ok, launches, errs, [r["shapes"] for r in ranks]
 
 
-def _gemma_one_layer(configs):
-    """gemma3-4b at its published widths, f32, depth cut 34 -> 1 layer
-    (the first, sliding-window layer of its pattern)."""
+def _ma_cfg(configs, phase: str):
+    """Phase ``phase``'s transformer (MA_CELLS) at its published widths,
+    f32, its depth cut to the listed layers of its first segment's pattern
+    (one step of them): gemma3-4b's first (swa) layer; rwkv6-1.6b's 24
+    layers cut to 4; zamba2-7b's shared block and one Mamba2 layer;
+    phi3.5-moe's 32 cut to 1. A loss chunk longer than the cell's seq is
+    cut to it."""
     import dataclasses
-    cfg = configs.get_arch("gemma3-4b")
+    arch, steps, layers, _, seq = MA_CELLS[phase]
+    cfg = configs.get_arch(arch)
     seg = cfg.segments[0]
+    pattern = tuple(seg.pattern[i] for i in layers)
+    n = steps * len(pattern)
     return dataclasses.replace(
-        cfg, name="gemma3-4b-1L", n_layers=1, dtype="float32",
-        segments=(dataclasses.replace(seg, n_steps=1,
-                                      pattern=seg.pattern[:1]),))
+        cfg, name=f"{arch}-{n}L", n_layers=n, dtype="float32",
+        loss_chunk=min(cfg.loss_chunk, seq),
+        segments=(dataclasses.replace(seg, n_steps=steps,
+                                      pattern=pattern),))
 
 
-def _gemma_split_columns(configs) -> int:
-    """A rank's columns of the flat gradient on phase 21b's (1, 2) mesh (the
-    split leaves' slices and the whole leaves), what the split kernels
-    take: counted on meta tensors."""
+def _ma_split_shape(configs, phase: str) -> tuple:
+    """Phase ``phase``'s flat gradient on a rank of the (1, 2) mesh, what
+    the split kernels take, counted on meta tensors: (clients, its columns
+    (the split leaves' slices, then the whole leaves): clip_noise_apply's
+    on each rank and row_sumsq's on rank 0, the split leaves' columns
+    alone: row_sumsq's on rank 1, a view with rank 0's row stride)."""
     from repro_torch.models import sharding
     from repro_torch.models.transformer import Transformer
     from repro_torch.utils.tree import tree_leaves
-    one = Transformer(_gemma_one_layer(configs)).init(device="meta")
+    one = Transformer(_ma_cfg(configs, phase)).init(device="meta")
     dims = tree_leaves(sharding.param_split_dims(one, MA_SHAPE[1]))
-    return sum(x.numel() // (MA_SHAPE[1] if d >= 0 else 1)
-               for x, d in zip(tree_leaves(one), dims))
+    cols = [(x.numel() // (MA_SHAPE[1] if d >= 0 else 1), d >= 0)
+            for x, d in zip(tree_leaves(one), dims)]
+    return (MA_CELLS[phase][3], sum(n for n, _ in cols),
+            sum(n for n, split in cols if split))
 
 
-def _model_axis_gemma_rank(sigmas, turns: int) -> dict:
-    """Phase 21b's program on one rank: gemma3-4b one layer (f32) built by
-    launch.train.build_federation as mesh_2d MA_SHAPE and as vmap from the
-    same seed; MA_TF_ROUNDS rounds of each from the same state on the same
-    batches, in turns (mesh, vmap, mesh, ...; vmap on rank 0 only, rank 1
-    waiting at a barrier), counters set to 0 just before each mesh turn
-    and read after it. Returns the last turns' params (as numpy on rank
-    0), losses, ms per round, per-rank peak memory and the model group's
-    all-reduces, and the split kernels' first calls held against their
-    plain versions."""
+def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
+    """Phase ``phase``'s program on one rank: its transformer (f32,
+    MA_CELLS) built by launch.train.build_federation as mesh_2d MA_SHAPE
+    and as vmap from the same seed; MA_TF_ROUNDS rounds of each from the
+    same state on the same batches, in turns (mesh, vmap, mesh, ...; vmap
+    on rank 0 only, rank 1 waiting at a barrier), counters set to 0 just
+    before each mesh turn and read after it. Returns the last turns'
+    params gaps (on rank 0), losses, ms per round, per-rank peak memory
+    and the model group's all-reduces and gathers."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4671,7 +4699,8 @@ def _model_axis_gemma_rank(sigmas, turns: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     rank = dist.get_rank()
-    cfg = _gemma_one_layer(configs)
+    cfg = _ma_cfg(configs, phase)
+    n_clients, seq = MA_CELLS[phase][3:]
     counters = _ma_counters()
     out = {"rank": rank, "mesh_ms": [], "vmap_ms": [], "losses": {},
            "launches": [], "all_reduce": [], "gather": []}
@@ -4687,7 +4716,7 @@ def _model_axis_gemma_rank(sigmas, turns: int) -> dict:
             # hold another turn's buffers
             t_build = time.perf_counter()
             model, spec, state, sampler = launch_train.build_federation(
-                cfg, MA_TF_C, MA_TF_TAU, MA_TF_B, MA_TF_SEQ, sigmas,
+                cfg, n_clients, MA_TF_TAU, MA_TF_B, seq, sigmas,
                 clip_norm=CLIP, delta=DELTA, engine=engine,
                 mesh_shape=MA_SHAPE if engine == "mesh_2d" else None,
                 device="cuda")
@@ -4741,29 +4770,33 @@ def _model_axis_gemma_rank(sigmas, turns: int) -> dict:
     return out
 
 
-def run_model_axis_gemma(torch, np, fl, configs, card):
-    """Phase 21b: gemma3-4b's published widths (d_model 2560, 8 / 4 heads
-    of 256, ffn 10240, vocab 262144) at depth 1, f32, C 2, tau 1, batch 1,
-    seq 2048, as mesh_2d (1, 2) on two gloo ranks sharing the card, and as
-    vmap on rank 0 from the same seed, state and batches, in turns: params
-    within MA_TF_TOL of each tensor's largest magnitude, the losses,
-    ms per round of each in turns, each rank's peak memory, the model
-    group's all-reduces a local step, launches (row_sumsq and
-    clip_noise_apply tau x rounds a rank, dp_clip_noise none).
-    Returns (ok, {kernel: launches summed over the ranks, last turn},
-    record)."""
-    from repro_torch.launch.mesh import HostWorld
+def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
+    """Phase 21b (gemma3-4b: d_model 2560, 8 / 4 heads of 256, ffn 10240,
+    vocab 262144, depth 1), 21d (rwkv6-1.6b: d_model 2048, 32 heads of
+    64, d_ff 7168, depth 24 -> 4, seq 512), 21e (zamba2-7b: d_model 3584,
+    112 SSD heads of 64, 7,296 conv channels, 32 attention heads, the
+    shared block and one Mamba2 layer) or 21f (phi3.5-moe: d_model 4096, 16 experts of
+    6400, 32 / 8 heads, depth 32 -> 1, C 1, seq 512), f32, tau 1, batch 1,
+    as mesh_2d (1, 2) on two gloo ranks sharing the card, and as vmap on
+    rank 0 from the same seed, state and batches, in turns: params within
+    MA_TF_TOL of each tensor's largest magnitude, the losses finite and
+    alike on the ranks, ms per round of each in turns, each rank's peak
+    memory, the model group's all-reduces a local step and gathers a
+    round, launches (row_sumsq and clip_noise_apply tau x rounds a rank,
+    dp_clip_noise none). ``world`` is the HostWorld(2) the cells share
+    (a failed cell closes it). Returns (ok, {kernel: launches summed over
+    the ranks, last turn}, record)."""
+    arch, _, _, n_clients, seq = MA_CELLS[phase]
     sigmas = fl.design_sigmas(MA_TF_ROUNDS * MA_TF_TAU, CLIP,
-                              [MA_TF_B] * MA_TF_C, TRAIN_EPS, DELTA)
+                              [MA_TF_B] * n_clients, TRAIN_EPS, DELTA)
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        with HostWorld(2) as world:
-            ranks = world.run(_model_axis_gemma_rank, sigmas, 2)
+        ranks = world.run(_model_axis_tf_rank, phase, sigmas, 2)
     except RuntimeError as e:
-        print(f"phase 21b: the two ranks failed: {e} CHECK FAILED",
+        print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
               flush=True)
         return False, dict.fromkeys(MA_KERNELS, 0), {}
     wall = time.perf_counter() - t0
@@ -4781,26 +4814,30 @@ def run_model_axis_gemma(torch, np, fl, configs, card):
                                               r0["losses"]["vmap"]))
     ok = max(gaps) <= MA_TF_TOL and launches_ok and finite and alike
     per_step = [a / steps for a in r0["all_reduce"]]
-    print(f"phase 21b on {card}: gemma3-4b's widths, f32, depth cut 34 -> "
-          f"1 layer (swa), N = {r0['n_params']:,} params a replica, C "
-          f"{MA_TF_C}, tau {MA_TF_TAU}, batch {MA_TF_B}, seq {MA_TF_SEQ}, "
-          f"{MA_TF_ROUNDS} rounds, mesh_2d {MA_SHAPE} on 2 gloo ranks vs "
-          f"vmap on rank 0; {wall:.1f} s with the ranks' start", flush=True)
-    print(f"phase 21b params: max |d| / max |vmap| per tensor "
+    seg = _ma_cfg(configs, phase).segments[0]
+    layers = [f"{ls.mixer} + {ls.ffn}" for ls in seg.pattern] * seg.n_steps
+    print(f"phase {phase} on {card}: {arch}'s widths, f32, depth cut to "
+          f"{len(layers)} layer(s) {layers}, "
+          f"N = {r0['n_params']:,} params a replica, C {n_clients}, tau "
+          f"{MA_TF_TAU}, batch {MA_TF_B}, seq {seq}, {MA_TF_ROUNDS} rounds, "
+          f"mesh_2d {MA_SHAPE} on 2 gloo ranks vs vmap on rank 0; "
+          f"{wall:.1f} s", flush=True)
+    print(f"phase {phase} params: max |d| / max |vmap| per tensor "
           f"{max(gaps):.3e} (limit {MA_TF_TOL}); losses mesh "
           f"{r0['losses']['mesh_2d']} vmap {r0['losses']['vmap']} (max |d| "
           f"{loss_gap:.3e}); ranks' losses "
           f"{'alike' if alike else 'DIFFERENT'}", flush=True)
-    print(f"phase 21b ms per round in turns (m v m v): mesh "
+    print(f"phase {phase} ms per round in turns (m v m v): mesh "
           f"{[round(x, 3) for x in r0['mesh_ms']]} vmap "
           f"{[round(x, 3) for x in r0['vmap_ms']]} (rank 0's builds "
           f"{r0['build_s']} s); peak memory allocated "
           f"per rank (mesh) {[round(r['mesh_peak_gb'], 3) for r in ranks]} "
           f"GB, vmap (rank 0 alone) {r0['vmap_peak_gb']:.3f} GB", flush=True)
-    print(f"phase 21b model-group all-reduces a local step {per_step} "
-          f"(forward, backward and the clip norm), output gathers a round "
-          f"{[g / MA_TF_ROUNDS for g in r0['gather']]}; launches per rank "
-          f"and turn "
+    print(f"phase {phase} model-group all-reduces a local step {per_step} "
+          f"(forward, backward and the clip norm), gathers a round "
+          f"{[g / MA_TF_ROUNDS for g in r0['gather']]} (the outputs', and "
+          f"those of weights used whole: zamba2's LoRA factors and conv); "
+          f"launches per rank and turn "
           f"{[r['launches'] for r in ranks]} (expected {want_l}) "
           f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
     launches = {n: sum(r["launches"][-1][n] for r in ranks)
@@ -4815,12 +4852,14 @@ def run_model_axis_gemma(torch, np, fl, configs, card):
 
 
 def check_split_kernels(torch, shapes, card):
-    """Phase 21c: row_sumsq and clip_noise_apply at a rank's rows of 21a
-    and 21b, against their plain versions (row_sumsq within 1e-5
-    relative; y within 1e-6 + 1e-5 |y|), timed (CUDA events) beside the
-    plain version and the bound (bytes over HBM's rate, operations over
-    the f32 peak: the larger). Returns (ok, {kernel: record at the first
-    shape, with the others under "at"}, {kernel: max abs err})."""
+    """Phase 21c: row_sumsq and clip_noise_apply at a rank's rows of 21a,
+    21b and 21d-f, ``shapes`` of (rows, columns) or (rows, columns, the
+    split columns rank 1's row_sumsq takes as a row-strided view), against
+    their plain versions (row_sumsq within 1e-5 relative; y within 1e-6 +
+    1e-5 |y|), timed (CUDA events) beside the plain version and the bound
+    (bytes over HBM's rate, operations over the f32 peak: the larger).
+    Returns (ok, {kernel: record at the first shape, with the others under
+    "at"}, {kernel: max abs err})."""
     from repro_torch.kernels.dp_clip_noise import (
         clip_noise_apply,
         clip_noise_apply_cost,
@@ -4829,7 +4868,7 @@ def check_split_kernels(torch, shapes, card):
     )
     from repro_torch.kernels.ref import clip_noise_apply_ref, row_sumsq_ref
     ok, recs, errs = True, {}, {}
-    for rows, n in shapes:
+    for rows, n, *split in shapes:
         big = rows * n > 1e8
         x, z, _, sigma = _row_inputs(torch, rows, n, 1)
         sq = row_sumsq(x)
@@ -4837,9 +4876,23 @@ def check_split_kernels(torch, shapes, card):
         norm = torch.sqrt(want_sq)
         y = clip_noise_apply(x, z, norm, CLIP, sigma)
         want_y = clip_noise_apply_ref(x, z, norm, CLIP, sigma)
-        torch.cuda.synchronize()
         rel = float(((sq - want_sq).abs()
                      / want_sq.abs().clamp(min=1e-30)).max())
+        for n_split in split:               # rank 1's call
+            part = x[:, :n_split]
+            sq_1, want_1 = row_sumsq(part), row_sumsq_ref(part)
+            rel_1 = float(((sq_1 - want_1).abs()
+                           / want_1.abs().clamp(min=1e-30)).max())
+            errs["row_sumsq"] = max(errs.get("row_sumsq", 0.0),
+                                    float((sq_1 - want_1).abs().max()))
+            ok &= rel_1 <= 1e-5
+            print(f"phase 21c row_sumsq ({rows}, {n_split:,}) of ({rows}, "
+                  f"{n:,}) (rank 1's split columns, row stride {n:,}): vs "
+                  f"plain rel {rel_1:.2e} "
+                  f"{'ok' if rel_1 <= 1e-5 else 'MISMATCH'} ({card})",
+                  flush=True)
+            del part, sq_1, want_1
+        torch.cuda.synchronize()
         err_y = float((y - want_y).abs().max())
         good = rel <= 1e-5 and bool(torch.allclose(y, want_y, atol=1e-6,
                                                    rtol=1e-5))
@@ -5108,13 +5161,32 @@ def main() -> int:
     t21 = time.perf_counter()
     ok_xa, xa_launches, xa_errs, xa_shapes = run_model_axis_adult(
         torch, np, api, linear, spec, fed, card)
-    ok_xb, xb_launches, xb_rec = run_model_axis_gemma(torch, np, fl,
-                                                      configs, card)
-    # 21c at a rank's rows: 21a's (clients, columns of rank 0) and 21b's
+    # 21b and 21d-f share one world of two ranks (started once)
+    from repro_torch.launch.mesh import HostWorld
+    t_world = time.perf_counter()
+    ma_world = HostWorld(2)
+    ma_world.run(int, 0)
+    print(f"phase 21b-f: 2 gloo ranks started in "
+          f"{time.perf_counter() - t_world:.1f} s", flush=True)
+    ok_xb, xb_launches, xb_rec = run_model_axis_tf(torch, np, fl, configs,
+                                                   card, "21b", ma_world)
+    # 21d-f: the RWKV6, Mamba2 + shared block and MoE families
+    ok_xf, xf_launches, xf_recs = True, {}, {}
+    for phase in ("21d", "21e", "21f"):
+        t_cell = time.perf_counter()
+        ok_cell, xf_launches[phase], xf_recs[phase] = run_model_axis_tf(
+            torch, np, fl, configs, card, phase, ma_world)
+        ok_xf &= ok_cell
+        print(f"phase {phase} wall time {time.perf_counter() - t_cell:.1f} "
+              f"s", flush=True)
+    ma_world.close()
+    # 21c at a rank's rows: 21a's (clients, columns of rank 0), then those
+    # of 21b and 21d-f with rank 1's split columns
     split_shapes = [shape for name, shape in (xa_shapes[0] if xa_shapes
                                               else [])
                     if name == "clip_noise_apply"][:1]
-    split_shapes.append((MA_TF_C, _gemma_split_columns(configs)))
+    split_shapes += [_ma_split_shape(configs, phase)
+                     for phase in ("21b", "21d", "21e", "21f")]
     ok_xc, split_recs, xc_errs = check_split_kernels(torch, split_shapes,
                                                      card)
     print(f"phase 21 wall time {time.perf_counter() - t21:.1f} s",
@@ -5171,8 +5243,10 @@ def main() -> int:
             "shape": [rec.get("rows"), rec.get("n")],
             "at_other_shapes": rec.get("at", []),
             "launches_other_paths": {
-                "phase 21b gemma3-4b's widths on a (1, 2) mesh, both ranks, "
-                "the last turn": xb_launches.get(name, 0)}})
+                f"phase {phase} {MA_CELLS[phase][0]}'s widths on a (1, 2) "
+                f"mesh, both ranks, the last turn": launched.get(name, 0)
+                for phase, launched in (("21b", xb_launches),
+                                        *xf_launches.items())}})
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -5244,7 +5318,8 @@ def main() -> int:
                 ta_launches["cohort_gather_scatter"],
             "phase 20a the resident quickstart under shard_map":
                 sa_launches["cohort_gather_scatter"]}}] + model_kernels
-        + split_kernels, "phase21b_gemma3_model_axis": xb_rec}),
+        + split_kernels, "phase21b_gemma3_model_axis": xb_rec,
+        "phase21def_model_axis": xf_recs}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -5309,6 +5384,8 @@ def main() -> int:
                              "vmap or missed a check"),
                      (ok_xc, "a split clip kernel disagrees with its plain "
                              "version"),
+                     (ok_xf, "rwkv6, zamba2 or phi3.5-moe on the (1, 2) mesh "
+                             "disagrees with vmap or missed a check"),
                      (all(xa_launches[n] > 0 for n in ("row_sumsq",
                                                        "clip_noise_apply")),
                       "a split clip kernel was not launched on the model "

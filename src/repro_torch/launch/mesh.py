@@ -207,39 +207,43 @@ class HostWorld:
             p.start()
 
     def run(self, fn, *args, **kwargs) -> list:
-        """Every rank's ``fn(*args, **kwargs)``, in rank order. Raises
-        (and closes the world) if a rank raised or timed out."""
+        """Every rank's ``fn(*args, **kwargs)``, in rank order. At the first
+        rank that raises (or no answer within twice the world's timeout)
+        the world is closed at once, its ranks killed where they wait (in
+        a collective with the failed rank, say), and the error raised."""
         if self._procs is None:
             raise RuntimeError("this HostWorld is closed")
         for box in self._inboxes:
             box.put((fn, args, kwargs))
-        results, errors = [None] * self.n, []
+        results, error = [None] * self.n, None
         try:
             for _ in range(self.n):
                 rank, ok, value = self._outbox.get(
                     timeout=2 * WORLD_TIMEOUT_S)
-                if ok:
-                    results[rank] = value
-                else:
-                    errors.append(f"rank {rank}:\n{value}")
+                if not ok:
+                    error = f"rank {rank}:\n{value}"
+                    break
+                results[rank] = value
         except queue.Empty:
-            errors.append(f"no answer within {2 * WORLD_TIMEOUT_S} s")
-        if errors:
+            error = f"no answer within {2 * WORLD_TIMEOUT_S} s"
+        if error is not None:
             self.close(force=True)
-            raise RuntimeError("a HostWorld call failed\n"
-                               + "\n".join(errors))
+            raise RuntimeError(f"a HostWorld call failed\n{error}")
         return results
 
     def close(self, force: bool = False) -> None:
         if self._procs is None:
             return
-        if not force:
+        if force:
+            for p in self._procs:
+                p.terminate()
+        else:
             for box in self._inboxes:
                 box.put(None)
         for p in self._procs:
             p.join(timeout=5 if force else 60)
             if p.is_alive():
-                p.terminate()
+                p.kill()
                 p.join()
         self._procs = None
         shutil.rmtree(self._dir, ignore_errors=True)

@@ -33,8 +33,9 @@ launcher that sets ``WORLD_SIZE`` (``torchrun``) the ranks come from the
 environment. ``--engine shard_map`` splits the client axis over the ranks;
 ``--engine mesh_2d --mesh-shape dc,dm`` lays a (dc, dm) mesh over them,
 padding clients that do not divide dc and, with dm > 1, splitting each
-replica's weights and matmuls over the dm ranks of a slab (attention +
-MLP archs; RWKV, SSM and MoE layers raise naming ROADMAP item 12c).
+replica's weights and matmuls over the dm ranks of a slab (every arch:
+attention and MLP on heads and ffn, RWKV6 and Mamba2 on heads, MoE on
+experts; a model axis that does not divide them raises ``ValueError``).
 ``--replica-hint`` passes the arch's param + optimizer-state bytes
 (``configs.shapes.replica_footprint_bytes``) to the spec as
 ``replica_bytes``: ``engine="auto"`` places a replica over the device's

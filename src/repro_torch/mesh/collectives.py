@@ -21,14 +21,19 @@ the collective on the physical batched tensor: an all-reduce is element
 wise, so the batch dimension is just more elements). A backward runs its
 collective through the other function's ``apply``, so it works under the
 transforms too. Nothing is reduced in place on an input.
-:meth:`ModelGroup.all_max` (no gradient) serves the vocabulary-parallel
-softmax.
+:meth:`ModelGroup.psum` chains the two (all-reduce forward and backward):
+a sum that each rank then uses its own way (its heads of a projection,
+a norm's denominator over a split width), so each rank's part of the
+sum's gradient is summed back. :meth:`ModelGroup.all_max` (no gradient)
+serves the vocabulary-parallel softmax.
 
 Only ``all_reduce`` is used, on every backend (gloo does not gather CUDA
 tensors): :meth:`ModelGroup.gather` lays each rank's slice into a zero
 buffer and sums the buffers' bytes, exact because one addend a byte is
 not zero, as :meth:`repro_torch.core.fl_shard_map.ClientGroup
-.all_gather_rows` does.
+.all_gather_rows` does. It is differentiable too (a weight split on one
+dim and used whole, e.g. zamba2's LoRA factors and Mamba2's conv): its
+backward is the rank's slice of the gradient summed over the group.
 """
 from __future__ import annotations
 
@@ -109,6 +114,44 @@ class _MaxOverModel(torch.autograd.Function):
         return _MaxOverModel.apply(x, group), in_dims[0]
 
 
+def _gather(x, group, index: int, size: int, dim: int):
+    shape = list(x.shape)
+    per = shape[dim]
+    shape[dim] = per * size
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out.narrow(dim, index * per, per).copy_(x)
+    dist.all_reduce(out.view(-1).view(torch.uint8), group=group)
+    counts["gather"] += 1
+    return out
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim`` forward; the rank's
+    slice of the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(x, group, index, size, dim):
+        return _gather(x, group, index, size, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.index, ctx.size, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, grad):
+        per = grad.shape[ctx.dim] // ctx.size
+        whole = _ReduceFromModel.apply(grad, ctx.group)
+        return whole.narrow(ctx.dim, ctx.index * per, per), None, None, \
+            None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, index, size, dim):
+        if in_dims[0] is None:
+            return _GatherFromModel.apply(x, group, index, size, dim), None
+        return _GatherFromModel.apply(x.movedim(in_dims[0], 0), group,
+                                      index, size, dim + 1), 0
+
+
 class ModelGroup:
     """This rank's place on a mesh's model axis and the axis' collectives.
     ``size`` ranks split each client replica; ``index`` is this rank's
@@ -134,6 +177,25 @@ class ModelGroup:
     def reduce_out(self, x):
         return _ReduceFromModel.apply(x, self.group)
 
+    def psum(self, x):
+        """``x`` summed over the group, all-reduced forward and backward:
+        for a sum each rank consumes in its own way, whose gradient is the
+        sum of the ranks' parts."""
+        return self.copy_in(self.reduce_out(x))
+
+    def reduce_out_all(self, parts):
+        """Each of ``parts`` (alike but for their last dim) summed over the
+        group as :meth:`reduce_out` does, in one all-reduce."""
+        sizes = [p.shape[-1] for p in parts]
+        return list(self.reduce_out(torch.cat(parts, dim=-1))
+                    .split(sizes, dim=-1))
+
+    def psum_all(self, parts):
+        """Each of ``parts`` summed over the group as :meth:`psum` does, in
+        one all-reduce each way."""
+        sizes = [p.shape[-1] for p in parts]
+        return list(self.psum(torch.cat(parts, dim=-1)).split(sizes, dim=-1))
+
     def all_max(self, x):
         return _MaxOverModel.apply(x, self.group)
 
@@ -151,12 +213,8 @@ class ModelGroup:
     def gather(self, x, dim: int):
         """The ranks' slices of ``x`` concatenated along ``dim`` in rank
         order, by a byte sum of zero-padded buffers (exact on every
-        backend). No autograd."""
-        shape = list(x.shape)
-        per = shape[dim]
-        shape[dim] = per * self.size
-        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        out.narrow(dim, self.index * per, per).copy_(x)
-        dist.all_reduce(out.view(-1).view(torch.uint8), group=self.group)
-        counts["gather"] += 1
-        return out
+        backend). Differentiable: the gradient of the slice is the
+        rank's part of the whole's gradient, summed over the group."""
+        dim = dim % x.dim()
+        return _GatherFromModel.apply(x, self.group, self.index, self.size,
+                                      dim)

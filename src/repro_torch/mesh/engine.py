@@ -14,9 +14,12 @@ of the JAX package's ``repro/mesh/engine.py``).
   :func:`repro_torch.models.sharding.param_split_dims`), column-parallel
   weights behind an identity-forward / all-reduce-backward function and
   row-parallel ones before an all-reduce-forward / identity-backward one.
-  Leaves without a hint (norm scales, biases of the linear model) stay
-  whole on every model rank. The linear models of §8.1 and the attention
-  + MLP transformer run so; other mixers raise naming ROADMAP item 12c.
+  Leaves without a hint (norm scales, token-shift mixes, the MoE router,
+  biases of the linear model) stay whole on every model rank, and enter
+  the split code so that their gradient is summed over the model group.
+  The linear models of §8.1 and every transformer of the repo run so:
+  attention + MLP (heads, ffn), RWKV6 (heads, d_ff), Mamba2 with zamba2's
+  shared block (heads, the LoRA factors gathered), MoE (experts).
 
 A round at ``dm > 1``: each rank takes its block's rows of the operands
 and its slices of params and optimizer state (step counters whole), and

@@ -38,13 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (
-    _dense_init,
-    _not_covered,
-    apply_rope,
-    rope_angles,
-)
-from repro_torch.models.sharding import model_dim, model_group, shard_hint
+from repro_torch.models.layers import _dense_init, apply_rope, rope_angles
+from repro_torch.models.sharding import ATTN_AXES, hinted_group
 
 NEG_INF = -1e30
 
@@ -230,10 +225,8 @@ def attention_forward_train(params, x, positions, *, kind: str = "full",
     Returns (B, S, d)."""
     if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
-    grp = model_group()
-    split = grp is not None and _head_split(params)
-    if split:
-        x = grp.copy_in(x)
+    grp = hinted_group("attention", params, ATTN_AXES)
+    x = grp.copy_in(x)
     q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
     if kind == "chunk":
         ctxv = chunked_causal_attention(q, k, v, chunk)
@@ -242,29 +235,7 @@ def attention_forward_train(params, x, positions, *, kind: str = "full",
             q, k, v, window=window if kind == "swa" else 0, block_q=block_q,
             causal_buckets=causal_buckets and kind == "full")
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
-    return grp.reduce_out(out) if split else out
-
-
-_HEAD_HINTS = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
-               "wv": ("wg", "tp", None), "wo": ("tp", None, "fsdp"),
-               "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
-
-
-def _head_split(params) -> bool:
-    """Are the layer's heads split over the model axis (every projection
-    and bias on its heads dim)? ``False`` where every leaf is whole; any
-    other placement raises."""
-    dims = {}
-    for name, hint in _HEAD_HINTS.items():
-        if name in params:
-            shard_hint(params[name], *hint)
-            dims[name] = model_dim(*hint)
-    heads = {n: 0 if n in ("wo", "bq", "bk", "bv") else 1 for n in dims}
-    if dims == heads:
-        return True
-    if set(dims.values()) != {-1}:
-        raise _not_covered("attention", dims)
-    return False
+    return grp.reduce_out(out)
 
 
 def attention_forward(params, x, positions, *, kind: str = "full",

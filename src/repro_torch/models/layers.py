@@ -25,7 +25,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import model_dim, model_group, shard_hint
+from repro_torch.models.sharding import (
+    MLP_AXES,
+    hinted_group,
+    model_dim,
+    model_group,
+)
 
 
 def _normal(generator, shape, device):
@@ -109,24 +114,13 @@ def _not_covered(what: str, dims):
 
 
 def mlp(params, x):
-    w_gate = shard_hint(params["w_gate"], "wg", "tp")
-    w_up = shard_hint(params["w_up"], "wg", "tp")
-    w_down = shard_hint(params["w_down"], "tp", "wg")
-    grp = model_group()
-    split = False
-    if grp is not None:
-        dims = (model_dim("wg", "tp"), model_dim("wg", "tp"),
-                model_dim("tp", "wg"))
-        split = dims == (1, 1, 0)
-        if not split and dims != (-1, -1, -1):
-            raise _not_covered("the MLP", dims)
-        if split:                    # column-parallel in
-            x = grp.copy_in(x)
-    h = x @ w_gate
-    u = x @ w_up
+    grp = hinted_group("the MLP", params, MLP_AXES)
+    x = grp.copy_in(x)               # column-parallel in
+    h = x @ params["w_gate"]
+    u = x @ params["w_up"]
     h = F.silu(h.to(torch.float32)).to(x.dtype) * u
-    out = h @ w_down
-    return grp.reduce_out(out) if split else out   # row-parallel out
+    out = h @ params["w_down"]
+    return grp.reduce_out(out)       # row-parallel out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,19 @@ the router z-loss, averaged over groups.
 ``_iterative_top_k`` (an XLA partitioner workaround selected by
 ``ArchConfig.scan_unroll``) is not ported: ``moe_apply(iterative_topk=True)``
 raises.
+
+Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
+the experts are split over the ranks (expert parallelism, the JAX
+package's ``("tp", ...)`` hints: :data:`repro_torch.models.sharding
+.MOE_AXES`), where GSPMD inserts a token all-to-all: the router runs whole
+on every rank, so routing, ranks, capacity (from the whole expert count)
+and the aux loss are alike everywhere; each rank dispatches the tokens
+routed to its E / dm experts (the others land in the overflow row), runs
+them and combines their outputs, and the partial outputs are summed in
+one all-reduce. The tokens and the combine weights enter the rank's
+dispatch through ``copy_in``, so their gradients (and the router's) are
+summed over the ranks. llama4's shared expert is the dense MLP, split on
+its own.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
+from repro_torch.models.sharding import MOE_AXES, hinted_group, shard_hint
 
 
 def _expert_init(generator, shape, dtype, device):
@@ -61,11 +75,33 @@ def init_moe(generator, d_model: int, d_ff: int, n_experts: int, top_k: int,
 
 
 def _expert_ffn(params, xe):
-    """xe (G, E, C, d) -> (G, E, C, d), batched over groups and experts."""
-    h = torch.einsum("gecd,edf->gecf", xe, params["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"])
+    """xe (G, E, C, d) -> (G, E, C, d), batched over groups and experts
+    (under a model axis the rank's experts)."""
+    w_gate = shard_hint(params["w_gate"], *MOE_AXES["w_gate"])
+    w_up = shard_hint(params["w_up"], *MOE_AXES["w_up"])
+    w_down = shard_hint(params["w_down"], *MOE_AXES["w_down"])
+    h = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    u = torch.einsum("gecd,edf->gecf", xe, w_up)
     h = F.silu(h.to(torch.float32)).to(xe.dtype) * u
-    return torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _experts_here(params):
+    """(model group, first expert, experts) of this rank: :data:`WHOLE`
+    and the whole expert range without a model axis that splits them."""
+    grp = hinted_group("the MoE experts", params, MOE_AXES)
+    e_here = params["w_gate"].shape[0]
+    return grp, grp.index * e_here, e_here
+
+
+def _finish(params, x, y, grp, orig_shape):
+    """The routed output summed over the ranks of ``grp``, in ``x``'s
+    shape, plus the shared expert."""
+    y = shard_hint(grp.reduce_out(y).reshape(orig_shape), "batch", "seq",
+                   None)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x)
+    return y
 
 
 def _one_hot(ids, n: int, dtype):
@@ -161,14 +197,16 @@ def moe_scatter(params, x, *, top_k: int, capacity_factor: float = 1.25):
     weights, ids, aux = _route(params, xg, top_k)
     flat_ids = ids.reshape(g, s * top_k)
     rank, keep = _ranks(flat_ids, e, cap)
-    slot = torch.where(keep, flat_ids * cap + rank, e * cap)
-    buf = _dispatch(xg, slot, top_k, e * cap + 1)
-    ye = _expert_ffn(params, buf[:, :-1].reshape(g, e, cap, d))
-    y = _combine(ye, slot, weights.reshape(g, s * top_k) * keep, top_k)
-    y = y.reshape(orig_shape)
-    if "shared" in params:
-        y = y + mlp(params["shared"], x)
-    return y, torch.mean(aux)
+    scale = weights.reshape(g, s * top_k) * keep
+    grp, e0, e_here = _experts_here(params)
+    xg, scale = grp.copy_in(xg), grp.copy_in(scale)
+    local = flat_ids - e0
+    here = keep & (local >= 0) & (local < e_here)
+    slot = torch.where(here, local * cap + rank, e_here * cap)
+    buf = _dispatch(xg, slot, top_k, e_here * cap + 1)
+    ye = _expert_ffn(params, buf[:, :-1].reshape(g, e_here, cap, d))
+    y = _combine(ye, slot, scale, top_k)
+    return _finish(params, x, y, grp, orig_shape), torch.mean(aux)
 
 
 def moe_dense(params, x, *, top_k: int, capacity_factor: float = 1.25):
@@ -182,7 +220,10 @@ def moe_dense(params, x, *, top_k: int, capacity_factor: float = 1.25):
     flat_ids = ids.reshape(g, s * top_k)
     flat_w = weights.reshape(g, s * top_k)
     rank, keep = _ranks(flat_ids, e, cap)
-    disp = (_one_hot(flat_ids, e, torch.float32)[..., None]
+    grp, e0, e_here = _experts_here(params)
+    xg, flat_w = grp.copy_in(xg), grp.copy_in(flat_w)
+    # an expert of another rank matches no column of the one-hot
+    disp = (_one_hot(flat_ids - e0, e_here, torch.float32)[..., None]
             * _one_hot(rank, cap, torch.float32)[..., None, :]
             ) * keep[..., None, None]                       # (G, T*K, E, C)
     x_rep = torch.repeat_interleave(xg, top_k, dim=1)
@@ -190,10 +231,8 @@ def moe_dense(params, x, *, top_k: int, capacity_factor: float = 1.25):
     ye = _expert_ffn(params, xe)
     comb = disp * flat_w[..., None, None]
     y = torch.einsum("gtec,gecd->gtd", comb.to(ye.dtype), ye)
-    y = torch.sum(y.reshape(g, s, top_k, d), dim=2).reshape(orig_shape)
-    if "shared" in params:
-        y = y + mlp(params["shared"], x)
-    return y, torch.mean(aux)
+    y = torch.sum(y.reshape(g, s, top_k, d), dim=2)
+    return _finish(params, x, y, grp, orig_shape), torch.mean(aux)
 
 
 def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,

@@ -18,6 +18,23 @@ whose bf16 instance is chunk-parallel itself, and holds it against
 model's own paths in differentiable torch ops (the kernel has no
 backward): the per-token recurrence :func:`wkv6_scan`, or
 :func:`wkv6_chunked` when ``rwkv_chunk > 0``.
+
+Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
+the training route splits the heads, placed by the JAX package's axes
+(:data:`repro_torch.models.sharding.RWKV_TM_AXES` / ``RWKV_CM_AXES``):
+the projections ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and ``decay_a``
+are split on their d_model rows, so each rank takes its columns of the
+token-shift mixes and the partial products are summed in one all-reduce
+(:meth:`repro_torch.mesh.collectives.ModelGroup.psum`, whose backward
+all-reduces too: each rank then uses its own heads of the sum). The WKV
+runs on the rank's heads with its rows of ``bonus_u`` and its columns of
+``decay_b``; the RMS norm over d_model sums its squares over the ranks;
+``w_o`` is row-parallel into an all-reduce. The whole leaves (the mixes,
+``decay_w0``, ``ln_scale``) enter through ``local_slice``, so their
+gradient is summed over the ranks and stays whole and alike on each. The
+channel mix is row-parallel twice: ``w_k`` / ``w_r`` into one all-reduce,
+then the rank's d_ff slice of ``relu(k)^2`` through ``w_v`` into
+another.
 """
 from __future__ import annotations
 
@@ -26,6 +43,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init
+from repro_torch.models.sharding import (
+    RWKV_CM_AXES,
+    RWKV_TM_AXES,
+    WHOLE,
+    hinted_group,
+    shard_hint,
+)
 
 
 def init_rwkv6_timemix(generator, d_model: int, headdim: int = 64,
@@ -64,19 +88,31 @@ def _token_shift(x, last=None):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def _tm_inputs(params, x, x_prev):
-    def mix(mu):
-        return x + (x_prev - x) * mu
+_TM_MIXES = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
 
-    r = mix(params["mu_r"]) @ params["w_r"]
-    k = mix(params["mu_k"]) @ params["w_k"]
-    v = mix(params["mu_v"]) @ params["w_v"]
-    g = mix(params["mu_g"]) @ params["w_g"]
-    xw = mix(params["mu_w"])
-    lora = torch.tanh(xw @ params["decay_a"]) @ params["decay_b"]
-    log_decay = -torch.exp(params["decay_w0"] + lora.to(torch.float32))
+
+def _tm_inputs(params, x, last=None, grp=WHOLE):
+    """r, k, v, g, w and log_decay (B, S, d / dm) of the rank's heads under
+    the model group ``grp`` (:data:`WHOLE`: every head). The token shift
+    (after ``last``, zeros where ``None``) runs on the rank's columns of x;
+    the row-split projections of the rank's columns of the mixes are
+    summed in one all-reduce (forward and backward), the decay's LoRA
+    finished on the rank's columns of ``decay_b``."""
+    lo, hi = grp.bounds(x.shape[-1])
+    mus = grp.local_slice(torch.stack([params[m] for m in _TM_MIXES]), -1)
+    x = grp.local_slice(x, -1)
+    x_prev = _token_shift(x, None if last is None
+                          else grp.local_slice(last, -1))
+    r, k, v, g, a = grp.psum_all(
+        [(x + (x_prev - x) * mu) @ params[w]
+         for mu, w in zip(mus.unbind(0), ("w_r", "w_k", "w_v", "w_g",
+                                          "decay_a"))])
+    lora = torch.tanh(a) @ params["decay_b"]
+    w0 = grp.local_slice(params["decay_w0"], 0)
+    log_decay = -torch.exp(w0 + lora.to(torch.float32))
     w = torch.exp(log_decay)                               # (B,S,d) in (0,1)
-    return r, k, v, g, w, log_decay
+    return (r[..., lo:hi], k[..., lo:hi], v[..., lo:hi], g[..., lo:hi], w,
+            log_decay)
 
 
 def wkv6_scan(r, k, v, w, u, s0=None):
@@ -166,15 +202,22 @@ def _wkv(r, k, v, w, u, headdim, s0, backend):
     return y.transpose(1, 2), s_final
 
 
-def _tm_output(params, y, g, d_model):
+def _tm_output(params, y, g, d_model, grp=WHOLE):
+    """The normed, gated WKV output through ``w_o``; under the model group
+    ``grp`` y and g are the rank's heads, the norm's mean of squares is
+    summed over the ranks and ``w_o`` is row-parallel into an
+    all-reduce."""
     bsz, s = y.shape[:2]
-    y = y.reshape(bsz, s, d_model).to(torch.float32)
+    y = y.reshape(bsz, s, -1).to(torch.float32)
     # per-head group norm approximated by full-layer RMS norm
-    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
-    y = y * torch.rsqrt(var + 1e-6) * params["ln_scale"].to(torch.float32)
+    var = grp.psum(torch.sum(torch.square(y), dim=-1,
+                             keepdim=True)) / d_model
+    scale = grp.local_slice(params["ln_scale"], 0)
+    y = y * torch.rsqrt(var + 1e-6) * scale.to(torch.float32)
     y = y * F.silu(g.to(torch.float32))
-    w_o = params["w_o"]
-    return y.to(w_o.dtype) @ w_o
+    w_o = shard_hint(params["w_o"], "tp", "fsdp")
+    out = grp.reduce_out(y.to(w_o.dtype) @ w_o)
+    return shard_hint(out, "batch", "seq", None)
 
 
 def rwkv6_timemix_forward_train(params, x, headdim: int = 64,
@@ -183,11 +226,11 @@ def rwkv6_timemix_forward_train(params, x, headdim: int = 64,
     kernel: :func:`wkv6_scan`, or :func:`wkv6_chunked` when ``chunk`` > 0.
     Returns (B, S, d)."""
     d_model = x.shape[-1]
-    n_heads = d_model // headdim
-    r, k, v, g, w, log_decay = _tm_inputs(params, x, _token_shift(x))
+    grp = hinted_group("the RWKV6 time mix", params, RWKV_TM_AXES)
+    r, k, v, g, w, log_decay = _tm_inputs(params, x, grp=grp)
 
     def heads(t):
-        return t.reshape(t.shape[0], t.shape[1], n_heads, headdim)
+        return t.reshape(t.shape[0], t.shape[1], -1, headdim)
 
     if chunk:
         y, _ = wkv6_chunked(heads(r), heads(k), heads(v), heads(log_decay),
@@ -195,7 +238,7 @@ def rwkv6_timemix_forward_train(params, x, headdim: int = 64,
     else:
         y, _ = wkv6_scan(heads(r), heads(k), heads(v), heads(w),
                          params["bonus_u"])
-    return _tm_output(params, y.to(x.dtype), g, d_model)
+    return _tm_output(params, y.to(x.dtype), g, d_model, grp)
 
 
 def rwkv6_timemix_forward(params, x, headdim: int = 64, chunk: int = 0,
@@ -214,8 +257,7 @@ def rwkv6_timemix_forward_state(params, x, headdim: int = 64,
     if chunk and x.shape[1] % min(chunk, x.shape[1]):
         raise ValueError(f"seq {x.shape[1]} % rwkv chunk {chunk}")
     d_model = x.shape[-1]
-    x_prev = _token_shift(x)
-    r, k, v, g, w, _ = _tm_inputs(params, x, x_prev)
+    r, k, v, g, w, _ = _tm_inputs(params, x)
     y, s_final = _wkv(r, k, v, w, params["bonus_u"], headdim, None, backend)
     out = _tm_output(params, y.to(x.dtype), g, d_model)
     return out, {"wkv": s_final, "tm_last": x[:, -1:]}
@@ -233,13 +275,22 @@ def init_rwkv6_channelmix(generator, d_model: int, d_ff: int,
 
 
 def rwkv6_channelmix_forward(params, x, x_prev=None):
-    xp = _token_shift(x, x_prev)
-    xk = x + (xp - x) * params["mu_k"]
-    xr = x + (xp - x) * params["mu_r"]
-    k = xk @ params["w_k"]
+    """The squared-ReLU channel mix; under a model axis (the training
+    route) ``w_k`` / ``w_r`` row-parallel into one all-reduce, the rank's
+    d_ff slice of ``relu(k)^2`` through ``w_v`` into another."""
+    grp = hinted_group("the RWKV6 channel mix", params, RWKV_CM_AXES)
+    mu_k, mu_r = grp.local_slice(torch.stack([params["mu_k"],
+                                              params["mu_r"]]), -1).unbind(0)
+    x = grp.local_slice(x, -1)              # the shift on the rank's columns
+    xp = _token_shift(x, None if x_prev is None
+                      else grp.local_slice(x_prev, -1))
+    xk = x + (xp - x) * mu_k
+    xr = x + (xp - x) * mu_r
+    k, kr = grp.reduce_out_all([xk @ params["w_k"], xr @ params["w_r"]])
     k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
-    kv = k @ params["w_v"]
-    r = torch.sigmoid((xr @ params["w_r"]).to(torch.float32))
+    k = shard_hint(k, "batch", "seq", "tp")
+    kv = grp.reduce_out(grp.local_slice(k, -1) @ params["w_v"])
+    r = torch.sigmoid(kr.to(torch.float32))
     return (r * kv.to(torch.float32)).to(x.dtype)
 
 

@@ -228,21 +228,56 @@ def model_dim(*logical) -> int:
 # -- the placement of a model's params ----------------------------------------
 
 # the logical axes of each weight at its use site in the JAX models
-# (``shard_hint`` in repro/models/{linear,layers,attention}.py), else its
-# init axes there (the embedding, an untied head, the qkv biases); every
-# other leaf (norm scales, the linear model's bias) stays whole
-_ATTN_AXES = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
-              "wv": ("wg", "tp", None), "wo": ("tp", None, "fsdp"),
-              "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
-_MLP_AXES = {"w_gate": ("wg", "tp"), "w_up": ("wg", "tp"),
-             "w_down": ("tp", "wg")}
+# (``shard_hint`` in repro/models/{linear,layers,attention,rwkv,ssm,moe}.py),
+# else its init axes there (the embedding, an untied head, the qkv biases,
+# the RWKV and Mamba2 projections, zamba2's LoRA factors); every other leaf
+# (norm scales, token-shift mixes, the decay's base, the router, the linear
+# model's bias) stays whole
+ATTN_AXES = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
+             "wv": ("wg", "tp", None), "wo": ("tp", None, "fsdp"),
+             "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
+MLP_AXES = {"w_gate": ("wg", "tp"), "w_up": ("wg", "tp"),
+            "w_down": ("tp", "wg")}
 _EMBED_AXES = {"embedding": ("tp", "fsdp"), "head": ("fsdp", "tp")}
 LINEAR_AXES = {"w": ("fsdp", "tp"), "b": ()}
+# RWKV6 time mix (repro/models/rwkv.py:46-53, w_o at its use site :185)
+# and channel mix (:228-231)
+RWKV_TM_AXES = {"w_r": ("fsdp", "tp"), "w_k": ("fsdp", "tp"),
+                "w_v": ("fsdp", "tp"), "w_g": ("fsdp", "tp"),
+                "w_o": ("tp", "fsdp"), "decay_a": ("fsdp", None),
+                "decay_b": (None, "tp"), "bonus_u": ("tp", None)}
+RWKV_CM_AXES = {"w_k": ("fsdp", "tp"), "w_v": ("tp", "fsdp"),
+                "w_r": ("fsdp", "tp")}
+# Mamba2 (repro/models/ssm.py:39-47, w_out at its use site :73)
+MAMBA2_AXES = {"w_in": ("fsdp", "tp"), "conv_w": (None, "tp"),
+               "a_log": ("tp",), "dt_bias": ("tp",), "d_skip": ("tp",),
+               "norm_scale": ("tp",), "w_out": ("tp", "fsdp")}
+# zamba2's per-invocation LoRA on the shared attention
+# (repro/models/transformer.py:84-88)
+SHARED_LORA_AXES = {"lora_q_a": ("fsdp", None), "lora_q_b": (None, "tp"),
+                    "lora_o_a": ("tp", None), "lora_o_b": (None, "fsdp")}
+# the routed experts at their use site (repro/models/moe.py:50-52): expert
+# parallel; llama4's shared expert is the dense MLP
+MOE_AXES = {"w_gate": ("tp", "fsdp", None), "w_up": ("tp", "fsdp", None),
+            "w_down": ("tp", None, "fsdp")}
+
+_MIXER_AXES = {"wq": ATTN_AXES, "w_r": RWKV_TM_AXES, "w_in": MAMBA2_AXES,
+               "lora_q_a": SHARED_LORA_AXES}
+# the MoE's experts share the MLP's names: the router tells them apart
+_FFN_AXES = {"router": MOE_AXES, "mu_k": RWKV_CM_AXES, "w_gate": MLP_AXES}
 
 
-def _refuse_mixer(what: str):
-    from repro_torch.api.spec import _not_ported
-    return _not_ported(f"{what} under a model axis over 1", "item 12c")
+def _axes_of(sub: dict, tables: dict, what: str) -> dict:
+    """The logical axes of a mixer's or FFN's leaves: the table of the
+    first key of ``tables`` in ``sub`` (hinted leaves), ``()`` for every
+    other leaf (whole); a nested dict (the MoE's shared expert) is the
+    dense MLP."""
+    table = next((t for k, t in tables.items() if k in sub), None)
+    if table is None:
+        raise ValueError(f"{what} with params {sorted(sub)}: no hint "
+                         f"table for it")
+    return {k: dict(MLP_AXES) if isinstance(v, dict) else table.get(k, ())
+            for k, v in sub.items()}
 
 
 def _layer_axes(layer: dict) -> dict:
@@ -251,46 +286,105 @@ def _layer_axes(layer: dict) -> dict:
         if name in ("norm1", "norm2"):
             out[name] = {k: () for k in sub}
         elif name == "mixer":
-            if not set(sub) <= set(_ATTN_AXES) or "wq" not in sub:
-                raise _refuse_mixer(f"the mixer with params {sorted(sub)} "
-                                    f"(RWKV, SSM or shared attention)")
-            out[name] = {k: _ATTN_AXES[k] for k in sub}
+            out[name] = _axes_of(sub, _MIXER_AXES, "the mixer")
         elif name == "ffn":
-            if sub and set(sub) != set(_MLP_AXES):
-                raise _refuse_mixer(f"the FFN with params {sorted(sub)} "
-                                    f"(MoE or RWKV channel mix)")
-            out[name] = {k: _MLP_AXES[k] for k in sub}
+            out[name] = sub and _axes_of(sub, _FFN_AXES, "the FFN")
         else:
-            raise _refuse_mixer(f"the layer part {name!r}")
+            raise ValueError(f"the layer part {name!r}: no hint table for "
+                             f"it")
     return out
+
+
+def _stepped(tree):
+    """A layer's logical axes with a leading ``None`` for the step axis of
+    the stacked layers (whole leaves stay ``()``)."""
+    if isinstance(tree, dict):
+        return {k: _stepped(v) for k, v in tree.items()}
+    return tree and (None,) + tree
 
 
 def param_logical_axes(params) -> dict:
     """A tree like ``params`` (one client's, no client axis) of each
     leaf's logical axes, one name a dim (``()`` for a whole leaf): the
-    linear models of §8.1, the attention + MLP transformer, or one of its
-    MLP or attention layers. Stacked
-    layers get a leading ``None`` for their step axis. Other mixers and
-    FFNs raise ``NotImplementedError`` naming ROADMAP item 12c."""
+    linear models of §8.1, a transformer of the repo's archs (attention,
+    RWKV6 and Mamba2 mixers, zamba2's shared block with its LoRA; MLP,
+    RWKV channel-mix and MoE FFNs), or one of its MLP or attention layers.
+    Stacked layers get a leading ``None`` for their step axis."""
     if set(params) == set(LINEAR_AXES):
         return dict(LINEAR_AXES)
-    if set(params) == set(_MLP_AXES):                  # one MLP
-        return dict(_MLP_AXES)
-    if "wq" in params and set(params) <= set(_ATTN_AXES):   # one attention
-        return {k: _ATTN_AXES[k] for k in params}
+    if set(params) == set(MLP_AXES):                  # one MLP
+        return dict(MLP_AXES)
+    if "wq" in params and set(params) <= set(ATTN_AXES):   # one attention
+        return {k: ATTN_AXES[k] for k in params}
     if "segments" not in params:
-        raise _refuse_mixer(f"a model with params {sorted(params)}")
-    if "shared" in params:
-        raise _refuse_mixer("shared attention (zamba2)")
+        raise ValueError(f"a model with params {sorted(params)}: no hint "
+                         f"table for it")
     out = {"embed": {k: _EMBED_AXES[k] for k in params["embed"]},
            "final_norm": {k: () for k in params["final_norm"]},
-           "segments": []}
-    for seg in params["segments"]:
-        out["segments"].append({
-            j: {part: {k: ax and (None,) + ax for k, ax in leaves.items()}
-                for part, leaves in _layer_axes(layer).items()}
-            for j, layer in seg.items()})
+           "segments": [{j: _stepped(_layer_axes(layer))
+                         for j, layer in seg.items()}
+                        for seg in params["segments"]]}
+    if "shared" in params:                   # zamba2's shared block
+        out["shared"] = {"attn": {k: ATTN_AXES[k]
+                                  for k in params["shared"]["attn"]},
+                         "mlp": dict(MLP_AXES)}
     return out
+
+
+class _Whole:
+    """The model group of one rank, where a layer's weights are whole:
+    every collective is the identity and the rank's slice is the whole
+    dim, so a layer's split code runs unsplit through it."""
+
+    size, index = 1, 0
+
+    @staticmethod
+    def bounds(n: int) -> tuple[int, int]:
+        return 0, n
+
+    @staticmethod
+    def _same(x, *_):
+        return x
+
+    copy_in = reduce_out = psum = local_slice = gather = _same
+
+    @staticmethod
+    def reduce_out_all(parts):
+        return list(parts)
+
+    psum_all = reduce_out_all
+
+
+WHOLE = _Whole()
+
+
+def hinted_group(what: str, params, axes: dict):
+    """The model group that splits the weights of ``params`` named in
+    ``axes`` (their logical axes) where the default mesh2d rules put them
+    (the first dim whose name maps to the model axis), or :data:`WHOLE`
+    where every one is whole (no model axis over 1, or rules that split
+    none). Any other placement raises ``NotImplementedError``: the model
+    code runs the split it was written for, or none."""
+    grp = model_group()
+    if grp is None:
+        return WHOLE
+    rules = mesh2d_rules()
+    dims, want = {}, {}
+    for name, logical in axes.items():
+        if name in params:
+            shard_hint(params[name], *logical)
+            dims[name] = model_dim(*logical)
+            want[name] = next((i for i, a in enumerate(logical)
+                               if a is not None
+                               and rules.get(a) == MODEL_AXIS), -1)
+    if dims == want:
+        return grp
+    if set(dims.values()) <= {-1}:
+        return WHOLE
+    raise NotImplementedError(
+        f"{what} placed {dims} under a model axis: the port's tensor "
+        f"parallelism covers the split the default mesh2d rules give "
+        f"({want}) or none")
 
 
 def param_split_dims(params, dm: int, rules: dict | None = None):

@@ -12,6 +12,22 @@ model's own chunked SSD, :func:`ssd_chunked`, in differentiable torch ops
 
 Shapes: d_inner = expand * d_model; H = d_inner / headdim (P = headdim);
 B / C shared across heads (single group), state size N = cfg.ssm_state.
+
+Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
+the training route splits the heads, placed by the JAX package's axes
+(:data:`repro_torch.models.sharding.MAMBA2_AXES`): ``w_in`` is split on
+its d_model rows, so the rank's columns of x give a partial projection
+summed in one all-reduce (forward and backward: each rank then takes its
+own heads of z, x and dt, and B and C whole). ``conv_w`` is split on its
+channels (x, then B, then C), which do not line up with the heads (zamba2
+at dm 2: 3,648 of 7,296 channels a rank against x's 3,584), so the conv
+weight is gathered whole (a differentiable gather: 4 x 7,296 weights,
+against a (B, S, 7,296) activation for a conv on the rank's channels)
+and the conv runs over every channel on every rank; the rank keeps its
+heads of x and the whole B and C. The SSD runs on the rank's heads with
+its slices of ``a_log``, ``dt_bias`` and ``d_skip``; the gated RMS norm
+over d_inner sums its squares over the ranks; ``w_out`` is row-parallel
+into an all-reduce.
 """
 from __future__ import annotations
 
@@ -22,6 +38,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init
+from repro_torch.models.sharding import (
+    MAMBA2_AXES,
+    WHOLE,
+    hinted_group,
+    shard_hint,
+)
 
 
 def init_mamba2(generator, d_model: int, d_state: int, headdim: int = 64,
@@ -62,16 +84,22 @@ def _causal_conv(xbc, conv_w):
     return F.silu(out.to(torch.float32)).to(xbc.dtype)
 
 
-def _gated_out(params, y, z, d_model):
+def _gated_out(params, y, z, d_model, grp=WHOLE):
+    """The gated RMS norm over d_inner and ``w_out``; under the model group
+    ``grp`` y, z and ``norm_scale`` are the rank's heads' slices, the mean
+    of squares is summed over the ranks (d_inner = the slice's width times
+    the ranks) and ``w_out`` is row-parallel into an all-reduce."""
     b, s = y.shape[:2]
     y = y.reshape(b, s, -1)
     # RMS-normed gating (Mamba2 uses grouped RMSNorm before out-proj)
     y32 = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    var = grp.psum(torch.sum(torch.square(y32), dim=-1,
+                             keepdim=True)) / (y32.shape[-1] * grp.size)
     y32 = (y32 * torch.rsqrt(var + 1e-6)
            * params["norm_scale"].to(torch.float32))
-    w_out = params["w_out"]
-    return y32.to(w_out.dtype) @ w_out
+    w_out = shard_hint(params["w_out"], "tp", "fsdp")
+    out = grp.reduce_out(y32.to(w_out.dtype) @ w_out)
+    return shard_hint(out, "batch", "seq", None)
 
 
 def _einsum(spec: str, *operands):
@@ -83,7 +111,9 @@ def _einsum(spec: str, *operands):
 
 def ssd_chunked(x, dt, a, b_in, c_in, chunk: int = 128, h0=None):
     """Chunked SSD scan (the training route): the intra-chunk quadratic
-    form plus an inter-chunk state scan, in the JAX model's expressions.
+    form plus an inter-chunk state scan, in the JAX model's expressions,
+    but for the causal mask, which the port applies to the decay's
+    exponent (the JAX package's overflows to NaN at long chunks).
 
     x (B, S, H, P); dt (B, S, H) (post-softplus); a (H,) negative;
     b_in / c_in (B, S, N). Returns (y (B, S, H, P), final state
@@ -106,10 +136,15 @@ def ssd_chunked(x, dt, a, b_in, c_in, chunk: int = 128, h0=None):
 
     # ---- intra-chunk (quadratic within chunk) -----------------------------
     scores = _einsum("bctn,bcsn->bcts", cs, bs)            # (B,nc,Q,Q)
-    decay = torch.exp(l[:, :, :, None, :] - l[:, :, None, :, :])
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    m = scores[..., None] * decay * tri[None, None, :, :, None]
+    # the exponent is masked before the exp: above the diagonal l_t - l_s
+    # > 0 grows with the chunk (past f32's range at zamba2's 128, where the
+    # JAX package's exp(...) * tri gives inf * 0 = NaN)
+    decay = torch.exp((l[:, :, :, None, :] - l[:, :, None, :, :])
+                      .masked_fill(~tri[None, None, :, :, None],
+                                   float("-inf")))
+    m = scores[..., None] * decay
     y_intra = _einsum("bctsh,bcsh,bcshp->bcthp", m, dts, xs)
 
     # ---- chunk states ------------------------------------------------------
@@ -140,6 +175,7 @@ def _mamba2(params, x, scan, *, d_state: int, headdim: int, expand: int,
     """The Mamba2 mixer around its SSD scan, one body for the serving and
     the training routes: ``scan(xh, dt, a, b_in, c_in, chunk)`` returns
     ``(y, final state)`` with chunk ``min(chunk, S)``, which must divide S.
+    Under a model axis the rank's heads (see the module's docstring).
     Returns ``(out, final state, the conv's raw input)``."""
     d_model = x.shape[-1]
     d_inner = expand * d_model
@@ -148,17 +184,23 @@ def _mamba2(params, x, scan, *, d_state: int, headdim: int, expand: int,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
-    proj = x @ params["w_in"]
+    grp = hinted_group("the Mamba2 mixer", params, MAMBA2_AXES)
+    proj = grp.psum(grp.local_slice(x, -1) @ params["w_in"])
+    conv_w = grp.gather(params["conv_w"], 1)
+    lo, hi = grp.bounds(n_heads)
     z, xbc_raw, dt = _split_proj(proj, d_inner, d_state, n_heads)
-    xbc = _causal_conv(xbc_raw, params["conv_w"])
-    xh = xbc[..., :d_inner].reshape(bsz, s, n_heads, headdim).contiguous()
+    xbc = _causal_conv(xbc_raw, conv_w)
+    mine = slice(lo * headdim, hi * headdim)        # the rank's heads' x
+    xh = xbc[..., mine].reshape(bsz, s, hi - lo, headdim).contiguous()
+    xh = shard_hint(xh, "batch", "seq", "tp", None)
     b_in = xbc[..., d_inner:d_inner + d_state].contiguous()
     c_in = xbc[..., d_inner + d_state:].contiguous()
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    dt = F.softplus(dt[..., lo:hi].to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     y, h_final = scan(xh, dt.contiguous(), a, b_in, c_in, chunk)
     y = y + params["d_skip"][None, None, :, None] * xh.to(y.dtype)
-    return _gated_out(params, y.to(x.dtype), z, d_model), h_final, xbc_raw
+    out = _gated_out(params, y.to(x.dtype), z[..., mine], d_model, grp)
+    return out, h_final, xbc_raw
 
 
 def mamba2_forward_train(params, x, *, d_state: int, headdim: int,

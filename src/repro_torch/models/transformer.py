@@ -36,7 +36,15 @@ layer's activations for the backward pass instead of recomputing them.
 
 MoE FFNs (``models/moe.py``) run on both routes in plain PyTorch, as in
 the JAX package; their aux loss is summed over layers into ``loss_fn``.
-Not ported: the sharding axes (``param_axes``, ``cache_axes``).
+
+Under a model axis over 1 (the ``mesh_2d`` engine at ``dm > 1``) the
+training route runs every mixer and FFN split as
+:func:`repro_torch.models.sharding.param_split_dims` places its weights;
+zamba2's shared attention adds each invocation's LoRA deltas to the
+rank's heads of the shared ``wq`` / ``wo`` (:meth:`_merged_shared_attn`).
+The logical-axes trees live in :mod:`repro_torch.models.sharding`
+(``param_logical_axes``); ``param_axes`` and ``cache_axes`` are not
+ported.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     unembed,
 )
-from repro_torch.models.sharding import model_group
+from repro_torch.models.sharding import SHARED_LORA_AXES, hinted_group
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -216,11 +224,20 @@ class Transformer:
     # ------------------------------------------------------------------
 
     def _merged_shared_attn(self, lora, shared):
+        """The shared attention with this invocation's LoRA deltas added to
+        ``wq`` / ``wo``. Under a model axis the rank's heads: the whole
+        ``lora_q_a`` (gathered) times the rank's columns of ``lora_q_b``,
+        the rank's rows of ``lora_o_a`` times the whole ``lora_o_b``
+        (gathered), added to the rank's heads of the shared weights."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         d = cfg.d_model
-        dq = (lora["lora_q_a"] @ lora["lora_q_b"]).reshape(d, cfg.n_heads, hd)
-        do = (lora["lora_o_a"] @ lora["lora_o_b"]).reshape(cfg.n_heads, hd, d)
+        grp = hinted_group("zamba2's shared-attention LoRA", lora,
+                           SHARED_LORA_AXES)
+        q_a = grp.gather(lora["lora_q_a"], 0)
+        o_b = grp.gather(lora["lora_o_b"], 1)
+        dq = (q_a @ lora["lora_q_b"]).reshape(d, -1, hd)
+        do = (lora["lora_o_a"] @ o_b).reshape(-1, hd, d)
         p = dict(shared["attn"])
         p["wq"] = p["wq"] + dq
         p["wo"] = p["wo"] + do
@@ -231,8 +248,6 @@ class Transformer:
         """The layer's mixer over the full sequence: the training route's
         differentiable paths under ``train``, else the kernels."""
         cfg = self.cfg
-        if spec.mixer != "attn" and train:
-            self._refuse_model_axis(f"{spec.mixer} mixer")
         if spec.mixer in ("attn", "shared_attn"):
             p = (self._merged_shared_attn(lparams["mixer"], shared)
                  if spec.mixer == "shared_attn" else lparams["mixer"])
@@ -270,8 +285,6 @@ class Transformer:
         the Python 0.0 otherwise, as in the JAX package, so that dense
         archs add nothing on the device)."""
         cfg = self.cfg
-        if spec.ffn not in ("mlp", "none"):
-            self._refuse_model_axis(f"{spec.ffn} FFN")
         if spec.ffn == "mlp":
             return mlp(lparams["ffn"], h), 0.0
         if spec.ffn == "moe":
@@ -322,14 +335,6 @@ class Transformer:
         over layers (0 without MoE)."""
         x, aux = self._hidden_states(params, tokens, prefix, train=False)
         return unembed(params["embed"], x), aux
-
-    def _refuse_model_axis(self, what: str) -> None:
-        """A mixer or FFN other than attention and the dense MLP under a
-        model axis over 1 is ROADMAP queue 1 item 12c."""
-        if model_group() is not None:
-            from repro_torch.api.spec import _not_ported
-            raise _not_ported(f"the {what} under a model axis over 1",
-                              "item 12c")
 
     def loss_fn(self, params, batch):
         """batch: {"tokens": (B,S), "labels": (B,S), ["prefix": (B,P,d)]}.

@@ -245,22 +245,29 @@ def mesh_views() -> dict:
 
 # ------------------------- the model axis (dm > 1) ---------------------------
 
-def federate_on_budget(kw: dict, dim: int, batches: list, draws, budget):
-    """:func:`federate` with the device budget ``REPRO_DEVICE_MEM_BYTES``
-    set to ``budget`` on this rank; also the engine and mesh shape an
-    ``engine="auto"`` spec resolves to."""
+@contextlib.contextmanager
+def device_budget(budget: int):
+    """The device budget ``REPRO_DEVICE_MEM_BYTES`` set to ``budget`` on
+    this rank while the block runs."""
     import os
 
-    from repro_torch.api.engines import mesh_shape_for
     from repro_torch.mesh.placement import ENV_DEVICE_MEM
     os.environ[ENV_DEVICE_MEM] = str(budget)
     try:
+        yield
+    finally:
+        del os.environ[ENV_DEVICE_MEM]
+
+
+def federate_on_budget(kw: dict, dim: int, batches: list, draws, budget):
+    """:func:`federate` under :func:`device_budget` ``budget``; also the
+    engine and mesh shape an ``engine="auto"`` spec resolves to."""
+    from repro_torch.api.engines import mesh_shape_for
+    with device_budget(budget):
         spec = make_spec(kw)
         engine = tapi.resolve_engine(spec)
         shape = mesh_shape_for(spec) if engine == "mesh_2d" else None
         out = federate(kw, dim, batches, draws)
-    finally:
-        del os.environ[ENV_DEVICE_MEM]
     return dict(out, engine=engine, mesh_shape=shape)
 
 
@@ -387,8 +394,8 @@ def transformer_round(cfg, params0, batch, noise, sigmas, kw: dict) -> dict:
     client's tree in the port's layout) on ``batch`` with the (C, tau, N) ``noise`` under
     ``kw``'s spec (its engine and mesh shape), through the engine's round
     function; plus, under a model axis, the first step's per-client loss
-    gradients (made whole) and the Eq.-7a clip's pre-clip norms. Returns
-    numpy."""
+    gradients (made whole) and the Eq.-7a clip's pre-clip norms, and the
+    engine (and mesh shape) the spec resolves to. Returns numpy."""
     from torch.func import grad_and_value, vmap
 
     from repro_torch.core.clipping import make_dp_grad_fn
@@ -408,9 +415,13 @@ def transformer_round(cfg, params0, batch, noise, sigmas, kw: dict) -> dict:
     tp, _, ms = tapi.round_fn_for(spec)(state.params, state.opt_state, tb,
                                         torch.as_tensor(noise), sig)
     out = {"params": tree_to_numpy(tp), "loss": float(ms["loss"]),
-           "grad_norm_preclip": float(ms["grad_norm_preclip"])}
-    shape = kw.get("mesh_shape")
-    if shape is None or shape[1] == 1:
+           "grad_norm_preclip": float(ms["grad_norm_preclip"]),
+           "engine": tapi.resolve_engine(spec)}
+    if out["engine"] != "mesh_2d":
+        return out
+    from repro_torch.api.engines import mesh_shape_for
+    shape = out["mesh_shape"] = mesh_shape_for(spec)
+    if shape[1] == 1:
         return out
     mesh, grp = _mesh_group(shape)
     if grp.index is None:               # a rank outside the mesh
@@ -431,3 +442,19 @@ def transformer_round(cfg, params0, batch, noise, sigmas, kw: dict) -> dict:
                step_norm=metrics["grad_norm_preclip"].numpy(),
                flat_grads=flatten_rows(tree_flatten(whole)[0]).numpy())
     return out
+
+
+def transformer_round_on_budget(budget: int, *args) -> dict:
+    """:func:`transformer_round` under :func:`device_budget` ``budget``."""
+    with device_budget(budget):
+        return transformer_round(*args)
+
+
+def rank_one_fails() -> int:
+    """Rank 1 raises at once; every other rank enters an all-reduce that
+    rank 1 never joins (it would wait for the world's timeout)."""
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return dist.get_rank()

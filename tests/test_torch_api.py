@@ -71,10 +71,11 @@ def test_spec_validation_matches_jax(bad):
 ])
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     """The sharded engines build, in the port as in the JAX package (a
-    world of one here), and a model axis over 1 needs more ranks than that;
-    what of the model axis is not ported raises naming its ROADMAP item:
-    an RWKV model's placement (item 12c) and a weight split over the
-    serving mesh's data axis (item 12d)."""
+    world of one here), and a model axis over 1 needs more ranks than that.
+    Item 12c is ported: an RWKV model's placement resolves, ``bonus_u`` on
+    its heads. What of the model axis is not ported raises naming its
+    ROADMAP item: a weight split over the serving mesh's data axis (item
+    12d)."""
     import types
 
     from repro_torch.configs import get_arch, smoke_variant
@@ -84,10 +85,13 @@ def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     assert callable(tapi.round_fn_for(_tspec(**plane)))
     with pytest.raises(ValueError, match="needs 4 ranks"):
         tapi.round_fn_for(_tspec(engine="mesh_2d", mesh_shape=(2, 2)))
+    if item == "item 12c":
+        model = Transformer(smoke_variant(get_arch("rwkv6-1.6b")))
+        dims = sharding.param_split_dims(model.init(device="meta"), 2)
+        mixer = dims["segments"][0]["0"]["mixer"]
+        assert mixer["bonus_u"] == 1 and mixer["ln_scale"] == -1  # step, heads
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if item == "item 12c":
-            model = Transformer(smoke_variant(get_arch("rwkv6-1.6b")))
-            sharding.param_split_dims(model.init(device="meta"), 2)
         mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
         with sharding.axis_rules(mesh, sharding.serve_rules(True)):
             sharding.shard_hint(torch.ones(4, 6), "fsdp", "tp")

@@ -418,6 +418,25 @@ def test_mesh_quickstart_example_runs_on_two_ranks():
     assert out.stdout.count("== 1.") == 1          # rank 0 prints alone
 
 
+def test_host_world_raises_at_the_first_failing_rank():
+    """A rank that raises while another waits in an all-reduce for it:
+    ``HostWorld.run`` closes the world and raises rank 1's error within
+    seconds, not after the world's collective timeout."""
+    import time
+
+    from repro_torch.launch.mesh import WORLD_TIMEOUT_S, HostWorld
+    world = HostWorld(2)
+    try:
+        assert world.run(int, 7) == [7, 7]       # both ranks up
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+            world.run(cases.rank_one_fails)
+        assert time.perf_counter() - t0 < 30 < WORLD_TIMEOUT_S
+        assert world._procs is None              # closed
+    finally:
+        world.close(force=True)
+
+
 @pytest.mark.parametrize("driver", ["run_rounds", "train", "cohort"])
 def test_mesh_2d_drivers_on_two_ranks(worlds, driver):
     """mesh_2d (2, 1) in a world of 2 through run_rounds (bitwise

@@ -22,8 +22,8 @@ world of 8 ranks started once for the module.
   JAX's own ``mesh_2d`` (4, 2) in a process with 8 forced host devices
   (started with the module, so it runs beside the other tests).
 
-The transformer on the model axis is in
-tests/test_torch_mesh_model_axis_gemma3.py.
+The transformers on the model axis are in
+tests/test_torch_mesh_model_axis_{gemma3,rwkv,zamba2,moe}.py.
 """
 import json
 import os
@@ -186,30 +186,30 @@ def _model_dim(logical, shape, dm=2):
     return spec.index("model") if "model" in spec else -1
 
 
-def _jax_weight_hints(fn, *args):
-    """{param name: (shape, logical axes)} of every weight JAX's models
-    hint while ``fn(*args)`` runs (a hint whose tensor is an entry of the
-    caller's ``params``)."""
-    import repro.models.attention as jattn
-    import repro.models.layers as jlayers
+def _jax_weight_hints(fn, *args, modules):
+    """{(JAX module, param name): (shape, logical axes)} of every weight
+    the ``shard_hint`` calls of ``modules`` hint while ``fn(*args)`` runs
+    (a hint whose tensor is an entry of the calling function's
+    ``params``)."""
     seen = {}
 
     def record(x, *logical):
-        params = sys._getframe(1).f_locals.get("params")
+        frame = sys._getframe(1)
+        params = frame.f_locals.get("params")
         if isinstance(params, dict):
             for k, v in params.items():
                 if v is x:
-                    seen.setdefault(k, (tuple(x.shape), logical))
+                    seen.setdefault((frame.f_globals["__name__"], k),
+                                    (tuple(x.shape), logical))
         return x
 
-    mods = (jattn, jlayers, jlin)
-    saved = [m.shard_hint for m in mods]
-    for m in mods:
+    saved = [m.shard_hint for m in modules]
+    for m in modules:
         m.shard_hint = record
     try:
         fn(*args)
     finally:
-        for m, f in zip(mods, saved):
+        for m, f in zip(modules, saved):
             m.shard_hint = f
     return seen
 
@@ -219,13 +219,16 @@ def _jax_weight_hints(fn, *args):
 def test_linear_placement_matches_jax_hints():
     rng = np.random.default_rng(0)
     jp = jlin.init_linear(DIM)
+    import repro.models.attention as jattn
+    import repro.models.layers as jlayers
     hints = _jax_weight_hints(jlin.logreg_loss, jp, {
         "x": jnp.asarray(rng.normal(size=(B, DIM)), jnp.float32),
-        "y": jnp.zeros((B,), jnp.int32)})
-    assert set(hints) == {"w"}
+        "y": jnp.zeros((B,), jnp.int32)}, modules=(jattn, jlayers, jlin))
+    w = (jlin.__name__, "w")
+    assert set(hints) == {w}
     for dm in (2, 4, 8):
         got = tshard.param_split_dims(jax.tree.map(np.asarray, jp), dm)
-        assert got == {"w": _model_dim(hints["w"][1], hints["w"][0], dm),
+        assert got == {"w": _model_dim(hints[w][1], hints[w][0], dm),
                        "b": -1} == {"w": 0, "b": -1}
     with pytest.raises(ValueError, match="does not divide"):
         tshard.param_split_dims(jax.tree.map(np.asarray, jp), 16)
