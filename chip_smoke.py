@@ -135,9 +135,10 @@ Phases (each prints its lines; any failure exits non-zero):
      ms per step, their tokens equal under a guard of 4x their logits'
      difference (half the steps compared at least), one profiled engine
      step, blocking host syncs (0 per decode_step(table=...), at most 1
-     per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 1
-     on cuda at gemma3-4b's full width (the modes run in turns, one run of
-     each a load); (d) examples/serve_continuous_torch.py on cuda;
+     per engine.step()); (c) benchmarks/serve_torch.py --check --repeats 3
+     on cuda at gemma3-4b's full width (the modes run in turns, three runs
+     of each a load, the medians compared); (d)
+     examples/serve_continuous_torch.py on cuda;
  18. the MoE archs and the chunked mixers, bf16 at the published widths,
      random weights from a seed, after a check that phase 17 left no
      memory allocated: (a) launch.serve.generate on phi3.5-moe (16 of 32
@@ -202,14 +203,33 @@ Phases (each prints its lines; any failure exits non-zero):
      vmap on rank 0, in turns: params within 2e-5 of each tensor's largest
      magnitude, ms per round, each rank's peak memory, the model group's
      all-reduces a local step; (d)-(f) the other families as (b), f32,
-     tau 1, 2 rounds, in turns with vmap: (d) rwkv6-1.6b's widths, depth
-     24 -> 4, C 2, seq 512; (e) zamba2-7b's widths, its shared attention
-     + MLP block and one Mamba2 layer, C 2, seq 2048; (f) phi3.5-moe's
-     widths, 1 layer (experts split over the ranks), C 1, seq 512. 21b
-     and 21d-f share one world of two ranks; (c), after them:
+     tau 1, 2 rounds (1 for (d)), in turns with vmap: (d) rwkv6-1.6b's
+     widths, depth 24 -> 4, C 2, seq 512; (e) zamba2-7b's widths, its
+     shared attention + MLP block and one Mamba2 layer, C 2, seq 2048; (f)
+     phi3.5-moe's widths, 1 layer (experts split over the ranks), C 1,
+     seq 512. 21b and 21d-f share one world of two ranks; (c), after
+     them:
      row_sumsq and clip_noise_apply at a rank's rows of (a), (b) and
      (d)-(f) (for (b) and (d)-(f) also row_sumsq on rank 1's split
-     columns) against their plain versions and their bounds.
+     columns) against their plain versions and their bounds;
+ 22. the serving mesh (launch.serve.serve_on_mesh: prefill, decode and
+     the engine split over a model axis), two gloo ranks sharing the card
+     on the mesh (1, 2), bf16 at the published widths, in turns with the
+     whole model on rank 0: (a) gemma3-4b (34 layers, B 2 x 2048, 16
+     greedy tokens) and its engine (4 slots, blocks of 64, 6 Poisson
+     requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 layers,
+     B 2 x 512, 16 tokens); (c) zamba2-7b (B 2 x 512, 16 tokens); (d)
+     phi3.5-moe, 4 of 32 layers (B 2 x 512, 8 tokens): greedy tokens
+     against the whole route's under the top-two gap guard (4x the whole
+     route's own prefill distance to f32), at the prefill and every
+     decode step the logits' relative L2 to f32 at most 1.25x the whole
+     route's (both fed the mesh's tokens), the ranks' tokens bit for bit
+     alike, prefill and decode ms of each route in
+     turns, the model group's collectives against the prediction, each
+     rank's launches and peak memory; (e) each arch in f32 at two layers,
+     prefill + 4 decode steps within 1e-4 of the whole route's largest
+     logit; (f) flash_attention, rwkv6_scan and mamba2_ssd at a rank's
+     shapes against their plain versions and their bounds.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -311,9 +331,10 @@ ENGINE_GENS, ENGINE_SLOTS, ENGINE_BLOCK = (16, 32), 4, 64
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
 GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
 MODEL_KERNELS = ("flash_attention", "rwkv6_scan", "mamba2_ssd")
-# phase 17c: runs of each load, the modes in turns (one: three took 178 s
-# of the script's 1,200 s, which phases 21d-f need)
-SERVE_REPEATS = 1
+# phase 17c: runs of each load, the modes in turns, the medians compared
+# (one run a load read continuous 0.999x static at load 2.0 on a fast
+# host, where its load 1.0 ran faster: one sample is the host's noise)
+SERVE_REPEATS = 3
 # phase 18: the MoE archs at their published widths, bf16. (arch, steps of
 # its segment pattern kept (the depth cut), batch, prompt, greedy tokens):
 # phi3.5-moe 16 of 32 layers (41.9 GB of params); llama4-maverick one
@@ -543,10 +564,14 @@ def _row_times(torch, fn, n: int, stem: str) -> dict:
     device_ms, parts, kernels = _call_device_ms(torch, fn, 5 if big else 50,
                                                 stem)
     first = kernels
-    if kernels is not None and kernels < round(kernels):
+    for _ in range(3):
         # every call runs a whole number of kernels, and a kernel record the
-        # trace dropped can only lower the count: take the trace once more.
-        # A count above a whole number is kept, and fails its check
+        # trace dropped can only lower the count: take the trace again, up
+        # to three times (two traces in a row have read 0.98 where the
+        # wrapper runs one kernel). A count above a whole number is kept,
+        # and fails its check
+        if kernels is None or kernels >= round(kernels):
+            break
         device_ms, parts, kernels = _call_device_ms(
             torch, fn, 5 if big else 50, stem)
     return {"ms": _time_ms(fn, 20 if big else 200), "device_ms": device_ms,
@@ -4483,7 +4508,10 @@ MA_RUNS = (("dense", {}),
                               participation=0.5)))
 MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
               "quantize_decompress")
-MA_TF_TAU, MA_TF_B, MA_TF_ROUNDS = 1, 1, 2
+MA_TF_TAU, MA_TF_B = 1, 1
+# rounds a turn; rwkv6's per-token training loop takes 9-19 s a round, so
+# 21d takes one (the carry from round to round is 21b's, 21e's and 21f's)
+MA_TF_ROUNDS = {"21b": 2, "21d": 1, "21e": 2, "21f": 2}
 MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
 
 
@@ -4680,7 +4708,7 @@ def _ma_split_shape(configs, phase: str) -> tuple:
 def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
     """Phase ``phase``'s program on one rank: its transformer (f32,
     MA_CELLS) built by launch.train.build_federation as mesh_2d MA_SHAPE
-    and as vmap from the same seed; MA_TF_ROUNDS rounds of each from the
+    and as vmap from the same seed; MA_TF_ROUNDS[phase] rounds of each from the
     same state on the same batches, in turns (mesh, vmap, mesh, ...; vmap
     on rank 0 only, rank 1 waiting at a barrier), counters set to 0 just
     before each mesh turn and read after it. Returns the last turns'
@@ -4725,7 +4753,7 @@ def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
             if batches is None:
                 rng = np.random.default_rng(0)
                 batches = [api.round_batch(spec, sampler, rng)
-                           for _ in range(MA_TF_ROUNDS)]
+                           for _ in range(MA_TF_ROUNDS[phase])]
                 out["n_params"] = sum(x[0].numel()
                                       for x in tree_leaves(state.params))
             del sampler
@@ -4741,7 +4769,7 @@ def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
                                            check_budgets=False)
                 losses.append(float(rec["loss"]))
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / MA_TF_ROUNDS
+            ms = (time.perf_counter() - t0) * 1e3 / MA_TF_ROUNDS[phase]
             out[f"{'mesh' if engine == 'mesh_2d' else 'vmap'}_ms"].append(ms)
             out["losses"][engine] = losses
             if engine == "mesh_2d":
@@ -4787,7 +4815,8 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
     (a failed cell closes it). Returns (ok, {kernel: launches summed over
     the ranks, last turn}, record)."""
     arch, _, _, n_clients, seq = MA_CELLS[phase]
-    sigmas = fl.design_sigmas(MA_TF_ROUNDS * MA_TF_TAU, CLIP,
+    rounds = MA_TF_ROUNDS[phase]
+    sigmas = fl.design_sigmas(rounds * MA_TF_TAU, CLIP,
                               [MA_TF_B] * n_clients, TRAIN_EPS, DELTA)
     import gc
     gc.collect()
@@ -4802,7 +4831,7 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     gaps = r0["param_gaps"]
-    steps = MA_TF_TAU * MA_TF_ROUNDS
+    steps = MA_TF_TAU * rounds
     want_l = {"row_sumsq": steps, "clip_noise_apply": steps,
               "dp_clip_noise": 0, "quantize_decompress": 0}
     launches_ok = all(all(ln == want_l for ln in r["launches"])
@@ -4819,7 +4848,7 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
     print(f"phase {phase} on {card}: {arch}'s widths, f32, depth cut to "
           f"{len(layers)} layer(s) {layers}, "
           f"N = {r0['n_params']:,} params a replica, C {n_clients}, tau "
-          f"{MA_TF_TAU}, batch {MA_TF_B}, seq {seq}, {MA_TF_ROUNDS} rounds, "
+          f"{MA_TF_TAU}, batch {MA_TF_B}, seq {seq}, {rounds} round(s), "
           f"mesh_2d {MA_SHAPE} on 2 gloo ranks vs vmap on rank 0; "
           f"{wall:.1f} s", flush=True)
     print(f"phase {phase} params: max |d| / max |vmap| per tensor "
@@ -4835,7 +4864,7 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
           f"GB, vmap (rank 0 alone) {r0['vmap_peak_gb']:.3f} GB", flush=True)
     print(f"phase {phase} model-group all-reduces a local step {per_step} "
           f"(forward, backward and the clip norm), gathers a round "
-          f"{[g / MA_TF_ROUNDS for g in r0['gather']]} (the outputs', and "
+          f"{[g / rounds for g in r0['gather']]} (the outputs', and "
           f"those of weights used whole: zamba2's LoRA factors and conv); "
           f"launches per rank and turn "
           f"{[r['launches'] for r in ranks]} (expected {want_l}) "
@@ -4847,7 +4876,7 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
            "peak_gb_per_rank": [r["mesh_peak_gb"] for r in ranks],
            "vmap_peak_gb": r0["vmap_peak_gb"],
            "all_reduces_per_local_step": per_step,
-           "gathers_per_round": [g / MA_TF_ROUNDS for g in r0["gather"]]}
+           "gathers_per_round": [g / rounds for g in r0["gather"]]}
     return ok, launches, rec
 
 
@@ -4926,6 +4955,672 @@ def check_split_kernels(torch, shapes, card):
         del x, z, y, want_y, sq, want_sq, norm
         torch.cuda.empty_cache()
     return ok, recs, errs
+
+
+# -- phase 22: the serving mesh ---------------------------------------------
+
+SM_SHAPE = (1, 2)
+# (arch, steps of its first segment's pattern kept (None: every layer),
+# prompt, greedy tokens), batch SM_B, bf16 at the published widths
+SM_CELLS = {"22a": ("gemma3-4b", None, 2048, 16),
+            "22b": ("rwkv6-1.6b", None, 512, 16),
+            "22c": ("zamba2-7b", None, 512, 16),
+            "22d": ("phi3.5-moe-42b-a6.6b", 4, 512, 8)}
+SM_B, SM_TURNS = 2, 2
+# 22a's engine: prompts and requests (slots, block, budgets, rate: 17's)
+SM_ENGINE_PROMPTS, SM_ENGINE_REQUESTS = (300, 700, 1500), 6
+# 22e: f32, two layers a model (zamba2: its shared block and one Mamba2
+# layer), prompt, decode steps, phase 12's gate of the largest logit
+SM_F32_LAYERS = {"gemma3-4b": (0, 5), "rwkv6-1.6b": (0,),
+                 "zamba2-7b": (0, 1), "phi3.5-moe-42b-a6.6b": (0,)}
+SM_F32_PROMPT, SM_F32_STEPS, SM_F32_TOL = 512, 4, 1e-4
+# 22f: each model kernel at a rank's shapes on the (1, 2) mesh, bf16:
+# (B, H / 2, S, hd, window) gemma3-4b's two masks, zamba2's shared
+# attention, phi3.5-moe's; (B, H / 2, S, hd, from s0) rwkv6-1.6b's
+# prefill and decode step; (B, S, H / 2, P, N, chunk) zamba2's SSD
+SM_FLASH = ((2, 4, 2048, 256, 1024), (2, 4, 2048, 256, 0),
+            (2, 16, 512, 112, 0), (2, 16, 512, 128, 0))
+SM_RWKV = ((2, 16, 512, 64, False), (2, 16, 1, 64, True))
+SM_SSD = ((2, 512, 56, 64, 64, 128),)
+
+
+def _sm_cfg(configs, phase: str):
+    """Phase ``phase``'s model (SM_CELLS) at its published widths in bf16,
+    phi3.5-moe's depth cut to 4 of its 32 layers."""
+    arch, steps, _, _ = SM_CELLS[phase]
+    return (configs.get_arch(arch) if steps is None
+            else _depth_cut(configs, arch, steps))
+
+
+def _sm_f32_cfg(configs, arch: str):
+    """22e's model: ``arch`` at its published widths in f32, two layers of
+    its first segment's pattern (SM_F32_LAYERS; one step of a one-layer
+    pattern twice)."""
+    import dataclasses
+    cfg = configs.get_arch(arch)
+    seg = cfg.segments[0]
+    keep = SM_F32_LAYERS[arch]
+    pattern = tuple(seg.pattern[i] for i in keep)
+    steps = 2 // len(pattern)
+    return dataclasses.replace(
+        cfg, name=f"{arch}-2L", n_layers=2, dtype="float32",
+        segments=(dataclasses.replace(seg, n_steps=steps,
+                                      pattern=pattern),))
+
+
+def _sm_collectives(cfg) -> dict:
+    """The model group's collectives in one decode step (and in a prefill),
+    predicted from the code: the vocabulary-parallel embedding's
+    all-reduce and the tied LM head's gather; an attention layer's output
+    all-reduce (zamba2's shared block also gathers its two LoRA factors),
+    an MLP's one, an MoE's one (plus its shared expert's); RWKV6's time
+    mix three (the projections, the norm, w_o) and channel mix two;
+    Mamba2 three (w_in, the norm, w_out) and one gather of conv_w."""
+    ar, ga = 1, 1
+    for seg in cfg.segments:
+        for ls in seg.pattern:
+            n = seg.n_steps
+            if ls.mixer in ("attn", "shared_attn"):
+                ar += n
+                ga += 2 * n if ls.mixer == "shared_attn" else 0
+            elif ls.mixer == "rwkv6":
+                ar += 3 * n
+            elif ls.mixer == "mamba2":
+                ar += 3 * n
+                ga += n
+            ar += n * {"mlp": 1, "shared_mlp": 1, "rwkv_cm": 2, "none": 0,
+                       "moe": 2 if cfg.shared_expert else 1}[ls.ffn]
+    return {"all_reduce": ar, "gather": ga}
+
+
+def _sm_counters():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan,
+            "mamba2_ssd": mamba2_ssd}
+
+
+def _sm_want(cfg, gen: int) -> dict:
+    """Each model kernel's launches in one generate of ``gen`` tokens on a
+    rank (phase 11's formula: the rank runs every layer on its heads)."""
+    mixers = cfg.count_mixers()
+    return {"flash_attention": mixers.get("attn", 0)
+            + mixers.get("shared_attn", 0),
+            "rwkv6_scan": mixers.get("rwkv6", 0) * (1 + gen),
+            "mamba2_ssd": mixers.get("mamba2", 0)}
+
+
+def _sm_generate(torch, serve, model, params, prompts, gen, counters,
+                 on_mesh: bool):
+    """One counted ``generate`` (counters and the model group's
+    collectives set to 0 just before, read just after), then one timed
+    prefill of the same prompts; on the serving mesh when ``on_mesh``."""
+    import contextlib
+
+    from repro_torch.mesh import collectives
+    ctx = (serve.serve_on_mesh(model, SM_SHAPE) if on_mesh
+           else contextlib.nullcontext())
+    with ctx:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        collectives.counts.update(all_reduce=0, gather=0)
+        t0 = time.perf_counter()
+        tokens, seen = serve.generate(model, params, prompts, gen,
+                                      with_logits=True)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: c.launches for n, c in counters.items()}
+        coll = dict(collectives.counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            model.prefill(params, prompts, max_len=prompts.shape[1] + gen)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+    return {"tokens": tokens, "logits": seen, "gen_ms": gen_ms,
+            "prefill_ms": prefill_ms,
+            "decode_ms": (gen_ms - prefill_ms) / gen,
+            "launches": launches, "collectives": coll, "peak_gb": peak}
+
+
+def _sm_engine(torch, serve, serve_pkg, model, params, counters,
+               on_mesh: bool):
+    """22a's workload through a SlotEngine (phase 17's slots, block and
+    budgets; no warm-up: nothing is timed), on the serving mesh when
+    ``on_mesh``: each request's tokens and the logits it drew each from
+    (the held row of its slot before each step), the block table after
+    each step, the model kernels' launches (set to 0 just before the
+    workload)."""
+    import contextlib
+    ctx = (serve.serve_on_mesh(model, SM_SHAPE) if on_mesh
+           else contextlib.nullcontext())
+    record = {"tables": [], "logits": {}}
+
+    class Recording(serve_pkg.SlotEngine):
+        def step(self):
+            for s in map(int, self._active_np.nonzero()[0]):
+                rid = self._slot_req[s].rid
+                record["logits"].setdefault(rid, []).append(
+                    self.logits[s].clone())
+            out = super().step()
+            record["tables"].append(self._table_np.copy())
+            return out
+
+    with ctx:
+        max_len = _engine_max_len(SM_ENGINE_PROMPTS)
+        engine = Recording(model, params, n_slots=ENGINE_SLOTS,
+                           max_len=max_len, block_size=ENGINE_BLOCK,
+                           device="cuda")
+        wl = serve_pkg.poisson_workload(
+            SM_ENGINE_REQUESTS, ENGINE_RATE, model.cfg.vocab, seed=0,
+            prompt_lens=SM_ENGINE_PROMPTS, gen_lens=ENGINE_GENS)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rep = serve_pkg.serve_continuous(
+            engine, wl, clock=serve_pkg.StepClock(
+                dt_prefill_token=ENGINE_PREFILL_TOKEN_S))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    return {"tokens": {r.rid: list(r.out) for r in rep.requests},
+            "logits": {k: torch.stack(v) for k, v in
+                       record["logits"].items()},
+            "tables": record["tables"], "launches": launches,
+            "steps": engine.steps, "wall_s": wall,
+            "n_requests": len(rep.requests)}
+
+
+def _sm_rank(phase: str) -> dict:
+    """Phase ``phase``'s program on one rank of two sharing the card: its
+    model (SM_CELLS) made whole from a seeded CUDA generator, the rank's
+    slices cut from it under the serving mesh SM_SHAPE (rank 1 then frees
+    the whole params; rank 0 keeps them for the whole route); SM_TURNS
+    turns of a counted greedy ``generate`` of SM_B prompts on the mesh
+    (both ranks), then on the whole model (rank 0; rank 1 waits at a
+    barrier); on rank 0 the whole route and the f32 computation (the plain
+    route on the f32 upcast of the params) teacher-forced with the last
+    mesh turn's tokens (``_sm_forced``); for 22a, the engine's workload on
+    the mesh and whole. Returns, moved to the host, each turn's times,
+    launches, collectives and peak memory, the last turn's tokens and
+    logits, and rank 0's teacher-forced logits."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import serve as serve_pkg
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_leaves
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    arch, _, prompt, gen = SM_CELLS[phase]
+    cfg = _sm_cfg(configs, phase)
+    model = Transformer(cfg)
+    counters = _sm_counters()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    whole = model.init(g, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (SM_B, prompt), generator=g,
+                            device="cuda")
+    with serve.serve_on_mesh(model, SM_SHAPE):
+        local = sharding.local_params(whole)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "whole_gb": sum(x.nbytes for x in tree_leaves(whole)) / 1e9,
+           "local_gb": sum(x.nbytes for x in tree_leaves(local)) / 1e9,
+           "mesh": [], "whole": []}
+    if rank != 0:
+        del whole
+    torch.cuda.empty_cache()
+    # warm-up: each route's first calls (cuBLAS handles, the allocator)
+    _sm_generate(torch, serve, model, local, prompts[:, :128], 2, counters,
+                 True)
+    if rank == 0:
+        _sm_generate(torch, serve, model, whole, prompts[:, :128], 2,
+                     counters, False)
+    for turn in range(SM_TURNS):
+        dist.barrier()
+        out["mesh"].append(_sm_generate(torch, serve, model, local, prompts,
+                                        gen, counters, True))
+        dist.barrier()
+        if rank == 0:
+            out["whole"].append(_sm_generate(torch, serve, model, whole,
+                                             prompts, gen, counters, False))
+    dist.barrier()
+    if rank == 0:
+        # the whole route and the f32 computation (the plain route on the
+        # f32 upcast of the same params) fed the mesh's tokens: what the
+        # mesh's prefill and decode steps are held against
+        import dataclasses
+
+        from repro_torch.utils.tree import tree_map
+        tokens = out["mesh"][-1]["tokens"]
+        out["whole_forced"] = _sm_forced(torch, model, whole, prompts,
+                                         tokens, gen)
+        model32 = Transformer(dataclasses.replace(cfg, dtype="float32"),
+                              kernel_backend="ref")
+        p32 = tree_map(lambda x: x.float(), whole)
+        out["f32_forced"] = _sm_forced(torch, model32, p32, prompts, tokens,
+                                       gen)
+        del p32
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for runs in (out["mesh"], out["whole"]):
+        for i, r in enumerate(runs):
+            last = i == len(runs) - 1
+            r["tokens"] = r["tokens"].cpu().numpy() if last else None
+            r["logits"] = r["logits"].float().cpu().numpy() if last else None
+    if phase == "22a":
+        for on_mesh in (True, False):
+            dist.barrier()
+            if not on_mesh and rank != 0:
+                continue
+            eng = _sm_engine(torch, serve, serve_pkg, model,
+                             local if on_mesh else whole, counters, on_mesh)
+            eng["logits"] = {k: v.float().cpu().numpy()
+                             for k, v in eng["logits"].items()}
+            out["engine_mesh" if on_mesh else "engine_whole"] = eng
+        dist.barrier()
+    del local
+    if rank == 0:
+        del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sm_forced(torch, model, params, prompts, tokens, gen: int):
+    """``model``'s logits of the prefill of ``prompts`` and of gen - 1
+    decode steps fed ``tokens`` (teacher-forced), (B, gen, V) f32 on the
+    host."""
+    with torch.inference_mode():
+        logits, caches, pos = model.prefill(params, prompts,
+                                            max_len=prompts.shape[1] + gen)
+        steps = [logits]
+        for i in range(gen - 1):
+            logits, caches = model.decode_step(params, caches, tokens[:, i],
+                                               pos + i)
+            steps.append(logits)
+    return torch.stack(steps, 1).float().cpu().numpy()
+
+
+def _sm_f32_rank(arch: str) -> dict:
+    """22e's program on one rank: ``arch`` in f32 at its published widths,
+    two layers (``_sm_f32_cfg``), whole params from a seeded CUDA
+    generator, B SM_B x SM_F32_PROMPT: ``generate`` of SM_F32_STEPS + 1
+    greedy tokens on the serving mesh (the prefill and SM_F32_STEPS
+    decode steps' logits); rank 0 then runs the whole route's prefill and
+    decode steps teacher-forced with the mesh's tokens. Returns the
+    routes' logits (rank 0) and the rank's tokens."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    cfg = _sm_f32_cfg(configs, arch)
+    model = Transformer(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    whole = model.init(g, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (SM_B, SM_F32_PROMPT),
+                            generator=g, device="cuda")
+    n = SM_F32_STEPS + 1
+    with serve.serve_on_mesh(model, SM_SHAPE):
+        local = sharding.local_params(whole)
+        tokens, seen = serve.generate(model, local, prompts, n,
+                                      with_logits=True)
+    out = {"rank": rank, "tokens": tokens.cpu().numpy(),
+           "mesh": seen.cpu().numpy()}
+    del local
+    if rank == 0:
+        out["whole"] = _sm_forced(torch, model, whole, prompts, tokens, n)
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _sm_guarded(serve, np, tokens, ref_tokens, ref_logits, tol):
+    """Each row's tokens against the reference's under the top-two gap
+    guard (``agree_under_gap`` at ``tol``): (all agree, steps compared,
+    steps)."""
+    ok, n, total = True, 0, 0
+    for got, ref, lg in zip(tokens, ref_tokens, ref_logits):
+        agree, k = serve.agree_under_gap(list(got), ref, lg, tol)
+        ok &= agree
+        n += k
+        total += len(ref)
+    return ok, n, total
+
+
+def run_serving_mesh(torch, np, configs, serve, card, world):
+    """Phase 22a-d: each SM_CELLS model in bf16 on the serving mesh (1, 2)
+    of ``world``'s two gloo ranks sharing the card, in turns with the
+    whole model on rank 0 (``_sm_rank``): greedy tokens against the whole
+    route's under the top-two gap guard at four times the whole route's
+    own rounding, the largest |whole - f32| of the prefill logits (the f32
+    computation: the plain route on the f32 upcast of the params; a
+    measure the mesh does not move), at least one bf16 ulp of the largest
+    logit; at the prefill and at every decode step, the whole route and
+    the f32 computation fed the mesh's tokens (``_sm_forced``), the mesh's
+    logits' relative L2 distance to the f32 computation at most 1.25 x
+    the whole route's + 1e-3 (phase 12's bf16 criterion: a random-init
+    bf16 stack moves far from f32 by rounding alone, so the guard may
+    leave few steps to compare, and this holds the split's accuracy on
+    every step instead); the ranks' tokens and logits bit for bit alike;
+    prefill ms and decode ms a token of each route in turns; the model
+    group's collectives over a generate against the prediction (per
+    decode step and prefill, ``_sm_collectives``); each rank's launches
+    (``_sm_want``); each rank's peak memory against the whole route's;
+    22a's engine on the mesh against the whole engine (tokens under the
+    same guard, the ranks' tokens and block tables alike, flash launches
+    per prefill group). Returns (ok, {kernel: launches of both ranks, the
+    last mesh turn, by phase}, {phase: record})."""
+    ok, launches, recs = True, {}, {}
+    for phase in SM_CELLS:
+        arch, _, prompt, gen = SM_CELLS[phase]
+        cfg = _sm_cfg(configs, phase)
+        t0 = time.perf_counter()
+        try:
+            ranks = world.run(_sm_rank, phase)
+        except RuntimeError as e:
+            print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
+                  flush=True)
+            return False, launches, recs
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        mesh, whole = r0["mesh"][-1], r0["whole"][-1]
+        alike = (np.array_equal(mesh["tokens"], r1["mesh"][-1]["tokens"])
+                 and np.array_equal(mesh["logits"],
+                                    r1["mesh"][-1]["logits"]))
+        f32, forced = r0["f32_forced"], r0["whole_forced"]
+        scale = float(np.abs(whole["logits"]).max())
+        rounding = float(np.abs(forced[:, 0] - f32[:, 0]).max())
+        tol = max(4 * rounding, scale * 2.0 ** -8)
+        agree, n_cmp, n_all = _sm_guarded(serve, np, mesh["tokens"],
+                                          whole["tokens"], whole["logits"],
+                                          tol)
+        # phase 12's bf16 criterion at the prefill and every decode step:
+        # the mesh's logits no farther from the f32 computation than
+        # 1.25 x the whole route's (both fed the mesh's tokens)
+        to_f32 = {k: [float(np.linalg.norm(x[:, t] - f32[:, t])
+                            / np.linalg.norm(f32[:, t])) for t in range(gen)]
+                  for k, x in (("mesh", mesh["logits"]), ("whole", forced))}
+        near = all(m <= 1.25 * w + 1e-3
+                   for m, w in zip(to_f32["mesh"], to_f32["whole"]))
+        ratio = max(m / w for m, w in zip(to_f32["mesh"], to_f32["whole"]))
+        gap = [float(np.abs(mesh["logits"][:, t] - forced[:, t]).max())
+               for t in range(gen)]
+        want_l = _sm_want(cfg, gen)
+        pred = _sm_collectives(cfg)
+        want_c = {k: v * (gen + 1) for k, v in pred.items()}
+        launches_ok = all(t["launches"] == want_l for r in ranks
+                          for t in r["mesh"])
+        coll_ok = all(t["collectives"] == want_c for r in ranks
+                      for t in r["mesh"])
+        finite = bool(np.isfinite(mesh["logits"]).all()
+                      and np.isfinite(whole["logits"]).all())
+        good = (alike and agree and near and launches_ok and coll_ok
+                and finite)
+        launches[phase] = {n: sum(r["mesh"][-1]["launches"][n]
+                                  for r in ranks) for n in want_l}
+        rec = {"arch": arch, "layers": cfg.n_layers, "prompt": prompt,
+               "tokens": gen, "rounding": rounding, "guard": tol,
+               "steps_compared": [n_cmp, n_all],
+               "rel_l2_to_f32": to_f32, "max_ratio": ratio,
+               "max_abs_mesh_vs_forced": gap,
+               "prefill_ms": {"mesh": [t["prefill_ms"] for t in r0["mesh"]],
+                              "whole": [t["prefill_ms"]
+                                        for t in r0["whole"]]},
+               "decode_ms": {"mesh": [t["decode_ms"] for t in r0["mesh"]],
+                             "whole": [t["decode_ms"] for t in r0["whole"]]},
+               "peak_gb": {"mesh": [r["mesh"][-1]["peak_gb"] for r in ranks],
+                           "whole": whole["peak_gb"]},
+               "params_gb": {"whole": r0["whole_gb"],
+                             "rank": [r["local_gb"] for r in ranks]},
+               "collectives_per_step": {k: v / (gen + 1) for k, v in
+                                        mesh["collectives"].items()}}
+        print(f"phase {phase} {arch} bf16 on {card}: {cfg.n_layers} layers, "
+              f"B {SM_B} x {prompt}, {gen} greedy tokens, serving mesh "
+              f"{SM_SHAPE} on 2 gloo ranks vs the whole model on rank 0, "
+              f"in turns; {wall:.1f} s with the params' init "
+              f"({r0['init_s']:.1f} s); params {r0['whole_gb']:.2f} GB "
+              f"whole, {[round(r['local_gb'], 3) for r in ranks]} GB a rank",
+              flush=True)
+        print(f"phase {phase} tokens mesh {mesh['tokens'][0, :8].tolist()} "
+              f"whole {whole['tokens'][0, :8].tolist()}: agree under the "
+              f"guard {tol:.3e} (4x the whole route's prefill max |whole - "
+              f"f32| {rounding:.3e}, at least a bf16 ulp of max|logit| "
+              f"{scale:.2f}) {agree}, {n_cmp}/{n_all} steps compared; "
+              f"logits' relative L2 to the f32 computation (fed the mesh's "
+              f"tokens) at the prefill and each decode step mesh "
+              f"{[float(f'{x:.4g}') for x in to_f32['mesh']]} whole "
+              f"{[float(f'{x:.4g}') for x in to_f32['whole']]} (each mesh "
+              f"<= 1.25 x whole + 1e-3: {near}, largest mesh / whole "
+              f"{ratio:.4f}); max |mesh - whole fed the mesh's tokens| a "
+              f"step {[float(f'{x:.4g}') for x in gap]}; ranks' tokens and "
+              f"logits "
+              f"{'bit for bit alike' if alike else 'DIFFERENT'}; logits "
+              f"finite {finite}", flush=True)
+        print(f"phase {phase} ms in turns (m w m w): prefill mesh "
+              f"{[round(x, 3) for x in rec['prefill_ms']['mesh']]} whole "
+              f"{[round(x, 3) for x in rec['prefill_ms']['whole']]}; decode "
+              f"a token ((generate - prefill) / tokens) mesh "
+              f"{[round(x, 3) for x in rec['decode_ms']['mesh']]} whole "
+              f"{[round(x, 3) for x in rec['decode_ms']['whole']]}; peak "
+              f"memory a rank {[round(x, 3) for x in rec['peak_gb']['mesh']]}"
+              f" GB, whole {whole['peak_gb']:.3f} GB", flush=True)
+        print(f"phase {phase} model-group collectives a generate "
+              f"{mesh['collectives']} (predicted {want_c}: "
+              f"{pred} a decode step and a prefill, x {gen + 1}); "
+              f"launches per rank and turn "
+              f"{[t['launches'] for r in ranks for t in r['mesh']]} "
+              f"(expected {want_l}) {'ok' if good else 'CHECK FAILED'}",
+              flush=True)
+        if phase == "22a":
+            e_ok, e_rec = _sm_engine_verdict(serve, np, cfg, ranks, tol, card)
+            good &= e_ok
+            launches["22a engine"] = {
+                n: sum(r["engine_mesh"]["launches"][n] for r in ranks)
+                for n in want_l}
+            rec["engine"] = e_rec
+        ok &= good
+        recs[phase] = rec
+        print(f"phase {phase} wall time {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return ok, launches, recs
+
+
+def _sm_engine_verdict(serve, np, cfg, ranks, tol, card):
+    """22a's engine: the mesh engine's tokens against the whole engine's
+    under the guard ``tol`` (the whole engine's logits before each token
+    the reference), the ranks' tokens and every block table alike,
+    flash launches = attention layers x prefill groups on each rank."""
+    r0, r1 = ranks
+    em, ew = r0["engine_mesh"], r0["engine_whole"]
+    alike = (em["tokens"] == r1["engine_mesh"]["tokens"]
+             and len(em["tables"]) == len(r1["engine_mesh"]["tables"])
+             and all(np.array_equal(a, b) for a, b in
+                     zip(em["tables"], r1["engine_mesh"]["tables"])))
+    ok, n_cmp, n_all = True, 0, 0
+    for rid, ref in ew["tokens"].items():
+        agree, k = serve.agree_under_gap(em["tokens"][rid], ref,
+                                         ew["logits"][rid], tol)
+        ok &= agree
+        n_cmp += k
+        n_all += len(ref)
+    groups = em["launches"]["flash_attention"] // max(
+        cfg.count_mixers().get("attn", 1), 1)
+    launch_ok = (all(r["engine_mesh"]["launches"] == em["launches"]
+                     for r in ranks)
+                 and em["launches"]["flash_attention"] == groups
+                 * cfg.count_mixers()["attn"] and groups > 0
+                 and em["launches"]["flash_attention"]
+                 == ew["launches"]["flash_attention"])
+    good = (alike and ok and launch_ok
+            and em["n_requests"] == SM_ENGINE_REQUESTS)
+    print(f"phase 22a engine on {card} ({ENGINE_SLOTS} slots, block "
+          f"{ENGINE_BLOCK}, {SM_ENGINE_REQUESTS} Poisson requests at prompts "
+          f"{SM_ENGINE_PROMPTS}): mesh {em['steps']} steps in "
+          f"{em['wall_s']:.2f} s, whole {ew['steps']} steps in "
+          f"{ew['wall_s']:.2f} s; tokens against the whole engine's under "
+          f"the guard {tol:.3e}: {ok}, {n_cmp}/{n_all} steps compared; "
+          f"ranks' tokens and {len(em['tables'])} block tables "
+          f"{'alike' if alike else 'DIFFERENT'}; launches per rank "
+          f"{[r['engine_mesh']['launches'] for r in ranks]} ({groups} "
+          f"prefill groups x {cfg.count_mixers()['attn']} attention "
+          f"layers; whole {ew['launches']}) "
+          f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    return good, {"steps": em["steps"], "wall_s": {"mesh": em["wall_s"],
+                                                    "whole": ew["wall_s"]},
+                  "steps_compared": [n_cmp, n_all], "groups": groups}
+
+
+def run_serving_mesh_f32(torch, np, configs, card, world):
+    """Phase 22e: each served arch in f32 at its published widths, two
+    layers, on the serving mesh (1, 2) against the whole route on rank 0
+    teacher-forced with the mesh's tokens: the prefill and SM_F32_STEPS
+    decode steps' logits within SM_F32_TOL of the whole route's largest
+    logit (phase 12's gate); the ranks' tokens alike."""
+    ok = True
+    for arch in SM_F32_LAYERS:
+        try:
+            r0, r1 = world.run(_sm_f32_rank, arch)
+        except RuntimeError as e:
+            print(f"phase 22e {arch}: the two ranks failed: {e} CHECK "
+                  f"FAILED", flush=True)
+            return False
+        gap = float(np.abs(r0["mesh"] - r0["whole"]).max()) / max(
+            1.0, float(np.abs(r0["whole"]).max()))
+        alike = np.array_equal(r0["tokens"], r1["tokens"])
+        good = (gap <= SM_F32_TOL and alike
+                and bool(np.isfinite(r0["mesh"]).all()))
+        ok &= good
+        cfg = _sm_f32_cfg(configs, arch)
+        layers = [f"{ls.mixer} + {ls.ffn}"
+                  for ls in cfg.segments[0].pattern] * cfg.segments[0].n_steps
+        print(f"phase 22e {arch} f32 on {card}, layers {layers}, B {SM_B} x "
+              f"{SM_F32_PROMPT}: prefill + {SM_F32_STEPS} decode steps, mesh "
+              f"{SM_SHAPE} vs whole, max gap / max|logit| {gap:.3e} (limit "
+              f"{SM_F32_TOL}); ranks' tokens "
+              f"{'alike' if alike else 'DIFFERENT'} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    return ok
+
+
+def check_rank_kernels(torch, card):
+    """Phase 22f: flash_attention, rwkv6_scan and mamba2_ssd at a rank's
+    shapes on the (1, 2) serving mesh (SM_FLASH, SM_RWKV, SM_SSD), bf16,
+    each against its plain version on the same values upcast to f32
+    (phase 10's criteria), timed (CUDA events) beside the plain version,
+    the bound and, for flash, torch's scaled_dot_product_attention.
+    Returns (ok, {kernel: [record a shape]}, {kernel: max abs err})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         mamba2_ssd_ref, rwkv6_scan_ref)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf = torch.bfloat16
+    ok, recs, worst = True, {}, {}
+
+    def record(name, shape, variant, err, good, fn, plain, bound, lib=None,
+               iters=20):
+        nonlocal ok
+        ok &= good
+        worst[name] = max(worst.get(name, 0.0), err)
+        ms, plain_ms = _time_ms(fn, iters), _time_ms(plain, max(iters // 4,
+                                                                 1))
+        lib_ms = None if lib is None else _time_ms(lib, iters)
+        recs.setdefault(name, []).append({
+            "shape": list(shape), "variant": variant, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms,
+            "max_abs_err": err})
+        print(f"phase 22f {name} {shape} bf16 [{variant}]: max|d| {err:.3e} "
+              f"{'ok' if good else 'MISMATCH'}  kernel {ms:.5f} ms "
+              f"({bound[0] / ms:.1%} of the bound)  plain {plain_ms:.5f} ms"
+              f"  bound {bound[0]:.6f} ms ({bound[1]})  library "
+              + ("none (no single PyTorch call computes it)" if lib is None
+                 else f"scaled_dot_product_attention {lib_ms:.5f} ms")
+              + f" ({card})", flush=True)
+
+    for b, h, s, hd, window in SM_FLASH:
+        q, k, v = (torch.randn((b, h, s, hd), generator=gen,
+                               device="cuda").to(bf) for _ in range(3))
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=window)
+        err, good = _kernel_err(torch, got, want, bf)
+        del want
+        if window:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True)
+        record("flash_attention", (b, h, s, hd, window),
+               flash_attention.last_variant, err, good,
+               lambda: flash_attention(q, k, v, window=window),
+               lambda: flash_attention_ref(q, k, v, window=window),
+               _flash_bound(torch, b, h, s, hd, window, bf), lib)
+        del q, k, v, got
+    for b, h, s, hd, with_s0 in SM_RWKV:
+        r, k, v = (torch.randn((b, h, s, hd), generator=gen,
+                               device="cuda").to(bf) for _ in range(3))
+        w = torch.sigmoid(torch.randn((b, h, s, hd), generator=gen,
+                                      device="cuda"))
+        u = torch.randn((h, hd), generator=gen, device="cuda")
+        s0 = (torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+              if with_s0 else None)
+        y, st = rwkv6_scan(r, k, v, w, u, s0)
+        variant = rwkv6_scan.last_variant
+        wy, ws = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
+        e1, g1 = _kernel_err(torch, y, wy, bf)
+        e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+        del wy, ws
+        record("rwkv6_scan", (b, h, s, hd) + (("s0",) if with_s0 else ()),
+               variant, max(e1, e2), g1 and g2,
+               lambda: rwkv6_scan(r, k, v, w, u, s0),
+               lambda: rwkv6_scan_ref(r, k, v, w, u, s0),
+               _rwkv_bound(torch, b, h, s, hd, with_s0, bf),
+               iters=30 if s > 1 else 200)
+        del r, k, v, w, u, s0, y, st
+    for b, s, h, p, n, q in SM_SSD:
+        x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(bf)
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+        a = -torch.exp(0.3 * torch.randn((h,), generator=gen, device="cuda"))
+        b_in, c_in = (torch.randn((b, s, n), generator=gen,
+                                  device="cuda").to(bf) for _ in range(2))
+        y, st = mamba2_ssd(x, dt, a, b_in, c_in, chunk=q)
+        variant = mamba2_ssd.last_variant
+        wy, ws = mamba2_ssd_ref(x.float(), dt, a, b_in.float(), c_in.float(),
+                                min(q, s))
+        e1, g1 = _kernel_err(torch, y, wy, bf)
+        e2, g2 = _kernel_err(torch, st, ws, torch.float32)
+        del wy, ws
+        record("mamba2_ssd", (b, s, h, p, n, q), variant, max(e1, e2),
+               g1 and g2, lambda: mamba2_ssd(x, dt, a, b_in, c_in, chunk=q),
+               lambda: mamba2_ssd_ref(x, dt, a, b_in, c_in, q),
+               _ssd_bound(torch, b, s, h, p, n, q, bf))
+        del x, dt, a, b_in, c_in, y, st
+    torch.cuda.synchronize()
+    return ok, recs, worst
 
 
 def main() -> int:
@@ -5192,6 +5887,22 @@ def main() -> int:
     print(f"phase 21 wall time {time.perf_counter() - t21:.1f} s",
           flush=True)
 
+    # -- 22. the serving mesh ---------------------------------------------
+    t22 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm_world = HostWorld(2)
+    sm_world.run(int, 0)
+    print(f"phase 22: 2 gloo ranks started in "
+          f"{time.perf_counter() - t22:.1f} s", flush=True)
+    ok_ya, ya_launches, ya_recs = run_serving_mesh(torch, np, configs, serve,
+                                                   card, sm_world)
+    ok_ye = run_serving_mesh_f32(torch, np, configs, card, sm_world)
+    sm_world.close()
+    ok_yf, yf_recs, yf_errs = check_rank_kernels(torch, card)
+    print(f"phase 22 wall time {time.perf_counter() - t22:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -5226,6 +5937,16 @@ def main() -> int:
     model_kernels[0]["launches_other_paths"][
         "phase 19b gemma3-4b prefill B 2 x 2048 (dry run's real path)"] = \
         dr_launches
+    for rec in model_kernels:
+        name = rec["name"]
+        for phase, launched in ya_launches.items():
+            if launched.get(name):
+                arch = SM_CELLS[phase.split()[0]][0]
+                rec["launches_other_paths"][
+                    f"phase {phase} {arch} on the serving mesh (1, 2), both "
+                    f"ranks, the last turn"] = launched[name]
+        rec["at_rank_shapes"] = yf_recs.get(name, [])
+        rec["max_abs_err"] = max(rec["max_abs_err"], yf_errs.get(name, 0.0))
 
     split_kernels = []
     for name in ("row_sumsq", "clip_noise_apply"):
@@ -5319,7 +6040,7 @@ def main() -> int:
             "phase 20a the resident quickstart under shard_map":
                 sa_launches["cohort_gather_scatter"]}}] + model_kernels
         + split_kernels, "phase21b_gemma3_model_axis": xb_rec,
-        "phase21def_model_axis": xf_recs}),
+        "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -5389,7 +6110,19 @@ def main() -> int:
                      (all(xa_launches[n] > 0 for n in ("row_sumsq",
                                                        "clip_noise_apply")),
                       "a split clip kernel was not launched on the model "
-                      "axis' path")):
+                      "axis' path"),
+                     (ok_ya, "a model on the serving mesh disagrees with "
+                             "the whole route or missed a check"),
+                     (ok_ye, "the f32 serving mesh is off the whole route "
+                             "by more than 1e-4 of the largest logit"),
+                     (ok_yf, "a model kernel disagrees with its plain "
+                             "version at a rank's shapes"),
+                     (sum(v.get("flash_attention", 0)
+                          for v in ya_launches.values()) > 0
+                      and ya_launches.get("22b", {}).get("rwkv6_scan", 0) > 0
+                      and ya_launches.get("22c", {}).get("mamba2_ssd", 0) > 0,
+                      "a model kernel was not launched on the serving "
+                      "mesh")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -17,11 +17,14 @@ The port of the JAX package's ``repro/launch/dryrun.py``, for one card:
   the trace's peak of temporaries), ``fits_hbm`` against the card's
   79.18 GiB, and ``roofline``.
 
-Not ported (ROADMAP queue 1 item 12d, the serving mesh): ``--multi-pod`` and
-``mesh_report``, which shard each replica over a mesh's model axis;
-``--multi-pod`` raises. (``make_production_mesh`` and the sharding rules
-are in :mod:`repro_torch.launch.mesh` and :mod:`repro_torch.models
-.sharding`; a trace here is of one replica on one card.) The ``--opt``
+Not ported (the remainder of ROADMAP queue 1 item 12d): ``--multi-pod``
+and ``mesh_report``, which would record each rank's slice of a replica on
+a mesh's model axis; ``--multi-pod`` raises. A trace here is of one
+replica on one card. The serving mesh itself runs
+(:func:`repro_torch.launch.serve.serve_on_mesh`: prefill, decode and the
+engine split over ranks), as do ``make_production_mesh`` and the sharding
+rules (:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.models
+.sharding`). The ``--opt``
 names that only steer XLA's lowering (``scan_accum``, ``gather_weights``,
 ``ddp``, ``no_donate``) raise ``ValueError``: the port's decode writes its
 caches in place, as a donated JAX cache is.

@@ -27,6 +27,9 @@ rank's model coordinate, which meet in the Eq.-7b reduction,
 :class:`repro_torch.core.fl_shard_map.ClientGroup`) and
 ``mesh.get_group("model")`` (the ranks of this rank's slab, which split a
 replica: :class:`repro_torch.mesh.collectives.ModelGroup`).
+:func:`make_serving_mesh` of such a mesh is the serving mesh, ``("data",
+"model")`` over the same slabs: each data row of ranks serves its block of
+a batch's rows and splits the model over its ``dm`` ranks.
 """
 from __future__ import annotations
 

@@ -10,9 +10,22 @@ The engine mode serves a Poisson workload of ``--requests`` requests at
 ``--block-size``) and prints the scheduler's summary; ``--static`` runs one
 batch through ``prefill``, then one ``decode_step`` per generated token
 (forced for prefix-conditioned archs). ``--env-profile host`` re-execs the
-launcher once under tcmalloc (:mod:`repro_torch.launch.env`);
-``--env-profile cpu-mesh`` and ``--host-devices`` above 1 raise: serving
-over several ranks needs the serving mesh (ROADMAP queue 1 item 12d).
+launcher once under tcmalloc (:mod:`repro_torch.launch.env`).
+
+The serving mesh: ``--env-profile cpu-mesh --host-devices N`` (or a
+launcher's ``WORLD_SIZE`` of N, ``torchrun``) runs the launcher as N ranks
+on the serving mesh ``(1, N)``, every rank on the model axis, as the JAX
+production mesh puts "model" last. Each rank makes the params whole (from
+the seed, or ``--fl-checkpoint``), keeps its slices and serves them; rank 0
+prints the JSON. An N that does not divide the arch's heads raises
+``ValueError`` naming the ones that do; KV heads it does not divide (MQA)
+raise ``NotImplementedError`` (ROADMAP queue 1 item 12d).
+``--host-devices`` over 1 without ``--env-profile cpu-mesh`` raises
+``ValueError``. In code,
+:func:`serve_on_mesh` lays a ``(dd, dm)`` mesh and installs its rules:
+:func:`generate` then splits a batch's rows over the ``dd`` data rows of
+ranks, and the engine (:class:`repro_torch.serve.SlotEngine`) runs at
+``dd == 1``.
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
@@ -28,6 +41,7 @@ allocator) is reported as ``compile_s``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -36,9 +50,50 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, smoke_variant
-from repro_torch.launch.env import add_env_profile_args, apply_env_profile
+from repro_torch.launch.env import (
+    add_env_profile_args,
+    apply_env_profile,
+    host_ranks,
+)
+from repro_torch.launch.mesh import (
+    ensure_world,
+    make_mesh_2d,
+    make_serving_mesh,
+    run_on_host_world,
+    world_size,
+)
+from repro_torch.models import sharding
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.device import resolve_device
+
+
+@contextlib.contextmanager
+def serve_on_mesh(model: Transformer, mesh_shape: tuple[int, int]):
+    """Serve ``model`` on the serving mesh of ``mesh_shape = (dd, dm)``
+    ranks for the block: the arch is checked against the model axis
+    (:meth:`Transformer.check_model_axis`), the mesh laid over the world's
+    first ``dd * dm`` ranks (:func:`repro_torch.launch.mesh
+    .make_serving_mesh` of the ``(dd, dm)`` :func:`repro_torch.launch.mesh
+    .make_mesh_2d`; ranks beyond it stay out) and its rules installed
+    (:func:`repro_torch.models.sharding.serve_mesh_rules`). Yields the
+    mesh. Inside, the serving entry points take each rank's slices of the
+    params (:func:`repro_torch.models.sharding.local_params`); a rank
+    outside the mesh (``mesh.get_coordinate() is None``) serves nothing."""
+    dd, dm = (int(n) for n in mesh_shape)
+    model.check_model_axis(dm)
+    mesh = make_serving_mesh(make_mesh_2d((dd, dm)))
+    with sharding.axis_rules(mesh, sharding.serve_mesh_rules()):
+        yield mesh
+
+
+def _data_rows():
+    """The data axis of the active serving mesh as a row group
+    (:class:`repro_torch.core.fl_shard_map.ClientGroup` over "data"), or
+    ``None`` where it is 1 (or no mesh is active)."""
+    if sharding.data_axis_size() == 1:
+        return None
+    from repro_torch.core.fl_shard_map import ClientGroup
+    return ClientGroup(sharding.current_context()[0], sharding.DATA_AXIS)
 
 
 def load_federated_params(model: Transformer, directory: str, device=None):
@@ -52,7 +107,9 @@ def load_federated_params(model: Transformer, directory: str, device=None):
     buffered-async checkpoint stores the collapsed server model under
     ``global_params``: that is served, never its in-flight slot storages.
     Returns the params on ``device`` (default: the GPU) in the config's
-    dtypes, checked leaf by leaf against the model's own init."""
+    dtypes, checked leaf by leaf against the model's own init; under a
+    serving mesh (:func:`serve_on_mesh`) the whole checkpoint is loaded
+    and this rank's slices are returned."""
     from repro_torch.api import collapse_clients
     from repro_torch.checkpoint import checkpoint_leaf_paths, load_checkpoint
     from repro_torch.utils.convert import transformer_params_from_jax
@@ -65,12 +122,13 @@ def load_federated_params(model: Transformer, directory: str, device=None):
     if any(p.split("/", 1)[0] == "global_params"
            for p in checkpoint_leaf_paths(directory)):
         tree, _, _ = load_checkpoint(directory, like={"global_params": donor})
-        return transformer_params_from_jax(tree["global_params"], model,
-                                           device)
+        return sharding.local_params(transformer_params_from_jax(
+            tree["global_params"], model, device))
     tree, _, _ = load_checkpoint(directory, like={"params": donor})
     stacked = transformer_params_from_jax(tree["params"], model, device,
                                           lead=1)
-    return collapse_clients(stacked, meta.get("topology", "full_average"))
+    return sharding.local_params(
+        collapse_clients(stacked, meta.get("topology", "full_average")))
 
 
 def _sample(logits, temperature: float, generator):
@@ -92,7 +150,25 @@ def generate(model: Transformer, params, prompts, gen_tokens: int,
     ``decode_step``, as the JAX package's loop does. Runs under
     ``torch.inference_mode()``. ``with_logits``: also return the logits
     each token was drawn from, (B, gen_tokens, V) f32 (the reference of
-    :func:`agree_under_gap`)."""
+    :func:`agree_under_gap`).
+
+    Under a serving mesh (:func:`serve_on_mesh`) ``params`` are the rank's
+    slices and the model runs split over the model axis; with a data axis
+    ``dd`` over 1 each data row of ranks takes its ``B / dd`` rows (``B %
+    dd`` raises ``ValueError``), and the tokens (and the logits) come back
+    whole on every rank through one exact gather over "data". Every rank
+    of a data row holds the same logits bit for bit, so a sampled token is
+    drawn alike on each from the same ``generator`` state."""
+    rows = _data_rows()
+    if rows is not None:
+        b = prompts.shape[0]
+        if b % rows.n_shards:
+            raise ValueError(f"a batch of {b} rows does not split over a "
+                             f"data axis of {rows.n_shards}")
+        per = b // rows.n_shards
+        mine = slice(rows.index * per, (rows.index + 1) * per)
+        prompts = prompts[mine]
+        prefix = None if prefix is None else prefix[mine]
     with torch.inference_mode():
         b, s = prompts.shape
         max_len = s + gen_tokens + (model.cfg.prefix_len or 0)
@@ -106,7 +182,11 @@ def generate(model: Transformer, params, prompts, gen_tokens: int,
             logits, caches = model.decode_step(params, caches, tok, pos + i)
             outs.append(tok)
         out = torch.stack(outs, dim=1)
-        return (out, torch.stack(seen, dim=1)) if with_logits else out
+        seen = torch.stack(seen, dim=1) if with_logits else None
+        if rows is not None:
+            out = rows.all_gather_rows(out)
+            seen = None if seen is None else rows.all_gather_rows(seen)
+        return (out, seen) if with_logits else out
 
 
 def agree_under_gap(tokens, ref_tokens, ref_logits, tol: float):
@@ -210,30 +290,67 @@ def main(argv=None):
                     help="torch device (default: cuda)")
     add_env_profile_args(ap)
     args = ap.parse_args(argv)
-    if args.env_profile == "cpu-mesh" or args.host_devices > 1:
-        from repro_torch.api.spec import _not_ported
-        raise _not_ported("serving over several ranks (--env-profile "
-                          "cpu-mesh / --host-devices > 1: the serving mesh)",
-                          "item 12d")
+    if args.host_devices > 1 and args.env_profile != "cpu-mesh":
+        raise ValueError(f"--host-devices {args.host_devices} splits the "
+                         f"host into serving ranks only under --env-profile "
+                         f"cpu-mesh")
     apply_env_profile(args.env_profile, host_devices=args.host_devices)
+    n_ranks = host_ranks(args.env_profile, args.host_devices)
+    if n_ranks > 1 and world_size() != n_ranks:     # not yet on the ranks
+        # refuse a model axis the arch cannot take before starting ranks
+        Transformer(_arch(args)).check_model_axis(n_ranks)
+        from repro_torch.launch import serve as launcher  # by module name,
+        #   so the ranks unpickle it whether this runs as __main__ or not
+        return run_on_host_world(n_ranks, launcher.run, args)[0]
+    return run(args)
 
-    device = resolve_device(args.device)
+
+def _arch(args):
     cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = smoke_variant(cfg)
+    return smoke_variant(cfg) if args.smoke else cfg
+
+
+def _serving_ranks() -> int:
+    """The ranks the launcher serves on: the world's (a ``HostWorld``'s, or
+    a launcher's ``WORLD_SIZE``, joined here), else 1."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ensure_world()
+    return world_size()
+
+
+def run(args) -> int:
+    """The launcher's work on parsed ``args``, on every rank of the world
+    (if any): rank 0 prints, the others stay quiet."""
+    dist = torch.distributed
+    if dist.is_initialized() and dist.get_rank() > 0:
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _run(args)
+    return _run(args)
+
+
+def _run(args) -> int:
+    device = resolve_device(args.device)
+    cfg = _arch(args)
     model = Transformer(cfg)
-    if args.fl_checkpoint:
-        params = load_federated_params(model, args.fl_checkpoint, device)
-    else:
-        params = model.init(torch.Generator(device=device).manual_seed(0),
-                            device)
-    if args.static or cfg.prefix_len:
-        result = _run_static(model, params, args, cfg, device)
-    else:
-        result = _run_engine(model, params, args, cfg, device)
+    n = _serving_ranks()
+    on_mesh = (serve_on_mesh(model, (1, n)) if n > 1
+               else contextlib.nullcontext())
+    with on_mesh:
+        if args.fl_checkpoint:
+            params = load_federated_params(model, args.fl_checkpoint,
+                                           device)
+        else:
+            params = sharding.local_params(model.init(
+                torch.Generator(device=device).manual_seed(0), device))
+        if args.static or cfg.prefix_len:
+            result = _run_static(model, params, args, cfg, device)
+        else:
+            result = _run_engine(model, params, args, cfg, device)
     print(json.dumps({
         "arch": cfg.name, "batch": args.batch,
         "params": "federated" if args.fl_checkpoint else "random-init",
+        **({"mesh_shape": [1, n]} if n > 1 else {}),
         **result,
     }, indent=2))
     return 0

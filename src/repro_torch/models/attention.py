@@ -20,13 +20,17 @@ The serving engine's paged cache (``init_paged_kv_cache``, ``paged_index``,
 in jnp: no TPU kernel carries it.
 
 Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
-the training route splits the heads: each rank holds its heads' slices of
-``wq`` / ``wk`` / ``wv`` (and the qkv biases) and of ``wo``, takes the
-replicated input through an identity-forward / all-reduce-backward
-function, attends over its own q and kv heads (with GQA the group size is
-the whole model's, so q head h still reads kv head h // (H / KV)), and
-sums the ranks' output projections in one all-reduce. The sliding window
-keeps its mask.
+both routes split the heads: each rank holds its heads' slices of ``wq`` /
+``wk`` / ``wv`` (and the qkv biases) and of ``wo``, takes the replicated
+input through an identity-forward / all-reduce-backward function, attends
+over its own q and kv heads (with GQA the group size is the whole
+model's, so q head h still reads kv head h // (H / KV)), and sums the
+ranks' output projections in one all-reduce. The sliding window and the
+chunks keep their masks. On the serving mesh the prefill's one
+``flash_attention`` call runs on the rank's (B, H / dm, S, hd), and the
+decode paths (``decode_attention``, ``paged_decode_attention``) read and
+write caches of the rank's KV heads (``init_kv_cache`` /
+``init_paged_kv_cache`` sized with that count).
 
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
@@ -257,10 +261,14 @@ def attention_forward_kv(params, x, positions, *, kind: str = "full",
     """Like :func:`attention_forward` but also returns the (k, v) pair for
     the prefill cache. One ``ops.flash_attention`` call a layer on
     (B, H, S, hd) with GQA expanded; a ``chunk`` layer longer than its
-    chunk as (B * n_chunks, H, chunk, hd), causal within each chunk."""
+    chunk as (B * n_chunks, H, chunk, hd), causal within each chunk. Under
+    a model axis the rank's heads: (B, H / dm, S, hd), and k / v of its
+    KV / dm heads."""
     if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
-    q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
+    grp = hinted_group("attention", params, ATTN_AXES)
+    q, k, v = _project_qkv(params, grp.copy_in(x), positions, use_rope,
+                           rope_theta)
     b, s, h, hd = q.shape
     n = _chunks(s, chunk) if kind == "chunk" else 1
 
@@ -272,7 +280,7 @@ def attention_forward_kv(params, x, positions, *, kind: str = "full",
         _expand_heads(split(v), h), window=window if kind == "swa" else 0,
         backend=backend).transpose(1, 2).reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
-    return out, (k, v)
+    return grp.reduce_out(out), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -382,14 +390,16 @@ def paged_decode_attention(params, x, cache, table, index, *,
     they are the same values in the same position order."""
     phys, off, valid, angles = index
     b, span = x.shape[0], table.shape[1] * cache["k"].shape[1]
-    q, k, v = _project_qkv(params, x, None, use_rope, 0.0, angles)
+    grp = hinted_group("attention", params, ATTN_AXES)
+    q, k, v = _project_qkv(params, grp.copy_in(x), None, use_rope, 0.0,
+                           angles)
     cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
     cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
     kb = cache["k"][table].reshape(b, span, *cache["k"].shape[2:])
     vb = cache["v"][table].reshape(b, span, *cache["v"].shape[2:])
     ctxv = _sdpa(q, kb, vb, valid)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
-    return out, cache
+    return grp.reduce_out(out), cache
 
 
 def decode_attention(params, x, cache, pos: int, *, kind: str = "full",
@@ -399,7 +409,9 @@ def decode_attention(params, x, cache, pos: int, *, kind: str = "full",
     Writes this token's k / v into the cache in place (the JAX package
     returns a new cache) and returns ``(out (B, 1, d), cache)``."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
+    grp = hinted_group("attention", params, ATTN_AXES)
+    q, k, v = _project_qkv(params, grp.copy_in(x), positions, use_rope,
+                           rope_theta)
     n = cache["k"].shape[1]
     slot = pos % n
     cache["k"][:, slot:slot + 1] = k
@@ -415,4 +427,4 @@ def decode_attention(params, x, cache, pos: int, *, kind: str = "full",
         valid &= entry_pos >= (pos // chunk) * chunk
     ctxv = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, None, :])
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
-    return out, cache
+    return grp.reduce_out(out), cache

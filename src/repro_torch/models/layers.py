@@ -16,7 +16,11 @@ on the vocabulary looks each token up on the rank that holds its row
 logits of the rank's vocabulary slice through a vocabulary-parallel
 softmax cross-entropy (the max, the sum of exponentials and the gold logit
 each all-reduced). Norm scales stay whole. Another placement (a custom
-rule splitting another dim) raises ``NotImplementedError``.
+rule splitting another dim) raises ``NotImplementedError``. On the serving
+mesh :func:`unembed` gathers the tied embedding's vocabulary slices of the
+logits over the model group (an untied head, split on its d_model rows,
+takes the rank's columns of x into an all-reduce), so every rank holds
+the same (B, V) logits bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.sharding import (
+    EMBED_AXES,
     MLP_AXES,
     hinted_group,
     model_dim,
@@ -109,8 +114,8 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype=torch.float32,
 def _not_covered(what: str, dims):
     return NotImplementedError(
         f"{what} placed {dims} under a model axis: the port's tensor "
-        f"parallelism covers the split the default mesh2d rules give (or "
-        f"none)")
+        f"parallelism covers the split mesh2d_rules and serve_mesh_rules "
+        f"give (or none)")
 
 
 def mlp(params, x):
@@ -161,9 +166,14 @@ def embed(params, tokens, impl: str = "gather"):
 
 
 def unembed(params, x):
+    """The logits of the hidden states ``x``: under a model axis the whole
+    vocabulary on every rank, from the tied embedding's vocabulary slices
+    (gathered over the model group) or from an untied head's d_model rows
+    (the rank's columns of x, summed in one all-reduce)."""
+    grp = hinted_group("the LM head", params, EMBED_AXES)
     if "head" in params:
-        return x @ params["head"]
-    return x @ params["embedding"].T
+        return grp.reduce_out(grp.local_slice(x, -1) @ params["head"])
+    return grp.gather(grp.copy_in(x) @ params["embedding"].T, -1)
 
 
 def lm_loss(params, x, labels, ignore_id: int = -1):

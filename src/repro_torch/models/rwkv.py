@@ -20,7 +20,7 @@ backward): the per-token recurrence :func:`wkv6_scan`, or
 :func:`wkv6_chunked` when ``rwkv_chunk > 0``.
 
 Under a model axis over 1 (:func:`repro_torch.models.sharding.model_group`)
-the training route splits the heads, placed by the JAX package's axes
+both routes split the heads, placed by the JAX package's axes
 (:data:`repro_torch.models.sharding.RWKV_TM_AXES` / ``RWKV_CM_AXES``):
 the projections ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and ``decay_a``
 are split on their d_model rows, so each rank takes its columns of the
@@ -34,7 +34,10 @@ runs on the rank's heads with its rows of ``bonus_u`` and its columns of
 gradient is summed over the ranks and stays whole and alike on each. The
 channel mix is row-parallel twice: ``w_k`` / ``w_r`` into one all-reduce,
 then the rank's d_ff slice of ``relu(k)^2`` through ``w_v`` into
-another.
+another. On the serving mesh the prefill's and the decode's
+``rwkv6_scan`` run on the rank's (B, H / dm, S, hd) with its rows of
+``bonus_u``, from and into the cache's ``wkv`` rows of the rank's heads;
+``tm_last`` / ``cm_last`` stay whole (the JAX package's ``cache_axes``).
 """
 from __future__ import annotations
 
@@ -257,9 +260,10 @@ def rwkv6_timemix_forward_state(params, x, headdim: int = 64,
     if chunk and x.shape[1] % min(chunk, x.shape[1]):
         raise ValueError(f"seq {x.shape[1]} % rwkv chunk {chunk}")
     d_model = x.shape[-1]
-    r, k, v, g, w, _ = _tm_inputs(params, x)
+    grp = hinted_group("the RWKV6 time mix", params, RWKV_TM_AXES)
+    r, k, v, g, w, _ = _tm_inputs(params, x, grp=grp)
     y, s_final = _wkv(r, k, v, w, params["bonus_u"], headdim, None, backend)
-    out = _tm_output(params, y.to(x.dtype), g, d_model)
+    out = _tm_output(params, y.to(x.dtype), g, d_model, grp)
     return out, {"wkv": s_final, "tm_last": x[:, -1:]}
 
 
@@ -316,10 +320,11 @@ def rwkv6_timemix_decode(params, x, cache, headdim: int = 64,
     """x (B, 1, d); one ``ops.rwkv6_scan`` step (S = 1) from
     ``cache["wkv"]``. Returns ``(out, new cache)``."""
     d_model = x.shape[-1]
-    r, k, v, g, w, _ = _tm_inputs(params, x, cache["tm_last"])
+    grp = hinted_group("the RWKV6 time mix", params, RWKV_TM_AXES)
+    r, k, v, g, w, _ = _tm_inputs(params, x, cache["tm_last"], grp)
     y, s_new = _wkv(r, k, v, w, params["bonus_u"], headdim,
                     cache["wkv"].contiguous(), backend)
-    out = _tm_output(params, y.to(x.dtype), g, d_model)
+    out = _tm_output(params, y.to(x.dtype), g, d_model, grp)
     return out, dict(cache, wkv=s_new, tm_last=x)
 
 

@@ -28,6 +28,22 @@ checks the slice against its spec) and on activations, and
 :func:`model_dim` tells the model code which dim of a weight is split.
 :class:`PartitionSpec` is a tuple of mesh-axis names (or ``None``)
 standing in for ``jax.sharding.PartitionSpec``.
+
+The serving mesh (``("data", "model")`` ranks, :func:`serve_mesh_rules`)
+places weights as the training mesh does, not as the JAX package's
+``serve_rules`` would: each weight splits on the first dim its hint names
+"fsdp" or "tp" (:func:`mesh2d_rules`), so every layer keeps the one split
+body it trains with. Literal ``serve_rules`` map "fsdp" to nothing, which
+would split Mamba2's ``w_in`` on its output columns (z, x, B, C and dt
+side by side, not lined up with the heads), RWKV6's projections and an
+untied head on their columns and leave zamba2's LoRA factors whole. The
+values served are the same; only where a weight's slices sit differs.
+The rows (``batch``) go on "data" and the decode caches' heads on
+"model", as ``serve_rules`` put them; :func:`cache_split_dims` finds each
+cache leaf's split dim from the model's ``cache_axes`` table. A hint's
+``batch`` dim is always the rank's own rows (the drivers hand each rank
+its rows: the engines their client blocks, the serving mesh each data
+row of ranks its prompts), so no hint splits it by hand.
 """
 from __future__ import annotations
 
@@ -72,6 +88,25 @@ def axis_rules(mesh, rules: dict[str, Any], placement=None):
         _state.ctx, _state.placement = prev
 
 
+def current_context():
+    """``(mesh, rules, placement)`` of the active rules context, or
+    ``None``: what a caller re-enters with ``axis_rules(*ctx)`` (the
+    serving engine keeps the context it was built under)."""
+    ctx = _current()
+    return None if ctx is None else (*ctx, getattr(_state, "placement",
+                                                   None))
+
+
+DATA_AXIS = "data"
+
+
+def data_axis_size() -> int:
+    """The size of the active mesh's "data" axis (1 without one): how many
+    row blocks the serving mesh splits a batch into."""
+    ctx = _current()
+    return 1 if ctx is None else _axis_size_or_one(ctx[0], DATA_AXIS)
+
+
 def model_placement():
     """The split-dim tree installed with the active rules, or ``None``."""
     return getattr(_state, "placement", None) if _current() else None
@@ -103,6 +138,19 @@ def serve_rules(fsdp_over_data: bool = False,
             "seq": "data" if shard_seq else None, "act": None,
             "kv_tp": "model", "cache_seq": "data" if shard_seq else None,
             "wg": "data" if fsdp_over_data else None}
+
+
+def serve_mesh_rules() -> dict[str, Any]:
+    """Rules of the port's serving mesh (``("data", "model")`` ranks): the
+    weights as :func:`mesh2d_rules` place them ("fsdp" and "tp" on the
+    model axis, the first named dim wins), the rows on "data" and the
+    caches' heads on "model" (``kv_tp``), as :func:`serve_rules` put them.
+    Weights over "data" (``serve_rules(fsdp_over_data=True)``) are refused
+    where a hint would split a weight over that axis (:func:`_split_of`,
+    item 12d); no serving path splits a cache's sequence yet."""
+    return {"client": None, "fsdp": "model", "tp": "model", "wg": None,
+            "act": None, "batch": "data", "seq": None, "kv_tp": "model",
+            "cache_seq": None}
 
 
 def _axis_size(mesh, name: str) -> int:
@@ -156,10 +204,14 @@ def resolve_spec(logical: tuple, shape: tuple[int, ...] | None = None
 MODEL_AXIS = "model"
 
 
-def _model_size(mesh) -> int:
+def _axis_size_or_one(mesh, name: str) -> int:
     names = getattr(mesh, "mesh_dim_names", None)
     axes = mesh.shape if names is None else names
-    return _axis_size(mesh, MODEL_AXIS) if MODEL_AXIS in axes else 1
+    return _axis_size(mesh, name) if name in axes else 1
+
+
+def _model_size(mesh) -> int:
+    return _axis_size_or_one(mesh, MODEL_AXIS)
 
 
 def _split_of(spec: PartitionSpec, mesh) -> int:
@@ -188,7 +240,8 @@ def shard_hint(x, *logical):
     if ctx is None:
         return x
     mesh, _ = ctx
-    spec = resolve_spec(logical)
+    # the batch dim holds the rank's own rows: never split by hand
+    spec = resolve_spec(tuple(None if a == "batch" else a for a in logical))
     if all(_mesh_axis_size(mesh, a) == 1 for a in spec if a is not None):
         return x
     if x.dim() != len(logical):
@@ -238,7 +291,7 @@ ATTN_AXES = {"wq": ("wg", "tp", None), "wk": ("wg", "tp", None),
              "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
 MLP_AXES = {"w_gate": ("wg", "tp"), "w_up": ("wg", "tp"),
             "w_down": ("tp", "wg")}
-_EMBED_AXES = {"embedding": ("tp", "fsdp"), "head": ("fsdp", "tp")}
+EMBED_AXES = {"embedding": ("tp", "fsdp"), "head": ("fsdp", "tp")}
 LINEAR_AXES = {"w": ("fsdp", "tp"), "b": ()}
 # RWKV6 time mix (repro/models/rwkv.py:46-53, w_o at its use site :185)
 # and channel mix (:228-231)
@@ -319,7 +372,7 @@ def param_logical_axes(params) -> dict:
     if "segments" not in params:
         raise ValueError(f"a model with params {sorted(params)}: no hint "
                          f"table for it")
-    out = {"embed": {k: _EMBED_AXES[k] for k in params["embed"]},
+    out = {"embed": {k: EMBED_AXES[k] for k in params["embed"]},
            "final_norm": {k: () for k in params["final_norm"]},
            "segments": [{j: _stepped(_layer_axes(layer))
                          for j, layer in seg.items()}
@@ -358,33 +411,47 @@ class _Whole:
 WHOLE = _Whole()
 
 
+# the split every layer body is written for: each weight on the first dim
+# its hint names "fsdp" or "tp" (what mesh2d_rules and serve_mesh_rules give)
+_BODY_AXES = ("fsdp", "tp")
+
+
+def _first_dim_named(logical: tuple, names) -> int:
+    """The first dim of the logical axes ``logical`` whose name is in
+    ``names`` (-1: none)."""
+    return next((i for i, a in enumerate(logical) if a in names), -1)
+
+
 def hinted_group(what: str, params, axes: dict):
     """The model group that splits the weights of ``params`` named in
-    ``axes`` (their logical axes) where the default mesh2d rules put them
-    (the first dim whose name maps to the model axis), or :data:`WHOLE`
-    where every one is whole (no model axis over 1, or rules that split
-    none). Any other placement raises ``NotImplementedError``: the model
-    code runs the split it was written for, or none."""
+    ``axes`` (their logical axes), or :data:`WHOLE` where every one is
+    whole (no model axis over 1, or rules that split none). Each weight's
+    split dim comes from the active context's rules (:func:`model_dim`):
+    :func:`mesh2d_rules` under the training mesh, :func:`serve_mesh_rules`
+    under the serving mesh, the rules the params were cut by
+    (:func:`param_split_dims`), so one placement decides both the slices a
+    rank holds and the dims its layer code splits. The layer bodies are
+    written for the split those rules give (the first dim a hint names
+    "fsdp" or "tp"); rules that place a weight elsewhere (JAX's literal
+    ``serve_rules``, say, which would split Mamba2's ``w_in`` on its
+    columns) raise ``NotImplementedError``."""
     grp = model_group()
     if grp is None:
         return WHOLE
-    rules = mesh2d_rules()
     dims, want = {}, {}
     for name, logical in axes.items():
         if name in params:
             shard_hint(params[name], *logical)
             dims[name] = model_dim(*logical)
-            want[name] = next((i for i, a in enumerate(logical)
-                               if a is not None
-                               and rules.get(a) == MODEL_AXIS), -1)
+            want[name] = _first_dim_named(logical, _BODY_AXES)
     if dims == want:
         return grp
     if set(dims.values()) <= {-1}:
         return WHOLE
     raise NotImplementedError(
         f"{what} placed {dims} under a model axis: the port's tensor "
-        f"parallelism covers the split the default mesh2d rules give "
-        f"({want}) or none")
+        f"parallelism covers the split mesh2d_rules and serve_mesh_rules "
+        f"give ({want}) or none")
 
 
 def param_split_dims(params, dm: int, rules: dict | None = None):
@@ -412,6 +479,55 @@ def param_split_dims(params, dm: int, rules: dict | None = None):
 
     with axis_rules(mesh, mesh2d_rules() if rules is None else rules):
         return _map_logical(one, param_logical_axes(params), params)
+
+
+def local_params(params):
+    """This rank's slices of the whole ``params`` under the active rules
+    context (:func:`param_split_dims` under the context's rules, then
+    :func:`to_local` at the rank's model coordinate); ``params`` as they
+    are without a model axis over 1."""
+    grp = model_group()
+    if grp is None:
+        return params
+    dims = param_split_dims(params, grp.size, _current()[1])
+    return to_local(params, dims, grp.index, grp.size)
+
+
+def cache_split_dims(cache_axes):
+    """Each cache leaf's split dim (-1: whole) under the active rules
+    context, in a tree like ``cache_axes`` (the model's ``cache_axes``, one
+    logical name a dim): the first dim whose name the context's rules put
+    on a model axis over 1 (under :func:`serve_mesh_rules` the heads of a
+    KV cache, RWKV6's ``wkv`` and Mamba2's ``h``); every leaf whole without
+    one. The rows ("batch" on "data") are the rank's own and are not
+    counted here."""
+    ctx = _current()
+    names = set() if ctx is None or _model_size(ctx[0]) == 1 else {
+        a for a, axis in ctx[1].items() if axis == MODEL_AXIS}
+    return _map_logical(lambda logical, _: _first_dim_named(logical, names),
+                        cache_axes, None)
+
+
+def split_sizes(params) -> dict[str, int]:
+    """``{leaf name: size}`` of the dim a model axis splits in each split
+    leaf of ``params`` (one client's whole params; a name met twice keeps
+    its smallest size): what the model axis must divide."""
+    out: dict[str, int] = {}
+
+    def walk(axes, tree, name):
+        if _is_logical(axes):
+            i = _first_dim_named(axes, _BODY_AXES)
+            if i >= 0:
+                out[name] = min(out.get(name, tree.shape[i]),
+                                tree.shape[i])
+            return
+        items = (axes.items() if isinstance(axes, dict)
+                 else enumerate(axes))
+        for k, sub in items:
+            walk(sub, tree[k], k if isinstance(k, str) else name)
+
+    walk(param_logical_axes(params), params, "")
+    return out
 
 
 def to_local(tree, dims, index: int, dm: int, lead: int = 0):

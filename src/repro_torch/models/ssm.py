@@ -6,7 +6,10 @@ State-space recurrence per head h with state (P, N):
     y_t = H_t @ C_t + D_h * x_t
 Serving: prefill runs the chunked SSD scan in the hand-written
 ``mamba2_ssd`` kernel; decode is the plain one-step recurrence in PyTorch,
-as in the JAX package. Training (``mamba2_forward_train``) runs the JAX
+as in the JAX package. Both split over a model axis as the training route
+does (below): on the serving mesh the prefill's kernel runs on the rank's
+(B, S, H / dm, P), and the cache holds the rank's rows of ``h`` and the
+whole conv window (every rank convolves every channel). Training (``mamba2_forward_train``) runs the JAX
 model's own chunked SSD, :func:`ssd_chunked`, in differentiable torch ops
 (the kernel has no backward).
 
@@ -260,23 +263,31 @@ def init_mamba2_cache(batch: int, d_model: int, d_state: int, headdim: int,
 
 def mamba2_decode(params, x, cache, *, d_state: int, headdim: int,
                   expand: int):
-    """One-token step. x (B, 1, d)."""
+    """One-token step. x (B, 1, d). Under a model axis the prefill's split
+    (see the module's docstring): ``w_in`` row-parallel into one
+    all-reduce, the whole window convolved with the gathered ``conv_w``,
+    the rank's heads of x, dt and z against its rows of ``h``."""
     d_model = x.shape[-1]
     d_inner = expand * d_model
     n_heads = d_inner // headdim
-    proj = x @ params["w_in"]
+    grp = hinted_group("the Mamba2 mixer", params, MAMBA2_AXES)
+    proj = grp.psum(grp.local_slice(x, -1) @ params["w_in"])
     z, xbc, dt = _split_proj(proj, d_inner, d_state, n_heads)
+    lo, hi = grp.bounds(n_heads)
+    mine = slice(lo * headdim, hi * headdim)        # the rank's heads' x
     # conv over the cached window + this token
     win = torch.cat([cache["conv"], xbc], dim=1)           # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", win, params["conv_w"])
+    conv_out = torch.einsum("bkc,kc->bc", win,
+                            grp.gather(params["conv_w"], 1))
     conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)[:, None]
     new_conv = win[:, 1:]
-    xin = conv_out[..., :d_inner]
+    xin = conv_out[..., mine]
     b_in = conv_out[..., d_inner:d_inner + d_state]
     c_in = conv_out[..., d_inner + d_state:]
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])[:, 0]
+    dt = F.softplus(dt[..., lo:hi].to(torch.float32)
+                    + params["dt_bias"])[:, 0]
     a = -torch.exp(params["a_log"])
-    xh = xin[:, 0].reshape(-1, n_heads, headdim)
+    xh = xin[:, 0].reshape(-1, hi - lo, headdim)
     decay = torch.exp(dt * a[None, :])                     # (B, H)
     upd = torch.einsum("bh,bhp,bn->bhpn", dt, xh.to(torch.float32),
                        b_in[:, 0].to(torch.float32))
@@ -284,5 +295,5 @@ def mamba2_decode(params, x, cache, *, d_state: int, headdim: int,
     y = torch.einsum("bhpn,bn->bhp", h_new, c_in[:, 0].to(torch.float32))
     y = y + params["d_skip"][None, :, None] * xh.to(torch.float32)
     y = y[:, None].to(x.dtype)                             # (B, 1, H, P)
-    out = _gated_out(params, y, z, d_model)
+    out = _gated_out(params, y, z[..., mine], d_model, grp)
     return out, {"h": h_new, "conv": new_conv}

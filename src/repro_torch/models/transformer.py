@@ -37,14 +37,21 @@ layer's activations for the backward pass instead of recomputing them.
 MoE FFNs (``models/moe.py``) run on both routes in plain PyTorch, as in
 the JAX package; their aux loss is summed over layers into ``loss_fn``.
 
-Under a model axis over 1 (the ``mesh_2d`` engine at ``dm > 1``) the
-training route runs every mixer and FFN split as
-:func:`repro_torch.models.sharding.param_split_dims` places its weights;
-zamba2's shared attention adds each invocation's LoRA deltas to the
-rank's heads of the shared ``wq`` / ``wo`` (:meth:`_merged_shared_attn`).
-The logical-axes trees live in :mod:`repro_torch.models.sharding`
-(``param_logical_axes``); ``param_axes`` and ``cache_axes`` are not
-ported.
+Under a model axis over 1 both routes run every mixer and FFN split as
+:func:`repro_torch.models.sharding.param_split_dims` places its weights:
+the training route under the ``mesh_2d`` engine at ``dm > 1``, the
+serving route on a serving mesh (``launch.serve.serve_on_mesh``: the
+``("data", "model")`` ranks under
+:func:`repro_torch.models.sharding.serve_mesh_rules`). zamba2's shared
+attention adds each invocation's LoRA deltas to the rank's heads of the
+shared ``wq`` / ``wo`` (:meth:`_merged_shared_attn`). On the serving mesh
+every cache holds the rank's heads: :meth:`cache_axes` (JAX's table, but
+for Mamba2's conv window, which stays whole: every rank convolves every
+channel) names each cache leaf's dims, and ``init_cache`` /
+``init_paged_cache`` size the split ones at ``1 / dm``;
+:meth:`check_model_axis` refuses a model axis the arch cannot take. The
+weights' logical-axes trees live in :mod:`repro_torch.models.sharding`
+(``param_logical_axes``); ``param_axes`` is not ported.
 """
 from __future__ import annotations
 
@@ -71,7 +78,13 @@ from repro_torch.models.layers import (
     rmsnorm,
     unembed,
 )
-from repro_torch.models.sharding import SHARED_LORA_AXES, hinted_group
+from repro_torch.models.sharding import (
+    SHARED_LORA_AXES,
+    cache_split_dims,
+    hinted_group,
+    model_group,
+    split_sizes,
+)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -390,8 +403,69 @@ class Transformer:
     # serving: prefill + decode
     # ------------------------------------------------------------------
 
+    def check_model_axis(self, dm: int) -> None:
+        """Raise unless a serving mesh with a model axis of ``dm`` can
+        split this arch: ``ValueError`` where ``dm`` does not divide a dim
+        the model axis splits (heads, widths, experts, the vocabulary; the
+        message names the model axes that do), ``NotImplementedError``
+        (item 12d) where it divides all of them but the KV heads (MQA: the
+        JAX package moves such a cache's sequence onto "model")."""
+        if dm < 1:
+            raise ValueError(f"a model axis needs at least one rank, got "
+                             f"{dm}")
+        if dm == 1:
+            return
+        sizes = split_sizes(self.init(device="meta"))
+        kv = {k: sizes.pop(k) for k in ("wk", "wv", "bk", "bv")
+              if k in sizes}
+        bad = {k: n for k, n in sizes.items() if n % dm}
+        if bad:
+            g = math.gcd(*sizes.values())
+            fits = [d for d in range(1, g + 1) if g % d == 0]
+            raise ValueError(
+                f"a model axis of {dm} does not divide {self.cfg.name}'s "
+                f"split dims {bad}; the model axis can be one of {fits}")
+        if any(n % dm for n in kv.values()):
+            from repro_torch.api.spec import _not_ported
+            raise _not_ported(
+                f"serving {self.cfg.name}'s {self.cfg.n_kv_heads} KV "
+                f"head(s) on a model axis of {dm} (the JAX package puts "
+                f"such a cache's sequence on \"model\": cache_seq)",
+                "item 12d")
+
+    def cache_axes(self, paged: bool = False):
+        """Logical axes of the cache leaves, in the caches' tree (a leading
+        step axis a leaf), as the JAX package's ``cache_axes``: KV caches
+        (batch, seq, heads on ``kv_tp``), RWKV6's ``wkv`` and Mamba2's
+        ``h`` on their heads, the token-shift rows whole. One departure:
+        Mamba2's conv window is whole (``None`` where JAX hints "tp"),
+        since every rank convolves every channel with the gathered
+        ``conv_w``. ``paged``: the engine's block pools (blocks, block
+        offset, heads, hd) in place of the dense KV caches."""
+        kv = ((None, None, None, "kv_tp", None) if paged
+              else (None, "batch", "cache_seq", "kv_tp", None))
+        axes = []
+        for seg in self.cfg.segments:
+            pat = {}
+            for j, ls in enumerate(seg.pattern):
+                c: dict[str, Any] = {}
+                if ls.mixer in ("attn", "shared_attn"):
+                    c["mixer"] = {"k": kv, "v": kv}
+                elif ls.mixer == "mamba2":
+                    c["mixer"] = {"h": (None, "batch", "tp", None, None),
+                                  "conv": (None, "batch", None, None)}
+                elif ls.mixer == "rwkv6":
+                    c["mixer"] = {"wkv": (None, "batch", "tp", None, None),
+                                  "tm_last": (None, "batch", None, None)}
+                c["ffn"] = ({"cm_last": (None, "batch", None, None)}
+                            if ls.ffn == "rwkv_cm" else {})
+                pat[str(j)] = c
+            axes.append(pat)
+        return axes
+
     def _layer_cache_shape(self, spec: LayerSpec, batch: int, max_len: int,
-                           device, natural: bool = False):
+                           natural: bool = False):
+        """One layer's whole cache as meta tensors."""
         cfg = self.cfg
         dt = _dtype(cfg)
         cache: dict[str, Any] = {}
@@ -402,70 +476,81 @@ class Transformer:
             cache["mixer"] = attn.init_kv_cache(
                 batch, "full" if natural else spec.attn_kind, max_len,
                 cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window,
-                cfg.chunk, dt, device)
+                cfg.chunk, dt, "meta")
         elif spec.mixer == "mamba2":
             cache["mixer"] = ssm_mod.init_mamba2_cache(
                 batch, cfg.d_model, cfg.ssm_state, cfg.ssm_headdim,
-                cfg.ssm_expand, cfg.conv_kernel, dt, device)
+                cfg.ssm_expand, cfg.conv_kernel, dt, "meta")
         elif spec.mixer == "rwkv6":
             n_heads = cfg.d_model // cfg.rwkv_headdim
             cache["mixer"] = {
                 "wkv": torch.zeros((batch, n_heads, cfg.rwkv_headdim,
                                     cfg.rwkv_headdim), dtype=torch.float32,
-                                   device=device),
+                                   device="meta"),
                 "tm_last": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
-                                       device=device),
+                                       device="meta"),
             }
         if spec.ffn == "rwkv_cm":
             cache["ffn"] = {"cm_last": torch.zeros((batch, 1, cfg.d_model),
-                                                   dtype=dt, device=device)}
+                                                   dtype=dt, device="meta")}
         else:
             cache["ffn"] = {}
         return cache
+
+    def _alloc_caches(self, make, device, paged: bool = False):
+        """Zeroed stacked caches, ``make(layer_spec)`` giving one layer's
+        whole meta cache; under a serving mesh each leaf that
+        :meth:`cache_axes` splits holds the rank's ``1 / dm`` of it."""
+        grp = model_group()
+        dm = 1 if grp is None else grp.size
+        dims = cache_split_dims(self.cache_axes(paged))
+        caches = []
+        for seg, seg_dims in zip(self.cfg.segments, dims):
+            pat = {}
+            for j, ls in enumerate(seg.pattern):
+                one, one_dims = make(ls), seg_dims[str(j)]
+
+                def alloc(x, d, n=seg.n_steps):
+                    shape = [n] + list(x.shape)
+                    if d >= 0:
+                        shape[d] //= dm
+                    return torch.zeros(shape, dtype=x.dtype, device=device)
+
+                pat[str(j)] = {
+                    part: {k: alloc(x, one_dims[part][k])
+                           for k, x in one[part].items()}
+                    for part in one}
+            caches.append(pat)
+        return caches
 
     def init_cache(self, batch: int, max_len: int, device=None,
                    natural: bool = False):
         """Zeroed caches matching the segment structure. KV caches of swa
         layers are ring buffers of the window size (or full
         position-ordered buffers under ``natural``, the serving-ingest
-        layout)."""
-        device = resolve_device(device)
-        caches = []
-        for seg in self.cfg.segments:
-            pat = {}
-            for j, ls in enumerate(seg.pattern):
-                one = self._layer_cache_shape(ls, batch, max_len, device,
-                                              natural)
-                pat[str(j)] = tree_map(
-                    lambda x, n=seg.n_steps: torch.zeros(
-                        (n,) + tuple(x.shape), dtype=x.dtype,
-                        device=x.device), one)
-            caches.append(pat)
-        return caches
+        layout). Under a serving mesh the rank's heads."""
+        return self._alloc_caches(
+            lambda ls: self._layer_cache_shape(ls, batch, max_len, natural),
+            resolve_device(device))
 
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
                          device=None):
         """Serving caches for a continuous-batching engine: attention
         layers get a physical block pool (block-table indexed, the same
         geometry in every layer), recurrent layers keep per-slot state rows
-        (their state is O(1) per slot: nothing to page)."""
+        (their state is O(1) per slot: nothing to page). Under a serving
+        mesh the rank's heads."""
         cfg = self.cfg
-        device = resolve_device(device)
-        caches = []
-        for seg in cfg.segments:
-            pat = {}
-            for j, ls in enumerate(seg.pattern):
-                one = self._layer_cache_shape(ls, n_slots, 1, "meta")
-                if ls.mixer in ("attn", "shared_attn"):
-                    one["mixer"] = attn.init_paged_kv_cache(
-                        n_blocks, block_size, cfg.n_kv_heads,
-                        cfg.resolved_head_dim, _dtype(cfg), "meta")
-                pat[str(j)] = tree_map(
-                    lambda x, n=seg.n_steps: torch.zeros(
-                        (n,) + tuple(x.shape), dtype=x.dtype,
-                        device=device), one)
-            caches.append(pat)
-        return caches
+
+        def make(ls):
+            one = self._layer_cache_shape(ls, n_slots, 1)
+            if ls.mixer in ("attn", "shared_attn"):
+                one["mixer"] = attn.init_paged_kv_cache(
+                    n_blocks, block_size, cfg.n_kv_heads,
+                    cfg.resolved_head_dim, _dtype(cfg), "meta")
+            return one
+
+        return self._alloc_caches(make, resolve_device(device), paged=True)
 
     def _decode_layer(self, spec: LayerSpec, lparams, shared, cache, x, pos,
                       table=None, indexes=None):

@@ -41,6 +41,15 @@ draws by Gumbel-max from uniforms hashed out of ``(seed, rid, gen, vocab
 index)``: a pure function of the request and its step, independent of the
 slot, the batch and the admission order, made on the device.
 
+The serving mesh: an engine built under
+:func:`repro_torch.launch.serve.serve_on_mesh` keeps that rules context
+and runs every model call inside it, on each rank's slices of the params,
+its pools holding the rank's KV heads. The host bookkeeping (schedule,
+block tables, free lists) is computed alike on every rank: it depends on
+the requests and on the sampled tokens, which are alike on every rank
+(the logits are, bit for bit). The mesh's data axis must be 1: the engine
+has one queue, and no router splits requests over data rows.
+
 Checkpoint hot-swap: :meth:`SlotEngine.swap_params` checks the new tree
 against the live one and rebinds to it (one resident copy, as JAX's
 donation keeps; the caller's old tensors are left as they are). In-flight
@@ -49,11 +58,13 @@ the swap boundary change.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.serve.requests import Request
 from repro_torch.utils.convert import upload
 from repro_torch.utils.device import resolve_device
@@ -118,7 +129,8 @@ class SlotEngine:
     prefill rows per admission group (groups pad to the next power of two
     of their size, so the prefill shapes are bounded by buckets x
     log2(prefill_batch)); ``device`` where the caches live and the params
-    must (default: the GPU).
+    must (default: the GPU). Built under a serving mesh, ``params`` are
+    the rank's slices (see the module's docstring).
     """
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
@@ -128,6 +140,12 @@ class SlotEngine:
         if model.cfg.prefix_len:
             raise ValueError("SlotEngine serves token-only archs "
                              f"(prefix_len={model.cfg.prefix_len})")
+        if sharding.data_axis_size() > 1:
+            raise ValueError(
+                f"SlotEngine serves on a mesh whose data axis is 1 (one "
+                f"queue, no router over data rows); this one has "
+                f"{sharding.data_axis_size()}")
+        self._ctx = sharding.current_context()
         self.model = model
         self.device = resolve_device(device)
         self.n_slots = int(n_slots)
@@ -150,12 +168,16 @@ class SlotEngine:
         self._slot_req: dict[int, Request] = {}
         self._active_np = np.zeros(self.n_slots, bool)
 
-        self._check_params(params, "engine params")
+        self._check_params(params, "engine params", like=(
+            None if sharding.model_group() is None
+            else sharding.local_params(model.init(device="meta"))))
         self._params = params
         dev = self.device
+        with self._on_mesh():
+            caches = model.init_paged_cache(self.n_slots, n_pool + 1,
+                                            self.block_size, dev)
         self._state = {
-            "caches": model.init_paged_cache(self.n_slots, n_pool + 1,
-                                             self.block_size, dev),
+            "caches": caches,
             "logits": torch.zeros((self.n_slots, model.cfg.vocab),
                                   dtype=torch.float32, device=dev),
             "pos": torch.zeros(self.n_slots, dtype=torch.int64, device=dev),
@@ -173,6 +195,13 @@ class SlotEngine:
         self.swaps = 0
         self._occupancy_sum = 0
 
+    def _on_mesh(self):
+        """The rules context the engine was built under (a serving mesh),
+        re-entered around every model call; nothing without one."""
+        if self._ctx is None:
+            return contextlib.nullcontext()
+        return sharding.axis_rules(*self._ctx)
+
     def _upload(self, arr):
         """Host integers to the engine's device as int64, without a
         blocking copy on a GPU."""
@@ -181,17 +210,17 @@ class SlotEngine:
     def _check_params(self, params, what: str, like=None) -> None:
         """Raise ``ValueError`` unless ``params`` lies on the engine's
         device and, given ``like``, has its tree paths, shapes and
-        dtypes."""
+        dtypes (on a serving mesh: the rank's slices)."""
         leaves = tree_flatten(params)[0]
         if like is not None:
             old_p, new_p = tree_leaf_paths(like), tree_leaf_paths(params)
             if old_p != new_p:
-                raise ValueError(f"hot-swap params tree mismatch: paths "
+                raise ValueError(f"{what} tree mismatch: paths "
                                  f"{old_p[:3]}... != {new_p[:3]}...")
             for path, a, b in zip(new_p, tree_flatten(like)[0], leaves):
                 if a.shape != b.shape or a.dtype != b.dtype:
                     raise ValueError(
-                        f"hot-swap params tree mismatch at {path}: "
+                        f"{what} tree mismatch at {path}: "
                         f"{a.dtype} {tuple(a.shape)} != {b.dtype} "
                         f"{tuple(b.shape)}")
         for x in leaves:
@@ -215,8 +244,9 @@ class SlotEngine:
         else:
             tok = torch.argmax(logits, dim=-1)
         tok = torch.where(active, tok, 0)
-        new_logits, _ = self.model.decode_step(
-            self._params, st["caches"], tok, st["pos"], self._table)
+        with self._on_mesh():
+            new_logits, _ = self.model.decode_step(
+                self._params, st["caches"], tok, st["pos"], self._table)
         st["logits"].copy_(new_logits)
         st["pos"] += 1
         st["gen"] += active
@@ -233,7 +263,8 @@ class SlotEngine:
         Padded duplicate rows carry identical values, so the repeated-index
         stores are deterministic."""
         st = self._state
-        self.model.insert_prefill(st["caches"], pre, rows, slots)
+        with self._on_mesh():
+            self.model.insert_prefill(st["caches"], pre, rows, slots)
         st["logits"][slots] = logits.to(torch.float32)
         st["pos"][slots] = next_pos
         st["gen"][slots] = 0
@@ -328,7 +359,7 @@ class SlotEngine:
         toks_t, rows_t, meta, table = torch.split(
             flat, [toks.size, rows.size, 5 * p, self._table_np.size])
         lengths_t, slots_t, pos_t, max_gen_t, rid_t = meta.view(5, p)
-        with torch.inference_mode():
+        with torch.inference_mode(), self._on_mesh():
             logits, pre, _ = self.model.prefill_at(
                 self._params, toks_t.view(p, bucket), lengths_t)
             self._table = table.view(self._table_np.shape)
@@ -406,8 +437,9 @@ class SlotEngine:
                     ones = torch.ones(p, dtype=torch.int64,
                                       device=self.device)
                     zeros = torch.zeros_like(ones)
-                    logits, pre, _ = self.model.prefill_at(
-                        self._params, toks, ones)
+                    with self._on_mesh():
+                        logits, pre, _ = self.model.prefill_at(
+                            self._params, toks, ones)
                     rows = torch.full((p, self.blocks_per_slot),
                                       self.scratch_block, dtype=torch.int64,
                                       device=self.device)

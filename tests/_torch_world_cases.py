@@ -458,3 +458,229 @@ def rank_one_fails() -> int:
         raise ValueError("rank 1 fails on purpose")
     dist.all_reduce(torch.ones(1))
     return dist.get_rank()
+
+
+# ------------------------------ the serving mesh -----------------------------
+
+@contextlib.contextmanager
+def _serving(cfg, params_np, mesh_shape):
+    """On the serving mesh ``mesh_shape`` for the block: the model and
+    this rank's slices of the whole ``params_np`` (``None`` on a rank
+    outside the mesh)."""
+    from repro_torch.launch.serve import serve_on_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_from_numpy
+    model = Transformer(cfg)
+    with serve_on_mesh(model, mesh_shape) as mesh:
+        local = None
+        if mesh.get_coordinate() is not None:
+            local = sharding.local_params(tree_from_numpy(params_np, "cpu"))
+        yield model, local
+
+
+def _copied(tree):
+    """Every leaf of a numpy tree copied (the caches' whole leaves share
+    storage with tensors the decode steps write in place)."""
+    from repro_torch.utils.tree import tree_map
+    return tree_map(np.array, tree)
+
+
+def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape) -> dict:
+    """The static serving route on the serving mesh ``mesh_shape``: the
+    prefill's last logits and its caches (each leaf made whole along its
+    ``cache_axes`` split dim), the logits of ``len(forced[0])`` decode
+    steps teacher-forced with ``forced`` (B, G), the decode caches made
+    whole, and ``generate``'s greedy tokens and logits. Returns numpy
+    (``None`` on a rank outside the mesh)."""
+    from repro_torch.launch import serve
+    from repro_torch.mesh.collectives import counts
+    from repro_torch.models import sharding
+    from repro_torch.utils.convert import tree_to_numpy
+    with _serving(cfg, params_np, mesh_shape) as (model, local):
+        if local is None:
+            return None
+        grp = sharding.model_group()
+        dims = sharding.cache_split_dims(model.cache_axes())
+        prompts = torch.as_tensor(prompts)
+        forced = torch.as_tensor(forced)
+        b, s = prompts.shape
+        g = forced.shape[1]
+        out = {}
+        with torch.inference_mode():
+            logits, caches, pos = model.prefill(local, prompts,
+                                                max_len=s + g)
+            out["prefill_logits"] = logits.numpy()
+            out["prefill_caches"] = _copied(tree_to_numpy(
+                sharding.to_whole(caches, dims, grp)))
+            steps = []
+            counts.update(all_reduce=0, gather=0)
+            for i in range(g):
+                logits, caches = model.decode_step(local, caches,
+                                                   forced[:, i], pos + i)
+                steps.append(logits.numpy())
+            out["collectives_per_step"] = {k: v / g
+                                           for k, v in counts.items()}
+            out["decode_logits"] = np.stack(steps, 1)
+            out["decode_caches"] = _copied(tree_to_numpy(
+                sharding.to_whole(caches, dims, grp)))
+        tokens, seen = serve.generate(model, local, prompts, g,
+                                      with_logits=True)
+        out["tokens"], out["token_logits"] = tokens.numpy(), seen.numpy()
+        return out
+
+
+def serve_mesh_generate(cfg, params_np, prompts, gen, mesh_shape,
+                        temperature=0.0) -> dict:
+    """``generate`` on the serving mesh ``mesh_shape`` (its data axis
+    splitting the rows): the tokens and the logits they came from, and
+    the rows this rank ran; ``None`` on a rank outside the mesh."""
+    from repro_torch.launch import serve
+    with _serving(cfg, params_np, mesh_shape) as (model, local):
+        if local is None:
+            return None
+        gen_t = torch.Generator().manual_seed(3)
+        tokens, seen = serve.generate(model, local, torch.as_tensor(prompts),
+                                      gen, temperature=temperature,
+                                      generator=gen_t, with_logits=True)
+        return {"tokens": tokens.numpy(), "logits": seen.numpy()}
+
+
+def serve_mesh_refusals(cfg, params_np) -> dict:
+    """What the serving mesh refuses on this rank of a world of 4: a batch
+    the data axis does not split, the engine on a data axis over 1 (both
+    on a (2, 2) mesh), and a model axis of 4 (whose messages name the
+    refusal)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import SlotEngine
+    out = {}
+    with _serving(cfg, params_np, (2, 2)) as (model, local):
+        for name, call in (
+                ("rows", lambda: serve.generate(
+                    model, local, torch.zeros((3, 4), dtype=torch.int64),
+                    2)),
+                ("engine", lambda: SlotEngine(model, local, n_slots=2,
+                                              max_len=8, device="cpu"))):
+            try:
+                call()
+                out[name] = None
+            except (ValueError, NotImplementedError) as e:
+                out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def serve_mesh_paged(cfg, params_np, prompts, lengths, forced, block_size,
+                     mesh_shape) -> dict:
+    """The engine's paged route on the serving mesh: ``prefill_at`` of
+    right-padded ``prompts`` with their ``lengths``, ``insert_prefill``
+    into block pools through a shuffled block table, then
+    ``len(forced[0])`` teacher-forced ``decode_step(table=)`` steps.
+    Returns the prefill's logits, the pools after the insert (made whole
+    along their heads), each step's logits and the pools after the steps;
+    ``None`` on a rank outside the mesh."""
+    from repro_torch.models import sharding
+    from repro_torch.utils.convert import tree_to_numpy
+    with _serving(cfg, params_np, mesh_shape) as (model, local):
+        if local is None:
+            return None
+        grp = sharding.model_group()
+        dims = sharding.cache_split_dims(model.cache_axes(paged=True))
+        return _paged_route(model, local, prompts, lengths, forced,
+                            block_size, lambda t: _copied(tree_to_numpy(
+                                sharding.to_whole(t, dims, grp))))
+
+
+def _paged_route(model, params, prompts, lengths, forced, block_size,
+                 whole):
+    """:func:`serve_mesh_paged`'s calls on ``params`` (``whole`` makes a
+    pool tree whole numpy)."""
+    prompts = torch.as_tensor(prompts)
+    lengths = torch.as_tensor(lengths)
+    forced = torch.as_tensor(forced)
+    b, s = prompts.shape
+    g = forced.shape[1]
+    bps = -(-(s + g) // block_size)
+    table = torch.as_tensor(np.random.default_rng(5).permutation(
+        b * bps).reshape(b, bps))
+    out = {}
+    with torch.inference_mode():
+        logits, pre, pos = model.prefill_at(params, prompts, lengths)
+        out["prefill_logits"] = logits.numpy()
+        pools = model.init_paged_cache(b, b * bps, block_size, "cpu")
+        model.insert_prefill(pools, pre, table, torch.arange(b))
+        out["inserted"] = whole(pools)
+        steps = []
+        pos = pos.to(torch.int64)
+        for i in range(g):
+            logits, pools = model.decode_step(params, pools, forced[:, i],
+                                              pos + i, table)
+            steps.append(logits.numpy())
+        out["decode_logits"] = np.stack(steps, 1)
+        out["decoded"] = whole(pools)
+    return out
+
+
+def paged_route_whole(cfg, params_np, prompts, lengths, forced,
+                      block_size) -> dict:
+    """:func:`serve_mesh_paged` on one process, the model whole."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
+    return _paged_route(Transformer(cfg), tree_from_numpy(params_np, "cpu"),
+                        prompts, lengths, forced, block_size,
+                        lambda t: _copied(tree_to_numpy(t)))
+
+
+def serve_mesh_engine(cfg, params_np, n_requests, prompt_lens, gen_lens,
+                      n_slots, block_size, mesh_shape=None) -> dict:
+    """A ``serve_continuous`` workload (``poisson_workload`` of
+    ``n_requests``, seed 0) through a ``SlotEngine`` on the serving mesh
+    ``mesh_shape`` (whole on this process where ``None``): every request's
+    tokens, and the block table after each admission and step."""
+    from repro_torch.serve import (SlotEngine, StepClock, poisson_workload,
+                                   serve_continuous)
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_from_numpy
+    with (_serving(cfg, params_np, mesh_shape) if mesh_shape else
+          contextlib.nullcontext((Transformer(cfg), tree_from_numpy(
+              params_np, "cpu")))) as (model, local):
+        if local is None:
+            return None
+        workload = poisson_workload(n_requests, 4.0, cfg.vocab,
+                                    prompt_lens=prompt_lens,
+                                    gen_lens=gen_lens, seed=0)
+        max_len = max(prompt_lens) + max(gen_lens)
+
+        tables = []
+
+        class Watched(SlotEngine):
+            def step(self):
+                out = super().step()
+                tables.append(self._table_np.copy())
+                return out
+
+        engine = Watched(model, local, n_slots=n_slots, max_len=max_len,
+                         block_size=block_size, device="cpu")
+        report = serve_continuous(engine, workload, clock=StepClock())
+        return {"tokens": {r.rid: list(r.out) for r in report.requests},
+                "tables": np.stack(tables)}
+
+
+def serve_mesh_checkpoint(arch, directory, mesh_shape) -> dict:
+    """``load_federated_params`` of the checkpoint in ``directory`` (the
+    ``arch`` smoke variant's) on the serving mesh: this rank's slices, and
+    the slices made whole again, as numpy (``None`` outside the mesh)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.launch.serve import load_federated_params, serve_on_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_to_numpy
+    model = Transformer(smoke_variant(get_arch(arch)))
+    with serve_on_mesh(model, mesh_shape) as mesh:
+        if mesh.get_coordinate() is None:
+            return None
+        local = load_federated_params(model, directory, "cpu")
+        grp = sharding.model_group()
+        dims = sharding.param_split_dims(model.init(device="meta"),
+                                         grp.size)
+        return {"local": tree_to_numpy(local),
+                "whole": tree_to_numpy(sharding.to_whole(local, dims, grp))}

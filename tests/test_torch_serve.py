@@ -180,14 +180,25 @@ def test_main_engine_mode_prints_the_continuous_fields(capsys):
 
 
 def test_main_refuses_the_env_profile_flags(monkeypatch):
-    """The mesh profile and a host split into ranks raise, naming item 12d
-    (serving over several ranks needs the serving mesh); ``--env-profile
-    host`` re-execs the launcher once (guarded)."""
+    """The mesh profile serves on ``--host-devices`` ranks (the serving
+    mesh, tests/test_torch_serve_mesh_launch.py), and refuses before it
+    starts a rank a model axis the arch cannot take: KV heads it does not
+    divide (granite-20b's MQA) raise naming item 12d, heads it does not
+    divide raise ``ValueError`` naming the ones that do; ``--host-devices``
+    over 1 without the mesh profile raises ``ValueError`` naming it.
+    ``--env-profile host`` re-execs the launcher once (guarded)."""
     import os
-    for extra in (["--env-profile", "cpu-mesh"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="item 12d"):
-            serve.main(["--arch", "gemma3-4b", "--smoke", "--device",
-                        "cpu"] + extra)
+    for extra in ([], ["--env-profile", "host"]):
+        with pytest.raises(ValueError, match="--env-profile cpu-mesh"):
+            serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu",
+                        "--host-devices", "2"] + extra)
+    monkeypatch.setenv("REPRO_ENV_PROFILE_APPLIED", "1")     # no re-exec
+    ranks = ["--device", "cpu", "--env-profile", "cpu-mesh",
+             "--host-devices"]
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        serve.main(["--arch", "granite-20b", "--smoke"] + ranks + ["2"])
+    with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
+        serve.main(["--arch", "gemma3-4b", "--smoke"] + ranks + ["3"])
     monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)
     execs = []
 
