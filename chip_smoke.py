@@ -204,19 +204,21 @@ Phases (each prints its lines; any failure exits non-zero):
      magnitude, ms per round, each rank's peak memory, the model group's
      all-reduces a local step; (d)-(f) the other families as (b), f32,
      tau 1, 2 rounds (1 for (d)), in turns with vmap: (d) rwkv6-1.6b's
-     widths, depth 24 -> 4, C 2, seq 512; (e) zamba2-7b's widths, its
+     widths, depth 24 -> 2, C 2, seq 512; (e) zamba2-7b's widths, its
      shared attention + MLP block and one Mamba2 layer, C 2, seq 2048; (f)
      phi3.5-moe's widths, 1 layer (experts split over the ranks), C 1,
      seq 512. 21b and 21d-f share one world of two ranks; (c), after
      them:
      row_sumsq and clip_noise_apply at a rank's rows of (a), (b) and
-     (d)-(f) (for (b) and (d)-(f) also row_sumsq on rank 1's split
-     columns) against their plain versions and their bounds;
+     (d)-(f) and of phase 23's (d) (for all but (a) also row_sumsq on
+     rank 1's split columns) against their plain versions and their
+     bounds;
  22. the serving mesh (launch.serve.serve_on_mesh: prefill, decode and
      the engine split over a model axis), two gloo ranks sharing the card
      on the mesh (1, 2), bf16 at the published widths, in turns with the
-     whole model on rank 0: (a) gemma3-4b (34 layers, B 2 x 2048, 16
-     greedy tokens) and its engine (4 slots, blocks of 64, 6 Poisson
+     whole model on rank 0: (a) gemma3-4b (one 6-layer step of its 34
+     layers: 5 sliding + 1 full, B 2 x 2048, 16 greedy tokens) and its
+     engine (4 slots, blocks of 64, 6 Poisson
      requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 layers,
      B 2 x 512, 16 tokens); (c) zamba2-7b (B 2 x 512, 16 tokens); (d)
      phi3.5-moe, 4 of 32 layers (B 2 x 512, 8 tokens): greedy tokens
@@ -229,7 +231,26 @@ Phases (each prints its lines; any failure exits non-zero):
      rank's launches and peak memory; (e) each arch in f32 at two layers,
      prefill + 4 decode steps within 1e-4 of the whole route's largest
      logit; (f) flash_attention, rwkv6_scan and mamba2_ssd at a rank's
-     shapes against their plain versions and their bounds.
+     shapes against their plain versions and their bounds;
+ 23. KV heads the model axis does not divide and the sequence-split
+     decode cache, on phase 22's two ranks: (a) granite-20b (MQA: its one
+     KV head whole on each rank, the decode cache's sequence split over
+     the two), 52 -> 8 layers, bf16, B 2 x 2048, 16 greedy tokens, held
+     as 22a (the collectives with the sequence-split cache's two
+     all-reduces and query gather a layer and step), each rank's first
+     flash calls at (2, 24, 2048, 128) held against the plain version, a
+     rank's KV cache half the whole's, and its engine (4 requests); (b)
+     gemma3-4b at long_500k on (2, 1) under shard_seq (the cache's
+     sequence on "data"): 34 layers, bf16, B 1, caches of 524,288 slots
+     filled to 524,280 positions from seeded blocks, 4 teacher-forced
+     decode steps against the whole route on rank 0 (relative L2 within
+     5e-2, argmaxes), caches half the whole's, collectives as predicted;
+     (c) both in f32 at two layers (granite on (1, 2), gemma3 at 524,288
+     slots on (2, 1)) within 1e-4 of the whole route's largest logit;
+     (d) granite-20b's widths, 1 layer, f32, mesh_2d (1, 2) training in
+     turns with vmap as 21b, its all-reduces a local step as predicted;
+     (e) flash_attention at (2, 24, 2048, 128) against its plain version,
+     its bound and scaled_dot_product_attention.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -568,9 +589,10 @@ def _row_times(torch, fn, n: int, stem: str) -> dict:
         # every call runs a whole number of kernels, and a kernel record the
         # trace dropped can only lower the count: take the trace again, up
         # to three times (two traces in a row have read 0.98 where the
-        # wrapper runs one kernel). A count above a whole number is kept,
-        # and fails its check
-        if kernels is None or kernels >= round(kernels):
+        # wrapper runs one kernel, and one 0.5). A count above a whole
+        # number is kept, and fails its check. Halves round up: Python's
+        # round(0.5) is 0
+        if kernels is None or kernels >= math.floor(kernels + 0.5):
             break
         device_ms, parts, kernels = _call_device_ms(
             torch, fn, 5 if big else 50, stem)
@@ -4500,9 +4522,10 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
 # rank ran the card out of memory
 MA_SHAPE = (1, 2)
 MA_CELLS = {"21b": ("gemma3-4b", 1, (0,), 2, 2048),
-            "21d": ("rwkv6-1.6b", 4, (0,), 2, 512),
+            "21d": ("rwkv6-1.6b", 2, (0,), 2, 512),
             "21e": ("zamba2-7b", 1, (0, 1), 2, 2048),
-            "21f": ("phi3.5-moe-42b-a6.6b", 1, (0,), 1, 512)}
+            "21f": ("phi3.5-moe-42b-a6.6b", 1, (0,), 1, 512),
+            "23d": ("granite-20b", 1, (0,), 2, 2048)}
 MA_RUNS = (("dense", {}),
            ("qsgd8_q50", dict(compressor="qsgd", compression_bits=8,
                               participation=0.5)))
@@ -4510,8 +4533,9 @@ MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
               "quantize_decompress")
 MA_TF_TAU, MA_TF_B = 1, 1
 # rounds a turn; rwkv6's per-token training loop takes 9-19 s a round, so
-# 21d takes one (the carry from round to round is 21b's, 21e's and 21f's)
-MA_TF_ROUNDS = {"21b": 2, "21d": 1, "21e": 2, "21f": 2}
+# 21d takes one (the carry from round to round is 21b's, 21e's and 21f's),
+# and its depth is cut from 4 layers to 2 to make room for phase 23
+MA_TF_ROUNDS = {"21b": 2, "21d": 1, "21e": 2, "21f": 2, "23d": 1}
 MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
 
 
@@ -4705,6 +4729,20 @@ def _ma_split_shape(configs, phase: str) -> tuple:
             sum(n for n, split in cols if split))
 
 
+def _tf_all_reduces(cfg, seq: int, dm: int) -> int:
+    """The model group's all-reduces in one local step of an attention +
+    MLP transformer on a model axis of ``dm``, from the code: the
+    embedding's all-reduce and the Eq.-7a clip norm's (2); a layer's
+    attention ``copy_in`` backward and ``reduce_out`` forward (2), plus
+    the backward of ``wk`` and ``wv`` where they are whole (KV heads the
+    axis does not divide: 2), its MLP's two; each loss chunk's
+    vocabulary-parallel cross-entropy four (as counted on two CPU ranks
+    at smoke widths, with one and two chunks and one and two layers)."""
+    chunks = seq // cfg.loss_chunk if cfg.loss_chunk else 1
+    attn = 4 if cfg.n_kv_heads % dm else 2
+    return 2 + cfg.n_layers * (attn + 2) + 4 * chunks
+
+
 def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
     """Phase ``phase``'s program on one rank: its transformer (f32,
     MA_CELLS) built by launch.train.build_federation as mesh_2d MA_SHAPE
@@ -4843,6 +4881,11 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
                                               r0["losses"]["vmap"]))
     ok = max(gaps) <= MA_TF_TOL and launches_ok and finite and alike
     per_step = [a / steps for a in r0["all_reduce"]]
+    pred = ""
+    if phase == "23d":          # whole K/V: two more a layer, predicted
+        want_ar = _tf_all_reduces(_ma_cfg(configs, phase), seq, MA_SHAPE[1])
+        ok &= all(a == want_ar for a in per_step)
+        pred = f" (predicted {want_ar})"
     seg = _ma_cfg(configs, phase).segments[0]
     layers = [f"{ls.mixer} + {ls.ffn}" for ls in seg.pattern] * seg.n_steps
     print(f"phase {phase} on {card}: {arch}'s widths, f32, depth cut to "
@@ -4862,8 +4905,8 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
           f"{r0['build_s']} s); peak memory allocated "
           f"per rank (mesh) {[round(r['mesh_peak_gb'], 3) for r in ranks]} "
           f"GB, vmap (rank 0 alone) {r0['vmap_peak_gb']:.3f} GB", flush=True)
-    print(f"phase {phase} model-group all-reduces a local step {per_step} "
-          f"(forward, backward and the clip norm), gathers a round "
+    print(f"phase {phase} model-group all-reduces a local step {per_step}"
+          f"{pred} (forward, backward and the clip norm), gathers a round "
           f"{[g / rounds for g in r0['gather']]} (the outputs', and "
           f"those of weights used whole: zamba2's LoRA factors and conv); "
           f"launches per rank and turn "
@@ -4882,7 +4925,7 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
 
 def check_split_kernels(torch, shapes, card):
     """Phase 21c: row_sumsq and clip_noise_apply at a rank's rows of 21a,
-    21b and 21d-f, ``shapes`` of (rows, columns) or (rows, columns, the
+    21b, 21d-f and 23d, ``shapes`` of (rows, columns) or (rows, columns, the
     split columns rank 1's row_sumsq takes as a row-strided view), against
     their plain versions (row_sumsq within 1e-5 relative; y within 1e-6 +
     1e-5 |y|), timed (CUDA events) beside the plain version and the bound
@@ -4961,18 +5004,29 @@ def check_split_kernels(torch, shapes, card):
 
 SM_SHAPE = (1, 2)
 # (arch, steps of its first segment's pattern kept (None: every layer),
-# prompt, greedy tokens), batch SM_B, bf16 at the published widths
-SM_CELLS = {"22a": ("gemma3-4b", None, 2048, 16),
+# prompt, greedy tokens), batch SM_B, bf16 at the published widths.
+# gemma3-4b's depth is cut to one of its 6-layer steps (5 sliding + 1
+# full of its 34 layers) to make room for phase 23 in the script's time;
+# 23a is granite-20b (MQA) with its 52 layers cut to 8
+SM_CELLS = {"22a": ("gemma3-4b", 1, 2048, 16),
             "22b": ("rwkv6-1.6b", None, 512, 16),
             "22c": ("zamba2-7b", None, 512, 16),
-            "22d": ("phi3.5-moe-42b-a6.6b", 4, 512, 8)}
+            "22d": ("phi3.5-moe-42b-a6.6b", 4, 512, 8),
+            "23a": ("granite-20b", 8, 2048, 16)}
+SM_PHASES = ("22a", "22b", "22c", "22d")
 SM_B, SM_TURNS = 2, 2
-# 22a's engine: prompts and requests (slots, block, budgets, rate: 17's)
-SM_ENGINE_PROMPTS, SM_ENGINE_REQUESTS = (300, 700, 1500), 6
+# the engine runs of 22a and 23a: requests (prompts SM_ENGINE_PROMPTS;
+# slots, block, budgets, rate: 17's)
+SM_ENGINE_PROMPTS = (300, 700, 1500)
+SM_ENGINE = {"22a": 6, "23a": 4}
 # 22e: f32, two layers a model (zamba2: its shared block and one Mamba2
-# layer), prompt, decode steps, phase 12's gate of the largest logit
+# layer), prompt, decode steps, phase 12's gate of the largest logit; 23c
+# runs granite-20b's so (one full layer twice)
 SM_F32_LAYERS = {"gemma3-4b": (0, 5), "rwkv6-1.6b": (0,),
-                 "zamba2-7b": (0, 1), "phi3.5-moe-42b-a6.6b": (0,)}
+                 "zamba2-7b": (0, 1), "phi3.5-moe-42b-a6.6b": (0,),
+                 "granite-20b": (0,)}
+SM_F32_ARCHS = ("gemma3-4b", "rwkv6-1.6b", "zamba2-7b",
+                "phi3.5-moe-42b-a6.6b")
 SM_F32_PROMPT, SM_F32_STEPS, SM_F32_TOL = 512, 4, 1e-4
 # 22f: each model kernel at a rank's shapes on the (1, 2) mesh, bf16:
 # (B, H / 2, S, hd, window) gemma3-4b's two masks, zamba2's shared
@@ -5006,6 +5060,33 @@ def _sm_f32_cfg(configs, arch: str):
         cfg, name=f"{arch}-2L", n_layers=2, dtype="float32",
         segments=(dataclasses.replace(seg, n_steps=steps,
                                       pattern=pattern),))
+
+
+def _sm_seq_collectives(cfg, mesh_shape, shard_seq: bool,
+                        max_len: int) -> dict:
+    """What a decode step adds to :func:`_sm_collectives` where the decode
+    rules split a KV cache's sequence over g ranks (KV heads the model
+    axis does not divide: g = dm; ``shard_seq``: g = dd, or dd x dm), from
+    the code: two all-reduces an attention layer whose cache splits (the
+    group's largest score, then the partial sums), a ring the g ranks do
+    not divide staying whole; and a gather of its query heads where the
+    K/V heads are whole on a model axis over 1."""
+    dd, dm = mesh_shape
+    kv_divides = cfg.n_kv_heads % dm == 0
+    g = ((dd if kv_divides else dd * dm) if shard_seq
+         else (1 if kv_divides else dm))
+    n_full = -(-max_len // g) * g
+    ar = ga = 0
+    for seg in cfg.segments:
+        for ls in seg.pattern:
+            if ls.mixer not in ("attn", "shared_attn") or g == 1:
+                continue
+            limit = {"swa": cfg.window, "chunk": cfg.chunk}.get(
+                ls.attn_kind, 0)
+            if not limit or n_full < limit or limit % g == 0:
+                ar += 2 * seg.n_steps
+                ga += seg.n_steps if dm > 1 and not kv_divides else 0
+    return {"all_reduce": ar, "gather": ga}
 
 
 def _sm_collectives(cfg) -> dict:
@@ -5087,10 +5168,11 @@ def _sm_generate(torch, serve, model, params, prompts, gen, counters,
 
 
 def _sm_engine(torch, serve, serve_pkg, model, params, counters,
-               on_mesh: bool):
-    """22a's workload through a SlotEngine (phase 17's slots, block and
-    budgets; no warm-up: nothing is timed), on the serving mesh when
-    ``on_mesh``: each request's tokens and the logits it drew each from
+               on_mesh: bool, n_requests: int):
+    """22a's (or 23a's) workload of ``n_requests`` through a SlotEngine
+    (phase 17's slots, block and budgets; no warm-up: nothing is timed), on
+    the serving mesh when ``on_mesh``: each request's tokens and the
+    logits it drew each from
     (the held row of its slot before each step), the block table after
     each step, the model kernels' launches (set to 0 just before the
     workload)."""
@@ -5115,7 +5197,7 @@ def _sm_engine(torch, serve, serve_pkg, model, params, counters,
                            max_len=max_len, block_size=ENGINE_BLOCK,
                            device="cuda")
         wl = serve_pkg.poisson_workload(
-            SM_ENGINE_REQUESTS, ENGINE_RATE, model.cfg.vocab, seed=0,
+            n_requests, ENGINE_RATE, model.cfg.vocab, seed=0,
             prompt_lens=SM_ENGINE_PROMPTS, gen_lens=ENGINE_GENS)
         for c in counters.values():
             c.launches = 0
@@ -5143,15 +5225,20 @@ def _sm_rank(phase: str) -> dict:
     (both ranks), then on the whole model (rank 0; rank 1 waits at a
     barrier); on rank 0 the whole route and the f32 computation (the plain
     route on the f32 upcast of the params) teacher-forced with the last
-    mesh turn's tokens (``_sm_forced``); for 22a, the engine's workload on
-    the mesh and whole. Returns, moved to the host, each turn's times,
-    launches, collectives and peak memory, the last turn's tokens and
-    logits, and rank 0's teacher-forced logits."""
+    mesh turn's tokens (``_sm_forced``); for 22a and 23a, the engine's
+    workload on the mesh and whole. 23a also keeps the first mesh turn's
+    flash_attention calls (their operands and outputs) and holds them
+    against the plain version after it, and sizes a rank's KV cache and
+    the whole's. Returns, moved to the host, each turn's times, launches,
+    collectives and peak memory, the last turn's tokens and logits, and
+    rank 0's teacher-forced logits."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch import serve as serve_pkg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch import serve
     from repro_torch.models import sharding
     from repro_torch.models.transformer import Transformer
@@ -5171,10 +5258,15 @@ def _sm_rank(phase: str) -> dict:
                             device="cuda")
     with serve.serve_on_mesh(model, SM_SHAPE):
         local = sharding.local_params(whole)
+        cache_gb = sum(x.nbytes for x in tree_leaves(model.init_cache(
+            SM_B, prompt + gen, "meta"))) / 1e9
     torch.cuda.synchronize()
     out = {"rank": rank, "init_s": time.perf_counter() - t0,
            "whole_gb": sum(x.nbytes for x in tree_leaves(whole)) / 1e9,
            "local_gb": sum(x.nbytes for x in tree_leaves(local)) / 1e9,
+           "cache_gb": cache_gb, "whole_cache_gb": sum(
+               x.nbytes for x in tree_leaves(model.init_cache(
+                   SM_B, prompt + gen, "meta"))) / 1e9,
            "mesh": [], "whole": []}
     if rank != 0:
         del whole
@@ -5187,8 +5279,21 @@ def _sm_rank(phase: str) -> dict:
                      counters, False)
     for turn in range(SM_TURNS):
         dist.barrier()
+        kept = {}
+        reals = (_keeping_first_model_calls(torch, ops, kept)
+                 if phase == "23a" and turn == 0 else {})
         out["mesh"].append(_sm_generate(torch, serve, model, local, prompts,
                                         gen, counters, True))
+        for name, real in reals.items():
+            setattr(ops, name, real)
+        if kept:
+            k_ok, k_err, k_lines = _check_kept_model_calls(
+                torch, kept, {"flash_attention": flash_attention_ref})
+            out["kept"] = {"ok": k_ok, "err": k_err.get("flash_attention",
+                                                        0.0),
+                           "lines": k_lines, "calls": len(kept)}
+            del kept
+            torch.cuda.empty_cache()
         dist.barrier()
         if rank == 0:
             out["whole"].append(_sm_generate(torch, serve, model, whole,
@@ -5217,13 +5322,14 @@ def _sm_rank(phase: str) -> dict:
             last = i == len(runs) - 1
             r["tokens"] = r["tokens"].cpu().numpy() if last else None
             r["logits"] = r["logits"].float().cpu().numpy() if last else None
-    if phase == "22a":
+    if phase in SM_ENGINE:
         for on_mesh in (True, False):
             dist.barrier()
             if not on_mesh and rank != 0:
                 continue
             eng = _sm_engine(torch, serve, serve_pkg, model,
-                             local if on_mesh else whole, counters, on_mesh)
+                             local if on_mesh else whole, counters, on_mesh,
+                             SM_ENGINE[phase])
             eng["logits"] = {k: v.float().cpu().numpy()
                              for k, v in eng["logits"].items()}
             out["engine_mesh" if on_mesh else "engine_whole"] = eng
@@ -5304,8 +5410,10 @@ def _sm_guarded(serve, np, tokens, ref_tokens, ref_logits, tol):
     return ok, n, total
 
 
-def run_serving_mesh(torch, np, configs, serve, card, world):
-    """Phase 22a-d: each SM_CELLS model in bf16 on the serving mesh (1, 2)
+def run_serving_mesh(torch, np, configs, serve, card, world,
+                     phases=SM_PHASES):
+    """Phase 22a-d (or 23a: ``phases``): each SM_CELLS model in bf16 on
+    the serving mesh (1, 2)
     of ``world``'s two gloo ranks sharing the card, in turns with the
     whole model on rank 0 (``_sm_rank``): greedy tokens against the whole
     route's under the top-two gap guard at four times the whole route's
@@ -5325,10 +5433,15 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
     (``_sm_want``); each rank's peak memory against the whole route's;
     22a's engine on the mesh against the whole engine (tokens under the
     same guard, the ranks' tokens and block tables alike, flash launches
-    per prefill group). Returns (ok, {kernel: launches of both ranks, the
-    last mesh turn, by phase}, {phase: record})."""
-    ok, launches, recs = True, {}, {}
-    for phase in SM_CELLS:
+    per prefill group). 23a (granite-20b's one KV head, whole on each rank,
+    its decode cache's sequence split over the two): the collectives add
+    ``_sm_seq_collectives`` a decode step; a rank's KV cache is half the
+    whole's; the first mesh turn's flash calls held against the plain
+    version (``_check_kept_model_calls``). Returns (ok, {kernel: launches
+    of both ranks, the last mesh turn, by phase}, {phase: record}, {kernel:
+    max abs err of the kept calls})."""
+    ok, launches, recs, errs = True, {}, {}, {}
+    for phase in phases:
         arch, _, prompt, gen = SM_CELLS[phase]
         cfg = _sm_cfg(configs, phase)
         t0 = time.perf_counter()
@@ -5337,7 +5450,7 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
         except RuntimeError as e:
             print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
                   flush=True)
-            return False, launches, recs
+            return False, launches, recs, errs
         wall = time.perf_counter() - t0
         r0, r1 = ranks
         mesh, whole = r0["mesh"][-1], r0["whole"][-1]
@@ -5364,7 +5477,8 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
                for t in range(gen)]
         want_l = _sm_want(cfg, gen)
         pred = _sm_collectives(cfg)
-        want_c = {k: v * (gen + 1) for k, v in pred.items()}
+        extra = _sm_seq_collectives(cfg, SM_SHAPE, False, prompt + gen)
+        want_c = {k: v * (gen + 1) + extra[k] * gen for k, v in pred.items()}
         launches_ok = all(t["launches"] == want_l for r in ranks
                           for t in r["mesh"])
         coll_ok = all(t["collectives"] == want_c for r in ranks
@@ -5373,6 +5487,20 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
                       and np.isfinite(whole["logits"]).all())
         good = (alike and agree and near and launches_ok and coll_ok
                 and finite)
+        if "kept" in r0:                  # 23a: the kept flash calls
+            kept_ok = all(r["kept"]["ok"] and r["kept"]["calls"] > 0
+                          for r in ranks)
+            halves = all(abs(2 * r["cache_gb"] - r["whole_cache_gb"])
+                         <= 1e-9 for r in ranks)
+            errs["flash_attention"] = max(r["kept"]["err"] for r in ranks)
+            good &= kept_ok and halves
+            print(f"phase {phase} the first mesh turn's flash calls on each "
+                  f"rank against the plain version: "
+                  f"{[r['kept']['lines'] for r in ranks]} "
+                  f"{'ok' if kept_ok else 'CHECK FAILED'}; KV cache a rank "
+                  f"{[round(r['cache_gb'], 6) for r in ranks]} GB, whole "
+                  f"{r0['whole_cache_gb']:.6f} GB (half: {halves})",
+                  flush=True)
         launches[phase] = {n: sum(r["mesh"][-1]["launches"][n]
                                   for r in ranks) for n in want_l}
         rec = {"arch": arch, "layers": cfg.n_layers, "prompt": prompt,
@@ -5389,6 +5517,8 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
                            "whole": whole["peak_gb"]},
                "params_gb": {"whole": r0["whole_gb"],
                              "rank": [r["local_gb"] for r in ranks]},
+               "cache_gb": {"whole": r0["whole_cache_gb"],
+                            "rank": [r["cache_gb"] for r in ranks]},
                "collectives_per_step": {k: v / (gen + 1) for k, v in
                                         mesh["collectives"].items()}}
         print(f"phase {phase} {arch} bf16 on {card}: {cfg.n_layers} layers, "
@@ -5423,15 +5553,18 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
               f" GB, whole {whole['peak_gb']:.3f} GB", flush=True)
         print(f"phase {phase} model-group collectives a generate "
               f"{mesh['collectives']} (predicted {want_c}: "
-              f"{pred} a decode step and a prefill, x {gen + 1}); "
+              f"{pred} a decode step and a prefill, x {gen + 1}, and "
+              f"{extra} more a decode step for the sequence-split cache, x "
+              f"{gen}); "
               f"launches per rank and turn "
               f"{[t['launches'] for r in ranks for t in r['mesh']]} "
               f"(expected {want_l}) {'ok' if good else 'CHECK FAILED'}",
               flush=True)
-        if phase == "22a":
-            e_ok, e_rec = _sm_engine_verdict(serve, np, cfg, ranks, tol, card)
+        if phase in SM_ENGINE:
+            e_ok, e_rec = _sm_engine_verdict(serve, np, cfg, ranks, tol, card,
+                                             phase)
             good &= e_ok
-            launches["22a engine"] = {
+            launches[f"{phase} engine"] = {
                 n: sum(r["engine_mesh"]["launches"][n] for r in ranks)
                 for n in want_l}
             rec["engine"] = e_rec
@@ -5439,11 +5572,12 @@ def run_serving_mesh(torch, np, configs, serve, card, world):
         recs[phase] = rec
         print(f"phase {phase} wall time {time.perf_counter() - t0:.1f} s",
               flush=True)
-    return ok, launches, recs
+    return ok, launches, recs, errs
 
 
-def _sm_engine_verdict(serve, np, cfg, ranks, tol, card):
-    """22a's engine: the mesh engine's tokens against the whole engine's
+def _sm_engine_verdict(serve, np, cfg, ranks, tol, card, phase):
+    """22a's (23a's) engine: the mesh engine's tokens against the whole
+    engine's
     under the guard ``tol`` (the whole engine's logits before each token
     the reference), the ranks' tokens and every block table alike,
     flash launches = attention layers x prefill groups on each rank."""
@@ -5469,9 +5603,9 @@ def _sm_engine_verdict(serve, np, cfg, ranks, tol, card):
                  and em["launches"]["flash_attention"]
                  == ew["launches"]["flash_attention"])
     good = (alike and ok and launch_ok
-            and em["n_requests"] == SM_ENGINE_REQUESTS)
-    print(f"phase 22a engine on {card} ({ENGINE_SLOTS} slots, block "
-          f"{ENGINE_BLOCK}, {SM_ENGINE_REQUESTS} Poisson requests at prompts "
+            and em["n_requests"] == SM_ENGINE[phase])
+    print(f"phase {phase} engine on {card} ({ENGINE_SLOTS} slots, block "
+          f"{ENGINE_BLOCK}, {SM_ENGINE[phase]} Poisson requests at prompts "
           f"{SM_ENGINE_PROMPTS}): mesh {em['steps']} steps in "
           f"{em['wall_s']:.2f} s, whole {ew['steps']} steps in "
           f"{ew['wall_s']:.2f} s; tokens against the whole engine's under "
@@ -5487,18 +5621,20 @@ def _sm_engine_verdict(serve, np, cfg, ranks, tol, card):
                   "steps_compared": [n_cmp, n_all], "groups": groups}
 
 
-def run_serving_mesh_f32(torch, np, configs, card, world):
-    """Phase 22e: each served arch in f32 at its published widths, two
-    layers, on the serving mesh (1, 2) against the whole route on rank 0
-    teacher-forced with the mesh's tokens: the prefill and SM_F32_STEPS
-    decode steps' logits within SM_F32_TOL of the whole route's largest
-    logit (phase 12's gate); the ranks' tokens alike."""
+def run_serving_mesh_f32(torch, np, configs, card, world,
+                         archs=SM_F32_ARCHS, phase="22e"):
+    """Phase 22e (23c: granite-20b): each of ``archs`` in f32 at its
+    published widths, two layers, on the serving mesh (1, 2) against the
+    whole route on rank 0 teacher-forced with the mesh's tokens: the
+    prefill and SM_F32_STEPS decode steps' logits within SM_F32_TOL of the
+    whole route's largest logit (phase 12's gate); the ranks' tokens
+    alike."""
     ok = True
-    for arch in SM_F32_LAYERS:
+    for arch in archs:
         try:
             r0, r1 = world.run(_sm_f32_rank, arch)
         except RuntimeError as e:
-            print(f"phase 22e {arch}: the two ranks failed: {e} CHECK "
+            print(f"phase {phase} {arch}: the two ranks failed: {e} CHECK "
                   f"FAILED", flush=True)
             return False
         gap = float(np.abs(r0["mesh"] - r0["whole"]).max()) / max(
@@ -5510,7 +5646,7 @@ def run_serving_mesh_f32(torch, np, configs, card, world):
         cfg = _sm_f32_cfg(configs, arch)
         layers = [f"{ls.mixer} + {ls.ffn}"
                   for ls in cfg.segments[0].pattern] * cfg.segments[0].n_steps
-        print(f"phase 22e {arch} f32 on {card}, layers {layers}, B {SM_B} x "
+        print(f"phase {phase} {arch} f32 on {card}, layers {layers}, B {SM_B} x "
               f"{SM_F32_PROMPT}: prefill + {SM_F32_STEPS} decode steps, mesh "
               f"{SM_SHAPE} vs whole, max gap / max|logit| {gap:.3e} (limit "
               f"{SM_F32_TOL}); ranks' tokens "
@@ -5519,13 +5655,15 @@ def run_serving_mesh_f32(torch, np, configs, card, world):
     return ok
 
 
-def check_rank_kernels(torch, card):
-    """Phase 22f: flash_attention, rwkv6_scan and mamba2_ssd at a rank's
-    shapes on the (1, 2) serving mesh (SM_FLASH, SM_RWKV, SM_SSD), bf16,
-    each against its plain version on the same values upcast to f32
-    (phase 10's criteria), timed (CUDA events) beside the plain version,
-    the bound and, for flash, torch's scaled_dot_product_attention.
-    Returns (ok, {kernel: [record a shape]}, {kernel: max abs err})."""
+def check_rank_kernels(torch, card, phase="22f", flash=SM_FLASH,
+                       rwkv=SM_RWKV, ssd=SM_SSD):
+    """Phase 22f (23e: ``phase``, and its shapes): flash_attention,
+    rwkv6_scan and mamba2_ssd at a rank's shapes on the (1, 2) serving mesh
+    (``flash``, ``rwkv``, ``ssd``), bf16, each against its plain version
+    on the same values upcast to f32 (phase 10's criteria), timed (CUDA
+    events) beside the plain version, the bound and, for flash, torch's
+    scaled_dot_product_attention. Returns (ok, {kernel: [record a shape]},
+    {kernel: max abs err})."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
@@ -5549,7 +5687,7 @@ def check_rank_kernels(torch, card):
             "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms,
             "max_abs_err": err})
-        print(f"phase 22f {name} {shape} bf16 [{variant}]: max|d| {err:.3e} "
+        print(f"phase {phase} {name} {shape} bf16 [{variant}]: max|d| {err:.3e} "
               f"{'ok' if good else 'MISMATCH'}  kernel {ms:.5f} ms "
               f"({bound[0] / ms:.1%} of the bound)  plain {plain_ms:.5f} ms"
               f"  bound {bound[0]:.6f} ms ({bound[1]})  library "
@@ -5557,7 +5695,7 @@ def check_rank_kernels(torch, card):
                  else f"scaled_dot_product_attention {lib_ms:.5f} ms")
               + f" ({card})", flush=True)
 
-    for b, h, s, hd, window in SM_FLASH:
+    for b, h, s, hd, window in flash:
         q, k, v = (torch.randn((b, h, s, hd), generator=gen,
                                device="cuda").to(bf) for _ in range(3))
         got = flash_attention(q, k, v, window=window)
@@ -5580,7 +5718,7 @@ def check_rank_kernels(torch, card):
                lambda: flash_attention_ref(q, k, v, window=window),
                _flash_bound(torch, b, h, s, hd, window, bf), lib)
         del q, k, v, got
-    for b, h, s, hd, with_s0 in SM_RWKV:
+    for b, h, s, hd, with_s0 in rwkv:
         r, k, v = (torch.randn((b, h, s, hd), generator=gen,
                                device="cuda").to(bf) for _ in range(3))
         w = torch.sigmoid(torch.randn((b, h, s, hd), generator=gen,
@@ -5601,7 +5739,7 @@ def check_rank_kernels(torch, card):
                _rwkv_bound(torch, b, h, s, hd, with_s0, bf),
                iters=30 if s > 1 else 200)
         del r, k, v, w, u, s0, y, st
-    for b, s, h, p, n, q in SM_SSD:
+    for b, s, h, p, n, q in ssd:
         x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(bf)
         dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
         a = -torch.exp(0.3 * torch.randn((h,), generator=gen, device="cuda"))
@@ -5621,6 +5759,228 @@ def check_rank_kernels(torch, card):
         del x, dt, a, b_in, c_in, y, st
     torch.cuda.synchronize()
     return ok, recs, worst
+
+
+# -- phase 23: KV heads the model axis does not divide, the sequence-split
+# decode cache -----------------------------------------------------------------
+
+# 23a: SM_CELLS["23a"] (granite-20b, MQA) on SM_SHAPE, its engine SM_ENGINE's.
+# 23b-c: gemma3-4b's long_500k on (2, 1) (shard_seq): B 1, a cache of
+# LONG_LEN slots filled to LONG_FILL positions block by block (LONG_BLOCK
+# positions a block, each drawn from a generator keyed by (seed, layer,
+# block), so a rank draws only its own slots' blocks and the whole route
+# the same values), then LONG_STEPS decode steps teacher-forced with seeded
+# tokens; 23b bf16 at all 34 layers, 23c f32 at two (one sliding, one full)
+LONG_SHAPE, LONG_LEN, LONG_FILL = (2, 1), 524_288, 524_280
+LONG_BLOCK, LONG_STEPS, LONG_SEED = 8192, 4, 23
+# 23b's gate on each step's relative L2 between the mesh's and the whole
+# route's bf16 logits: two bf16 routes of gemma3-4b's 34 layers (phase 12
+# measured 2.9e-2 between its kernel and plain routes); argmaxes compared
+# where the whole route's top-two gap exceeds 2^-6 of its largest logit
+# (2-4 bf16 ulps of it)
+LONG_REL_L2 = 5e-2
+# 23e: flash_attention at a rank's shape of 23a's prefill (24 of 48 heads)
+MQ_FLASH = ((2, 24, 2048, 128, 0),)
+
+
+def _long_cfg(configs, phase: str):
+    """23b's gemma3-4b (its 34 layers, bf16) or 23c's (f32, one sliding
+    and one full layer: ``_sm_f32_cfg``)."""
+    return (configs.get_arch("gemma3-4b") if phase == "23b"
+            else _sm_f32_cfg(configs, "gemma3-4b"))
+
+
+def _fill_long(torch, model, caches) -> None:
+    """Every attention cache of ``caches`` (this rank's block of slots
+    under the active rules, or whole) holds the K/V of positions 0 ..
+    LONG_FILL - 1 where its ring or span keeps them: the values of
+    position p drawn with the block p // LONG_BLOCK of (B, LONG_BLOCK, KV,
+    hd) normal draws of its layer's generator, seeded by (LONG_SEED,
+    layer, block). Only the blocks a rank's slots hold are drawn."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import sharding
+    cfg = model.cfg
+    grp = sharding.seq_group()
+    layer = 0
+    for seg, seg_c in zip(cfg.segments, caches):
+        for i in range(seg.n_steps):
+            for j, ls in enumerate(seg.pattern):
+                k = seg_c[str(j)]["mixer"]["k"][i]
+                v = seg_c[str(j)]["mixer"]["v"][i]
+                n_local = k.shape[1]
+                blk = attn.seq_block(n_local, ls.attn_kind, cfg.window,
+                                     cfg.chunk, grp)
+                _, lo, n = blk if blk is not None else (None, 0, n_local)
+                slots = torch.arange(lo, lo + n_local, device=k.device)
+                pos = (LONG_FILL - 1) - torch.remainder(
+                    LONG_FILL - 1 - slots, n)
+                block = torch.where(pos >= 0, pos // LONG_BLOCK, -1)
+                for b in sorted(set(block.unique().tolist()) - {-1}):
+                    g = torch.Generator(device=k.device).manual_seed(
+                        LONG_SEED * 1_000_003 + layer * 10_007 + b)
+                    shape = (k.shape[0], LONG_BLOCK) + tuple(k.shape[2:])
+                    kb = torch.randn(shape, generator=g, device=k.device)
+                    vb = torch.randn(shape, generator=g, device=k.device)
+                    sel = torch.nonzero(block == b).squeeze(1)
+                    at = pos[sel] % LONG_BLOCK
+                    k[:, sel] = kb[:, at].to(k.dtype)
+                    v[:, sel] = vb[:, at].to(v.dtype)
+                    del kb, vb
+                layer += 1
+
+
+def _long_rank(phase: str) -> dict:
+    """Phase 23b's (or 23c's) program on one rank of two sharing the card:
+    gemma3-4b (``_long_cfg``) from a seeded CUDA generator, whole on each
+    rank (the model axis is 1); on the serving mesh LONG_SHAPE under
+    ``shard_seq`` each rank allocates its half of the caches' slots,
+    fills them (``_fill_long``) and runs LONG_STEPS teacher-forced decode
+    steps (the collectives counted); then rank 0 runs the whole route on
+    whole caches filled with the same values. Returns the logits of each
+    route (rank 0), the rank's, the cache bytes, each step's ms, the
+    collectives and the peaks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.mesh import collectives
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_leaves
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    model = Transformer(_long_cfg(configs, phase))
+    g = torch.Generator(device="cuda").manual_seed(LONG_SEED)
+    params = model.init(g, "cuda")
+    tokens = torch.randint(0, model.cfg.vocab, (LONG_STEPS, 1), generator=g,
+                           device="cuda")
+    out = {"rank": rank, "params_gb": sum(
+        x.nbytes for x in tree_leaves(params)) / 1e9}
+
+    def run(route: str) -> None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        caches = model.init_cache(1, LONG_LEN, "cuda")
+        _fill_long(torch, model, caches)
+        torch.cuda.synchronize()
+        out[f"{route}_fill_s"] = time.perf_counter() - t0
+        out[f"{route}_cache_gb"] = sum(x.nbytes
+                                       for x in tree_leaves(caches)) / 1e9
+        collectives.counts.update(all_reduce=0, gather=0)
+        steps, ms = [], []
+        with torch.inference_mode():
+            for i in range(LONG_STEPS):
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(params, caches, tokens[i],
+                                                   LONG_FILL + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                steps.append(logits[0].float().cpu().numpy())
+        out[route] = np.stack(steps)
+        out[f"{route}_ms"] = ms
+        out[f"{route}_collectives"] = dict(collectives.counts)
+        out[f"{route}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del caches
+        torch.cuda.empty_cache()
+
+    with serve.serve_on_mesh(model, LONG_SHAPE, shard_seq=True):
+        dist.barrier()
+        run("mesh")
+    dist.barrier()
+    if rank == 0:
+        run("whole")
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def run_long_context(torch, np, configs, card, world, phase: str):
+    """Phase 23b (gemma3-4b at long_500k, 34 layers, bf16) or 23c (its
+    sliding and full layer in f32): the mesh LONG_SHAPE's ranks each hold
+    half of every cache's slots (``shard_seq``: the sequence on "data")
+    against the whole route on rank 0 (``_long_rank``). 23b: each step's
+    relative L2 between the routes' logits within LONG_REL_L2, and the
+    argmaxes equal where the whole route's top-two gap exceeds 2^-6 of its
+    largest logit; 23c: within SM_F32_TOL of the whole route's
+    largest logit (phase 12's gate). Both: the ranks' logits alike and
+    finite; a rank's caches half the whole's; the collectives a step as
+    ``_sm_seq_collectives`` predicts (no model axis: nothing else). Returns
+    (ok, record)."""
+    cfg = _long_cfg(configs, phase)
+    t0 = time.perf_counter()
+    try:
+        r0, r1 = world.run(_long_rank, phase)
+    except RuntimeError as e:
+        print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, {}
+    wall = time.perf_counter() - t0
+    mesh, whole = r0["mesh"], r0["whole"]
+    alike = np.array_equal(mesh, r1["mesh"])
+    finite = bool(np.isfinite(mesh).all() and np.isfinite(whole).all())
+    rel = [float(np.linalg.norm(mesh[t] - whole[t]) / np.linalg.norm(
+        whole[t])) for t in range(LONG_STEPS)]
+    gap = float(np.abs(mesh - whole).max()) / max(1.0, float(
+        np.abs(whole).max()))
+    top2 = np.sort(whole, axis=-1)[:, -2:]
+    guard = float(np.abs(whole).max()) * 2.0 ** -6
+    compared = [t for t in range(LONG_STEPS)
+                if top2[t, 1] - top2[t, 0] > guard]
+    argmax_ok = all(int(mesh[t].argmax()) == int(whole[t].argmax())
+                    for t in compared)
+    if phase == "23b":
+        close = max(rel) <= LONG_REL_L2 and argmax_ok
+        gate = (f"relative L2 a step {[float(f'{x:.4g}') for x in rel]} "
+                f"(limit {LONG_REL_L2}), argmax equal on {len(compared)} "
+                f"of {LONG_STEPS} steps whose top-two gap exceeds "
+                f"{guard:.3e}: {argmax_ok}")
+    else:
+        close = gap <= SM_F32_TOL
+        gate = (f"max gap / max|logit| {gap:.3e} (limit {SM_F32_TOL}), "
+                f"relative L2 a step {[float(f'{x:.3g}') for x in rel]}")
+    halves = all(abs(2 * r["mesh_cache_gb"] - r0["whole_cache_gb"]) <= 1e-9
+                 for r in (r0, r1))
+    want_c = _sm_seq_collectives(cfg, LONG_SHAPE, True, LONG_LEN)
+    coll_ok = all(r["mesh_collectives"] == {k: v * LONG_STEPS
+                                            for k, v in want_c.items()}
+                  for r in (r0, r1))
+    ok = alike and finite and close and halves and coll_ok
+    print(f"phase {phase} gemma3-4b {cfg.dtype} on {card}: {cfg.n_layers} "
+          f"layers, B 1, caches of {LONG_LEN:,} slots filled to "
+          f"{LONG_FILL:,} positions, {LONG_STEPS} decode steps, serving "
+          f"mesh {LONG_SHAPE} under shard_seq (the sequence on \"data\") "
+          f"on 2 gloo ranks vs the whole route on rank 0; {wall:.1f} s; "
+          f"params {r0['params_gb']:.2f} GB on each rank; KV caches "
+          f"{[round(r['mesh_cache_gb'], 4) for r in (r0, r1)]} GB a rank, "
+          f"{r0['whole_cache_gb']:.4f} GB whole (half: {halves}); fill "
+          f"{r0['mesh_fill_s']:.1f} s a rank, {r0['whole_fill_s']:.1f} s "
+          f"whole", flush=True)
+    print(f"phase {phase} logits mesh vs whole: {gate}; ranks' logits "
+          f"{'bit for bit alike' if alike else 'DIFFERENT'}; finite "
+          f"{finite}; ms a step mesh {[round(x, 2) for x in r0['mesh_ms']]} "
+          f"whole {[round(x, 2) for x in r0['whole_ms']]}; peak memory "
+          f"allocated a rank (mesh) "
+          f"{[round(r['mesh_peak_gb'], 3) for r in (r0, r1)]} GB, whole "
+          f"route {r0['whole_peak_gb']:.3f} GB; collectives a step "
+          f"{ {k: v / LONG_STEPS for k, v in r0['mesh_collectives'].items()} }"
+          f" (predicted {want_c}) {'ok' if ok else 'CHECK FAILED'}",
+          flush=True)
+    return ok, {"layers": cfg.n_layers, "dtype": cfg.dtype,
+                "rel_l2": rel, "max_gap_of_max_logit": gap,
+                "steps_compared": [len(compared), LONG_STEPS],
+                "cache_gb": {"whole": r0["whole_cache_gb"],
+                             "rank": [r["mesh_cache_gb"] for r in (r0, r1)]},
+                "ms": {"mesh": r0["mesh_ms"], "whole": r0["whole_ms"]},
+                "peak_gb": {"mesh": [r["mesh_peak_gb"] for r in (r0, r1)],
+                            "whole": r0["whole_peak_gb"]},
+                "collectives_per_step": {
+                    k: v / LONG_STEPS
+                    for k, v in r0["mesh_collectives"].items()}}
 
 
 def main() -> int:
@@ -5876,12 +6236,13 @@ def main() -> int:
               f"s", flush=True)
     ma_world.close()
     # 21c at a rank's rows: 21a's (clients, columns of rank 0), then those
-    # of 21b and 21d-f with rank 1's split columns
+    # of 21b, 21d-f and 23d (phase 23's training cell) with rank 1's split
+    # columns
     split_shapes = [shape for name, shape in (xa_shapes[0] if xa_shapes
                                               else [])
                     if name == "clip_noise_apply"][:1]
     split_shapes += [_ma_split_shape(configs, phase)
-                     for phase in ("21b", "21d", "21e", "21f")]
+                     for phase in ("21b", "21d", "21e", "21f", "23d")]
     ok_xc, split_recs, xc_errs = check_split_kernels(torch, split_shapes,
                                                      card)
     print(f"phase 21 wall time {time.perf_counter() - t21:.1f} s",
@@ -5895,12 +6256,37 @@ def main() -> int:
     sm_world.run(int, 0)
     print(f"phase 22: 2 gloo ranks started in "
           f"{time.perf_counter() - t22:.1f} s", flush=True)
-    ok_ya, ya_launches, ya_recs = run_serving_mesh(torch, np, configs, serve,
-                                                   card, sm_world)
+    ok_ya, ya_launches, ya_recs, _ = run_serving_mesh(
+        torch, np, configs, serve, card, sm_world)
     ok_ye = run_serving_mesh_f32(torch, np, configs, card, sm_world)
-    sm_world.close()
     ok_yf, yf_recs, yf_errs = check_rank_kernels(torch, card)
     print(f"phase 22 wall time {time.perf_counter() - t22:.1f} s",
+          flush=True)
+
+    # -- 23. KV heads the model axis does not divide; the long context ------
+    # (phase 22's two ranks)
+    t23 = time.perf_counter()
+    ok_za, za_launches, za_recs, za_errs = run_serving_mesh(
+        torch, np, configs, serve, card, sm_world, phases=("23a",))
+    ok_zb, zb_rec = run_long_context(torch, np, configs, card, sm_world,
+                                     "23b")
+    ok_zc = run_serving_mesh_f32(torch, np, configs, card, sm_world,
+                                 archs=("granite-20b",), phase="23c")
+    ok_zl, zc_rec = run_long_context(torch, np, configs, card, sm_world,
+                                     "23c")
+    ok_zc &= ok_zl
+    ok_zd, zd_launches, zd_rec = run_model_axis_tf(torch, np, fl, configs,
+                                                   card, "23d", sm_world)
+    sm_world.close()
+    ok_ze, ze_recs, ze_errs = check_rank_kernels(torch, card, "23e",
+                                                 MQ_FLASH, (), ())
+    ya_launches.update(za_launches)
+    for name, recs_ in ze_recs.items():
+        yf_recs.setdefault(name, []).extend(recs_)
+    for errs_ in (za_errs, ze_errs):
+        for name, err in errs_.items():
+            yf_errs[name] = max(yf_errs.get(name, 0.0), err)
+    print(f"phase 23 wall time {time.perf_counter() - t23:.1f} s",
           flush=True)
 
     model_kernels = []
@@ -5967,7 +6353,8 @@ def main() -> int:
                 f"phase {phase} {MA_CELLS[phase][0]}'s widths on a (1, 2) "
                 f"mesh, both ranks, the last turn": launched.get(name, 0)
                 for phase, launched in (("21b", xb_launches),
-                                        *xf_launches.items())}})
+                                        *xf_launches.items(),
+                                        ("23d", zd_launches))}})
 
     print(json.dumps({"kernels": [{
         "name": "dp_clip_noise", "route": "cuda",
@@ -6040,7 +6427,9 @@ def main() -> int:
             "phase 20a the resident quickstart under shard_map":
                 sa_launches["cohort_gather_scatter"]}}] + model_kernels
         + split_kernels, "phase21b_gemma3_model_axis": xb_rec,
-        "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs}),
+        "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs,
+        "phase23": {"23a": za_recs.get("23a"), "23b": zb_rec, "23c": zc_rec,
+                    "23d": zd_rec}}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -6122,7 +6511,24 @@ def main() -> int:
                       and ya_launches.get("22b", {}).get("rwkv6_scan", 0) > 0
                       and ya_launches.get("22c", {}).get("mamba2_ssd", 0) > 0,
                       "a model kernel was not launched on the serving "
-                      "mesh")):
+                      "mesh"),
+                     (ok_za, "granite-20b (MQA) on the serving mesh "
+                             "disagrees with the whole route or missed a "
+                             "check"),
+                     (za_launches.get("23a", {}).get("flash_attention", 0)
+                      == 2 * SM_CELLS["23a"][1],
+                      "flash_attention was not launched once a layer on "
+                      "each rank of 23a's prefill"),
+                     (ok_zb, "gemma3-4b at long_500k on the sequence-split "
+                             "cache disagrees with the whole route or "
+                             "missed a check"),
+                     (ok_zc, "an f32 model on a sequence-split cache is off "
+                             "the whole route by more than 1e-4 of the "
+                             "largest logit"),
+                     (ok_zd, "granite-20b's widths on the (1, 2) training "
+                             "mesh disagree with vmap or missed a check"),
+                     (ok_ze, "flash_attention disagrees with its plain "
+                             "version at granite-20b's rank shape")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -17,13 +17,25 @@ The port of the JAX package's ``repro/launch/dryrun.py``, for one card:
   the trace's peak of temporaries), ``fits_hbm`` against the card's
   79.18 GiB, and ``roofline``.
 
-Not ported (the remainder of ROADMAP queue 1 item 12d): ``--multi-pod``
-and ``mesh_report``, which would record each rank's slice of a replica on
-a mesh's model axis; ``--multi-pod`` raises. A trace here is of one
-replica on one card. The serving mesh itself runs
+- ``--mesh-report`` (:func:`mesh_report`, :func:`print_mesh_report`):
+  for each arch, one client replica's param + optimizer-state bytes
+  against a device's budget (``--device-mem-gb``, else
+  ``REPRO_DEVICE_MEM_BYTES``, else the card's memory) under the 2D mesh
+  that ``engine="auto"`` would choose over ``--devices`` ranks
+  (:mod:`repro_torch.mesh.placement`) for ``--clients`` clients; it
+  exits 1 when a row does not fit. Host-only: nothing is traced.
+- A decode record carries the rules the serving mesh would install on
+  the JAX production mesh (16, 16) (``serving_rules``:
+  :func:`repro_torch.models.sharding.decode_mesh_rules`, ``shard_seq``
+  at ``long_500k``): where the KV cache's heads and sequence go.
+
+Not ported (the remainder of ROADMAP queue 1 item 12d): ``--multi-pod``,
+which would record each rank's slice of a replica on a pod mesh, raises.
+A trace here is of one replica on one card. The serving mesh itself runs
 (:func:`repro_torch.launch.serve.serve_on_mesh`: prefill, decode and the
-engine split over ranks), as do ``make_production_mesh`` and the sharding
-rules (:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.models
+engine split over ranks, KV heads the model axis does not divide, a
+sequence-split decode cache), as do ``make_production_mesh`` and the
+sharding rules (:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.models
 .sharding`). The ``--opt``
 names that only steer XLA's lowering (``scan_accum``, ``gather_weights``,
 ``ddp``, ``no_donate``) raise ``ValueError``: the port's decode writes its
@@ -31,6 +43,7 @@ caches in place, as a donated JAX cache is.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out-dir experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh-report --devices 8 --device-mem-gb 16
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from repro_torch.configs.shapes import (
     param_count_estimate,
     supports_shape,
 )
+from repro_torch.models.sharding import decode_mesh_rules
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import sgd
 from repro_torch.utils.cost import Cost, cost_analysis_dict, cost_of
@@ -329,6 +343,80 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+PRODUCTION_SERVING_MESH = (16, 16)      # the JAX package's ("data", "model")
+
+
+def serving_rules(cfg, shape) -> dict:
+    """Where the serving mesh puts a decode's rows and KV cache on the JAX
+    production mesh: the ``batch``, ``seq``, ``kv_tp`` and ``cache_seq``
+    entries of :func:`repro_torch.models.sharding.decode_mesh_rules`
+    (``shard_seq`` at ``long_500k``), as JAX's ``lower_decode`` sets
+    them."""
+    rules = decode_mesh_rules(cfg.n_kv_heads, PRODUCTION_SERVING_MESH,
+                              shard_seq=shape.name == "long_500k")
+    return {"mesh_shape": list(PRODUCTION_SERVING_MESH),
+            **{k: rules[k] for k in ("batch", "seq", "kv_tp", "cache_seq")}}
+
+
+# ---------------------------------------------------------------------------
+# mesh placement report (repro_torch.mesh plane)
+# ---------------------------------------------------------------------------
+
+
+def mesh_report(archs, n_clients: int, n_devices: int,
+                device_mem_bytes: int | None = None) -> list[dict]:
+    """Per-arch 2D-mesh placement audit (the JAX package's
+    ``mesh_report``): one client replica's param + SGD-state bytes (from
+    meta shapes, ``configs.shapes.replica_footprint_bytes``) against the
+    per-device budget under the mesh :mod:`repro_torch.mesh.placement`
+    would choose: does ``engine="auto"`` pick ``mesh_2d`` here, and does
+    each model shard fit?"""
+    from repro_torch.configs.shapes import replica_footprint_bytes
+    from repro_torch.mesh.placement import (
+        choose_engine,
+        default_mesh_shape,
+        device_memory_budget,
+    )
+
+    budget = device_memory_budget(default=device_mem_bytes)
+    opt = sgd(0.1)
+    rows = []
+    for arch in archs:
+        replica = replica_footprint_bytes(get_arch(arch), optimizer=opt)
+        engine = choose_engine(n_clients, n_devices, replica_bytes=replica,
+                               hbm_bytes=budget)
+        dc, dm = default_mesh_shape(n_clients, n_devices,
+                                    replica_bytes=replica, hbm_bytes=budget)
+        per_device = -(-replica // dm)    # ceil: the largest model shard
+        rows.append({
+            "arch": arch,
+            "replica_bytes": int(replica),
+            "engine": engine,
+            "mesh_shape": [dc, dm],
+            "per_device_bytes": int(per_device),
+            "budget_bytes": int(budget),
+            "fits": bool(per_device <= budget),
+            "n_clients": n_clients,
+            "n_devices": n_devices,
+        })
+    return rows
+
+
+def print_mesh_report(rows) -> None:
+    hdr = (f"{'arch':<22} {'replica':>10} {'engine':>10} {'mesh':>7} "
+           f"{'per-dev':>10} {'budget':>10} fits")
+    print(hdr)
+    print("-" * len(hdr))
+    gib = 1024 ** 3
+    for r in rows:
+        dc, dm = r["mesh_shape"]
+        print(f"{r['arch']:<22} {r['replica_bytes'] / gib:>9.2f}G "
+              f"{r['engine']:>10} {dc:>3}x{dm:<3} "
+              f"{r['per_device_bytes'] / gib:>9.2f}G "
+              f"{r['budget_bytes'] / gib:>9.2f}G "
+              f"{'yes' if r['fits'] else 'NO'}")
+
+
 # ---------------------------------------------------------------------------
 # run + report
 # ---------------------------------------------------------------------------
@@ -384,7 +472,8 @@ def run_one(arch: str, shape_name: str, n_clients: int | None = None,
         extra = {}
     else:
         cost, n_params, tokens, resident = trace_decode(cfg, shape)
-        extra = {"opts": list(opts)} if opts else {}
+        extra = {"serving_rules": serving_rules(cfg, shape),
+                 **({"opts": list(opts)} if opts else {})}
     live = sum(resident.values()) + cost.peak_live_bytes
     n_active = active_params(cfg, float(n_params))
     terms = RooflineTerms(
@@ -448,9 +537,35 @@ def main(argv=None):
                     help="trace this many combos at once, each in a "
                          "process of its own")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
+    ap.add_argument("--mesh-report", action="store_true",
+                    help="report per-device param+opt-state bytes for each "
+                         "arch under the 2D mesh engine='auto' would pick "
+                         "(repro_torch.mesh.placement), instead of tracing")
+    ap.add_argument("--device-mem-gb", type=float, default=None,
+                    help="per-device memory budget in GiB for --mesh-report "
+                         "(default: REPRO_DEVICE_MEM_BYTES, else the card's "
+                         "memory)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks --mesh-report places on (default: the "
+                         "cards, else 1)")
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12d")
+    if args.mesh_report:
+        os.makedirs(args.out_dir, exist_ok=True)
+        archs = [args.arch] if args.arch else list(ASSIGNED_ARCHS)
+        mem = (int(args.device_mem_gb * 1024 ** 3)
+               if args.device_mem_gb else None)
+        rows = mesh_report(archs, n_clients=args.clients or 8,
+                           n_devices=args.devices
+                           or max(1, torch.cuda.device_count()),
+                           device_mem_bytes=mem)
+        print_mesh_report(rows)
+        out = os.path.join(args.out_dir, "mesh_report.json")
+        with open(out, "w") as f:
+            json.dump(rows, f, indent=2)
+        print(f"wrote {out}")
+        return 0 if all(r["fits"] for r in rows) else 1
     if not args.all and not (args.arch and args.shape):
         ap.error("pass --arch and --shape, or --all")
 

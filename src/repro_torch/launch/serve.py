@@ -17,15 +17,16 @@ launcher's ``WORLD_SIZE`` of N, ``torchrun``) runs the launcher as N ranks
 on the serving mesh ``(1, N)``, every rank on the model axis, as the JAX
 production mesh puts "model" last. Each rank makes the params whole (from
 the seed, or ``--fl-checkpoint``), keeps its slices and serves them; rank 0
-prints the JSON. An N that does not divide the arch's heads raises
-``ValueError`` naming the ones that do; KV heads it does not divide (MQA)
-raise ``NotImplementedError`` (ROADMAP queue 1 item 12d).
-``--host-devices`` over 1 without ``--env-profile cpu-mesh`` raises
-``ValueError``. In code,
-:func:`serve_on_mesh` lays a ``(dd, dm)`` mesh and installs its rules:
-:func:`generate` then splits a batch's rows over the ``dd`` data rows of
-ranks, and the engine (:class:`repro_torch.serve.SlotEngine`) runs at
-``dd == 1``.
+prints the JSON. An N that does not divide the arch's query heads raises
+``ValueError`` naming the ones that do; KV heads it does not divide (MQA,
+granite-20b) stay whole on every rank, and the static path's decode cache
+splits its sequence over the ranks instead. ``--host-devices`` over 1
+without ``--env-profile cpu-mesh`` raises ``ValueError``. In code,
+:func:`serve_on_mesh` lays a ``(dd, dm)`` mesh and installs its decode
+rules: :func:`generate` then splits a batch's rows over the ``dd`` data
+rows of ranks (under ``shard_seq``, a long context's cache split over
+"data", every rank runs the whole batch), and the engine
+(:class:`repro_torch.serve.SlotEngine`) runs at ``dd == 1``.
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
@@ -68,29 +69,44 @@ from repro_torch.utils.device import resolve_device
 
 
 @contextlib.contextmanager
-def serve_on_mesh(model: Transformer, mesh_shape: tuple[int, int]):
+def serve_on_mesh(model: Transformer, mesh_shape: tuple[int, int], *,
+                  shard_seq: bool = False):
     """Serve ``model`` on the serving mesh of ``mesh_shape = (dd, dm)``
     ranks for the block: the arch is checked against the model axis
     (:meth:`Transformer.check_model_axis`), the mesh laid over the world's
     first ``dd * dm`` ranks (:func:`repro_torch.launch.mesh
     .make_serving_mesh` of the ``(dd, dm)`` :func:`repro_torch.launch.mesh
-    .make_mesh_2d`; ranks beyond it stay out) and its rules installed
-    (:func:`repro_torch.models.sharding.serve_mesh_rules`). Yields the
-    mesh. Inside, the serving entry points take each rank's slices of the
-    params (:func:`repro_torch.models.sharding.local_params`); a rank
-    outside the mesh (``mesh.get_coordinate() is None``) serves nothing."""
+    .make_mesh_2d`; ranks beyond it stay out) and its decode rules
+    installed (:func:`repro_torch.models.sharding.decode_mesh_rules`: KV
+    heads the model axis does not divide put the cache's sequence on
+    "model"; ``shard_seq``, a long context of one row, puts it on "data",
+    or on both axes, and splits no rows), with the placement of the
+    model's params under them. Yields the mesh. Inside, the serving entry
+    points take each rank's slices of the params
+    (:func:`repro_torch.models.sharding.local_params`); a rank outside the
+    mesh (``mesh.get_coordinate() is None``) serves nothing. A cache split
+    on both its sequence and its heads (``shard_seq`` with the KV heads on
+    a model axis and a data axis over 1) raises ``NotImplementedError``."""
     dd, dm = (int(n) for n in mesh_shape)
     model.check_model_axis(dm)
     mesh = make_serving_mesh(make_mesh_2d((dd, dm)))
-    with sharding.axis_rules(mesh, sharding.serve_mesh_rules()):
-        yield mesh
+    rules = sharding.decode_mesh_rules(model.cfg.n_kv_heads, (dd, dm),
+                                       shard_seq)
+    placement = sharding.param_split_dims(model.init(device="meta"), dm,
+                                          rules)
+    with sharding.axis_rules(mesh, rules, placement=placement):
+        sharding.cache_split_dims(model.cache_axes())   # refuses, and
+        yield mesh                    # builds the sequence group on all
 
 
 def _data_rows():
     """The data axis of the active serving mesh as a row group
     (:class:`repro_torch.core.fl_shard_map.ClientGroup` over "data"), or
-    ``None`` where it is 1 (or no mesh is active)."""
-    if sharding.data_axis_size() == 1:
+    ``None`` where it is 1, where the rules split no rows (``shard_seq``)
+    or where no mesh is active."""
+    ctx = sharding.current_context()
+    if (sharding.data_axis_size() == 1
+            or ctx[1].get("batch") != sharding.DATA_AXIS):
         return None
     from repro_torch.core.fl_shard_map import ClientGroup
     return ClientGroup(sharding.current_context()[0], sharding.DATA_AXIS)

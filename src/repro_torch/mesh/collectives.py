@@ -155,9 +155,19 @@ class _GatherFromModel(torch.autograd.Function):
 class ModelGroup:
     """This rank's place on a mesh's model axis and the axis' collectives.
     ``size`` ranks split each client replica; ``index`` is this rank's
-    coordinate (its slice of every split dim)."""
+    coordinate (its slice of every split dim). ``model_axis`` may be a
+    tuple of the mesh's axes, flattened in their order (the first
+    slowest): a decode cache's sequence split over ``("data", "model")``.
+    Flattening makes a process group, so every rank of the world builds
+    such a group together."""
 
-    def __init__(self, mesh, model_axis: str = "model"):
+    def __init__(self, mesh, model_axis: str | tuple = "model"):
+        if isinstance(model_axis, (tuple, list)):
+            if len(model_axis) > 1:
+                mesh = mesh[tuple(model_axis)]._flatten()
+                model_axis = mesh.mesh_dim_names[0]
+            else:
+                model_axis = model_axis[0]
         names = list(mesh.mesh_dim_names)
         self.size = int(mesh.shape[names.index(model_axis)])
         coord = mesh.get_coordinate()

@@ -32,6 +32,19 @@ decode paths (``decode_attention``, ``paged_decode_attention``) read and
 write caches of the rank's KV heads (``init_kv_cache`` /
 ``init_paged_kv_cache`` sized with that count).
 
+KV heads the model axis does not divide (MQA) stay whole
+(:func:`repro_torch.models.sharding.kv_heads_whole`): each rank computes
+every KV head from the whole ``wk`` / ``wv`` and attends with its own
+query heads, which read the KV heads of their *global* index
+(:func:`_rank_kv_heads`: the rank's heads start at ``index * H / dm``).
+In training the whole K/V leaves enter through ``copy_in``, so their
+gradient is summed over the model group. Such a decode cache splits its
+sequence over a group of ranks instead (``cache_seq``; also the data
+axis for a long context): each rank holds a contiguous block of the
+cache's slots (:func:`seq_block`), the owner of a new token's slot writes
+it, and every rank attends over its own slots and combines the partial
+softmaxes with the others' (:func:`_sdpa_over_group`).
+
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """
 from __future__ import annotations
@@ -43,7 +56,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, apply_rope, rope_angles
-from repro_torch.models.sharding import ATTN_AXES, hinted_group
+from repro_torch.models.sharding import (
+    ATTN_AXES,
+    KV_LEAVES,
+    hinted_group,
+    kv_heads_whole,
+)
 
 NEG_INF = -1e30
 
@@ -209,6 +227,50 @@ def chunked_causal_attention(q, k, v, chunk: int):
     return _sdpa(split(q), split(k), split(v), mask).reshape(b, s, h, hd)
 
 
+def _sdpa_over_group(q, k, v, mask, group):
+    """:func:`_sdpa` over a sequence split on ``group``: k / v and ``mask``
+    hold this rank's slots. Each rank's f32 scores are shifted by the
+    group's largest (``all_max``; a rank with no visible slot brings
+    -inf, clamped to ``NEG_INF`` so that no inf - inf is formed), and
+    the exponentials' sums and weighted values are summed over the group
+    in one all-reduce. Returns (B, Sq, H, hd) in v's dtype."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32)
+    scores = (scores / math.sqrt(hd)).masked_fill(~mask, -math.inf)
+    top = group.all_max(scores.amax(-1, keepdim=True).clamp_min(NEG_INF))
+    e = torch.exp(scores - top)
+    o = torch.einsum("bkgqs,bskd->bkgqd", e, v.to(torch.float32))
+    lo = group.reduce_out(torch.cat([o, e.sum(-1, keepdim=True)], -1))
+    out = lo[..., :hd] / lo[..., hd:]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(v.dtype)
+
+
+def _rank_kv_heads(t, n_heads: int, grp):
+    """The KV heads of the whole ``t`` (B, S, KV, hd) that this rank's
+    ``n_heads`` query heads read, in :func:`_sdpa`'s grouping: query head
+    h of the whole model (``n_heads * grp.size`` of them) reads KV head
+    h // (H / KV), and the rank's heads start at ``grp.index * n_heads``.
+    A narrow where the rank's heads cover whole groups or lie in one,
+    else one KV head per query head."""
+    g = n_heads * grp.size // t.shape[2]        # q heads a KV head
+    lo = grp.index * n_heads
+    if n_heads % g == 0:
+        return t.narrow(2, lo // g, n_heads // g)
+    if g % n_heads == 0:
+        return t.narrow(2, lo // g, 1)
+    return t.index_select(2, torch.arange(lo, lo + n_heads,
+                                          device=t.device) // g)
+
+
+def _kv_whole(grp) -> bool:
+    """Whether this rank holds the whole K/V projections while its query
+    heads are split (:func:`repro_torch.models.sharding.kv_heads_whole`)."""
+    return grp.size > 1 and kv_heads_whole()
+
+
 def _expand_heads(t, n_heads: int):
     """(B, S, KV, hd) -> contiguous (B, H, S, hd): q head h reads KV head
     h // (H / KV), the grouping of :func:`_sdpa`."""
@@ -231,7 +293,13 @@ def attention_forward_train(params, x, positions, *, kind: str = "full",
         raise ValueError(f"unknown attention kind {kind}")
     grp = hinted_group("attention", params, ATTN_AXES)
     x = grp.copy_in(x)
+    whole_kv = _kv_whole(grp)
+    if whole_kv:        # used by every rank its own way: gradients summed
+        params = {k: grp.copy_in(v) if k in KV_LEAVES else v
+                  for k, v in params.items()}
     q, k, v = _project_qkv(params, x, positions, use_rope, rope_theta)
+    if whole_kv:
+        k, v = (_rank_kv_heads(t, q.shape[2], grp) for t in (k, v))
     if kind == "chunk":
         ctxv = chunked_causal_attention(q, k, v, chunk)
     else:
@@ -263,7 +331,8 @@ def attention_forward_kv(params, x, positions, *, kind: str = "full",
     (B, H, S, hd) with GQA expanded; a ``chunk`` layer longer than its
     chunk as (B * n_chunks, H, chunk, hd), causal within each chunk. Under
     a model axis the rank's heads: (B, H / dm, S, hd), and k / v of its
-    KV / dm heads."""
+    KV / dm heads, or of every KV head where they are whole (the rank's
+    query heads then read theirs: :func:`_rank_kv_heads`)."""
     if kind not in ("full", "swa", "chunk"):
         raise ValueError(f"unknown attention kind {kind}")
     grp = hinted_group("attention", params, ATTN_AXES)
@@ -271,13 +340,16 @@ def attention_forward_kv(params, x, positions, *, kind: str = "full",
                            rope_theta)
     b, s, h, hd = q.shape
     n = _chunks(s, chunk) if kind == "chunk" else 1
+    kq, vq = k, v
+    if _kv_whole(grp):
+        kq, vq = (_rank_kv_heads(t, h, grp) for t in (k, v))
 
     def split(t):
         return t.reshape(b * n, s // n, *t.shape[2:])
 
     ctxv = ops.flash_attention(
-        split(q).transpose(1, 2).contiguous(), _expand_heads(split(k), h),
-        _expand_heads(split(v), h), window=window if kind == "swa" else 0,
+        split(q).transpose(1, 2).contiguous(), _expand_heads(split(kq), h),
+        _expand_heads(split(vq), h), window=window if kind == "swa" else 0,
         backend=backend).transpose(1, 2).reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
     return grp.reduce_out(out), (k, v)
@@ -304,24 +376,45 @@ def init_kv_cache(batch: int, kind: str, max_len: int, n_kv_heads: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def fill_kv_cache(cache, k, v, kind: str, window: int = 0, chunk: int = 0):
+def seq_block(n_local: int, kind: str, window: int, chunk: int, group):
+    """``(group, lo, n)``: where a KV cache of ``n_local`` slots a rank
+    sits in a cache whose sequence ``group`` splits (:func:`repro_torch
+    .models.sharding.seq_group`): this rank's block starts at slot ``lo``
+    of ``n`` (GSPMD's block layout), or ``None`` where the cache is whole
+    (no group, or a sliding-window / chunk ring the group does not divide,
+    which stays whole as ``resolve_spec`` drops the axis: its length is
+    then the window or the chunk itself). ``Transformer.init_cache`` rounds
+    a split cache's ``max_len`` up to a multiple of the group, so a
+    full-length cache always splits."""
+    if group is None:
+        return None
+    limit = window if kind == "swa" else chunk if kind == "chunk" else 0
+    if limit and n_local == limit:
+        return None
+    return group, group.index * n_local, n_local * group.size
+
+
+def fill_kv_cache(cache, k, v, kind: str, window: int = 0, chunk: int = 0,
+                  seq=None):
     """Write a full prefill sequence into the cache, in place (possibly
     ring-truncated), and return it.
 
     k / v (B, S, KV, hd). For swa / chunk caches only the tail that
     remains visible is stored, laid out in ring order (slot = pos %
-    cache_len)."""
-    n = cache["k"].shape[1]
-    s = k.shape[1]
+    cache_len). Under a sequence split (``seq``, :func:`seq_block`) the
+    rank writes only its own block of slots, from the whole k / v."""
+    n_local, s = cache["k"].shape[1], k.shape[1]
+    _, lo, n = seq if seq is not None else (None, 0, n_local)
     if s <= n:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        m = max(0, min(lo + n_local, s) - lo)
+        cache["k"][:, :m] = k[:, lo:lo + m]
+        cache["v"][:, :m] = v[:, lo:lo + m]
         return cache
-    # ring layout: position p lives at slot p % n
-    slots = torch.arange(s - n, s, device=k.device) % n
-    order = torch.argsort(slots)
-    cache["k"].copy_(k[:, s - n:][:, order])
-    cache["v"].copy_(v[:, s - n:][:, order])
+    # ring layout: slot i holds the last position p < s with p % n == i
+    slots = torch.arange(lo, lo + n_local, device=k.device)
+    p = (s - 1) - torch.remainder(s - 1 - slots, n)
+    cache["k"].copy_(k[:, p])
+    cache["v"].copy_(v[:, p])
     return cache
 
 
@@ -397,6 +490,8 @@ def paged_decode_attention(params, x, cache, table, index, *,
     cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
     kb = cache["k"][table].reshape(b, span, *cache["k"].shape[2:])
     vb = cache["v"][table].reshape(b, span, *cache["v"].shape[2:])
+    if _kv_whole(grp):              # the pool holds every KV head
+        kb, vb = (_rank_kv_heads(t, q.shape[2], grp) for t in (kb, vb))
     ctxv = _sdpa(q, kb, vb, valid)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
     return grp.reduce_out(out), cache
@@ -404,27 +499,48 @@ def paged_decode_attention(params, x, cache, table, index, *,
 
 def decode_attention(params, x, cache, pos: int, *, kind: str = "full",
                      window: int = 0, chunk: int = 0, use_rope: bool = True,
-                     rope_theta: float = 1e4):
+                     rope_theta: float = 1e4, seq=None):
     """One-token decode. x (B, 1, d); ``pos`` (int) the index of this token.
     Writes this token's k / v into the cache in place (the JAX package
-    returns a new cache) and returns ``(out (B, 1, d), cache)``."""
+    returns a new cache) and returns ``(out (B, 1, d), cache)``.
+
+    Under a sequence split (``seq``, :func:`seq_block`) the cache holds
+    this rank's block of slots: the rank that owns slot ``pos % n``
+    writes it, and every rank attends over its own slots and combines
+    over the group (:func:`_sdpa_over_group`), with every query head
+    (gathered over the model group) where the K/V heads are whole, then
+    takes its own heads into ``wo``."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     grp = hinted_group("attention", params, ATTN_AXES)
+    whole_kv = _kv_whole(grp)
     q, k, v = _project_qkv(params, grp.copy_in(x), positions, use_rope,
                            rope_theta)
-    n = cache["k"].shape[1]
-    slot = pos % n
-    cache["k"][:, slot:slot + 1] = k
-    cache["v"][:, slot:slot + 1] = v
+    n_local = cache["k"].shape[1]
+    group, lo, n = seq if seq is not None else (None, 0, n_local)
+    slot = pos % n - lo
+    if 0 <= slot < n_local:
+        cache["k"][:, slot:slot + 1] = k
+        cache["v"][:, slot:slot + 1] = v
     # entry at slot i currently holds position: the largest p <= pos with
     # p % n == i  ->  p = pos - ((pos - i) % n)
-    slots = torch.arange(n, device=x.device)
+    slots = torch.arange(lo, lo + n_local, device=x.device)
     entry_pos = pos - torch.remainder(pos - slots, n)
     valid = entry_pos >= 0
     if kind == "swa":
         valid &= entry_pos > pos - window
     elif kind == "chunk":
         valid &= entry_pos >= (pos // chunk) * chunk
-    ctxv = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, None, :])
+    mask = valid[None, None, None, None, :]
+    if group is None:
+        kc, vc = cache["k"], cache["v"]
+        if whole_kv:
+            kc, vc = (_rank_kv_heads(t, q.shape[2], grp) for t in (kc, vc))
+        ctxv = _sdpa(q, kc, vc, mask)
+    else:
+        h = q.shape[2]
+        ctxv = _sdpa_over_group(grp.gather(q, 2) if whole_kv else q,
+                                cache["k"], cache["v"], mask, group)
+        if whole_kv:
+            ctxv = ctxv.narrow(2, grp.index * h, h)
     out = torch.einsum("bshk,hkd->bsd", ctxv, params["wo"])
     return grp.reduce_out(out), cache

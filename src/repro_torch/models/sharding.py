@@ -39,11 +39,23 @@ side by side, not lined up with the heads), RWKV6's projections and an
 untied head on their columns and leave zamba2's LoRA factors whole. The
 values served are the same; only where a weight's slices sit differs.
 The rows (``batch``) go on "data" and the decode caches' heads on
-"model", as ``serve_rules`` put them; :func:`cache_split_dims` finds each
-cache leaf's split dim from the model's ``cache_axes`` table. A hint's
-``batch`` dim is always the rank's own rows (the drivers hand each rank
-its rows: the engines their client blocks, the serving mesh each data
-row of ranks its prompts), so no hint splits it by hand.
+"model", as ``serve_rules`` put them, unless the decode rules
+(:func:`decode_mesh_rules`, the JAX dry run's ``lower_decode`` line for
+line) move a KV cache's sequence onto a group of ranks (``cache_seq``):
+onto "model" where the model axis does not divide the KV heads (MQA),
+onto "data" (or both axes) for a long context (``shard_seq``).
+:func:`cache_split_dims` finds each cache leaf's split dim from the
+model's ``cache_axes`` table. A hint's ``batch`` dim is always the rank's
+own rows (the drivers hand each rank its rows: the engines their client
+blocks, the serving mesh each data row of ranks its prompts), so no hint
+splits it by hand.
+
+K/V projections the model axis does not divide (``wk`` / ``wv`` / ``bk``
+/ ``bv`` of an MQA arch, or of any GQA arch whose model axis outgrows its
+KV heads) stay whole on every model rank, as JAX's ``resolve_spec`` drops
+the axis from their hint on the whole shape: each rank computes every KV
+head and attends with its own query heads (:func:`kv_heads_whole` tells
+the attention body so).
 """
 from __future__ import annotations
 
@@ -98,6 +110,7 @@ def current_context():
 
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def data_axis_size() -> int:
@@ -140,17 +153,45 @@ def serve_rules(fsdp_over_data: bool = False,
             "wg": "data" if fsdp_over_data else None}
 
 
-def serve_mesh_rules() -> dict[str, Any]:
+def serve_mesh_rules(shard_seq: bool = False) -> dict[str, Any]:
     """Rules of the port's serving mesh (``("data", "model")`` ranks): the
     weights as :func:`mesh2d_rules` place them ("fsdp" and "tp" on the
-    model axis, the first named dim wins), the rows on "data" and the
-    caches' heads on "model" (``kv_tp``), as :func:`serve_rules` put them.
+    model axis, the first named dim wins), the rows on "data", the caches'
+    heads on "model" (``kv_tp``) and, under ``shard_seq``, the sequence on
+    "data" (``seq``, ``cache_seq``), as :func:`serve_rules` put them.
     Weights over "data" (``serve_rules(fsdp_over_data=True)``) are refused
     where a hint would split a weight over that axis (:func:`_split_of`,
-    item 12d); no serving path splits a cache's sequence yet."""
+    item 12d); a cache's sequence may split over "data"
+    (:func:`cache_split_dims`). :func:`decode_mesh_rules` adapts these to
+    an arch's KV heads."""
     return {"client": None, "fsdp": "model", "tp": "model", "wg": None,
-            "act": None, "batch": "data", "seq": None, "kv_tp": "model",
-            "cache_seq": None}
+            "act": None, "batch": "data",
+            "seq": DATA_AXIS if shard_seq else None, "kv_tp": "model",
+            "cache_seq": DATA_AXIS if shard_seq else None}
+
+
+def decode_mesh_rules(n_kv_heads: int, mesh_shape: tuple[int, int],
+                      shard_seq: bool = False) -> dict[str, Any]:
+    """The serving mesh's decode rules for an arch of ``n_kv_heads`` KV
+    heads on the ``(dd, dm)`` serving mesh, as the JAX dry run's
+    ``lower_decode`` builds them (``src/repro/launch/dryrun.py:216-228``)
+    from :func:`serve_mesh_rules`: the KV heads on "model" where the model
+    axis divides them, else the cache's sequence on "model"; under
+    ``shard_seq`` (a batch of one long context) no row split, and the
+    cache's sequence on "data", or on ``("data", "model")`` where the
+    model axis does not divide the KV heads."""
+    _, dm = (int(n) for n in mesh_shape)
+    rules = serve_mesh_rules(shard_seq=shard_seq)
+    kv_divides = n_kv_heads % dm == 0
+    if shard_seq:
+        rules["batch"] = None
+        rules["cache_seq"] = ((DATA_AXIS, MODEL_AXIS) if not kv_divides
+                              else DATA_AXIS)
+        rules["kv_tp"] = MODEL_AXIS if kv_divides else None
+    elif not kv_divides:
+        rules["kv_tp"] = None
+        rules["cache_seq"] = MODEL_AXIS
+    return rules
 
 
 def _axis_size(mesh, name: str) -> int:
@@ -201,9 +242,6 @@ def resolve_spec(logical: tuple, shape: tuple[int, ...] | None = None
     return P(*out)
 
 
-MODEL_AXIS = "model"
-
-
 def _axis_size_or_one(mesh, name: str) -> int:
     names = getattr(mesh, "mesh_dim_names", None)
     axes = mesh.shape if names is None else names
@@ -214,13 +252,15 @@ def _model_size(mesh) -> int:
     return _axis_size_or_one(mesh, MODEL_AXIS)
 
 
-def _split_of(spec: PartitionSpec, mesh) -> int:
-    """The dim of ``spec`` that the model axis splits (-1: none). An axis
-    other than the model axis over 1 is not split by hand: it raises."""
+def _split_of(spec: PartitionSpec, mesh, axes=(MODEL_AXIS,)) -> int:
+    """The dim of ``spec`` that one of ``axes`` splits (-1: none): the
+    model axis for a weight or an activation, also "data" for a cache's
+    sequence (:func:`cache_split_dims`). Any other axis over 1 is not
+    split by hand: it raises."""
     dim = -1
     for i, axis in enumerate(spec):
         for a in (() if axis is None else _atomic_axes(axis)):
-            if a == MODEL_AXIS:
+            if a in axes:
                 dim = i
             elif _axis_size(mesh, a) > 1:
                 from repro_torch.api.spec import _not_ported
@@ -265,6 +305,67 @@ def model_group():
         from repro_torch.mesh.collectives import ModelGroup
         cached = _state.group = (mesh, ModelGroup(mesh, MODEL_AXIS))
     return cached[1]
+
+
+def seq_group():
+    """The group of ranks that splits a KV cache's sequence under the
+    active rules (its ``cache_seq`` axes: "model", "data" or both,
+    flattened data-major), a :class:`repro_torch.mesh.collectives
+    .ModelGroup`, or ``None`` where those axes have one rank (or no
+    context is active). Build it first on every rank of the world (the
+    serving mesh does): a group over two axes is a new process group."""
+    ctx = _current()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    axis = rules.get("cache_seq")
+    if axis is None or _mesh_axis_size(mesh, axis) == 1:
+        return None
+    axes = _atomic_axes(axis)
+    groups = getattr(_state, "seq_groups", None)
+    if groups is None or groups[0] is not mesh:
+        groups = _state.seq_groups = (mesh, {})
+    if axes not in groups[1]:
+        from repro_torch.mesh.collectives import ModelGroup
+        groups[1][axes] = ModelGroup(mesh, axes)
+    return groups[1][axes]
+
+
+# the K/V leaves of an attention layer: whole on a model axis that does not
+# divide the KV heads (param_split_dims), each rank then computing every KV
+# head from them
+KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def kv_heads_whole() -> bool:
+    """Whether the attention layers of the params the code runs on keep
+    their K/V projections whole under a model axis over 1 (the model axis
+    does not divide the KV heads): what the installed placement
+    (:func:`param_split_dims` of those params, :func:`axis_rules`'
+    ``placement``) says of ``wk``. Every attention layer of a model has
+    the same KV heads, so the first ``wk`` met decides. ``False`` without
+    a model axis over 1 or a placement."""
+    placement = model_placement()
+    if placement is None or model_group() is None:
+        return False
+    cached = getattr(_state, "kv_whole", None)
+    if cached is None or cached[0] is not placement:
+        cached = _state.kv_whole = (placement, _wk_dim(placement) == -1)
+    return cached[1]
+
+
+def _wk_dim(tree):
+    """The split dim of the first ``wk`` leaf in a split-dim tree (``None``
+    where it has none)."""
+    if isinstance(tree, dict):
+        if isinstance(tree.get("wk"), int):
+            return tree["wk"]
+        subs = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        subs = tree
+    else:
+        return None
+    return next((d for d in map(_wk_dim, subs) if d is not None), None)
 
 
 def model_dim(*logical) -> int:
@@ -459,16 +560,21 @@ def param_split_dims(params, dm: int, rules: dict | None = None):
     client's whole params, torch or numpy): its logical axes
     (:func:`param_logical_axes`) resolved by :func:`resolve_spec` under
     ``rules`` (default :func:`mesh2d_rules`) on a mesh with a model axis of
-    ``dm``, on the whole shapes. A leaf whose spec changes with its shape
-    (a first-named dim the model axis does not divide, so the split would
-    fall on a later dim) raises ``ValueError``: the port splits a weight on
-    the dim its hint names first, which the model code finds again from
-    the hint alone (:func:`model_dim`)."""
+    ``dm``, on the whole shapes. A K/V leaf (:data:`KV_LEAVES`) whose head
+    dim the model axis does not divide is whole (-1), as JAX's
+    ``resolve_spec`` makes it: the attention body then computes every KV
+    head on every rank (:func:`kv_heads_whole`). Any other leaf whose spec
+    changes with its shape (a first-named dim the model axis does not
+    divide, so the split would fall on a later dim) raises ``ValueError``:
+    the port splits a weight on the dim its hint names first, which the
+    model code finds again from the hint alone (:func:`model_dim`)."""
     import types
     mesh = types.SimpleNamespace(shape={MODEL_AXIS: dm})
 
-    def one(logical, leaf):
+    def one(logical, leaf, name):
         spec = resolve_spec(logical, tuple(leaf.shape))
+        if name in KV_LEAVES and not any(a is not None for a in spec):
+            return -1
         if tuple(resolve_spec(logical)) != tuple(spec):
             raise ValueError(
                 f"a model axis of {dm} does not divide the dim a weight "
@@ -478,7 +584,8 @@ def param_split_dims(params, dm: int, rules: dict | None = None):
         return _split_of(spec, mesh) if dm > 1 else -1
 
     with axis_rules(mesh, mesh2d_rules() if rules is None else rules):
-        return _map_logical(one, param_logical_axes(params), params)
+        return _map_logical(one, param_logical_axes(params), params,
+                            named=True)
 
 
 def local_params(params):
@@ -493,31 +600,82 @@ def local_params(params):
     return to_local(params, dims, grp.index, grp.size)
 
 
-def cache_split_dims(cache_axes):
+def cache_split_dims(cache_axes, caches=None):
     """Each cache leaf's split dim (-1: whole) under the active rules
     context, in a tree like ``cache_axes`` (the model's ``cache_axes``, one
-    logical name a dim): the first dim whose name the context's rules put
-    on a model axis over 1 (under :func:`serve_mesh_rules` the heads of a
-    KV cache, RWKV6's ``wkv`` and Mamba2's ``h``); every leaf whole without
-    one. The rows ("batch" on "data") are the rank's own and are not
-    counted here."""
+    logical name a dim): the dim the context's rules put on a group of
+    ranks over 1. That is a model axis for the heads (under
+    :func:`serve_mesh_rules` the heads of a KV cache, RWKV6's ``wkv`` and
+    Mamba2's ``h``), and the sequence group (:func:`seq_group`: "model",
+    "data" or both) for a KV cache's ``cache_seq``; every leaf whole
+    without one. Given ``caches`` (a tree like it of the whole leaves, or
+    their meta stand-ins), a sequence the group does not divide stays
+    whole, as ``resolve_spec`` drops the axis. A cache split on both its
+    sequence and its heads raises ``NotImplementedError``. The rows
+    ("batch" on "data") are the rank's own and are not counted here."""
     ctx = _current()
-    names = set() if ctx is None or _model_size(ctx[0]) == 1 else {
-        a for a, axis in ctx[1].items() if axis == MODEL_AXIS}
-    return _map_logical(lambda logical, _: _first_dim_named(logical, names),
-                        cache_axes, None)
+    if ctx is None:
+        return _map_logical(lambda logical, _: -1, cache_axes, None)
+    mesh, rules = ctx
+    names = set() if _model_size(mesh) == 1 else {
+        a for a, axis in rules.items() if axis == MODEL_AXIS}
+    names.discard("cache_seq")
+
+    def one(logical, leaf):
+        seq = -1
+        if seq_group() is not None:     # the sequence, dropped where the
+            seq = _split_of(resolve_spec(     # group does not divide it
+                tuple(a if a == "cache_seq" else None for a in logical),
+                None if leaf is None else tuple(leaf.shape)),
+                mesh, (MODEL_AXIS, DATA_AXIS))
+        heads = _first_dim_named(logical, names)
+        if seq >= 0 and heads >= 0:
+            from repro_torch.api.spec import _not_ported
+            raise _not_ported(
+                f"a cache hinted {logical} split on both its sequence and "
+                f"its heads (shard_seq with the KV heads on a model axis "
+                f"over 1)", "item 12d")
+        return max(seq, heads)
+
+    return _map_logical(one, cache_axes, caches)
+
+
+def cache_group(logical, dim: int):
+    """The group that splits dim ``dim`` of a cache leaf hinted
+    ``logical`` (:func:`cache_split_dims`): the sequence group for its
+    ``cache_seq``, else the model group; ``None`` for a whole leaf."""
+    if dim < 0:
+        return None
+    return seq_group() if logical[dim] == "cache_seq" else model_group()
+
+
+def caches_to_whole(caches, cache_axes, dims):
+    """The rank's caches made whole on every rank: each leaf split along
+    ``dims`` (:func:`cache_split_dims`) gathered over its group
+    (:func:`cache_group`)."""
+    def walk(tree, axes, d):
+        if isinstance(tree, dict):
+            return {k: walk(v, axes[k], d[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, a, x) for v, a, x in
+                              zip(tree, axes, d))
+        return tree if d < 0 else cache_group(axes, d).gather(tree, d)
+
+    return walk(caches, cache_axes, dims)
 
 
 def split_sizes(params) -> dict[str, int]:
     """``{leaf name: size}`` of the dim a model axis splits in each split
     leaf of ``params`` (one client's whole params; a name met twice keeps
-    its smallest size): what the model axis must divide."""
+    its smallest size): what the model axis must divide. The K/V leaves
+    are left out: a model axis that does not divide them keeps them whole
+    (:func:`param_split_dims`)."""
     out: dict[str, int] = {}
 
     def walk(axes, tree, name):
         if _is_logical(axes):
             i = _first_dim_named(axes, _BODY_AXES)
-            if i >= 0:
+            if i >= 0 and name not in KV_LEAVES:
                 out[name] = min(out.get(name, tree.shape[i]),
                                 tree.shape[i])
             return
@@ -595,14 +753,19 @@ def _is_logical(x) -> bool:
         a is None or isinstance(a, str) for a in x)
 
 
-def _map_logical(fn, tree, shapes):
+def _map_logical(fn, tree, shapes, named: bool = False, name=None):
+    """``fn(logical, leaf)`` at each logical-axes tuple of ``tree`` (its
+    leaf from ``shapes``, or ``None``); with ``named`` also the leaf's
+    dict key, ``fn(logical, leaf, key)``."""
     if _is_logical(tree):
-        return fn(tree, shapes)
+        return fn(tree, shapes, name) if named else fn(tree, shapes)
     if isinstance(tree, dict):
-        return {k: _map_logical(fn, v, None if shapes is None else shapes[k])
+        return {k: _map_logical(fn, v, None if shapes is None else shapes[k],
+                                named, k)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [_map_logical(fn, v, None if shapes is None else shapes[i])
+        out = [_map_logical(fn, v, None if shapes is None else shapes[i],
+                            named, name)
                for i, v in enumerate(tree)]
         return type(tree)(out) if isinstance(tree, list) else tuple(out)
     raise TypeError(f"not a logical-axis tree: {tree!r}")

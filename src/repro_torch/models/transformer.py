@@ -48,7 +48,13 @@ shared ``wq`` / ``wo`` (:meth:`_merged_shared_attn`). On the serving mesh
 every cache holds the rank's heads: :meth:`cache_axes` (JAX's table, but
 for Mamba2's conv window, which stays whole: every rank convolves every
 channel) names each cache leaf's dims, and ``init_cache`` /
-``init_paged_cache`` size the split ones at ``1 / dm``;
+``init_paged_cache`` size the split ones at ``1 / dm``. Where the decode
+rules put a KV cache's sequence on a group of ranks (``cache_seq``: KV
+heads the model axis does not divide, or a long context's
+``shard_seq``), ``init_cache`` holds the rank's block of its slots
+instead, prefill fills that block and decode combines the ranks'
+partial softmaxes (``attention.seq_block``); the engine's natural-layout
+prefill caches and paged pools stay whole on every rank.
 :meth:`check_model_axis` refuses a model axis the arch cannot take. The
 weights' logical-axes trees live in :mod:`repro_torch.models.sharding`
 (``param_logical_axes``); ``param_axes`` is not ported.
@@ -80,9 +86,10 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import (
     SHARED_LORA_AXES,
+    cache_group,
     cache_split_dims,
     hinted_group,
-    model_group,
+    seq_group,
     split_sizes,
 )
 from repro_torch.utils.device import resolve_device
@@ -404,20 +411,17 @@ class Transformer:
     # ------------------------------------------------------------------
 
     def check_model_axis(self, dm: int) -> None:
-        """Raise unless a serving mesh with a model axis of ``dm`` can
-        split this arch: ``ValueError`` where ``dm`` does not divide a dim
-        the model axis splits (heads, widths, experts, the vocabulary; the
-        message names the model axes that do), ``NotImplementedError``
-        (item 12d) where it divides all of them but the KV heads (MQA: the
-        JAX package moves such a cache's sequence onto "model")."""
+        """Raise ``ValueError`` unless a model axis of ``dm`` divides every
+        dim it splits in this arch (query heads, widths, experts, the
+        vocabulary; the message names the model axes that do). KV heads
+        it does not divide stay whole on every rank (MQA), and their
+        decode cache splits its sequence instead."""
         if dm < 1:
             raise ValueError(f"a model axis needs at least one rank, got "
                              f"{dm}")
         if dm == 1:
             return
         sizes = split_sizes(self.init(device="meta"))
-        kv = {k: sizes.pop(k) for k in ("wk", "wv", "bk", "bv")
-              if k in sizes}
         bad = {k: n for k, n in sizes.items() if n % dm}
         if bad:
             g = math.gcd(*sizes.values())
@@ -425,25 +429,21 @@ class Transformer:
             raise ValueError(
                 f"a model axis of {dm} does not divide {self.cfg.name}'s "
                 f"split dims {bad}; the model axis can be one of {fits}")
-        if any(n % dm for n in kv.values()):
-            from repro_torch.api.spec import _not_ported
-            raise _not_ported(
-                f"serving {self.cfg.name}'s {self.cfg.n_kv_heads} KV "
-                f"head(s) on a model axis of {dm} (the JAX package puts "
-                f"such a cache's sequence on \"model\": cache_seq)",
-                "item 12d")
 
-    def cache_axes(self, paged: bool = False):
+    def cache_axes(self, paged: bool = False, natural: bool = False):
         """Logical axes of the cache leaves, in the caches' tree (a leading
         step axis a leaf), as the JAX package's ``cache_axes``: KV caches
-        (batch, seq, heads on ``kv_tp``), RWKV6's ``wkv`` and Mamba2's
-        ``h`` on their heads, the token-shift rows whole. One departure:
-        Mamba2's conv window is whole (``None`` where JAX hints "tp"),
-        since every rank convolves every channel with the gathered
+        (batch, seq on ``cache_seq``, heads on ``kv_tp``), RWKV6's ``wkv``
+        and Mamba2's ``h`` on their heads, the token-shift rows whole. One
+        departure: Mamba2's conv window is whole (``None`` where JAX hints
+        "tp"), since every rank convolves every channel with the gathered
         ``conv_w``. ``paged``: the engine's block pools (blocks, block
-        offset, heads, hd) in place of the dense KV caches."""
+        offset, heads, hd) in place of the dense KV caches; ``natural``:
+        the engine's prefill caches, whose sequence is whole as the pools'
+        is."""
         kv = ((None, None, None, "kv_tp", None) if paged
-              else (None, "batch", "cache_seq", "kv_tp", None))
+              else (None, "batch", None if natural else "cache_seq",
+                    "kv_tp", None))
         axes = []
         for seg in self.cfg.segments:
             pat = {}
@@ -497,41 +497,71 @@ class Transformer:
             cache["ffn"] = {}
         return cache
 
-    def _alloc_caches(self, make, device, paged: bool = False):
+    def _whole_caches(self, make):
+        """The whole stacked caches as meta tensors, ``make(layer_spec)``
+        giving one layer's."""
+        return [{str(j): tree_map(
+            lambda x, n=seg.n_steps: torch.empty((n,) + tuple(x.shape),
+                                                 dtype=x.dtype,
+                                                 device="meta"), make(ls))
+                 for j, ls in enumerate(seg.pattern)}
+                for seg in self.cfg.segments]
+
+    def _alloc_caches(self, make, device, paged: bool = False,
+                      natural: bool = False):
         """Zeroed stacked caches, ``make(layer_spec)`` giving one layer's
         whole meta cache; under a serving mesh each leaf that
-        :meth:`cache_axes` splits holds the rank's ``1 / dm`` of it."""
-        grp = model_group()
-        dm = 1 if grp is None else grp.size
-        dims = cache_split_dims(self.cache_axes(paged))
-        caches = []
-        for seg, seg_dims in zip(self.cfg.segments, dims):
-            pat = {}
-            for j, ls in enumerate(seg.pattern):
-                one, one_dims = make(ls), seg_dims[str(j)]
+        :meth:`cache_axes` splits (:func:`repro_torch.models.sharding
+        .cache_split_dims` on its whole shape) holds the rank's part of it:
+        ``1 / dm`` of its heads, or its block of a sequence split over
+        ``g`` ranks."""
+        axes = self.cache_axes(paged, natural)
+        whole = self._whole_caches(make)
+        dims = cache_split_dims(axes, whole)
 
-                def alloc(x, d, n=seg.n_steps):
-                    shape = [n] + list(x.shape)
-                    if d >= 0:
-                        shape[d] //= dm
-                    return torch.zeros(shape, dtype=x.dtype, device=device)
+        def alloc(x, logical, d):
+            if isinstance(x, dict):
+                return {k: alloc(v, logical[k], d[k]) for k, v in x.items()}
+            if isinstance(x, list):
+                return [alloc(*t) for t in zip(x, logical, d)]
+            shape = list(x.shape)
+            if d >= 0:
+                shape[d] //= cache_group(logical, d).size
+            return torch.zeros(shape, dtype=x.dtype, device=device)
 
-                pat[str(j)] = {
-                    part: {k: alloc(x, one_dims[part][k])
-                           for k, x in one[part].items()}
-                    for part in one}
-            caches.append(pat)
-        return caches
+        return alloc(whole, axes, dims)
+
+    def _cache_max_len(self, max_len: int, natural: bool) -> int:
+        """``max_len`` rounded up to a multiple of the sequence group
+        (:func:`repro_torch.models.sharding.seq_group`) where one splits
+        the caches: the extra slots are never visible, and a full-length
+        cache then always splits (``attention.seq_block``)."""
+        grp = None if natural else seq_group()
+        return max_len if grp is None else -(-max_len // grp.size) * grp.size
+
+    def cache_dims(self, batch: int, max_len: int, natural: bool = False):
+        """The split dims (:func:`repro_torch.models.sharding
+        .cache_split_dims`) of ``init_cache(batch, max_len, natural=...)``'s
+        caches under the active context: what
+        :func:`repro_torch.models.sharding.caches_to_whole` makes whole."""
+        max_len = self._cache_max_len(max_len, natural)
+        return cache_split_dims(self.cache_axes(natural=natural),
+                                self._whole_caches(
+                                    lambda ls: self._layer_cache_shape(
+                                        ls, batch, max_len, natural)))
 
     def init_cache(self, batch: int, max_len: int, device=None,
                    natural: bool = False):
         """Zeroed caches matching the segment structure. KV caches of swa
         layers are ring buffers of the window size (or full
         position-ordered buffers under ``natural``, the serving-ingest
-        layout). Under a serving mesh the rank's heads."""
+        layout). Under a serving mesh the rank's heads, or the rank's
+        block of a KV cache's slots where the rules split its sequence
+        (``max_len`` then rounds up to a multiple of the group)."""
+        max_len = self._cache_max_len(max_len, natural)
         return self._alloc_caches(
             lambda ls: self._layer_cache_shape(ls, batch, max_len, natural),
-            resolve_device(device))
+            resolve_device(device), natural=natural)
 
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
                          device=None):
@@ -564,7 +594,8 @@ class Transformer:
                 out, kv = attn.decode_attention(
                     p, h, cache["mixer"], pos, kind=spec.attn_kind,
                     window=cfg.window, chunk=cfg.chunk,
-                    use_rope=spec.use_rope, rope_theta=cfg.rope_theta)
+                    use_rope=spec.use_rope, rope_theta=cfg.rope_theta,
+                    seq=self._seq_block(spec, cache["mixer"]))
             else:
                 # one paged_index per attention kind and decode step
                 if spec.attn_kind not in indexes:
@@ -600,6 +631,14 @@ class Transformer:
                 out2, _ = self._apply_ffn(spec, lparams, shared, h2)
             x = x + out2
         return x, new_cache
+
+    def _seq_block(self, spec: LayerSpec, kv_cache, natural: bool = False):
+        """``attention.seq_block`` of one attention layer's dense KV cache
+        (a step's view) under the active rules."""
+        if natural:
+            return None
+        return attn.seq_block(kv_cache["k"].shape[1], spec.attn_kind,
+                              self.cfg.window, self.cfg.chunk, seq_group())
 
     def decode_step(self, params, caches, tokens, pos, table=None):
         """One decode step. tokens (B,) integer; ``pos`` (int) the position
@@ -648,14 +687,19 @@ class Transformer:
                 for j, ls in enumerate(seg.pattern):
                     x, new_c = self._prefill_layer(
                         ls, p_step[str(j)], shared, c_step[str(j)], x,
-                        positions)
+                        positions, natural)
                     _write(c_step[str(j)], new_c)
         x = rmsnorm(params["final_norm"], x)
         return x, caches, s_total
 
     def prefill(self, params, tokens, prefix=None, max_len=None):
         """Run the full prompt, building caches. Returns (last-token logits
-        (B, V), caches, next position (int))."""
+        (B, V), caches, next position (int)). Where the rules split a KV
+        cache's sequence (``cache_seq``, :meth:`init_cache`), each rank
+        computes the whole prompt's k / v (its heads, or every KV head)
+        and fills its own block of slots; under ``shard_seq`` every rank
+        of the data axis so runs the whole batch (the JAX dry run lowers
+        no prefill there)."""
         x, caches, s_total = self._prefill_states(params, tokens, prefix,
                                                   max_len)
         logits = unembed(params["embed"], x[:, -1:])[:, 0]
@@ -726,7 +770,7 @@ class Transformer:
         return paged
 
     def _prefill_layer(self, spec: LayerSpec, lparams, shared, cache, x,
-                       positions):
+                       positions, natural: bool = False):
         cfg = self.cfg
         h = rmsnorm(lparams["norm1"], x)
         new_cache = dict(cache)
@@ -738,7 +782,8 @@ class Transformer:
                 chunk=cfg.chunk, use_rope=spec.use_rope,
                 rope_theta=cfg.rope_theta, backend=self.kernel_backend)
             new_cache["mixer"] = attn.fill_kv_cache(
-                cache["mixer"], k, v, spec.attn_kind, cfg.window, cfg.chunk)
+                cache["mixer"], k, v, spec.attn_kind, cfg.window, cfg.chunk,
+                self._seq_block(spec, cache["mixer"], natural))
         elif spec.mixer == "mamba2":
             out, st = ssm_mod.mamba2_forward_state(
                 lparams["mixer"], h, d_state=cfg.ssm_state,

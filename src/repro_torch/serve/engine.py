@@ -48,7 +48,12 @@ its pools holding the rank's KV heads. The host bookkeeping (schedule,
 block tables, free lists) is computed alike on every rank: it depends on
 the requests and on the sampled tokens, which are alike on every rank
 (the logits are, bit for bit). The mesh's data axis must be 1: the engine
-has one queue, and no router splits requests over data rows.
+has one queue, and no router splits requests over data rows. Where the
+model axis does not divide the KV heads (MQA), the pools stay whole on
+every rank (each rank computes every KV head) and each rank attends with
+its own query heads; the sequence-split cache (``cache_seq``) is the
+static decode path's, and an engine under ``shard_seq`` raises
+``NotImplementedError``.
 
 Checkpoint hot-swap: :meth:`SlotEngine.swap_params` checks the new tree
 against the live one and rebinds to it (one resident copy, as JAX's
@@ -140,6 +145,13 @@ class SlotEngine:
         if model.cfg.prefix_len:
             raise ValueError("SlotEngine serves token-only archs "
                              f"(prefix_len={model.cfg.prefix_len})")
+        ctx = sharding.current_context()
+        if ctx is not None and ctx[1].get("seq") is not None:
+            raise NotImplementedError(
+                "SlotEngine under shard_seq: the sequence-split cache of a "
+                "long context is the static decode path's "
+                "(launch.serve.generate); the engine's paged pools are "
+                "whole on every rank")
         if sharding.data_axis_size() > 1:
             raise ValueError(
                 f"SlotEngine serves on a mesh whose data axis is 1 (one "

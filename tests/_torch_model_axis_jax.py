@@ -140,7 +140,7 @@ def _jax_round(name, jcfg, tcfg, jm, jp0):
 
 
 def round_matches_jax(world, name, jcfg, tcfg, mesh_shape, *,
-                      budget_share=None):
+                      budget_share=None, param_tol=PARAM_TOL):
     """One DP round of ``tcfg`` as mesh_2d ``mesh_shape`` on ``world``'s
     ranks from JAX's seeded params (:func:`jax_params`) on JAX's noise,
     against JAX's vmap round: every rank's params and loss alike; the loss
@@ -148,7 +148,7 @@ def round_matches_jax(world, name, jcfg, tcfg, mesh_shape, *,
     model axis the first step's loss gradients within GRAD_TOL, each
     client's Eq.-7a pre-clip norm within NORM_TOL of its whole row's, and
     the gradients of every rank in the mesh (whole leaves their own)
-    equal bit for bit. With ``budget_share`` the spec is ``engine="auto"``
+    equal bit for bit. ``param_tol`` replaces PARAM_TOL. With ``budget_share`` the spec is ``engine="auto"``
     with the replica's bytes (its params') as its hint, over a device
     budget of ``budget_share`` of them, and the round resolves its engine
     and mesh shape. Returns rank 0's result (with the resolved engine and
@@ -170,12 +170,12 @@ def round_matches_jax(world, name, jcfg, tcfg, mesh_shape, *,
                         common["sigmas"], kw)
     _assert_ranks_agree([{"p": g["params"], "l": g["loss"]} for g in got])
     r0 = got[0]
-    assert abs(r0["loss"] - jloss) <= PARAM_TOL * max(1.0, abs(jloss))
+    assert abs(r0["loss"] - jloss) <= param_tol * max(1.0, abs(jloss))
     have = tree_flatten(r0["params"])[0]
     assert len(want) == len(have)
     for w, g in zip(want, have):
         assert g.shape == w.shape
-        assert np.max(np.abs(g - w)) <= PARAM_TOL * max(1.0,
+        assert np.max(np.abs(g - w)) <= param_tol * max(1.0,
                                                         np.max(np.abs(w)))
     inside = [g for g in got if "grads" in g]
     shape = mesh_shape if budget_share is None else r0["mesh_shape"]
@@ -190,4 +190,31 @@ def round_matches_jax(world, name, jcfg, tcfg, mesh_shape, *,
         whole = np.sqrt(np.sum(r["flat_grads"].astype(np.float64) ** 2, 1))
         np.testing.assert_allclose(r["step_norm"], whole, rtol=NORM_TOL,
                                    atol=0)
+    return r0
+
+
+def round_and_vmap_match_jax(world, name, jcfg, tcfg, mesh_shape,
+                             tol: float) -> dict:
+    """:func:`round_matches_jax` at ``param_tol=tol``, with the port's own
+    ``vmap`` round beside it (run in this process): its loss and params
+    within ``tol`` of JAX's, and the mesh round's params within ``tol`` of
+    it. Returns the mesh round's rank 0 result."""
+    r0 = round_matches_jax(world, name, jcfg, tcfg, mesh_shape,
+                           param_tol=tol)
+    common, batch, noise, jloss, want, _ = _JAX_ROUNDS[name]
+    p0 = tree_to_numpy(transformer_params_from_jax(
+        jax_params(jcfg)[1], Transformer(tcfg), "cpu"))
+    vm = cases.transformer_round(tcfg, p0, batch, noise, common["sigmas"],
+                                 dict(common, engine="vmap"))
+    assert abs(vm["loss"] - jloss) <= tol * max(1.0, abs(jloss))
+
+    def close(got, ref):
+        assert got.shape == ref.shape
+        assert np.max(np.abs(got - ref)) <= tol * max(1.0,
+                                                      np.max(np.abs(ref)))
+
+    for w, v, m in zip(want, tree_flatten(vm["params"])[0],
+                       tree_flatten(r0["params"])[0]):
+        close(v, w)
+        close(m, v)
     return r0

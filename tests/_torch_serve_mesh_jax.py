@@ -45,8 +45,33 @@ def _gemma(cfg, seg, **kw):
                    segments=(seg(1, (p, replace(p, attn_kind="full"))),))
 
 
+def _granite(cfg, seg, **kw):
+    """granite-20b's smoke widths (4 q heads, d_model 256) cut to one
+    sliding-window layer (window 16) and one full layer, with its MQA
+    (one KV head) or ``kw``'s KV heads and window."""
+    p = cfg.segments[0].pattern[0]
+    kw = {"window": 16, **kw}
+    return replace(cfg, n_layers=2, **kw, segments=(seg(1, (
+        replace(p, attn_kind="swa"), p)),))
+
+
 # name -> (JAX config, port config)
 CASES = {
+    # MQA on a model axis of 2: the cache's sequence on "model"
+    "granite-20b": lambda: (
+        _granite(jax_smoke_variant(jax_get_arch("granite-20b")), JSegment),
+        _granite(smoke_variant(get_arch("granite-20b")), Segment)),
+    # 2 KV heads, 4 q heads on a model axis of 4: a rank's one query head
+    # reads KV head index // 2; a window of 6 the four ranks do not divide
+    "granite-20b-kv2": lambda: (
+        _granite(jax_smoke_variant(jax_get_arch("granite-20b")), JSegment,
+                 n_kv_heads=2, window=6),
+        _granite(smoke_variant(get_arch("granite-20b")), Segment,
+                 n_kv_heads=2, window=6)),
+    # gemma3's smoke widths with MQA: under shard_seq on (2, 2) the cache's
+    # sequence splits over ("data", "model")
+    "gemma3-4b-kv1": lambda: tuple(
+        replace(c, n_kv_heads=1) for c in CASES["gemma3-4b"]()),
     "gemma3-4b": lambda: (
         _gemma(jax_smoke_variant(jax_get_arch("gemma3-4b")), JSegment),
         _gemma(smoke_variant(get_arch("gemma3-4b")), Segment)),
@@ -74,9 +99,9 @@ def models(name):
     return jm, jp, model, params
 
 
-def prompts(vocab, batch=B, seed=0):
+def prompts(vocab, batch=B, seed=0, s=S):
     return np.random.default_rng(seed).integers(
-        0, vocab, size=(batch, S)).astype(np.int64)
+        0, vocab, size=(batch, s)).astype(np.int64)
 
 
 def _top2_gap(logits):
@@ -85,16 +110,16 @@ def _top2_gap(logits):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(name):
+def jax_reference(name, s=S):
     """JAX's greedy tokens (B, GEN), prefill logits and caches, and the
     logits and caches of GEN decode steps teacher-forced with those
-    tokens, as numpy."""
+    tokens, as numpy (prompts of ``s`` tokens)."""
     jm, jp, model, _ = models(name)
-    pr = prompts(model.cfg.vocab)
+    pr = prompts(model.cfg.vocab, s=s)
     tokens = np.asarray(jax_generate(jm, jp, jnp.asarray(pr, jnp.int32),
                                      GEN))
     logits, caches, pos = jm.prefill(jp, jnp.asarray(pr, jnp.int32),
-                                     max_len=S + GEN)
+                                     max_len=s + GEN)
     out = {"tokens": tokens, "prefill_logits": np.asarray(logits),
            "prefill_caches": jax.tree.map(np.asarray, caches)}
     step = jax.jit(jm.decode_step)
@@ -126,47 +151,68 @@ def close_caches(got, want, what):
         close(g, w, f"{what} {path}")
 
 
-def decode_collectives(cfg) -> dict:
-    """The model group's collectives in one decode step, from the code:
-    the vocabulary-parallel embedding's all-reduce and the LM head's
-    gather (an untied head's all-reduce), then a layer's all-reduces (attention and the MLP one each;
-    the MoE one, plus its shared expert's; RWKV6's time mix three (the
-    five projections, the norm, ``w_o``) and its channel mix two; Mamba2
-    three (``w_in``, the norm, ``w_out``) and one gather of ``conv_w``;
-    zamba2's shared block gathers its two LoRA factors)."""
-    ar, ga = (1, 1) if cfg.tie_head else (2, 0)
+def decode_collectives(cfg, mesh_shape=(1, 2), shard_seq=False,
+                       max_len=S + GEN) -> dict:
+    """The collectives in one decode step on the serving mesh, from the
+    code: on a model axis over 1 the vocabulary-parallel embedding's
+    all-reduce and the LM head's gather (an untied head's all-reduce),
+    then a layer's all-reduces (attention and the MLP one each; the MoE
+    one, plus its shared expert's; RWKV6's time mix three (the five
+    projections, the norm, ``w_o``) and its channel mix two; Mamba2 three
+    (``w_in``, the norm, ``w_out``) and one gather of ``conv_w``; zamba2's
+    shared block gathers its two LoRA factors). An attention layer whose
+    cache's sequence splits over g ranks (the decode rules: KV heads the
+    model axis does not divide, or ``shard_seq``; a ring the g ranks do
+    not divide stays whole) adds two all-reduces (the group's largest
+    score, then the sums), and a gather of the query heads where its K/V
+    heads are whole on a model axis over 1."""
+    dd, dm = mesh_shape
+    kv_divides = cfg.n_kv_heads % dm == 0
+    g = (dd if kv_divides else dd * dm) if shard_seq else (
+        1 if kv_divides else dm)
+    n_full = -(-max_len // g) * g
+    ar, ga = ((1, 1) if cfg.tie_head else (2, 0)) if dm > 1 else (0, 0)
     for seg in cfg.segments:
         for ls in seg.pattern:
             n = seg.n_steps
             if ls.mixer in ("attn", "shared_attn"):
-                ar += n
+                ar += n if dm > 1 else 0
                 ga += 2 * n if ls.mixer == "shared_attn" else 0
+                limit = {"swa": cfg.window, "chunk": cfg.chunk}.get(
+                    ls.attn_kind, 0)
+                if g > 1 and (not limit or n_full < limit
+                              or limit % g == 0):
+                    ar += 2 * n
+                    ga += n if dm > 1 and not kv_divides else 0
             elif ls.mixer == "rwkv6":
                 ar += 3 * n
             elif ls.mixer == "mamba2":
                 ar += 3 * n
                 ga += n
             ar += n * {"mlp": 1, "shared_mlp": 1, "rwkv_cm": 2, "none": 0,
-                       "moe": 2 if cfg.shared_expert else 1}[ls.ffn]
+                       "moe": 2 if cfg.shared_expert else 1}[ls.ffn] * (
+                dm > 1)
     return {"all_reduce": ar, "gather": ga}
 
 
-def route_matches(world, name, mesh_shape=(1, 2)):
+def route_matches(world, name, mesh_shape=(1, 2), shard_seq=False, s=S):
     """``name``'s serving route on ``world``'s ranks at ``mesh_shape``
+    (``shard_seq``: a long context's rules; prompts of ``s`` tokens)
     against JAX and the port's whole route: the prefill's logits and
-    every cache leaf (made whole along its ``cache_axes`` dim), GEN
-    teacher-forced decode steps' logits and caches, within TOL; the greedy
-    tokens JAX's (where JAX's top-two gap exceeds LOGIT_TOL); the ranks'
-    logits and tokens bit for bit alike; the collectives of a decode step
-    as :func:`decode_collectives` counts them."""
+    every cache leaf (made whole along its split dim), GEN teacher-forced
+    decode steps' logits and caches, within TOL; the greedy tokens JAX's
+    (where JAX's top-two gap exceeds LOGIT_TOL); the ranks' logits and
+    tokens bit for bit alike; the collectives of a decode step as
+    :func:`decode_collectives` counts them."""
     _, _, model, params = models(name)
-    want = jax_reference(name)
+    want = jax_reference(name, s)
     for i in range(GEN):
         assert _top2_gap(want["decode_logits"][:, i - 1] if i else
                          want["prefill_logits"]) > LOGIT_TOL, (name, i)
+    pr = prompts(model.cfg.vocab, s=s)
     got = world.run(cases.serve_mesh_route, model.cfg,
-                    tree_to_numpy(params), prompts(model.cfg.vocab),
-                    want["tokens"], mesh_shape)
+                    tree_to_numpy(params), pr, want["tokens"], mesh_shape,
+                    shard_seq)
     got = [g for g in got if g is not None]
     assert len(got) == mesh_shape[0] * mesh_shape[1]
     r0 = got[0]
@@ -175,8 +221,7 @@ def route_matches(world, name, mesh_shape=(1, 2)):
                     "token_logits"):
             assert np.array_equal(r[key], r0[key]), (name, key)
     with torch.inference_mode():
-        whole = _whole_route(model, params, prompts(model.cfg.vocab),
-                             want["tokens"])
+        whole = _whole_route(model, params, pr, want["tokens"])
     for ref, what in ((want, "jax"), (whole, "whole")):
         close(r0["prefill_logits"], ref["prefill_logits"],
               f"{name} prefill logits vs {what}")
@@ -191,14 +236,16 @@ def route_matches(world, name, mesh_shape=(1, 2)):
     close(r0["token_logits"], np.concatenate(
         [r0["prefill_logits"][:, None], r0["decode_logits"][:, :-1]], 1),
         f"{name} generate")
-    assert r0["collectives_per_step"] == decode_collectives(model.cfg)
+    assert r0["collectives_per_step"] == decode_collectives(
+        model.cfg, mesh_shape, shard_seq, s + GEN)
     return r0
 
 
 def _whole_route(model, params, pr, forced):
     """The whole route's prefill and teacher-forced decode (numpy)."""
     pr, forced = torch.as_tensor(pr), torch.as_tensor(np.array(forced))
-    logits, caches, pos = model.prefill(params, pr, max_len=S + GEN)
+    logits, caches, pos = model.prefill(params, pr,
+                                        max_len=pr.shape[1] + GEN)
     out = {"prefill_logits": logits.numpy(),
            "prefill_caches": cases._copied(tree_to_numpy(caches))}
     steps = []

@@ -463,16 +463,16 @@ def rank_one_fails() -> int:
 # ------------------------------ the serving mesh -----------------------------
 
 @contextlib.contextmanager
-def _serving(cfg, params_np, mesh_shape):
-    """On the serving mesh ``mesh_shape`` for the block: the model and
-    this rank's slices of the whole ``params_np`` (``None`` on a rank
-    outside the mesh)."""
+def _serving(cfg, params_np, mesh_shape, shard_seq=False):
+    """On the serving mesh ``mesh_shape`` (``shard_seq``: a long context's
+    rules) for the block: the model and this rank's slices of the whole
+    ``params_np`` (``None`` on a rank outside the mesh)."""
     from repro_torch.launch.serve import serve_on_mesh
     from repro_torch.models import sharding
     from repro_torch.models.transformer import Transformer
     from repro_torch.utils.convert import tree_from_numpy
     model = Transformer(cfg)
-    with serve_on_mesh(model, mesh_shape) as mesh:
+    with serve_on_mesh(model, mesh_shape, shard_seq=shard_seq) as mesh:
         local = None
         if mesh.get_coordinate() is not None:
             local = sharding.local_params(tree_from_numpy(params_np, "cpu"))
@@ -486,33 +486,37 @@ def _copied(tree):
     return tree_map(np.array, tree)
 
 
-def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape) -> dict:
-    """The static serving route on the serving mesh ``mesh_shape``: the
-    prefill's last logits and its caches (each leaf made whole along its
-    ``cache_axes`` split dim), the logits of ``len(forced[0])`` decode
-    steps teacher-forced with ``forced`` (B, G), the decode caches made
-    whole, and ``generate``'s greedy tokens and logits. Returns numpy
-    (``None`` on a rank outside the mesh)."""
+def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape,
+                     shard_seq=False) -> dict:
+    """The static serving route on the serving mesh ``mesh_shape``
+    (``shard_seq``: a long context's rules): the prefill's last logits and
+    its caches (each leaf made whole along its split dim over its group),
+    the logits of ``len(forced[0])`` decode steps teacher-forced with
+    ``forced`` (B, G), the decode caches made whole, and ``generate``'s
+    greedy tokens and logits. Returns numpy (``None`` on a rank outside
+    the mesh)."""
     from repro_torch.launch import serve
     from repro_torch.mesh.collectives import counts
     from repro_torch.models import sharding
     from repro_torch.utils.convert import tree_to_numpy
-    with _serving(cfg, params_np, mesh_shape) as (model, local):
+    from repro_torch.utils.tree import tree_flatten
+    with _serving(cfg, params_np, mesh_shape, shard_seq) as (model, local):
         if local is None:
             return None
-        grp = sharding.model_group()
-        dims = sharding.cache_split_dims(model.cache_axes())
         prompts = torch.as_tensor(prompts)
         forced = torch.as_tensor(forced)
         b, s = prompts.shape
         g = forced.shape[1]
-        out = {}
+        axes, dims = model.cache_axes(), model.cache_dims(b, s + g)
+        out = {"cache_bytes": sum(
+            x.numel() * x.element_size() for x in tree_flatten(
+                model.init_cache(b, s + g, "meta"))[0])}
         with torch.inference_mode():
             logits, caches, pos = model.prefill(local, prompts,
                                                 max_len=s + g)
             out["prefill_logits"] = logits.numpy()
             out["prefill_caches"] = _copied(tree_to_numpy(
-                sharding.to_whole(caches, dims, grp)))
+                sharding.caches_to_whole(caches, axes, dims)))
             steps = []
             counts.update(all_reduce=0, gather=0)
             for i in range(g):
@@ -523,7 +527,7 @@ def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape) -> dict:
                                            for k, v in counts.items()}
             out["decode_logits"] = np.stack(steps, 1)
             out["decode_caches"] = _copied(tree_to_numpy(
-                sharding.to_whole(caches, dims, grp)))
+                sharding.caches_to_whole(caches, axes, dims)))
         tokens, seen = serve.generate(model, local, prompts, g,
                                       with_logits=True)
         out["tokens"], out["token_logits"] = tokens.numpy(), seen.numpy()
@@ -684,3 +688,26 @@ def serve_mesh_checkpoint(arch, directory, mesh_shape) -> dict:
                                          grp.size)
         return {"local": tree_to_numpy(local),
                 "whole": tree_to_numpy(sharding.to_whole(local, dims, grp))}
+
+
+def serve_mesh_shard_seq_refusals(cfg, params_np) -> dict:
+    """What a long context's serving mesh (``shard_seq``) refuses on this
+    rank of a world of 4: the engine on (2, 1), and a cache split on both
+    its sequence and its heads (``cfg``'s KV heads divide the model axis
+    of (2, 2)). Each as ``(exception type, message)``."""
+    from repro_torch.launch.serve import serve_on_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import SlotEngine
+    out = {}
+    with _serving(cfg, params_np, (2, 1), shard_seq=True) as (model, local):
+        try:
+            SlotEngine(model, local, n_slots=2, max_len=8, device="cpu")
+            out["engine"] = None
+        except NotImplementedError as e:
+            out["engine"] = (type(e).__name__, str(e))
+    try:
+        with serve_on_mesh(Transformer(cfg), (2, 2), shard_seq=True):
+            out["both"] = None
+    except NotImplementedError as e:
+        out["both"] = (type(e).__name__, str(e))
+    return out

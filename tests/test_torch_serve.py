@@ -182,9 +182,10 @@ def test_main_engine_mode_prints_the_continuous_fields(capsys):
 def test_main_refuses_the_env_profile_flags(monkeypatch):
     """The mesh profile serves on ``--host-devices`` ranks (the serving
     mesh, tests/test_torch_serve_mesh_launch.py), and refuses before it
-    starts a rank a model axis the arch cannot take: KV heads it does not
-    divide (granite-20b's MQA) raise naming item 12d, heads it does not
-    divide raise ``ValueError`` naming the ones that do; ``--host-devices``
+    starts a rank a model axis the arch cannot take: query heads it does
+    not divide raise ``ValueError`` naming the model axes that do (KV heads
+    it does not divide, granite-20b's MQA, are served:
+    tests/test_torch_serve_mesh_mqa_launch.py); ``--host-devices``
     over 1 without the mesh profile raises ``ValueError`` naming it.
     ``--env-profile host`` re-execs the launcher once (guarded)."""
     import os
@@ -195,8 +196,8 @@ def test_main_refuses_the_env_profile_flags(monkeypatch):
     monkeypatch.setenv("REPRO_ENV_PROFILE_APPLIED", "1")     # no re-exec
     ranks = ["--device", "cpu", "--env-profile", "cpu-mesh",
              "--host-devices"]
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        serve.main(["--arch", "granite-20b", "--smoke"] + ranks + ["2"])
+    with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
+        serve.main(["--arch", "granite-20b", "--smoke"] + ranks + ["8"])
     with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
         serve.main(["--arch", "gemma3-4b", "--smoke"] + ranks + ["3"])
     monkeypatch.delenv("REPRO_ENV_PROFILE_APPLIED", raising=False)

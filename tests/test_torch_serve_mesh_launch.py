@@ -11,11 +11,12 @@
 * ``python -m repro_torch.launch.serve ... --env-profile cpu-mesh
   --host-devices 2`` (two gloo ranks on the serving mesh (1, 2)) prints
   the one-rank run's tokens, in the engine mode and with ``--static``.
-* Refused, naming ROADMAP item 12d: KV heads the model axis does not
-  divide (granite-20b's MQA), weights over the data axis
+* Refused, naming ROADMAP item 12d: weights over the data axis
   (``serve_rules(fsdp_over_data=True)``, at the serving route's first
-  hint) and the dry run's ``--multi-pod``; a model axis that does not divide the heads
-  raises ``ValueError`` naming the ones that do.
+  hint) and the dry run's ``--multi-pod``; a model axis that does not
+  divide the heads raises ``ValueError`` naming the ones that do. KV
+  heads the model axis does not divide (granite-20b's MQA) are served
+  (tests/test_torch_serve_mesh_mqa*.py).
 """
 import _torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
@@ -106,8 +107,9 @@ def test_check_model_axis_refusals():
     with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
         gemma.check_model_axis(3)
     granite = Transformer(smoke_variant(get_arch("granite-20b")))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        granite.check_model_axis(2)
+    granite.check_model_axis(2)         # MQA: its K/V stay whole
+    with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
+        granite.check_model_axis(8)
     # weights over "data": the serving route's first hint refuses them
     params = gemma.init(device="meta")
     with sharding.axis_rules(_RankZero(), sharding.serve_rules(
