@@ -199,11 +199,11 @@ Phases (each prints its lines; any failure exits non-zero):
      row_sumsq and clip_noise_apply launches tau x rounds (the split
      Eq.-7a clip: the norm all-reduced between the two kernels),
      quantize_decompress as vmap's; (b) gemma3-4b's widths, f32, depth cut
-     to 1 layer, C 2, tau 1, seq 2048, 2 rounds as mesh_2d (1, 2) and as
+     to 1 layer, C 2, tau 1, seq 2048, 1 round as mesh_2d (1, 2) and as
      vmap on rank 0, in turns: params within 2e-5 of each tensor's largest
      magnitude, ms per round, each rank's peak memory, the model group's
      all-reduces a local step; (d)-(f) the other families as (b), f32,
-     tau 1, 2 rounds (1 for (d)), in turns with vmap: (d) rwkv6-1.6b's
+     tau 1, 1 round (2 for (e)), in turns with vmap: (d) rwkv6-1.6b's
      widths, depth 24 -> 2, C 2, seq 512; (e) zamba2-7b's widths, its
      shared attention + MLP block and one Mamba2 layer, C 2, seq 2048; (f)
      phi3.5-moe's widths, 1 layer (experts split over the ranks), C 1,
@@ -219,8 +219,10 @@ Phases (each prints its lines; any failure exits non-zero):
      whole model on rank 0: (a) gemma3-4b (one 6-layer step of its 34
      layers: 5 sliding + 1 full, B 2 x 2048, 16 greedy tokens) and its
      engine (4 slots, blocks of 64, 6 Poisson
-     requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 layers,
-     B 2 x 512, 16 tokens); (c) zamba2-7b (B 2 x 512, 16 tokens); (d)
+     requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 -> 12
+     layers, B 2 x 512, 16 tokens); (c) zamba2-7b (81 -> 21 layers: three
+     steps of its shared block and six Mamba2 layers, B 2 x 512, 16
+     tokens); (d)
      phi3.5-moe, 4 of 32 layers (B 2 x 512, 8 tokens): greedy tokens
      against the whole route's under the top-two gap guard (4x the whole
      route's own prefill distance to f32), at the prefill and every
@@ -250,7 +252,26 @@ Phases (each prints its lines; any failure exits non-zero):
      (d) granite-20b's widths, 1 layer, f32, mesh_2d (1, 2) training in
      turns with vmap as 21b, its all-reduces a local step as predicted;
      (e) flash_attention at (2, 24, 2048, 128) against its plain version,
-     its bound and scaled_dot_product_attention.
+     its bound and scaled_dot_product_attention;
+ 24. weights split over the serving mesh's data axis (serve_on_mesh's
+     fsdp_over_data: each rank's model slice split again over "data",
+     gathered before each layer) and a decode cache split on both its
+     sequence and its heads, four gloo ranks sharing the card on the mesh
+     (2, 2): (a) mistral-large-123b at its published widths, 88 -> 2
+     layers, bf16, B 2 x 512, 8 greedy tokens, held as 22a against the
+     whole model on rank 0 (tokens under the guard, phase 12's criterion
+     at every step, the four ranks alike), the collectives a generate
+     against the code's count (the model group's and the data group's
+     gathers, one a layer, the embedding and the head, a step), one flash
+     launch a layer on each rank, each rank's flash calls at (1, 48, 512,
+     128) against the plain version, a rank's params a quarter of the
+     whole's, each rank's peak; (b) gemma3-4b at long_500k under shard_seq
+     on (2, 2), its caches split on the sequence ("data") and the KV heads
+     ("model"), a quarter a rank, as 23b; (c) mistral-large at one f32
+     layer and gemma3-4b at 23c's two f32 layers on (2, 2) within 1e-4 of
+     the whole route's largest logit; then flash_attention at 24a's rank
+     shape against its plain version, its bound and
+     scaled_dot_product_attention.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -4514,9 +4535,9 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
 # phase 21: the model axis of mesh_2d (dm > 1), two gloo ranks sharing the
 # card. 21a: phase 3's Adult-1 spec as mesh_2d (1, 2) (w (104, 2) split on
 # d_in); 21b, d-f: a transformer at its published widths, f32, depth cut,
-# tau 1, batch 1, 2 rounds, (1, 2), in turns with vmap: phase -> (arch, the
-# depth cut: steps of the layers kept (indices into its first segment's
-# pattern), C, seq). rwkv6's seq is cut 2048 -> 512 (and its loss chunk
+# tau 1, batch 1, MA_TF_ROUNDS rounds, (1, 2), in turns with vmap: phase ->
+# (arch, the depth cut: steps of the layers kept (indices into its first
+# segment's pattern), C, seq). rwkv6's seq is cut 2048 -> 512 (and its loss chunk
 # 1024 -> 512 with it): its training route's per-token WKV scan keeps
 # every token's (hd, hd) states a head for the backward, and at 2048 a mesh
 # rank ran the card out of memory
@@ -4533,9 +4554,10 @@ MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
               "quantize_decompress")
 MA_TF_TAU, MA_TF_B = 1, 1
 # rounds a turn; rwkv6's per-token training loop takes 9-19 s a round, so
-# 21d takes one (the carry from round to round is 21b's, 21e's and 21f's),
-# and its depth is cut from 4 layers to 2 to make room for phase 23
-MA_TF_ROUNDS = {"21b": 2, "21d": 1, "21e": 2, "21f": 2, "23d": 1}
+# 21d takes one (the carry from round to round is 21e's), and its depth is
+# cut from 4 layers to 2 to make room for phase 23; 21b and 21f take one to
+# make room for phase 24
+MA_TF_ROUNDS = {"21b": 1, "21d": 1, "21e": 2, "21f": 1, "23d": 1}
 MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
 
 
@@ -5006,11 +5028,13 @@ SM_SHAPE = (1, 2)
 # (arch, steps of its first segment's pattern kept (None: every layer),
 # prompt, greedy tokens), batch SM_B, bf16 at the published widths.
 # gemma3-4b's depth is cut to one of its 6-layer steps (5 sliding + 1
-# full of its 34 layers) to make room for phase 23 in the script's time;
-# 23a is granite-20b (MQA) with its 52 layers cut to 8
+# full of its 34 layers) to make room for phase 23 in the script's time,
+# rwkv6-1.6b's to 12 of its 24 and zamba2-7b's to three steps of its
+# pattern (21 of its 81 layers) to make room for phase 24; 23a is
+# granite-20b (MQA) with its 52 layers cut to 8
 SM_CELLS = {"22a": ("gemma3-4b", 1, 2048, 16),
-            "22b": ("rwkv6-1.6b", None, 512, 16),
-            "22c": ("zamba2-7b", None, 512, 16),
+            "22b": ("rwkv6-1.6b", 12, 512, 16),
+            "22c": ("zamba2-7b", 3, 512, 16),
             "22d": ("phi3.5-moe-42b-a6.6b", 4, 512, 8),
             "23a": ("granite-20b", 8, 2048, 16)}
 SM_PHASES = ("22a", "22b", "22c", "22d")
@@ -5133,15 +5157,16 @@ def _sm_want(cfg, gen: int) -> dict:
 
 
 def _sm_generate(torch, serve, model, params, prompts, gen, counters,
-                 on_mesh: bool):
-    """One counted ``generate`` (counters and the model group's
-    collectives set to 0 just before, read just after), then one timed
-    prefill of the same prompts; on the serving mesh when ``on_mesh``."""
+                 on_mesh: bool, mesh_shape=SM_SHAPE, fsdp=None):
+    """One counted ``generate`` (counters and the mesh's collectives set
+    to 0 just before, read just after), then one timed prefill of the same
+    prompts; on the serving mesh ``mesh_shape`` (``fsdp``: its
+    ``fsdp_over_data``) when ``on_mesh``."""
     import contextlib
 
     from repro_torch.mesh import collectives
-    ctx = (serve.serve_on_mesh(model, SM_SHAPE) if on_mesh
-           else contextlib.nullcontext())
+    ctx = (serve.serve_on_mesh(model, mesh_shape, fsdp_over_data=fsdp)
+           if on_mesh else contextlib.nullcontext())
     with ctx:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5784,19 +5809,28 @@ MQ_FLASH = ((2, 24, 2048, 128, 0),)
 
 
 def _long_cfg(configs, phase: str):
-    """23b's gemma3-4b (its 34 layers, bf16) or 23c's (f32, one sliding
-    and one full layer: ``_sm_f32_cfg``)."""
-    return (configs.get_arch("gemma3-4b") if phase == "23b"
+    """23b's and 24b's gemma3-4b (its 34 layers, bf16) or 23c's and 24c's
+    (f32, one sliding and one full layer: ``_sm_f32_cfg``)."""
+    return (configs.get_arch("gemma3-4b") if phase in ("23b", "24b")
             else _sm_f32_cfg(configs, "gemma3-4b"))
+
+
+def _long_shape(phase: str) -> tuple:
+    """The serving mesh of a long-context phase: 23's (2, 1) (the cache's
+    sequence over "data"), 24's (2, 2) (also its KV heads over
+    "model")."""
+    return LONG_SHAPE if phase.startswith("23") else FSDP_SHAPE
 
 
 def _fill_long(torch, model, caches) -> None:
     """Every attention cache of ``caches`` (this rank's block of slots
-    under the active rules, or whole) holds the K/V of positions 0 ..
-    LONG_FILL - 1 where its ring or span keeps them: the values of
-    position p drawn with the block p // LONG_BLOCK of (B, LONG_BLOCK, KV,
-    hd) normal draws of its layer's generator, seeded by (LONG_SEED,
-    layer, block). Only the blocks a rank's slots hold are drawn."""
+    under the active rules, or whole; its KV heads where the model axis
+    splits them) holds the K/V of positions 0 .. LONG_FILL - 1 where its
+    ring or span keeps them: the values of position p drawn with the
+    block p // LONG_BLOCK of (B, LONG_BLOCK, KV, hd) normal draws of its
+    layer's generator, seeded by (LONG_SEED, layer, block), every KV head
+    drawn and the rank's taken. Only the blocks a rank's slots hold are
+    drawn."""
     from repro_torch.models import attention as attn
     from repro_torch.models import sharding
     cfg = model.cfg
@@ -5818,9 +5852,14 @@ def _fill_long(torch, model, caches) -> None:
                 for b in sorted(set(block.unique().tolist()) - {-1}):
                     g = torch.Generator(device=k.device).manual_seed(
                         LONG_SEED * 1_000_003 + layer * 10_007 + b)
-                    shape = (k.shape[0], LONG_BLOCK) + tuple(k.shape[2:])
+                    shape = (k.shape[0], LONG_BLOCK, cfg.n_kv_heads,
+                             k.shape[3])
                     kb = torch.randn(shape, generator=g, device=k.device)
                     vb = torch.randn(shape, generator=g, device=k.device)
+                    if k.shape[2] < cfg.n_kv_heads:   # the rank's heads
+                        lo, hi = sharding.model_group().bounds(
+                            cfg.n_kv_heads)
+                        kb, vb = kb[:, :, lo:hi], vb[:, :, lo:hi]
                     sel = torch.nonzero(block == b).squeeze(1)
                     at = pos[sel] % LONG_BLOCK
                     k[:, sel] = kb[:, at].to(k.dtype)
@@ -5830,15 +5869,19 @@ def _fill_long(torch, model, caches) -> None:
 
 
 def _long_rank(phase: str) -> dict:
-    """Phase 23b's (or 23c's) program on one rank of two sharing the card:
-    gemma3-4b (``_long_cfg``) from a seeded CUDA generator, whole on each
-    rank (the model axis is 1); on the serving mesh LONG_SHAPE under
-    ``shard_seq`` each rank allocates its half of the caches' slots,
-    fills them (``_fill_long``) and runs LONG_STEPS teacher-forced decode
-    steps (the collectives counted); then rank 0 runs the whole route on
-    whole caches filled with the same values. Returns the logits of each
-    route (rank 0), the rank's, the cache bytes, each step's ms, the
-    collectives and the peaks."""
+    """Phase 23b's (or 23c's; 24b's, 24c's) program on one rank of two
+    (four) sharing the card: gemma3-4b (``_long_cfg``) from a seeded CUDA
+    generator, made whole on each rank; on the serving mesh
+    ``_long_shape(phase)`` under ``shard_seq`` each rank serves its slices
+    of the params (whole where the model axis is 1; rank 0 keeps the
+    whole params for the whole route, the others free them), allocates
+    its part of the caches (half of the slots on (2, 1); half of the
+    slots and of the KV heads on (2, 2)), fills them (``_fill_long``) and
+    runs LONG_STEPS teacher-forced decode steps (the collectives
+    counted); then rank 0 runs the whole route on whole caches filled
+    with the same values. Returns the logits of each route (rank 0), the
+    rank's, the cache bytes, each step's ms, the collectives and the
+    peaks."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5846,6 +5889,7 @@ def _long_rank(phase: str) -> dict:
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.mesh import collectives
+    from repro_torch.models import sharding
     from repro_torch.models.transformer import Transformer
     from repro_torch.utils.tree import tree_leaves
     torch.cuda.set_device(0)
@@ -5854,11 +5898,12 @@ def _long_rank(phase: str) -> dict:
     rank = dist.get_rank()
     model = Transformer(_long_cfg(configs, phase))
     g = torch.Generator(device="cuda").manual_seed(LONG_SEED)
-    params = model.init(g, "cuda")
+    whole = model.init(g, "cuda")
     tokens = torch.randint(0, model.cfg.vocab, (LONG_STEPS, 1), generator=g,
                            device="cuda")
     out = {"rank": rank, "params_gb": sum(
-        x.nbytes for x in tree_leaves(params)) / 1e9}
+        x.nbytes for x in tree_leaves(whole)) / 1e9}
+    params = whole
 
     def run(route: str) -> None:
         torch.cuda.synchronize()
@@ -5887,12 +5932,21 @@ def _long_rank(phase: str) -> dict:
         del caches
         torch.cuda.empty_cache()
 
-    with serve.serve_on_mesh(model, LONG_SHAPE, shard_seq=True):
+    with serve.serve_on_mesh(model, _long_shape(phase), shard_seq=True):
+        params = sharding.local_params(whole)
+        out["local_gb"] = sum(x.nbytes for x in tree_leaves(params)) / 1e9
+        if rank != 0:
+            del whole
+        torch.cuda.empty_cache()
         dist.barrier()
         run("mesh")
+    params = None
+    torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
+        params = whole
         run("whole")
+        del whole
     del params
     torch.cuda.empty_cache()
     dist.barrier()
@@ -5901,27 +5955,31 @@ def _long_rank(phase: str) -> dict:
 
 def run_long_context(torch, np, configs, card, world, phase: str):
     """Phase 23b (gemma3-4b at long_500k, 34 layers, bf16) or 23c (its
-    sliding and full layer in f32): the mesh LONG_SHAPE's ranks each hold
-    half of every cache's slots (``shard_seq``: the sequence on "data")
-    against the whole route on rank 0 (``_long_rank``). 23b: each step's
+    sliding and full layer in f32), and 24b / 24c the same on (2, 2): the
+    mesh's ranks each hold their part of every cache (``shard_seq``: the
+    sequence on "data"; on (2, 2) the KV heads on "model" too) against
+    the whole route on rank 0 (``_long_rank``). 23b / 24b: each step's
     relative L2 between the routes' logits within LONG_REL_L2, and the
     argmaxes equal where the whole route's top-two gap exceeds 2^-6 of its
-    largest logit; 23c: within SM_F32_TOL of the whole route's
-    largest logit (phase 12's gate). Both: the ranks' logits alike and
-    finite; a rank's caches half the whole's; the collectives a step as
-    ``_sm_seq_collectives`` predicts (no model axis: nothing else). Returns
-    (ok, record)."""
+    largest logit; 23c / 24c: within SM_F32_TOL of the whole route's
+    largest logit (phase 12's gate). All: the ranks' logits alike and
+    finite; a rank's caches 1 / (dd x dm) of the whole's; the collectives
+    a step as ``_sm_seq_collectives`` predicts, plus the model axis'
+    (``_sm_collectives``) on (2, 2). Returns (ok, record)."""
     cfg = _long_cfg(configs, phase)
+    shape = _long_shape(phase)
+    parts = shape[0] * shape[1]
     t0 = time.perf_counter()
     try:
-        r0, r1 = world.run(_long_rank, phase)
+        ranks = world.run(_long_rank, phase)
     except RuntimeError as e:
-        print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
+        print(f"phase {phase}: the ranks failed: {e} CHECK FAILED",
               flush=True)
         return False, {}
     wall = time.perf_counter() - t0
+    r0 = ranks[0]
     mesh, whole = r0["mesh"], r0["whole"]
-    alike = np.array_equal(mesh, r1["mesh"])
+    alike = all(np.array_equal(mesh, r["mesh"]) for r in ranks[1:])
     finite = bool(np.isfinite(mesh).all() and np.isfinite(whole).all())
     rel = [float(np.linalg.norm(mesh[t] - whole[t]) / np.linalg.norm(
         whole[t])) for t in range(LONG_STEPS)]
@@ -5933,7 +5991,7 @@ def run_long_context(torch, np, configs, card, world, phase: str):
                 if top2[t, 1] - top2[t, 0] > guard]
     argmax_ok = all(int(mesh[t].argmax()) == int(whole[t].argmax())
                     for t in compared)
-    if phase == "23b":
+    if phase in ("23b", "24b"):
         close = max(rel) <= LONG_REL_L2 and argmax_ok
         gate = (f"relative L2 a step {[float(f'{x:.4g}') for x in rel]} "
                 f"(limit {LONG_REL_L2}), argmax equal on {len(compared)} "
@@ -5943,45 +6001,336 @@ def run_long_context(torch, np, configs, card, world, phase: str):
         close = gap <= SM_F32_TOL
         gate = (f"max gap / max|logit| {gap:.3e} (limit {SM_F32_TOL}), "
                 f"relative L2 a step {[float(f'{x:.3g}') for x in rel]}")
-    halves = all(abs(2 * r["mesh_cache_gb"] - r0["whole_cache_gb"]) <= 1e-9
-                 for r in (r0, r1))
-    want_c = _sm_seq_collectives(cfg, LONG_SHAPE, True, LONG_LEN)
+    halves = all(abs(parts * r["mesh_cache_gb"] - r0["whole_cache_gb"])
+                 <= 1e-9 for r in ranks)
+    want_c = _sm_seq_collectives(cfg, shape, True, LONG_LEN)
+    if shape[1] > 1:
+        want_c = {k: v + _sm_collectives(cfg)[k] for k, v in want_c.items()}
     coll_ok = all(r["mesh_collectives"] == {k: v * LONG_STEPS
                                             for k, v in want_c.items()}
-                  for r in (r0, r1))
+                  for r in ranks)
     ok = alike and finite and close and halves and coll_ok
+    where = ('the sequence on "data"' if shape[1] == 1 else
+             'the sequence on "data", the KV heads on "model"')
     print(f"phase {phase} gemma3-4b {cfg.dtype} on {card}: {cfg.n_layers} "
           f"layers, B 1, caches of {LONG_LEN:,} slots filled to "
           f"{LONG_FILL:,} positions, {LONG_STEPS} decode steps, serving "
-          f"mesh {LONG_SHAPE} under shard_seq (the sequence on \"data\") "
-          f"on 2 gloo ranks vs the whole route on rank 0; {wall:.1f} s; "
-          f"params {r0['params_gb']:.2f} GB on each rank; KV caches "
-          f"{[round(r['mesh_cache_gb'], 4) for r in (r0, r1)]} GB a rank, "
-          f"{r0['whole_cache_gb']:.4f} GB whole (half: {halves}); fill "
-          f"{r0['mesh_fill_s']:.1f} s a rank, {r0['whole_fill_s']:.1f} s "
-          f"whole", flush=True)
+          f"mesh {shape} under shard_seq ({where}) on {parts} gloo ranks "
+          f"vs the whole route on rank 0; {wall:.1f} s; params "
+          f"{r0['params_gb']:.2f} GB whole, "
+          f"{[round(r['local_gb'], 3) for r in ranks]} GB a rank; KV "
+          f"caches {[round(r['mesh_cache_gb'], 4) for r in ranks]} GB a "
+          f"rank, {r0['whole_cache_gb']:.4f} GB whole (1 / {parts}: "
+          f"{halves}); fill {r0['mesh_fill_s']:.1f} s a rank, "
+          f"{r0['whole_fill_s']:.1f} s whole", flush=True)
     print(f"phase {phase} logits mesh vs whole: {gate}; ranks' logits "
           f"{'bit for bit alike' if alike else 'DIFFERENT'}; finite "
           f"{finite}; ms a step mesh {[round(x, 2) for x in r0['mesh_ms']]} "
           f"whole {[round(x, 2) for x in r0['whole_ms']]}; peak memory "
           f"allocated a rank (mesh) "
-          f"{[round(r['mesh_peak_gb'], 3) for r in (r0, r1)]} GB, whole "
+          f"{[round(r['mesh_peak_gb'], 3) for r in ranks]} GB, whole "
           f"route {r0['whole_peak_gb']:.3f} GB; collectives a step "
           f"{ {k: v / LONG_STEPS for k, v in r0['mesh_collectives'].items()} }"
           f" (predicted {want_c}) {'ok' if ok else 'CHECK FAILED'}",
           flush=True)
     return ok, {"layers": cfg.n_layers, "dtype": cfg.dtype,
+                "mesh_shape": list(shape),
                 "rel_l2": rel, "max_gap_of_max_logit": gap,
                 "steps_compared": [len(compared), LONG_STEPS],
                 "cache_gb": {"whole": r0["whole_cache_gb"],
-                             "rank": [r["mesh_cache_gb"] for r in (r0, r1)]},
+                             "rank": [r["mesh_cache_gb"] for r in ranks]},
+                "params_gb": {"whole": r0["params_gb"],
+                              "rank": [r["local_gb"] for r in ranks]},
                 "ms": {"mesh": r0["mesh_ms"], "whole": r0["whole_ms"]},
-                "peak_gb": {"mesh": [r["mesh_peak_gb"] for r in (r0, r1)],
+                "peak_gb": {"mesh": [r["mesh_peak_gb"] for r in ranks],
                             "whole": r0["whole_peak_gb"]},
                 "collectives_per_step": {
                     k: v / LONG_STEPS
                     for k, v in r0["mesh_collectives"].items()}}
 
+
+
+# -- phase 24: weights over the serving mesh's data axis; a decode cache
+# split on both its sequence and its heads --------------------------------------
+
+# 24a: mistral-large-123b at its published widths, FSDP_LAYERS of its 88
+# layers, bf16, random weights from a seed, on the serving mesh FSDP_SHAPE
+# of four gloo ranks sharing the card, with fsdp_over_data=True (each
+# rank's model slice of a weight split again over "data", gathered before
+# each layer): B SM_B x FSDP_PROMPT, FSDP_GEN greedy tokens, in turns with
+# the whole model on rank 0. 24b: gemma3-4b at long_500k on FSDP_SHAPE
+# under shard_seq (its 4 KV heads divide the model axis, so each cache
+# splits on its sequence over "data" and its heads over "model"), as 23b.
+# 24c: mistral-large at one layer in f32 (fsdp on FSDP_SHAPE, 22e's
+# prompt and steps) and gemma3-4b at 23c's two f32 layers on FSDP_SHAPE.
+FSDP_ARCH, FSDP_SHAPE = "mistral-large-123b", (2, 2)
+FSDP_LAYERS, FSDP_PROMPT, FSDP_GEN = 2, 512, 8
+# a rank's flash call in 24a's prefill: B / dd rows, H / dm heads
+FSDP_FLASH = ((1, 48, 512, 128, 0),)
+
+
+def _fsdp_cfg(configs, phase: str):
+    """24a's mistral-large (FSDP_LAYERS layers, bf16) or 24c's (one layer,
+    f32), at the published widths."""
+    import dataclasses
+    cfg = _depth_cut(configs, FSDP_ARCH,
+                     FSDP_LAYERS if phase == "24a" else 1)
+    return (cfg if phase == "24a"
+            else dataclasses.replace(cfg, dtype="float32"))
+
+
+def _fsdp_gathers(cfg) -> int:
+    """The data group's gathers in one prefill or decode step under
+    fsdp_over_data, from the code: one a layer (its weights in one
+    all-reduce), one for the embedding and one for the LM head."""
+    return cfg.n_layers + 2
+
+
+def _fsdp_rank(phase: str) -> dict:
+    """Phase 24a's program (24c's: ``phase``) on one rank of four sharing
+    the card: mistral-large (``_fsdp_cfg``) made whole from a seeded CUDA
+    generator and the rank's slices cut under the serving mesh FSDP_SHAPE
+    with fsdp_over_data (a quarter of each split weight); ranks 1-3 then
+    free the whole params, rank 0 keeps them for the whole route. 24a: a
+    counted generate of SM_B x FSDP_PROMPT prompts and FSDP_GEN greedy
+    tokens on the mesh and a timed prefill of the whole batch (their
+    flash calls kept and held against the plain version after them);
+    rank 0 then, after a short warm-up, the same on the whole model, and
+    the whole route and the f32 computation teacher-forced with the
+    mesh's tokens (``_sm_forced``). 24c: a generate of SM_F32_STEPS + 1 tokens on the
+    mesh, rank 0 the whole route teacher-forced with its tokens. Returns
+    host copies."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    cfg = _fsdp_cfg(configs, phase)
+    model = Transformer(cfg)
+    counters = _sm_counters()
+    prompt = FSDP_PROMPT if phase == "24a" else SM_F32_PROMPT
+    gen = FSDP_GEN if phase == "24a" else SM_F32_STEPS + 1
+    g = torch.Generator(device="cuda").manual_seed(24)
+    t0 = time.perf_counter()
+    whole = model.init(g, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (SM_B, prompt), generator=g,
+                            device="cuda")
+    with serve.serve_on_mesh(model, FSDP_SHAPE, fsdp_over_data=True):
+        local = sharding.local_params(whole)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "whole_gb": sum(x.nbytes for x in tree_leaves(whole)) / 1e9,
+           "local_gb": sum(x.nbytes for x in tree_leaves(local)) / 1e9}
+    if rank != 0:
+        del whole
+    torch.cuda.empty_cache()
+    if phase == "24c":
+        with serve.serve_on_mesh(model, FSDP_SHAPE, fsdp_over_data=True):
+            tokens, seen = serve.generate(model, local, prompts, gen,
+                                          with_logits=True)
+        out.update(tokens=tokens.cpu().numpy(), mesh=seen.cpu().numpy())
+        del local
+        if rank == 0:
+            out["whole"] = _sm_forced(torch, model, whole, prompts, tokens,
+                                      gen)
+            del whole
+        torch.cuda.empty_cache()
+        dist.barrier()
+        return out
+    # warm-up of the whole route's first calls (cuBLAS handles, the
+    # allocator); the mesh's steps are the data gathers' through the host
+    if rank == 0:
+        _sm_generate(torch, serve, model, whole, prompts[:, :128], 1,
+                     counters, False)
+    dist.barrier()
+    kept = {}
+    reals = _keeping_first_model_calls(torch, ops, kept)
+    out["mesh"] = _sm_generate(torch, serve, model, local, prompts, gen,
+                               counters, True, FSDP_SHAPE, True)
+    for name, real in reals.items():
+        setattr(ops, name, real)
+    k_ok, k_err, k_lines = _check_kept_model_calls(
+        torch, kept, {"flash_attention": flash_attention_ref})
+    out["kept"] = {"ok": k_ok, "err": k_err.get("flash_attention", 0.0),
+                   "lines": k_lines,
+                   "shapes": sorted({tuple(ins[0].shape)
+                                     for ins, _, _ in kept.values()})}
+    del kept
+    del local
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        out["whole"] = _sm_generate(torch, serve, model, whole, prompts, gen,
+                                    counters, False)
+        tokens = out["mesh"]["tokens"]
+        out["whole_forced"] = _sm_forced(torch, model, whole, prompts,
+                                         tokens, gen)
+        model32 = Transformer(dataclasses.replace(cfg, dtype="float32"),
+                              kernel_backend="ref")
+        p32 = tree_map(lambda x: x.float(), whole)
+        out["f32_forced"] = _sm_forced(torch, model32, p32, prompts, tokens,
+                                       gen)
+        del p32, whole
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for key in ("mesh", "whole"):
+        if key in out:
+            out[key]["tokens"] = out[key]["tokens"].cpu().numpy()
+            out[key]["logits"] = out[key]["logits"].float().cpu().numpy()
+    return out
+
+
+def run_fsdp_mesh(torch, np, configs, serve, card, world):
+    """Phase 24a: mistral-large on the serving mesh FSDP_SHAPE of
+    ``world``'s four ranks with its weights over "data" too
+    (``_fsdp_rank``), against the whole model on rank 0 as phase 22 holds
+    its cells: the greedy tokens against the whole route's under the
+    top-two gap guard (4x the whole route's own prefill |whole - f32|, at
+    least a bf16 ulp of the largest logit), phase 12's per-step criterion
+    (each step's relative L2 to the f32 computation at most 1.25x the
+    whole route's + 1e-3), the four ranks' tokens and logits bit for bit
+    alike, each rank's flash launches (one an attention layer a generate)
+    and its kept flash calls at FSDP_FLASH's shape against the plain
+    version, the collectives of a generate against the code's count (the
+    model group's, ``_sm_collectives``, and the data group's gathers,
+    ``_fsdp_gathers``, a prefill and each decode step), a rank's params a
+    quarter of the whole's; each rank's peak. Returns (ok, {kernel:
+    launches of the four ranks}, record, {kernel: max abs err})."""
+    cfg = _fsdp_cfg(configs, "24a")
+    gen = FSDP_GEN
+    t0 = time.perf_counter()
+    try:
+        ranks = world.run(_fsdp_rank, "24a")
+    except RuntimeError as e:
+        print(f"phase 24a: the four ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, {}, {}, {}
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    mesh, whole = r0["mesh"], r0["whole"]
+    alike = all(np.array_equal(mesh["tokens"], r["mesh"]["tokens"])
+                and np.array_equal(mesh["logits"], r["mesh"]["logits"])
+                for r in ranks[1:])
+    f32, forced = r0["f32_forced"], r0["whole_forced"]
+    scale = float(np.abs(whole["logits"]).max())
+    rounding = float(np.abs(forced[:, 0] - f32[:, 0]).max())
+    tol = max(4 * rounding, scale * 2.0 ** -8)
+    agree, n_cmp, n_all = _sm_guarded(serve, np, mesh["tokens"],
+                                      whole["tokens"], whole["logits"], tol)
+    to_f32 = {k: [float(np.linalg.norm(x[:, t] - f32[:, t])
+                        / np.linalg.norm(f32[:, t])) for t in range(gen)]
+              for k, x in (("mesh", mesh["logits"]), ("whole", forced))}
+    near = all(m <= 1.25 * w + 1e-3
+               for m, w in zip(to_f32["mesh"], to_f32["whole"]))
+    ratio = max(m / w for m, w in zip(to_f32["mesh"], to_f32["whole"]))
+    model_c = _sm_collectives(cfg)
+    data_g = _fsdp_gathers(cfg)
+    want_c = {"all_reduce": model_c["all_reduce"] * (gen + 1),
+              "gather": (model_c["gather"] + data_g) * (gen + 1)}
+    coll_ok = all(r["mesh"]["collectives"] == want_c for r in ranks)
+    want_l = _sm_want(cfg, gen)
+    launches_ok = all(r["mesh"]["launches"] == want_l for r in ranks)
+    # the generate's prefill on the rank's row, and the timed prefill of
+    # the whole batch on every rank
+    kept_ok = all(r["kept"]["ok"] and tuple(FSDP_FLASH[0][:4])
+                  in r["kept"]["shapes"] for r in ranks)
+    quarter = all(abs(4 * r["local_gb"] - r0["whole_gb"])
+                  <= 1e-3 * r0["whole_gb"] for r in ranks)
+    finite = bool(np.isfinite(mesh["logits"]).all()
+                  and np.isfinite(whole["logits"]).all())
+    ok = (alike and agree and near and coll_ok and launches_ok and kept_ok
+          and quarter and finite)
+    print(f"phase 24a {FSDP_ARCH} bf16 on {card}: {cfg.n_layers} of 88 "
+          f"layers, B {SM_B} x {FSDP_PROMPT}, {gen} greedy tokens, serving "
+          f"mesh {FSDP_SHAPE} with fsdp_over_data on 4 gloo ranks vs the "
+          f"whole model on rank 0; {wall:.1f} s with the params' init "
+          f"({r0['init_s']:.1f} s); params {r0['whole_gb']:.3f} GB whole, "
+          f"{[round(r['local_gb'], 4) for r in ranks]} GB a rank (a "
+          f"quarter: {quarter})", flush=True)
+    print(f"phase 24a tokens mesh {mesh['tokens'][0].tolist()} whole "
+          f"{whole['tokens'][0].tolist()}: agree under the guard {tol:.3e} "
+          f"(4x the whole route's prefill max |whole - f32| {rounding:.3e}, "
+          f"at least a bf16 ulp of max|logit| {scale:.2f}) {agree}, "
+          f"{n_cmp}/{n_all} steps compared; logits' relative L2 to the f32 "
+          f"computation at the prefill and each decode step mesh "
+          f"{[float(f'{x:.4g}') for x in to_f32['mesh']]} whole "
+          f"{[float(f'{x:.4g}') for x in to_f32['whole']]} (each mesh <= "
+          f"1.25 x whole + 1e-3: {near}, largest mesh / whole "
+          f"{ratio:.4f}); the 4 ranks' tokens and logits "
+          f"{'bit for bit alike' if alike else 'DIFFERENT'}; finite "
+          f"{finite}", flush=True)
+    print(f"phase 24a ms: prefill mesh {mesh['prefill_ms']:.1f} whole "
+          f"{whole['prefill_ms']:.1f}; decode a token mesh "
+          f"{mesh['decode_ms']:.1f} whole {whole['decode_ms']:.1f}; peak "
+          f"memory a rank {[round(r['mesh']['peak_gb'], 3) for r in ranks]} "
+          f"GB, whole {whole['peak_gb']:.3f} GB", flush=True)
+    print(f"phase 24a collectives a generate "
+          f"{[r['mesh']['collectives'] for r in ranks]} (predicted "
+          f"{want_c}: the model group's {model_c} and the data group's "
+          f"{data_g} gathers a prefill and a decode step, x {gen + 1}); "
+          f"launches a rank {[r['mesh']['launches'] for r in ranks]} "
+          f"(expected {want_l}); each rank's flash calls against the plain "
+          f"version {[r['kept']['lines'] for r in ranks]} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    launches = {n: sum(r["mesh"]["launches"][n] for r in ranks)
+                for n in want_l}
+    rec = {"arch": FSDP_ARCH, "layers": cfg.n_layers, "prompt": FSDP_PROMPT,
+           "tokens": gen, "mesh_shape": list(FSDP_SHAPE),
+           "rounding": rounding, "guard": tol,
+           "steps_compared": [n_cmp, n_all], "rel_l2_to_f32": to_f32,
+           "max_ratio": ratio,
+           "prefill_ms": {"mesh": mesh["prefill_ms"],
+                          "whole": whole["prefill_ms"]},
+           "decode_ms": {"mesh": mesh["decode_ms"],
+                         "whole": whole["decode_ms"]},
+           "peak_gb": {"mesh": [r["mesh"]["peak_gb"] for r in ranks],
+                       "whole": whole["peak_gb"]},
+           "params_gb": {"whole": r0["whole_gb"],
+                         "rank": [r["local_gb"] for r in ranks]},
+           "collectives_per_step": {k: v / (gen + 1) for k, v in
+                                    mesh["collectives"].items()},
+           "wall_s": wall}
+    return ok, launches, rec, {"flash_attention": max(
+        r["kept"]["err"] for r in ranks)}
+
+
+def run_fsdp_mesh_f32(torch, np, configs, card, world):
+    """Phase 24c's mistral-large: one f32 layer with its weights over
+    "data" on FSDP_SHAPE (``_fsdp_rank``), the prefill and SM_F32_STEPS
+    decode steps' logits within SM_F32_TOL of the whole route's largest
+    logit (teacher-forced with the mesh's tokens), the four ranks' tokens
+    alike."""
+    try:
+        ranks = world.run(_fsdp_rank, "24c")
+    except RuntimeError as e:
+        print(f"phase 24c {FSDP_ARCH}: the four ranks failed: {e} CHECK "
+              f"FAILED", flush=True)
+        return False, {}
+    r0 = ranks[0]
+    gap = float(np.abs(r0["mesh"] - r0["whole"]).max()) / max(
+        1.0, float(np.abs(r0["whole"]).max()))
+    alike = all(np.array_equal(r0["tokens"], r["tokens"]) for r in ranks)
+    ok = gap <= SM_F32_TOL and alike and bool(np.isfinite(r0["mesh"]).all())
+    print(f"phase 24c {FSDP_ARCH} f32 on {card}, 1 layer, B {SM_B} x "
+          f"{SM_F32_PROMPT}: prefill + {SM_F32_STEPS} decode steps, mesh "
+          f"{FSDP_SHAPE} with fsdp_over_data vs whole, max gap / max|logit| "
+          f"{gap:.3e} (limit {SM_F32_TOL}); params "
+          f"{[round(r['local_gb'], 3) for r in ranks]} GB a rank, "
+          f"{r0['whole_gb']:.3f} whole; ranks' tokens "
+          f"{'alike' if alike else 'DIFFERENT'} "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    return ok, {"max_gap_of_max_logit": gap}
 
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
@@ -6289,6 +6638,34 @@ def main() -> int:
     print(f"phase 23 wall time {time.perf_counter() - t23:.1f} s",
           flush=True)
 
+    # -- 24. weights over the serving mesh's data axis; the cache split on
+    # both its sequence and its heads (four ranks) ---------------------------
+    t24 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fs_world = HostWorld(4)
+    fs_world.run(int, 0)
+    print(f"phase 24: 4 gloo ranks started in "
+          f"{time.perf_counter() - t24:.1f} s", flush=True)
+    ok_fa, fa_launches, fa_rec, fa_errs = run_fsdp_mesh(
+        torch, np, configs, serve, card, fs_world)
+    ok_fb, fb_rec = run_long_context(torch, np, configs, card, fs_world,
+                                     "24b")
+    ok_fc, fc_rec = run_fsdp_mesh_f32(torch, np, configs, card, fs_world)
+    ok_fl, fl_rec = run_long_context(torch, np, configs, card, fs_world,
+                                     "24c")
+    ok_fc &= ok_fl
+    fs_world.close()
+    ok_fk, fk_recs, fk_errs = check_rank_kernels(torch, card, "24a",
+                                                 FSDP_FLASH, (), ())
+    for name, recs_ in fk_recs.items():
+        yf_recs.setdefault(name, []).extend(recs_)
+    for errs_ in (fa_errs, fk_errs):
+        for name, err in errs_.items():
+            yf_errs[name] = max(yf_errs.get(name, 0.0), err)
+    print(f"phase 24 wall time {time.perf_counter() - t24:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -6333,6 +6710,10 @@ def main() -> int:
                     f"ranks, the last turn"] = launched[name]
         rec["at_rank_shapes"] = yf_recs.get(name, [])
         rec["max_abs_err"] = max(rec["max_abs_err"], yf_errs.get(name, 0.0))
+    model_kernels[0]["launches_other_paths"][
+        f"phase 24a {FSDP_ARCH} ({FSDP_LAYERS} layers) on the serving mesh "
+        f"{FSDP_SHAPE} with its weights over \"data\", the four ranks"] = \
+        fa_launches.get("flash_attention", 0)
 
     split_kernels = []
     for name in ("row_sumsq", "clip_noise_apply"):
@@ -6429,7 +6810,9 @@ def main() -> int:
         + split_kernels, "phase21b_gemma3_model_axis": xb_rec,
         "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs,
         "phase23": {"23a": za_recs.get("23a"), "23b": zb_rec, "23c": zc_rec,
-                    "23d": zd_rec}}),
+                    "23d": zd_rec},
+        "phase24": {"24a": fa_rec, "24b": fb_rec,
+                    "24c": {FSDP_ARCH: fc_rec, "gemma3-4b": fl_rec}}}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
@@ -6528,7 +6911,23 @@ def main() -> int:
                      (ok_zd, "granite-20b's widths on the (1, 2) training "
                              "mesh disagree with vmap or missed a check"),
                      (ok_ze, "flash_attention disagrees with its plain "
-                             "version at granite-20b's rank shape")):
+                             "version at granite-20b's rank shape"),
+                     (ok_fa, "mistral-large with its weights over \"data\" "
+                             "disagrees with the whole route or missed a "
+                             "check"),
+                     (fa_launches.get("flash_attention", 0)
+                      == 4 * FSDP_LAYERS,
+                      "flash_attention was not launched once a layer on "
+                      "each rank of 24a's generate"),
+                     (ok_fb, "gemma3-4b at long_500k on the cache split on "
+                             "its sequence and its heads disagrees with the "
+                             "whole route or missed a check"),
+                     (ok_fc, "an f32 model on the (2, 2) mesh (weights over "
+                             "\"data\", or the two-way cache split) is off "
+                             "the whole route by more than 1e-4 of the "
+                             "largest logit"),
+                     (ok_fk, "flash_attention disagrees with its plain "
+                             "version at mistral-large's rank shape")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -25,24 +25,33 @@ The port of the JAX package's ``repro/launch/dryrun.py``, for one card:
   (:mod:`repro_torch.mesh.placement`) for ``--clients`` clients; it
   exits 1 when a row does not fit. Host-only: nothing is traced.
 - A decode record carries the rules the serving mesh would install on
-  the JAX production mesh (16, 16) (``serving_rules``:
+  the JAX production mesh (``serving_rules``:
   :func:`repro_torch.models.sharding.decode_mesh_rules`, ``shard_seq``
-  at ``long_500k``): where the KV cache's heads and sequence go.
+  at ``long_500k``): where the KV cache's heads and sequence go, and
+  whether the weights split over "data" too (``fsdp``, ``wg``).
+- Every traced record has ``per_rank`` (:func:`per_rank`): one rank's
+  bytes of params, optimizer state, inputs and caches on the JAX
+  production mesh, from the meta shapes cut as the specs of the rules
+  JAX's ``run_one`` installs cut them: ``train`` under ``train_rules``
+  on the ``("client", "replica", "model")`` view (the client axis
+  prepended to every param and optimizer leaf, the batch on "client"
+  and "replica"), ``prefill`` and ``decode`` under ``serve_rules`` on
+  the ``("data", "model")`` view, with the weights over "data" where
+  :func:`repro_torch.models.sharding.needs_param_sharding` says so for
+  the device memory (``--device-mem-gb``, else the card's 79.18 GiB),
+  and decode's KV overrides. ``--multi-pod`` records on the 2x16x16 mesh
+  (8 clients, the (32, 16) serving mesh) instead of 16x16; the trace
+  stays the single card's (of 8 clients at ``train``).
 
-Not ported (the remainder of ROADMAP queue 1 item 12d): ``--multi-pod``,
-which would record each rank's slice of a replica on a pod mesh, raises.
-A trace here is of one replica on one card. The serving mesh itself runs
-(:func:`repro_torch.launch.serve.serve_on_mesh`: prefill, decode and the
-engine split over ranks, KV heads the model axis does not divide, a
-sequence-split decode cache), as do ``make_production_mesh`` and the
-sharding rules (:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.models
-.sharding`). The ``--opt``
-names that only steer XLA's lowering (``scan_accum``, ``gather_weights``,
-``ddp``, ``no_donate``) raise ``ValueError``: the port's decode writes its
-caches in place, as a donated JAX cache is.
+A trace here is of one replica on one card; ``per_rank`` is what a rank
+of the production mesh would hold, not a trace of it. The serving mesh
+itself runs (:func:`repro_torch.launch.serve.serve_on_mesh`). The
+``--opt`` names that only steer XLA's lowering (``scan_accum``,
+``gather_weights``, ``ddp``, ``no_donate``) raise ``ValueError``: the
+port's decode writes its caches in place, as a donated JAX cache is.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out-dir experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] --out-dir experiments/dryrun_torch
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh-report --devices 8 --device-mem-gb 16
 """
 from __future__ import annotations
@@ -57,7 +66,12 @@ from dataclasses import replace
 import torch
 
 from repro_torch.api.engines import get_engine
-from repro_torch.api.spec import FederationSpec, _not_ported
+from repro_torch.api.spec import FederationSpec
+from repro_torch.launch.mesh import (
+    federated_mesh_axes,
+    production_mesh_axes,
+    serving_mesh_axes,
+)
 from repro_torch.mesh.placement import H100_MEM_BYTES
 from repro_torch.configs import ASSIGNED_ARCHS, get_arch
 from repro_torch.configs.shapes import (
@@ -67,6 +81,7 @@ from repro_torch.configs.shapes import (
     param_count_estimate,
     supports_shape,
 )
+from repro_torch.models import sharding
 from repro_torch.models.sharding import decode_mesh_rules
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import sgd
@@ -343,19 +358,132 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-PRODUCTION_SERVING_MESH = (16, 16)      # the JAX package's ("data", "model")
+def _mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
 
 
-def serving_rules(cfg, shape) -> dict:
-    """Where the serving mesh puts a decode's rows and KV cache on the JAX
-    production mesh: the ``batch``, ``seq``, ``kv_tp`` and ``cache_seq``
-    entries of :func:`repro_torch.models.sharding.decode_mesh_rules`
-    (``shard_seq`` at ``long_500k``), as JAX's ``lower_decode`` sets
-    them."""
-    rules = decode_mesh_rules(cfg.n_kv_heads, PRODUCTION_SERVING_MESH,
-                              shard_seq=shape.name == "long_500k")
-    return {"mesh_shape": list(PRODUCTION_SERVING_MESH),
-            **{k: rules[k] for k in ("batch", "seq", "kv_tp", "cache_seq")}}
+def _fsdp(n_params: int, serving: dict, device_mem_bytes: int) -> bool:
+    return sharding.needs_param_sharding(n_params, serving["model"],
+                                         device_mem_bytes)
+
+
+def serving_rules(cfg, shape, multi_pod: bool = False,
+                  device_mem_bytes: int = HBM_PER_CARD) -> dict:
+    """Where the serving mesh puts a decode's rows, KV cache and weights on
+    the JAX production mesh's ``("data", "model")`` view (16, 16), or (32,
+    16) with ``multi_pod``: the ``batch``, ``seq``, ``kv_tp``,
+    ``cache_seq``, ``fsdp`` and ``wg`` entries of JAX's ``serve_rules``
+    with ``lower_decode``'s overrides
+    (:func:`repro_torch.models.sharding.decode_mesh_rules`; ``shard_seq``
+    at ``long_500k``; the weights over "data" where
+    :func:`repro_torch.models.sharding.needs_param_sharding` says so for
+    ``device_mem_bytes``)."""
+    serving = serving_mesh_axes(production_mesh_axes(multi_pod))
+    rules = _decode_rules(cfg, shape, serving, device_mem_bytes)
+    return {"mesh_shape": [serving["data"], serving["model"]],
+            **{k: rules[k] for k in ("batch", "seq", "kv_tp", "cache_seq",
+                                     "fsdp", "wg")}}
+
+
+def _decode_rules(cfg, shape, serving: dict, device_mem_bytes: int) -> dict:
+    shard_seq = shape.name == "long_500k"
+    fsdp = _fsdp(param_count_estimate(cfg), serving, device_mem_bytes)
+    return decode_mesh_rules(
+        cfg.n_kv_heads, (serving["data"], serving["model"]), shard_seq,
+        base=sharding.serve_rules(fsdp_over_data=fsdp, shard_seq=shard_seq))
+
+
+def _rank_bytes(mesh_axes: dict, rules: dict, logical, tree) -> int:
+    """:func:`repro_torch.models.sharding.shard_bytes` of ``tree`` on a
+    mesh of ``mesh_axes`` under ``rules``."""
+    import types
+    with sharding.axis_rules(types.SimpleNamespace(shape=mesh_axes), rules):
+        return sharding.shard_bytes(logical, tree)
+
+
+def _leading(tree, *axes):
+    """A logical-axes tree for ``tree``'s leaves: ``axes`` on the leading
+    dims, the rest whole."""
+    return tree_map(lambda x: tuple(axes[:x.dim()])
+                    + (None,) * max(0, x.dim() - len(axes)), tree)
+
+
+def per_rank(cfg, shape, multi_pod: bool = False,
+             n_clients: int | None = None, tau: int = 4,
+             device_mem_bytes: int | None = None) -> dict:
+    """One rank's bytes on the JAX production mesh (16x16, or 2x16x16 with
+    ``multi_pod``) of ``cfg`` at ``shape``, from meta shapes cut by the
+    specs of the rules JAX's ``run_one`` installs (no tensor allocated):
+
+    - ``train`` (``lower_train``): :func:`repro_torch.models.sharding
+      .train_rules` on the ``("client", "replica", "model")`` view of
+      ``n_clients`` (default 4 a pod): the params with the client axis
+      prepended to each leaf's logical axes, the optimizer state on
+      "client", the batch on "client" and "replica", the clients' sigmas
+      on "client" (the inputs);
+    - ``prefill`` and ``decode`` (``lower_prefill`` / ``lower_decode``):
+      :func:`repro_torch.models.sharding.serve_rules` on the ``("data",
+      "model")`` view, the weights over "data" where
+      :func:`repro_torch.models.sharding.needs_param_sharding` holds for
+      ``device_mem_bytes`` (default the card's), the rows on "data";
+      decode's KV overrides (``decode_mesh_rules``) place the caches
+      (the port's ``cache_axes``: Mamba2's conv window whole) and its
+      tokens (the position replicated).
+
+    Returns the mesh, its axes, the rules, the device memory, the bytes
+    of each part, their total and whether it fits that memory."""
+    mem = int(device_mem_bytes or HBM_PER_CARD)
+    axes = production_mesh_axes(multi_pod)
+    model = Transformer(cfg)
+    params1 = model.init(device="meta")
+    logical = sharding.param_logical_axes(params1)
+    out = {"mesh": _mesh_name(multi_pod), "device_mem_bytes": mem}
+    if shape.kind == "train":
+        c = n_clients or 4 * axes.get("pod", 1)
+        mesh_axes = federated_mesh_axes(axes, c)
+        rules = sharding.train_rules()
+        params_c = _stack_clients(params1, c)
+        opt_c = _stack_clients(sgd(0.1).init(params1), c)
+        batch = input_specs(cfg, shape, n_clients=c, tau=tau,
+                            dtype=_dtype(cfg))
+        sigmas = torch.empty((c,), dtype=torch.float32, device="meta")
+        sizes = {
+            "params": _rank_bytes(mesh_axes, rules, sharding._map_logical(
+                lambda lg, _: ("client",) + tuple(lg), logical, None),
+                params_c),
+            "optimizer": _rank_bytes(mesh_axes, rules,
+                                     _leading(opt_c, "client"), opt_c),
+            "inputs": _rank_bytes(mesh_axes, rules, _leading(
+                {"batch": batch, "sigmas": sigmas}, "client", None,
+                "batch"), {"batch": batch, "sigmas": sigmas}),
+            "caches": 0}
+        out["n_clients"] = c
+    else:
+        mesh_axes = serving_mesh_axes(axes)
+        fsdp = _fsdp(param_count(params1), mesh_axes, mem)
+        if shape.kind == "prefill":
+            rules = sharding.serve_rules(fsdp_over_data=fsdp)
+            inputs = input_specs(cfg, shape, dtype=_dtype(cfg))
+            caches, cache_axes = {}, {}
+        else:
+            rules = _decode_rules(cfg, shape, mesh_axes, mem)
+            inputs = input_specs(cfg, shape)
+            caches = model.init_cache(shape.global_batch, shape.seq_len,
+                                      device="meta")
+            cache_axes = model.cache_axes()
+        sizes = {"params": _rank_bytes(mesh_axes, rules, logical, params1),
+                 "optimizer": 0,
+                 "inputs": _rank_bytes(mesh_axes, rules,
+                                       _leading(inputs, "batch"), inputs),
+                 "caches": _rank_bytes(mesh_axes, rules, cache_axes,
+                                       caches)}
+        out["fsdp_over_data"] = fsdp
+    total = sum(sizes.values())
+    return {**out, "mesh_axes": mesh_axes,
+            "rules": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in rules.items()},
+            **{f"{k}_bytes": int(v) for k, v in sizes.items()},
+            "total_bytes": int(total), "fits": bool(total <= mem)}
 
 
 # ---------------------------------------------------------------------------
@@ -450,10 +578,15 @@ def apply_opts(cfg, opts: tuple[str, ...]):
 
 def run_one(arch: str, shape_name: str, n_clients: int | None = None,
             tau: int = 4, microbatches: int | None = None,
-            opts: tuple[str, ...] = (), cfg=None, shape=None) -> dict:
-    """The dry-run record of ``arch`` at ``shape_name`` on one card.
-    ``cfg`` / ``shape`` override the registry's (a ``smoke_variant``, a
-    cut shape)."""
+            opts: tuple[str, ...] = (), cfg=None, shape=None,
+            multi_pod: bool = False,
+            device_mem_bytes: int | None = None) -> dict:
+    """The dry-run record of ``arch`` at ``shape_name`` on one card, with
+    a rank's bytes on the production mesh (:func:`per_rank`: 16x16, or
+    2x16x16 with ``multi_pod``, whose 8 clients the train trace then
+    takes). ``cfg`` / ``shape`` override the registry's (a
+    ``smoke_variant``, a cut shape); ``device_mem_bytes`` (default the
+    card's) decides the serving weights' split over "data"."""
     cfg = apply_opts(cfg or get_arch(arch), opts)
     shape = shape or get_shape(shape_name)
     ok, why = supports_shape(cfg, shape)
@@ -461,8 +594,9 @@ def run_one(arch: str, shape_name: str, n_clients: int | None = None,
         return {"arch": arch, "shape": shape.name, "mesh": MESH,
                 "status": "skipped", "reason": why}
     t0 = time.time()
+    mem = int(device_mem_bytes or HBM_PER_CARD)
     if shape.kind == "train":
-        c = n_clients or 4
+        c = n_clients or 4 * production_mesh_axes(multi_pod).get("pod", 1)
         cost, n_params, tokens, n_mb, resident = trace_train(
             cfg, shape, c, tau, microbatches=microbatches)
         extra = {"n_clients": c, "tau": tau, "microbatches": n_mb,
@@ -472,8 +606,10 @@ def run_one(arch: str, shape_name: str, n_clients: int | None = None,
         extra = {}
     else:
         cost, n_params, tokens, resident = trace_decode(cfg, shape)
-        extra = {"serving_rules": serving_rules(cfg, shape),
+        extra = {"serving_rules": serving_rules(cfg, shape, multi_pod, mem),
                  **({"opts": list(opts)} if opts else {})}
+    extra["per_rank"] = per_rank(cfg, shape, multi_pod,
+                                 extra.get("n_clients"), tau, mem)
     live = sum(resident.values()) + cost.peak_live_bytes
     n_active = active_params(cfg, float(n_params))
     terms = RooflineTerms(
@@ -523,8 +659,9 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: the JAX package's 2x16x16 mesh "
-                         "(item 12d)")
+                    help="per-rank records on the JAX package's 2x16x16 "
+                         "mesh (8 clients, the (32, 16) serving mesh) "
+                         "instead of 16x16")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--tau", type=int, default=4)
     ap.add_argument("--microbatches", type=int, default=None)
@@ -542,20 +679,20 @@ def main(argv=None):
                          "arch under the 2D mesh engine='auto' would pick "
                          "(repro_torch.mesh.placement), instead of tracing")
     ap.add_argument("--device-mem-gb", type=float, default=None,
-                    help="per-device memory budget in GiB for --mesh-report "
+                    help="per-device memory in GiB: --mesh-report's budget "
                          "(default: REPRO_DEVICE_MEM_BYTES, else the card's "
-                         "memory)")
+                         "memory) and the memory that decides the serving "
+                         "weights' split over \"data\" in the records' "
+                         "per_rank (default: the card's 79.18 GiB)")
     ap.add_argument("--devices", type=int, default=None,
                     help="ranks --mesh-report places on (default: the "
                          "cards, else 1)")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise _not_ported("--multi-pod (a mesh of TPU pods)", "item 12d")
+    mem = (int(args.device_mem_gb * 1024 ** 3)
+           if args.device_mem_gb else None)
     if args.mesh_report:
         os.makedirs(args.out_dir, exist_ok=True)
         archs = [args.arch] if args.arch else list(ASSIGNED_ARCHS)
-        mem = (int(args.device_mem_gb * 1024 ** 3)
-               if args.device_mem_gb else None)
         rows = mesh_report(archs, n_clients=args.clients or 8,
                            n_devices=args.devices
                            or max(1, torch.cuda.device_count()),
@@ -574,7 +711,8 @@ def main(argv=None):
               if args.all else [(args.arch, args.shape)])
     kw = dict(n_clients=args.clients, tau=args.tau,
               microbatches=args.microbatches,
-              opts=tuple(o for o in args.opt.split(",") if o))
+              opts=tuple(o for o in args.opt.split(",") if o),
+              multi_pod=args.multi_pod, device_mem_bytes=mem)
     if args.jobs > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -586,7 +724,8 @@ def main(argv=None):
         records = (_record(a, s, kw) for a, s in combos)
     results = []
     for (arch, shape), rec in zip(combos, records):
-        tag = f"{arch}_{shape}_{MESH}" + args.tag
+        tag = (f"{arch}_{shape}_{MESH}"
+               + ("_2x16x16" if args.multi_pod else "") + args.tag)
         print(f"=== dryrun {tag} ({rec.get('trace_s', 0.0)} s) ===",
               flush=True)
         results.append(rec)
@@ -601,7 +740,10 @@ def main(argv=None):
                   f"bottleneck={r['bottleneck']} "
                   f"useful={r['useful_flops_fraction']:.2%} "
                   f"live={rec['live_bytes_per_device']/2**30:.2f}GiB "
-                  f"fits_hbm={rec['fits_hbm']}", flush=True)
+                  f"fits_hbm={rec['fits_hbm']} "
+                  f"rank@{rec['per_rank']['mesh']}="
+                  f"{rec['per_rank']['total_bytes']/2**30:.2f}GiB",
+                  flush=True)
         else:
             print(f"  {rec['status']}: "
                   f"{rec.get('reason', rec.get('error', ''))}", flush=True)

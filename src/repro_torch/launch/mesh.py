@@ -117,18 +117,49 @@ def make_mesh_2d(mesh_shape: tuple[int, int]):
     return _device_mesh(grid, (CLIENT_AXIS, MODEL_AXIS))
 
 
+def production_mesh_axes(multi_pod: bool = False) -> dict[str, int]:
+    """The JAX package's production mesh as ``{axis: size}``: 16x16
+    ("data", "model"), or 2x16x16 ("pod", "data", "model") with
+    ``multi_pod``."""
+    return ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
+
+
+def federated_mesh_axes(axes: dict[str, int],
+                        n_clients: int) -> dict[str, int]:
+    """The ``("client", "replica", "model")`` view of a mesh given as
+    ``{axis: size}`` (:func:`make_federated_mesh`'s, without ranks)."""
+    model = axes[MODEL_AXIS]
+    total = int(np.prod(list(axes.values()))) // model
+    if total % n_clients:
+        raise ValueError(f"{n_clients} clients do not divide {total} "
+                         "data-parallel slots")
+    return {"client": n_clients, "replica": total // n_clients,
+            MODEL_AXIS: model}
+
+
+def serving_mesh_axes(axes: dict[str, int]) -> dict[str, int]:
+    """The ``("data", "model")`` view of a mesh given as ``{axis: size}``
+    (:func:`make_serving_mesh`'s, without ranks: a pod axis folded into
+    data)."""
+    model = axes[MODEL_AXIS]
+    return {"data": int(np.prod(list(axes.values()))) // model,
+            MODEL_AXIS: model}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The JAX package's production mesh: 16x16 ("data", "model"), or
-    2x16x16 ("pod", "data", "model") with ``multi_pod``, over a world of
-    exactly 256 / 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    2x16x16 ("pod", "data", "model") with ``multi_pod``
+    (:func:`production_mesh_axes`), over a world of exactly 256 / 512
+    ranks."""
+    axes = production_mesh_axes(multi_pod)
+    shape = tuple(axes.values())
     need = int(np.prod(shape))
     have = world_size()
     if have != need:
         raise ValueError(f"the production mesh {shape} needs a world of "
                          f"{need} ranks, have {have}")
-    return _device_mesh(np.arange(need).reshape(shape), axes)
+    return _device_mesh(np.arange(need).reshape(shape), tuple(axes))
 
 
 def make_federated_mesh(mesh, n_clients: int):

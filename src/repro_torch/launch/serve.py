@@ -26,7 +26,9 @@ without ``--env-profile cpu-mesh`` raises ``ValueError``. In code,
 rules: :func:`generate` then splits a batch's rows over the ``dd`` data
 rows of ranks (under ``shard_seq``, a long context's cache split over
 "data", every rank runs the whole batch), and the engine
-(:class:`repro_torch.serve.SlotEngine`) runs at ``dd == 1``.
+(:class:`repro_torch.serve.SlotEngine`) runs at ``dd == 1``. Its
+``fsdp_over_data`` splits the weights over "data" too (chosen as the JAX
+dry run chooses, by the rank's device memory, unless forced).
 
 Serving a federated model: ``--fl-checkpoint DIR`` points at a checkpoint
 written with the training launcher's ``federation_meta`` beside it, by the
@@ -66,11 +68,12 @@ from repro_torch.launch.mesh import (
 from repro_torch.models import sharding
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 
 @contextlib.contextmanager
 def serve_on_mesh(model: Transformer, mesh_shape: tuple[int, int], *,
-                  shard_seq: bool = False):
+                  shard_seq: bool = False, fsdp_over_data: bool | None = None):
     """Serve ``model`` on the serving mesh of ``mesh_shape = (dd, dm)``
     ranks for the block: the arch is checked against the model axis
     (:meth:`Transformer.check_model_axis`), the mesh laid over the world's
@@ -80,23 +83,39 @@ def serve_on_mesh(model: Transformer, mesh_shape: tuple[int, int], *,
     installed (:func:`repro_torch.models.sharding.decode_mesh_rules`: KV
     heads the model axis does not divide put the cache's sequence on
     "model"; ``shard_seq``, a long context of one row, puts it on "data",
-    or on both axes, and splits no rows), with the placement of the
-    model's params under them. Yields the mesh. Inside, the serving entry
-    points take each rank's slices of the params
-    (:func:`repro_torch.models.sharding.local_params`); a rank outside the
-    mesh (``mesh.get_coordinate() is None``) serves nothing. A cache split
-    on both its sequence and its heads (``shard_seq`` with the KV heads on
-    a model axis and a data axis over 1) raises ``NotImplementedError``."""
+    or on both axes, and splits no rows; a cache whose heads the model
+    axis divides then splits on both its sequence and its heads), with the
+    placement of the model's params under them. ``fsdp_over_data`` also
+    splits each rank's model slice of the weights over "data"
+    (:func:`repro_torch.models.sharding.data_split_dims`, JAX's
+    ``serve_rules(fsdp_over_data=True)``), gathered over the data group
+    before each layer: ``None`` decides as the JAX dry run does
+    (:func:`repro_torch.models.sharding.needs_param_sharding` against the
+    rank's device memory, ``REPRO_DEVICE_MEM_BYTES`` or the card's:
+    :func:`repro_torch.mesh.placement.device_memory_budget`), ``True`` /
+    ``False`` force it; at ``dd == 1`` there is nothing to split. Yields
+    the mesh. Inside, the serving entry points take each rank's slices of
+    the params (:func:`repro_torch.models.sharding.local_params`); a rank
+    outside the mesh (``mesh.get_coordinate() is None``) serves
+    nothing."""
+    from repro_torch.mesh.placement import device_memory_budget
     dd, dm = (int(n) for n in mesh_shape)
     model.check_model_axis(dm)
     mesh = make_serving_mesh(make_mesh_2d((dd, dm)))
     rules = sharding.decode_mesh_rules(model.cfg.n_kv_heads, (dd, dm),
                                        shard_seq)
-    placement = sharding.param_split_dims(model.init(device="meta"), dm,
-                                          rules)
-    with sharding.axis_rules(mesh, rules, placement=placement):
-        sharding.cache_split_dims(model.cache_axes())   # refuses, and
-        yield mesh                    # builds the sequence group on all
+    meta = model.init(device="meta")
+    placement = sharding.param_split_dims(meta, dm, rules)
+    if fsdp_over_data is None:
+        fsdp_over_data = sharding.needs_param_sharding(
+            sum(x.numel() for x in tree_leaves(meta)), dm,
+            device_memory_budget())
+    data = (sharding.data_split_dims(meta, (dd, dm), rules)
+            if fsdp_over_data and dd > 1 else None)
+    with sharding.axis_rules(mesh, rules, placement=placement,
+                             data_placement=data):
+        sharding.cache_split_dims(model.cache_axes())   # builds the
+        yield mesh                    # sequence group on every rank
 
 
 def _data_rows():

@@ -34,16 +34,22 @@ not zero, as :meth:`repro_torch.core.fl_shard_map.ClientGroup
 .all_gather_rows` does. It is differentiable too (a weight split on one
 dim and used whole, e.g. zamba2's LoRA factors and Mamba2's conv): its
 backward is the rank's slice of the gradient summed over the group.
+:meth:`ModelGroup.gather_all` gathers many tensors in one such
+all-reduce (a serving layer's weights over the data group).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 # collectives over the model group since the last reset: the
 # all-reduces of the local steps (forward, backward and the clip norm) and
-# the gathers that make a round's outputs whole
+# the gathers that make a round's outputs whole (and, serving, the data
+# group's gathers of a layer's weights)
 counts = {"all_reduce": 0, "gather": 0}
+_ALIGN = 16          # bytes: each tensor's place in a gather_all buffer
 
 
 def _reduce(x, group, op=dist.ReduceOp.SUM):
@@ -219,6 +225,31 @@ class ModelGroup:
     def all_sum(self, x):
         """``x`` summed over the group (a new tensor; no autograd)."""
         return _reduce(x, self.group)
+
+    def gather_all(self, parts, dims):
+        """Each of ``parts`` with the ranks' slices concatenated along its
+        dim in ``dims``, as :meth:`gather` gives it, all in one byte-sum
+        all-reduce of one zero-padded buffer (no autograd). The results
+        are views of that buffer, each segment 16-byte aligned."""
+        shapes, offsets, total = [], [], 0
+        for x, d in zip(parts, dims):
+            shape = list(x.shape)
+            shape[d] *= self.size
+            shapes.append(shape)
+            offsets.append(total)
+            n = x.element_size() * math.prod(shape)
+            total += -(-n // _ALIGN) * _ALIGN
+        buf = torch.zeros(total, dtype=torch.uint8, device=parts[0].device)
+        outs = []
+        for x, d, shape, at in zip(parts, dims, shapes, offsets):
+            n = x.element_size() * math.prod(shape)
+            whole = buf[at:at + n].view(x.dtype).view(shape)
+            per = x.shape[d]
+            whole.narrow(d, self.index * per, per).copy_(x)
+            outs.append(whole)
+        dist.all_reduce(buf, group=self.group)
+        counts["gather"] += 1
+        return outs
 
     def gather(self, x, dim: int):
         """The ranks' slices of ``x`` concatenated along ``dim`` in rank

@@ -43,7 +43,11 @@ sequence over a group of ranks instead (``cache_seq``; also the data
 axis for a long context): each rank holds a contiguous block of the
 cache's slots (:func:`seq_block`), the owner of a new token's slot writes
 it, and every rank attends over its own slots and combines the partial
-softmaxes with the others' (:func:`_sdpa_over_group`).
+softmaxes with the others' (:func:`_sdpa_over_group`). A cache split on
+both its sequence (over "data", a long context's ``shard_seq``) and its
+KV heads (over "model") holds the rank's heads of its block of slots: the
+block's offset is the data rank's, and the combine runs over the data
+group alone, each rank's query heads already reading its KV heads.
 
 Shapes: x (B, S, d); q (B, S, H, hd); k / v (B, S, KV, hd).
 """

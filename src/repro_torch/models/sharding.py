@@ -38,13 +38,23 @@ would split Mamba2's ``w_in`` on its output columns (z, x, B, C and dt
 side by side, not lined up with the heads), RWKV6's projections and an
 untied head on their columns and leave zamba2's LoRA factors whole. The
 values served are the same; only where a weight's slices sit differs.
+Weights over "data" too (``serve_rules(fsdp_over_data=True)``, chosen by
+:func:`needs_param_sharding`): each rank keeps a block of its model slice
+along a second dim (:func:`data_split_dims`: where JAX's rules put
+"data", or, where the port's model split took that dim, the other dim
+the hint names), installed beside the model placement
+(:func:`axis_rules`' ``data_placement``); the model gathers a layer's
+blocks over the data group before the layer runs (:func:`gather_data`),
+so each body sees the model slice it sees without them.
 The rows (``batch``) go on "data" and the decode caches' heads on
 "model", as ``serve_rules`` put them, unless the decode rules
 (:func:`decode_mesh_rules`, the JAX dry run's ``lower_decode`` line for
 line) move a KV cache's sequence onto a group of ranks (``cache_seq``):
 onto "model" where the model axis does not divide the KV heads (MQA),
-onto "data" (or both axes) for a long context (``shard_seq``).
-:func:`cache_split_dims` finds each cache leaf's split dim from the
+onto "data" (or both axes) for a long context (``shard_seq``), where a
+KV cache whose heads the model axis divides splits on both its sequence
+("data") and its heads ("model").
+:func:`cache_split_dims` finds each cache leaf's split dims from the
 model's ``cache_axes`` table. A hint's ``batch`` dim is always the rank's
 own rows (the drivers hand each rank its rows: the engines their client
 blocks, the serving mesh each data row of ranks its prompts), so no hint
@@ -85,28 +95,36 @@ def _current():
 
 
 @contextlib.contextmanager
-def axis_rules(mesh, rules: dict[str, Any], placement=None):
+def axis_rules(mesh, rules: dict[str, Any], placement=None,
+               data_placement=None):
     """Install mesh + logical->mesh rules for model code in this thread.
     ``mesh`` is a ``DeviceMesh`` with named dims, or any object whose
     ``shape`` maps axis names to sizes. ``placement`` is the split-dim tree
     of the params the code runs on (:func:`param_split_dims`), which the
-    clip of Eq. 7a reads (:func:`model_placement`)."""
-    prev = _current(), getattr(_state, "placement", None)
+    clip of Eq. 7a reads (:func:`model_placement`); ``data_placement``
+    the tree of the dims their model slices split over "data"
+    (:func:`data_split_dims`, serving weights over "data"), which the
+    model gathers before each layer (:func:`gather_data`)."""
+    prev = (_current(), getattr(_state, "placement", None),
+            getattr(_state, "data_placement", None))
     _state.ctx = (mesh, dict(rules))
     _state.placement = placement
+    _state.data_placement = data_placement
     try:
         yield
     finally:
-        _state.ctx, _state.placement = prev
+        _state.ctx, _state.placement, _state.data_placement = prev
 
 
 def current_context():
-    """``(mesh, rules, placement)`` of the active rules context, or
-    ``None``: what a caller re-enters with ``axis_rules(*ctx)`` (the
-    serving engine keeps the context it was built under)."""
+    """``(mesh, rules, placement, data_placement)`` of the active rules
+    context, or ``None``: what a caller re-enters with
+    ``axis_rules(*ctx)`` (the serving engine keeps the context it was
+    built under)."""
     ctx = _current()
-    return None if ctx is None else (*ctx, getattr(_state, "placement",
-                                                   None))
+    return None if ctx is None else (
+        *ctx, getattr(_state, "placement", None),
+        getattr(_state, "data_placement", None))
 
 
 DATA_AXIS = "data"
@@ -123,6 +141,12 @@ def data_axis_size() -> int:
 def model_placement():
     """The split-dim tree installed with the active rules, or ``None``."""
     return getattr(_state, "placement", None) if _current() else None
+
+
+def data_placement():
+    """The data-split-dim tree installed with the active rules
+    (:func:`data_split_dims`), or ``None``: weights whole over "data"."""
+    return getattr(_state, "data_placement", None) if _current() else None
 
 
 def train_rules() -> dict[str, Any]:
@@ -159,10 +183,9 @@ def serve_mesh_rules(shard_seq: bool = False) -> dict[str, Any]:
     model axis, the first named dim wins), the rows on "data", the caches'
     heads on "model" (``kv_tp``) and, under ``shard_seq``, the sequence on
     "data" (``seq``, ``cache_seq``), as :func:`serve_rules` put them.
-    Weights over "data" (``serve_rules(fsdp_over_data=True)``) are refused
-    where a hint would split a weight over that axis (:func:`_split_of`,
-    item 12d); a cache's sequence may split over "data"
-    (:func:`cache_split_dims`). :func:`decode_mesh_rules` adapts these to
+    Weights over "data" too are a second placement beside these rules
+    (:func:`data_split_dims`), gathered before each layer: the rules the
+    layer bodies see stay these. :func:`decode_mesh_rules` adapts them to
     an arch's KV heads."""
     return {"client": None, "fsdp": "model", "tp": "model", "wg": None,
             "act": None, "batch": "data",
@@ -171,17 +194,20 @@ def serve_mesh_rules(shard_seq: bool = False) -> dict[str, Any]:
 
 
 def decode_mesh_rules(n_kv_heads: int, mesh_shape: tuple[int, int],
-                      shard_seq: bool = False) -> dict[str, Any]:
+                      shard_seq: bool = False,
+                      base: dict[str, Any] | None = None) -> dict[str, Any]:
     """The serving mesh's decode rules for an arch of ``n_kv_heads`` KV
     heads on the ``(dd, dm)`` serving mesh, as the JAX dry run's
     ``lower_decode`` builds them (``src/repro/launch/dryrun.py:216-228``)
-    from :func:`serve_mesh_rules`: the KV heads on "model" where the model
+    from ``base`` (default :func:`serve_mesh_rules`; the dry run passes
+    JAX's :func:`serve_rules`): the KV heads on "model" where the model
     axis divides them, else the cache's sequence on "model"; under
     ``shard_seq`` (a batch of one long context) no row split, and the
     cache's sequence on "data", or on ``("data", "model")`` where the
     model axis does not divide the KV heads."""
     _, dm = (int(n) for n in mesh_shape)
-    rules = serve_mesh_rules(shard_seq=shard_seq)
+    rules = dict(serve_mesh_rules(shard_seq=shard_seq) if base is None
+                 else base)
     kv_divides = n_kv_heads % dm == 0
     if shard_seq:
         rules["batch"] = None
@@ -255,18 +281,21 @@ def _model_size(mesh) -> int:
 def _split_of(spec: PartitionSpec, mesh, axes=(MODEL_AXIS,)) -> int:
     """The dim of ``spec`` that one of ``axes`` splits (-1: none): the
     model axis for a weight or an activation, also "data" for a cache's
-    sequence (:func:`cache_split_dims`). Any other axis over 1 is not
-    split by hand: it raises."""
+    sequence (:func:`cache_split_dims`). A weight's "data" is its second
+    placement (:func:`data_split_dims`), gathered before the layer runs,
+    so it is passed over here. Any other axis over 1 (a federated mesh's
+    "replica") is not split by hand: it raises ``NotImplementedError``."""
     dim = -1
     for i, axis in enumerate(spec):
         for a in (() if axis is None else _atomic_axes(axis)):
             if a in axes:
                 dim = i
-            elif _axis_size(mesh, a) > 1:
-                from repro_torch.api.spec import _not_ported
-                raise _not_ported(f"splitting a tensor over the mesh axis "
-                                  f"{a!r} inside a client replica",
-                                  "item 12d")
+            elif a != DATA_AXIS and _axis_size(mesh, a) > 1:
+                raise NotImplementedError(
+                    f"splitting a tensor over the mesh axis {a!r} inside a "
+                    f"client replica: the port splits a replica by hand "
+                    f"over {MODEL_AXIS!r} (and serving weights over "
+                    f"{DATA_AXIS!r}) only")
     return dim
 
 
@@ -304,6 +333,24 @@ def model_group():
     if cached is None or cached[0] is not mesh:
         from repro_torch.mesh.collectives import ModelGroup
         cached = _state.group = (mesh, ModelGroup(mesh, MODEL_AXIS))
+    return cached[1]
+
+
+def data_group():
+    """The :class:`repro_torch.mesh.collectives.ModelGroup` over the active
+    mesh's "data" axis where serving weights split over it (a data
+    placement installed, :func:`data_placement`, and a data axis over 1),
+    else ``None``: the group :func:`gather_data` gathers a layer's weights
+    over."""
+    ctx = _current()
+    if (ctx is None or data_placement() is None
+            or _axis_size_or_one(ctx[0], DATA_AXIS) == 1):
+        return None
+    mesh = ctx[0]
+    cached = getattr(_state, "data_group", None)
+    if cached is None or cached[0] is not mesh:
+        from repro_torch.mesh.collectives import ModelGroup
+        cached = _state.data_group = (mesh, ModelGroup(mesh, DATA_AXIS))
     return cached[1]
 
 
@@ -590,14 +637,95 @@ def param_split_dims(params, dm: int, rules: dict | None = None):
 
 def local_params(params):
     """This rank's slices of the whole ``params`` under the active rules
-    context (:func:`param_split_dims` under the context's rules, then
-    :func:`to_local` at the rank's model coordinate); ``params`` as they
-    are without a model axis over 1."""
+    context: :func:`param_split_dims` under the context's rules cut at the
+    rank's model coordinate (:func:`to_local`), then, where weights split
+    over "data" too (:func:`data_placement`), the installed data dims cut
+    at its data coordinate; ``params`` as they are without either."""
     grp = model_group()
+    if grp is not None:
+        dims = param_split_dims(params, grp.size, _current()[1])
+        params = to_local(params, dims, grp.index, grp.size)
+    dgrp = data_group()
+    if dgrp is not None:
+        params = to_local(params, data_placement(), dgrp.index, dgrp.size)
+    return params
+
+
+def needs_param_sharding(n_params: int, dm: int,
+                         device_mem_bytes: int) -> bool:
+    """Whether serving splits the weights over "data" too: a pure
+    tensor-parallel placement's bf16 bytes a rank (``2 n / dm``) over 60%
+    of a device's memory, the JAX dry run's ``_needs_param_sharding``
+    (``src/repro/launch/dryrun.py:251-256``) with the device's memory as
+    an argument."""
+    return n_params * 2 / int(dm) > 0.6 * device_mem_bytes
+
+
+# the names a weight's hint gives the dims a split may take: the data split
+# falls on one of these where the port's model split took JAX's data dim
+_WEIGHT_AXES = ("fsdp", "wg", "tp")
+
+
+def data_split_dims(params, mesh_shape: tuple[int, int],
+                    rules: dict | None = None):
+    """Each leaf's data split dim (-1: whole over "data") in a tree like
+    ``params`` (one replica's whole params, torch or numpy) when serving
+    splits weights over "data" on the ``(dd, dm)`` serving mesh: the dim
+    JAX's ``serve_rules(fsdp_over_data=True)`` puts "data" on
+    (:func:`resolve_spec` on the whole shape, so dropped where ``dd`` does
+    not divide it), or, where the port's model split
+    (:func:`param_split_dims` under ``rules``, default
+    :func:`serve_mesh_rules`) took that dim (Mamba2's ``w_in``, RWKV6's
+    projections, an untied head), the first other dim the leaf's hint
+    names "fsdp", "wg" or "tp" that ``dd`` divides, else none (a hint
+    naming one dim: RWKV6's ``decay_a``, zamba2's ``lora_q_a`` /
+    ``lora_o_b``). So a rank holds a ``1 / dd`` block of its model slice
+    along a dim the model split leaves whole. Every leaf is -1 at ``dd ==
+    1``."""
+    import types
+    dd, dm = (int(n) for n in mesh_shape)
+    model = param_split_dims(params, dm,
+                             serve_mesh_rules() if rules is None else rules)
+    mesh = types.SimpleNamespace(shape={DATA_AXIS: dd, MODEL_AXIS: dm})
+
+    def one(logical, pair):
+        leaf, md = pair
+        if dd == 1:
+            return -1
+        spec = resolve_spec(logical, tuple(leaf.shape))
+        d = next((i for i, a in enumerate(spec) if a is not None
+                  and DATA_AXIS in _atomic_axes(a)), -1)
+        if d < 0 or d != md:
+            return d
+        return next((i for i, a in enumerate(logical)
+                     if i != md and a in _WEIGHT_AXES
+                     and leaf.shape[i] % dd == 0), -1)
+
+    with axis_rules(mesh, serve_rules(fsdp_over_data=True)):
+        return _map_logical(one, param_logical_axes(params),
+                            _zip_dims(lambda x, d: (x, d), params, model))
+
+
+def gather_data(tree, dims):
+    """``tree`` (the rank's slices of some weights) with each leaf that
+    ``dims`` (a tree like it, from :func:`data_split_dims`, each dim
+    counted on the leaf as it is in ``tree``) splits over "data"
+    gathered over the data group (:func:`data_group`) into the
+    model slice the layer bodies run on, in one byte-sum all-reduce for
+    the whole tree (:meth:`repro_torch.mesh.collectives.ModelGroup
+    .gather_all`); ``tree`` itself without a data group. The gathered
+    leaves are views of one buffer, freed with the returned tree."""
+    grp = data_group()
     if grp is None:
-        return params
-    dims = param_split_dims(params, grp.size, _current()[1])
-    return to_local(params, dims, grp.index, grp.size)
+        return tree
+    parts = []
+    _zip_dims(lambda x, d: parts.append((x, d)) if d >= 0 else None, tree,
+              dims)
+    if not parts:
+        return tree
+    whole = iter(grp.gather_all([x for x, _ in parts],
+                                [d for _, d in parts]))
+    return _zip_dims(lambda x, d: next(whole) if d >= 0 else x, tree, dims)
 
 
 def cache_split_dims(cache_axes, caches=None):
@@ -610,8 +738,10 @@ def cache_split_dims(cache_axes, caches=None):
     "data" or both) for a KV cache's ``cache_seq``; every leaf whole
     without one. Given ``caches`` (a tree like it of the whole leaves, or
     their meta stand-ins), a sequence the group does not divide stays
-    whole, as ``resolve_spec`` drops the axis. A cache split on both its
-    sequence and its heads raises ``NotImplementedError``. The rows
+    whole, as ``resolve_spec`` drops the axis. A KV cache split on both its
+    sequence (over "data") and its heads (over "model": ``shard_seq``
+    with KV heads the model axis divides) gets the pair ``(sequence dim,
+    heads dim)`` (:func:`split_dims` reads either form). The rows
     ("batch" on "data") are the rank's own and are not counted here."""
     ctx = _current()
     if ctx is None:
@@ -630,14 +760,18 @@ def cache_split_dims(cache_axes, caches=None):
                 mesh, (MODEL_AXIS, DATA_AXIS))
         heads = _first_dim_named(logical, names)
         if seq >= 0 and heads >= 0:
-            from repro_torch.api.spec import _not_ported
-            raise _not_ported(
-                f"a cache hinted {logical} split on both its sequence and "
-                f"its heads (shard_seq with the KV heads on a model axis "
-                f"over 1)", "item 12d")
+            return seq, heads
         return max(seq, heads)
 
     return _map_logical(one, cache_axes, caches)
+
+
+def split_dims(d) -> tuple[int, ...]:
+    """The split dims of one leaf of :func:`cache_split_dims`: ``()`` for
+    -1, ``(d,)`` for one dim, the pair as it is."""
+    if isinstance(d, tuple):
+        return d
+    return () if d < 0 else (d,)
 
 
 def cache_group(logical, dim: int):
@@ -652,14 +786,16 @@ def cache_group(logical, dim: int):
 def caches_to_whole(caches, cache_axes, dims):
     """The rank's caches made whole on every rank: each leaf split along
     ``dims`` (:func:`cache_split_dims`) gathered over its group
-    (:func:`cache_group`)."""
+    (:func:`cache_group`), over each group in turn where two split it."""
     def walk(tree, axes, d):
         if isinstance(tree, dict):
             return {k: walk(v, axes[k], d[k]) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v, a, x) for v, a, x in
                               zip(tree, axes, d))
-        return tree if d < 0 else cache_group(axes, d).gather(tree, d)
+        for dim in split_dims(d):
+            tree = cache_group(axes, dim).gather(tree, dim)
+        return tree
 
     return walk(caches, cache_axes, dims)
 
@@ -769,6 +905,24 @@ def _map_logical(fn, tree, shapes, named: bool = False, name=None):
                for i, v in enumerate(tree)]
         return type(tree)(out) if isinstance(tree, list) else tuple(out)
     raise TypeError(f"not a logical-axis tree: {tree!r}")
+
+
+def shard_bytes(logical_tree, tree) -> int:
+    """The bytes one rank holds of ``tree`` (tensors, or meta stand-ins)
+    under the active rules: each leaf's bytes over the sizes of the mesh
+    axes its logical axes (a tree like ``tree``) resolve to on its whole
+    shape (:func:`resolve_spec`, so each split divides). What JAX's
+    ``NamedSharding`` of the same specs puts on a device."""
+    mesh = _current()[0]
+
+    def one(logical, x):
+        n = x.numel() * x.element_size()
+        for axis in resolve_spec(logical, tuple(x.shape)):
+            n //= _mesh_axis_size(mesh, axis)
+        return n
+
+    from repro_torch.utils.tree import tree_leaves
+    return sum(tree_leaves(_map_logical(one, logical_tree, tree)))
 
 
 def spec_tree(logical_tree, shape_tree=None):

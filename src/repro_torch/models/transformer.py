@@ -54,7 +54,15 @@ heads the model axis does not divide, or a long context's
 ``shard_seq``), ``init_cache`` holds the rank's block of its slots
 instead, prefill fills that block and decode combines the ranks'
 partial softmaxes (``attention.seq_block``); the engine's natural-layout
-prefill caches and paged pools stay whole on every rank.
+prefill caches and paged pools stay whole on every rank. A KV cache split
+on both its sequence ("data") and its heads ("model", ``shard_seq`` with
+KV heads the model axis divides) holds the rank's heads of its block.
+Where serving splits the weights over "data" too (``serve_on_mesh``'s
+``fsdp_over_data``), the serving route gathers each layer's weights (with
+zamba2's shared block where the layer runs it) over the data group just
+before the layer and drops them after it, and the embedding or the head
+at each use (:meth:`_layer_weights`, :meth:`_embed_weights`): each body
+runs on the model slice it runs on without that split.
 :meth:`check_model_axis` refuses a model axis the arch cannot take. The
 weights' logical-axes trees live in :mod:`repro_torch.models.sharding`
 (``param_logical_axes``); ``param_axes`` is not ported.
@@ -88,8 +96,11 @@ from repro_torch.models.sharding import (
     SHARED_LORA_AXES,
     cache_group,
     cache_split_dims,
+    data_placement,
+    gather_data,
     hinted_group,
     seq_group,
+    split_dims,
     split_sizes,
 )
 from repro_torch.utils.device import resolve_device
@@ -333,9 +344,45 @@ class Transformer:
     # full forward (prefill logits) and the training loss
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _embed_weights(params, head: bool = False):
+        """``params["embed"]`` with the leaf a use reads (the embedding; for
+        the LM head an untied ``head``, else the tied embedding) gathered
+        over the data group where serving splits the weights over "data"
+        (:func:`repro_torch.models.sharding.gather_data`); as it is
+        otherwise."""
+        dims = data_placement()
+        emb = params["embed"]
+        if dims is None:
+            return emb
+        leaf = "head" if head and "head" in emb else "embedding"
+        return {**emb, leaf: gather_data(emb[leaf], dims["embed"][leaf])}
+
+    def _layer_weights(self, spec: LayerSpec, seg: int, j: int, lparams,
+                       shared):
+        """The weights the layer at pattern position ``j`` of segment
+        ``seg`` runs on (``lparams``, one step's views) and the shared
+        block's: where serving splits the weights over "data"
+        (:func:`repro_torch.models.sharding.data_placement`), the layer's
+        leaves, with the shared block's where the layer runs it, gathered
+        over the data group in one collective (:func:`repro_torch.models
+        .sharding.gather_data`) and freed when the caller drops them after
+        the layer; as they are otherwise."""
+        dims = data_placement()
+        if dims is None:
+            return lparams, shared
+        tree = {"layer": lparams}
+        stepped = tree_map(lambda d: d - 1 if d >= 0 else d,
+                           dims["segments"][seg][str(j)])
+        tdims = {"layer": stepped}
+        if spec.mixer == "shared_attn" or spec.ffn == "shared_mlp":
+            tree["shared"], tdims["shared"] = shared, dims["shared"]
+        out = gather_data(tree, tdims)
+        return out["layer"], out.get("shared", shared)
+
     def _embed_scaled(self, params, tokens):
         cfg = self.cfg
-        x = embed(params["embed"], tokens, cfg.embed_impl)
+        x = embed(self._embed_weights(params), tokens, cfg.embed_impl)
         if cfg.embed_scale:
             # the JAX package multiplies by a weakly typed Python float,
             # i.e. by sqrt(d) rounded to the activations' dtype
@@ -354,7 +401,7 @@ class Transformer:
         audio) and stripped from logits. ``aux`` is the MoE aux loss summed
         over layers (0 without MoE)."""
         x, aux = self._hidden_states(params, tokens, prefix, train=False)
-        return unembed(params["embed"], x), aux
+        return unembed(self._embed_weights(params, head=True), x), aux
 
     def loss_fn(self, params, batch):
         """batch: {"tokens": (B,S), "labels": (B,S), ["prefix": (B,P,d)]}.
@@ -393,12 +440,15 @@ class Transformer:
         positions = torch.arange(x.shape[1], device=x.device)
         shared = params.get("shared")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for seg_params, seg in zip(params["segments"], cfg.segments):
+        for s, (seg_params, seg) in enumerate(zip(params["segments"],
+                                                  cfg.segments)):
             for i in range(seg.n_steps):
                 p_step = _step(seg_params, i)
                 for j, ls in enumerate(seg.pattern):
-                    x, a = self._apply_layer(ls, p_step[str(j)], shared, x,
-                                             positions, train)
+                    lp, sh = self._layer_weights(ls, s, j, p_step[str(j)],
+                                                 shared)
+                    x, a = self._apply_layer(ls, lp, sh, x, positions, train)
+                    del lp, sh
                     if torch.is_tensor(a):
                         aux = aux + a
         x = rmsnorm(params["final_norm"], x)
@@ -525,8 +575,8 @@ class Transformer:
             if isinstance(x, list):
                 return [alloc(*t) for t in zip(x, logical, d)]
             shape = list(x.shape)
-            if d >= 0:
-                shape[d] //= cache_group(logical, d).size
+            for dim in split_dims(d):
+                shape[dim] //= cache_group(logical, dim).size
             return torch.zeros(shape, dtype=x.dtype, device=device)
 
         return alloc(whole, axes, dims)
@@ -656,17 +706,19 @@ class Transformer:
         indexes = {}
         x = self._embed_scaled(params, tokens[:, None])
         shared = params.get("shared")
-        for seg_params, seg_cache, seg in zip(params["segments"], caches,
-                                              cfg.segments):
+        for s, (seg_params, seg_cache, seg) in enumerate(zip(
+                params["segments"], caches, cfg.segments)):
             for i in range(seg.n_steps):
                 p_step, c_step = _step(seg_params, i), _step(seg_cache, i)
                 for j, ls in enumerate(seg.pattern):
+                    lp, sh = self._layer_weights(ls, s, j, p_step[str(j)],
+                                                 shared)
                     x, new_c = self._decode_layer(
-                        ls, p_step[str(j)], shared, c_step[str(j)], x, pos,
-                        table, indexes)
+                        ls, lp, sh, c_step[str(j)], x, pos, table, indexes)
+                    del lp, sh
                     _write(c_step[str(j)], new_c)
         x = rmsnorm(params["final_norm"], x)
-        logits = unembed(params["embed"], x)[:, 0]
+        logits = unembed(self._embed_weights(params, head=True), x)[:, 0]
         return logits, caches
 
     def _prefill_states(self, params, tokens, prefix, max_len,
@@ -680,14 +732,16 @@ class Transformer:
         positions = torch.arange(s_total, device=x.device)
         shared = params.get("shared")
         caches = self.init_cache(b, max_len, x.device, natural)
-        for seg_params, seg_cache, seg in zip(params["segments"], caches,
-                                              cfg.segments):
+        for s, (seg_params, seg_cache, seg) in enumerate(zip(
+                params["segments"], caches, cfg.segments)):
             for i in range(seg.n_steps):
                 p_step, c_step = _step(seg_params, i), _step(seg_cache, i)
                 for j, ls in enumerate(seg.pattern):
+                    lp, sh = self._layer_weights(ls, s, j, p_step[str(j)],
+                                                 shared)
                     x, new_c = self._prefill_layer(
-                        ls, p_step[str(j)], shared, c_step[str(j)], x,
-                        positions, natural)
+                        ls, lp, sh, c_step[str(j)], x, positions, natural)
+                    del lp, sh
                     _write(c_step[str(j)], new_c)
         x = rmsnorm(params["final_norm"], x)
         return x, caches, s_total
@@ -702,7 +756,8 @@ class Transformer:
         no prefill there)."""
         x, caches, s_total = self._prefill_states(params, tokens, prefix,
                                                   max_len)
-        logits = unembed(params["embed"], x[:, -1:])[:, 0]
+        logits = unembed(self._embed_weights(params, head=True),
+                         x[:, -1:])[:, 0]
         return logits, caches, s_total
 
     def prefill_at(self, params, tokens, lengths, prefix=None,
@@ -726,7 +781,7 @@ class Transformer:
         b = x.shape[0]
         idx = p_len + lengths - 1
         xg = x[torch.arange(b, device=x.device), idx][:, None]
-        logits = unembed(params["embed"], xg)[:, 0]
+        logits = unembed(self._embed_weights(params, head=True), xg)[:, 0]
         return logits, caches, (p_len + lengths).to(torch.int32)
 
     def insert_prefill(self, paged, pre, table_rows, slots):

@@ -207,6 +207,13 @@ class SlotEngine:
         self.swaps = 0
         self._occupancy_sum = 0
 
+    @property
+    def rules_context(self):
+        """The rules context the engine was built under (a serving mesh's,
+        :func:`repro_torch.models.sharding.current_context`), or ``None``:
+        what the scheduler's clock agrees over."""
+        return self._ctx
+
     def _on_mesh(self):
         """The rules context the engine was built under (a serving mesh),
         re-entered around every model call; nothing without one."""

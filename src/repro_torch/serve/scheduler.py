@@ -24,6 +24,15 @@ the convoy + same-length grouping cost under mixed-length load.
 
 Where the JAX package blocks on the device with ``jax.block_until_ready``,
 the port calls ``torch.cuda.synchronize`` when the engine runs on a GPU.
+
+On a serving mesh (:func:`repro_torch.launch.serve.serve_on_mesh`) every
+rank runs the same loop, and each loop turn's collectives must be the
+same on every rank: both drivers charge every rank the same work time, the
+largest of the ranks' measured times (one all-reduce of one float over
+the mesh per unit of work, :func:`_mesh_seconds`), so the ranks' clocks,
+and the admissions, decode steps and swaps they decide, stay alike
+whatever each rank's wall clock reads. The JAX package's engine runs on
+one device and needs no such step.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.serve.requests import Request
 from repro_torch.utils.tree import tree_leaves
 
@@ -119,6 +129,26 @@ class ServeReport:
         }
 
 
+def _mesh_seconds(ctx, wall_s: float) -> float:
+    """``wall_s``, one rank's measured seconds of a unit of work, as every
+    rank of the serving mesh of the rules context ``ctx``
+    (:func:`repro_torch.models.sharding.current_context`) charges it: the
+    largest over the mesh's ranks, by one all-reduce (max) of one float
+    over each mesh axis of more than one rank. ``wall_s`` as it is outside
+    a mesh (no context, or a mesh of one rank)."""
+    mesh = None if ctx is None else ctx[0]
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names or mesh.get_coordinate() is None:
+        return wall_s
+    import torch.distributed as dist
+    t = torch.tensor([wall_s], dtype=torch.float64)
+    for i, name in enumerate(names):
+        if mesh.shape[i] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(name))
+    return float(t[0])
+
+
 def _take_group(ready: deque, engine) -> list[Request]:
     """Head-of-line prefill group: the head request's bucket, plus every
     other ready request sharing it, up to free slots / prefill batch."""
@@ -144,8 +174,11 @@ def serve_continuous(engine, workload: list[Request],
     request completes. Admission has priority over decode (a free slot
     never idles while a bucketed group is ready). ``swap_at`` hot-swaps
     ``swap_params`` in at the first loop boundary past that simulated
-    time — in-flight slots keep running."""
+    time — in-flight slots keep running. On a serving mesh (the engine's
+    rules context) every rank charges the work times of
+    :func:`_mesh_seconds`."""
     clock = clock or WallClock()
+    ctx = getattr(engine, "rules_context", None)
     for r in workload:
         if r.prompt_len + r.max_gen > engine.max_len:
             raise ValueError(f"request {r.rid} needs {r.prompt_len}+"
@@ -172,12 +205,14 @@ def serve_continuous(engine, workload: list[Request],
             t0 = time.perf_counter()
             engine.admit(group)
             engine._sync()
-            clock.work("prefill", time.perf_counter() - t0,
+            clock.work("prefill", _mesh_seconds(ctx, time.perf_counter()
+                                                - t0),
                        amount=bucket * len(group))
         elif engine.n_active:
             t0 = time.perf_counter()
             emitted, finished = engine.step()
-            clock.work("decode", time.perf_counter() - t0)
+            clock.work("decode", _mesh_seconds(ctx,
+                                               time.perf_counter() - t0))
             for r in emitted:
                 r.emit_times.append(clock.now)
             for r in finished:
@@ -205,10 +240,12 @@ def serve_static(model, params, workload: list[Request],
     Runs on ``params``' device with the model's ``prefill`` /
     ``decode_step`` and ``launch.serve.generate``'s sampler (a
     ``torch.multinomial`` draw from a generator seeded with ``seed``), so
-    greedy tokens are the engine's."""
+    greedy tokens are the engine's. Inside a serving mesh's rules context
+    every rank charges the work times of :func:`_mesh_seconds`."""
     from repro_torch.launch.serve import _sample
 
     clock = clock or WallClock()
+    ctx = sharding.current_context()
     pending = deque(sorted(workload, key=lambda r: (r.arrival, r.rid)))
     report = ServeReport()
     t_start = clock.now
@@ -242,7 +279,7 @@ def serve_static(model, params, workload: list[Request],
                 params, torch.as_tensor(toks.astype(np.int64),
                                         device=device), max_len=span)
         sync()
-        clock.work("prefill", time.perf_counter() - t0,
+        clock.work("prefill", _mesh_seconds(ctx, time.perf_counter() - t0),
                    amount=head_len * len(group))
         generator = torch.Generator(device=device).manual_seed(seed)
         gen = max(r.max_gen for r in group)  # convoy: all decode to max
@@ -253,7 +290,8 @@ def serve_static(model, params, workload: list[Request],
                 logits, caches = model.decode_step(params, caches, tok,
                                                    pos + i)
             tok_np = tok.cpu().numpy()
-            clock.work("decode", time.perf_counter() - t0)
+            clock.work("decode", _mesh_seconds(ctx,
+                                               time.perf_counter() - t0))
             for j, r in enumerate(group):
                 if len(r.out) < r.max_gen:
                     r.out.append(int(tok_np[j]))

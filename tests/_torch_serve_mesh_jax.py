@@ -110,12 +110,12 @@ def _top2_gap(logits):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(name, s=S):
-    """JAX's greedy tokens (B, GEN), prefill logits and caches, and the
-    logits and caches of GEN decode steps teacher-forced with those
+def jax_reference(name, s=S, batch=B):
+    """JAX's greedy tokens (batch, GEN), prefill logits and caches, and
+    the logits and caches of GEN decode steps teacher-forced with those
     tokens, as numpy (prompts of ``s`` tokens)."""
     jm, jp, model, _ = models(name)
-    pr = prompts(model.cfg.vocab, s=s)
+    pr = prompts(model.cfg.vocab, batch, s=s)
     tokens = np.asarray(jax_generate(jm, jp, jnp.asarray(pr, jnp.int32),
                                      GEN))
     logits, caches, pos = jm.prefill(jp, jnp.asarray(pr, jnp.int32),
@@ -152,7 +152,7 @@ def close_caches(got, want, what):
 
 
 def decode_collectives(cfg, mesh_shape=(1, 2), shard_seq=False,
-                       max_len=S + GEN) -> dict:
+                       max_len=S + GEN, fsdp=False) -> dict:
     """The collectives in one decode step on the serving mesh, from the
     code: on a model axis over 1 the vocabulary-parallel embedding's
     all-reduce and the LM head's gather (an untied head's all-reduce),
@@ -165,7 +165,10 @@ def decode_collectives(cfg, mesh_shape=(1, 2), shard_seq=False,
     model axis does not divide, or ``shard_seq``; a ring the g ranks do
     not divide stays whole) adds two all-reduces (the group's largest
     score, then the sums), and a gather of the query heads where its K/V
-    heads are whole on a model axis over 1."""
+    heads are whole on a model axis over 1. Weights over "data" (``fsdp``
+    on a data axis over 1) add one gather over the data group a layer
+    (its weights, with zamba2's shared block) and one each for the
+    embedding and the LM head."""
     dd, dm = mesh_shape
     kv_divides = cfg.n_kv_heads % dm == 0
     g = (dd if kv_divides else dd * dm) if shard_seq else (
@@ -175,44 +178,49 @@ def decode_collectives(cfg, mesh_shape=(1, 2), shard_seq=False,
     for seg in cfg.segments:
         for ls in seg.pattern:
             n = seg.n_steps
+            tp = dm > 1
             if ls.mixer in ("attn", "shared_attn"):
-                ar += n if dm > 1 else 0
-                ga += 2 * n if ls.mixer == "shared_attn" else 0
+                ar += n if tp else 0
+                ga += 2 * n if ls.mixer == "shared_attn" and tp else 0
                 limit = {"swa": cfg.window, "chunk": cfg.chunk}.get(
                     ls.attn_kind, 0)
                 if g > 1 and (not limit or n_full < limit
                               or limit % g == 0):
                     ar += 2 * n
-                    ga += n if dm > 1 and not kv_divides else 0
+                    ga += n if tp and not kv_divides else 0
             elif ls.mixer == "rwkv6":
-                ar += 3 * n
+                ar += 3 * n if tp else 0
             elif ls.mixer == "mamba2":
-                ar += 3 * n
-                ga += n
+                ar += 3 * n if tp else 0
+                ga += n if tp else 0
             ar += n * {"mlp": 1, "shared_mlp": 1, "rwkv_cm": 2, "none": 0,
                        "moe": 2 if cfg.shared_expert else 1}[ls.ffn] * (
                 dm > 1)
+            ga += n if fsdp and dd > 1 else 0
+    ga += 2 if fsdp and dd > 1 else 0
     return {"all_reduce": ar, "gather": ga}
 
 
-def route_matches(world, name, mesh_shape=(1, 2), shard_seq=False, s=S):
+def route_matches(world, name, mesh_shape=(1, 2), shard_seq=False, s=S,
+                  fsdp=None, batch=B):
     """``name``'s serving route on ``world``'s ranks at ``mesh_shape``
-    (``shard_seq``: a long context's rules; prompts of ``s`` tokens)
-    against JAX and the port's whole route: the prefill's logits and
-    every cache leaf (made whole along its split dim), GEN teacher-forced
-    decode steps' logits and caches, within TOL; the greedy tokens JAX's
-    (where JAX's top-two gap exceeds LOGIT_TOL); the ranks' logits and
-    tokens bit for bit alike; the collectives of a decode step as
+    (``shard_seq``: a long context's rules; ``fsdp``: ``serve_on_mesh``'s
+    ``fsdp_over_data``; ``batch`` prompts of ``s`` tokens) against JAX
+    and the port's whole route: the prefill's logits and every cache leaf
+    (made whole along its split dims), GEN teacher-forced decode steps'
+    logits and caches, within TOL; the greedy tokens JAX's (where JAX's
+    top-two gap exceeds LOGIT_TOL); the ranks' logits and tokens bit for
+    bit alike; the collectives of a decode step as
     :func:`decode_collectives` counts them."""
     _, _, model, params = models(name)
-    want = jax_reference(name, s)
+    want = jax_reference(name, s, batch)
     for i in range(GEN):
         assert _top2_gap(want["decode_logits"][:, i - 1] if i else
                          want["prefill_logits"]) > LOGIT_TOL, (name, i)
-    pr = prompts(model.cfg.vocab, s=s)
+    pr = prompts(model.cfg.vocab, batch, s=s)
     got = world.run(cases.serve_mesh_route, model.cfg,
                     tree_to_numpy(params), pr, want["tokens"], mesh_shape,
-                    shard_seq)
+                    shard_seq, fsdp)
     got = [g for g in got if g is not None]
     assert len(got) == mesh_shape[0] * mesh_shape[1]
     r0 = got[0]
@@ -237,7 +245,7 @@ def route_matches(world, name, mesh_shape=(1, 2), shard_seq=False, s=S):
         [r0["prefill_logits"][:, None], r0["decode_logits"][:, :-1]], 1),
         f"{name} generate")
     assert r0["collectives_per_step"] == decode_collectives(
-        model.cfg, mesh_shape, shard_seq, s + GEN)
+        model.cfg, mesh_shape, shard_seq, s + GEN, bool(fsdp))
     return r0
 
 

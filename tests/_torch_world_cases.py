@@ -463,16 +463,18 @@ def rank_one_fails() -> int:
 # ------------------------------ the serving mesh -----------------------------
 
 @contextlib.contextmanager
-def _serving(cfg, params_np, mesh_shape, shard_seq=False):
+def _serving(cfg, params_np, mesh_shape, shard_seq=False, fsdp=None):
     """On the serving mesh ``mesh_shape`` (``shard_seq``: a long context's
-    rules) for the block: the model and this rank's slices of the whole
-    ``params_np`` (``None`` on a rank outside the mesh)."""
+    rules; ``fsdp``: ``serve_on_mesh``'s ``fsdp_over_data``) for the
+    block: the model and this rank's slices of the whole ``params_np``
+    (``None`` on a rank outside the mesh)."""
     from repro_torch.launch.serve import serve_on_mesh
     from repro_torch.models import sharding
     from repro_torch.models.transformer import Transformer
     from repro_torch.utils.convert import tree_from_numpy
     model = Transformer(cfg)
-    with serve_on_mesh(model, mesh_shape, shard_seq=shard_seq) as mesh:
+    with serve_on_mesh(model, mesh_shape, shard_seq=shard_seq,
+                       fsdp_over_data=fsdp) as mesh:
         local = None
         if mesh.get_coordinate() is not None:
             local = sharding.local_params(tree_from_numpy(params_np, "cpu"))
@@ -487,20 +489,22 @@ def _copied(tree):
 
 
 def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape,
-                     shard_seq=False) -> dict:
+                     shard_seq=False, fsdp=None) -> dict:
     """The static serving route on the serving mesh ``mesh_shape``
-    (``shard_seq``: a long context's rules): the prefill's last logits and
-    its caches (each leaf made whole along its split dim over its group),
-    the logits of ``len(forced[0])`` decode steps teacher-forced with
-    ``forced`` (B, G), the decode caches made whole, and ``generate``'s
-    greedy tokens and logits. Returns numpy (``None`` on a rank outside
-    the mesh)."""
+    (``shard_seq``: a long context's rules; ``fsdp``: weights over "data"
+    too): the prefill's last logits and its caches (each leaf made whole
+    along its split dims over their groups), the logits of
+    ``len(forced[0])`` decode steps teacher-forced with ``forced`` (B, G),
+    the decode caches made whole, and ``generate``'s greedy tokens and
+    logits; the bytes of the rank's params and caches. Returns numpy
+    (``None`` on a rank outside the mesh)."""
     from repro_torch.launch import serve
     from repro_torch.mesh.collectives import counts
     from repro_torch.models import sharding
     from repro_torch.utils.convert import tree_to_numpy
     from repro_torch.utils.tree import tree_flatten
-    with _serving(cfg, params_np, mesh_shape, shard_seq) as (model, local):
+    with _serving(cfg, params_np, mesh_shape, shard_seq, fsdp) as (model,
+                                                                   local):
         if local is None:
             return None
         prompts = torch.as_tensor(prompts)
@@ -510,7 +514,9 @@ def serve_mesh_route(cfg, params_np, prompts, forced, mesh_shape,
         axes, dims = model.cache_axes(), model.cache_dims(b, s + g)
         out = {"cache_bytes": sum(
             x.numel() * x.element_size() for x in tree_flatten(
-                model.init_cache(b, s + g, "meta"))[0])}
+                model.init_cache(b, s + g, "meta"))[0]),
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in tree_flatten(local)[0])}
         with torch.inference_mode():
             logits, caches, pos = model.prefill(local, prompts,
                                                 max_len=s + g)
@@ -692,9 +698,10 @@ def serve_mesh_checkpoint(arch, directory, mesh_shape) -> dict:
 
 def serve_mesh_shard_seq_refusals(cfg, params_np) -> dict:
     """What a long context's serving mesh (``shard_seq``) refuses on this
-    rank of a world of 4: the engine on (2, 1), and a cache split on both
-    its sequence and its heads (``cfg``'s KV heads divide the model axis
-    of (2, 2)). Each as ``(exception type, message)``."""
+    rank of a world of 4, the engine on (2, 1) (as ``(exception type,
+    message)``), and the split dims of the first attention layer's K / V
+    caches on (2, 2), where ``cfg``'s KV heads divide the model axis: the
+    pair (sequence dim, heads dim) each."""
     from repro_torch.launch.serve import serve_on_mesh
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve import SlotEngine
@@ -705,9 +712,120 @@ def serve_mesh_shard_seq_refusals(cfg, params_np) -> dict:
             out["engine"] = None
         except NotImplementedError as e:
             out["engine"] = (type(e).__name__, str(e))
+    model = Transformer(cfg)
+    with serve_on_mesh(model, (2, 2), shard_seq=True):
+        kv = model.cache_dims(1, 64)[0]["0"]["mixer"]
+        out["both"] = [kv["k"], kv["v"]]
+    return out
+
+
+# --------------------------- the serving clock -------------------------------
+
+class _Ticks:
+    """A stand-in for the scheduler's ``time`` module: ``perf_counter``
+    advances by ``dt`` a call, so each unit of work measures ``dt``."""
+
+    def __init__(self, dt: float):
+        self.dt, self.now = dt, 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.dt
+        return self.now
+
+
+class _HostEngine:
+    """The bookkeeping of a continuous-batching engine without a model (no
+    collective of its own): ``admit`` takes free slots, ``step`` emits one
+    token a running request (its rid) and releases those at their budget;
+    ``log`` records every admission and step with the rids it touched."""
+
+    def __init__(self, ctx, n_slots=2, max_len=64):
+        self.rules_context = ctx
+        self.n_slots, self.max_len, self.prefill_batch = n_slots, max_len, 2
+        self.slots, self.steps, self.log = {}, 0, []
+
+    @property
+    def free_slots(self) -> int:
+        return self.n_slots - len(self.slots)
+
+    @property
+    def n_active(self) -> int:
+        return len(self.slots)
+
+    @staticmethod
+    def bucket_len(n: int) -> int:
+        return n
+
+    def admit(self, reqs):
+        for r in reqs:
+            self.slots[min(set(range(self.n_slots)) - set(self.slots))] = r
+        self.log.append(("admit", [r.rid for r in reqs]))
+
+    def _sync(self):
+        pass
+
+    def step(self):
+        self.steps += 1
+        emitted, finished = list(self.slots.values()), []
+        for s, r in list(self.slots.items()):
+            r.out.append(r.rid)
+            if len(r.out) == r.max_gen:
+                finished.append(self.slots.pop(s))
+        self.log.append(("step", [r.rid for r in emitted]))
+        return emitted, finished
+
+    def stats(self) -> dict:
+        return {"steps": self.steps}
+
+
+class _HostModel:
+    """``serve_static``'s model calls without a model: zero logits."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def prefill(self, params, tokens, max_len=None):
+        return (torch.zeros((tokens.shape[0], self.vocab)), None,
+                tokens.shape[1])
+
+    def decode_step(self, params, caches, tok, pos):
+        return torch.zeros((tok.shape[0], self.vocab)), caches
+
+
+def serve_clock_schedules(cfg, dt) -> dict:
+    """``serve_continuous`` (a host-only engine, :class:`_HostEngine`) and
+    ``serve_static`` (:class:`_HostModel`) of one Poisson workload on this
+    rank of the serving mesh (1, 2) under the default wall clock, the
+    scheduler's measured times ``dt[rank]`` a unit of work
+    (:class:`_Ticks`): each driver's admissions and steps in order, and
+    every request's emission times and finish."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import serve_on_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import poisson_workload, scheduler
+    out = {}
+    real = scheduler.time
+    scheduler.time = _Ticks(dt[dist.get_rank()])
     try:
-        with serve_on_mesh(Transformer(cfg), (2, 2), shard_seq=True):
-            out["both"] = None
-    except NotImplementedError as e:
-        out["both"] = (type(e).__name__, str(e))
+        with serve_on_mesh(Transformer(cfg), (1, 2)):
+            for driver in ("continuous", "static"):
+                wl = poisson_workload(8, 4.0, cfg.vocab, seed=1,
+                                      prompt_lens=(4,), gen_lens=(2, 3))
+                if driver == "continuous":
+                    engine = _HostEngine(sharding.current_context())
+                    report = scheduler.serve_continuous(engine, wl)
+                    log = engine.log
+                else:
+                    report = scheduler.serve_static(
+                        _HostModel(cfg.vocab), {"w": torch.zeros(1)}, wl,
+                        batch=2)
+                    log = []
+                out[driver] = {
+                    "log": log, "duration": report.duration_s,
+                    "requests": [(r.rid, list(r.emit_times), r.finished)
+                                 for r in report.requests]}
+    finally:
+        scheduler.time = real
     return out

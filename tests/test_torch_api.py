@@ -72,10 +72,10 @@ def test_spec_validation_matches_jax(bad):
 def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
     """The sharded engines build, in the port as in the JAX package (a
     world of one here), and a model axis over 1 needs more ranks than that.
-    Item 12c is ported: an RWKV model's placement resolves, ``bonus_u`` on
-    its heads. What of the model axis is not ported raises naming its
-    ROADMAP item: a weight split over the serving mesh's data axis (item
-    12d)."""
+    Items 12c and 12d are ported: an RWKV model's placement resolves,
+    ``bonus_u`` on its heads, and a weight split over the serving mesh's
+    data axis too resolves (its hint's model dim is the one the layer
+    body splits), where the port once raised naming item 12d."""
     import types
 
     from repro_torch.configs import get_arch, smoke_variant
@@ -91,10 +91,11 @@ def test_unported_planes_raise_naming_their_roadmap_item(plane, item):
         mixer = dims["segments"][0]["0"]["mixer"]
         assert mixer["bonus_u"] == 1 and mixer["ln_scale"] == -1  # step, heads
         return
-    with pytest.raises(NotImplementedError, match=item):
-        mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
-        with sharding.axis_rules(mesh, sharding.serve_rules(True)):
-            sharding.shard_hint(torch.ones(4, 6), "fsdp", "tp")
+    x = torch.ones(4, 6)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    with sharding.axis_rules(mesh, sharding.serve_rules(True)):
+        assert sharding.shard_hint(x, "fsdp", "tp") is x
+        assert sharding.model_dim("fsdp", "tp") == 1
 
 
 def test_async_spec_is_accepted_and_keyed_like_jax():

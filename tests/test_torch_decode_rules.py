@@ -84,15 +84,26 @@ def test_decode_rules_are_jax_lower_decode(arch, mesh_shape, shape_name,
 
 @pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
 def test_dry_run_records_the_production_decode_rules(shape_name):
-    for arch in ("gemma3-4b", "granite-20b"):
+    """The decode records' ``serving_rules``: the KV entries as above, and
+    the weights' ``fsdp`` / ``wg`` on "data" exactly where the JAX dry run
+    splits them there (``_needs_param_sharding``; at the card's memory,
+    the default, no arch here; at JAX's 16 GiB, mistral-large-123b)."""
+    for arch in ("gemma3-4b", "granite-20b", "mistral-large-123b"):
         cfg = jax_get_arch(arch)          # the full arch's KV heads
-        got = dryrun.serving_rules(get_arch(arch), get_shape(shape_name))
         want = sharding.decode_mesh_rules(
             cfg.n_kv_heads, (16, 16), shard_seq=shape_name == "long_500k")
-        assert got == {"mesh_shape": [16, 16],
-                       **{k: want[k] for k in KEYS}}
-    assert got["cache_seq"] == (("data", "model")
-                                if shape_name == "long_500k" else "model")
+        for mem in (None, jdryrun.HBM_PER_CHIP):
+            got = dryrun.serving_rules(get_arch(arch), get_shape(shape_name),
+                                       device_mem_bytes=mem
+                                       or dryrun.HBM_PER_CARD)
+            fsdp = "data" if mem and arch == "mistral-large-123b" else None
+            assert got == {"mesh_shape": [16, 16],
+                           **{k: want[k] for k in KEYS},
+                           "fsdp": fsdp, "wg": fsdp}, (arch, mem)
+        if arch == "granite-20b":
+            assert got["cache_seq"] == (("data", "model")
+                                        if shape_name == "long_500k"
+                                        else "model")
 
 
 @pytest.mark.parametrize("arch,dm", [("granite-20b", 2), ("granite-20b", 16),

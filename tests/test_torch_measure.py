@@ -440,12 +440,20 @@ def test_dryrun_run_one_on_a_smoke_variant(arch):
             assert rec["memory_analysis"]["caches_bytes"] > 0
 
 
-def test_dryrun_refuses_what_only_steers_xla():
+def test_dryrun_refuses_what_only_steers_xla(tmp_path):
+    """The opts that only steer XLA raise; ``--multi-pod`` (once refused
+    naming item 12d) records on the 2x16x16 mesh: a combo the arch does
+    not support is written as skipped under its 2x16x16 tag (the per-rank
+    records themselves: tests/test_torch_dryrun_per_rank.py)."""
+    import json
     for opt in tdryrun.XLA_OPTS:
         with pytest.raises(ValueError, match="XLA"):
             tdryrun.apply_opts(tconfigs.get_arch("gemma3-4b"), (opt,))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        tdryrun.main(["--all", "--multi-pod"])
+    assert tdryrun.main(["--arch", "granite-20b", "--shape", "long_500k",
+                         "--multi-pod", "--out-dir", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "granite-20b_long_500k_1xH100_2x16x16"
+                                  ".json").read_text())
+    assert rec["status"] == "skipped"
     skipped = tdryrun.run_one("granite-20b", "long_500k")
     assert skipped["status"] == "skipped" and "skip" in skipped["reason"]
 

@@ -265,8 +265,10 @@ def test_spec_tree_matches_jax():
 def test_shard_hint_identity_and_model_axis_refusal():
     """shard_hint is the identity everywhere; under a model axis of 2 it
     checks that a hint names each dim of its (local) tensor, and
-    model_dim gives the dim the model axis splits; a hint that would split
-    a tensor over another mesh axis raises naming item 12d."""
+    model_dim gives the dim the model axis splits; a weight's hint over
+    the serving mesh's data axis too passes (its data blocks are gathered
+    before the layer runs), and a hint that would split a tensor over any
+    other mesh axis (a federated mesh's "replica") raises."""
     x = torch.ones(4, 6)
     assert tshard.shard_hint(x, "fsdp", "tp") is x
     one = types.SimpleNamespace(shape={"client": 4, "model": 1})
@@ -285,7 +287,13 @@ def test_shard_hint_identity_and_model_axis_refusal():
             tshard.shard_hint(torch.ones(2, 3, 4), "fsdp", "tp")
     data = types.SimpleNamespace(shape={"data": 2, "model": 2})
     with tshard.axis_rules(data, tshard.serve_rules(fsdp_over_data=True)):
-        with pytest.raises(NotImplementedError, match="item 12d"):
+        assert tshard.shard_hint(x, "fsdp", "tp") is x
+        assert tshard.model_dim("fsdp", "tp") == 1
+        assert tshard.model_dim("tp", None, "fsdp") == 0
+    replica = types.SimpleNamespace(shape={"client": 2, "replica": 2,
+                                           "model": 2})
+    with tshard.axis_rules(replica, tshard.train_rules()):
+        with pytest.raises(NotImplementedError, match="'replica'"):
             tshard.shard_hint(x, "fsdp", "tp")
 
 

@@ -11,12 +11,19 @@
 * ``python -m repro_torch.launch.serve ... --env-profile cpu-mesh
   --host-devices 2`` (two gloo ranks on the serving mesh (1, 2)) prints
   the one-rank run's tokens, in the engine mode and with ``--static``.
-* Refused, naming ROADMAP item 12d: weights over the data axis
-  (``serve_rules(fsdp_over_data=True)``, at the serving route's first
-  hint) and the dry run's ``--multi-pod``; a model axis that does not
-  divide the heads raises ``ValueError`` naming the ones that do. KV
-  heads the model axis does not divide (granite-20b's MQA) are served
-  (tests/test_torch_serve_mesh_mqa*.py).
+* A model axis that does not divide the heads raises ``ValueError``
+  naming the ones that do. KV heads the model axis does not divide
+  (granite-20b's MQA) are served (tests/test_torch_serve_mesh_mqa*.py).
+  Weights over the data axis (``serve_rules(fsdp_over_data=True)``) and
+  the dry run's ``--multi-pod``, once refused naming ROADMAP item 12d,
+  run: the serving route's hints resolve under those rules, the data
+  split takes the dims the JAX package names, and ``--multi-pod`` gives
+  per-rank records on the 2x16x16 mesh (served in
+  tests/test_torch_serve_mesh_fsdp*.py, recorded in
+  tests/test_torch_dryrun_per_rank.py).
+* The launcher's engine mode on two ranks agrees on one clock: its
+  ranks' schedules no longer follow each rank's own wall clock
+  (tests/test_torch_serve_clock.py).
 """
 import _torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
@@ -32,6 +39,7 @@ from repro.configs import get_arch as jax_get_arch
 from repro.configs import smoke_variant as jax_smoke_variant
 from repro.models.transformer import Transformer as JaxTransformer
 from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.configs.shapes import get_shape
 from repro_torch.launch import dryrun, serve
 from repro_torch.models import sharding
 from repro_torch.models.transformer import Transformer
@@ -110,16 +118,29 @@ def test_check_model_axis_refusals():
     granite.check_model_axis(2)         # MQA: its K/V stay whole
     with pytest.raises(ValueError, match=r"can be one of \[1, 2, 4\]"):
         granite.check_model_axis(8)
-    # weights over "data": the serving route's first hint refuses them
+    # weights over "data": the serving route's hints resolve to the split
+    # each layer body runs on, and the data split takes JAX's dims
     params = gemma.init(device="meta")
+    layer = params["segments"][0]["0"]
     with sharding.axis_rules(_RankZero(), sharding.serve_rules(
             fsdp_over_data=True)):
-        with pytest.raises(NotImplementedError, match="item 12d"):
-            gemma.prefill(params, torch.zeros((2, 4), dtype=torch.int64,
-                                              device="meta"), max_len=8)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        dryrun.main(["--arch", "gemma3-4b", "--shape", "train_4k",
-                     "--multi-pod"])
+        for name, sub, axes in (
+                ("attention", layer["mixer"], sharding.ATTN_AXES),
+                ("the MLP", layer["ffn"], sharding.MLP_AXES)):
+            dims = {k: sharding.model_dim(*axes[k]) for k in sub}
+            assert dims == {k: 0 if k in ("wo", "w_down") else 1
+                            for k in sub}, name
+            assert sharding.hinted_group(name, {k: v[0] for k, v in
+                                                sub.items()}, axes) \
+                is not sharding.WHOLE
+    data = sharding.data_split_dims(params, (2, 2))
+    assert data["embed"] == {"embedding": 1}
+    assert data["segments"][0]["0"]["mixer"] == {"wq": 1, "wk": 1, "wv": 1,
+                                                 "wo": 3}
+    assert data["segments"][0]["0"]["ffn"] == {"w_gate": 1, "w_up": 1,
+                                               "w_down": 2}
+    rec = dryrun.per_rank(gemma.cfg, get_shape("train_4k"), multi_pod=True)
+    assert rec["mesh"] == "2x16x16" and rec["n_clients"] == 8
 
 
 def _launch(argv):

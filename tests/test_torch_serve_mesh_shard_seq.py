@@ -10,11 +10,15 @@ smoke widths in f32 with JAX's own weights
   half of every cache's slots (the data axis splits no rows).
 * its MQA variant (one KV head) on (2, 2): the KV heads do not divide the
   model axis, so the cache's sequence splits over ("data", "model"), a
-  quarter a rank, and the query heads are gathered over the model axis.
+  quarter a rank, and the query heads are gathered over the model axis;
+* gemma3-4b itself on (2, 2): its two KV heads divide the model axis, so
+  each cache splits on both its sequence (over "data") and its heads
+  (over "model"), a quarter a rank, combined over the data group alone.
 
 Each is held as tests/test_torch_serve_mesh.py holds the model axis.
-Refused with ``NotImplementedError``: the engine under ``shard_seq``, and
-a cache split on both its sequence and its heads.
+Refused with ``NotImplementedError``: the engine under ``shard_seq``. A
+cache split on both its sequence and its heads, once refused naming item
+12d, gets both dims.
 """
 import _torch_threads  # noqa: F401  (one torch thread a worker)
 import _torch_world_cases as cases
@@ -33,7 +37,8 @@ def world():
 
 
 @pytest.mark.parametrize("name,mesh_shape", [("gemma3-4b", (2, 1)),
-                                             ("gemma3-4b-kv1", (2, 2))])
+                                             ("gemma3-4b-kv1", (2, 2)),
+                                             ("gemma3-4b", (2, 2))])
 def test_shard_seq_decode_matches_jax(world, name, mesh_shape):
     r0 = route_matches(world, name, mesh_shape, shard_seq=True)
     cfg = models(name)[2].cfg
@@ -48,5 +53,6 @@ def test_shard_seq_refusals(world):
                        tree_to_numpy(params)):
         kind, msg = r["engine"]
         assert "static decode path" in msg
-        kind, msg = r["both"]
-        assert "both its sequence and its heads" in msg
+        # a KV cache (batch, seq, kv heads, hd) with a leading step axis:
+        # the sequence over "data", the heads over "model"
+        assert r["both"] == [(2, 3), (2, 3)]
