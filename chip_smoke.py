@@ -17,10 +17,17 @@ Phases (each prints its lines; any failure exits non-zero):
      wrapper's host us a call; cohort_gather_scatter also with int32 slots, its
      gather and scatter timed against index_select / index_copy_, once each
      and again in turns, and its wrapper's host us per call beside theirs);
+  2b. (run after 3, whose design sets its shape) counter_rng against its
+     plain version on the card: at the main path's noise draw (16, tau,
+     210), uniforms bit for bit and normals within RNG_ULPS f32 ulps, and
+     at 21b's slab (rank 1's (2, 1, N_local) columns of gemma3-4b's
+     one-layer widths on a model axis of 2) in windows, each window bit
+     for bit its addresses of the whole (2, 1, N) draw on the card; each
+     timed against its bound and torch.randn at the same shape;
   3. the main path at full width: DP-PASGD on adult_like() split by
      education (16 clients, d = 104) through repro_torch.api on cuda,
      engine "vmap", trained until a budget binds; dp_clip_noise's calls in
-     that run must be tau x rounds;
+     that run must be tau x rounds, counter_rng's one a round;
   4. three rounds with kernel_backend="auto" against "ref" from one seed;
   5. the steady time of one round, and where its device time goes
      (torch.profiler, reported when it can trace; the rounds always run);
@@ -68,7 +75,7 @@ Phases (each prints its lines; any failure exits non-zero):
      blocking host syncs and ms per token with each (none from rope);
  12. kernel_backend "auto" against "ref" on the same params, prefill and 8
      teacher-forced decode steps: f32 with the depth cut to one step of
-     each segment; bf16 at full depth, each route held against the f32
+     each segment; bf16 at 17b's depth, each route held against the f32
      computation on the same params;
  13. the paper's §8.1 experiments at full width through
      benchmarks/common_torch.py: make_cases(fast=False) (Adult-1/2,
@@ -124,7 +131,8 @@ Phases (each prints its lines; any failure exits non-zero):
      depth cut to one step of each segment: every request's tokens equal
      launch.serve.generate on the plain route (kernel_backend "ref") on
      its exact-length prompt under the top-two gap guard, requests joining
-     mid-stream into recycled slots; (b) bf16 at full depth, random
+     mid-stream into recycled slots; (b) bf16, depth cut to 12 / 12 / 21
+     layers (ENGINE_BF16_STEPS), random
      weights from a seeded CUDA generator: exact launches (flash per
      attention layer and prefill group, rwkv6_scan per layer and group or
      decode step, mamba2_ssd per layer and group, the row kernels 0),
@@ -200,11 +208,16 @@ Phases (each prints its lines; any failure exits non-zero):
      Eq.-7a clip: the norm all-reduced between the two kernels),
      quantize_decompress as vmap's; (b) gemma3-4b's widths, f32, depth cut
      to 1 layer, C 2, tau 1, seq 2048, 1 round as mesh_2d (1, 2) and as
-     vmap on rank 0, in turns: params within 2e-5 of each tensor's largest
-     magnitude, ms per round, each rank's peak memory, the model group's
-     all-reduces a local step; (d)-(f) the other families as (b), f32,
+     vmap on rank 0, in turns, the mesh in slab state (each rank's slab
+     of the state between rounds) and in the whole layout
+     (api.whole_state of it): the slab's params (made whole) within 2e-5
+     of each tensor's largest magnitude of vmap's and bit for bit the
+     whole layout's, ms per round, each rank's peak memory of each form
+     (the slab's at least MA_SLAB_SAVING_GB below the whole layout's), the
+     model group's all-reduces a local step, counter_rng one launch a
+     round; (d)-(f) the other families as (b) in slab state, f32,
      tau 1, 1 round (2 for (e)), in turns with vmap: (d) rwkv6-1.6b's
-     widths, depth 24 -> 2, C 2, seq 512; (e) zamba2-7b's widths, its
+     widths, depth 24 -> 1, C 2, seq 512; (e) zamba2-7b's widths, its
      shared attention + MLP block and one Mamba2 layer, C 2, seq 2048; (f)
      phi3.5-moe's widths, 1 layer (experts split over the ranks), C 1,
      seq 512. 21b and 21d-f share one world of two ranks; (c), after
@@ -257,8 +270,8 @@ Phases (each prints its lines; any failure exits non-zero):
      fsdp_over_data: each rank's model slice split again over "data",
      gathered before each layer) and a decode cache split on both its
      sequence and its heads, four gloo ranks sharing the card on the mesh
-     (2, 2): (a) mistral-large-123b at its published widths, 88 -> 2
-     layers, bf16, B 2 x 512, 8 greedy tokens, held as 22a against the
+     (2, 2): (a) mistral-large-123b at its published widths, 88 -> 1
+     layer, bf16, B 2 x 512, 8 greedy tokens, held as 22a against the
      whole model on rank 0 (tokens under the guard, phase 12's criterion
      at every step, the four ranks alike), the collectives a generate
      against the code's count (the model group's and the data group's
@@ -292,6 +305,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+# H100 SXM 32-bit integer ops: 64 INT32 lanes a SM (half the FP32 lanes,
+# NVIDIA's Hopper white paper) x 132 SMs x the 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 C_TH, EPS_TH, DELTA = 1000.0, 4.0, 1e-4
 BATCH, LR, CLIP = 32, 0.3, 1.0
@@ -319,6 +335,10 @@ COHORT_SHAPES = ((256, 16, 42, "float32"), (16, 16, 210, "float32"),
 QS_M, QS_K, QS_DIM, QS_BATCH, QS_TAU, QS_SIGMA, QS_ROUNDS = (
     100_000, 16, 20, 8, 5, 0.8, 24)
 QS_CACHE, QS_CHUNK = 256, 8
+# phase 2b: counter_rng's normals may differ from the plain version's by
+# this many f32 ulps (both round the same IEEE ops, so 0 is expected); the
+# plain version runs on 21b's slab in windows of this many columns
+RNG_ULPS, RNG_WINDOW = 2, 1 << 25
 # phase 10: (B, H, S, hd, window) gemma3's prefill full and windowed,
 # zamba2's shared attention, a ragged small one; (B, H, S, hd, from s0)
 # rwkv6's prefill and decode step, its prefill at batch 1 and at S 2048,
@@ -369,6 +389,12 @@ LAUNCH_RUNS = (
 # rows (padded to 1 / 2 / 4) into recycled slots
 ENGINE_RUNS = (("gemma3-4b", (300, 700, 1500)), ("rwkv6-1.6b", (256, 512)),
                ("zamba2-7b", (256, 512)))
+# 17b's depth in bf16: steps of each arch's first segment kept (gemma3-4b
+# 2 of its 6-layer steps, 12 of 34 layers; rwkv6-1.6b 12 of 24; zamba2-7b 3
+# of its 7-layer steps, 21 of 81, as 22c): cut from the full depths to pay
+# for phase 2b and 21b's whole layout, as the script ran 1,187-1,225 s of
+# its 1,200 without the cut; the launch counts follow the cut config
+ENGINE_BF16_STEPS = {"gemma3-4b": 2, "rwkv6-1.6b": 12, "zamba2-7b": 3}
 ENGINE_GENS, ENGINE_SLOTS, ENGINE_BLOCK = (16, 32), 4, 64
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
 GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
@@ -910,9 +936,146 @@ def _host_us(torch, fn, n: int) -> float:
     return us
 
 
-def run_main_path(torch, np, api, linear, data, conv, design, optim,
-                  dp_clip_noise):
-    """Phase 3: the quickstart flow at full width, until a budget binds."""
+def _rng_bound_ms(rows: int, tau: int, n: int,
+                  normal: bool) -> tuple[float, str]:
+    """The least time the card could take for a counter_rng draw of (rows,
+    tau, n): the larger of its bytes (the output written once) over HBM
+    and its operations over their peak rate: the Philox integer ops (one
+    call a group of four columns, 80 ops) at INT32_OPS_PER_S, or the
+    normal transform's f32 ops at F32_FLOPS_PER_S."""
+    from repro_torch.kernels import counter_rng as crng
+    ints, f32 = crng.operations(rows, tau, n, normal)
+    by_ops = max(ints / INT32_OPS_PER_S, f32 / F32_FLOPS_PER_S) * 1e3
+    by_bytes = crng.cost(rows, tau, n, normal)[1] / HBM_BYTES_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def _max_ulps(torch, a, b) -> int:
+    """The largest distance in f32 ulps between two f32 tensors (0: equal
+    bit for bit; +0 and -0 one apart)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def check_counter_rng(torch, configs, main_shape, card):
+    """Phase 2b: the counter_rng kernel against its plain version on the
+    card and timed, (a) at the main path's draw ``main_shape`` (clients,
+    tau, N), normals and uniforms: uniforms bitwise, normals within
+    RNG_ULPS f32 ulps; (b) at 21b's slab: rank 1's (2, 1, N_local) columns
+    of gemma3-4b's one-layer widths on a model axis of 2 (its column
+    table), against the plain version in windows of RNG_WINDOW columns
+    and against its addresses of the whole (2, 1, N) draw on the card,
+    bit for bit. Each timed against torch.randn at the same shape (the
+    yardstick; a different stream) and the bound. Returns (ok, record)."""
+    from repro_torch.kernels import counter_rng as crng
+    from repro_torch.kernels.ref import counter_columns_ref, counter_rng_ref
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_flatten
+    ok, rec = True, {}
+    key = (0x5EED5EED1234, 7)
+    rows_n, tau, n = main_shape
+    rows = torch.arange(rows_n, device="cuda")
+    table = torch.tensor(crng.whole_table(n), device="cuda")
+    worst = 0.0
+    for normal in (True, False):
+        got = crng.counter_rng(rows, table, tau, n, key, crng.NOISE, normal)
+        want = counter_rng_ref(rows, table, tau, n, key, crng.NOISE, normal)
+        torch.cuda.synchronize()
+        ulps = _max_ulps(torch, got, want)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        good = ulps <= (RNG_ULPS if normal else 0)
+        ok &= good
+        kind = "normal" if normal else "uniform"
+
+        def call(normal=normal):
+            return crng.counter_rng(rows, table, tau, n, key, crng.NOISE,
+                                    normal)
+
+        ms = _time_ms(call, 200)
+        plain_ms = _time_ms(lambda normal=normal: counter_rng_ref(
+            rows, table, tau, n, key, crng.NOISE, normal), 20)
+        randn_ms = _time_ms(
+            (lambda: torch.randn((rows_n, tau, n), device="cuda"))
+            if normal else
+            (lambda: torch.rand((rows_n, tau, n), device="cuda")), 200)
+        bound = _rng_bound_ms(rows_n, tau, n, normal)
+        rec[kind] = {"shape": [rows_n, tau, n], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "torch_ms": randn_ms,
+                     "max_ulps": ulps, "max_abs_err": err,
+                     "host_us": _host_us(torch, call, 200)}
+        print(f"phase 2b counter_rng {kind} {main_shape}: max ulps vs plain "
+              f"{ulps} (limit {RNG_ULPS if normal else 0}), max |d| "
+              f"{err:.3e}; kernel {ms:.5f} ms ({bound[0] / ms:.1%} of the "
+              f"bound), host {rec[kind]['host_us']:.2f} us a call, plain "
+              f"{plain_ms:.5f} ms, bound {bound[0]:.7f} ms ({bound[1]}), "
+              f"torch.{'randn' if normal else 'rand'} {randn_ms:.5f} ms on "
+              f"{card} {'ok' if good else 'CHECK FAILED'}", flush=True)
+    # (b) 21b's slab of rank 1, and its addresses of the whole draw
+    one = Transformer(_ma_cfg(configs, "21b")).init(device="meta")
+    dims = tree_flatten(sharding.param_split_dims(one, MA_SHAPE[1]))[0]
+    shapes = [tuple(x.shape) for x in tree_flatten(one)[0]]
+    n_whole = sum(math.prod(sh) for sh in shapes)
+    n_local = sum(math.prod(sh) // (MA_SHAPE[1] if d >= 0 else 1)
+                  for sh, d in zip(shapes, dims))
+    slab = torch.tensor(crng.slab_table(shapes, dims, 1, MA_SHAPE[1]),
+                        device="cuda")
+    rows2 = torch.arange(2, device="cuda")
+    got = crng.counter_rng(rows2, slab, 1, n_local, key, crng.NOISE)
+    whole = crng.counter_rng(rows2, torch.tensor(
+        crng.whole_table(n_whole), device="cuda"), 1, n_whole, key,
+        crng.NOISE)
+    torch.cuda.synchronize()
+    ulps = same = 0
+    windows = range(0, n_local, RNG_WINDOW)
+    for lo in windows:
+        w = min(RNG_WINDOW, n_local - lo)
+        plain = counter_rng_ref(rows2, slab, 1, w, key, crng.NOISE, True,
+                                lo=lo)
+        ulps = max(ulps, _max_ulps(torch, got[..., lo:lo + w], plain))
+        cols = counter_columns_ref(slab, lo, w, "cuda")
+        same += int(torch.equal(got[..., lo:lo + w],
+                                whole.index_select(2, cols)))
+        del plain, cols
+    del whole
+    torch.cuda.empty_cache()
+    good = ulps <= RNG_ULPS and same == len(windows)
+    ok &= good
+
+    def slab_call():
+        return crng.counter_rng(rows2, slab, 1, n_local, key, crng.NOISE)
+
+    ms = _time_ms(slab_call, 10)
+    randn_ms = _time_ms(lambda: torch.randn((2, 1, n_local), device="cuda"),
+                        10)
+    bound = _rng_bound_ms(2, 1, n_local, True)
+    rec["slab_21b"] = {"shape": [2, 1, n_local], "n_whole": n_whole,
+                       "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                       "torch_randn_ms": randn_ms, "max_ulps": ulps,
+                       "windows_equal_whole": same,
+                       "windows": len(windows)}
+    print(f"phase 2b counter_rng 21b slab (2, 1, {n_local:,}) of N "
+          f"{n_whole:,} (rank 1 of {MA_SHAPE}): max ulps vs plain {ulps} "
+          f"(limit {RNG_ULPS}, {len(windows)} windows of {RNG_WINDOW:,}), "
+          f"{same} of {len(windows)} windows bit for bit the whole draw's "
+          f"columns; kernel {ms:.4f} ms ({bound[0] / ms:.1%} of the bound "
+          f"{bound[0]:.4f} ms, {bound[1]}), torch.randn {randn_ms:.4f} ms "
+          f"on {card} {'ok' if good else 'CHECK FAILED'}", flush=True)
+    rec["max_abs_err"] = worst
+    del got
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
+def main_path_spec(api, linear, data, conv, design, optim):
+    """The main path's federation (phases 3-5): Adult-like data split by
+    group, the design's K*, tau* and sigmas at full width. Returns (spec,
+    the federated data, the design's solution)."""
     fed = data.split_by_group(data.adult_like())
     dim = fed.clients[0].x_train.shape[1]
     consts = conv.ProblemConstants(eta=LR, lam=0.1, lip=0.3, alpha=0.8,
@@ -928,20 +1091,30 @@ def run_main_path(torch, np, api, linear, data, conv, design, optim,
         sigmas=tuple(float(s) for s in sol.sigmas),
         batch_sizes=tuple(fed.batch_sizes(BATCH)), eps_th=EPS_TH,
         delta=DELTA, c_th=C_TH)
+    return spec, fed, sol
+
+
+def run_main_path(torch, np, api, linear, data, conv, design, optim,
+                  dp_clip_noise):
+    """Phase 3: the quickstart flow at full width, until a budget binds."""
+    spec, fed, sol = main_path_spec(api, linear, data, conv, design, optim)
+    dim = fed.clients[0].x_train.shape[1]
     xt, yt = fed.eval_arrays("test")
     eval_fn = linear.make_eval_fn(linear.logreg_loss, xt, yt)
     state = api.init_state(spec, linear.init_linear(dim, device="cuda"),
                            device="cuda")
     init_eval = eval_fn(api.eval_params(spec, state))
     planned, _ = api.rounds_within_budgets(spec, state, 10_000)
+    from repro_torch.kernels.counter_rng import counter_rng
     torch.cuda.synchronize()
-    dp_clip_noise.launches = 0
+    dp_clip_noise.launches = counter_rng.launches = 0
     t0 = time.perf_counter()
     state, out = api.train(spec, state, fed.make_sampler(BATCH),
                            eval_fn=eval_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dp_clip_noise.launches
+    rng_launches = counter_rng.launches
     rounds = out["rounds"]
     majority = max(float(np.mean(yt)), 1.0 - float(np.mean(yt)))
     best = out["best"]
@@ -963,14 +1136,15 @@ def run_main_path(torch, np, api, linear, data, conv, design, optim,
     print(f"main path: ms_per_round={wall / max(rounds, 1) * 1e3:.3f} (train "
           f"loop wall / rounds; host batches, eval and first-call costs "
           f"included) launches={launches} expected={sol.tau * rounds} (one "
-          f"call a local step)",
+          f"call a local step); counter_rng launches={rng_launches} "
+          f"expected {rounds} (one (16, tau, 210) noise draw a round)",
           flush=True)
     ok = (rounds > 0 and rounds == planned and finite and binds is not None
           and out["max_epsilon"] <= EPS_TH + 1e-6
           and out["resource_spent"] <= C_TH
           and best.get("eval_loss", float("inf")) < init_eval["eval_loss"]
-          and launches == sol.tau * rounds)
-    return ok, launches, spec, fed
+          and launches == sol.tau * rounds and rng_launches == rounds)
+    return ok, (launches, rng_launches), spec, fed
 
 
 def compare_backends(torch, np, api, linear, spec, fed):
@@ -1846,7 +2020,8 @@ def compare_model_routes(torch, configs, Transformer):
     gap <= 1e-4 of the logits' largest magnitude (the kernels sum in
     another order, ~1e-6 a call, through up to 10 layers).
 
-    bf16 at full depth. The two routes round to bf16 at different places
+    bf16 at 17b's depth (ENGINE_BF16_STEPS; full depth before the script
+    ran out of time). The two routes round to bf16 at different places
     (the plain flash rounds its scores and probabilities, the kernels
     round once), and a random-init stack amplifies such differences: on an
     H100 zamba2's two bf16 routes came out 0.69 apart (relative L2), each
@@ -1866,16 +2041,10 @@ def compare_model_routes(torch, configs, Transformer):
     ok = True
     for arch, prompt_len, _ in SERVE_RUNS:
         for dtype in ("float32", "bfloat16"):
-            cfg = dataclasses.replace(configs.get_arch(arch), dtype=dtype)
-            cut = " at full depth"
-            if dtype == "float32":
-                segs = tuple(configs.Segment(1, s.pattern)
-                             for s in cfg.segments)
-                cfg = dataclasses.replace(
-                    cfg, segments=segs,
-                    n_layers=sum(len(s.pattern) for s in segs))
-                cut = (f" (depth cut to one step of each segment: "
-                       f"{sum(len(s.pattern) for s in segs)} layers)")
+            cfg = _engine_cfg(configs, arch, dtype)
+            cut = (f" (depth cut to one step of each segment: "
+                   f"{cfg.n_layers} layers)" if dtype == "float32" else
+                   f" (depth cut to {cfg.n_layers} layers, 17b's)")
             gen = torch.Generator(device="cuda").manual_seed(1)
             routes = {"auto": (Transformer(cfg, kernel_backend="auto"),
                                Transformer(cfg).init(gen, "cuda"))}
@@ -2957,15 +3126,17 @@ def run_launcher_smoke(torch, ops, launch_train, serve, configs, counters,
 # -- phase 17: the continuous-batching serving engine -------------------------
 
 def _engine_cfg(configs, arch: str, dtype: str):
-    """The arch at its published widths in ``dtype``; in f32 with the depth
-    cut to one step of each segment (phase 12's cut)."""
+    """The arch at its published widths in ``dtype``: in f32 with the depth
+    cut to one step of each segment (phase 12's cut), in bf16 to
+    ENGINE_BF16_STEPS[arch] steps of its first segment."""
     import dataclasses
+    if dtype != "float32":
+        return dataclasses.replace(
+            _depth_cut(configs, arch, ENGINE_BF16_STEPS[arch]), dtype=dtype)
     cfg = dataclasses.replace(configs.get_arch(arch), dtype=dtype)
-    if dtype == "float32":
-        segs = tuple(configs.Segment(1, s.pattern) for s in cfg.segments)
-        cfg = dataclasses.replace(
-            cfg, segments=segs, n_layers=sum(len(s.pattern) for s in segs))
-    return cfg
+    segs = tuple(configs.Segment(1, s.pattern) for s in cfg.segments)
+    return dataclasses.replace(
+        cfg, segments=segs, n_layers=sum(len(s.pattern) for s in segs))
 
 
 def _engine_max_len(prompts) -> int:
@@ -3388,8 +3559,9 @@ def time_engine_step(torch, np, serve, serve_pkg, model, params, engine, p,
 
 def run_engine_full_width(torch, np, configs, Transformer, serve, serve_pkg,
                           ops, refs, counters, card, dev):
-    """Phase 17b: the engine at the published widths and depths in bf16,
-    random weights from a seeded CUDA generator, the workloads of 17a. The
+    """Phase 17b: the engine at the published widths in bf16, the depths
+    cut (ENGINE_BF16_STEPS), random weights from a seeded CUDA generator,
+    the workloads of 17a. The
     kernels' counters are set to 0 after ``warmup``, just before the
     served workload, and read just after: flash = attention layers x
     prefill groups, rwkv6_scan = rwkv6 layers x (groups + decode steps),
@@ -4422,6 +4594,7 @@ def _shard_rank(kw: dict, settings) -> dict:
                                          **extra})
             state, res, launched, wall = _train_counted(
                 torch, api, linear, spec, fed, counters)
+            state = api.whole_state(state)      # a slab state made whole
             out["runs"][name] = {
                 "params": {k: v.cpu().numpy()
                            for k, v in state.params.items()},
@@ -4543,7 +4716,7 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
 # rank ran the card out of memory
 MA_SHAPE = (1, 2)
 MA_CELLS = {"21b": ("gemma3-4b", 1, (0,), 2, 2048),
-            "21d": ("rwkv6-1.6b", 2, (0,), 2, 512),
+            "21d": ("rwkv6-1.6b", 1, (0,), 2, 512),
             "21e": ("zamba2-7b", 1, (0, 1), 2, 2048),
             "21f": ("phi3.5-moe-42b-a6.6b", 1, (0,), 1, 512),
             "23d": ("granite-20b", 1, (0,), 2, 2048)}
@@ -4555,10 +4728,15 @@ MA_KERNELS = ("row_sumsq", "clip_noise_apply", "dp_clip_noise",
 MA_TF_TAU, MA_TF_B = 1, 1
 # rounds a turn; rwkv6's per-token training loop takes 9-19 s a round, so
 # 21d takes one (the carry from round to round is 21e's), and its depth is
-# cut from 4 layers to 2 to make room for phase 23; 21b and 21f take one to
-# make room for phase 24
+# cut from 4 layers to 2 to make room for phase 23 and to 1 for phase 2b and
+# 21b's whole layout; 21b and 21f take one to make room for phase 24
 MA_TF_ROUNDS = {"21b": 1, "21d": 1, "21e": 2, "21f": 1, "23d": 1}
 MA_TF_TOL = 2e-5       # of each tensor's largest magnitude
+# the forms a cell runs in turns (default: slab state and vmap), and the
+# least per-rank peak a slab state must save against the whole layout at
+# 21b: the full params' bytes a rank no longer holds (C 2 x N / 2 f32)
+MA_FORMS = {"21b": ("slab", "whole", "vmap")}
+MA_SLAB_SAVING_GB = 3.0
 
 
 def _ma_counters():
@@ -4608,6 +4786,7 @@ def _model_axis_rank(kw: dict, settings) -> dict:
                    "mesh_shape": MA_SHAPE})
             state, res, launched, wall = _train_counted(
                 torch, api, linear, spec, fed, counters)
+            state = api.whole_state(state)      # a slab state made whole
             out["runs"][name] = {
                 "params": {k: v.cpu().numpy()
                            for k, v in state.params.items()},
@@ -4768,17 +4947,24 @@ def _tf_all_reduces(cfg, seq: int, dm: int) -> int:
 def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
     """Phase ``phase``'s program on one rank: its transformer (f32,
     MA_CELLS) built by launch.train.build_federation as mesh_2d MA_SHAPE
-    and as vmap from the same seed; MA_TF_ROUNDS[phase] rounds of each from the
-    same state on the same batches, in turns (mesh, vmap, mesh, ...; vmap
-    on rank 0 only, rank 1 waiting at a barrier), counters set to 0 just
-    before each mesh turn and read after it. Returns the last turns'
-    params gaps (on rank 0), losses, ms per round, per-rank peak memory
-    and the model group's all-reduces and gathers."""
+    and as vmap from the same seed, in the forms MA_FORMS[phase]: "slab"
+    (the rank's slab of the state between rounds, the drivers' default),
+    "whole" (``api.whole_state`` of that state: the whole-tree round,
+    every rank holding the (C, ...) trees) and "vmap" (rank 0 alone, rank 1 waiting
+    at a barrier); MA_TF_ROUNDS[phase] rounds of each from the same state
+    on the same batches, in turns (slab, whole, vmap, slab, ...), the peak
+    memory reset and the counters set to 0 just before each turn and read
+    after it. Returns the last turns' params gaps (rank 0: the slab's
+    params made whole by ``api.whole_state`` against vmap's, and whether
+    the whole layout's equal them), each form's losses, ms per round and
+    per-rank peak memory (its first turn's), and the model group's
+    all-reduces and gathers."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch import api, configs
+    from repro_torch.kernels.counter_rng import counter_rng
     from repro_torch.launch import train as launch_train
     from repro_torch.mesh import collectives
     from repro_torch.utils.tree import tree_leaves
@@ -4790,37 +4976,42 @@ def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
     cfg = _ma_cfg(configs, phase)
     n_clients, seq = MA_CELLS[phase][3:]
     counters = _ma_counters()
-    out = {"rank": rank, "mesh_ms": [], "vmap_ms": [], "losses": {},
-           "launches": [], "all_reduce": [], "gather": []}
-    batches = None
+    forms = MA_FORMS.get(phase, ("slab", "vmap"))
+    out = {"rank": rank, "forms": forms, "ms": {f: [] for f in forms},
+           "losses": {}, "peak_gb": {}, "launches": [], "rng_launches": [],
+           "all_reduce": [], "gather": []}
+    batches = final = None
     for turn in range(turns):
-        for engine in ("mesh_2d", "vmap"):
+        for form in forms:
             dist.barrier()
-            if engine == "vmap" and rank != 0:
+            if form == "vmap" and rank != 0:
                 continue
+            mesh = form != "vmap"
             # each turn builds its state anew from the seed (the same
-            # params and generator state every time) and frees it after,
-            # so the two ranks' mesh turns and rank 0's vmap turn never
-            # hold another turn's buffers
+            # params and key every time) and frees it after, so the ranks'
+            # mesh turns and rank 0's vmap turn never hold another turn's
+            # buffers
             t_build = time.perf_counter()
             model, spec, state, sampler = launch_train.build_federation(
                 cfg, n_clients, MA_TF_TAU, MA_TF_B, seq, sigmas,
-                clip_norm=CLIP, delta=DELTA, engine=engine,
-                mesh_shape=MA_SHAPE if engine == "mesh_2d" else None,
-                device="cuda")
+                clip_norm=CLIP, delta=DELTA,
+                engine="mesh_2d" if mesh else "vmap",
+                mesh_shape=MA_SHAPE if mesh else None, device="cuda")
+            if form == "whole":
+                state = api.whole_state(state)
+            assert (state.layout is not None) == (form == "slab")
             torch.cuda.synchronize()
             t_build = time.perf_counter() - t_build
             if batches is None:
                 rng = np.random.default_rng(0)
                 batches = [api.round_batch(spec, sampler, rng)
                            for _ in range(MA_TF_ROUNDS[phase])]
-                out["n_params"] = sum(x[0].numel()
-                                      for x in tree_leaves(state.params))
             del sampler
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             for c in counters.values():
                 c.launches = 0
+            counter_rng.launches = 0
             collectives.counts.update(all_reduce=0, gather=0)
             losses = []
             t0 = time.perf_counter()
@@ -4830,27 +5021,35 @@ def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
                 losses.append(float(rec["loss"]))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / MA_TF_ROUNDS[phase]
-            out[f"{'mesh' if engine == 'mesh_2d' else 'vmap'}_ms"].append(ms)
-            out["losses"][engine] = losses
-            if engine == "mesh_2d":
+            out["ms"][form].append(ms)
+            out["losses"][form] = losses
+            # the first turn's: the last one's rank 0 also holds the slab's
+            # params made whole, to compare them
+            out["peak_gb"].setdefault(form,
+                                      torch.cuda.max_memory_allocated() / 1e9)
+            if form == "slab":
                 out["launches"].append({n: c.launches
                                         for n, c in counters.items()})
+                out["rng_launches"].append(counter_rng.launches)
                 out["all_reduce"].append(collectives.counts["all_reduce"])
                 out["gather"].append(collectives.counts["gather"])
-                out["mesh_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            else:       # the first turn's: the last one also holds the
-                #             mesh turn's params to compare them
-                out.setdefault("vmap_peak_gb",
-                               torch.cuda.max_memory_allocated() / 1e9)
-            if turn == turns - 1 and rank == 0:
-                if engine == "mesh_2d":
-                    final = state.params     # held until the vmap turn's
-                else:
+            if turn == turns - 1:
+                # the slab's params made whole (both ranks), kept on rank 0
+                # until the other forms' last turns compare theirs
+                params = tree_leaves(api.whole_state(state).params
+                                     if mesh else state.params)
+                if form == "slab" and rank == 0:
+                    final = params
+                    out["n_params"] = sum(x[0].numel() for x in final)
+                elif form == "whole" and rank == 0:
+                    out["slab_equals_whole"] = all(
+                        torch.equal(a, b) for a, b in zip(final, params))
+                elif form == "vmap":
                     out["param_gaps"] = [
                         float((a - b).abs().max() / b.abs().max())
-                        for a, b in zip(tree_leaves(final),
-                                        tree_leaves(state.params))]
+                        for a, b in zip(final, params)]
                     del final
+                del params
             out.setdefault("build_s", []).append(round(t_build, 3))
             del model, spec, state, rec
             torch.cuda.empty_cache()
@@ -4861,19 +5060,22 @@ def _model_axis_tf_rank(phase: str, sigmas, turns: int) -> dict:
 def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
     """Phase 21b (gemma3-4b: d_model 2560, 8 / 4 heads of 256, ffn 10240,
     vocab 262144, depth 1), 21d (rwkv6-1.6b: d_model 2048, 32 heads of
-    64, d_ff 7168, depth 24 -> 4, seq 512), 21e (zamba2-7b: d_model 3584,
+    64, d_ff 7168, depth 24 -> 1, seq 512), 21e (zamba2-7b: d_model 3584,
     112 SSD heads of 64, 7,296 conv channels, 32 attention heads, the
     shared block and one Mamba2 layer) or 21f (phi3.5-moe: d_model 4096, 16 experts of
     6400, 32 / 8 heads, depth 32 -> 1, C 1, seq 512), f32, tau 1, batch 1,
-    as mesh_2d (1, 2) on two gloo ranks sharing the card, and as vmap on
-    rank 0 from the same seed, state and batches, in turns: params within
-    MA_TF_TOL of each tensor's largest magnitude, the losses finite and
-    alike on the ranks, ms per round of each in turns, each rank's peak
-    memory, the model group's all-reduces a local step and gathers a
-    round, launches (row_sumsq and clip_noise_apply tau x rounds a rank,
-    dp_clip_noise none). ``world`` is the HostWorld(2) the cells share
-    (a failed cell closes it). Returns (ok, {kernel: launches summed over
-    the ranks, last turn}, record)."""
+    as mesh_2d (1, 2) on two gloo ranks sharing the card in slab state
+    (21b also in the whole layout), and as vmap on rank 0 from the same
+    seed, state and batches, in turns: the slab's params (made whole)
+    within MA_TF_TOL of each tensor's largest magnitude of vmap's (21b:
+    the whole layout's bit for bit the slab's, and the slab's per-rank
+    peak at least MA_SLAB_SAVING_GB below the whole layout's), the losses
+    finite and alike on the ranks, ms per round of each in turns, each
+    rank's peak memory, the model group's all-reduces a local step and
+    gathers a round, launches (row_sumsq and clip_noise_apply tau x rounds
+    a rank, dp_clip_noise none, counter_rng one a round). ``world`` is the
+    HostWorld(2) the cells share (a failed cell closes it). Returns (ok,
+    {kernel: launches summed over the ranks, last turn}, record)."""
     arch, _, _, n_clients, seq = MA_CELLS[phase]
     rounds = MA_TF_ROUNDS[phase]
     sigmas = fl.design_sigmas(rounds * MA_TF_TAU, CLIP,
@@ -4887,21 +5089,29 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
     except RuntimeError as e:
         print(f"phase {phase}: the two ranks failed: {e} CHECK FAILED",
               flush=True)
-        return False, dict.fromkeys(MA_KERNELS, 0), {}
+        return False, dict.fromkeys(MA_KERNELS + ("counter_rng",), 0), {}
     wall = time.perf_counter() - t0
     r0 = ranks[0]
+    forms = r0["forms"]
     gaps = r0["param_gaps"]
     steps = MA_TF_TAU * rounds
     want_l = {"row_sumsq": steps, "clip_noise_apply": steps,
               "dp_clip_noise": 0, "quantize_decompress": 0}
     launches_ok = all(all(ln == want_l for ln in r["launches"])
+                      and all(n == rounds for n in r["rng_launches"])
                       for r in ranks)
     finite = all(math.isfinite(x) for r in ranks
-                 for x in r["losses"]["mesh_2d"])
-    alike = ranks[0]["losses"]["mesh_2d"] == ranks[1]["losses"]["mesh_2d"]
-    loss_gap = max(abs(a - b) for a, b in zip(r0["losses"]["mesh_2d"],
+                 for f in forms if f != "vmap" for x in r["losses"][f])
+    alike = all(ranks[0]["losses"][f] == ranks[1]["losses"][f]
+                for f in forms if f != "vmap")
+    loss_gap = max(abs(a - b) for a, b in zip(r0["losses"]["slab"],
                                               r0["losses"]["vmap"]))
     ok = max(gaps) <= MA_TF_TOL and launches_ok and finite and alike
+    saving = None
+    if "whole" in forms:
+        saving = [r["peak_gb"]["whole"] - r["peak_gb"]["slab"]
+                  for r in ranks]
+        ok &= r0["slab_equals_whole"] and min(saving) >= MA_SLAB_SAVING_GB
     per_step = [a / steps for a in r0["all_reduce"]]
     pred = ""
     if phase == "23d":          # whole K/V: two more a layer, predicted
@@ -4914,32 +5124,41 @@ def run_model_axis_tf(torch, np, fl, configs, card, phase: str, world):
           f"{len(layers)} layer(s) {layers}, "
           f"N = {r0['n_params']:,} params a replica, C {n_clients}, tau "
           f"{MA_TF_TAU}, batch {MA_TF_B}, seq {seq}, {rounds} round(s), "
-          f"mesh_2d {MA_SHAPE} on 2 gloo ranks vs vmap on rank 0; "
-          f"{wall:.1f} s", flush=True)
-    print(f"phase {phase} params: max |d| / max |vmap| per tensor "
-          f"{max(gaps):.3e} (limit {MA_TF_TOL}); losses mesh "
-          f"{r0['losses']['mesh_2d']} vmap {r0['losses']['vmap']} (max |d| "
+          f"mesh_2d {MA_SHAPE} on 2 gloo ranks ({' / '.join(forms[:-1])}) "
+          f"vs vmap on rank 0; {wall:.1f} s", flush=True)
+    print(f"phase {phase} params: slab (made whole) max |d| / max |vmap| "
+          f"per tensor {max(gaps):.3e} (limit {MA_TF_TOL})"
+          + ("" if "whole" not in forms else
+             f"; the whole layout's params "
+             f"{'bit for bit the slab' if r0['slab_equals_whole'] else 'DIFFERENT from the slab'}'s")
+          + f"; losses {r0['losses']} (slab - vmap max |d| "
           f"{loss_gap:.3e}); ranks' losses "
           f"{'alike' if alike else 'DIFFERENT'}", flush=True)
-    print(f"phase {phase} ms per round in turns (m v m v): mesh "
-          f"{[round(x, 3) for x in r0['mesh_ms']]} vmap "
-          f"{[round(x, 3) for x in r0['vmap_ms']]} (rank 0's builds "
-          f"{r0['build_s']} s); peak memory allocated "
-          f"per rank (mesh) {[round(r['mesh_peak_gb'], 3) for r in ranks]} "
-          f"GB, vmap (rank 0 alone) {r0['vmap_peak_gb']:.3f} GB", flush=True)
+    print(f"phase {phase} ms per round in turns ({', '.join(forms)}): "
+          + "; ".join(f"{f} {[round(x, 3) for x in r0['ms'][f]]}"
+                      for f in forms)
+          + f" (rank 0's builds {r0['build_s']} s); peak memory allocated "
+          f"per rank, first turn: "
+          + "; ".join(f"{f} {[round(r['peak_gb'][f], 3) for r in ranks if f in r['peak_gb']]} GB"
+                      for f in forms)
+          + ("" if saving is None else
+             f"; the slab's saving per rank {[round(x, 3) for x in saving]} "
+             f"GB (limit >= {MA_SLAB_SAVING_GB})"), flush=True)
     print(f"phase {phase} model-group all-reduces a local step {per_step}"
           f"{pred} (forward, backward and the clip norm), gathers a round "
-          f"{[g / rounds for g in r0['gather']]} (the outputs', and "
-          f"those of weights used whole: zamba2's LoRA factors and conv); "
-          f"launches per rank and turn "
-          f"{[r['launches'] for r in ranks]} (expected {want_l}) "
-          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+          f"{[g / rounds for g in r0['gather']]} (those of weights used "
+          f"whole: zamba2's LoRA factors and conv); launches per rank and "
+          f"turn {[r['launches'] for r in ranks]} (expected {want_l}), "
+          f"counter_rng {[r['rng_launches'] for r in ranks]} (expected "
+          f"{rounds} a turn) {'ok' if ok else 'CHECK FAILED'}", flush=True)
     launches = {n: sum(r["launches"][-1][n] for r in ranks)
                 for n in MA_KERNELS}
+    launches["counter_rng"] = sum(r["rng_launches"][-1] for r in ranks)
     rec = {"max_rel_param_gap": max(gaps), "losses": r0["losses"],
-           "mesh_ms": r0["mesh_ms"], "vmap_ms": r0["vmap_ms"],
-           "peak_gb_per_rank": [r["mesh_peak_gb"] for r in ranks],
-           "vmap_peak_gb": r0["vmap_peak_gb"],
+           "ms": r0["ms"],
+           "peak_gb_per_rank": {f: [r["peak_gb"][f] for r in ranks
+                                    if f in r["peak_gb"]] for f in forms},
+           "slab_saving_gb_per_rank": saving,
            "all_reduces_per_local_step": per_step,
            "gathers_per_round": [g / rounds for g in r0["gather"]]}
     return ok, launches, rec
@@ -6064,7 +6283,9 @@ def run_long_context(torch, np, configs, card, world, phase: str):
 # 24c: mistral-large at one layer in f32 (fsdp on FSDP_SHAPE, 22e's
 # prompt and steps) and gemma3-4b at 23c's two f32 layers on FSDP_SHAPE.
 FSDP_ARCH, FSDP_SHAPE = "mistral-large-123b", (2, 2)
-FSDP_LAYERS, FSDP_PROMPT, FSDP_GEN = 2, 512, 8
+# (24a's depth cut from 2 layers to 1 to pay for phase 2b and 21b's whole
+# layout, whose turns exceed the script's time limit otherwise)
+FSDP_LAYERS, FSDP_PROMPT, FSDP_GEN = 1, 512, 8
 # a rank's flash call in 24a's prefill: B / dd rows, H / dm heads
 FSDP_FLASH = ((1, 48, 512, 128, 0),)
 
@@ -6387,6 +6608,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def done(phases: str) -> None:
+        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f} "
+              f"s", flush=True)
 
     # -- 1. card and build ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6416,15 +6642,27 @@ def main() -> int:
         torch, cohort_gather_scatter, cohort_gather_scatter_ref,
         vector_width)
 
+    done("1-2")
+
     # -- 3. main path ---------------------------------------------------------
-    ok_m, launches, spec, fed = run_main_path(
+    ok_m, (launches, rng_launches), spec, fed = run_main_path(
         torch, np, api, linear, data, conv, design, optim, dp_clip_noise)
+
+    # -- 2b. counter_rng against its plain version (the main path's draw
+    # shape, from its design, and 21b's slab) ---------------------------------
+    ok_rng, rng_rec = check_counter_rng(
+        torch, configs, (spec.n_clients, spec.tau,
+                         2 * fed.clients[0].x_train.shape[1] + 2), card)
+
+    done("3, 2b")
 
     # -- 4. kernel round against plain round ----------------------------------
     ok_b = compare_backends(torch, np, api, linear, spec, fed)
 
     # -- 5. steady rounds, and where their device time goes ----------------
     ok_s = profile_rounds(torch, np, api, linear, spec, fed, "phase 5")
+
+    done("4-5")
 
     # -- 6. the aggregation pipeline: the comm sweep at full width ----------
     ok_c, q_launches, fed2 = run_comm_sweep(
@@ -6437,6 +6675,8 @@ def main() -> int:
     # -- 7. the pipeline's kernel route against its plain route -------------
     ok_r = compare_qsgd_routes(torch, np, api, linear, optim, fl, fed2)
 
+    done("6-7")
+
     # -- 8. the population plane, M == C, against the dense path ------------
     ok_p8 = run_population_m_equals_c(torch, api, linear, optim, fl, pop_mod,
                                       fed2, cohort_gather_scatter)
@@ -6448,10 +6688,14 @@ def main() -> int:
     ok_p9 &= profile_resident_chunk(torch, np, linear, pop_mod, qs_spec,
                                     qs_pop)
 
+    done("8-9")
+
     # -- 10. the model kernels against their plain versions -----------------
     ok_mk, mk_recs, mk_worst = check_model_kernels(
         torch, (flash_attention, rwkv6_scan, mamba2_ssd),
         (flash_attention_ref, rwkv6_scan_ref, mamba2_ssd_ref))
+
+    done("10")
 
     # -- 11. full-width static serving ----------------------------------------
     counters = {"dp_clip_noise": dp_clip_noise,
@@ -6465,8 +6709,12 @@ def main() -> int:
     # -- 12. the model's kernel route against its plain route ---------------
     ok_rt = compare_model_routes(torch, configs, Transformer)
 
+    done("11-12")
+
     # -- 13. the paper's experiments at full width ---------------------------
     ok_px, px_launches = run_paper_experiments(torch, dp_clip_noise, card)
+
+    done("13")
 
     # -- 14. the trust plane ---------------------------------------------------
     ok_tk = check_trust_kernels(torch, np)
@@ -6474,6 +6722,8 @@ def main() -> int:
     ok_sc, sc_launches = run_secure_central(torch, np, api, linear, spec,
                                             fed, dp_clip_noise)
     ok_tr = time_trust_rounds(torch, np, api, linear, spec, fed, card)
+
+    done("14")
 
     # -- 15. the buffered-async plane -----------------------------------------
     ok_aa, aa_calls = run_async_identity(
@@ -6485,6 +6735,8 @@ def main() -> int:
     ok_ac, ac_launches = run_async_straggler(torch, np, api, asyncfl,
                                              dp_clip_noise)
 
+    done("15")
+
     # -- 16. the transformer training path ------------------------------------
     ok_tw, tw_launches, tw_rec = run_training_full_width(
         torch, np, api, fl, ops, launch_train, configs, counters,
@@ -6494,6 +6746,8 @@ def main() -> int:
         {"dp_clip_noise": dp_clip_noise_ref,
          "quantize_decompress": quantize_decompress_ref,
          "cohort_gather_scatter": cohort_gather_scatter_ref}, card)
+
+    done("16")
 
     # -- 17. the continuous-batching serving engine ---------------------------
     t17 = time.perf_counter()
@@ -6806,8 +7060,31 @@ def main() -> int:
             "phase 19a throughput_torch.py --smoke drivers":
                 ta_launches["cohort_gather_scatter"],
             "phase 20a the resident quickstart under shard_map":
-                sa_launches["cohort_gather_scatter"]}}] + model_kernels
-        + split_kernels, "phase21b_gemma3_model_axis": xb_rec,
+                sa_launches["cohort_gather_scatter"]}}, {
+        "name": "counter_rng", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/counter_rng.cu",
+        "replaces": "none: no Pallas kernel; the port's counterpart of "
+                    "jax.random's keyed draws (src/repro/mesh/engine.py:246, "
+                    "src/repro/core/fl.py:87)",
+        "launches": rng_launches,
+        "max_abs_err": rng_rec["max_abs_err"],
+        "ms": rng_rec["normal"]["ms"],
+        "plain_ms": rng_rec["normal"]["plain_ms"],
+        "bound_ms": rng_rec["normal"]["bound_ms"],
+        "bound_by": rng_rec["normal"]["bound_by"], "library_ms": None,
+        "torch_randn_ms": rng_rec["normal"]["torch_ms"],
+        "shape": rng_rec["normal"]["shape"],
+        "uniform": rng_rec["uniform"], "slab_21b": rng_rec["slab_21b"],
+        "launches_other_paths": {
+            "phase 21b gemma3-4b's widths in slab state on the (1, 2) mesh, "
+            "both ranks, the last turn": xb_launches.get("counter_rng", 0),
+            **{f"phase {phase} {MA_CELLS[phase][0]}'s widths in slab state "
+               f"on the (1, 2) mesh, both ranks, the last turn":
+               launched.get("counter_rng", 0)
+               for phase, launched in (*xf_launches.items(),
+                                       ("23d", zd_launches))}}}]
+        + model_kernels + split_kernels,
+        "phase21b_gemma3_model_axis": xb_rec,
         "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs,
         "phase23": {"23a": za_recs.get("23a"), "23b": zb_rec, "23c": zc_rec,
                     "23d": zd_rec},
@@ -6819,6 +7096,8 @@ def main() -> int:
                      (ok_q, "quantize_decompress is not bit-identical to "
                             "its plain version"),
                      (ok_m, "the main path's checks failed"),
+                     (ok_rng, "counter_rng disagrees with its plain version "
+                              "or a slab draw with the whole draw"),
                      (ok_b, "the kernel round disagrees with the plain "
                             "round"),
                      (ok_s, "the steady rounds gave non-finite params"),

@@ -17,7 +17,9 @@ calls. ``init_state(..., device="cpu")`` runs on the CPU.
 ``FederationSpec(participation=0.5, compressor="qsgd")`` (or ``"topk"`` /
 ``"randk"``) runs the aggregation pipeline: a fresh participant set every
 round, compressed error-fed updates (``FLState.residual``). ``save_state`` /
-``load_state`` checkpoint a state. :class:`Federation` is the
+``load_state`` checkpoint a state. Under ``engine="mesh_2d"`` on a world
+of several ranks a state is each rank's slab (its client block's rows and
+model slices); ``whole_state`` reads it whole. :class:`Federation` is the
 back-compat mutable wrapper over the same functions, and
 ``register_engine`` / ``get_engine`` the round-engine registry.
 """
@@ -29,6 +31,7 @@ from repro_torch.api.engines import (
     register_engine,
     resolve_engine,
     round_fn_for,
+    slab_round_fn_for,
 )
 from repro_torch.api.federation import Federation
 from repro_torch.api.spec import COMPRESSORS, ENGINES, FederationSpec
@@ -59,7 +62,9 @@ from repro_torch.api.state import (
     run_rounds,
     save_state,
     sigmas_for,
+    slab_applies,
     train,
+    whole_state,
 )
 
 __all__ = [
@@ -67,11 +72,12 @@ __all__ = [
     "AggregationPipeline", "make_compressor", "participation_mask",
     "RoundEngine", "available_engines", "chunked_round_fn_for", "get_engine",
     "register_engine", "resolve_engine", "round_fn_for",
+    "slab_round_fn_for",
     "BudgetExceeded", "FLState", "PrefetchFailed", "accountant_view",
     "budget_train_loop", "collapse_clients", "eval_params",
     "exceeds_budgets", "init_state", "load_state", "materialize_record",
     "max_epsilon", "peek_epsilon_fast", "round_batch", "round_batches",
     "round_rho_charges", "rounds_within_budgets", "run_round", "run_rounds",
-    "save_state", "sigmas_for", "train",
+    "save_state", "sigmas_for", "slab_applies", "train", "whole_state",
     "Federation",
 ]

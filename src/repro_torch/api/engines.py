@@ -37,8 +37,11 @@ registered:
 
 ``register_engine`` adds an execution strategy without touching the
 drivers, which select purely through ``FederationSpec.engine``. The
-sharded engines run every rank's copy of the driver (SPMD): they take and
-return the full client-stacked trees. Where no process group is
+sharded engines run every rank's copy of the driver (SPMD): their round
+functions take and return the full client-stacked trees. ``mesh_2d``'s
+also carries a slab round (:func:`slab_round_fn_for`) on one rank's slab
+of the state, which the drivers run where a state is slab-local
+(:func:`repro_torch.api.state.init_state`). Where no process group is
 initialized they build a world of one (:func:`repro_torch.launch.mesh
 .ensure_world`).
 
@@ -245,17 +248,32 @@ def round_fn_for(spec: FederationSpec) -> RoundFn:
     return fn
 
 
-def chunked_round_fn_for(spec: FederationSpec) -> RoundFn:
-    """The R-round chunk function for ``spec``: the engine's round wrapped
-    by :func:`repro_torch.core.fl.make_chunked_round` (a plain loop; the
+def slab_round_fn_for(spec: FederationSpec) -> RoundFn:
+    """The slab round of a ``mesh_2d`` spec (cached with its whole-tree
+    round): ``(layout, params, opt_state, batch, noise, sigmas[, mask,
+    residual, agg_rand])`` on one rank's slab of the state, returning the
+    same layout (:func:`repro_torch.mesh.engine.make_mesh_2d_round`)."""
+    fn = round_fn_for(spec)
+    if not hasattr(fn, "slab_round"):
+        raise ValueError(f"engine {resolve_engine(spec)!r} has no slab "
+                         f"round; only mesh_2d keeps slab state")
+    return fn.slab_round
+
+
+def chunked_round_fn_for(spec: FederationSpec,
+                         slab: bool = False) -> RoundFn:
+    """The R-round chunk function for ``spec``: the engine's round (with
+    ``slab``, its slab round) wrapped by
+    :func:`repro_torch.core.fl.make_chunked_round` (a plain loop; the
     pipeline form draws each round's mask inside it)."""
     if spec.is_async():
         raise ValueError(
             "engine='async_buffered' has no fused sync chunk: drive it with "
             "repro_torch.asyncfl.train_async (its chunking is host-paced "
             "over the simulated event schedule)")
-    return make_chunked_round(round_fn_for(spec),
-                              pipeline=spec.aggregation_pipeline())
+    return make_chunked_round(
+        slab_round_fn_for(spec) if slab else round_fn_for(spec),
+        pipeline=spec.aggregation_pipeline())
 
 
 # the resident chunk draws each round's mask inside its loop, so the

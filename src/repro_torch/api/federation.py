@@ -28,7 +28,11 @@ class Federation:
     ``sampler(client, tau, rng) -> batch pytree with leading axes (tau, B)``
 
     Thin wrapper: all state lives in ``self.state`` (an
-    :class:`FLState`); the attributes below are views over it.
+    :class:`FLState`); the attributes below are views over it. Under
+    ``engine="mesh_2d"`` on a world of several ranks ``params`` and
+    ``opt_state`` are this rank's slab (its client block's rows of its
+    model slices); ``repro_torch.api.whole_state(fed.state)`` reads them
+    whole.
     """
     cfg: FLConfig
     loss_fn: Callable

@@ -1,9 +1,12 @@
 """Functional DP-PASGD core: FLState + init_state / run_round / train.
 
 The state of a federation is one immutable :class:`FLState` value: model
-replicas, optimizer state, the generator state the noise is drawn from,
-the privacy-accountant snapshot, the spent resources and, with a
-compressor, the error-feedback residual. ``run_round`` maps
+replicas, optimizer state, the key of the counter-based generator the
+noise is drawn from, the privacy-accountant snapshot, the spent resources
+and, with a compressor, the error-feedback residual. Under ``mesh_2d`` on
+a world of several ranks each rank's state is its slab (its client
+block's rows and its model slices; :func:`init_state`), and
+:func:`whole_state` reads the whole trees. ``run_round`` maps
 (spec, state, batch) -> (state', metrics); ``save_state`` / ``load_state``
 checkpoint it. The rho ledger, the resource cost and the budget probes are
 the JAX package's float64 host math, bit for bit.
@@ -16,12 +19,19 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.api.engines import chunked_round_fn_for, round_fn_for
+from repro_torch.api.engines import (
+    chunked_round_fn_for,
+    mesh_shape_for,
+    resolve_engine,
+    round_fn_for,
+    slab_round_fn_for,
+)
 from repro_torch.api.spec import FederationSpec
 from repro_torch.checkpoint import (
     checkpoint_leaf_paths,
@@ -36,6 +46,7 @@ from repro_torch.core.privacy import (
     per_step_charges,
     zcdp_to_dp,
 )
+from repro_torch.kernels.counter_rng import make_key
 from repro_torch.utils.convert import tree_from_numpy
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import (
@@ -71,20 +82,27 @@ class PrefetchFailed(RuntimeError):
 class FLState:
     """Complete training state of one federation (immutable).
 
-    params/opt_state carry the leading client axis C on every leaf. ``key``
-    is the state of the ``torch.Generator`` (of the params' device) that the
-    rounds draw their noise from, as a tensor, so the state stays a value.
-    The accountant snapshot (rho, steps) lives host-side as plain numpy.
+    params/opt_state carry the leading client axis C on every leaf, or,
+    with a ``layout`` (a :class:`repro_torch.mesh.engine.SlabLayout`:
+    ``mesh_2d`` on several ranks), this rank's slab: its client block's
+    rows (pad rows past the last client included) of its model slices,
+    the residual the block's rows whole in D (:func:`whole_state` gathers
+    the whole trees). ``key`` is the counter-based generator's (2,) int64
+    ``(seed, counter)`` on the host (:mod:`repro_torch.kernels
+    .counter_rng`): each round's draws take its counter and advance it by
+    one. The accountant snapshot (rho, steps) lives host-side as plain
+    numpy, whole on every rank.
     """
     params: Any
     opt_state: Any
-    key: torch.Tensor               # generator state, one draw per round
+    key: torch.Tensor               # (seed, counter), one counter a round
     rho: np.ndarray                 # (C,) spent zCDP per client (Lemma 1)
     steps: int = 0                  # local iterations accounted so far
     resource_spent: float = 0.0     # accumulated Eq.-(8) cost
     rounds_done: int = 0
     residual: Any = None            # (C, D) f32 error-feedback residual of
     #   the aggregation pipeline; None unless the spec sets a compressor
+    layout: Any = None              # SlabLayout of a slab state, else None
 
     def replace(self, **changes) -> "FLState":
         return dataclasses.replace(self, **changes)
@@ -94,21 +112,64 @@ def _device_of(state: FLState) -> torch.device:
     return tree_leaves(state.params)[0].device
 
 
+def slab_applies(spec: FederationSpec) -> bool:
+    """Whether :func:`init_state` gives ``spec`` slab state: a ``mesh_2d``
+    spec (after ``engine="auto"``) on a world of more than one rank whose
+    mesh holds every rank, neither a population nor an async spec (their
+    drivers keep whole state)."""
+    from repro_torch.launch.mesh import world_size
+    if (spec.is_population() or spec.is_async() or world_size() < 2
+            or resolve_engine(spec) != "mesh_2d"):
+        return False
+    dc, dm = mesh_shape_for(spec)
+    return dc * dm == world_size()
+
+
 def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
     """Fresh FLState: params0 (no client axis) replicated C times on
-    ``device`` (default ``"cuda"``; raises when no GPU is present)."""
+    ``device`` (default ``"cuda"``; raises when no GPU is present).
+
+    Where :func:`slab_applies` each rank holds only its slab:
+    ``params0``'s model slices, widened to its client block's rows, and the
+    optimizer state likewise; the (C, ...) trees are never made on the
+    device (:func:`whole_state` of it is the whole layout)."""
     dev = resolve_device(device)
     params0 = tree_from_numpy(params0, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(spec.seed)
+    opt0 = spec.optimizer.init(params0)
     pipe = spec.aggregation_pipeline()
+    layout = None
+    if slab_applies(spec):
+        from repro_torch.mesh.engine import to_slab
+        layout = round_fn_for(spec).layout(params0, opt0)
+    rows = spec.n_clients if layout is None else layout.block
+    residual = (pipe.init_residual(params0, rows) if pipe is not None
+                else None)
+    if layout is not None:
+        params0 = to_slab(layout, params0, layout.param_dims, lead=0)
+        opt0 = to_slab(layout, opt0, layout.state_dims, lead=0)
     return FLState(
-        params=tree_broadcast_axis0(params0, spec.n_clients),
-        opt_state=tree_broadcast_axis0(spec.optimizer.init(params0),
-                                       spec.n_clients),
-        key=gen.get_state(),
+        params=tree_broadcast_axis0(params0, rows),
+        opt_state=tree_broadcast_axis0(opt0, rows),
+        key=make_key(spec.seed),
         rho=np.zeros((spec.n_clients,), np.float64),
-        residual=pipe.init_residual(params0) if pipe is not None else None)
+        residual=residual, layout=layout)
+
+
+def whole_state(state: FLState) -> FLState:
+    """The whole FLState of a slab state: params, optimizer state and
+    residual gathered over the mesh's model and client groups, (C, ...) on
+    every rank (a collective: every rank of the mesh calls it); a whole
+    state as it is. The counterpart of reading a sharded JAX array whole."""
+    lay = state.layout
+    if lay is None:
+        return state
+    from repro_torch.mesh.engine import from_slab
+    return state.replace(
+        params=from_slab(lay, state.params, lay.param_dims),
+        opt_state=from_slab(lay, state.opt_state, lay.state_dims),
+        residual=(None if state.residual is None
+                  else from_slab(lay, state.residual, -1)),
+        layout=None)
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +291,13 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
     """One DP-PASGD round (Eq. 7a-7b): tau local steps + the topology's
     collective.
 
-    batch leaves are (C, tau, B, ...), numpy arrays or tensors. The round's
-    (C, tau, N) noise is drawn in one ``torch.randn`` call from the state's
-    generator. Under an aggregation pipeline the round draws its
-    participation mask, noise and compressor operand
+    batch leaves are (C, tau, B, ...), numpy arrays or tensors (or, for a
+    slab state, already its block's rows). The round's noise
+    is drawn in one ``counter_rng`` launch at the state's key: the whole
+    (C, tau, N), or a slab state's own (block, tau, N_local) addresses
+    of it (:func:`repro_torch.core.fl.draw_round_noise`), and a slab state
+    runs its engine's slab round. Under an aggregation pipeline the round
+    draws its participation mask, noise and compressor operand
     (:func:`repro_torch.core.fl.draw_pipeline_round`), brings the mask to
     the host (the round's one sync) and charges rho to the participants
     only. Returns the successor state and a metrics record whose metric
@@ -245,24 +309,30 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
         if which is not None:
             _raise_budget(which, spec)
     dev = _device_of(state)
-    batch = tree_from_numpy(batch, dev)
+    lay = state.layout
+    batch = _batch_on(state, batch, dev)
+    sig = _sigmas_on(spec, state, dev)
     per_round = round_rho_charges(spec)
     pipe = spec.aggregation_pipeline()
     residual = state.residual
+    kw = {} if lay is None else {"slab": lay}
+    fn = round_fn_for(spec) if lay is None else partial(
+        slab_round_fn_for(spec), lay)
     if pipe is not None:
         mask, noise, agg_rand, key = draw_pipeline_round(
-            state.key, state.params, spec.tau, pipe)
+            state.key, state.params, spec.tau, pipe, **kw)
         mask_np = mask.cpu().numpy()
-        new_p, new_s, residual, ms = round_fn_for(spec)(
-            state.params, state.opt_state, batch, noise,
-            sigmas_for(spec, dev), mask, state.residual, agg_rand)
+        new_p, new_s, residual, ms = fn(
+            state.params, state.opt_state, batch, noise, sig,
+            mask if lay is None else lay.take(mask), state.residual,
+            agg_rand)
         rho = state.rho + np.where(mask_np > 0, per_round, 0.0)
         n_participants = int(mask_np.sum())
     else:
-        noise, key = draw_round_noise(state.key, state.params, spec.tau)
-        new_p, new_s, ms = round_fn_for(spec)(
-            state.params, state.opt_state, batch, noise,
-            sigmas_for(spec, dev))
+        noise, key = draw_round_noise(state.key, state.params, spec.tau,
+                                      **kw)
+        new_p, new_s, ms = fn(state.params, state.opt_state, batch, noise,
+                              sig)
         rho = state.rho + per_round
         n_participants = spec.n_clients
     new_state = state.replace(
@@ -279,14 +349,33 @@ def run_round(spec: FederationSpec, state: FLState, batch: Any,
     return new_state, rec
 
 
+def _batch_on(state: FLState, batch, dev, axis: int = 0):
+    """A round's (or, ``axis`` 1, a chunk's) batch on the device: a slab
+    state's block rows of it (taken on the host, so only they go up),
+    unless its client axis holds the block's rows already (where the block
+    is all C clients, taking them again reads the same rows)."""
+    lay = state.layout
+    if (lay is not None and int(tree_leaves(batch)[0].shape[axis])
+            == lay.n_clients):
+        batch = lay.take(batch, axis)
+    return tree_from_numpy(batch, dev)
+
+
+def _sigmas_on(spec: FederationSpec, state: FLState, dev) -> torch.Tensor:
+    sig = sigmas_for(spec, dev)
+    return sig if state.layout is None else state.layout.take(sig)
+
+
 def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
                n_rounds: int | None = None, check_budgets: bool = True,
-               prefetch: Callable[[], None] | None = None,
+               prefetch: Callable[[], None] | None = None
                ) -> tuple[FLState, list[dict]]:
     """A chunk of R rounds in one call, equal to R sequential
     :func:`run_round` calls (the same noise draws in the same order).
 
-    ``batches`` leaves are (R, C, tau, B, ...) (see :func:`round_batches`).
+    ``batches`` leaves are (R, C, tau, B, ...) (see :func:`round_batches`;
+    for a slab state, or its (R, block, ...) rows already); a slab state
+    runs the chunk on its slab.
     ``prefetch()``, if given, runs after the chunk is enqueued, so callers
     build the next chunk's host batches while the device computes. If it
     raises, :class:`PrefetchFailed` carries the completed state and
@@ -309,17 +398,18 @@ def run_rounds(spec: FederationSpec, state: FLState, batches: Any,
         if ok < n_rounds:
             _raise_budget(which, spec)
     dev = _device_of(state)
-    fn = chunked_round_fn_for(spec)
-    batches = tree_from_numpy(batches, dev)
-    sig = sigmas_for(spec, dev)
+    lay = state.layout
+    fn = chunked_round_fn_for(spec, slab=lay is not None)
+    batches = _batch_on(state, batches, dev, axis=1)
+    sig = _sigmas_on(spec, state, dev)
     residual = state.residual
     if spec.has_pipeline():
         new_p, new_s, key, residual, ms, masks = fn(
             state.params, state.opt_state, batches, state.key, sig,
-            state.residual)
+            state.residual, slab=lay)
     else:
         new_p, new_s, key, ms = fn(state.params, state.opt_state, batches,
-                                   state.key, sig)
+                                   state.key, sig, slab=lay)
         masks = None
     prefetch_exc = None
     if prefetch is not None:
@@ -395,7 +485,12 @@ def collapse_clients(params: Any, topology: str) -> Any:
 
 
 def eval_params(spec: FederationSpec, state: FLState) -> Any:
-    """The single evaluation model for ``spec``'s topology."""
+    """The single evaluation model for ``spec``'s topology, whole. A slab
+    state's is alike on every rank of its mesh
+    (:func:`repro_torch.mesh.engine.slab_eval_model`: a collective)."""
+    if state.layout is not None:
+        from repro_torch.mesh.engine import slab_eval_model
+        return slab_eval_model(state.layout, state.params, spec.topology)
     return collapse_clients(state.params, spec.topology)
 
 
@@ -528,6 +623,9 @@ def train(spec: FederationSpec, state: FLState, sampler: Callable,
         rng = np.random.default_rng(spec.seed)
     history = [] if history is None else history
     dev = _device_of(state)
+    # a slab state's chunks hold its block's rows only
+    take = ((lambda b: b) if state.layout is None
+            else partial(state.layout.take, axis=1))
     state, best = budget_train_loop(
         state=state, max_rounds=max_rounds, eval_fn=eval_fn,
         eval_every=eval_every, history=history, chunk_rounds=chunk_rounds,
@@ -537,7 +635,7 @@ def train(spec: FederationSpec, state: FLState, sampler: Callable,
         run_single=lambda s: run_round(
             spec, s, round_batch(spec, sampler, rng), check_budgets=False),
         build_chunk=lambda start, n: tree_from_numpy(
-            round_batches(spec, sampler, rng, n), dev),
+            take(round_batches(spec, sampler, rng, n)), dev),
         run_chunk=lambda s, chunk, n, prefetch: run_rounds(
             spec, s, chunk, n, check_budgets=False, prefetch=prefetch),
         run_tail=lambda s, chunk, r: run_round(
@@ -558,8 +656,12 @@ def train(spec: FederationSpec, state: FLState, sampler: Callable,
 def save_state(directory: str, state: FLState,
                extra: dict | None = None) -> None:
     """Persist an FLState (arrays + accountant snapshot) to ``directory``,
-    in the JAX package's checkpoint layout. ``key`` is the port's generator
-    state, not a JAX key."""
+    in the JAX package's checkpoint layout. ``key`` is the port's counter
+    generator's ``(seed, counter)``, not a JAX key. A slab state is
+    gathered whole once (:func:`whole_state`, every rank of the mesh
+    calls this) and rank 0 writes, so the checkpoint is the same as a whole
+    run's and loads into either layout."""
+    state = whole_state(state)
     meta = {
         "rho": [float(r) for r in state.rho],
         "steps": int(state.steps),
@@ -576,8 +678,10 @@ def save_state(directory: str, state: FLState,
 
 def load_state(directory: str, like: FLState) -> tuple[FLState, dict]:
     """Restore an FLState saved by :func:`save_state` onto ``like``'s
-    device. ``like`` supplies the structure (e.g. a fresh ``init_state``).
-    Returns (state, extra) with any caller metadata passed to save_state."""
+    device. ``like`` supplies the structure (e.g. a fresh ``init_state``);
+    a slab ``like`` takes its own slab of the stored whole trees on each
+    rank. Returns (state, extra) with any caller metadata passed to
+    save_state."""
     like_tree = {"params": like.params, "opt_state": like.opt_state,
                  "key": like.key}
     # ask for the residual only when both sides have one: a dense-trained
@@ -589,6 +693,14 @@ def load_state(directory: str, like: FLState) -> tuple[FLState, dict]:
         like_tree["residual"] = like.residual
     tree, _, extra = load_checkpoint(directory, like=like_tree)
     dev = _device_of(like)
+    lay = like.layout
+    if lay is not None:
+        from repro_torch.mesh.engine import to_slab
+        tree["params"] = to_slab(lay, tree["params"], lay.param_dims)
+        tree["opt_state"] = to_slab(lay, tree["opt_state"], lay.state_dims)
+        if "residual" in tree:      # pad rows carry no residual
+            tree["residual"] = (lay.take(tree["residual"])
+                                * np.asarray(lay.valid, np.float32)[:, None])
     state = like.replace(
         params=tree_from_numpy(tree["params"], dev),
         opt_state=tree_from_numpy(tree["opt_state"], dev),

@@ -24,9 +24,10 @@ Numerical contract (the sync-equivalence identity gate): with
 weights and each cycle computes the port's sync ``vmap`` round
 (``core/fl.py``, ``core/aggregation.py``) bit for bit:
 
-* the dispatch draws from the generator with
-  :func:`repro_torch.core.fl.draw_dispatch`, which consumes it as
-  ``run_round``'s ``draw_round_noise`` / ``draw_pipeline_round`` does;
+* the dispatch draws at the counter generator's key with
+  :func:`repro_torch.core.fl.draw_dispatch`, which draws what
+  ``run_round``'s ``draw_round_noise`` / ``draw_pipeline_round`` draw at
+  that key and advances it as they do;
 * weights enter only as ``m = w * mask``; the anchor carry
   ``(sum(mask) - sum(m)) * anchor`` is left out when every weight is 1
   (known on the host, so it costs no sync), where it is zero;
@@ -156,8 +157,8 @@ class AsyncBufferedExecutor:
                       residual=None) -> dict:
         """Dispatch generation 0 (every slot, from the initial model).
 
-        Returns a dict of the fresh slot storages, the advanced generator
-        state and the block's participation mask (on the device).
+        Returns a dict of the fresh slot storages, the advanced key and
+        the block's participation mask (on the device).
         """
         p, s, ms, sent, res, mask, key = self._dispatch(
             global_p, global_o,
@@ -231,7 +232,7 @@ class AsyncBufferedExecutor:
         from pinned memory without blocking. ``batch`` is the replacement
         dispatch's (B, tau, ...) round batch on the device. The slot
         storages are updated in place. Returns a dict with the new globals,
-        the slot storages, the advanced generator state, the NEW dispatch's
+        the slot storages, the advanced key, the NEW dispatch's
         participation mask (on the device) and the flushed arrivals'
         reduced metrics (0-d device tensors).
         """

@@ -56,6 +56,7 @@ from repro_torch.asyncfl.engine import executor_for
 from repro_torch.asyncfl.events import EventView, earliest_arrivals
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.privacy import zcdp_to_dp
+from repro_torch.kernels.counter_rng import make_key
 from repro_torch.utils.convert import tree_from_numpy, tree_upload
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -68,8 +69,8 @@ class AsyncState:
     ``fl`` reuses :class:`repro_torch.api.FLState` with async readings: its
     params/opt_state/residual are the K *slot* storages (slot i = the
     in-flight dispatch of client i; what that client will upload, computed
-    at dispatch), its ``key`` the generator state the dispatches draw
-    from, its ``rho`` the LANDED ledger (flushed charges only; probe with
+    at dispatch), its ``key`` the counter generator's ``(seed, counter)``
+    the dispatches draw at, its ``rho`` the LANDED ledger (flushed charges only; probe with
     ``+ pending_rho`` for the sound dispatched view), and ``rounds_done``
     counts completed flushes (== the global model version). All schedule
     arrays are host numpy: the event loop is exact host math, like the
@@ -271,9 +272,9 @@ def init_async_state(spec: FederationSpec, params0: Any, sampler: Callable,
     GPU is present): dispatch generation 0 (all K slots, from the initial
     model) and schedule its arrivals at the latency model's draws.
 
-    The generation-0 dispatch consumes exactly the sync driver's round-1
-    generator and batch schedule (``key`` defaults to the generator
-    ``init_state`` seeds) and is pre-charged in ``pending_rho``: nothing
+    The generation-0 dispatch draws exactly the sync driver's round-1
+    randomness and batch schedule (``key`` defaults to the counter
+    generator's key ``init_state`` makes) and is pre-charged in ``pending_rho``: nothing
     has landed yet, so ``fl.rho`` starts zero and ``clock`` at 0.0.
     """
     if not spec.is_async():
@@ -285,9 +286,7 @@ def init_async_state(spec: FederationSpec, params0: Any, sampler: Callable,
     if latency_model is None:
         latency_model = UniformLatency(spec.seed)
     if key is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(spec.seed)
-        key = gen.get_state()
+        key = make_key(spec.seed)
     charges = round_rho_charges(spec)
     if check_budgets:
         # the same first-round probe the sync driver runs, against the
@@ -514,7 +513,8 @@ def train_async(spec: FederationSpec, state: AsyncState, sampler: Callable,
 def save_async_state(directory: str, state: AsyncState,
                      extra: dict | None = None) -> None:
     """Persist an AsyncState (device trees + the host schedule/ledger), in
-    the JAX package's layout. ``key`` is the port's generator state."""
+    the JAX package's layout. ``key`` is the port's counter generator's
+    ``(seed, counter)``."""
     meta = {
         "rho": [float(r) for r in state.fl.rho],
         "steps": int(state.fl.steps),

@@ -11,8 +11,10 @@ Leaf paths are named as ``jax.tree_util.tree_flatten_with_path`` names them
 are tensors or numpy arrays; they are written from the host.
 
 Under a ``torch.distributed`` world every rank holds the same full state
-(the sharded engines return whole trees), so rank 0 writes and the other
-ranks wait at a barrier (:func:`one_writer`).
+when it writes (the sharded engines return whole trees, and
+``repro_torch.api.save_state`` gathers a mesh_2d slab state whole first),
+so rank 0 writes and the other ranks wait at a barrier
+(:func:`one_writer`).
 """
 from __future__ import annotations
 

@@ -22,8 +22,10 @@ leaves laid end to end in ``jax.tree.flatten`` order:
 
 The randomness a compressor needs is an operand of the round (``agg_rand``:
 (C, D) uniforms for qsgd, (C, k) int64 indices for randk, ``None`` for
-topk), drawn by :meth:`Compressor.draw` from the federation's generator, so
-the tests can feed the JAX package's draws. The wire is simulated in dense
+topk), drawn by :meth:`Compressor.draw` from the federation's counter-based
+generator (:mod:`repro_torch.kernels.counter_rng`, purpose ``AGG_RAND``;
+row r is client r's, whatever block of rows is drawn), so the tests can
+feed the JAX package's draws. The wire is simulated in dense
 tensors; what it would carry is ``FederationSpec.comm_scale()`` (Eq. 8
 charges ``c1 * wire_ratio * q`` per aggregation).
 
@@ -47,7 +49,8 @@ from typing import Any, Callable, Protocol
 import torch
 
 from repro_torch.core.robust import participant_rows
-from repro_torch.kernels.ops import quantize_decompress_rows
+from repro_torch.kernels.counter_rng import AGG_RAND, MASK, whole_table
+from repro_torch.kernels.ops import counter_draw, quantize_decompress_rows
 from repro_torch.utils.tree import (
     tree_flatten,
     tree_leaves,
@@ -94,12 +97,14 @@ def tree_dim(tree) -> int:
 class Compressor(Protocol):
     """Lossy update codec on (C, D) f32 rows -> their dense decompressed
     image. ``draw`` makes the random operand the codec consumes (or
-    ``None``); ``wire_ratio`` is the fraction of the dense f32 bytes the
-    compressed form would occupy on the wire (index overhead ignored)."""
+    ``None``) for the clients ``rows`` (their global row ids) from the key
+    ``(seed, counter)``; ``wire_ratio`` is the fraction of the dense f32
+    bytes the compressed form would occupy on the wire (index overhead
+    ignored)."""
 
     def __call__(self, rows: torch.Tensor, agg_rand) -> torch.Tensor: ...
 
-    def draw(self, gen: torch.Generator, n_rows: int, d: int,
+    def draw(self, key, rows: tuple, d: int,
              device) -> torch.Tensor | None: ...
 
     def wire_ratio(self) -> float: ...
@@ -133,6 +138,13 @@ def _keep_k(ratio: float, d: int) -> int:
     return max(1, min(d, int(round(ratio * d))))
 
 
+def uniform_rows(key, rows: tuple, d: int, device) -> torch.Tensor:
+    """(len(rows), d) U[0, 1) f32 of the clients ``rows``: the counter
+    generator's ``AGG_RAND`` values at step 0, whole columns."""
+    return counter_draw(key, tuple(rows), whole_table(d), 1, d, AGG_RAND,
+                        False, device)[:, 0]
+
+
 def _keep(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Zeros except at ``idx`` (R, k), where ``rows`` is kept."""
     return torch.zeros_like(rows).scatter_(1, idx, rows.gather(1, idx))
@@ -149,7 +161,7 @@ class TopK:
         _, idx = torch.topk(torch.abs(rows), k, dim=1)
         return _keep(rows, idx)
 
-    def draw(self, gen, n_rows, d, device):
+    def draw(self, key, rows, d, device):
         return None
 
     def wire_ratio(self) -> float:
@@ -166,9 +178,10 @@ class RandK:
     def __call__(self, rows, agg_rand):
         return _keep(rows, agg_rand)
 
-    def draw(self, gen, n_rows, d, device):
-        """(R, k) int64: the first k of a uniform permutation per row."""
-        u = torch.rand((n_rows, d), generator=gen, device=device)
+    def draw(self, key, rows, d, device):
+        """(R, k) int64: the first k of a uniform permutation per row (an
+        argsort of the row's uniforms)."""
+        u = uniform_rows(key, rows, d, device)
         return torch.argsort(u, dim=1)[:, :_keep_k(self.ratio, d)]
 
     def wire_ratio(self) -> float:
@@ -188,8 +201,8 @@ class QSGD:
                                         backend=self.kernel_backend)
         return y
 
-    def draw(self, gen, n_rows, d, device):
-        return torch.rand((n_rows, d), generator=gen, device=device)
+    def draw(self, key, rows, d, device):
+        return uniform_rows(key, rows, d, device)
 
     def wire_ratio(self) -> float:
         return compression_wire_ratio("qsgd", bits=self.bits)
@@ -212,12 +225,15 @@ def make_compressor(name: str, ratio: float = 0.1, bits: int = 8,
 # participation
 # ---------------------------------------------------------------------------
 
-def participation_mask(gen: torch.Generator, n_clients: int,
-                       n_participants: int, device) -> torch.Tensor:
+def participation_mask(key, n_clients: int, n_participants: int,
+                       device) -> torch.Tensor:
     """0/1 f32 (C,) mask with exactly ``n_participants`` ones, sampled
-    uniformly without replacement from ``gen``. Fixed-size sampling keeps
-    the aggregation denominator static."""
-    u = torch.rand((n_clients,), generator=gen, device=device)
+    uniformly without replacement: the argsort of the clients' ``MASK``
+    uniforms of the key ``(seed, counter)`` (client r's at row r). Every
+    rank draws the whole mask. Fixed-size sampling keeps the aggregation
+    denominator static."""
+    u = counter_draw(key, tuple(range(n_clients)), whole_table(1), 1, 1,
+                     MASK, False, device).reshape(-1)
     idx = torch.argsort(u)[:n_participants]
     return torch.zeros((n_clients,), dtype=torch.float32,
                        device=device).index_fill_(0, idx, 1.0)
@@ -251,12 +267,15 @@ class AggregationPipeline:
     def needs_residual(self) -> bool:
         return self.compressor is not None
 
-    def init_residual(self, params0) -> torch.Tensor | None:
-        """(C, D) zero error-feedback residual on ``params0``'s device, or
-        None without a compressor. ``params0`` is the single-replica init."""
+    def init_residual(self, params0,
+                      n_rows: int | None = None) -> torch.Tensor | None:
+        """(C, D) zero error-feedback residual on ``params0``'s device (or
+        ``n_rows`` rows of it: a slab's block), or None without a
+        compressor. ``params0`` is the single-replica init."""
         if not self.needs_residual():
             return None
-        return torch.zeros((self.n_clients, tree_dim(params0)),
+        return torch.zeros((self.n_clients if n_rows is None else n_rows,
+                            tree_dim(params0)),
                            dtype=torch.float32,
                            device=tree_leaves(params0)[0].device)
 

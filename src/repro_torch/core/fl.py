@@ -16,8 +16,12 @@ its kernel calls has one row.
 
 Randomness enters as an operand: a round takes ``noise`` (C, tau, N)
 standard normals, drawn by :func:`draw_round_noise` from the federation's
-generator state. N is the number of parameters per client, leaves laid end
-to end in ``jax.tree.flatten`` order. A round with an aggregation pipeline
+counter-based generator (:mod:`repro_torch.kernels.counter_rng`) at its
+key ``(seed, counter)``: every value is a function of its address (the
+counter, what it is for, the client's row, the step, the column), so any
+block of rows and columns of a draw equals the same part of the whole
+draw. N is the number of parameters per client, leaves laid end to end in
+``jax.tree.flatten`` order. A round with an aggregation pipeline
 (:mod:`repro_torch.core.aggregation`) also takes the participation ``mask``
 and the compressor's ``agg_rand``, drawn by :func:`draw_pipeline_round`;
 a buffered-async dispatch draws its block's with :func:`draw_dispatch`.
@@ -36,7 +40,14 @@ from torch.func import vmap
 from repro_torch.core.aggregation import participation_mask
 from repro_torch.core.clipping import make_dp_grad_fn, make_plain_grad_fn
 from repro_torch.core.privacy import sigma_star
-from repro_torch.kernels.ops import cohort_gather, cohort_scatter
+from repro_torch.kernels.counter_rng import (
+    NOISE,
+    SECURE,
+    key_parts,
+    next_key,
+    whole_table,
+)
+from repro_torch.kernels.ops import cohort_gather, cohort_scatter, counter_draw
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import (
     tree_add,
@@ -204,111 +215,140 @@ def _n_params(params) -> int:
     return sum(x[0].numel() for x in tree_leaves(params))
 
 
-def draw_round_noise(key, params, tau: int):
-    """One round's (C, tau, N) f32 standard normals, in one ``torch.randn``
-    call on the params' device, from the generator state ``key``.
-    Returns ``(noise, next_key)``."""
-    leaves = tree_leaves(params)
-    gen = torch.Generator(device=leaves[0].device)
-    gen.set_state(key)
-    noise = torch.randn((leaves[0].shape[0], tau, _n_params(params)),
-                        generator=gen, dtype=torch.float32,
-                        device=leaves[0].device)
-    return noise, gen.get_state()
+def draw_round_noise(key, params, tau: int, slab=None):
+    """One round's f32 standard normals from the counter generator
+    (:mod:`repro_torch.kernels.counter_rng`, purpose ``NOISE``) at the key
+    ``(seed, counter)``, in one ``counter_rng`` launch on the params'
+    device: the whole (C, tau, N), client r at row r, or with ``slab`` (a
+    :class:`repro_torch.mesh.engine.SlabLayout`) the slab's (block, tau,
+    N_local), its rows' global ids and its columns in its local layout:
+    the same values as those addresses of the whole draw. Returns
+    ``(noise, next_key)``."""
+    return _noise(key, params, tau, slab), next_key(key)
 
 
-def draw_pipeline_round(key, params, tau: int, pipeline):
-    """The randomness of one pipeline round from the generator state
-    ``key``, drawn on the params' device in this order: the participation
-    mask (:func:`~repro_torch.core.aggregation.participation_mask`), the
-    (C, tau, N) noise, then the compressor's ``agg_rand`` (``None`` without
-    one). Under secure aggregation the (C, C, N) pair masks are drawn last
-    and ride in ``agg_rand`` as ``(agg_rand, pair_masks)``; ``next_key`` is
-    the state before them, so a secure spec draws every mask, noise and
-    ``agg_rand`` the same spec without it draws, as in the JAX package. The
-    pair masks thus reuse the stream the next round's draws start from;
-    they cancel exactly, so no result depends on their values. Nothing
-    comes to the host. Returns ``(mask, noise, agg_rand, next_key)``."""
+def _noise(key, params, tau: int, slab):
     leaves = tree_leaves(params)
-    dev, n_clients, n = leaves[0].device, leaves[0].shape[0], _n_params(params)
-    gen = torch.Generator(device=dev)
-    gen.set_state(key)
-    mask = participation_mask(gen, n_clients, pipeline.n_participants, dev)
-    noise = torch.randn((n_clients, tau, n), generator=gen,
-                        dtype=torch.float32, device=dev)
+    if slab is None:
+        rows, n = tuple(range(leaves[0].shape[0])), _n_params(params)
+        table = whole_table(n)
+    else:
+        rows, table, n = slab.rows, slab.table, slab.n_local
+    return counter_draw(key, rows, table, tau, n, NOISE, True,
+                        leaves[0].device)
+
+
+def _secure_generator(key, device) -> torch.Generator:
+    """The secure sum's pair-mask generator, seeded on the host from the
+    key's (seed, counter) and the ``SECURE`` purpose."""
+    seed, counter = key_parts(key)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((seed & (2 ** 64 - 1)) * 0x9E3779B97F4A7C15
+                     + counter * 4 + SECURE) % 2 ** 63)
+    return gen
+
+
+def draw_pipeline_round(key, params, tau: int, pipeline, slab=None):
+    """The randomness of one pipeline round at the key ``(seed, counter)``,
+    drawn on the params' device by address (each its own purpose of the
+    counter generator, so their order does not matter): the whole (C,)
+    participation mask
+    (:func:`~repro_torch.core.aggregation.participation_mask`; every rank
+    draws it whole), the noise (:func:`draw_round_noise`, ``slab`` as
+    there), then the compressor's ``agg_rand`` (``None`` without one), of
+    the clients whose noise is drawn, whole in D. Under secure aggregation
+    the (C, C, N) pair masks come from a ``torch.Generator`` seeded from
+    the key and ride in ``agg_rand`` as ``(agg_rand, pair_masks)``; they
+    cancel exactly, so no result depends on their values. Nothing comes to
+    the host. Returns ``(mask, noise, agg_rand, next_key)``."""
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
+    if slab is None:
+        n_clients, d = leaves[0].shape[0], _n_params(params)
+        rows = tuple(range(n_clients))
+    else:
+        n_clients, d, rows = slab.n_clients, slab.n_whole, slab.rows
+    mask = participation_mask(key, n_clients, pipeline.n_participants, dev)
+    noise = _noise(key, params, tau, slab)
     agg_rand = (None if pipeline.compressor is None
-                else pipeline.compressor.draw(gen, n_clients, n, dev))
-    next_key = gen.get_state()
+                else pipeline.compressor.draw(key, rows, d, dev))
     if pipeline.secure is not None:
-        agg_rand = (agg_rand, pipeline.secure.draw(gen, n, dev))
-    return mask, noise, agg_rand, next_key
+        agg_rand = (agg_rand, pipeline.secure.draw(
+            _secure_generator(key, dev), d, dev))
+    return mask, noise, agg_rand, next_key(key)
 
 
 def draw_dispatch(key, params, tau: int, pipeline, n_participants: int):
     """The randomness of one buffered-async dispatch of the block of clients
-    that ``params`` stacks (b rows), from the generator state ``key``, on
-    the params' device: ``(mask, noise, agg_rand, next_key)``. Under a
-    pipeline it draws as :func:`draw_pipeline_round` does (the (b,) mask
-    with ``n_participants`` ones, the (b, tau, N) noise, then b rows of the
+    that ``params`` stacks (b rows, at rows 0..b-1 of the counter
+    generator), at the key ``(seed, counter)``, on the params' device:
+    ``(mask, noise, agg_rand, next_key)``. Under a pipeline it draws as
+    :func:`draw_pipeline_round` does (the (b,) mask with
+    ``n_participants`` ones, the (b, tau, N) noise, then b rows of the
     compressor's ``agg_rand``; an async spec has no secure sum). Without
     one the mask is all ones (made on the device, not drawn) and the noise
-    is :func:`draw_round_noise`'s. So a dispatch of all C clients consumes
-    the generator exactly as a sync round does."""
+    is :func:`draw_round_noise`'s. So a dispatch of all C clients draws
+    exactly what a sync round at the same key does."""
+    noise = _noise(key, params, tau, None)
+    b, dev = noise.shape[0], noise.device
     if pipeline is None:
-        noise, next_key = draw_round_noise(key, params, tau)
-        return (torch.ones((noise.shape[0],), dtype=torch.float32,
-                           device=noise.device), noise, None, next_key)
-    leaves = tree_leaves(params)
-    dev, b, n = leaves[0].device, leaves[0].shape[0], _n_params(params)
-    gen = torch.Generator(device=dev)
-    gen.set_state(key)
-    mask = participation_mask(gen, b, n_participants, dev)
-    noise = torch.randn((b, tau, n), generator=gen, dtype=torch.float32,
-                        device=dev)
+        return (torch.ones((b,), dtype=torch.float32, device=dev), noise,
+                None, next_key(key))
+    mask = participation_mask(key, b, n_participants, dev)
     agg_rand = (None if pipeline.compressor is None
-                else pipeline.compressor.draw(gen, b, n, dev))
-    return mask, noise, agg_rand, gen.get_state()
+                else pipeline.compressor.draw(key, tuple(range(b)),
+                                              noise.shape[-1], dev))
+    return mask, noise, agg_rand, next_key(key)
 
 
 def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:
     """R rounds of ``round_fn`` as one call (a plain loop). Without a
     pipeline:
 
-        chunk_fn(params, opt_state, batches, key, sigmas)
+        chunk_fn(params, opt_state, batches, key, sigmas, slab=None)
             -> (params, opt_state, key, metrics)
 
     with ``batches`` leaves shaped (R, C, tau, B, ...) and metrics stacked
-    (R,). Each round draws its noise from the carried generator state
-    exactly as :func:`repro_torch.api.run_round` does, so a chunk equals R
-    sequential run_round calls. With a pipeline:
+    (R,). Each round draws its noise at the carried key exactly as
+    :func:`repro_torch.api.run_round` does, so a chunk equals R sequential
+    run_round calls. With a pipeline:
 
-        chunk_fn(params, opt_state, batches, key, sigmas, residual)
-            -> (params, opt_state, key, residual, metrics, masks)
+        chunk_fn(params, opt_state, batches, key, sigmas, residual,
+                 slab=None) -> (params, opt_state, key, residual, metrics,
+                                masks)
 
     where each round draws its mask, noise and ``agg_rand`` with
     :func:`draw_pipeline_round` inside the loop, and the realized masks come
-    back stacked (R, C) for the host ledger."""
-    def chunk_fn(params, opt_state, batches, key, sigmas):
+    back stacked (R, C) for the host ledger. With ``slab`` (a
+    :class:`repro_torch.mesh.engine.SlabLayout`) ``round_fn`` is a mesh_2d
+    slab round and every operand the slab's (batches, sigmas, residual:
+    the block's rows): each round draws the slab's noise and ``agg_rand``
+    and hands the round the block's rows of the whole mask."""
+    def chunk_fn(params, opt_state, batches, key, sigmas, slab=None):
         n_rounds, _, tau = tree_leaves(batches)[0].shape[:3]
+        lead = () if slab is None else (slab,)
         ms = []
         for r in range(n_rounds):
-            noise, key = draw_round_noise(key, params, tau)
+            noise, key = draw_round_noise(key, params, tau, **_slab_kw(slab))
             params, opt_state, m = round_fn(
-                params, opt_state, tree_map(lambda x: x[r], batches), noise,
-                sigmas)
+                *lead, params, opt_state, tree_map(lambda x: x[r], batches),
+                noise, sigmas)
             ms.append(m)
         return params, opt_state, key, {
             k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
-    def chunk_fn_pipeline(params, opt_state, batches, key, sigmas, residual):
+    def chunk_fn_pipeline(params, opt_state, batches, key, sigmas, residual,
+                          slab=None):
         n_rounds, _, tau = tree_leaves(batches)[0].shape[:3]
+        lead = () if slab is None else (slab,)
         ms, masks = [], []
         for r in range(n_rounds):
             mask, noise, agg_rand, key = draw_pipeline_round(
-                key, params, tau, pipeline)
+                key, params, tau, pipeline, **_slab_kw(slab))
             params, opt_state, residual, m = round_fn(
-                params, opt_state, tree_map(lambda x: x[r], batches), noise,
-                sigmas, mask, residual, agg_rand)
+                *lead, params, opt_state, tree_map(lambda x: x[r], batches),
+                noise, sigmas, mask if slab is None else slab.take(mask),
+                residual, agg_rand)
             ms.append(m)
             masks.append(mask)
         return params, opt_state, key, residual, {
@@ -316,6 +356,12 @@ def make_chunked_round(round_fn: Callable, pipeline=None) -> Callable:
         }, torch.stack(masks)
 
     return chunk_fn if pipeline is None else chunk_fn_pipeline
+
+
+def _slab_kw(slab) -> dict:
+    """The draws' ``slab`` keyword, left out for whole state (so a draw
+    replaced by a test's four-argument stand-in keeps working)."""
+    return {} if slab is None else {"slab": slab}
 
 
 def make_resident_chunked_round(round_fn: Callable, pipeline,

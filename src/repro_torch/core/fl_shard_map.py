@@ -23,8 +23,9 @@ has the single-process engines' signature, so ``run_round``,
 ``run_rounds``, the chunked and resident drivers, budgets and eval run
 unchanged, each rank driving the same federation. A rank takes its rows of
 params, opt_state, batch, noise, sigmas, mask, residual and ``agg_rand``
-(every rank draws the round's randomness whole from the same generator
-state, so a sharded round is row for row the ``vmap`` round). Outputs that
+(every rank draws the round's randomness whole at the same key of the
+counter-based generator, so a sharded round is row for row the ``vmap``
+round). Outputs that
 stay per client (``local_only`` params, optimizer state that is not
 averaged, the error-feedback residual) come back whole through one
 all-gather of the blocks along axis 0, rank order being row order.
@@ -148,6 +149,28 @@ class ClientGroup:
         return tree_map(lambda x: x[lo:lo + block], tree)
 
 
+def block_mean(grp: ClientGroup, new_p, new_s, ms: dict, full: bool,
+               avg_s: bool):
+    """Eq. 7b over a block of clients that divide the client axis: each
+    metric's block mean and, under ``full_average`` (``full``), the block
+    means of params and (``avg_s``) optimizer state, in one all-reduce over
+    the client group divided by the shard count (the reference's
+    ``pmean``; C / n_shards fewer bytes than a gather). Returns
+    ``(avg_p or None, avg_s or None, metrics)``, the averages without the
+    client axis."""
+    keys = list(ms)
+    ms = {k: torch.mean(v) for k, v in ms.items()}
+    if full:
+        s_mean = (tree_mean_over_axis0(new_s, keep_dtype=True) if avg_s
+                  else {})
+        p_mean, s_mean, ms = grp.all_mean_trees(
+            tree_mean_over_axis0(new_p), s_mean, ms)
+    else:
+        p_mean = s_mean = None
+        (ms,) = grp.all_mean_trees(ms)
+    return p_mean, (s_mean if avg_s else None), {k: ms[k] for k in keys}
+
+
 def widen(tree, n: int):
     """A block of identical rows (the re-broadcast global model) as ``n``
     rows: row 0 tiled."""
@@ -179,24 +202,14 @@ def make_shard_map_round(loss_fn: Callable, optimizer: Optimizer,
                 (params, opt_state, batch, noise, sigmas), block)
             new_p, new_s, ms = local_rounds(p_b, s_b, batch_b, noise_b,
                                             sig_b)
-            keys = list(ms)
-            ms = {k: torch.mean(v) for k, v in ms.items()}
-            if topology == "full_average":
-                # ---- Eq. (7b): THE collective, one all-reduce of the
-                # block means (C / n_shards fewer bytes than a gather)
-                avg_s = (tree_mean_over_axis0(new_s, keep_dtype=True)
-                         if cfg.average_opt_state else {})
-                avg_p, avg_s, ms = grp.all_mean_trees(
-                    tree_mean_over_axis0(new_p), avg_s, ms)
-                new_p = tree_broadcast_axis0(avg_p, n_clients)
-                new_s = (tree_broadcast_axis0(avg_s, n_clients)
-                         if cfg.average_opt_state
-                         else grp.all_gather_tree(new_s))
-            else:
-                (ms,) = grp.all_mean_trees(ms)
-                new_p = grp.all_gather_tree(new_p)
-                new_s = grp.all_gather_tree(new_s)
-            result = (new_p, new_s, {k: ms[k] for k in keys})
+            full = topology == "full_average"
+            avg_p, avg_s, ms = block_mean(grp, new_p, new_s, ms, full,
+                                          full and cfg.average_opt_state)
+            new_p = (tree_broadcast_axis0(avg_p, n_clients) if full
+                     else grp.all_gather_tree(new_p))
+            new_s = (tree_broadcast_axis0(avg_s, n_clients)
+                     if avg_s is not None else grp.all_gather_tree(new_s))
+            result = (new_p, new_s, ms)
         return grp.share(result)
 
     def round_step_pipeline(params, opt_state, batch, noise, sigmas, mask,

@@ -13,9 +13,9 @@ arithmetic core of the pairwise-masking protocol in two forms:
   masks the dropped clients leave behind are reconstructed and subtracted
   (:func:`dropout_correction`);
 * :class:`SecureMaskedSum`, the pipeline plugin on (C, D) tensors. Its
-  masks come from the federation's torch generator (they cancel, so they
-  need not be the JAX package's), and its mean equals the JAX package's
-  ``masked_mean`` bit for bit on the same updates and mask.
+  masks come from a torch generator seeded from the round's key (they
+  cancel, so they need not be the JAX package's), and its mean equals the
+  JAX package's ``masked_mean`` bit for bit on the same updates and mask.
 
 torch on the CPU has no uint32 add, so the plugin works in int64 and
 reduces with ``& 0xFFFFFFFF`` after each sum: the same ring, exactly.
@@ -170,7 +170,8 @@ class SecureMaskedSum:
     antisymmetric pair masks and dropout recovery. The round's
     non-participants are its dropped set, so every partial-participation
     round runs the recovery. The (C, C, D) pair masks are an operand,
-    drawn by :meth:`draw` from the federation's generator."""
+    drawn by :meth:`draw` from a generator seeded from the round's key
+    (:func:`repro_torch.core.fl.draw_pipeline_round`)."""
     n_clients: int
     frac_bits: int = 16
 

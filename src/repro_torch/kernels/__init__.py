@@ -10,6 +10,7 @@ kernel                       replaces (Pallas TPU kernel)                 source
 ``flash_attention``          ``repro/kernels/flash_attention.py``         ``csrc/flash_attention.cu``
 ``rwkv6_scan``               ``repro/kernels/rwkv6_scan.py``              ``csrc/rwkv6_scan.cu``
 ``mamba2_ssd``               ``repro/kernels/mamba2_ssd.py``              ``csrc/mamba2_ssd.cu``
+``counter_rng``              none (jax.random's threefry draws by key)    ``csrc/counter_rng.cu``
 ===========================  ===========================================  ================================
 
 Kernels build with ``nvcc`` at first use (:mod:`repro_torch.kernels._build`)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cohort_gather_scatter import cohort_gather_scatter
+from repro_torch.kernels.counter_rng import counter_rng
 from repro_torch.kernels.dp_clip_noise import (
     clip_noise_apply,
     dp_clip_noise,
@@ -32,9 +33,23 @@ from repro_torch.kernels.ref import (
     rwkv6_scan_ref,
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rwkv6_scan_kernel
+from repro_torch.utils.device import device_constant
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 KERNEL_BACKENDS = ("auto", "ref")
+
+
+def counter_draw(key, rows: tuple, table: tuple, tau: int, n: int,
+                 purpose: int, normal: bool, device):
+    """One ``counter_rng`` draw on ``device``: the (len(rows), tau, n) f32
+    values of stream ``key`` and ``purpose`` at the global row ids
+    ``rows`` and the local columns that ``table`` maps
+    (:func:`repro_torch.kernels.counter_rng.whole_table` / ``slab_table``).
+    The row ids and the table go to the device once
+    (:func:`repro_torch.utils.device.device_constant`)."""
+    return counter_rng(device_constant(rows, device),
+                       device_constant(table, device), tau, n, key, purpose,
+                       normal)
 
 
 def validate_backend(backend: str) -> None:

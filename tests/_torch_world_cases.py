@@ -38,28 +38,50 @@ def make_spec(kw: dict) -> tapi.FederationSpec:
                                optimizer=_OPTIMIZERS[key], **kw)
 
 
+def slab_cut(noise, slab):
+    """The (C, tau, N) whole ``noise`` cut to ``slab``'s (block, tau,
+    N_local): the block's rows (pad rows client 0's), then the model
+    rank's columns by ``mesh.engine.local_noise``; whole without a slab."""
+    noise = torch.as_tensor(noise)
+    if slab is None:
+        return noise
+    from repro_torch.mesh.engine import local_noise
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    noise = slab.take(noise)
+    if slab.mesh_shape[1] == 1:
+        return noise
+    treedef = tree_flatten(slab.param_dims)[1]
+    shapes = tree_unflatten(treedef, [torch.empty(sh, device="meta")
+                                      for sh in slab.shapes])
+    return local_noise(noise, shapes, slab.param_dims, slab.model_index,
+                       slab.mesh_shape[1])
+
+
 @contextlib.contextmanager
 def replayed(draws):
     """Make the drivers draw ``draws`` (one entry per round, in order):
     a (C, tau, N) noise array for a dense spec, ``(mask, noise,
-    agg_rand)`` for a pipeline spec. Under a secure sum the pair masks
-    come from a generator seeded alike on every rank (they cancel)."""
+    agg_rand)`` for a pipeline spec, each cut to a slab state's rows and
+    columns (:func:`slab_cut`). Under a secure sum the pair masks come
+    from a generator seeded alike on every rank (they cancel)."""
     if draws is None:
         yield
         return
     it = iter(draws)
     gen = torch.Generator().manual_seed(11)
 
-    def noise_draw(key, params, tau):
-        return torch.as_tensor(next(it)), key
+    def noise_draw(key, params, tau, slab=None):
+        return slab_cut(next(it), slab), key
 
-    def pipeline_draw(key, params, tau, pipeline):
+    def pipeline_draw(key, params, tau, pipeline, slab=None):
         mask, noise, agg_rand = next(it)
         agg_rand = None if agg_rand is None else torch.as_tensor(agg_rand)
+        if slab is not None and agg_rand is not None:
+            agg_rand = slab.take(agg_rand)
         if pipeline.secure is not None:
             agg_rand = (agg_rand,
                         pipeline.secure.draw(gen, noise.shape[-1], "cpu"))
-        return (torch.as_tensor(mask), torch.as_tensor(noise), agg_rand,
+        return (torch.as_tensor(mask), slab_cut(noise, slab), agg_rand,
                 key)
 
     saved = [(m, n, getattr(m, n)) for m in (tstate, tfl)
@@ -82,6 +104,9 @@ def _record(rec) -> dict:
 
 
 def state_numpy(state) -> dict:
+    """The whole state (``whole_state``: a collective on a slab state's
+    mesh) as numpy."""
+    state = tapi.whole_state(state)
     return {"params": tree_to_numpy(state.params),
             "opt_state": tree_to_numpy(state.opt_state),
             "residual": (None if state.residual is None
@@ -130,6 +155,170 @@ def train_to_budget(kw: dict, dim: int, max_rounds: int,
             "max_epsilon": out["max_epsilon"],
             "resource_spent": out["resource_spent"],
             "losses": [float(r["loss"]) for r in out["history"]]}
+
+
+def _slab_record(state) -> dict:
+    """A slab state's layout and what each rank holds: the shapes of its
+    params, optimizer state and residual leaves and their bytes."""
+    from repro_torch.utils.tree import tree_leaves
+    lay = state.layout
+    trees = (state.params, state.opt_state, state.residual)
+    return {"mesh_shape": lay.mesh_shape, "block": lay.block,
+            "client_index": lay.client_index,
+            "model_index": lay.model_index,
+            "shapes": [[tuple(x.shape) for x in tree_leaves(t)]
+                       for t in trees],
+            "bytes": sum(x.numel() * x.element_size()
+                         for t in trees for x in tree_leaves(t))}
+
+
+def fresh_state(spec, p0, slab: bool = True):
+    """``init_state(spec, p0)`` on the CPU: slab state where it applies,
+    or (``slab=False``) that state made whole (``whole_state``: the whole
+    layout, which runs the whole-tree round)."""
+    st = tapi.init_state(spec, p0, device="cpu")
+    return st if slab else tapi.whole_state(st)
+
+
+def _stacked(batches):
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def slab_and_whole(kw: dict, dim: int, batches: list) -> dict:
+    """``make_spec(kw)`` (mesh_2d) from ``init_linear(dim)`` in slab state
+    and in the whole layout (:func:`fresh_state` ``slab=False``: the
+    whole-tree round) on this rank: one ``run_round`` a batch and one ``run_rounds``
+    chunk of them each, then ``eval_params``. Returns the states made
+    whole (numpy), the records, the eval models and the slab's layout."""
+    spec = make_spec(kw)
+    p0 = tlin.init_linear(dim, device="cpu")
+    out = {}
+    for form, slab in (("slab", True), ("whole", False)):
+        st = fresh_state(spec, p0, slab)
+        assert (st.layout is None) == (form == "whole")
+        if form == "slab":
+            out["layout"] = _slab_record(st)
+        recs = []
+        for batch in batches:
+            st, rec = tapi.run_round(spec, st, batch, check_budgets=False)
+            recs.append(_record(rec))
+        if form == "slab":
+            out["layout_after"] = _slab_record(st)
+        out[form] = {"state": state_numpy(st), "records": recs,
+                     "eval": tree_to_numpy(tapi.eval_params(spec, st))}
+        st = fresh_state(spec, p0, slab)
+        st, recs = tapi.run_rounds(spec, st, _stacked(batches),
+                                   check_budgets=False)
+        out[form + "_chunk"] = {"state": state_numpy(st),
+                                "records": [_record(r) for r in recs]}
+    return out
+
+
+def slab_block_batches(kw: dict, dim: int, batches: list) -> dict:
+    """``make_spec(kw)`` (mesh_2d) in slab state on this rank, fed once the
+    whole (C, ...) batches and once only its block's rows of them (pad
+    rows: client 0's), per round (``run_round``) and as one chunk
+    (``run_rounds``). Returns the four states made whole (numpy)."""
+    spec = make_spec(kw)
+    p0 = tlin.init_linear(dim, device="cpu")
+    lay = fresh_state(spec, p0).layout
+    out = {}
+    for form, part in (("whole", batches),
+                       ("block", [lay.take(b) for b in batches])):
+        st = fresh_state(spec, p0)
+        for batch in part:
+            st, _ = tapi.run_round(spec, st, batch, check_budgets=False)
+        out[form] = state_numpy(st)
+        st, _ = tapi.run_rounds(spec, fresh_state(spec, p0), _stacked(part),
+                                check_budgets=False)
+        out[form + "_chunk"] = state_numpy(st)
+    return out
+
+
+def slab_train(kw: dict, dim: int, max_rounds: int, chunk_rounds: int,
+               slab: bool = True) -> dict:
+    """``train`` until a budget binds (chunks of ``chunk_rounds``, an eval
+    every round on a fixed batch through ``eval_params``) on Adult-like
+    data split IID, in slab state or (``slab=False``) the whole layout."""
+    spec = make_spec(kw)
+    fed = split_iid(adult_like(n=60 * spec.n_clients, dim=dim, seed=0),
+                    spec.n_clients)
+    ev = fed.make_sampler(16)(0, 1, np.random.default_rng(5))
+    ev = {k: torch.as_tensor(v[0]) for k, v in ev.items()}
+    evals = []
+
+    def eval_fn(params):
+        evals.append(tree_to_numpy(params))
+        return {"eval_loss": float(tlin.logreg_loss(params, ev))}
+
+    state = fresh_state(spec, tlin.init_linear(dim, device="cpu"), slab)
+    state, out = tapi.train(spec, state, fed.make_sampler(
+        spec.batch_sizes[0]), max_rounds=max_rounds,
+        chunk_rounds=chunk_rounds, eval_fn=eval_fn)
+    return {"state": state_numpy(state), "rounds": out["rounds"],
+            "max_epsilon": out["max_epsilon"],
+            "resource_spent": out["resource_spent"],
+            "losses": [float(r["loss"]) for r in out["history"]],
+            "eval_losses": [r.get("eval_loss") for r in out["history"]],
+            "evals": evals, "best_round": out["best"]["round"]}
+
+
+def slab_checkpoint(kw: dict, dim: int, batches: list, directory: str,
+                    r1: int) -> dict:
+    """Checkpoints across layouts: the first ``r1`` of ``batches`` in one
+    layout, ``save_state`` into ``directory/<layout>``, the rest on, and the
+    checkpoint loaded into a fresh state of each layout (slab, the whole
+    mesh_2d layout, ``vmap``) that runs the rest. Returns each state made
+    whole (numpy): "<writer>@save", "<writer>" (uninterrupted),
+    "<writer>><reader>@load" and "<writer>><reader>"."""
+    import os
+    spec = make_spec(kw)
+    vspec = make_spec(dict(kw, engine="vmap", mesh_shape=None))
+    p0 = tlin.init_linear(dim, device="cpu")
+    layouts = {"slab": (spec, True), "whole": (spec, False),
+               "vmap": (vspec, True)}
+
+    def drive(sp, st, part):
+        for batch in part:
+            st, _ = tapi.run_round(sp, st, batch, check_budgets=False)
+        return st
+
+    out = {}
+    for writer in ("slab", "vmap"):
+        sp, slab = layouts[writer]
+        path = os.path.join(directory, writer)
+        st = drive(sp, fresh_state(sp, p0, slab), batches[:r1])
+        tapi.save_state(path, st)
+        out[f"{writer}@save"] = state_numpy(st)
+        out[writer] = state_numpy(drive(sp, st, batches[r1:]))
+        for reader, (rsp, rslab) in layouts.items():
+            like = fresh_state(rsp, p0, rslab)
+            st, _ = tapi.load_state(path, like)
+            assert (st.layout is None) == (reader != "slab")
+            out[f"{writer}>{reader}@load"] = state_numpy(st)
+            out[f"{writer}>{reader}"] = state_numpy(
+                drive(rsp, st, batches[r1:]))
+    return out
+
+
+def transformer_slab_round(cfg, params0, batch, noise, kw: dict) -> dict:
+    """One DP round of the transformer ``cfg`` from ``params0`` (numpy,
+    one client's tree) on ``batch`` under ``kw``'s mesh_2d spec in slab
+    state, through ``run_round`` with the (C, tau, N) ``noise`` replayed
+    (cut to the slab): the params made whole, the loss and the slab's
+    layout."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.convert import tree_from_numpy
+    model = Transformer(cfg)
+    spec = tapi.FederationSpec(loss_fn=model.loss_fn, optimizer=tsgd(0.05),
+                               **kw)
+    state = tapi.init_state(spec, tree_from_numpy(params0, "cpu"),
+                            device="cpu")
+    layout = _slab_record(state)
+    with replayed([noise]):
+        state, rec = tapi.run_round(spec, state, batch, check_budgets=False)
+    return {"params": tree_to_numpy(tapi.whole_state(state).params),
+            "loss": float(rec["loss"]), "layout": layout}
 
 
 def cohort_and_dense(kw: dict, dim: int, rounds: int) -> dict:
@@ -412,6 +601,7 @@ def transformer_round(cfg, params0, batch, noise, sigmas, kw: dict) -> dict:
     state = tapi.init_state(spec, p0, device="cpu")
     tb = tree_from_numpy(batch, "cpu")
     sig = torch.as_tensor(np.asarray(sigmas, np.float32))
+    state = tapi.whole_state(state)
     tp, _, ms = tapi.round_fn_for(spec)(state.params, state.opt_state, tb,
                                         torch.as_tensor(noise), sig)
     out = {"params": tree_to_numpy(tp), "loss": float(ms["loss"]),

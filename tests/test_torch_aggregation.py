@@ -208,14 +208,14 @@ def test_randk_matches_jax_with_its_indices(ratio):
 
 
 def test_compressor_draws_are_uniform_operands():
-    gen = torch.Generator().manual_seed(0)
-    idx = tagg.RandK(0.25).draw(gen, 5, 40, "cpu")
+    key, rows = (0, 0), tuple(range(5))
+    idx = tagg.RandK(0.25).draw(key, rows, 40, "cpu")
     assert idx.shape == (5, 10) and idx.dtype == torch.int64
     for row in idx.tolist():
         assert len(set(row)) == 10 and 0 <= min(row) and max(row) < 40
-    u = tagg.QSGD(8).draw(gen, 5, 40, "cpu")
+    u = tagg.QSGD(8).draw((0, 1), rows, 40, "cpu")
     assert u.shape == (5, 40) and float(u.min()) >= 0 and float(u.max()) < 1
-    assert tagg.TopK(0.25).draw(gen, 5, 40, "cpu") is None
+    assert tagg.TopK(0.25).draw(key, rows, 40, "cpu") is None
 
 
 @pytest.mark.parametrize("name,ratio,bits", [
@@ -241,8 +241,7 @@ def test_wire_ratios_and_validation_match_jax(name, ratio, bits):
 def test_participation_mask_count_and_spread():
     seen, counts = set(), np.zeros(8)
     for s in range(200):
-        m = tagg.participation_mask(torch.Generator().manual_seed(s), 8, 3,
-                                    "cpu")
+        m = tagg.participation_mask((s, 0), 8, 3, "cpu")
         assert m.dtype == torch.float32 and m.shape == (8,)
         assert set(m.tolist()) <= {0.0, 1.0} and float(m.sum()) == 3.0
         seen.add(tuple(np.flatnonzero(m.numpy())))

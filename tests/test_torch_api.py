@@ -216,7 +216,7 @@ def test_noise_draw_distribution():
     mean ~ 0 and variance ~ sigma^2."""
     sigmas = torch.tensor([0.5, 2.0])
     params = {"w": torch.zeros((2, 40_000))}
-    key = torch.Generator().manual_seed(3).get_state()
+    key = torch.tensor([3, 0])
     noise, next_key = draw_round_noise(key, params, tau=2)
     assert noise.shape == (2, 2, 40_000) and noise.dtype == torch.float32
     assert not torch.equal(next_key, key)
