@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-row-kernels SRC   (see time_row_kernels)
-    python3 chip_smoke.py --train-memory fixed|expandable TAU
+    python3 chip_smoke.py --train-memory fixed|expandable TAU [SRC]
                                                    (see train_memory)
 
 Phases (each prints its lines; any failure exits non-zero):
@@ -22,8 +22,9 @@ Phases (each prints its lines; any failure exits non-zero):
      210), uniforms bit for bit and normals within RNG_ULPS f32 ulps, and
      at 21b's slab (rank 1's (2, 1, N_local) columns of gemma3-4b's
      one-layer widths on a model axis of 2) in windows, each window bit
-     for bit its addresses of the whole (2, 1, N) draw on the card; each
-     timed against its bound and torch.randn at the same shape;
+     for bit its addresses of the whole (2, 1, N) draw on the card; each,
+     and that whole draw, timed against its bound and torch.randn at the
+     same shape;
   3. the main path at full width: DP-PASGD on adult_like() split by
      education (16 clients, d = 104) through repro_torch.api on cuda,
      engine "vmap", trained until a budget binds; dp_clip_noise's calls in
@@ -336,9 +337,12 @@ QS_M, QS_K, QS_DIM, QS_BATCH, QS_TAU, QS_SIGMA, QS_ROUNDS = (
     100_000, 16, 20, 8, 5, 0.8, 24)
 QS_CACHE, QS_CHUNK = 256, 8
 # phase 2b: counter_rng's normals may differ from the plain version's by
-# this many f32 ulps (both round the same IEEE ops, so 0 is expected); the
-# plain version runs on 21b's slab in windows of this many columns
-RNG_ULPS, RNG_WINDOW = 2, 1 << 25
+# this many f32 ulps (none: both round the same IEEE ops in the same
+# order); the plain version runs on 21b's slab in windows of this many
+# columns
+RNG_ULPS, RNG_WINDOW = 0, 1 << 25
+# --time-row-kernels: the main path's noise draw (clients, tau, N)
+RNG_MAIN_SHAPE = (16, 1, 210)
 # phase 10: (B, H, S, hd, window) gemma3's prefill full and windowed,
 # zamba2's shared attention, a ragged small one; (B, H, S, hd, from s0)
 # rwkv6's prefill and decode step, its prefill at batch 1 and at S 2048,
@@ -433,16 +437,18 @@ MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 1, 512
 WKV_CHUNK, WKV_B, WKV_SEQ = 64, 2, 512
 
 
-def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
-    """(kernel instance, registers, spill store bytes, spill load bytes)
-    for every entry function in an ``nvcc -Xptxas -v`` log; the flash
-    instances named ``flash_tc<hd>`` / ``flash_fwd<type, columns>``, the
+def _ptxas_instances(log: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel instance, registers, stack frame bytes, spill store bytes,
+    spill load bytes) for every entry function in an ``nvcc -Xptxas -v``
+    log; the flash instances named ``flash_tc<hd>`` / ``flash_fwd<type,
+    columns>``, the
     SSD's ``ssd_tc<Q, P boxes, N boxes>`` / ``ssd_fwd<type>``, the WKV's
     ``wkv_chunk_state<hd>`` / ``wkv_state_pass`` / ``wkv_chunk_out<hd>``
     (its tensor-core instance), ``wkv6_fwd<type, columns>`` and the row
     kernels' ``row_cta`` / ``row_cluster`` / ``stream_partials`` /
-    ``stream_apply<clip_noise | quantize>`` (", no z": clip only)."""
-    out, name, spills = [], None, (0, 0)
+    ``stream_apply<clip_noise | quantize>`` (", no z": clip only) and
+    ``counter_rng<normal | uniform, groups a thread>``."""
+    out, name, spills = [], None, (0, 0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
@@ -457,6 +463,7 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
                                 name)
             row = re.search(r"rowred\d+(row_cta|row_cluster|stream_partials|"
                             r"stream_apply)I.*?(clip_noise|quantize)", name)
+            rng = re.search(r"counter_rng_kernelILb([01])ELi(\d+)E", name)
             if tc:
                 name = f"flash_tc<{tc.group(1)}>"
             elif fwd:
@@ -478,15 +485,18 @@ def _ptxas_instances(log: str) -> list[tuple[str, int, int, int]]:
             elif row:
                 name = (f"{row.group(1)}<{row.group(2)}"
                         f"{', no z' if 'ELb0E' in name else ''}>")
+            elif rng:
+                kind = "normal" if rng.group(1) == "1" else "uniform"
+                name = f"counter_rng<{kind}, {rng.group(2)} groups>"
             continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
         if spill:
-            spills = (int(spill.group(1)), int(spill.group(2)))
+            spills = tuple(int(g) for g in spill.groups())
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name is not None:
             out.append((name, int(regs.group(1)), *spills))
-            name, spills = None, (0, 0)
+            name, spills = None, (0, 0, 0)
     return out
 
 
@@ -509,14 +519,16 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _profile_call(torch, fn, label, ranges=None):
+def _profile_call(torch, fn, label, ranges=None, watch=()):
     """``fn()`` under torch.profiler; prints its wall time, the device's
     busy share, its kernel launches, the top device kernels and the top
     host ops. ``ranges`` (a module, {function name: stage}) wraps those
     functions of the module in named ranges for the call and prints each
     stage's device ms (the kernels its range launched) and share of the
-    call's device time. ``fn`` always runs; only the profiler's start, stop
-    and report are optional. Returns (fn's result, the launches or None)."""
+    call's device time; for each name in ``watch``, the device ms and
+    launches of the kernels whose name holds it. ``fn`` always runs; only
+    the profiler's start, stop and report are optional. Returns (fn's
+    result, the launches or None)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     module, stages = ranges or (None, {})
     reals = {name: getattr(module, name) for name in stages}
@@ -565,6 +577,12 @@ def _profile_call(torch, fn, label, ranges=None):
     for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+    for name in watch:
+        hits = [e for e in events if name in e.key]
+        print(f"{label}: kernels named {name}: "
+              f"{sum(e.device_time_total for e in hits) / 1e3:.4f} ms of "
+              f"device time in {sum(e.count for e in hits)} launches",
+              flush=True)
     host = [e for e in averages if e.device_type.name == "CPU"]
     print(f"{label}: host ops by self CPU time", flush=True)
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
@@ -753,13 +771,19 @@ def time_row_kernels(src: str) -> int:
     the port under SRC (this tree's ``src``, or another checkout's, such as
     the parent commit's) at SHAPES on phase 2's inputs, as phase 2 times
     them (every kernel in the profiler's window counts toward a call's
-    device time), and print the card and one JSON line. Run two trees in
-    turns in one chip call to compare them; nothing is checked here."""
+    device time), and counter_rng's as phase 2b times it: the main path's
+    (16, 1, 210) draw (normals and uniforms; CUDA events, the device time
+    of a launch by torch.profiler and the wrapper's host us a call), 21b's
+    slab and its whole row; print the card and one JSON line. Run two
+    trees in turns in one chip call to compare them; nothing is checked
+    here."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch import configs
+    from repro_torch.kernels import counter_rng as crng
     from repro_torch.kernels.dp_clip_noise import dp_clip_noise
     from repro_torch.kernels.quantize_decompress import quantize_decompress
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -780,6 +804,28 @@ def time_row_kernels(src: str) -> int:
                         "ms": rec["ms"], "device_ms": rec["device_ms"],
                         "kernels": rec["kernels"], "parts": rec["parts"],
                         "host_us": rec["host_us"], "bound_ms": bound[0]})
+    key, (rows_n, tau, n) = (0x5EED5EED1234, 7), RNG_MAIN_SHAPE
+    rows = torch.arange(rows_n, device="cuda")
+    table = torch.tensor(crng.whole_table(n), device="cuda")
+    for normal in (True, False):
+        def call(normal=normal):
+            return crng.counter_rng(rows, table, tau, n, key, crng.NOISE,
+                                    normal)
+        out.append({"kernel": "counter_rng", "shape": list(RNG_MAIN_SHAPE),
+                    "normal": normal, "ms": _time_ms(call, 200),
+                    "device_ms": _kernel_device_ms(torch, call, 200,
+                                                   "counter_rng"),
+                    "host_us": _host_us(torch, call, 2000),
+                    "bound_ms": _rng_bound_ms(rows_n, tau, n, normal)[0]})
+    shapes, dims, n_whole, n_local = _rng_slab_21b(configs)
+    rows2 = torch.arange(2, device="cuda")
+    for name, rec in _rng_big_times(
+            torch, crng, rows2,
+            torch.tensor(crng.slab_table(shapes, dims, 1, MA_SHAPE[1]),
+                         device="cuda"),
+            torch.tensor(crng.whole_table(n_whole), device="cuda"), n_local,
+            n_whole, key).items():
+        out.append({"kernel": "counter_rng", "case": f"21b {name}", **rec})
     print(json.dumps({"src": src, "rows": out}), flush=True)
     return 0
 
@@ -968,13 +1014,11 @@ def check_counter_rng(torch, configs, main_shape, card):
     of gemma3-4b's one-layer widths on a model axis of 2 (its column
     table), against the plain version in windows of RNG_WINDOW columns
     and against its addresses of the whole (2, 1, N) draw on the card,
-    bit for bit. Each timed against torch.randn at the same shape (the
-    yardstick; a different stream) and the bound. Returns (ok, record)."""
+    bit for bit. Each, and the whole draw, timed against torch.randn at
+    the same shape (the yardstick; a different stream) and the bound.
+    Returns (ok, record)."""
     from repro_torch.kernels import counter_rng as crng
     from repro_torch.kernels.ref import counter_columns_ref, counter_rng_ref
-    from repro_torch.models import sharding
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.utils.tree import tree_flatten
     ok, rec = True, {}
     key = (0x5EED5EED1234, 7)
     rows_n, tau, n = main_shape
@@ -1017,19 +1061,13 @@ def check_counter_rng(torch, configs, main_shape, card):
               f"torch.{'randn' if normal else 'rand'} {randn_ms:.5f} ms on "
               f"{card} {'ok' if good else 'CHECK FAILED'}", flush=True)
     # (b) 21b's slab of rank 1, and its addresses of the whole draw
-    one = Transformer(_ma_cfg(configs, "21b")).init(device="meta")
-    dims = tree_flatten(sharding.param_split_dims(one, MA_SHAPE[1]))[0]
-    shapes = [tuple(x.shape) for x in tree_flatten(one)[0]]
-    n_whole = sum(math.prod(sh) for sh in shapes)
-    n_local = sum(math.prod(sh) // (MA_SHAPE[1] if d >= 0 else 1)
-                  for sh, d in zip(shapes, dims))
+    shapes, dims, n_whole, n_local = _rng_slab_21b(configs)
     slab = torch.tensor(crng.slab_table(shapes, dims, 1, MA_SHAPE[1]),
                         device="cuda")
+    whole_t = torch.tensor(crng.whole_table(n_whole), device="cuda")
     rows2 = torch.arange(2, device="cuda")
     got = crng.counter_rng(rows2, slab, 1, n_local, key, crng.NOISE)
-    whole = crng.counter_rng(rows2, torch.tensor(
-        crng.whole_table(n_whole), device="cuda"), 1, n_whole, key,
-        crng.NOISE)
+    whole = crng.counter_rng(rows2, whole_t, 1, n_whole, key, crng.NOISE)
     torch.cuda.synchronize()
     ulps = same = 0
     windows = range(0, n_local, RNG_WINDOW)
@@ -1042,34 +1080,69 @@ def check_counter_rng(torch, configs, main_shape, card):
         same += int(torch.equal(got[..., lo:lo + w],
                                 whole.index_select(2, cols)))
         del plain, cols
-    del whole
+    del whole, got
     torch.cuda.empty_cache()
     good = ulps <= RNG_ULPS and same == len(windows)
     ok &= good
-
-    def slab_call():
-        return crng.counter_rng(rows2, slab, 1, n_local, key, crng.NOISE)
-
-    ms = _time_ms(slab_call, 10)
-    randn_ms = _time_ms(lambda: torch.randn((2, 1, n_local), device="cuda"),
-                        10)
-    bound = _rng_bound_ms(2, 1, n_local, True)
-    rec["slab_21b"] = {"shape": [2, 1, n_local], "n_whole": n_whole,
-                       "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
-                       "torch_randn_ms": randn_ms, "max_ulps": ulps,
-                       "windows_equal_whole": same,
+    times = _rng_big_times(torch, crng, rows2, slab, whole_t, n_local,
+                           n_whole, key)
+    rec["slab_21b"] = {**times["slab"], "n_whole": n_whole,
+                       "max_ulps": ulps, "windows_equal_whole": same,
                        "windows": len(windows)}
+    rec["whole_21b"] = times["whole"]
     print(f"phase 2b counter_rng 21b slab (2, 1, {n_local:,}) of N "
           f"{n_whole:,} (rank 1 of {MA_SHAPE}): max ulps vs plain {ulps} "
           f"(limit {RNG_ULPS}, {len(windows)} windows of {RNG_WINDOW:,}), "
           f"{same} of {len(windows)} windows bit for bit the whole draw's "
-          f"columns; kernel {ms:.4f} ms ({bound[0] / ms:.1%} of the bound "
-          f"{bound[0]:.4f} ms, {bound[1]}), torch.randn {randn_ms:.4f} ms "
-          f"on {card} {'ok' if good else 'CHECK FAILED'}", flush=True)
+          f"columns; " + _rng_big_line(times["slab"])
+          + f" on {card} {'ok' if good else 'CHECK FAILED'}", flush=True)
+    print(f"phase 2b counter_rng 21b whole draw (2, 1, {n_whole:,}): "
+          + _rng_big_line(times["whole"]) + f" on {card}", flush=True)
     rec["max_abs_err"] = worst
-    del got
     torch.cuda.empty_cache()
     return ok, rec
+
+
+def _rng_slab_21b(configs):
+    """21b's cell for counter_rng: gemma3-4b's one-layer widths (f32) on a
+    model axis of MA_SHAPE[1]: (leaf shapes, split dims, N of the whole
+    row, N_local of a rank's slab)."""
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_flatten
+    one = Transformer(_ma_cfg(configs, "21b")).init(device="meta")
+    dims = tree_flatten(sharding.param_split_dims(one, MA_SHAPE[1]))[0]
+    shapes = [tuple(x.shape) for x in tree_flatten(one)[0]]
+    n_whole = sum(math.prod(sh) for sh in shapes)
+    n_local = sum(math.prod(sh) // (MA_SHAPE[1] if d >= 0 else 1)
+                  for sh, d in zip(shapes, dims))
+    return shapes, dims, n_whole, n_local
+
+
+def _rng_big_times(torch, crng, rows2, slab, whole_t, n_local, n_whole,
+                   key):
+    """The normal draws of 21b's slab (2, 1, N_local) and of its whole
+    row (2, 1, N) timed by CUDA events (10 calls each), beside their bounds
+    and torch.randn at the same shape: {"slab": record, "whole": record}."""
+    out = {}
+    for name, table, n in (("slab", slab, n_local),
+                           ("whole", whole_t, n_whole)):
+        ms = _time_ms(lambda table=table, n=n: crng.counter_rng(
+            rows2, table, 1, n, key, crng.NOISE), 10)
+        torch.cuda.empty_cache()
+        randn_ms = _time_ms(lambda n=n: torch.randn((2, 1, n),
+                                                    device="cuda"), 10)
+        torch.cuda.empty_cache()
+        bound = _rng_bound_ms(2, 1, n, True)
+        out[name] = {"shape": [2, 1, n], "ms": ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "torch_randn_ms": randn_ms}
+    return out
+
+
+def _rng_big_line(rec) -> str:
+    return (f"kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.1%} "
+            f"of the bound {rec['bound_ms']:.4f} ms, {rec['bound_by']}), "
+            f"torch.randn {rec['torch_randn_ms']:.4f} ms")
 
 
 def main_path_spec(api, linear, data, conv, design, optim):
@@ -2753,7 +2826,8 @@ def run_training_full_width(torch, np, api, fl, ops, launch_train, configs,
         (state, _), _ = _profile_call(
             torch, lambda: api.run_round(spec, state, batch,
                                          check_budgets=False),
-            f"phase {p_b} profile, one round ({TRAIN_TAU} local steps)")
+            f"phase {p_b} profile, one round ({TRAIN_TAU} local steps)",
+            watch=("counter_rng",))
     finally:
         ops.dp_clip_noise = real
     peak_kept = torch.cuda.max_memory_allocated() / 1e9
@@ -2923,14 +2997,18 @@ def _check_kept_calls(torch, kept, refs):
     return ok, worst, lines
 
 
-def train_memory(segments: str, tau: int) -> int:
-    """``python3 chip_smoke.py --train-memory fixed|expandable TAU``: phase
-    16a's run (gemma3-4b at one pattern step, TRAIN_C clients, TRAIN_ROUNDS
-    rounds through launch.train.build_federation + api.train) at ``tau``
+def train_memory(segments: str, tau: int, src: str | None = None) -> int:
+    """``python3 chip_smoke.py --train-memory fixed|expandable TAU [SRC]``:
+    phase 16a's run (gemma3-4b at one pattern step, TRAIN_C clients,
+    TRAIN_ROUNDS rounds through launch.train.build_federation + api.train)
+    at ``tau``
     local steps, alone in this process, with the caching allocator's
     segments fixed (PyTorch's default) or expandable
     (``PYTORCH_CUDA_ALLOC_CONF``, set before the first allocation), then
-    one steady round timed and one profiled (phase 16b's). Prints the card,
+    one steady round timed and one profiled (phase 16b's, with
+    counter_rng's device ms), through the port under SRC (default this
+    tree's ``src``; another checkout's, such as the parent commit's, to
+    compare two trees in turns in one chip call). Prints the card,
     the peak memory allocated and reserved, and the run's losses and round
     times or its out-of-memory error: a measurement, so an out-of-memory
     error is reported, not raised; nothing is checked."""
@@ -2944,7 +3022,8 @@ def train_memory(segments: str, tau: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()) if src else
+                    str(ROOT / "src"))
     from repro_torch import api, configs
     from repro_torch.core import fl
     from repro_torch.launch import train as launch_train
@@ -2973,7 +3052,7 @@ def train_memory(segments: str, tau: int) -> int:
         round_ms = (time.perf_counter() - t0) * 1e3
         _profile_call(torch, lambda: api.run_round(
             spec, state, batch, check_budgets=False),
-            f"{label}, profile of one round")
+            f"{label}, profile of one round", watch=("counter_rng",))
         result = (f"{out['rounds']} rounds in {train_ms:.1f} ms (the first "
                   f"with its warm-up), losses "
                   f"{[h['loss'] for h in out['history']]}, a steady round "
@@ -6556,13 +6635,13 @@ def run_fsdp_mesh_f32(torch, np, configs, card, world):
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
-    if (sys.argv[1:2] == ["--train-memory"] and len(sys.argv) == 4
+    if (sys.argv[1:2] == ["--train-memory"] and len(sys.argv) in (4, 5)
             and sys.argv[2] in ("fixed", "expandable")
             and sys.argv[3].isdigit()):
-        return train_memory(sys.argv[2], int(sys.argv[3]))
+        return train_memory(sys.argv[2], int(sys.argv[3]), *sys.argv[4:])
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} [--time-row-kernels SRC | "
-              f"--train-memory fixed|expandable TAU]", file=sys.stderr)
+              f"--train-memory fixed|expandable TAU [SRC]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -6625,10 +6704,11 @@ def main() -> int:
     ok_build = True
     for name, (secs, log) in _build.build_all().items():
         print(f"build {name}: {secs:.2f} s", flush=True)
-        for inst, regs, st, ld in _ptxas_instances(log):
-            print(f"  {name} {inst}: {regs} registers, {st} bytes spill "
-                  f"stores, {ld} bytes spill loads", flush=True)
-            if inst.startswith("flash_tc") and st + ld:
+        for inst, regs, frame, st, ld in _ptxas_instances(log):
+            print(f"  {name} {inst}: {regs} registers, {frame} bytes stack "
+                  f"frame, {st} bytes spill stores, {ld} bytes spill loads",
+                  flush=True)
+            if inst.startswith(("flash_tc", "counter_rng")) and st + ld:
                 ok_build = False
 
     dry = start_dryrun()                   # phase 19b's, in the background
@@ -7075,6 +7155,7 @@ def main() -> int:
         "torch_randn_ms": rng_rec["normal"]["torch_ms"],
         "shape": rng_rec["normal"]["shape"],
         "uniform": rng_rec["uniform"], "slab_21b": rng_rec["slab_21b"],
+        "whole_21b": rng_rec["whole_21b"],
         "launches_other_paths": {
             "phase 21b gemma3-4b's widths in slab state on the (1, 2) mesh, "
             "both ranks, the last turn": xb_launches.get("counter_rng", 0),
@@ -7091,7 +7172,8 @@ def main() -> int:
         "phase24": {"24a": fa_rec, "24b": fb_rec,
                     "24c": {FSDP_ARCH: fc_rec, "gemma3-4b": fl_rec}}}),
         flush=True)
-    for ok, what in ((ok_build, "a tensor-core flash instance spills"),
+    for ok, what in ((ok_build, "a tensor-core flash or counter_rng "
+                                "instance spills"),
                      (ok_k, "a kernel disagrees with its plain version"),
                      (ok_q, "quantize_decompress is not bit-identical to "
                             "its plain version"),

@@ -15,6 +15,12 @@ of a model slice's columns (through a per-leaf column table,
 :func:`slab_table`) equals the same addresses of the whole draw
 (:func:`whole_table`), bit for bit, on the card and on the CPU.
 
+On the card a draw is one launch. The kernel reads the column table
+through a plan the host derives from it once (:func:`launch_plan`: per
+leaf its divisions as multiply-highs and the strides of a thread's groups,
+per tile of TILE columns its first leaf and whether it is aligned), kept
+on the device beside the table, so a steady round uploads nothing.
+
 The tensor's device decides the route: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version
 :func:`repro_torch.kernels.ref.counter_rng_ref`, and a ``meta`` tensor gets
@@ -27,7 +33,9 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
+import weakref
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ref import counter_rng_ref
@@ -37,14 +45,24 @@ NOISE, MASK, AGG_RAND, SECURE = 0, 1, 2, 3   # purposes: the address' third
 TABLE_COLS = 5          # (local start, whole offset, local span, whole span,
 #                         shift) a leaf
 _MAX_STEPS = 1 << 24    # steps share a counter word with the purpose
+_MAX_PAIRS = 1 << 31    # (row, step) pairs a draw: the kernel counts in 32 bits
 _U32 = (1 << 32) - 1
-_GRID_BLOCKS = 2048     # CTAs a launch at most (over the (row, step) pairs)
-_THREADS = 256
-# the C entry's one argument: {out, rows, table, rows, tau, n, leaves,
-# seed, counter, purpose, normal, grid.x, stream} as 13 int64
+# The kernel's launch plan (csrc/counter_rng.cu, spelled alike there; a
+# test holds the two alike): a tile of TILE local columns (256 threads x 4
+# groups of 4), a thread's groups STRIDE local columns apart; PLAN_COLS
+# int64 a leaf: (start, end, base = offset + shift, span_l, span_w, magic |
+# shift << 32 | flags << 40 | drem << 48, 64-bit magic, step)
+TILE = 4096
+STRIDE = 1024
+PLAN_COLS = 8
+CONTIGUOUS, FAST32, ALIGNED = 1, 2, 4        # a leaf's flags
+ALIGNED_TILE = 1 << 31                       # a tile entry's top bit
+# the C entry's one argument: {out, rows, plan, tiles, rows, tau, n, seed,
+# counter, purpose, normal, device, stream} as 13 int64
 _ARGS = struct.Struct("<13q")
 _LIB = None                          # the loaded library, once built
 _RAW_STREAM = None                   # torch's current-stream handle getter
+_PLANS: dict = {}       # id(table) -> (weakref, its _version, {n: plan})
 
 
 def make_key(seed: int) -> torch.Tensor:
@@ -122,6 +140,114 @@ def cost(rows: int, tau: int, n: int, normal: bool,
             4 * rows * tau * n + 8 * rows + 8 * TABLE_COLS * leaves)
 
 
+def divmod_constants(d: int, bits: int = 32) -> tuple[int, int]:
+    """(magic, shift) of the kernel's division by ``d`` (1 <= d <
+    2^(bits - 1)) in ``bits``-bit words: ``x // d == mulhi(x, magic) >>
+    shift`` for every 0 <= x < 2^(bits - 1), mulhi the high word of the
+    2 ``bits``-bit product (magic = ceil(2^(bits - 1 + l) / d), l =
+    ceil(log2 d), shift l - 1; the error magic d - 2^(bits - 1 + l) < d <=
+    2^l keeps every such x's quotient exact). ``d`` 1 gives (0, 0): the
+    kernel takes q = x."""
+    if d == 1:
+        return 0, 0
+    lg = (d - 1).bit_length()
+    return -(-(1 << (bits - 1 + lg)) // d), lg - 1
+
+
+def plan_arrays(table, n: int):
+    """The kernel's launch plan of column table ``table`` ((L, 5) of
+    (local start, whole offset, local span, whole span, shift)) for rows
+    of ``n`` local columns, in numpy: ``(leaves, tiles)``.
+
+    ``leaves`` (L, PLAN_COLS) int64: each leaf's local columns [start,
+    end) (end the next leaf's start, at least n for the last), its base
+    offset + shift, span_l, span_w, a word of magic | shift << 32 | flags
+    << 40 | drem << 48, the 64-bit magic (its bits; the shift is the same)
+    and step: the division by span_l (:func:`divmod_constants`) in 32 bits
+    where the leaf's columns and span_l fit in 31 bits (FAST32), else in
+    64; STRIDE local columns on, (q, rem) moves by (dq, drem) =
+    divmod(STRIDE, span_l) and the whole column by step = dq span_w +
+    drem (and span_w - span_l more where rem wraps); flags CONTIGUOUS
+    where span_l == span_w (whole column base + k - start, no division),
+    ALIGNED where every group of four local columns (k % 4 == 0) it holds
+    maps to one group of four whole columns: start and base multiples of
+    4, the end a multiple of 4 or the row's, and span_l, span_w multiples
+    of 4 unless contiguous. Leaves of no column count as aligned.
+
+    ``tiles`` (ceil(n / TILE) + 1,) int32, None for one leaf (which holds
+    every tile): entry t the leaf of tile t's first column, its top bit
+    set where every leaf of the tile is aligned; the last entry the leaf
+    of column n - 1, so entries t and t + 1 bound the leaves of tile t.
+    The kernel reads a tile's entry only where the tile leaves the last
+    leaf that held a whole tile."""
+    t = np.asarray(table, dtype=np.int64).reshape(-1, TABLE_COLS)
+    start, offset, span_l, span_w, shift = t.T
+    if start[0] != 0 or np.any(np.diff(start) < 0):
+        raise ValueError(f"a column table's local starts must begin at 0 "
+                         f"and not decrease, got {start.tolist()}")
+    end = np.maximum(np.append(start[1:], max(n, int(start[-1]))), start)
+    used = (end > start) & (start < n)
+    if np.any(used & ((span_l < 1) | (span_w < 0))):
+        raise ValueError("a leaf holding columns needs span_l >= 1 and "
+                         "span_w >= 0")
+    base = offset + shift
+    contiguous = span_l == span_w
+    fast = used & ~contiguous & (end - start <= 1 << 31) & (span_l < 1 << 31)
+    aligned = ~used | ((start % 4 == 0) & (base % 4 == 0)
+                       & ((end % 4 == 0) | (end >= n))
+                       & (contiguous | ((span_l % 4 == 0)
+                                        & (span_w % 4 == 0))))
+    flags = (contiguous * CONTIGUOUS + fast * FAST32
+             + aligned * ALIGNED).astype(np.int64)
+    dq, drem = np.divmod(STRIDE, np.maximum(span_l, 1))
+    word, wide = flags << 40 | drem << 48, np.zeros_like(flags)
+    for i in np.flatnonzero(used & ~contiguous):
+        magic, sh = divmod_constants(int(span_l[i]), 64)
+        wide[i] = magic - (1 << 64) if magic >> 63 else magic
+        word[i] |= sh << 32 | (divmod_constants(int(span_l[i]))[0]
+                               if fast[i] else 0)
+    leaves = np.stack([start, end, base, span_l, span_w, word, wide,
+                       dq * span_w + drem], axis=1)
+    if len(t) == 1:
+        return leaves, None
+    n_tiles = -(-n // TILE)
+    first_col = np.minimum(np.arange(n_tiles + 1, dtype=np.int64) * TILE,
+                           n - 1)
+    last_col = np.minimum(first_col[:n_tiles] + TILE, n) - 1
+    first = np.searchsorted(start, first_col, side="right") - 1
+    last = np.searchsorted(start, last_col, side="right") - 1
+    odd = np.concatenate([[0], np.cumsum(~aligned)])
+    whole = odd[last + 1] == odd[first[:n_tiles]]
+    tiles = first.astype(np.int64)
+    tiles[:n_tiles] |= whole.astype(np.int64) << 31
+    return leaves, tiles.astype(np.uint32).view(np.int32)
+
+
+def launch_plan(table, n: int):
+    """:func:`plan_arrays` of the tensor ``table`` for rows of ``n``
+    columns, on the table's device: ``(leaves, tiles or None)``. Built
+    from the table's values at its first call (one read of the table to
+    the host and one copy up), then kept while the table lives unwritten,
+    so a steady round uploads nothing."""
+    key = id(table)
+    try:
+        version = table._version
+    except RuntimeError:            # an inference tensor counts no writes
+        version = 0
+    entry = _PLANS.get(key)
+    if entry is None or entry[0]() is not table or entry[1] != version:
+        entry = _PLANS[key] = (weakref.ref(
+            table, lambda _, key=key: _PLANS.pop(key, None)), version, {})
+    plan = entry[2].get(n)
+    if plan is None:
+        leaves, tiles = plan_arrays(table.tolist(), n)
+        plan = entry[2][n] = (
+            torch.from_numpy(leaves).to(table.device),
+            None if tiles is None else torch.from_numpy(tiles).to(
+                table.device))
+    return plan
+
+
 def _check(rows, table, tau, n, purpose):
     if (rows.dtype != torch.int64 or rows.dim() != 1 or rows.shape[0] == 0
             or not rows.is_contiguous()):
@@ -137,6 +263,9 @@ def _check(rows, table, tau, n, purpose):
     if not (1 <= tau < _MAX_STEPS) or n < 1:
         raise ValueError(f"tau must be in [1, 2^24) and n positive, got "
                          f"tau {tau}, n {n}")
+    if rows.shape[0] * tau >= _MAX_PAIRS:
+        raise ValueError(f"a draw takes fewer than 2^31 (row, step) pairs, "
+                         f"got {rows.shape[0]} x {tau}")
     if not 0 <= purpose < 256:
         raise ValueError(f"purpose must be in [0, 256), got {purpose}")
 
@@ -194,14 +323,14 @@ def _run(rows, table, tau, n, seed, counter, purpose, normal):
         # common single-device case never enters this context)
         with torch.cuda.device(dev):
             return _run(rows, table, tau, n, seed, counter, purpose, normal)
+    leaves, tiles = launch_plan(table, n)
     out = torch.empty((r, tau, n), dtype=torch.float32, device=rows.device)
-    pairs = min(r * tau, 65535)
-    grid_x = max(1, min(-(-n // (4 * _THREADS)), _GRID_BLOCKS // pairs))
     seed &= (1 << 64) - 1
     err = lib.counter_rng_launch(_ARGS.pack(
-        out.data_ptr(), rows.data_ptr(), table.data_ptr(), r, tau, n,
-        table.shape[0], seed - (1 << 64) if seed >> 63 else seed, counter,
-        purpose, int(normal), grid_x, _RAW_STREAM(dev)))
+        out.data_ptr(), rows.data_ptr(), leaves.data_ptr(),
+        0 if tiles is None else tiles.data_ptr(), r, tau, n,
+        seed - (1 << 64) if seed >> 63 else seed, counter, purpose,
+        int(normal), dev, _RAW_STREAM(dev)))
     if err != 0:
         raise RuntimeError(f"counter_rng launch failed: "
                            f"{lib.counter_rng_error_string(err).decode()}")

@@ -13,10 +13,22 @@ Philox4x32-10 by address, Box-Muller in exactly rounded f32 ops).
 * Distributions: normals and uniforms by mean, variance and the
   Kolmogorov-Smirnov statistic, and no correlation between rows, steps,
   rounds (counters) or purposes.
+* The kernel's launch plan (``counter_rng.plan_arrays``): a numpy model of
+  the kernel's index walk (tile -> first-leaf table, the search within the
+  tile's leaves, the 32-bit or 64-bit multiply-high division, a thread's
+  later groups by stride increments, the aligned tiles' one group of four
+  whole columns, the general path's column-by-column steps) reads
+  ``counter_columns_ref``'s column for every local column of every
+  family's slab tables, the linear model's, odd tables and spans at and
+  above 2^31; the plan is built once a table. The kernel's rewritten
+  normal transform, emulated op for op, equals the plain version at every
+  24-bit word.
 * The wrapper's device rule: CPU tensors run the plain version, ``meta``
   counts ``cost`` and draws nothing, other devices and bad operands
   raise. On a card (``gpu`` marker) the kernel equals the plain version
-  bit for bit and a slab draw equals its columns of the whole draw.
+  bit for bit (aligned and general tiles, n % 4 != 0, tau > 1, rows not
+  from 0, more than 65,535 pairs) and a slab draw equals its columns of
+  the whole draw.
 """
 import math
 import re
@@ -127,6 +139,67 @@ def test_transform_accuracy():
     assert np.max(np.abs(s.double().numpy() - np.sin(2 * np.pi * u2))) < 2e-7
 
 
+def _kernel_transform(x):
+    """csrc/counter_rng.cu's normal transform on uint32 words ``x``, op for
+    op in numpy float32 (each IEEE-rounded as the kernel's ``__fmul_rn`` /
+    ``__fadd_rn``; its div_rn and sqrt_rn correctly rounded): (-2 ln u with
+    the range reduction in bits and the doublings folded into the
+    constants, cos, sin with the octant's turn by sign-bit flips)."""
+    f32 = np.float32
+    c = {k: np.array(v, np.uint32).view(f32) for k, v in
+         ref.RNG_CONSTANTS.items()}
+    bits = ((x >> np.uint32(8)) + np.uint32(1)).astype(f32).view(np.uint32)
+    mb = (bits & np.uint32(0x7FFFFF)) | np.uint32(0x3F800000)
+    big = (mb > np.uint32(0x3FB504F3)).astype(np.uint32)
+    m = (mb - (big << np.uint32(23))).view(f32)
+    e = (bits >> np.uint32(23)).astype(np.int64) - 127 + big
+    s = (m - f32(1)) / (m + f32(1))
+    s2 = s * s
+    p = c["l13"] * s2 + c["l11"]
+    for k in ("l9", "l7", "l5", "l3"):
+        p = p * s2 + c[k]
+    w = s + s * (s2 * p)
+    log = f32(-4) * w + (e - 24).astype(f32) * (f32(-2) * c["ln2"])
+    t = x & np.uint32(0x1FFFFF00)
+    g = np.where(x & np.uint32(0x20000000), np.uint32(0x20000000) - t,
+                 t).astype(f32)
+    theta = g * (np.array(0x31000000, np.uint32).view(f32) * c["pi_4"])
+    z = theta * theta
+    sp = c["s9"] * z + c["s7"]
+    for k in ("s5", "s3"):
+        sp = sp * z + c[k]
+    sn = theta + (theta * z) * sp
+    cp = c["c10"] * z + c["c8"]
+    for k in ("c6", "c4", "c2"):
+        cp = cp * z + c[k]
+    cs = z * cp + f32(1)
+    y = x ^ (x >> np.uint32(1))
+    swap = (y & np.uint32(0x20000000)) != 0
+    cos = np.where(swap, sn, cs).view(np.uint32) ^ (
+        (y << np.uint32(1)) & np.uint32(0x80000000))
+    sin = np.where(swap, cs, sn).view(np.uint32) ^ (x & np.uint32(0x80000000))
+    return log, cos.view(f32), sin.view(f32)
+
+
+def test_kernel_transform_equals_the_plain_version_for_every_word():
+    """The kernel's rewrite of the normal transform (its exact refoldings:
+    the log's halving in bits and doublings in the constants, theta in one
+    multiply, the quadrant by sign bits) equals the plain version bit for
+    bit at every 24-bit value a word's transform reads, and -2 ln u is +-0
+    exactly where the kernel takes the square root's zero branch."""
+    for lo in range(0, 1 << 24, 1 << 22):
+        x = (np.arange(lo, lo + (1 << 22), dtype=np.uint32) << np.uint32(8))
+        x |= np.uint32(0x5A)                 # low bits: read by no transform
+        log, cos, sin = _kernel_transform(x)
+        xt = torch.from_numpy(x.astype(np.int64))
+        want_c, want_s = ref._sincos_2pi(xt)
+        for got, want in ((log, ref._neg2_log_uniform(xt)), (cos, want_c),
+                          (sin, want_s)):
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.numpy().view(np.uint32))
+        np.testing.assert_array_equal(log == 0, x >= np.uint32(0xFFFFFF00))
+
+
 # ---------------------------- partitionable ----------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS + ("linear",))
@@ -186,13 +259,16 @@ def test_slab_draws_equal_the_whole_draw_bitwise(dm, normal):
         assert torch.equal(got, want)
 
 
+ODD_SHAPES = ((3, 6, 5), (7,), (0, 4), (2, 10), (5,))
+ODD_DIMS = (1, -1, -1, 0, -1)
+
+
 def test_odd_shapes_and_column_windows():
     """Leaves whose sizes and slices are not multiples of 4 (groups of
     four columns straddle leaves and slices), a leaf of no element, and
     the plain version's column windows (``lo``), through its general map
     and its one-run path for a whole row: all the whole draw's values."""
-    shapes = ((3, 6, 5), (7,), (0, 4), (2, 10), (5,))
-    flat = (1, -1, -1, 0, -1)
+    shapes, flat = ODD_SHAPES, ODD_DIMS
     n = sum(math.prod(s) for s in shapes)
     whole = _draw((0, 1, 2, 3), crng.whole_table(n), 3, n)
     tree = {f"l{i}": torch.empty(s, device="meta")
@@ -219,6 +295,216 @@ def test_odd_shapes_and_column_windows():
                                       lo=lo)
             assert win.is_contiguous()
             assert torch.equal(win, whole[[0, 2], :, lo:n - 3])
+
+
+# ------------------------------ launch plan ----------------------------------
+
+def _kernel_columns(table, n: int, lo: int = 0, width: int | None = None):
+    """A model of the kernel's index walk (csrc/counter_rng.cu) over the
+    launch plan of ``table``: the whole column it reads for each local
+    column in [lo, lo + width) (lo a multiple of 4), and the share of
+    those columns in aligned tiles. Per group of four local columns: the
+    tile's leaves from the tile table (the first alone where the tile ends
+    inside it), the leaf of the group's first column by the kernel's binary
+    search within them, (q, rem) by the 32-bit or 64-bit multiply-high
+    (FAST32 or not) or none (CONTIGUOUS). In an aligned tile the four words
+    of that column's whole group; where the tile lies in one leaf, a
+    thread's first group (the tile's first STRIDE columns) by the division
+    and each later one STRIDE columns on by adds (step, drem, the wrap). In
+    any other tile the next columns by one step each (rem + 1, wrapping
+    into q; the next leaf's first column at q = rem = 0)."""
+    width = n - lo if width is None else width
+    leaves, tiles = crng.plan_arrays(table, n)
+    start, end, base, span_l, span_w, word, wide, step = leaves.T
+    magic, shift = word & 0xFFFFFFFF, (word >> 32) & 0xFF
+    flags, drem = (word >> 40) & 0xFF, word >> 48
+    k = np.arange(lo, min(lo + width, n), 4, dtype=np.int64)
+    tile = k // crng.TILE
+    if tiles is None:
+        lo_leaf = hi_leaf = np.zeros_like(k)
+        aligned = np.full(k.shape, bool(flags[0] & crng.ALIGNED))
+    else:
+        entry = tiles.view(np.uint32).astype(np.int64)
+        lo_leaf = entry[tile] & ~crng.ALIGNED_TILE
+        hi_leaf = entry[tile + 1] & ~crng.ALIGNED_TILE
+        aligned = (entry[tile] & crng.ALIGNED_TILE) != 0
+    one = np.minimum((tile + 1) * crng.TILE, n) <= end[lo_leaf]
+    hi_leaf = np.where(one, lo_leaf, hi_leaf)
+    a, b = lo_leaf.copy(), hi_leaf.copy()
+    while np.any(a < b):
+        go = a < b
+        mid = (a + b + 1) >> 1
+        below = start[mid] <= k
+        a, b = np.where(go & below, mid, a), np.where(go & ~below, mid - 1, b)
+
+    def split(leaf, d):
+        f = flags[leaf]
+        q = np.where(magic[leaf] == 0, d, ((d.astype(np.uint64)
+                     * magic[leaf].astype(np.uint64)) >> np.uint64(32))
+                     .astype(np.int64) >> shift[leaf])
+        q = np.where(f & crng.CONTIGUOUS, 0, q)
+        for i in np.flatnonzero((f & (crng.CONTIGUOUS | crng.FAST32)) == 0):
+            m = int(wide[leaf[i]]) % (1 << 64)  # the 64-bit multiply-high
+            q[i] = d[i] if m == 0 else (int(d[i]) * m >> 64) >> int(
+                shift[leaf[i]])
+        return q, d - q * span_l[leaf]
+
+    leaf = a
+    q, rem = split(leaf, k - start[leaf])
+    col0 = base[leaf] + q * span_w[leaf] + rem
+    # a thread's groups in a one-leaf tile: its first by the division, then
+    # STRIDE on by adds
+    j = (k - tile * crng.TILE) // crng.STRIDE
+    q1, rem1 = split(lo_leaf, k - j * crng.STRIDE - start[lo_leaf])
+    col1 = base[lo_leaf] + q1 * span_w[lo_leaf] + rem1
+    for s_ in range(1, crng.TILE // crng.STRIDE):
+        go = j >= s_
+        col1 = col1 + go * step[lo_leaf]
+        rem1 = rem1 + go * drem[lo_leaf]
+        wrap = go & (rem1 >= span_l[lo_leaf])
+        rem1 = rem1 - wrap * span_l[lo_leaf]
+        col1 = col1 + wrap * (span_w[lo_leaf] - span_l[lo_leaf])
+    first = np.where(one, col1, col0)
+    cols = [col0]
+    for e in range(1, 4):
+        ke = k + e
+        move = (ke >= end[leaf]) & (ke < n)
+        walk = move.copy()
+        while np.any(walk):
+            leaf = np.where(walk, leaf + 1, leaf)
+            walk &= ke >= end[np.minimum(leaf, len(end) - 1)]
+        rem = np.where(move, 0, rem + 1)
+        wrap = ~move & (rem == span_l[leaf])
+        q = np.where(move, 0, q + wrap)
+        rem = np.where(wrap, 0, rem)
+        cols.append(base[leaf] + q * span_w[leaf] + rem)
+    general = np.stack(cols, axis=1)
+    whole_group = (first >> 2 << 2)[:, None] + np.arange(4)
+    got = np.where(aligned[:, None], whole_group, general).reshape(-1)
+    return got[:min(width, n - lo)], float(aligned.mean())
+
+
+def _plan_matches(table, n, lo=0, width=None):
+    got, share = _kernel_columns(table, n, lo, width)
+    want = ref.counter_columns_ref(table, lo, got.shape[0], "cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    return share
+
+
+@pytest.mark.parametrize("arch", ARCHS + ("linear",))
+@pytest.mark.parametrize("dm", [2, 4])
+def test_kernel_plan_reads_every_slab_column(arch, dm):
+    """Every model rank's slab table of the smoke params (and the linear
+    model's): the kernel's index walk reads ``counter_columns_ref``'s
+    column for every local column, and so does the whole table's."""
+    params = (tlin.init_linear(104, device="meta") if arch == "linear" else
+              Transformer(smoke_variant(get_arch(arch))).init(device="meta"))
+    shapes, flat, _ = _shapes_dims(params, dm)
+    n_local = _n_local(shapes, flat, dm)
+    for index in range(dm):
+        _plan_matches(crng.slab_table(shapes, flat, index, dm), n_local)
+    n = sum(math.prod(s) for s in shapes)
+    assert _plan_matches(crng.whole_table(n), n) == 1.0
+
+
+def test_kernel_plan_on_odd_tables():
+    """Leaves whose sizes and slices are not multiples of 4 (a leaf
+    boundary inside a group of four), a leaf of no element, whole tables
+    with n % 4 != 0, split spans of one column and tables longer than one
+    tile whose tiles are partly aligned: every local column read right,
+    both paths taken."""
+    for index in range(2):
+        table = crng.slab_table(ODD_SHAPES, ODD_DIMS, index, 2)
+        assert _plan_matches(table, _n_local(ODD_SHAPES, ODD_DIMS, 2)) == 0.0
+    for n in (1, 3, 5, 2047, 2049, 4097):
+        assert _plan_matches(crng.whole_table(n), n) == 1.0
+    shapes = ((64, 6), (4096, 8), (6,), (14, 640), (3002, 4))
+    shares = []
+    for dims in ((1, 0, -1, 1, 0), (0, 1, -1, 0, 1), (-1, 0, 0, -1, 1)):
+        for index in range(2):
+            table = crng.slab_table(shapes, dims, index, 2)
+            shares.append(_plan_matches(table, _n_local(shapes, dims, 2)))
+    assert min(shares) < 1.0 and max(shares) > 0.0
+    # one-leaf tiles of split leaves whose runs (500, 1,000 columns) do not
+    # divide STRIDE: a thread's later groups wrap from run to run
+    for shapes, dims in ((((64, 1000),), (1,)),
+                         (((8,), (300, 1000), (4, 8)), (-1, 1, 0))):
+        for index in range(2):
+            table = crng.slab_table(shapes, dims, index, 2)
+            assert _plan_matches(table, _n_local(shapes, dims, 2)) == 1.0
+
+
+def test_kernel_plan_spans_past_31_bits():
+    """Spans at and above 2^31 take the 64-bit multiply-high (no FAST32
+    flag): windows around each leaf's wraps and boundaries read right;
+    the 64-bit constants divide exactly at the ends of their range."""
+    big = 1 << 31
+    a_span = big + 12                        # span_l >= 2^31
+    b_start = 2 * a_span
+    c_start = b_start + 3 * (big // 2)       # leaf B: span_l < 2^31, but
+    n = c_start + 100                        # its columns run past 2^31
+    table = ((0, 0, a_span, 2 * big, 4),
+             (b_start, 5 * big, big // 2, big, 8),
+             (c_start, 7 * big, 6, 6, 0))
+    leaves, tiles = crng.plan_arrays(table, n)
+    flags = leaves[:, 5] >> 40
+    assert not flags[0] & crng.FAST32 and not flags[1] & crng.FAST32
+    assert flags[2] & crng.CONTIGUOUS
+    for lo in (0, a_span - 8, b_start - 8, b_start + big // 2 - 8,
+               b_start + big - 4, c_start - 12, n - 52):
+        _plan_matches(table, n, lo - lo % 4, 64)
+    fast = crng.plan_arrays(((0, 0, 3, 7, 1), (big - 3, 9, 5, 5, 0)),
+                            big + 2)[0]
+    assert (fast[0, 5] >> 40) & crng.FAST32
+    _plan_matches(((0, 0, 3, 7, 1), (big - 3, 9, 5, 5, 0)), big + 2,
+                  big - 16, 32)
+    for d in (2, 3, 7, big - 1, big + 12, 3 << 40, (1 << 62) + 5,
+              (1 << 63) - 1):
+        for bits in (32, 64):
+            if d >= 1 << (bits - 1):
+                continue
+            magic, sh = crng.divmod_constants(d, bits)
+            assert magic < 1 << bits
+            for x in (0, d - 1, d, 5 * d + 3, (1 << (bits - 1)) - 1):
+                if x < 1 << (bits - 1):
+                    assert (x * magic >> bits) >> sh == x // d
+
+
+def test_plan_constants_equal_the_kernels():
+    """The tile, the plan's record and its flags as the CUDA source spells
+    them."""
+    src = CSRC.read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (0x[0-9A-Fa-f]+|\d+)u?[;,]",
+                             src).group(1), 0)
+    assert 4 * const("kThreads") * const("kGroups") == crng.TILE
+    assert 4 * const("kThreads") == crng.STRIDE
+    assert const("kPlanCols") == crng.PLAN_COLS
+    assert (const("kContiguous"), const("kFast32"), const("kAligned")) == (
+        crng.CONTIGUOUS, crng.FAST32, crng.ALIGNED)
+    assert const("kAlignedTile") == crng.ALIGNED_TILE
+
+
+def test_launch_plan_is_built_once_a_table():
+    """The plan of a table tensor is built at its first draw and kept: a
+    second call returns the same tensors (nothing uploaded); another n
+    builds its own; writing the table rebuilds it; a bad table raises."""
+    table = torch.tensor(crng.slab_table(ODD_SHAPES, ODD_DIMS, 1, 2))
+    first = crng.launch_plan(table, 70)
+    again = crng.launch_plan(table, 70)
+    assert all(a is b for a, b in zip(first, again))
+    assert crng.launch_plan(table, 71)[0] is not first[0]
+    table[0, 1] = 0
+    assert crng.launch_plan(table, 70)[0] is not first[0]
+    one = torch.tensor(crng.whole_table(9))
+    leaves, tiles = crng.launch_plan(one, 9)
+    assert tiles is None and leaves.shape == (1, crng.PLAN_COLS)
+    for bad in (((1, 0, 4, 4, 0),), ((0, 0, 4, 4, 0), (8, 0, 4, 4, 0),
+                                      (4, 0, 4, 4, 0)),
+                ((0, 0, 0, 4, 0),)):
+        with pytest.raises(ValueError):
+            crng.plan_arrays(bad, 12)
 
 
 def test_keys_advance_and_seeds_split_into_two_words():
@@ -323,20 +609,77 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("normal", [True, False], ids=["normal", "uniform"])
 def test_cuda_kernel_equals_plain_version_bitwise(cuda_device, normal):
+    """One launch a draw, bit for bit the plain version: rwkv6-1.6b's
+    smoke params whole and as rank 1's slab (tau 2), an aligned whole
+    table with n % 4 != 0, the odd slab table (a leaf boundary inside a
+    group of four; general tiles only), a table of aligned and general
+    tiles and a split leaf whose runs do not divide a thread's stride (its
+    later groups' columns by adds that wrap), at rows that do not start at
+    0 (tau 2 and 3)."""
     params = Transformer(smoke_variant(get_arch("rwkv6-1.6b"))).init(
         device="meta")
     shapes, flat, _ = _shapes_dims(params, 2)
     n = sum(math.prod(s) for s in shapes)
-    rows = torch.tensor([2, 0, 1], device=cuda_device)
-    for table, width in ((crng.whole_table(n), n),
-                         (crng.slab_table(shapes, flat, 1, 2),
-                          _n_local(shapes, flat, 2))):
+    mixed = ((64, 6), (4096, 8), (6,), (14, 640), (3002, 4))
+    mixed_dims = (1, 0, -1, 1, 0)
+    cases = [((2, 0, 1), 2, crng.whole_table(n), n),
+             ((2, 0, 1), 2, crng.slab_table(shapes, flat, 1, 2),
+              _n_local(shapes, flat, 2)),
+             ((5, 3, 9), 3, crng.whole_table(10_001), 10_001),
+             ((7, 1), 3, crng.slab_table(ODD_SHAPES, ODD_DIMS, 1, 2),
+              _n_local(ODD_SHAPES, ODD_DIMS, 2)),
+             ((4, 6), 3, crng.slab_table(mixed, mixed_dims, 0, 2),
+              _n_local(mixed, mixed_dims, 2)),
+             ((9, 2), 2, crng.slab_table(((64, 1000),), (1,), 1, 2),
+              32_000)]
+    for row_ids, tau, table, width in cases:
+        rows = torch.tensor(row_ids, device=cuda_device)
         t = torch.tensor(table, device=cuda_device)
         before = crng.counter_rng.launches
-        got = crng.counter_rng(rows, t, 2, width, (7, 3), crng.NOISE,
+        got = crng.counter_rng(rows, t, tau, width, (7, 3), crng.NOISE,
                                normal)
         torch.cuda.synchronize()
         assert crng.counter_rng.launches == before + 1
-        want = ref.counter_rng_ref(rows, t, 2, width, (7, 3), crng.NOISE,
+        want = ref.counter_rng_ref(rows, t, tau, width, (7, 3), crng.NOISE,
                                    normal)
-        assert torch.equal(got, want)
+        assert torch.equal(got, want), (row_ids, tau, width)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("normal", [True, False], ids=["normal", "uniform"])
+def test_cuda_kernel_past_65535_pairs_and_slabs_of_the_whole_draw(
+        cuda_device, normal):
+    """(70,000, 1, 3) and (40,000, 2, 5) draws (more (row, step) pairs than
+    a grid's y dimension holds) bit for bit the plain version; every model
+    rank's slab of rwkv6-1.6b's smoke params at dm 2 and 4 and of the odd
+    tree bit for bit its columns of the whole draw on the card."""
+    for rows_n, tau, n in ((70_000, 1, 3), (40_000, 2, 5)):
+        rows = torch.arange(11, 11 + rows_n, device=cuda_device)
+        t = torch.tensor(crng.whole_table(n), device=cuda_device)
+        got = crng.counter_rng(rows, t, tau, n, (2 ** 40 + 1, 9),
+                               crng.AGG_RAND, normal)
+        want = ref.counter_rng_ref(rows, t, tau, n, (2 ** 40 + 1, 9),
+                                   crng.AGG_RAND, normal)
+        assert torch.equal(got, want), (rows_n, tau, n)
+    params = Transformer(smoke_variant(get_arch("rwkv6-1.6b"))).init(
+        device="meta")
+    tree = {f"l{i}": torch.empty(s, device="meta")
+            for i, s in enumerate(ODD_SHAPES)}
+    cases = [(params, dm, *_shapes_dims(params, dm)) for dm in (2, 4)]
+    cases.append((tree, 2, ODD_SHAPES, ODD_DIMS,
+                  {f"l{i}": d for i, d in enumerate(ODD_DIMS)}))
+    for tree_, dm, shapes, flat, dims in cases:
+        n = sum(math.prod(s) for s in shapes)
+        whole = crng.counter_rng(
+            torch.arange(3, device=cuda_device),
+            torch.tensor(crng.whole_table(n), device=cuda_device), 2, n,
+            (5, 2), crng.NOISE, normal)
+        for index in range(dm):
+            rows = (2, 0) if index % 2 else (1, 2, 0)
+            got = crng.counter_rng(
+                torch.tensor(rows, device=cuda_device),
+                torch.tensor(crng.slab_table(shapes, flat, index, dm),
+                             device=cuda_device), 2,
+                _n_local(shapes, flat, dm), (5, 2), crng.NOISE, normal)
+            want = local_noise(whole[list(rows)], tree_, dims, index, dm)
+            assert torch.equal(got, want), (dm, index)
