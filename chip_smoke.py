@@ -132,7 +132,7 @@ Phases (each prints its lines; any failure exits non-zero):
      depth cut to one step of each segment: every request's tokens equal
      launch.serve.generate on the plain route (kernel_backend "ref") on
      its exact-length prompt under the top-two gap guard, requests joining
-     mid-stream into recycled slots; (b) bf16, depth cut to 12 / 12 / 21
+     mid-stream into recycled slots; (b) bf16, depth cut to 6 / 6 / 14
      layers (ENGINE_BF16_STEPS), random
      weights from a seeded CUDA generator: exact launches (flash per
      attention layer and prefill group, rwkv6_scan per layer and group or
@@ -197,7 +197,8 @@ Phases (each prints its lines; any failure exits non-zero):
      vmap with the ledger exact, the ranks alike, each rank's launches tau
      x rounds (dp_clip_noise) and rounds (quantize_decompress), then
      dense as mesh_2d (1, 1), whose one client block leaves rank 1
-     outside the mesh to receive each round's state; every row
+     outside the mesh, holding no rows, to receive each round's metrics;
+     every rank in slab state, its rows and bytes printed; every row
      kernel's first call of each shape in 20a and in each rank held
      against its plain version;
  21. the model axis of mesh_2d (dm > 1: each replica's weights and matmuls
@@ -233,8 +234,8 @@ Phases (each prints its lines; any failure exits non-zero):
      whole model on rank 0: (a) gemma3-4b (one 6-layer step of its 34
      layers: 5 sliding + 1 full, B 2 x 2048, 16 greedy tokens) and its
      engine (4 slots, blocks of 64, 6 Poisson
-     requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 -> 12
-     layers, B 2 x 512, 16 tokens); (c) zamba2-7b (81 -> 21 layers: three
+     requests at prompts 300 / 700 / 1500); (b) rwkv6-1.6b (24 -> 6
+     layers, B 2 x 512, 16 tokens); (c) zamba2-7b (81 -> 14 layers: two
      steps of its shared block and six Mamba2 layers, B 2 x 512, 16
      tokens); (d)
      phi3.5-moe, 4 of 32 layers (B 2 x 512, 8 tokens): greedy tokens
@@ -285,7 +286,21 @@ Phases (each prints its lines; any failure exits non-zero):
      layer and gemma3-4b at 23c's two f32 layers on (2, 2) within 1e-4 of
      the whole route's largest logit; then flash_attention at 24a's rank
      shape against its plain version, its bound and
-     scaled_dot_product_attention.
+     scaled_dot_product_attention;
+ 25. shard_map in slab state (each rank's state its client block's rows
+     between rounds, each round's draws only the block's rows), two gloo
+     ranks sharing the card on the (2, 1) mesh: (a) the Adult-1 spec,
+     dense, qsgd8_q50, trimmed_mean and the secure sum, trained until a
+     budget binds in slab state and in the whole layout: bit for bit
+     alike, the ranks alike, each rank's 8 rows half the whole layout's
+     bytes, each rank's dp_clip_noise, counter_rng and quantize_decompress
+     launches as the code implies, on the (8, 210) block, each kernel's
+     first call of each shape against its plain version; (b) the resident
+     quickstart (phase 9's) in both forms, bit for bit, phase 9's exact
+     numbers, cohort_gather_scatter's launches, one steady chunk's blocking
+     host syncs and collectives; (c) gemma3-4b's widths (21b's cell, C 2:
+     a rank's block one client) in slab state and the whole layout in
+     turns, one round each: bit for bit, ms per round, each rank's peak.
 Phase 2 also holds cohort_gather_scatter bitwise against its plain version
 at the resident driver's shapes. The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}. Needs a CUDA GPU and the
@@ -394,11 +409,14 @@ LAUNCH_RUNS = (
 ENGINE_RUNS = (("gemma3-4b", (300, 700, 1500)), ("rwkv6-1.6b", (256, 512)),
                ("zamba2-7b", (256, 512)))
 # 17b's depth in bf16: steps of each arch's first segment kept (gemma3-4b
-# 2 of its 6-layer steps, 12 of 34 layers; rwkv6-1.6b 12 of 24; zamba2-7b 3
-# of its 7-layer steps, 21 of 81, as 22c): cut from the full depths to pay
+# 1 of its 6-layer steps, 6 of 34 layers; rwkv6-1.6b 6 of 24; zamba2-7b 2
+# of its 7-layer steps, 14 of 81, as 22c): cut from the full depths to pay
 # for phase 2b and 21b's whole layout, as the script ran 1,187-1,225 s of
-# its 1,200 without the cut; the launch counts follow the cut config
-ENGINE_BF16_STEPS = {"gemma3-4b": 2, "rwkv6-1.6b": 12, "zamba2-7b": 3}
+# its 1,200 without the cut, and halved again (from 12 / 12 / 21) to pay
+# for phase 25 (the only one of that PR's cuts that measurably paid:
+# 12-18 s of phase 25's ~85; PERF.md §4); the launch counts follow the
+# cut config
+ENGINE_BF16_STEPS = {"gemma3-4b": 1, "rwkv6-1.6b": 6, "zamba2-7b": 2}
 ENGINE_GENS, ENGINE_SLOTS, ENGINE_BLOCK = (16, 32), 4, 64
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_PREFILL_TOKEN_S = 10, 1.0, 1 / 256
 GUARD_F32 = 1e-4       # phase 17a's top-two gap guard, of max |logit|
@@ -1475,16 +1493,13 @@ def _quickstart_spec(api, linear, optim):
 def run_quickstart_resident(torch, np, api, linear, optim, pop_mod,
                             cohort_gather_scatter):
     """Phase 9: examples/population_quickstart.py's resident step on cuda
-    against 24 per-round calls. Returns (ok, launches). Launch formula: 4
-    per round (residual gather and scatter, the x and y shard gathers), 1
-    per chunk (the residual view), the promotions (per chunk the cold
-    residual rows and the 2 data leaves: 3, 3, and 4 in chunk 3, which
-    also gathers its 126 evicted rows), and 1 for the final flush."""
+    against 24 per-round calls. Returns (ok, launches); the launch formula
+    is :func:`_qs_gathers`."""
     spec = _quickstart_spec(api, linear, optim)
     pop = pop_mod.synthetic_population(QS_M, dim=QS_DIM,
                                        batch_size=QS_BATCH, alpha=0.3,
                                        seed=0, stationary=True)
-    want = 4 * QS_ROUNDS + 3 + (3 + 3 + 4) + 1
+    want = _qs_gathers()
     rs = pop_mod.init_population_state(
         spec, linear.init_linear(QS_DIM, device="cuda"), device="cuda")
     torch.cuda.synchronize()
@@ -4640,9 +4655,11 @@ def run_sharded_world_of_one(torch, np, api, linear, pop_mod, ops, spec,
 def _shard_rank(kw: dict, settings) -> dict:
     """Phase 20b's program on one rank of a gloo world sharing the card:
     the Adult-1 spec ``kw`` as engine "shard_map" (unless a setting names
-    another) under each of ``settings``, trained until a budget binds on cuda; each row kernel's
-    first call of each shape held against its plain version. Returns the
-    states as numpy, the ledgers and the kernels' launches."""
+    another) under each of ``settings``, trained until a budget binds on
+    cuda in slab state; each row kernel's first call of each shape held
+    against its plain version. Returns the states made whole as numpy,
+    the rows and bytes the rank held, the ledgers and the kernels'
+    launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4673,8 +4690,10 @@ def _shard_rank(kw: dict, settings) -> dict:
                                          **extra})
             state, res, launched, wall = _train_counted(
                 torch, api, linear, spec, fed, counters)
+            held = (state.layout.n_rows, _state_bytes(state))
             state = api.whole_state(state)      # a slab state made whole
             out["runs"][name] = {
+                "rows": held[0], "bytes": held[1],
                 "params": {k: v.cpu().numpy()
                            for k, v in state.params.items()},
                 "residual": (None if state.residual is None
@@ -4701,13 +4720,15 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
     ranks on one device; gloo reduces CUDA tensors, and the engine's row
     gather sums each block's bytes into a zero buffer there). Adult-1
     (16 clients, block 8) as shard_map, dense and qsgd8_q50, trained until
-    a budget binds in each rank, against vmap in this process: params and
-    residual within 1e-5, rho, rounds, epsilon and cost exactly, both
-    ranks bit for bit alike; each rank's dp_clip_noise launches tau x
-    rounds on its (8, N) block and quantize_decompress one a round. Then
-    dense as mesh_2d (1, 1): one client block on rank 0, and rank 1,
-    outside the mesh, receives each round's CUDA state from it
-    (ClientGroup.share) and launches no kernel.
+    a budget binds in each rank in slab state (its block's 8 rows),
+    against vmap in this process: params and residual within 1e-5, rho,
+    rounds, epsilon and cost exactly, both ranks bit for bit alike; each
+    rank's dp_clip_noise launches tau x rounds on its (8, N) block and
+    quantize_decompress one a round. Then dense as mesh_2d (1, 1): one
+    client block on rank 0 (16 rows), and rank 1, outside the mesh, holds
+    no rows (0 bytes), receives only each round's metrics
+    (ClientGroup.share), the whole trees once at the end (whole_state),
+    and launches no kernel.
     Returns (ok, {kernel: launches summed over the ranks}, max abs err)."""
     from repro_torch.launch.mesh import HostWorld
     settings = SHARD_RUNS[:2] + (SHARD_SPECTATOR,)
@@ -4759,8 +4780,13 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
                   "cohort_gather_scatter": 0}
         want_ls = [want_l if r["rank"] < blocks
                    else dict.fromkeys(want_l, 0) for r in ranks]
+        rows = [r["rows"] for r in runs]
+        held = (rows == [spec.n_clients // blocks if r["rank"] < blocks
+                         else 0 for r in ranks]
+                and all((r["bytes"] == 0) == (r["rows"] == 0)
+                        for r in runs))
         good = (alike and gap <= 1e-5 and ledger and r0["rounds"] > 0
-                and [r["launches"] for r in runs] == want_ls)
+                and [r["launches"] for r in runs] == want_ls and held)
         ok &= good
         for r in runs:
             for n, v in r["launches"].items():
@@ -4771,7 +4797,8 @@ def run_sharded_two_ranks(torch, np, api, linear, spec, fed, counters,
               f"vmap {w_out['rounds']} {w_out['max_epsilon']!r} "
               f"{w_out['resource_spent']!r} ({'exact' if ledger else 'DIFFERENT'}); "
               f"max |d| vs vmap {gap:.3e} (limit 1e-5); ranks "
-              f"{'bit for bit alike' if alike else 'DIFFERENT'}; launches "
+              f"{'bit for bit alike' if alike else 'DIFFERENT'}; slab rows "
+              f"a rank {rows}, bytes {[r['bytes'] for r in runs]}; launches "
               f"per rank {[r['launches'] for r in runs]} (expected "
               f"{want_ls}); ms per round in rank 0 "
               f"{r0['ms_per_round']:.3f} (train wall / rounds) "
@@ -4865,8 +4892,10 @@ def _model_axis_rank(kw: dict, settings) -> dict:
                    "mesh_shape": MA_SHAPE})
             state, res, launched, wall = _train_counted(
                 torch, api, linear, spec, fed, counters)
+            held = (state.layout.n_rows, _state_bytes(state))
             state = api.whole_state(state)      # a slab state made whole
             out["runs"][name] = {
+                "rows": held[0], "bytes": held[1],
                 "params": {k: v.cpu().numpy()
                            for k, v in state.params.items()},
                 "residual": (None if state.residual is None
@@ -4941,9 +4970,12 @@ def run_model_axis_adult(torch, np, api, linear, spec, fed, card):
         want_l = {"row_sumsq": steps, "clip_noise_apply": steps,
                   "dp_clip_noise": 0,
                   "quantize_decompress": w_launch["quantize_decompress"]}
+        # a (1, dm) mesh: every rank holds all C rows, of its model slices
+        rows = [r["rows"] for r in runs]
         good = (alike and gap <= 1e-5 and ledger and r0["rounds"] > 0
                 and all(r["launches"] == want_l for r in runs)
-                and w_launch["dp_clip_noise"] == steps)
+                and w_launch["dp_clip_noise"] == steps
+                and rows == [spec.n_clients] * len(runs))
         ok &= good
         for r in runs:
             for n, v in r["launches"].items():
@@ -4955,7 +4987,8 @@ def run_model_axis_adult(torch, np, api, linear, spec, fed, card):
               f"{w_out['resource_spent']!r} "
               f"({'exact' if ledger else 'DIFFERENT'}); max |d| vs vmap "
               f"{gap:.3e} (limit 1e-5); ranks "
-              f"{'bit for bit alike' if alike else 'DIFFERENT'}; launches "
+              f"{'bit for bit alike' if alike else 'DIFFERENT'}; slab rows "
+              f"a rank {rows}, bytes {[r['bytes'] for r in runs]}; launches "
               f"per rank {[r['launches'] for r in runs]} (expected "
               f"{want_l}; vmap's {w_launch}); ms per round in rank 0 "
               f"{r0['ms_per_round']:.3f}, vmap {w_wall * 1e3 / max(w_out['rounds'], 1):.3f}"
@@ -6632,6 +6665,647 @@ def run_fsdp_mesh_f32(torch, np, configs, card, world):
           f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
     return ok, {"max_gap_of_max_logit": gap}
 
+
+# -- phase 25: shard_map in slab state --------------------------------------
+# Two gloo ranks sharing the card (one world for 25a-c) on shard_map's
+# (2, 1) mesh, each rank's state its client block's rows between rounds.
+# 25a: phase 3's Adult-1 spec (block 8 of 16 clients, N 210) under each of
+# SLAB_RUNS, in slab state and in the whole layout (api.whole_state of it);
+# 25b: the population quickstart's resident step (phase 9's) in both forms;
+# 25c: gemma3-4b's widths as 21b's cell (1 layer, f32, C 2: a rank's block
+# is one client, tau 1, seq SLAB_TF_SEQ), the forms in turns
+SLAB_RUNS = (("dense", {}),
+             ("qsgd8_q50", dict(compressor="qsgd", compression_bits=8,
+                                participation=0.5)),
+             ("trimmed_mean", dict(aggregator="trimmed_mean",
+                                   trim_fraction=0.1)),
+             ("secure", dict(secure_agg=True, dp_accounting="central")))
+SLAB_KERNELS = ("dp_clip_noise", "counter_rng", "quantize_decompress")
+SLAB_FORMS = ("slab", "whole")
+SLAB_TF_CELL = "21b"        # the MA_CELLS entry 25c takes its model from
+SLAB_TF_SEQ, SLAB_TF_TURNS = 2048, 2
+
+
+def _state_bytes(state) -> int:
+    """Bytes of an FLState's params, optimizer state and residual on this
+    rank."""
+    from repro_torch.utils.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(
+        (state.params, state.opt_state, state.residual)))
+
+
+def _logging_calls(ops, names, log):
+    """Put a wrapper in ``ops`` in place of each kernel of ``names`` that
+    appends (name, the shape of what it computes) to ``log`` at every call:
+    the rows and columns of dp_clip_noise and quantize_decompress, the (R,
+    tau, n) of a counter_rng draw. Returns the wrapped functions, to put
+    back."""
+    reals = {}
+    for name in names:
+        reals[name] = getattr(ops, name)
+
+        def logger(*args, _real=reals[name], _name=name):
+            shape = tuple(args[0].shape)
+            if _name == "counter_rng":
+                shape += (int(args[2]), int(args[3]))
+            log.append((_name, shape))
+            return _real(*args)
+        setattr(ops, name, logger)
+    return reals
+
+
+def _slab_adult_rank(kw: dict, settings, device: str = "cuda") -> dict:
+    """Phase 25a's program on one rank: the Adult-1 spec ``kw`` as
+    shard_map under each of ``settings``, trained until a budget binds in
+    slab state and in the whole layout (api.whole_state of a fresh slab
+    state), the counters set to 0 just before each run and read just
+    after, with the shape of every kernel call; each kernel's first call
+    of each shape held against its plain version. Returns the states made
+    whole (numpy), the ledgers, launches, shapes, the rows and bytes each
+    form holds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, data, optim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.counter_rng import counter_rng
+    from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.kernels.quantize_decompress import quantize_decompress
+    from repro_torch.models import linear
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"dp_clip_noise": dp_clip_noise, "counter_rng": counter_rng,
+                "quantize_decompress": quantize_decompress}
+    fed = data.split_by_group(data.adult_like())
+    dim = fed.clients[0].x_train.shape[1]
+    kept, shapes = {}, []
+    reals = _keeping_first_calls(torch, ops, list(counters), kept)
+    keepers = _logging_calls(ops, list(counters), shapes)
+    out = {"rank": dist.get_rank(), "runs": {}}
+    try:
+        for name, extra in settings:
+            spec = api.FederationSpec(
+                loss_fn=linear.logreg_loss, optimizer=optim.sgd(LR),
+                **{**kw, **extra, "engine": "shard_map"})
+            out["runs"][name] = run = {}
+            for form in SLAB_FORMS:
+                state = api.init_state(spec, linear.init_linear(
+                    dim, device=device), device=device)
+                if form == "whole":
+                    state = api.whole_state(state)
+                held = (None if state.layout is None
+                        else state.layout.n_rows, _state_bytes(state))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                del shapes[:]
+                state, res = api.train(spec, state, fed.make_sampler(BATCH))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                launched = {n: c.launches for n, c in counters.items()}
+                seen = sorted(set(shapes))
+                whole = api.whole_state(state)
+                run[form] = {
+                    "params": {k: v.cpu().numpy()
+                               for k, v in whole.params.items()},
+                    "residual": (None if whole.residual is None
+                                 else whole.residual.cpu().numpy()),
+                    "key": whole.key.numpy(), "rho": np.asarray(whole.rho),
+                    "rounds": res["rounds"],
+                    "max_epsilon": res["max_epsilon"],
+                    "resource_spent": res["resource_spent"],
+                    "launches": launched, "shapes": seen,
+                    "rows": held[0], "bytes": held[1], "tau": spec.tau}
+    finally:
+        for n, f in keepers.items():
+            setattr(ops, n, f)
+        for n, f in reals.items():
+            setattr(ops, n, f)
+    refs = {"dp_clip_noise": ref.dp_clip_noise_ref,
+            "quantize_decompress": ref.quantize_decompress_ref,
+            "counter_rng": ref.counter_rng_ref}
+    out["kernels_ok"], out["kernel_err"], out["kernel_lines"] = \
+        _check_kept_calls(torch, kept, refs)
+    return out
+
+
+def _slab_adult_expected(spec, extra: dict, rounds: int) -> dict:
+    """The launches a rank's run of ``rounds`` rounds makes, from the code:
+    one dp_clip_noise a local step; counter_rng one noise draw a round,
+    and under a pipeline the participation mask's and, with qsgd, the
+    uniforms' (the secure sum's pair masks come from a torch.Generator);
+    quantize_decompress one a round with qsgd."""
+    pipeline = spec.replace(**extra).has_pipeline()
+    qsgd = extra.get("compressor") == "qsgd"
+    return {"dp_clip_noise": spec.tau * rounds,
+            "counter_rng": rounds * (1 + pipeline + qsgd),
+            "quantize_decompress": rounds if qsgd else 0}
+
+
+def run_slab_adult(torch, np, spec, card, world):
+    """Phase 25a: the Adult-1 spec (16 clients, N 210) as shard_map (2, 1)
+    on two gloo ranks sharing the card, under each of SLAB_RUNS, trained
+    until a budget binds in slab state and in the whole layout: the slab
+    run's state made whole bit for bit the whole layout's (params,
+    residual, key, rho) with the same rounds, epsilon and cost, both ranks
+    alike; each rank's slab holding its block's 8 rows, half the whole
+    layout's bytes; each rank's launches of dp_clip_noise, counter_rng
+    and quantize_decompress as the code implies (_slab_adult_expected),
+    every dp_clip_noise and quantize_decompress call and every noise and
+    uniform draw of the slab run on the block's 8 rows (the mask's 16);
+    each kernel's first call of each shape against its plain version.
+    Returns (ok, {kernel: launches of the slab runs, both ranks}, {kernel:
+    max abs err})."""
+    kw = dict(n_clients=spec.n_clients, tau=spec.tau,
+              clip_norm=spec.clip_norm, dp=True, sigmas=spec.sigmas,
+              batch_sizes=spec.batch_sizes, eps_th=spec.eps_th,
+              delta=spec.delta, c_th=spec.c_th)
+    t0 = time.perf_counter()
+    try:
+        ranks = world.run(_slab_adult_rank, kw, SLAB_RUNS)
+    except RuntimeError as e:
+        print(f"phase 25a: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, dict.fromkeys(SLAB_KERNELS, 0), {}
+    block = spec.n_clients // 2
+    ok, launches = True, dict.fromkeys(SLAB_KERNELS, 0)
+    print(f"phase 25a: Adult-1 as shard_map (2, 1) on two gloo ranks "
+          f"({card}), block {block} of {spec.n_clients}, N 210; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, extra in SLAB_RUNS:
+        runs = [r["runs"][name] for r in ranks]
+        slab, whole = runs[0]["slab"], runs[0]["whole"]
+        same = all(
+            _np_equal(np, slab[k], whole[k])
+            for k in ("params", "residual", "key", "rho")) and all(
+            slab[k] == whole[k]
+            for k in ("rounds", "max_epsilon", "resource_spent"))
+        alike = all(_np_equal(np, r[f][k], runs[0][f][k])
+                    for r in runs[1:] for f in SLAB_FORMS
+                    for k in ("params", "residual", "key", "rho"))
+        want = _slab_adult_expected(spec, extra, slab["rounds"])
+        counted = all(r[f]["launches"] == want for r in runs
+                      for f in SLAB_FORMS)
+        on_block = all(
+            s[0] == block or (n == "counter_rng" and s[-1] == 1
+                              and s[0] == spec.n_clients)
+            for r in runs for n, s in r["slab"]["shapes"])
+        held = all(r["slab"]["rows"] == block
+                   and 2 * r["slab"]["bytes"] == r["whole"]["bytes"]
+                   for r in runs)
+        good = (same and alike and counted and on_block and held
+                and slab["rounds"] > 0)
+        ok &= good
+        for r in runs:
+            for n, v in r["slab"]["launches"].items():
+                launches[n] += v
+        print(f"phase 25a {name}: rounds {slab['rounds']} eps "
+              f"{slab['max_epsilon']!r} cost {slab['resource_spent']!r}; "
+              f"slab (made whole) vs the whole layout "
+              f"{'bit for bit' if same else 'DIFFERENT'}; ranks "
+              f"{'alike' if alike else 'DIFFERENT'}; rows a rank "
+              f"{[r['slab']['rows'] for r in runs]}, bytes a rank slab "
+              f"{[r['slab']['bytes'] for r in runs]} / whole "
+              f"{[r['whole']['bytes'] for r in runs]}; launches per rank "
+              f"and form "
+              f"{[[r[f]['launches'] for f in SLAB_FORMS] for r in runs]}"
+              f" (expected {want}); slab call shapes "
+              f"{runs[0]['slab']['shapes']} "
+              f"{'ok' if good else 'CHECK FAILED'}", flush=True)
+    worst = {}
+    for r in ranks:
+        ok &= r["kernels_ok"]
+        for n, e in r["kernel_err"].items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        for ln in r["kernel_lines"]:
+            print(f"phase 25a rank {r['rank']} kernel vs plain: {ln}",
+                  flush=True)
+    return ok, launches, worst
+
+
+def _np_equal(np, a, b) -> bool:
+    """Two numpy trees (dicts, arrays or None) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_np_equal(np, a[k], b[k])
+                                            for k in a)
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def _qs_gathers() -> int:
+    """cohort_gather_scatter's launches in the quickstart's resident step
+    (24 rounds, chunk 8, S 256): 4 a round (the residual rows' gather and
+    scatter, the x and y shard gathers), 1 a chunk (the FLState's residual
+    view), the promotions (per chunk the cold residual rows and the 2 data
+    leaves: 3, 3, and 4 in chunk 3, which also gathers its 126 evicted
+    rows), and 1 for the final flush. A slab rank's are as many, on its
+    block's slots (the scatter and the cache's moves on all K)."""
+    return 4 * QS_ROUNDS + 3 + (3 + 3 + 4) + 1
+
+
+def _slab_resident_rank(device: str = "cuda") -> dict:
+    """Phase 25b's program on one rank: the population quickstart's
+    resident step (M 100,000, K 16, S 256, chunk 8, 24 rounds) as
+    shard_map in slab state and in the whole layout, cohort_gather_scatter's
+    counter set to 0 just before each run and read just after; then one
+    steady slab chunk (the third) under set_sync_debug_mode with every
+    torch.distributed call it makes recorded; cohort_gather_scatter's
+    first call of each shape (the block's 8 slots of the cache and of the
+    data shards, the scatter of all 16) held against its plain version.
+    Returns each form's state made whole, ledgers, stats, launches and the
+    store's digest, whether the forms' stores are equal, the syncs and
+    collectives, the kernel check."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, optim
+    from repro_torch import population as pop_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.cohort_gather_scatter import (
+        cohort_gather_scatter,
+    )
+    from repro_torch.models import linear
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    spec = _quickstart_spec(api, linear, optim).replace(engine="shard_map")
+    pop = pop_mod.synthetic_population(QS_M, dim=QS_DIM,
+                                       batch_size=QS_BATCH, alpha=0.3,
+                                       seed=0, stationary=True)
+    vids = np.arange(QS_M)
+    out = {"rank": dist.get_rank(), "forms": {}}
+    stores, kept = {}, {}
+    for form in SLAB_FORMS:
+        st = pop_mod.init_population_state(spec, linear.init_linear(
+            QS_DIM, device=device), device=device)
+        if form == "whole":
+            st = st.replace(fl=api.whole_state(st.fl))
+        rows = None if st.fl.layout is None else st.fl.layout.n_rows
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cohort_gather_scatter.launches = 0
+        reals = (_keeping_first_calls(torch, ops, ["cohort_gather_scatter"],
+                                      kept) if form == "slab" else {})
+        t0 = time.perf_counter()
+        try:
+            st, res = pop_mod.train_population(
+                spec, st, pop, max_rounds=QS_ROUNDS, chunk_rounds=QS_CHUNK,
+                resident_cache=QS_CACHE)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            for n, f in reals.items():
+                setattr(ops, n, f)
+        wall = time.perf_counter() - t0
+        whole = api.whole_state(st.fl)
+        stores[form] = (np.asarray(st.store.rho),
+                        st.store.gather_residual(vids))
+        out["forms"][form] = {
+            "params": {k: v.cpu().numpy() for k, v in whole.params.items()},
+            "residual": whole.residual.cpu().numpy(),
+            "key": whole.key.numpy(), "rho": np.asarray(whole.rho),
+            "rounds": res["rounds"], "max_epsilon": res["max_epsilon"],
+            "resource_spent": res["resource_spent"],
+            "stats": res["resident_cache"],
+            "residual_rows": st.store.residual_rows(),
+            "launches": cohort_gather_scatter.launches, "rows": rows,
+            "ms_per_round": wall * 1e3 / max(res["rounds"], 1),
+            "store_digest": hashlib.sha256(
+                stores[form][0].tobytes()
+                + stores[form][1].tobytes()).hexdigest()}
+    out["stores_equal"] = all(
+        _np_equal(np, a, b) for a, b in zip(stores["slab"], stores["whole"]))
+    out["kernels_ok"], out["kernel_err"], out["kernel_lines"] = \
+        _check_kept_calls(torch, kept,
+                          {"cohort_gather_scatter":
+                           ref.cohort_gather_scatter_ref})
+    # the slot counts of the gathers held (a gather's key: the kernel, the
+    # cache and the slots)
+    out["kept_slots"] = sorted({k[2][0][0] for k in kept if len(k) == 3})
+    # one steady slab chunk: its blocking host syncs and its collectives
+    st = pop_mod.init_population_state(spec, linear.init_linear(
+        QS_DIM, device=device), device=device)
+    cache = pop_mod.init_resident_cache(spec, st, QS_CACHE, population=pop)
+    rng = np.random.default_rng(0)
+
+    def chunk(st):
+        return pop_mod.run_resident_rounds(spec, st, pop, rng, cache,
+                                           n_rounds=QS_CHUNK,
+                                           check_budgets=False)[0]
+
+    for _ in range(2):
+        st = chunk(st)
+    calls = []
+    names = ("all_reduce", "broadcast", "broadcast_object_list",
+             "all_gather", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            t = args[0] if args else None
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "repro_torch" in f.filename]
+            where = (f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                     if ours else "outside repro_torch")
+            calls.append(f"{name} {tuple(t.shape)} {t.dtype} from {where}"
+                         if isinstance(t, torch.Tensor) else
+                         f"{name} from {where}")
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, spy(n))
+    try:
+        if device == "cuda":
+            st, syncs = _blocking_syncs(torch, lambda: chunk(st))
+        else:
+            st, syncs = chunk(st), []
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    out["syncs"], out["collectives"] = syncs, calls
+    return out
+
+
+def run_slab_resident(torch, np, card, world):
+    """Phase 25b: the population quickstart's resident step (phase 9's: M
+    100,000, K 16, S 256, chunk 8, 24 rounds, stationary shards) as
+    shard_map (2, 1) on two gloo ranks sharing the card, in slab state
+    (each rank's K-block state its block's 8 rows) and in the whole
+    layout: the slab run's state made whole, the store's rho and every
+    residual row bit for bit the whole layout's, phase 9's epsilon, cost
+    and cache stats exactly, both ranks' stores alike; each rank's
+    cohort_gather_scatter launches _qs_gathers() in each form; then one
+    steady slab chunk's blocking host syncs (set_sync_debug_mode, named by
+    their source line) and its collectives (each a host-staged gloo call
+    on CUDA tensors); cohort_gather_scatter's first slab call of each
+    shape against its plain version, bit for bit, the block's 8-slot
+    gathers among them. Returns (ok, launches of the slab runs on both
+    ranks, the kernel's max abs err)."""
+    t0 = time.perf_counter()
+    try:
+        ranks = world.run(_slab_resident_rank)
+    except RuntimeError as e:
+        print(f"phase 25b: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return False, 0, 0.0
+    want = _qs_gathers()
+    f0 = ranks[0]["forms"]
+    slab, whole = f0["slab"], f0["whole"]
+    same = all(_np_equal(np, slab[k], whole[k])
+               for k in ("params", "residual", "key", "rho")) and all(
+        slab[k] == whole[k] for k in ("rounds", "max_epsilon",
+                                      "resource_spent", "stats",
+                                      "residual_rows", "store_digest"))
+    same &= all(r["stores_equal"] for r in ranks)
+    alike = all(r["forms"][f]["store_digest"] == f0[f]["store_digest"]
+                and _np_equal(np, r["forms"][f]["params"], f0[f]["params"])
+                for r in ranks[1:] for f in SLAB_FORMS)
+    exact = (slab["rounds"] == QS_ROUNDS
+             and slab["max_epsilon"] == 4.729618937506673
+             and slab["resource_spent"] == 720.0
+             and slab["stats"] == {"hits": 1, "misses": 382,
+                                   "evictions": 126, "flushes": 1}
+             and slab["residual_rows"] == 382)
+    counted = all(r["forms"][f]["launches"] == want for r in ranks
+                  for f in SLAB_FORMS)
+    held = [r["forms"]["slab"]["rows"] for r in ranks] == [QS_K // 2] * 2
+    # the block's gathers (K / 2 slots) were among the calls held
+    on_block = all(QS_K // 2 in r["kept_slots"] for r in ranks)
+    checked = all(r["kernels_ok"] for r in ranks) and on_block
+    ok = same and alike and exact and counted and held and checked
+    print(f"phase 25b: the resident quickstart (M={QS_M:,}, K={QS_K}, "
+          f"S={QS_CACHE}, chunk {QS_CHUNK}) as shard_map (2, 1) on two gloo "
+          f"ranks ({card}); {time.perf_counter() - t0:.1f} s; rounds "
+          f"{slab['rounds']} eps {slab['max_epsilon']!r} cost "
+          f"{slab['resource_spent']} cache {slab['stats']}; slab vs the "
+          f"whole layout (state made whole, store rho and every residual "
+          f"row) {'bit for bit' if same else 'DIFFERENT'}; ranks "
+          f"{'alike' if alike else 'DIFFERENT'}; rows a rank "
+          f"{[r['forms']['slab']['rows'] for r in ranks]}; "
+          f"cohort_gather_scatter launches per rank and form "
+          f"{[[r['forms'][f]['launches'] for f in SLAB_FORMS] for r in ranks]}"
+          f" (expected {want}); ms per round on rank 0 (train wall / "
+          f"rounds) slab {slab['ms_per_round']:.3f}, whole "
+          f"{whole['ms_per_round']:.3f} {'ok' if ok else 'CHECK FAILED'}",
+          flush=True)
+    for r in ranks:
+        calls = r["collectives"]
+        print(f"phase 25b rank {r['rank']} one steady slab chunk "
+              f"({QS_CHUNK} rounds): {len(r['syncs']) + len(calls)} "
+              f"blocking host syncs: {len(r['syncs'])} in the driver "
+              f"(set_sync_debug_mode's Python warnings)"
+              + _sync_lines(r["syncs"])
+              + f"\n  and {len(calls)} torch.distributed calls on CUDA "
+              f"tensors, each a host round trip in gloo (its worker thread "
+              f"synchronizes the copy: set_sync_debug_mode warns on the "
+              f"rank's stderr, outside Python's warnings):"
+              + "".join(f"\n  x{calls.count(c)} {c}"
+                        for c in sorted(set(calls))), flush=True)
+        for ln in r["kernel_lines"]:
+            print(f"phase 25b rank {r['rank']} kernel vs plain: {ln}",
+                  flush=True)
+    if not on_block:
+        print(f"phase 25b: the kernel check held gathers of "
+              f"{[r['kept_slots'] for r in ranks]} slots, none of the "
+              f"block's {QS_K // 2} CHECK FAILED", flush=True)
+    err = max(r["kernel_err"].get("cohort_gather_scatter", 0.0)
+              for r in ranks)
+    return ok, sum(r["forms"]["slab"]["launches"] for r in ranks), err
+
+
+def _slab_tf_rank(sigmas, turns: int, seq: int) -> dict:
+    """Phase 25c's program on one rank: gemma3-4b's widths (SLAB_TF_CELL's
+    cell, f32) built by launch.train.build_federation as shard_map on the
+    two ranks, in the forms "slab" (the rank's block of one client between
+    rounds) and "whole" (api.whole_state of it: every rank holding the
+    (2, ...) trees), one round each on the same batch, in turns; the peak
+    memory reset and the counters set to 0 just before each round and
+    read after it. In the last turn the slab round's dp_clip_noise call,
+    on the rank's (1, N) row, is kept (device clones: 3 x 3.06 GB, a few
+    ms of its round) and held against its plain version on the same
+    operands after the slab state is freed, one rank after the other.
+    Returns each form's ms per round, losses, per-rank peak (its first
+    turn's), launches, and whether the slab's block rows of params equal
+    the whole layout's rows of this rank bit for bit (the last turns,
+    compared on the host), the kernel check."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api, configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.counter_rng import counter_rng
+    from repro_torch.kernels.dp_clip_noise import dp_clip_noise
+    from repro_torch.launch import train as launch_train
+    from repro_torch.utils.tree import tree_leaves
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    rank = dist.get_rank()
+    cfg = _ma_cfg(configs, SLAB_TF_CELL)
+    n_clients = MA_CELLS[SLAB_TF_CELL][3]
+    counters = {"dp_clip_noise": dp_clip_noise, "counter_rng": counter_rng}
+    out = {"rank": rank, "ms": {f: [] for f in SLAB_FORMS}, "losses": {},
+           "peak_gb": {}, "launches": {f: [] for f in SLAB_FORMS},
+           "build_s": []}
+    batch = rows = None
+    kept = {}
+    for turn in range(turns):
+        for form in SLAB_FORMS:
+            dist.barrier()
+            t_build = time.perf_counter()
+            model, spec, state, sampler = launch_train.build_federation(
+                cfg, n_clients, MA_TF_TAU, MA_TF_B, seq, sigmas,
+                clip_norm=CLIP, delta=DELTA, engine="shard_map",
+                device="cuda")
+            if form == "whole":
+                state = api.whole_state(state)
+            assert (state.layout is not None) == (form == "slab")
+            out["n_params"] = sum(x[0].numel()
+                                  for x in tree_leaves(state.params))
+            if batch is None:
+                batch = api.round_batch(spec, sampler,
+                                        np.random.default_rng(0))
+            del sampler
+            torch.cuda.synchronize()
+            out["build_s"].append(round(time.perf_counter() - t_build, 3))
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            check = turn == turns - 1 and form == "slab"
+            reals = (_keeping_first_calls(torch, ops, ["dp_clip_noise"],
+                                          kept) if check else {})
+            t0 = time.perf_counter()
+            try:
+                state, rec = api.run_round(spec, state, batch,
+                                           check_budgets=False)
+                torch.cuda.synchronize()
+            finally:
+                for n, f in reals.items():
+                    setattr(ops, n, f)
+            out["ms"][form].append((time.perf_counter() - t0) * 1e3)
+            out["peak_gb"].setdefault(
+                form, torch.cuda.max_memory_allocated() / 1e9)
+            out["losses"][form] = float(rec["loss"])
+            out["launches"][form].append({n: c.launches
+                                          for n, c in counters.items()})
+            if turn == turns - 1:
+                # this rank's rows: the slab's block, the whole layout's
+                # row of the same client
+                mine = [(x if form == "slab" else x[rank:rank + 1]).cpu()
+                        for x in tree_leaves(state.params)]
+                if rows is None:
+                    rows = mine
+                else:
+                    out["slab_equals_whole"] = all(
+                        torch.equal(a, b) for a, b in zip(rows, mine))
+                del mine
+            del model, spec, state, rec
+            torch.cuda.empty_cache()
+            if check:
+                # the check's float64 differences take ~25 GB: one rank at
+                # a time
+                for r in range(dist.get_world_size()):
+                    if r == rank:
+                        out["kernels_ok"], out["kernel_err"], \
+                            out["kernel_lines"] = _check_kept_calls(
+                                torch, kept,
+                                {"dp_clip_noise": ref.dp_clip_noise_ref})
+                        out["kept_rows"] = [k[1][0] for k in kept]
+                        kept.clear()
+                        torch.cuda.empty_cache()
+                    dist.barrier()
+    dist.barrier()
+    return out
+
+
+def run_slab_tf(torch, np, fl, configs, card, world):
+    """Phase 25c: gemma3-4b's widths (d_model 2560, vocab 262144, depth 1,
+    f32), C 2 (a rank's block one client), tau 1, batch 1, seq
+    SLAB_TF_SEQ, as shard_map (2, 1) on two gloo ranks sharing the card,
+    slab state and the whole layout in turns, one round each: the slab's
+    params bit for bit the whole layout's rows, the losses finite and
+    alike on the ranks, ms per round of each form, each rank's peak memory
+    (the slab's at least MA_SLAB_SAVING_GB below the whole layout's),
+    launches per rank and round (dp_clip_noise tau on the rank's (1, N)
+    row, counter_rng one). Returns (ok, {kernel: launches of the slab
+    rounds, both ranks, the last turn}, record, dp_clip_noise's max abs
+    err against its plain version on a rank's (1, N) row, the last slab
+    turn's)."""
+    sigmas = fl.design_sigmas(MA_TF_TAU, CLIP, [MA_TF_B] * 2, TRAIN_EPS,
+                              DELTA)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = world.run(_slab_tf_rank, sigmas, SLAB_TF_TURNS, SLAB_TF_SEQ)
+    except RuntimeError as e:
+        print(f"phase 25c: the two ranks failed: {e} CHECK FAILED",
+              flush=True)
+        return (False, dict.fromkeys(("dp_clip_noise", "counter_rng"), 0),
+                {}, 0.0)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    want = {"dp_clip_noise": MA_TF_TAU, "counter_rng": 1}
+    counted = all(ln == want for r in ranks for f in SLAB_FORMS
+                  for ln in r["launches"][f])
+    finite = all(math.isfinite(r["losses"][f]) for r in ranks
+                 for f in SLAB_FORMS)
+    alike = all(r["losses"] == r0["losses"] for r in ranks[1:])
+    saving = [r["peak_gb"]["whole"] - r["peak_gb"]["slab"] for r in ranks]
+    equal = all(r["slab_equals_whole"] for r in ranks)
+    # each rank held its (1, N) row's call against the plain version
+    checked = all(r["kernels_ok"] and r["kept_rows"] == [(1, r0["n_params"])]
+                  for r in ranks)
+    ok = (counted and finite and alike and equal and checked
+          and min(saving) >= MA_SLAB_SAVING_GB)
+    print(f"phase 25c on {card}: gemma3-4b's widths, f32, 1 layer, N = "
+          f"{r0['n_params']:,} params a replica, C 2 (block 1 a rank), tau "
+          f"{MA_TF_TAU}, batch {MA_TF_B}, seq {SLAB_TF_SEQ}, shard_map "
+          f"(2, 1) on 2 gloo ranks, slab and whole in turns; {wall:.1f} s "
+          f"(builds {r0['build_s']} s)", flush=True)
+    print(f"phase 25c: ms per round in turns (slab, whole): "
+          + "; ".join(f"{f} {[round(x, 3) for x in r0['ms'][f]]}"
+                      for f in SLAB_FORMS)
+          + f"; peak memory allocated per rank, first turn: "
+          + "; ".join(f"{f} {[round(r['peak_gb'][f], 3) for r in ranks]} GB"
+                      for f in SLAB_FORMS)
+          + f"; the slab's saving per rank {[round(x, 3) for x in saving]} "
+          f"GB (limit >= {MA_SLAB_SAVING_GB}); the slab's rows "
+          f"{'bit for bit' if equal else 'DIFFERENT from'} the whole "
+          f"layout's; losses {[r['losses'] for r in ranks]}; launches per rank "
+          f"{[r['launches'] for r in ranks]} (expected {want} a round) "
+          f"{'ok' if ok else 'CHECK FAILED'}", flush=True)
+    for r in ranks:
+        for ln in r["kernel_lines"]:
+            print(f"phase 25c rank {r['rank']} kernel vs plain (the last "
+                  f"slab turn): {ln}", flush=True)
+        if r["kept_rows"] != [(1, r0["n_params"])]:
+            print(f"phase 25c rank {r['rank']}: dp_clip_noise held on "
+                  f"{r['kept_rows']}, not the rank's (1, "
+                  f"{r0['n_params']:,}) row CHECK FAILED", flush=True)
+    launches = {n: sum(r["launches"]["slab"][-1][n] for r in ranks)
+                for n in want}
+    err = max(r["kernel_err"].get("dp_clip_noise", 0.0) for r in ranks)
+    rec = {"ms": r0["ms"], "losses": r0["losses"],
+           "peak_gb_per_rank": {f: [r["peak_gb"][f] for r in ranks]
+                                for f in SLAB_FORMS},
+           "slab_saving_gb_per_rank": saving, "seq": SLAB_TF_SEQ,
+           "dp_clip_noise_max_abs_err": err}
+    return ok, launches, rec, err
+
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--time-row-kernels"] and len(sys.argv) == 3:
         return time_row_kernels(sys.argv[2])
@@ -7000,6 +7674,24 @@ def main() -> int:
     print(f"phase 24 wall time {time.perf_counter() - t24:.1f} s",
           flush=True)
 
+    # -- 25. shard_map in slab state (two ranks, one world) -------------------
+    t25 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl_world = HostWorld(2)
+    sl_world.run(int, 0)
+    print(f"phase 25: 2 gloo ranks started in "
+          f"{time.perf_counter() - t25:.1f} s", flush=True)
+    ok_la, la_launches, la_errs = run_slab_adult(torch, np, spec, card,
+                                                 sl_world)
+    ok_lb, lb_launches, lb_err = run_slab_resident(torch, np, card,
+                                                   sl_world)
+    ok_lc, lc_launches, lc_rec, lc_err = run_slab_tf(torch, np, fl, configs,
+                                                     card, sl_world)
+    sl_world.close()
+    print(f"phase 25 wall time {time.perf_counter() - t25:.1f} s",
+          flush=True)
+
     model_kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -7078,7 +7770,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(worst, ls_errs["dp_clip_noise"],
                            tw_rec["max_abs_err"], md_rec["max_abs_err"],
-                           sa_err, sb_err),
+                           sa_err, sb_err, la_errs.get("dp_clip_noise", 0.0),
+                           lc_err),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "variant": main_rec["variant"],
@@ -7103,13 +7796,19 @@ def main() -> int:
                 sa_launches["dp_clip_noise"],
             "phase 20b shard_map and mesh_2d(1,1), two gloo ranks on the card "
             "(both ranks)":
-                sb_launches["dp_clip_noise"]},
+                sb_launches["dp_clip_noise"],
+            "phase 25a shard_map (2, 1) in slab state, (8, 210) blocks "
+            "(both ranks)": la_launches["dp_clip_noise"],
+            "phase 25c gemma3-4b's widths, shard_map (2, 1) in slab state, "
+            "a rank's (1, N) row (both ranks, the last turn)":
+                lc_launches["dp_clip_noise"]},
         "phase16_full_width": tw_rec, "phase18d_full_width": md_rec}, {
         "name": "quantize_decompress", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_decompress.cu",
         "replaces": "src/repro/kernels/quantize_decompress.py:44",
         "launches": q_launches,
-        "max_abs_err": max(q_worst, ls_errs["quantize_decompress"]),
+        "max_abs_err": max(q_worst, ls_errs["quantize_decompress"],
+                           la_errs.get("quantize_decompress", 0.0)),
         "ms": q_rec["ms"], "plain_ms": q_rec["plain_ms"],
         "bound_ms": q_rec["bound_ms"], "bound_by": q_rec["bound_by"],
         "library_ms": None, "variant": q_rec["variant"],
@@ -7125,12 +7824,15 @@ def main() -> int:
             "phase 20b shard_map qsgd8_q50, two ranks (both ranks)":
                 sb_launches["quantize_decompress"],
             "phase 21a mesh_2d (1, 2) qsgd8_q50, on whole gathered rows "
-            "(both ranks)": xa_launches["quantize_decompress"]}}, {
+            "(both ranks)": xa_launches["quantize_decompress"],
+            "phase 25a shard_map (2, 1) qsgd8_q50 in slab state, (8, 210) "
+            "blocks (both ranks)": la_launches["quantize_decompress"]}}, {
         "name": "cohort_gather_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cohort_gather_scatter.cu",
         "replaces": "src/repro/kernels/cohort_gather.py:64",
         "launches": g_launches,
-        "max_abs_err": max(g_worst, ls_errs["cohort_gather_scatter"]),
+        "max_abs_err": max(g_worst, ls_errs["cohort_gather_scatter"],
+                           lb_err),
         "ms": g_rec["ms"], "plain_ms": g_rec["plain_ms"],
         "bound_ms": g_rec["bound_ms"], "bound_by": g_rec["bound_by"],
         "library_ms": g_rec["library_ms"],
@@ -7140,14 +7842,17 @@ def main() -> int:
             "phase 19a throughput_torch.py --smoke drivers":
                 ta_launches["cohort_gather_scatter"],
             "phase 20a the resident quickstart under shard_map":
-                sa_launches["cohort_gather_scatter"]}}, {
+                sa_launches["cohort_gather_scatter"],
+            "phase 25b the resident quickstart under shard_map (2, 1) in "
+            "slab state, the block's slots (both ranks)": lb_launches}}, {
         "name": "counter_rng", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/counter_rng.cu",
         "replaces": "none: no Pallas kernel; the port's counterpart of "
                     "jax.random's keyed draws (src/repro/mesh/engine.py:246, "
                     "src/repro/core/fl.py:87)",
         "launches": rng_launches,
-        "max_abs_err": rng_rec["max_abs_err"],
+        "max_abs_err": max(rng_rec["max_abs_err"],
+                           la_errs.get("counter_rng", 0.0)),
         "ms": rng_rec["normal"]["ms"],
         "plain_ms": rng_rec["normal"]["plain_ms"],
         "bound_ms": rng_rec["normal"]["bound_ms"],
@@ -7163,14 +7868,19 @@ def main() -> int:
                f"on the (1, 2) mesh, both ranks, the last turn":
                launched.get("counter_rng", 0)
                for phase, launched in (*xf_launches.items(),
-                                       ("23d", zd_launches))}}}]
+                                       ("23d", zd_launches))},
+            "phase 25a shard_map (2, 1) in slab state, the block's rows "
+            "(both ranks)": la_launches["counter_rng"],
+            "phase 25c gemma3-4b's widths, shard_map (2, 1) in slab state "
+            "(both ranks, the last turn)": lc_launches["counter_rng"]}}]
         + model_kernels + split_kernels,
         "phase21b_gemma3_model_axis": xb_rec,
         "phase21def_model_axis": xf_recs, "phase22_serving_mesh": ya_recs,
         "phase23": {"23a": za_recs.get("23a"), "23b": zb_rec, "23c": zc_rec,
                     "23d": zd_rec},
         "phase24": {"24a": fa_rec, "24b": fb_rec,
-                    "24c": {FSDP_ARCH: fc_rec, "gemma3-4b": fl_rec}}}),
+                    "24c": {FSDP_ARCH: fc_rec, "gemma3-4b": fl_rec}},
+        "phase25c_gemma3_slab_state": lc_rec}),
         flush=True)
     for ok, what in ((ok_build, "a tensor-core flash or counter_rng "
                                 "instance spills"),
@@ -7288,7 +7998,19 @@ def main() -> int:
                              "the whole route by more than 1e-4 of the "
                              "largest logit"),
                      (ok_fk, "flash_attention disagrees with its plain "
-                             "version at mistral-large's rank shape")):
+                             "version at mistral-large's rank shape"),
+                     (ok_la, "Adult-1 as shard_map in slab state disagrees "
+                             "with the whole layout or missed a check"),
+                     (ok_lb, "the resident quickstart as shard_map in slab "
+                             "state disagrees with the whole layout or "
+                             "missed a check"),
+                     (ok_lc, "gemma3-4b's widths as shard_map in slab state "
+                             "disagree with the whole layout or missed a "
+                             "check"),
+                     (all(la_launches[n] > 0 for n in SLAB_KERNELS)
+                      and lb_launches > 0,
+                      "a kernel was not launched on shard_map's slab "
+                      "path")):
         if not ok:
             return _fail(what)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,10 @@ calls. ``init_state(..., device="cpu")`` runs on the CPU.
 ``FederationSpec(participation=0.5, compressor="qsgd")`` (or ``"topk"`` /
 ``"randk"``) runs the aggregation pipeline: a fresh participant set every
 round, compressed error-fed updates (``FLState.residual``). ``save_state`` /
-``load_state`` checkpoint a state. Under ``engine="mesh_2d"`` on a world
-of several ranks a state is each rank's slab (its client block's rows and
-model slices); ``whole_state`` reads it whole. :class:`Federation` is the
+``load_state`` checkpoint a state. Under ``engine="shard_map"`` or
+``"mesh_2d"`` on a world of several ranks a state is each rank's slab (its
+client block's rows and model slices, none outside the mesh);
+``whole_state`` reads it whole. :class:`Federation` is the
 back-compat mutable wrapper over the same functions, and
 ``register_engine`` / ``get_engine`` the round-engine registry.
 """

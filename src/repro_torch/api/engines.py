@@ -37,13 +37,13 @@ registered:
 
 ``register_engine`` adds an execution strategy without touching the
 drivers, which select purely through ``FederationSpec.engine``. The
-sharded engines run every rank's copy of the driver (SPMD): their round
-functions take and return the full client-stacked trees. ``mesh_2d``'s
-also carries a slab round (:func:`slab_round_fn_for`) on one rank's slab
-of the state, which the drivers run where a state is slab-local
-(:func:`repro_torch.api.state.init_state`). Where no process group is
-initialized they build a world of one (:func:`repro_torch.launch.mesh
-.ensure_world`).
+sharded engines run every rank's copy of the driver (SPMD). Their round
+functions take and return the full client-stacked trees, and carry a slab
+round (:func:`slab_round_fn_for`) on one rank's slab of the state, which
+the drivers run where a state is slab-local
+(:func:`repro_torch.api.state.init_state`: both sharded engines on a
+world of several ranks). Where no process group is initialized they
+build a world of one (:func:`repro_torch.launch.mesh.ensure_world`).
 
 ``engine="auto"`` follows :func:`~repro_torch.mesh.placement.choose_engine`
 over the world's ranks, never "async_buffered". A ``replica_bytes`` hint
@@ -189,13 +189,14 @@ def build_map_engine(spec: FederationSpec) -> RoundFn:
 @register_engine("shard_map")
 def build_shard_map_engine(spec: FederationSpec) -> RoundFn:
     """The client axis over ``n_client_shards(C, world)`` ranks of the
-    world (a 1D mesh: the degenerate (n, 1) 2D mesh)."""
-    from repro_torch.core.fl_shard_map import make_shard_map_round
+    world, a divisor of C: the ``mesh_2d`` round on the degenerate (n, 1)
+    2D mesh (:mod:`repro_torch.core.fl_shard_map`)."""
+    from repro_torch.mesh.engine import make_mesh_2d_round
     mesh = make_mesh_2d((n_client_shards(spec.n_clients, world_size()), 1))
-    return make_shard_map_round(spec.loss_fn, spec.optimizer,
-                                spec.fl_config(vmap_clients=True), mesh,
-                                topology=spec.topology,
-                                pipeline=spec.aggregation_pipeline())
+    return make_mesh_2d_round(spec.loss_fn, spec.optimizer,
+                              spec.fl_config(vmap_clients=True), mesh,
+                              topology=spec.topology,
+                              pipeline=spec.aggregation_pipeline())
 
 
 @register_engine("mesh_2d")
@@ -249,14 +250,15 @@ def round_fn_for(spec: FederationSpec) -> RoundFn:
 
 
 def slab_round_fn_for(spec: FederationSpec) -> RoundFn:
-    """The slab round of a ``mesh_2d`` spec (cached with its whole-tree
+    """The slab round of a sharded spec (cached with its whole-tree
     round): ``(layout, params, opt_state, batch, noise, sigmas[, mask,
     residual, agg_rand])`` on one rank's slab of the state, returning the
     same layout (:func:`repro_torch.mesh.engine.make_mesh_2d_round`)."""
     fn = round_fn_for(spec)
     if not hasattr(fn, "slab_round"):
         raise ValueError(f"engine {resolve_engine(spec)!r} has no slab "
-                         f"round; only mesh_2d keeps slab state")
+                         f"round; only shard_map and mesh_2d keep slab "
+                         f"state")
     return fn.slab_round
 
 
@@ -287,9 +289,10 @@ def resident_chunked_round_fn_for(spec: FederationSpec,
     engine's pipeline round wrapped by
     :func:`repro_torch.core.fl.make_resident_chunked_round`,
 
-        fn(params, opt_state, batches, slots, key, sigmas, cache)
-            -> (params, opt_state, key, cache, metrics, masks)
+        fn(params, opt_state, batches, slots, key, sigmas, cache,
+           slab=None) -> (params, opt_state, key, cache, metrics, masks)
 
+    (with a layout ``slab``, the engine's slab round on slab state).
     ``data_resident=True`` takes the (S, tau, B, ...) warm-shard cache as
     ``batches`` (stationary populations). Cached per (engine key,
     participant count, data_resident). A spec without a pipeline has no

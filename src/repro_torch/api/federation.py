@@ -29,10 +29,10 @@ class Federation:
 
     Thin wrapper: all state lives in ``self.state`` (an
     :class:`FLState`); the attributes below are views over it. Under
-    ``engine="mesh_2d"`` on a world of several ranks ``params`` and
-    ``opt_state`` are this rank's slab (its client block's rows of its
-    model slices); ``repro_torch.api.whole_state(fed.state)`` reads them
-    whole.
+    ``engine="shard_map"`` or ``"mesh_2d"`` on a world of several ranks
+    ``params`` and ``opt_state`` are this rank's slab (its client block's
+    rows of its model slices, none outside the mesh);
+    ``repro_torch.api.whole_state(fed.state)`` reads them whole.
     """
     cfg: FLConfig
     loss_fn: Callable

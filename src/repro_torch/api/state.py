@@ -3,10 +3,11 @@
 The state of a federation is one immutable :class:`FLState` value: model
 replicas, optimizer state, the key of the counter-based generator the
 noise is drawn from, the privacy-accountant snapshot, the spent resources
-and, with a compressor, the error-feedback residual. Under ``mesh_2d`` on
-a world of several ranks each rank's state is its slab (its client
-block's rows and its model slices; :func:`init_state`), and
-:func:`whole_state` reads the whole trees. ``run_round`` maps
+and, with a compressor, the error-feedback residual. Under the sharded
+engines (``shard_map``, ``mesh_2d``) on a world of several ranks each
+rank's state is its slab (its client block's rows and its model slices,
+no rows outside the mesh; :func:`init_state`), and :func:`whole_state`
+reads the whole trees. ``run_round`` maps
 (spec, state, batch) -> (state', metrics); ``save_state`` / ``load_state``
 checkpoint it. The rho ledger, the resource cost and the budget probes are
 the JAX package's float64 host math, bit for bit.
@@ -27,7 +28,6 @@ import torch
 
 from repro_torch.api.engines import (
     chunked_round_fn_for,
-    mesh_shape_for,
     resolve_engine,
     round_fn_for,
     slab_round_fn_for,
@@ -83,12 +83,13 @@ class FLState:
     """Complete training state of one federation (immutable).
 
     params/opt_state carry the leading client axis C on every leaf, or,
-    with a ``layout`` (a :class:`repro_torch.mesh.engine.SlabLayout`:
-    ``mesh_2d`` on several ranks), this rank's slab: its client block's
-    rows (pad rows past the last client included) of its model slices,
-    the residual the block's rows whole in D (:func:`whole_state` gathers
-    the whole trees). ``key`` is the counter-based generator's (2,) int64
-    ``(seed, counter)`` on the host (:mod:`repro_torch.kernels
+    with a ``layout`` (a :class:`repro_torch.mesh.engine.SlabLayout`: a
+    sharded engine on several ranks), this rank's slab: its client
+    block's rows (pad rows past the last client included; none on a rank
+    outside the mesh) of its model slices, the residual the block's rows
+    whole in D (:func:`whole_state` gathers the whole trees). ``key`` is
+    the counter-based generator's (2,) int64 ``(seed, counter)`` on the
+    host (:mod:`repro_torch.kernels
     .counter_rng`): each round's draws take its counter and advance it by
     one. The accountant snapshot (rho, steps) lives host-side as plain
     numpy, whole on every rank.
@@ -113,16 +114,16 @@ def _device_of(state: FLState) -> torch.device:
 
 
 def slab_applies(spec: FederationSpec) -> bool:
-    """Whether :func:`init_state` gives ``spec`` slab state: a ``mesh_2d``
-    spec (after ``engine="auto"``) on a world of more than one rank whose
-    mesh holds every rank, neither a population nor an async spec (their
-    drivers keep whole state)."""
+    """Whether :func:`init_state` gives ``spec`` slab state: a ``shard_map``
+    or ``mesh_2d`` spec (after ``engine="auto"``) on a world of more than
+    one rank, whether or not its mesh holds every rank (a rank outside it
+    holds no rows), population specs included (their cohort drivers run
+    on the K-block's slabs). Never an async spec: the JAX package's
+    buffered-async executor runs on one device (``build_async_engine``
+    places nothing on a mesh), and so does the port's."""
     from repro_torch.launch.mesh import world_size
-    if (spec.is_population() or spec.is_async() or world_size() < 2
-            or resolve_engine(spec) != "mesh_2d"):
-        return False
-    dc, dm = mesh_shape_for(spec)
-    return dc * dm == world_size()
+    return (not spec.is_async() and world_size() > 1
+            and resolve_engine(spec) in ("shard_map", "mesh_2d"))
 
 
 def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
@@ -131,8 +132,9 @@ def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
 
     Where :func:`slab_applies` each rank holds only its slab:
     ``params0``'s model slices, widened to its client block's rows, and the
-    optimizer state likewise; the (C, ...) trees are never made on the
-    device (:func:`whole_state` of it is the whole layout)."""
+    optimizer state likewise (no rows on a rank outside the mesh); the
+    (C, ...) trees are never made on the device (:func:`whole_state` of it
+    is the whole layout)."""
     dev = resolve_device(device)
     params0 = tree_from_numpy(params0, dev)
     opt0 = spec.optimizer.init(params0)
@@ -141,7 +143,7 @@ def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
     if slab_applies(spec):
         from repro_torch.mesh.engine import to_slab
         layout = round_fn_for(spec).layout(params0, opt0)
-    rows = spec.n_clients if layout is None else layout.block
+    rows = spec.n_clients if layout is None else layout.n_rows
     residual = (pipe.init_residual(params0, rows) if pipe is not None
                 else None)
     if layout is not None:
@@ -158,7 +160,8 @@ def init_state(spec: FederationSpec, params0: Any, device=None) -> FLState:
 def whole_state(state: FLState) -> FLState:
     """The whole FLState of a slab state: params, optimizer state and
     residual gathered over the mesh's model and client groups, (C, ...) on
-    every rank (a collective: every rank of the mesh calls it); a whole
+    every rank of the world (a collective: every rank calls it; ranks
+    outside the mesh receive it from the mesh's first rank); a whole
     state as it is. The counterpart of reading a sharded JAX array whole."""
     lay = state.layout
     if lay is None:
@@ -699,8 +702,7 @@ def load_state(directory: str, like: FLState) -> tuple[FLState, dict]:
         tree["params"] = to_slab(lay, tree["params"], lay.param_dims)
         tree["opt_state"] = to_slab(lay, tree["opt_state"], lay.state_dims)
         if "residual" in tree:      # pad rows carry no residual
-            tree["residual"] = (lay.take(tree["residual"])
-                                * np.asarray(lay.valid, np.float32)[:, None])
+            tree["residual"] = lay.take_state(tree["residual"])
     state = like.replace(
         params=tree_from_numpy(tree["params"], dev),
         opt_state=tree_from_numpy(tree["opt_state"], dev),

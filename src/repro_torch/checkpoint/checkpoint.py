@@ -11,10 +11,10 @@ Leaf paths are named as ``jax.tree_util.tree_flatten_with_path`` names them
 are tensors or numpy arrays; they are written from the host.
 
 Under a ``torch.distributed`` world every rank holds the same full state
-when it writes (the sharded engines return whole trees, and
-``repro_torch.api.save_state`` gathers a mesh_2d slab state whole first),
-so rank 0 writes and the other ranks wait at a barrier
-(:func:`one_writer`).
+when it writes (``repro_torch.api.save_state`` gathers a sharded engine's
+slab state whole once first, and ranks outside the mesh receive it), so
+rank 0 writes and the other ranks wait at a barrier (:func:`one_writer`).
+A checkpoint is the same whatever layout wrote it, and loads into any.
 """
 from __future__ import annotations
 

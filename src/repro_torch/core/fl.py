@@ -370,8 +370,9 @@ def make_resident_chunked_round(round_fn: Callable, pipeline,
     """:func:`make_chunked_round`'s pipeline form with a fresh cohort per
     round, its sticky rows in the device-resident cohort cache:
 
-        chunk_fn(params, opt_state, batches, slots, key, sigmas, cache)
-            -> (params, opt_state, key, cache, metrics, masks)
+        chunk_fn(params, opt_state, batches, slots, key, sigmas, cache,
+                 slab=None) -> (params, opt_state, key, cache, metrics,
+                                masks)
 
     ``slots`` is the (R, K) int64 per-round cohort -> cache-slot plan on the
     device, ``cache`` the (S, D) f32 error-feedback residual block (or
@@ -384,11 +385,21 @@ def make_resident_chunked_round(round_fn: Callable, pipeline,
     the chunk runs the per-round driver's ops, on the same shapes and in the
     same order, and equals R per-round calls bit for bit.
 
+    With ``slab`` (a :class:`repro_torch.mesh.engine.SlabLayout`) the
+    chunk runs ``round_fn.slab_round`` (a sharded engine's), the state and
+    ``sigmas`` the slab's and ``batches`` the block's (R, block, ...)
+    rows: each round gathers only the block's slots' residual rows, draws
+    the block's rows, runs the slab round, gathers the block's updated
+    rows over the client group (``slab.whole_rows``: one byte-sum
+    all-reduce of (K, D)) and scatters all K, so the cache stays whole
+    and alike on every rank, as the JAX package's (S, D) cache is one
+    unsharded array.
+
     ``data_resident=True`` is the stationary-population form: ``batches`` is
     then the (S, tau, B, ...) warm-shard cache and each round's
-    (K, tau, B, ...) batch is gathered from it by slot through the same
-    kernel (every leaf viewed as (S, row) rows), so the chunk reads no
-    host-built data."""
+    (K, tau, B, ...) batch (a slab's block rows) is gathered from it by
+    slot through the same kernel (every leaf viewed as (S, row) rows), so
+    the chunk reads no host-built data."""
     def gather_shards(batches, slot):
         def one(x):
             rows = cohort_gather(x.reshape(x.shape[0], -1), slot,
@@ -396,22 +407,28 @@ def make_resident_chunked_round(round_fn: Callable, pipeline,
             return rows.reshape((slot.shape[0],) + tuple(x.shape[1:]))
         return tree_map(one, batches)
 
-    def chunk_fn(params, opt_state, batches, slots, key, sigmas, cache):
+    def chunk_fn(params, opt_state, batches, slots, key, sigmas, cache,
+                 slab=None):
         tau = (tree_leaves(batches)[0].shape[1] if data_resident
                else tree_leaves(batches)[0].shape[2])
+        fn, lead = ((round_fn, ()) if slab is None
+                    else (round_fn.slab_round, (slab,)))
         ms, masks = [], []
         for r in range(slots.shape[0]):
             slot = slots[r]
-            batch = (gather_shards(batches, slot) if data_resident
+            own = slot if slab is None else slab.take(slot)
+            batch = (gather_shards(batches, own) if data_resident
                      else tree_map(lambda x: x[r], batches))
             mask, noise, agg_rand, key = draw_pipeline_round(
-                key, params, tau, pipeline)
-            rows = (cohort_gather(cache, slot, backend=kernel_backend)
+                key, params, tau, pipeline, **_slab_kw(slab))
+            rows = (cohort_gather(cache, own, backend=kernel_backend)
                     if cache is not None else None)
-            params, opt_state, rows, m = round_fn(
-                params, opt_state, batch, noise, sigmas, mask, rows,
-                agg_rand)
+            params, opt_state, rows, m = fn(
+                *lead, params, opt_state, batch, noise, sigmas,
+                mask if slab is None else slab.take(mask), rows, agg_rand)
             if cache is not None:
+                if slab is not None:
+                    rows = slab.whole_rows(rows)
                 cohort_scatter(cache, slot, rows, backend=kernel_backend)
             ms.append(m)
             masks.append(mask)

@@ -10,49 +10,43 @@ meets the other ranks in the one Eq.-7b reduction:
 
 * dense ``full_average``: the block means of params, optimizer state and
   metrics in one flat f32 buffer, one all-reduce SUM over the client group,
-  divided by the shard count (the reference's ``pmean``);
+  divided by the shard count (the reference's ``pmean``), and the average
+  widened to the block's rows;
 * the aggregation pipeline: the participant count, the masked block sums
   and the metrics' masked sums in one all-reduce
   (:meth:`repro_torch.core.aggregation.AggregationPipeline.aggregate` with
-  ``all_sum``); the adversarial extensions also gather every block's
-  update rows and compute the same global result on every rank.
+  ``all_sum``); the adversarial extensions (robust aggregators, secure
+  sum, update attacks) also gather every block's update rows inside the
+  round (``all_gather``, as JAX's ``shard_map`` body gathers them) and
+  compute the same global result on every rank.
 
-Operands and results are the full client-stacked (C, ...) trees on every
-rank, as the JAX engine presents its global arrays: the round function
-has the single-process engines' signature, so ``run_round``,
-``run_rounds``, the chunked and resident drivers, budgets and eval run
-unchanged, each rank driving the same federation. A rank takes its rows of
-params, opt_state, batch, noise, sigmas, mask, residual and ``agg_rand``
-(every rank draws the round's randomness whole at the same key of the
-counter-based generator, so a sharded round is row for row the ``vmap``
-round). Outputs that
-stay per client (``local_only`` params, optimizer state that is not
-averaged, the error-feedback residual) come back whole through one
-all-gather of the blocks along axis 0, rank order being row order.
+As in the JAX package, whose round has ``in_specs`` and ``out_specs`` of
+``P("client")``, a rank's params, optimizer state and error-feedback
+residual stay its block's rows between rounds: the engine's slab round
+(``round_step.slab_round(layout, ...)``, ``round_step.layout``) takes and
+returns only them, and the drivers keep such slab state on a world of
+several ranks (:func:`repro_torch.api.state.init_state`). Each rank draws
+only its block's rows of the round's randomness from the counter-based
+generator, at their global row ids, so a sharded round is row for row
+the ``vmap`` round. The engine's round is the ``mesh_2d`` engine's on
+the degenerate ``(n_shards, 1)`` mesh (:func:`repro_torch.mesh.engine
+.make_mesh_2d_round`), whose clients divide: its whole-tree form takes
+the block of whole operands, runs the slab round and gathers the outputs
+whole. Ranks of the world outside the mesh (fewer client blocks than
+ranks) hold no rows and receive each round's metrics from the mesh's
+first rank. This module holds the collectives and block means that
+round runs.
 
-Ranks of the world outside the mesh (fewer client blocks than ranks) take
-no block; they receive the round's results from the mesh's first rank.
-
-On a 2D mesh with a model axis over 1 (:mod:`repro_torch.mesh.engine`) a
-:class:`ClientGroup` is taken at this rank's model coordinate: its ranks
-hold the same slices of every replica, so the Eq.-7b sums run on the
-slices, and the round's outputs are made whole by a gather over the model
-group (:func:`repro_torch.models.sharding.to_whole`) before the row
-gathers here.
+:class:`ClientGroup` is the client axis' collectives; the serving mesh
+uses it over its data axis too.
 """
 from __future__ import annotations
 
-from typing import Callable
+import math
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.fl import (
-    FLConfig,
-    check_topology,
-    make_local_rounds,
-)
-from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import (
     tree_broadcast_axis0,
     tree_flatten,
@@ -135,18 +129,38 @@ class ClientGroup:
         return tree_unflatten(treedef, out)
 
     def share(self, result):
-        """Hand the mesh's result to the world's ranks outside the mesh
-        (from the mesh's first rank); a no-op without such ranks."""
+        """Hand ``result`` (any picklable value, here a round's metrics)
+        from the mesh's first rank to the world's ranks outside the mesh;
+        each rank of the mesh keeps its own. A no-op without such ranks."""
         if not self.spectators:
             return result
         box = [None if self.idle else result]
         dist.broadcast_object_list(box, src=self.root)
-        return box[0]
+        return box[0] if self.idle else result
 
-    def rows(self, tree, block: int):
-        """This rank's ``block`` rows of every leaf of ``tree``."""
-        lo = self.index * block
-        return tree_map(lambda x: x[lo:lo + block], tree)
+    def share_rows(self, tree, n: int):
+        """Hand a tree of ``n``-row leaves from the mesh's first rank to
+        the world's ranks outside the mesh, whose ``tree`` holds leaves of
+        no rows and the same trailing shapes: one broadcast over the world
+        per dtype. A no-op without such ranks."""
+        if not self.spectators:
+            return tree
+        leaves, treedef = tree_flatten(tree)
+        out = list(leaves)
+        for dtype in dict.fromkeys(x.dtype for x in leaves):  # rank-stable
+            idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+            widths = [math.prod(leaves[i].shape[1:]) for i in idx]
+            if self.idle:
+                buf = torch.empty((n, sum(widths)), dtype=dtype,
+                                  device=leaves[idx[0]].device)
+            else:
+                buf = torch.cat([leaves[i].reshape(n, -1) for i in idx], 1)
+            dist.broadcast(buf, src=self.root)
+            if self.idle:
+                for i, part in zip(idx, buf.split(widths, dim=1)):
+                    out[i] = part.reshape(
+                        (n,) + tuple(leaves[i].shape[1:])).contiguous()
+        return tree_unflatten(treedef, out)
 
 
 def block_mean(grp: ClientGroup, new_p, new_s, ms: dict, full: bool,
@@ -175,67 +189,3 @@ def widen(tree, n: int):
     """A block of identical rows (the re-broadcast global model) as ``n``
     rows: row 0 tiled."""
     return tree_broadcast_axis0(tree_map(lambda x: x[0], tree), n)
-
-
-def make_shard_map_round(loss_fn: Callable, optimizer: Optimizer,
-                         cfg: FLConfig, mesh, client_axis: str = "client",
-                         topology: str = "full_average", pipeline=None):
-    """Build ``round_step(params, opt_state, batch, noise, sigmas)`` over
-    ``mesh``'s client axis, or with ``pipeline`` the 8-operand form
-    ``(..., mask, residual, agg_rand) -> (params, opt_state, residual,
-    metrics)``: the signatures of
-    :func:`repro_torch.core.fl.make_round_step`, on full (C, ...) trees.
-    Clients must divide the client axis (``mesh_2d`` pads them)."""
-    check_topology(topology, pipeline)
-    grp = ClientGroup(mesh, client_axis)
-    n_clients = cfg.n_clients
-    if n_clients % grp.n_shards:
-        raise ValueError(f"{n_clients} clients do not divide over "
-                         f"{grp.n_shards} '{client_axis}' mesh slots")
-    block = n_clients // grp.n_shards
-    local_rounds = make_local_rounds(loss_fn, optimizer, cfg)
-
-    def round_step(params, opt_state, batch, noise, sigmas):
-        result = None
-        if not grp.idle:
-            p_b, s_b, batch_b, noise_b, sig_b = grp.rows(
-                (params, opt_state, batch, noise, sigmas), block)
-            new_p, new_s, ms = local_rounds(p_b, s_b, batch_b, noise_b,
-                                            sig_b)
-            full = topology == "full_average"
-            avg_p, avg_s, ms = block_mean(grp, new_p, new_s, ms, full,
-                                          full and cfg.average_opt_state)
-            new_p = (tree_broadcast_axis0(avg_p, n_clients) if full
-                     else grp.all_gather_tree(new_p))
-            new_s = (tree_broadcast_axis0(avg_s, n_clients)
-                     if avg_s is not None else grp.all_gather_tree(new_s))
-            result = (new_p, new_s, ms)
-        return grp.share(result)
-
-    def round_step_pipeline(params, opt_state, batch, noise, sigmas, mask,
-                            residual, agg_rand):
-        result = None
-        if not grp.idle:
-            # the secure sum's pair masks are drawn whole on every rank and
-            # stay whole; the compressor operand has a row per client
-            comp_rand, pair_masks = (agg_rand if pipeline.secure is not None
-                                     else (agg_rand, None))
-            p_b, s_b, batch_b, noise_b, sig_b, mask_b, res_b, rand_b = \
-                grp.rows((params, opt_state, batch, noise, sigmas, mask,
-                          residual, comp_rand), block)
-            if pipeline.secure is not None:
-                rand_b = (rand_b, pair_masks)
-            new_p, new_s, ms = local_rounds(p_b, s_b, batch_b, noise_b,
-                                            sig_b)
-            new_p, new_s, res_b, ms = pipeline.aggregate(
-                p_b, new_p, new_s, s_b, res_b, mask_b, rand_b, ms,
-                all_sum=grp.all_sum, all_gather=grp.all_gather_rows)
-            new_p = widen(new_p, n_clients)
-            new_s = (widen(new_s, n_clients) if cfg.average_opt_state
-                     else grp.all_gather_tree(new_s))
-            if res_b is not None:
-                res_b = grp.all_gather_rows(res_b)
-            result = (new_p, new_s, res_b, ms)
-        return grp.share(result)
-
-    return round_step if pipeline is None else round_step_pipeline

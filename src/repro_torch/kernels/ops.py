@@ -46,7 +46,10 @@ def counter_draw(key, rows: tuple, table: tuple, tau: int, n: int,
     ``rows`` and the local columns that ``table`` maps
     (:func:`repro_torch.kernels.counter_rng.whole_table` / ``slab_table``).
     The row ids and the table go to the device once
-    (:func:`repro_torch.utils.device.device_constant`)."""
+    (:func:`repro_torch.utils.device.device_constant`). No rows (a rank
+    outside a mesh): an empty draw, no launch."""
+    if not rows:
+        return torch.empty((0, tau, n), dtype=torch.float32, device=device)
     return counter_rng(device_constant(rows, device),
                        device_constant(table, device), tau, n, key, purpose,
                        normal)
@@ -174,8 +177,11 @@ def quantize_decompress_rows(x, u, bits: int, backend: str = "auto"):
 
 def cohort_gather(cache, slots, backend: str = "auto"):
     """The cohort's (K, D) rows out of the (S, D) resident cache, as a new
-    tensor (a copy: later scatters into the cache leave it alone)."""
+    tensor (a copy: later scatters into the cache leave it alone). No
+    slots (a rank outside a mesh): no rows, no launch."""
     validate_backend(backend)
+    if slots.shape[0] == 0:
+        return cache.new_empty((0, cache.shape[1]))
     kernel = cohort_gather_scatter_ref if backend == "ref" else \
         cohort_gather_scatter
     return kernel(cache, slots)

@@ -36,10 +36,11 @@ padding clients that do not divide dc and, with dm > 1, splitting each
 replica's weights and matmuls over the dm ranks of a slab (every arch:
 attention and MLP on heads and ffn, RWKV6 and Mamba2 on heads, MoE on
 experts; a model axis that does not divide them raises ``ValueError``).
-Where the mesh holds every rank, each rank keeps only its slab of the
-state between rounds (``api.init_state``); ``train`` and ``save_state``
-run on it, and ``--save`` gathers it whole once, to the same checkpoint
-a whole run writes.
+On several ranks each rank keeps only its slab of the state between
+rounds (``api.init_state``; a rank outside the mesh holds no rows), the
+population drivers too; ``train`` and ``save_state`` run on it, and
+``--save`` gathers it whole once, to the same checkpoint a whole run
+writes.
 ``--replica-hint`` passes the arch's param + optimizer-state bytes
 (``configs.shapes.replica_footprint_bytes``) to the spec as
 ``replica_bytes``: ``engine="auto"`` places a replica over the device's

@@ -45,18 +45,20 @@ draws the block's rows and the slab's columns, split leaves first
 same on every model rank (else the replicas drift and nothing reports
 it). So the slab round is row for row the ``vmap`` round.
 
-**The whole-tree round** (what :func:`make_mesh_2d_round` returns, and
-what ``round_fn_for`` serves the population and resident drivers and
-every caller with whole trees) is the same body: it takes its slab of the
-whole operands (:meth:`SlabLayout.take`, ``to_local``, :func:`local_noise`),
-runs the slab round, and gathers the outputs whole: an average (under
-``full_average`` the params, with ``average_opt_state`` the optimizer
-state) from its row 0 over the model group, widened to C rows; per-client
-rows over the model group and the client group (:func:`from_slab`). With
-dividing clients at ``dm = 1`` its arithmetic is
-:mod:`repro_torch.core.fl_shard_map`'s
-(:func:`~repro_torch.core.fl_shard_map.block_mean`), so it equals
-``engine="shard_map"`` bit for bit.
+**The whole-tree round** (what :func:`make_mesh_2d_round` returns, for
+callers with whole trees) is the same body: it takes its slab of the
+whole operands (:meth:`SlabLayout.take`, ``to_local``,
+:func:`local_noise`), runs the slab round, and gathers the outputs whole:
+an average (under ``full_average`` the params, with ``average_opt_state``
+the optimizer state) from its row 0 over the model group, widened to C
+rows; per-client rows over the model group and the client group
+(:func:`from_slab`). With dividing clients at ``dm = 1`` this is
+``engine="shard_map"``'s round (:mod:`repro_torch.core.fl_shard_map`).
+
+Ranks of the world outside the mesh (fewer slabs than ranks) hold a
+layout of no rows (:attr:`SlabLayout.idle`): each round they receive only
+the metrics, and the whole trees come to them from the mesh's first rank
+only when a caller asks (:func:`from_slab`, :func:`slab_eval_model`).
 
 Clients that do not divide ``dc`` are padded to ``Cp = ceil(C/dc) * dc``
 rows. Pad rows are copies of client 0's operands and read client 0's
@@ -70,9 +72,11 @@ where the JAX package pads through ``dynamic_update_slice``, an XLA
 workaround that PyTorch does not need.
 
 The adversarial extensions (robust aggregators, secure sum, update
-attacks) are full-view reductions over exactly ``n_clients`` gathered rows
-and do not compose with the padded client axis: ``FederationSpec``
-refuses them on this engine (use ``engine="shard_map"``).
+attacks) are full-view reductions over exactly ``n_clients`` rows,
+gathered over the client group inside the round, as the JAX package's
+``shard_map`` gathers them: they need dividing clients and a model axis
+of 1, so ``FederationSpec`` refuses them on ``engine="mesh_2d"`` and
+``engine="shard_map"`` (whose mesh is such) runs them here.
 """
 from __future__ import annotations
 
@@ -91,7 +95,7 @@ from repro_torch.core.fl import (
     tree_valid_mean_axis0,
 )
 from repro_torch.core.fl_shard_map import ClientGroup, block_mean, widen
-from repro_torch.kernels.counter_rng import slab_table
+from repro_torch.kernels.counter_rng import slab_table, whole_table
 from repro_torch.kernels.ops import split_order
 from repro_torch.launch.mesh import make_mesh_2d
 from repro_torch.mesh.collectives import ModelGroup
@@ -184,7 +188,7 @@ def local_noise(noise, params, dims, index: int, dm: int):
 
 @dataclass(frozen=True, eq=False)
 class SlabLayout:
-    """Where one rank's slab of a mesh_2d federation's state lies: the
+    """Where one rank's slab of a sharded federation's state lies: the
     mesh ``(dc, dm)``, the rank's client block ``client_index`` (rows
     ``client_index * block ...``; pad rows past the last client read client
     0's operands and address and weigh 0) and model coordinate
@@ -192,41 +196,59 @@ class SlabLayout:
     (``param_dims``, :func:`repro_torch.models.sharding.param_split_dims`)
     and optimizer state (``state_dims``, step counters whole), with the
     whole shapes of the params' leaves in ``jax.tree.flatten`` order
-    (``shapes``)."""
+    (``shapes``). On a rank outside the mesh both indices are ``None``:
+    it holds no rows, and its (empty) leaves keep their whole shapes."""
     mesh_shape: tuple
     n_clients: int
-    client_index: int
-    model_index: int
+    client_index: int | None
+    model_index: int | None
     param_dims: Any
     state_dims: Any
     shapes: tuple
+
+    @property
+    def idle(self) -> bool:
+        """Whether this rank is outside the mesh."""
+        return self.client_index is None
 
     @property
     def block(self) -> int:
         return -(-self.n_clients // self.mesh_shape[0])
 
     @property
+    def n_rows(self) -> int:
+        """The rows this rank holds: its block, none outside the mesh."""
+        return 0 if self.idle else self.block
+
+    @property
     def dividing(self) -> bool:
         """Whether the clients divide the client axis (no pad rows)."""
         return self.block * self.mesh_shape[0] == self.n_clients
 
+    @property
+    def _dm(self) -> int:
+        """The model split of this rank's leaves (none outside the mesh)."""
+        return 1 if self.idle else self.mesh_shape[1]
+
     @cached_property
     def rows(self) -> tuple:
         """The block's global row ids, pad rows 0 (client 0's)."""
-        lo = self.client_index * self.block
+        lo = 0 if self.idle else self.client_index * self.block
         return tuple(r if r < self.n_clients else 0
-                     for r in range(lo, lo + self.block))
+                     for r in range(lo, lo + self.n_rows))
 
     @cached_property
     def valid(self) -> tuple:
-        lo = self.client_index * self.block
+        lo = 0 if self.idle else self.client_index * self.block
         return tuple(1.0 if r < self.n_clients else 0.0
-                     for r in range(lo, lo + self.block))
+                     for r in range(lo, lo + self.n_rows))
 
     @cached_property
     def table(self) -> tuple:
         """The counter generator's column table of this slab
         (:func:`repro_torch.kernels.counter_rng.slab_table`)."""
+        if self.idle:
+            return whole_table(self.n_whole)
         return slab_table(self.shapes, tree_flatten(self.param_dims)[0],
                           self.model_index, self.mesh_shape[1])
 
@@ -234,9 +256,9 @@ class SlabLayout:
     def n_local(self) -> int:
         """Columns of the slab's flat row: split leaves' slices, then the
         whole leaves."""
-        dm = self.mesh_shape[1]
-        return sum(math.prod(s) // (dm if d >= 0 else 1) for s, d in zip(
-            self.shapes, tree_flatten(self.param_dims)[0]))
+        return sum(math.prod(s) // (self._dm if d >= 0 else 1)
+                   for s, d in zip(self.shapes,
+                                   tree_flatten(self.param_dims)[0]))
 
     @cached_property
     def n_whole(self) -> int:
@@ -247,7 +269,7 @@ class SlabLayout:
         leaf of ``tree``, host numpy or tensors."""
         if self.rows == tuple(range(self.n_clients)):
             return tree
-        idx = np.asarray(self.rows)
+        idx = np.asarray(self.rows, np.int64)
 
         def one(x):
             if isinstance(x, torch.Tensor):
@@ -257,27 +279,46 @@ class SlabLayout:
 
         return tree_map(one, tree)
 
+    def take_state(self, x):
+        """The block's rows of per-client state ``x`` (C, D), numpy or a
+        tensor, pad rows zero (they carry none)."""
+        return self.zero_pad(self.take(x))
+
+    def zero_pad(self, x):
+        """The block's rows ``x`` (block, D) with pad rows zeroed."""
+        if self.dividing:
+            return x
+        if isinstance(x, torch.Tensor):
+            return x * self.valid_on(x.device)[:, None]
+        return x * np.asarray(self.valid, np.float32)[:, None]
+
     def valid_on(self, device) -> torch.Tensor:
         return device_constant(self.valid, device, torch.float32)
 
+    def whole_rows(self, x):
+        """The whole (C, ...) rows of the block's per-client rows ``x``
+        that no model dim splits (a residual), alike on every rank of the
+        world: :func:`from_slab` of one leaf."""
+        return from_slab(self, x, -1)
+
 
 def slab_layout(mesh_shape, n_clients: int, params, opt_state, rules=None
-                ) -> SlabLayout | None:
+                ) -> SlabLayout:
     """This rank's :class:`SlabLayout` on the mesh ``mesh_shape`` for one
     client's ``params`` and ``opt_state`` (no client axis; real, meta or
-    numpy leaves), or ``None`` on a rank outside the mesh."""
+    numpy leaves); on a rank outside the mesh, a layout of no rows."""
     mesh = make_mesh_2d(tuple(mesh_shape))
     coord = mesh.get_coordinate()
-    if coord is None:
-        return None
     dm = int(mesh_shape[1])
     dims = param_split_dims(params, dm, mesh2d_rules() if rules is None
                             else dict(rules))
     names = list(mesh.mesh_dim_names)
     return SlabLayout(
         mesh_shape=(int(mesh_shape[0]), dm), n_clients=int(n_clients),
-        client_index=int(coord[names.index(CLIENT_AXIS)]),
-        model_index=int(coord[names.index(MODEL_AXIS)]),
+        client_index=(None if coord is None
+                      else int(coord[names.index(CLIENT_AXIS)])),
+        model_index=(None if coord is None
+                     else int(coord[names.index(MODEL_AXIS)])),
         param_dims=dims, state_dims=state_split_dims(opt_state, params,
                                                      dims),
         shapes=tuple(tuple(x.shape) for x in tree_flatten(params)[0]))
@@ -293,46 +334,55 @@ def _groups(layout: SlabLayout):
 def to_slab(layout: SlabLayout, tree, dims, lead: int = 1):
     """The rank's slab of a whole tree (leaves (C, ...) with ``lead`` 1, or
     one client's with ``lead`` 0): the block's rows, then the model
-    slices along ``dims`` (host numpy stays numpy)."""
+    slices along ``dims`` (host numpy stays numpy). Outside the mesh: no
+    rows, nothing sliced."""
     if lead:
         tree = layout.take(tree)
-    if layout.mesh_shape[1] == 1:
+    if layout._dm == 1:
         return tree
     return to_local(tree, dims, layout.model_index, layout.mesh_shape[1],
                     lead=lead)
 
 
 def from_slab(layout: SlabLayout, tree, dims):
-    """:func:`to_slab` undone on every rank of the mesh: the model slices
+    """:func:`to_slab` undone on every rank of the world: the model slices
     gathered over the model group, the blocks over the client group
-    (byte-sum all-reduces), pad rows dropped: the whole (C, ...) tree."""
+    (byte-sum all-reduces), pad rows dropped: the whole (C, ...) tree,
+    which ranks outside the mesh receive from its first rank
+    (:meth:`~repro_torch.core.fl_shard_map.ClientGroup.share_rows`)."""
     grp, mgrp = _groups(layout)
-    if mgrp is not None:
-        tree = to_whole(tree, dims, mgrp, lead=1)
-    if layout.mesh_shape[0] > 1:
-        tree = grp.all_gather_tree(tree)
-    if layout.dividing:
-        return tree
-    return tree_map(lambda x: x[:layout.n_clients].contiguous(), tree)
+    if not layout.idle:
+        if mgrp is not None:
+            tree = to_whole(tree, dims, mgrp, lead=1)
+        if layout.mesh_shape[0] > 1:
+            tree = grp.all_gather_tree(tree)
+        if not layout.dividing:
+            tree = tree_map(lambda x: x[:layout.n_clients].contiguous(),
+                            tree)
+    return grp.share_rows(tree, layout.n_clients)
 
 
 def slab_eval_model(layout: SlabLayout, params, topology: str):
     """The one evaluation model of slab ``params``, whole and alike on
-    every rank of the mesh: row 0 under ``full_average`` (every row holds
+    every rank of the world: row 0 under ``full_average`` (every row holds
     the average), else the mean of the valid rows (the block's sums
     all-reduced over the client group, over C, in f32), gathered whole
-    over the model group."""
+    over the model group; ranks outside the mesh receive it from the
+    mesh's first rank."""
     grp, mgrp = _groups(layout)
-    if topology == "full_average":
-        one = tree_map(lambda x: x[0], params)
+    if layout.idle:
+        one = tree_map(lambda x: x[:0], params)
+    elif topology == "full_average":
+        one = tree_map(lambda x: x[:1], params)
     else:
         denom = torch.tensor(float(layout.n_clients),
                              device=tree_flatten(params)[0][0].device)
-        one = tree_valid_mean_axis0(
-            params, layout.valid_on(denom.device), denom, all_sum=grp.all_sum)
-    if mgrp is None:
-        return one
-    return to_whole(one, layout.param_dims, mgrp)
+        one = tree_map(lambda x: x.unsqueeze(0), tree_valid_mean_axis0(
+            params, layout.valid_on(denom.device), denom,
+            all_sum=grp.all_sum))
+    if mgrp is not None and not layout.idle:
+        one = to_whole(one, layout.param_dims, mgrp, lead=1)
+    return tree_map(lambda x: x[0], grp.share_rows(one, 1))
 
 
 def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
@@ -349,22 +399,28 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
     (pad rows: client 0's), params and optimizer state the rank's model
     slices and the noise its (block, tau, N_local) columns, outputs in the
     same layout, plus the metrics (the drivers keep slab state,
-    :mod:`repro_torch.api.state`). ``round_step.layout(params, opt_state)``
-    is this rank's :class:`SlabLayout` for one client's trees. ``rules``
-    is a logical->mesh dict for the model axis' placement (default
-    :func:`repro_torch.models.sharding.mesh2d_rules`); with a model axis
-    of 1 nothing is placed and no rules are installed."""
+    :mod:`repro_torch.api.state`); a rank outside the mesh holds no rows
+    and receives only the metrics. ``round_step.layout(params,
+    opt_state)`` is this rank's :class:`SlabLayout` for one client's
+    trees. ``rules`` is a logical->mesh dict for the model axis' placement
+    (default :func:`repro_torch.models.sharding.mesh2d_rules`); with a
+    model axis of 1 nothing is placed and no rules are installed. The
+    adversarial extensions need clients that divide the client axis and a
+    model axis of 1 (as ``engine="shard_map"``'s mesh always has): they
+    gather every client's update row inside the round."""
     check_topology(topology, pipeline)
-    if pipeline is not None and (pipeline.aggregator is not None
-                                 or pipeline.secure is not None
-                                 or pipeline.attack is not None):
-        raise ValueError(
-            "mesh_2d does not support the adversarial extensions (robust "
-            "aggregator / secure sum / update attack): their full-view "
-            "reductions do not compose with the padded client axis. Use "
-            "engine='shard_map'.")
     dc, dm = _mesh_dims(mesh)
     n_clients = cfg.n_clients
+    adversarial = pipeline is not None and (
+        pipeline.aggregator is not None or pipeline.secure is not None
+        or pipeline.attack is not None)
+    if adversarial and (n_clients % dc or dm > 1):
+        raise ValueError(
+            f"the adversarial extensions (robust aggregator / secure sum "
+            f"/ update attack) need clients that divide the client axis "
+            f"and a model axis of 1: their full-view reductions do not "
+            f"compose with pad rows or model slices ({n_clients} clients "
+            f"on a ({dc}, {dm}) mesh)")
     grp = ClientGroup(mesh, CLIENT_AXIS)
     mgrp = ModelGroup(mesh, MODEL_AXIS) if dm > 1 else None
     rules = mesh2d_rules() if rules is None else dict(rules)
@@ -392,6 +448,8 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
             return local_rounds(p_l, s_l, batch_b, noise_l, sig_b)
 
     def slab_round(lay, p_l, s_l, batch_b, noise_l, sig_b):
+        if lay.idle:            # outside the mesh: the metrics only
+            return p_l, s_l, grp.share(None)
         new_p, new_s, ms = run_local(lay, p_l, s_l, batch_b, noise_l, sig_b)
         block = sig_b.shape[0]
         if lay.dividing:
@@ -408,25 +466,30 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
             new_p = tree_broadcast_axis0(p_avg, block)
         if avg_s:
             new_s = tree_broadcast_axis0(s_avg, block)
-        return new_p, new_s, ms
+        return new_p, new_s, grp.share(ms)
 
     def slab_round_pipeline(lay, p_l, s_l, batch_b, noise_l, sig_b, mask_b,
                             res_b, rand_b):
-        valid = lay.valid_on(sig_b.device)
-        mask_b = mask_b * valid
-        res_b = None if res_b is None else res_b * valid[:, None]
+        if lay.idle:            # outside the mesh: the metrics only
+            return p_l, s_l, res_b, grp.share(None)
+        if not lay.dividing:
+            valid = lay.valid_on(sig_b.device)
+            mask_b = mask_b * valid
+            res_b = None if res_b is None else res_b * valid[:, None]
         new_p, new_s, ms = run_local(lay, p_l, s_l, batch_b, noise_l, sig_b)
         if mgrp is not None:
             # the JAX package's stage 2: update rows whole over the model
             # group, with the block's whole params the anchor
             p_l = to_whole(p_l, lay.param_dims, mgrp, lead=1)
             new_p = to_whole(new_p, lay.param_dims, mgrp, lead=1)
+        # the adversarial extensions gather every client's row inside the
+        # round (JAX's shard_map does so too); the result is the block's
         new_p, new_s, res_b, ms = pipeline.aggregate(
             p_l, new_p, new_s, s_l, res_b, mask_b, rand_b, ms,
-            all_sum=grp.all_sum)
+            all_sum=grp.all_sum, all_gather=grp.all_gather_rows)
         if mgrp is not None:       # the rank keeps its columns
             new_p = to_local(new_p, lay.param_dims, mgrp.index, dm, lead=1)
-        return new_p, new_s, res_b, ms
+        return new_p, new_s, res_b, grp.share(ms)
 
     def whole_operands(params, opt_state, batch, noise, sigmas):
         """This rank's layout and slab of the whole operands."""
@@ -434,7 +497,7 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
                         tree_map(lambda x: x[0], opt_state))
         p_b, s_b, batch_b, noise_b, sig_b = lay.take(
             (params, opt_state, batch, noise, sigmas))
-        if mgrp is not None:
+        if mgrp is not None and not lay.idle:
             p_b = to_local(p_b, lay.param_dims, mgrp.index, dm, lead=1)
             s_b = to_local(s_b, lay.state_dims, mgrp.index, dm, lead=1)
             noise_b = local_noise(noise_b, tree_map(lambda x: x[0], params),
@@ -448,34 +511,29 @@ def make_mesh_2d_round(loss_fn: Callable, optimizer: Optimizer,
         if not averaged:
             return from_slab(lay, tree, dims)
         one = tree_map(lambda x: x[:1], tree)
-        if mgrp is not None:
+        if mgrp is not None and not lay.idle:
             one = to_whole(one, dims, mgrp, lead=1)
-        return widen(one, n_clients)
+        return widen(grp.share_rows(one, 1), n_clients)
 
     def round_step(params, opt_state, batch, noise, sigmas):
-        result = None
-        if not grp.idle:
-            lay, *ops = whole_operands(params, opt_state, batch, noise,
-                                       sigmas)
-            new_p, new_s, ms = slab_round(lay, *ops)
-            result = (whole_out(lay, new_p, lay.param_dims, full),
-                      whole_out(lay, new_s, lay.state_dims, avg_s), ms)
-        return grp.share(result)
+        lay, *ops = whole_operands(params, opt_state, batch, noise, sigmas)
+        new_p, new_s, ms = slab_round(lay, *ops)
+        return (whole_out(lay, new_p, lay.param_dims, full),
+                whole_out(lay, new_s, lay.state_dims, avg_s), ms)
 
     def round_step_pipeline(params, opt_state, batch, noise, sigmas, mask,
                             residual, agg_rand):
-        result = None
-        if not grp.idle:
-            lay, *ops = whole_operands(params, opt_state, batch, noise,
-                                       sigmas)
-            mask_b, res_b, rand_b = lay.take((mask, residual, agg_rand))
-            new_p, new_s, res_b, ms = slab_round_pipeline(
-                lay, *ops, mask_b, res_b, rand_b)
-            result = (whole_out(lay, new_p, lay.param_dims, True),
-                      whole_out(lay, new_s, lay.state_dims, avg_s),
-                      None if res_b is None else from_slab(lay, res_b, -1),
-                      ms)
-        return grp.share(result)
+        lay, *ops = whole_operands(params, opt_state, batch, noise, sigmas)
+        mask_b, res_b = lay.take((mask, residual))
+        # the secure sum's pair masks are whole on every rank; the
+        # compressor's operand has a row per client
+        rand_b = (lay.take(agg_rand) if pipeline.secure is None
+                  else (lay.take(agg_rand[0]), agg_rand[1]))
+        new_p, new_s, res_b, ms = slab_round_pipeline(
+            lay, *ops, mask_b, res_b, rand_b)
+        return (whole_out(lay, new_p, lay.param_dims, True),
+                whole_out(lay, new_s, lay.state_dims, avg_s),
+                None if res_b is None else from_slab(lay, res_b, -1), ms)
 
     fn = round_step if pipeline is None else round_step_pipeline
     fn.slab_round = slab_round if pipeline is None else slab_round_pipeline

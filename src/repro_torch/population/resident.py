@@ -25,7 +25,10 @@ cache slots on the host, uploads the (R, K) slot plan once, and the chunk
 moves rows between the cache and the round's K-block with the
 ``cohort_gather_scatter`` kernel. Every slot-indexed row move of the cache
 goes through that kernel: the chunk's gathers and scatters, promotion,
-eviction, the flush and the FLState's residual view.
+eviction, the flush and the FLState's residual view. Under a sharded
+engine in slab state a rank gathers only its block's slots and the
+FLState's residual is its block's rows; the cache stays whole and alike
+on every rank (:func:`repro_torch.core.fl.make_resident_chunked_round`).
 
 The cache is written in place (the JAX form rebuilds it functionally), so
 every reference to cache rows that must outlive a later scatter (pending
@@ -58,10 +61,11 @@ from repro_torch.api.engines import (
 from repro_torch.api.spec import FederationSpec
 from repro_torch.api.state import (
     PrefetchFailed,
+    _batch_on,
     _device_of,
     _raise_budget,
+    _sigmas_on,
     round_rho_charges,
-    sigmas_for,
 )
 from repro_torch.core.privacy import zcdp_to_dp
 from repro_torch.kernels.ops import cohort_gather, cohort_scatter
@@ -341,12 +345,13 @@ def run_resident_rounds(spec: FederationSpec, pstate,
                          "cache; don't pass batches")
     fl = pstate.fl
     dev = _device_of(fl)
+    lay = fl.layout
     if batches is None and not data_resident:
         per = [rt.cohort_batch(spec, population, cohorts[r], rng)
                for r in range(n_rounds)]
         batches = tree_map(lambda *xs: np.stack(xs), *per)
     if batches is not None:
-        batches = tree_from_numpy(batches, dev)
+        batches = _batch_on(fl, batches, dev, axis=1)
     if check_budgets:
         ok, which = rt.rounds_within_population_budgets(spec, pstate,
                                                         n_rounds)
@@ -358,7 +363,7 @@ def run_resident_rounds(spec: FederationSpec, pstate,
                           data_rows=data_rows)
     slots = cache.slots_for(cohorts)
 
-    sig = sigmas_for(spec, dev)
+    sig = _sigmas_on(spec, fl, dev)
     pipeline = spec.has_pipeline()
     full_part = spec.participants_per_round() >= spec.n_clients
     prefetch_exc = None
@@ -378,15 +383,15 @@ def run_resident_rounds(spec: FederationSpec, pstate,
         new_p, new_s, key, _, ms, masks = fn(
             fl.params, fl.opt_state,
             cache.data if data_resident else batches, slots_dev, fl.key,
-            sig, cache.residual)
+            sig, cache.residual, slab=lay)
         _prefetch()
         # P == C makes participation_mask all ones: the ledger replays
         # without fetching the masks, and the chunk never blocks
         masks_np = None if full_part else masks.cpu().numpy()
     else:
-        fn = chunked_round_fn_for(spec)
+        fn = chunked_round_fn_for(spec, slab=lay is not None)
         new_p, new_s, key, ms = fn(fl.params, fl.opt_state, batches,
-                                   fl.key, sig)
+                                   fl.key, sig, slab=lay)
         _prefetch()
         masks_np = None
 
@@ -437,9 +442,12 @@ def run_resident_rounds(spec: FederationSpec, pstate,
         rounds_done=fl.rounds_done + n_rounds)
     if pipeline and cache.residual is not None:
         # the FLState keeps its "current cohort" residual: a gathered copy
-        # of the last round's rows, which later scatters leave alone
-        changes["residual"] = cohort_gather(cache.residual, slots_dev[-1],
-                                            backend=spec.kernel_backend)
+        # of the last round's rows (a slab state's: its block's), which
+        # later scatters leave alone
+        last = slots_dev[-1] if lay is None else lay.take(slots_dev[-1])
+        rows = cohort_gather(cache.residual, last,
+                             backend=spec.kernel_backend)
+        changes["residual"] = rows if lay is None else lay.zero_pad(rows)
     new_state = pstate.replace(fl=fl.replace(**changes))
     if prefetch_exc is not None:
         raise PrefetchFailed(prefetch_exc, new_state, recs) from prefetch_exc

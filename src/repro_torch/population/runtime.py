@@ -12,7 +12,8 @@ The device never sees the population. Each round the driver
 3. runs the *existing* round, :func:`repro_torch.api.run_round` /
    ``run_rounds`` over the K-block, unchanged (``spec.population`` is not
    part of ``engine_key()``, so device memory is bounded by K, independent
-   of M),
+   of M; under a sharded engine on several ranks each rank holds its
+   block of the K rows, :func:`init_population_state`),
 4. **scatters** the cohort's updated residual rows and rho charges back
    into the store.
 
@@ -38,6 +39,7 @@ import dataclasses
 import math
 import os
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable
 
 import numpy as np
@@ -84,7 +86,9 @@ class PopulationState:
 def init_population_state(spec: FederationSpec, params0: Any,
                           device=None) -> PopulationState:
     """Fresh population state: a K-block FLState on ``device`` (default
-    ``"cuda"``; raises when no GPU is present) and an empty ClientStore."""
+    ``"cuda"``; raises when no GPU is present), slab state where
+    :func:`repro_torch.api.slab_applies`, and an empty ClientStore (whole,
+    and alike on every rank)."""
     if not spec.is_population():
         raise ValueError("init_population_state needs a population spec "
                          "(FederationSpec(population=M, cohort_size=K))")
@@ -165,12 +169,15 @@ def _check_cohort(spec: FederationSpec, population: ClientPopulation,
 
 def _gathered_fl(spec: FederationSpec, pstate: PopulationState,
                  cohort: np.ndarray) -> FLState:
-    """The K-block FLState with the cohort's sticky state gathered in."""
+    """The K-block FLState with the cohort's sticky state gathered in (a
+    slab state's: its block's residual rows)."""
     fl = pstate.fl
     changes: dict = {"rho": pstate.store.gather_rho(cohort)}
     if pstate.store.needs_residual():
-        changes["residual"] = torch.as_tensor(
-            pstate.store.gather_residual(cohort), device=_device_of(fl))
+        rows = pstate.store.gather_residual(cohort)
+        if fl.layout is not None:
+            rows = fl.layout.take_state(rows)
+        changes["residual"] = torch.as_tensor(rows, device=_device_of(fl))
     return fl.replace(**changes)
 
 
@@ -280,10 +287,16 @@ def _scatter_back(pstate: PopulationState, cohort: np.ndarray,
                   fl: FLState, n_rounds: int) -> PopulationState:
     """Write the round's cohort state back into the store. The residual
     fetch is the cohort path's one forced device sync (per round for the
-    per-round driver, per chunk for the chunk-boundary one)."""
+    per-round driver, per chunk for the chunk-boundary one); a slab
+    state's block rows are gathered over the client group first, once, so
+    every rank's store stays the same (the JAX package's store is one host
+    array)."""
     pstate.store.scatter_rho(cohort, fl.rho)
     if pstate.store.needs_residual():
-        pstate.store.scatter_residual(cohort, fl.residual.cpu().numpy())
+        rows = fl.residual
+        if fl.layout is not None:
+            rows = fl.layout.whole_rows(rows)
+        pstate.store.scatter_residual(cohort, rows.cpu().numpy())
     pstate.store.note_participation(cohort, n_rounds)
     return pstate.replace(fl=fl)
 
@@ -431,6 +444,9 @@ def train_population(spec: FederationSpec, pstate: PopulationState,
     sampler = _resolve_cohort_sampler(spec, cohort_sampler)
     history = [] if history is None else history
     dev = _device_of(pstate.fl)
+    # a slab state's chunks hold its block's rows only
+    lay = pstate.fl.layout
+    take = (lambda b: b) if lay is None else partial(lay.take, axis=1)
     cache = None
     if resident_cache:
         from repro_torch.population.resident import init_resident_cache
@@ -453,7 +469,7 @@ def train_population(spec: FederationSpec, pstate: PopulationState,
         def build_chunk(start: int, n: int):
             cohort = sampler(start, spec.population, spec.n_clients)
             return (cohort, tree_from_numpy(
-                cohort_batches(spec, population, cohort, rng, n), dev))
+                take(cohort_batches(spec, population, cohort, rng, n)), dev))
 
         def run_chunk(ps, chunk, n, prefetch):
             cohort, batches = chunk
@@ -487,7 +503,7 @@ def train_population(spec: FederationSpec, pstate: PopulationState,
             per = [cohort_batch(spec, population, cohorts[r], rng)
                    for r in range(n)]
             return (cohorts, tree_from_numpy(
-                tree_map(lambda *xs: np.stack(xs), *per), dev), None)
+                take(tree_map(lambda *xs: np.stack(xs), *per)), dev), None)
 
         def run_chunk(ps, chunk, n, prefetch):
             from repro_torch.population.resident import run_resident_rounds

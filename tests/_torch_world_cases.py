@@ -164,6 +164,7 @@ def _slab_record(state) -> dict:
     lay = state.layout
     trees = (state.params, state.opt_state, state.residual)
     return {"mesh_shape": lay.mesh_shape, "block": lay.block,
+            "rows": lay.n_rows, "idle": lay.idle,
             "client_index": lay.client_index,
             "model_index": lay.model_index,
             "shapes": [[tuple(x.shape) for x in tree_leaves(t)]
@@ -185,10 +186,11 @@ def _stacked(batches):
 
 
 def slab_and_whole(kw: dict, dim: int, batches: list) -> dict:
-    """``make_spec(kw)`` (mesh_2d) from ``init_linear(dim)`` in slab state
-    and in the whole layout (:func:`fresh_state` ``slab=False``: the
-    whole-tree round) on this rank: one ``run_round`` a batch and one ``run_rounds``
-    chunk of them each, then ``eval_params``. Returns the states made
+    """``make_spec(kw)`` (a sharded engine) from ``init_linear(dim)`` in
+    slab state and in the whole layout (:func:`fresh_state`
+    ``slab=False``: the whole-tree round) on this rank: one ``run_round``
+    a batch and one ``run_rounds`` chunk of them each, then
+    ``eval_params``. Returns the states made
     whole (numpy), the records, the eval models and the slab's layout."""
     spec = make_spec(kw)
     p0 = tlin.init_linear(dim, device="cpu")
@@ -321,9 +323,11 @@ def transformer_slab_round(cfg, params0, batch, noise, kw: dict) -> dict:
             "loss": float(rec["loss"]), "layout": layout}
 
 
-def cohort_and_dense(kw: dict, dim: int, rounds: int) -> dict:
+def cohort_and_dense(kw: dict, dim: int, rounds: int,
+                     layout: bool = False) -> dict:
     """The cohort path at M == C and the dense participation path, both
-    under ``kw``'s engine: states and records of each."""
+    under ``kw``'s engine: states and records of each (with ``layout``,
+    also the cohort state's slab layout)."""
     dense = make_spec(kw)
     pspec = make_spec(dict(kw, population=dense.n_clients,
                            cohort_size=dense.n_clients))
@@ -346,7 +350,10 @@ def cohort_and_dense(kw: dict, dim: int, rounds: int) -> dict:
         rec_p.append(_record(r))
     residual = (None if s_d.residual is None else
                 s_p.store.gather_residual(np.arange(dense.n_clients)))
+    if layout:
+        layout = _slab_record(s_p.fl)
     return {"dense": state_numpy(s_d), "dense_records": rec_d,
+            **({"layout": layout} if layout else {}),
             "cohort": state_numpy(s_p.fl), "cohort_records": rec_p,
             "cohort_rho": np.asarray(s_p.store.rho),
             "cohort_residual": residual}
@@ -383,6 +390,159 @@ def resident_and_per_round(kw: dict, dim: int, population: int,
             cache.flush(st.store)
         out[mode] = {"state": state_numpy(st.fl), "losses": losses,
                      "store_rho": np.asarray(st.store.rho)}
+    return out
+
+
+def slab_round_traffic(kw: dict, dim: int, batch: dict) -> dict:
+    """One ``run_round`` of ``make_spec(kw)`` in slab state on this rank,
+    recording every ``torch.distributed`` collective it makes (name, and
+    for an all-reduce the dtype and element count) and every counter
+    generator draw (purpose and row ids); plus the slab's layout."""
+    import torch.distributed as dist
+
+    import repro_torch.core.aggregation as tagg
+    spec = make_spec(kw)
+    state = fresh_state(spec, tlin.init_linear(dim, device="cpu"))
+    tapi.run_round(spec, state, batch, check_budgets=False)  # build, warm
+    calls, draws = [], []
+    names = ("all_reduce", "broadcast", "broadcast_object_list",
+             "all_gather", "all_gather_into_tensor", "reduce_scatter",
+             "reduce_scatter_tensor", "gather", "scatter", "send", "recv")
+    saved = {n: getattr(dist, n) for n in names}
+    draw_saved = (tfl.counter_draw, tagg.counter_draw)
+
+    def spy(name):
+        def call(*args, **kwargs):
+            t = args[0] if args else None
+            calls.append((name, str(t.dtype), t.numel())
+                         if isinstance(t, torch.Tensor) else (name,))
+            return saved[name](*args, **kwargs)
+        return call
+
+    def drawn(real):
+        def call(key, rows, table, tau, n, purpose, normal, device):
+            draws.append((int(purpose), tuple(rows)))
+            return real(key, rows, table, tau, n, purpose, normal, device)
+        return call
+
+    for n in names:
+        setattr(dist, n, spy(n))
+    tfl.counter_draw, tagg.counter_draw = (drawn(f) for f in draw_saved)
+    try:
+        tapi.run_round(spec, state, batch, check_budgets=False)
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+        tfl.counter_draw, tagg.counter_draw = draw_saved
+    return {"calls": calls, "draws": draws, "layout": _slab_record(state),
+            "rows": state.layout.rows}
+
+
+def store_numpy(store) -> dict:
+    """A ClientStore's ledger and every virtual client's residual row."""
+    vids = np.arange(store.population)
+    return {"rho": np.asarray(store.rho),
+            "rounds_participated": np.asarray(store.rounds_participated),
+            "residual": (store.gather_residual(vids)
+                         if store.needs_residual() else None),
+            "residual_rows": (store.residual_rows()
+                              if store.needs_residual() else None)}
+
+
+def population_forms(kw: dict, dim: int, population: int, per_round: int,
+                     chunk: int, chunks: int, capacity: int,
+                     stationary: bool, draws=None, seed: int = 2) -> dict:
+    """A population of ``population`` (``synthetic_population``, shards
+    stationary or streaming) under ``kw``'s engine with cohorts of
+    ``kw["n_clients"]``, in slab state and in the whole layout (the slab
+    state made whole): ``per_round`` ``run_cohort_round`` calls, one
+    ``run_cohort_rounds`` chunk of ``chunk``, then ``chunks`` resident
+    chunks of ``chunk`` through a cache of ``capacity`` slots, flushed.
+    ``draws`` (JAX's, in round order) are replayed when given. Returns
+    each form's state made whole, store, records and cache stats, and
+    the slab's layout before and after."""
+    spec = make_spec(dict(kw, population=population,
+                          cohort_size=kw["n_clients"]))
+    pop = tpop.synthetic_population(population, dim,
+                                    batch_size=spec.batch_sizes[0],
+                                    seed=seed, stationary=stationary)
+    out = {}
+    for form in ("slab", "whole"):
+        with replayed(draws):
+            st = tpop.init_population_state(
+                spec, tlin.init_linear(dim, device="cpu"), device="cpu")
+            if form == "slab":
+                out["layout"] = _slab_record(st.fl)
+            else:
+                st = st.replace(fl=tapi.whole_state(st.fl))
+            rng = np.random.default_rng(0)
+            recs = []
+            for _ in range(per_round):
+                st, rec = tpop.run_cohort_round(spec, st, pop, rng,
+                                                check_budgets=False)
+                recs.append(_record(rec))
+            st, rs = tpop.run_cohort_rounds(spec, st, pop, rng,
+                                            n_rounds=chunk,
+                                            check_budgets=False)
+            recs += [_record(r) for r in rs]
+            cache = tpop.init_resident_cache(spec, st, capacity,
+                                             population=pop)
+            for _ in range(chunks):
+                st, rs = tpop.run_resident_rounds(spec, st, pop, rng, cache,
+                                                  n_rounds=chunk,
+                                                  check_budgets=False)
+                recs += [_record(r) for r in rs]
+            if form == "slab":
+                out["layout_after"] = _slab_record(st.fl)
+            cache.flush(st.store)
+        out[form] = {"state": state_numpy(st.fl), "records": recs,
+                     "store": store_numpy(st.store),
+                     "stats": dict(cache.stats),
+                     "vids": np.asarray(cache.vids)}
+    return out
+
+
+def population_checkpoint(kw: dict, dim: int, population: int,
+                          rounds: int, directory: str) -> dict:
+    """``rounds`` cohort rounds of a population of ``population`` under
+    ``kw``'s engine in slab state, saved with ``save_population_state``
+    to ``directory`` and loaded into a fresh slab state and into the
+    whole layout; then one more round from each of the three. Returns
+    the saved state made whole and store, each loaded form's, the loaded
+    slab's layout and the three next rounds'."""
+    spec = make_spec(dict(kw, population=population,
+                          cohort_size=kw["n_clients"]))
+    pop = tpop.synthetic_population(population, dim,
+                                    batch_size=spec.batch_sizes[0], seed=2)
+
+    def fresh(slab: bool):
+        st = tpop.init_population_state(
+            spec, tlin.init_linear(dim, device="cpu"), device="cpu")
+        return st if slab else st.replace(fl=tapi.whole_state(st.fl))
+
+    def record(st):
+        return {"state": state_numpy(st.fl), "store": store_numpy(st.store)}
+
+    st, rng = fresh(True), np.random.default_rng(0)
+    for _ in range(rounds):
+        st, _ = tpop.run_cohort_round(spec, st, pop, rng,
+                                      check_budgets=False)
+    tpop.save_population_state(directory, st, extra={"tag": 7})
+    out = {"saved": record(st)}
+    forms = {"saved": st}
+    for form in ("slab", "whole"):
+        loaded, extra = tpop.load_population_state(
+            directory, fresh(form == "slab"))
+        assert extra["tag"] == 7
+        forms[form] = loaded
+        out[form] = record(loaded)
+    out["layout"] = _slab_record(forms["slab"].fl)
+    out["next"] = {}
+    for form, st in forms.items():
+        st, _ = tpop.run_cohort_round(spec, st, pop,
+                                      np.random.default_rng(1),
+                                      check_budgets=False)
+        out["next"][form] = record(st)
     return out
 
 

@@ -4,11 +4,12 @@ package.
 
 - The numpy host modules (populations, cohort samplers, the ClientStore and
   its ``.npz`` layout) match ``repro.population`` exactly.
-- The identity gates of tests/test_population.py and
-  tests/test_seed_sweep.py hold in torch, bit for bit: M == C equals the
-  dense ``run_round`` on the vmap and map engines; the resident driver
-  equals the per-round cohort driver, streaming and stationary; eviction
-  churn with S = K + 1 lands bit-identical after a flush.
+- The identity gates of tests/test_population.py hold in torch, bit for
+  bit: M == C equals the dense ``run_round`` on the vmap and map engines;
+  the resident driver equals the per-round cohort driver, streaming and
+  stationary; eviction churn with S = K + 1 lands bit-identical after a
+  flush, swept over seeds 0-2 (of tests/test_seed_sweep.py's sweeps, the
+  only one ported).
 - With JAX's draws injected (``test_torch_aggregation.jax_pipeline_draws``)
   the port's cohort rounds and resident chunks match JAX: params and
   residual within 1e-5 (sums taken in another order); rho, costs,
